@@ -1,0 +1,143 @@
+"""Weights: JAX parameter layout <-> the port's state_dict, and seeded init.
+
+The JAX package keeps parameters in a nested dict keyed by the reference's
+scope names (`['conv1_1']['weights']`, HWIO; `['fc6']['weights']`, (in, out))
+and snapshots them as one flat npz whose keys are jax key paths, prefixed
+with `['params']` in a train-state snapshot
+(`posecnn_tpu/core/checkpoint.py:_flatten_state`, `load_params_npz`). This
+module reads that layout with numpy alone, so one snapshot loads in both
+packages:
+
+  conv weights  HWIO      -> OIHW      (`<name>.weight`, trunk under `trunk.`)
+  fc weights    (in, out) -> (out, in)
+  biases        as they are
+  upscore*      not parameters: checked against the bilinear formula
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from posecnn_torch.config import PoseCNNConfig
+from posecnn_torch.models.backbone import VGG_CONV_DEFS, scaled_width, trunk_shapes
+from posecnn_torch.models.layers import make_deconv_filter
+
+_TRUNK = {name for name, *_ in VGG_CONV_DEFS}
+_HEAD_CONVS = {"score_conv5", "score_conv4", "score", "score_conv5_vertex", "score_conv4_vertex", "vertex_pred"}
+_FCS = {"fc6", "fc7", "fc8"}
+_DECONVS = {"upscore_conv5", "upscore", "upscore_conv5_vertex", "upscore_vertex"}
+_KEY = re.compile(r"\['([^']*)'\]")
+
+
+def _trunc_normal(rng: np.random.Generator, shape, stddev: float) -> np.ndarray:
+    """stddev * N(0, 1) resampled outside [-2, 2] (the JAX package's
+    truncated-normal init; the draws differ, the distribution does not)."""
+    z = rng.standard_normal(shape, dtype=np.float32)
+    bad = np.abs(z) > 2.0
+    while bad.any():
+        z[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+        bad = np.abs(z) > 2.0
+    return (z * np.float32(stddev)).astype(np.float32)
+
+
+def init_params_numpy(seed: int, cfg: PoseCNNConfig) -> Dict[str, Dict[str, np.ndarray]]:
+    """Random weights in the JAX layout, with the shapes and init rules of
+    `init_posecnn_params` (He sqrt(2/fan_in) truncated at 2 sigma; `score`
+    0.01, `vertex_pred` and `fc8` 0.001; zero biases; bilinear upscore)."""
+    rng = np.random.default_rng(seed)
+    C, U = cfg.num_classes, cfg.num_units
+    c5 = scaled_width(512, cfg.trunk_scale)
+
+    def conv(k, ci, co, stddev=None):
+        std = math.sqrt(2.0 / (k * k * ci)) if stddev is None else stddev
+        return {"weights": _trunc_normal(rng, (k, k, ci, co), std), "biases": np.zeros((co,), np.float32)}
+
+    def fc(ci, co, stddev=None):
+        std = math.sqrt(2.0 / ci) if stddev is None else stddev
+        return {"weights": _trunc_normal(rng, (ci, co), std), "biases": np.zeros((co,), np.float32)}
+
+    params = {name: conv(3, ci, co) for name, ci, co, _ in trunk_shapes(cfg.trunk_scale)}
+    params["score_conv5"] = conv(1, c5, U)
+    params["upscore_conv5"] = {"weights": make_deconv_filter(4, U)}
+    params["score_conv4"] = conv(1, c5, U)
+    params["upscore"] = {"weights": make_deconv_filter(16, U)}
+    params["score"] = conv(1, U, C, stddev=0.01)
+    if cfg.vertex_reg:
+        params["score_conv5_vertex"] = conv(1, c5, 128)
+        params["upscore_conv5_vertex"] = {"weights": make_deconv_filter(4, 128)}
+        params["score_conv4_vertex"] = conv(1, c5, 128)
+        params["upscore_vertex"] = {"weights": make_deconv_filter(16, 128)}
+        params["vertex_pred"] = conv(1, 128, 3 * C, stddev=0.001)
+        if cfg.pose_reg:
+            params["fc6"] = fc(7 * 7 * c5, cfg.fc_dim)
+            params["fc7"] = fc(cfg.fc_dim, cfg.fc_dim)
+            params["fc8"] = fc(cfg.fc_dim, 4 * C, stddev=0.001)
+    return params
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Dict[str, np.ndarray]]:
+    """Flat jax key paths -> {layer: {leaf: array}}. A train-state snapshot
+    keeps its parameters under `['params']`; bare keys are a params-only
+    export."""
+    parsed = {k: _KEY.findall(k) for k in flat}
+    prefixed = any(p[:1] == ["params"] for p in parsed.values())
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for k, path in parsed.items():
+        if prefixed:
+            if path[:1] != ["params"]:
+                continue  # optimizer state, step counter
+            path = path[1:]
+        elif path[:1] in (["opt_state"], ["step"]):
+            continue
+        if len(path) != 2:
+            raise ValueError(f"unexpected parameter key {k!r}")
+        out.setdefault(path[0], {})[path[1]] = np.asarray(flat[k])
+    return out
+
+
+def params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX-layout parameters (nested `{layer: {'weights', 'biases'}}` or flat
+    npz key paths) -> a state_dict for `models.posecnn.PoseCNN`."""
+    nested = params if all(isinstance(v, Mapping) for v in params.values()) else _nest(params)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaves in nested.items():
+        w = np.asarray(leaves["weights"], dtype=np.float32)
+        if name in _DECONVS:
+            k, c = w.shape[0], w.shape[2]
+            if w.shape != (k, k, c, c) or not np.array_equal(w, make_deconv_filter(k, c)):
+                raise ValueError(f"{name}: not the fixed bilinear filter the port rebuilds")
+            continue
+        if name in _TRUNK:
+            key = f"trunk.{name}"
+            w = w.transpose(3, 2, 0, 1)
+        elif name in _HEAD_CONVS:
+            key = name
+            w = w.transpose(3, 2, 0, 1)
+        elif name in _FCS:
+            key = name
+            w = w.T
+        else:
+            raise ValueError(f"parameter {name!r} belongs to a part of PoseCNN the port does not run")
+        sd[key + ".weight"] = torch.tensor(w)
+        sd[key + ".bias"] = torch.tensor(np.asarray(leaves["biases"], dtype=np.float32))
+    return sd
+
+
+def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
+    """A JAX npz snapshot (train state or params-only export) -> state_dict."""
+    with np.load(path) as data:
+        return params_from_numpy({k: data[k] for k in data.files})
+
+
+def make_model(cfg: PoseCNNConfig, params: Mapping, device) -> "torch.nn.Module":
+    """`PoseCNN` on `device` holding JAX-layout `params` (nested or flat)."""
+    from posecnn_torch.models.posecnn import PoseCNN
+
+    model = PoseCNN(cfg, device=device)
+    model.load_state_dict(params_from_numpy(params), strict=True)
+    return model.eval()

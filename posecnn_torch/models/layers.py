@@ -1,0 +1,184 @@
+"""Layer primitives of the port, as functions on tensors.
+
+Port of `posecnn_tpu/models/layers.py`. Activations stay NHWC at every public
+function, as in the JAX package; a convolution views its NHWC input as NCHW
+with `permute`, which is PyTorch's channels_last layout, so cuDNN runs it in
+NHWC without a copy. Weights are in PyTorch's layouts: convolutions OIHW,
+fully connected (out, in).
+
+Compute dtype policy (as in JAX): `conv2d`, `conv1x1_upsample` and `fc` cast
+inputs and weights to `compute_dtype`, and the result to float32 before the
+float32 bias; parameters stay float32.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def conv2d(
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    x: torch.Tensor,
+    relu: bool = True,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Stride-1 SAME convolution (odd kernel), NHWC in, float32 NHWC out
+    (`layers.py:conv2d`)."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        weight = weight.to(compute_dtype)
+    y = _nhwc(F.conv2d(_nchw(x), weight, padding=weight.shape[-1] // 2)).float()
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def conv3x3_bf16_bias_relu(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The trunk's bf16 3x3 branch (forward of `layers.py:conv3x3_manual_bwd`):
+    a bf16 convolution, then the bias added in bf16, then ReLU; the output
+    stays bf16."""
+    xb = x.to(torch.bfloat16)
+    y = _nhwc(F.conv2d(_nchw(xb), weight.to(torch.bfloat16), padding=1))
+    return torch.relu(y + bias.to(torch.bfloat16))
+
+
+def max_pool(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
+    """SAME max pool. For k == stride, SAME pads only past the end, which is
+    what `ceil_mode=True` does."""
+    if k != stride:
+        raise NotImplementedError("max_pool supports k == stride only")
+    return _nhwc(F.max_pool2d(_nchw(x), k, stride, ceil_mode=True))
+
+
+def make_deconv_filter(k: int, channels: int) -> np.ndarray:
+    """Bilinear upsampling filter, layout (k, k, c_o, c_i), diagonal in
+    channels (`layers.py:make_deconv_filter`)."""
+    f = math.ceil(k / 2.0)
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    bilinear = np.zeros((k, k))
+    for x in range(k):
+        for y in range(k):
+            bilinear[x, y] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+    weights = np.zeros((k, k, channels, channels), dtype=np.float32)
+    for i in range(channels):
+        weights[:, :, i, i] = bilinear
+    return weights
+
+
+def bilinear_matrix(n_in: int, k: int, stride: int) -> np.ndarray:
+    """Dense (n_in*stride, n_in) 1-D interpolation matrix of a TF SAME
+    bilinear transposed convolution (`layers.py:_bilinear_matrix`): the 2-D
+    filter of `make_deconv_filter` is the outer product of this 1-D one."""
+    f = math.ceil(k / 2.0)
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    k1 = [1 - abs(t / f - c) for t in range(k)]
+    lo = max(k - stride, 0) // 2
+    n_out = n_in * stride
+    m = np.zeros((n_out, n_in), np.float32)
+    for j in range(n_in):
+        for t in range(k):
+            o = j * stride - lo + t
+            if 0 <= o < n_out:
+                m[o, j] = k1[t]
+    return m
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(n_in: int, k: int, stride: int, device: torch.device) -> torch.Tensor:
+    # cached on the device: a fresh host-to-device copy per call would stall
+    # the stream behind the work already queued
+    return torch.from_numpy(bilinear_matrix(n_in, k, stride)).to(device)
+
+
+def deconv(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """Fixed bilinear transposed convolution (TF SAME), NHWC.
+
+    Factorized as in `layers.py:deconv`: two matrix products against the
+    per-axis interpolation matrices (a plain product, outside any kernel).
+    """
+    B, H, W, C = x.shape
+    mh = _interp_matrix(H, k, stride, x.device).to(x.dtype)
+    mw = _interp_matrix(W, k, stride, x.device).to(x.dtype)
+    y = torch.matmul(mh, x.reshape(B, H, W * C))  # (B, Ho, W*C)
+    Ho = y.shape[1]
+    y = torch.matmul(mw, y.reshape(B * Ho, W, C))  # (B*Ho, Wo, C)
+    return y.reshape(B, Ho, W * stride, C)
+
+
+def conv1x1_upsample(
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    x: torch.Tensor,
+    k: int,
+    stride: int,
+    relu: bool = True,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """`conv1x1(deconv(x))` computed as `deconv(conv1x1(x)) + bias`, then
+    ReLU (`layers.py:conv1x1_upsample`): the two linear maps commute, so the
+    channel reduction runs at low resolution."""
+    y = conv2d(weight, None, x, relu=False, compute_dtype=compute_dtype)
+    y = deconv(y, k, stride)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def fc(
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    x: torch.Tensor,
+    relu: bool = True,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Dense layer; a 4-D input is flattened in NHWC order (`layers.py:fc`)."""
+    if x.dim() == 4:
+        x = x.reshape(x.shape[0], -1)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        weight = weight.to(compute_dtype)
+    y = F.linear(x, weight).float() + bias
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def softmax_hd(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def log_softmax_hd(x: torch.Tensor) -> torch.Tensor:
+    d = x - x.amax(dim=-1, keepdim=True)
+    return d - torch.log(torch.exp(d).sum(dim=-1, keepdim=True))
+
+
+def argmax_2d(x: torch.Tensor) -> torch.Tensor:
+    """Argmax over channels of (B,H,W,C); the first maximum wins on ties."""
+    return torch.argmax(x, dim=3).to(torch.int32)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = 1, eps: float = 1e-12) -> torch.Tensor:
+    """tf.nn.l2_normalize: x * rsqrt(max(sum(x^2), eps))."""
+    sq = (x * x).sum(dim=dim, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(sq, min=eps))

@@ -1,0 +1,165 @@
+"""PoseCNN inference: VGG16 trunk, label and vertex heads, Hough voting,
+RoI pooling and the quaternion head.
+
+Port of `posecnn_tpu/models/posecnn.py` for inference (`is_train=False`).
+`PoseCNN` holds the parameters under the JAX package's names;
+`posecnn_forward(model, cfg, ...)` is the network, as
+`posecnn_forward(params, cfg, ...)` is in JAX, and returns the same named
+endpoints in the same layouts (NHWC maps, (R, 7) rois).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from posecnn_torch.config import PoseCNNConfig
+from posecnn_torch.models import layers as L
+from posecnn_torch.models.backbone import Conv, VGGTrunk, scaled_width
+from posecnn_torch.ops.hough_voting import hough_voting
+from posecnn_torch.ops.roi_pool import roi_pool_batched
+
+
+class Linear(nn.Module):
+    """Weight (out, in) and bias of one fully connected layer."""
+
+    def __init__(self, c_i: int, c_o: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((c_o, c_i), device=device))
+        self.bias = nn.Parameter(torch.empty((c_o,), device=device))
+
+
+def _check_supported(cfg: PoseCNNConfig) -> None:
+    if cfg.is_train:
+        raise NotImplementedError("slice B: training is not ported yet")
+    unported = {
+        "input_format != 'COLOR'": cfg.input_format != "COLOR",
+        "vertex_reg_3d": cfg.vertex_reg_3d,
+        "adaptation": cfg.adaptation,
+        "vote_threshold > 0": cfg.vote_threshold > 0,
+        "use_crop_pool": cfg.use_crop_pool,
+        "hough_from_gt": cfg.hough_from_gt,
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+class PoseCNN(nn.Module):
+    """The parameters of `init_posecnn_params` (COLOR, inference heads);
+    `posecnn_forward` runs the network on them.
+
+    The `upscore*` deconvolutions are fixed bilinear filters, not parameters:
+    `layers.deconv` rebuilds them from the formula.
+    """
+
+    def __init__(self, cfg: PoseCNNConfig, device=None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        C, U = cfg.num_classes, cfg.num_units
+        c5 = scaled_width(512, cfg.trunk_scale)
+        self.trunk = VGGTrunk(cfg.trunk_scale, device=device)
+        self.score_conv5 = Conv(c5, U, 1, device=device)
+        self.score_conv4 = Conv(c5, U, 1, device=device)
+        self.score = Conv(U, C, 1, device=device)
+        if cfg.vertex_reg:
+            self.score_conv5_vertex = Conv(c5, 128, 1, device=device)
+            self.score_conv4_vertex = Conv(c5, 128, 1, device=device)
+            self.vertex_pred = Conv(128, 3 * C, 1, device=device)
+            if cfg.pose_reg:
+                self.fc6 = Linear(7 * 7 * c5, cfg.fc_dim, device=device)
+                self.fc7 = Linear(cfg.fc_dim, cfg.fc_dim, device=device)
+                self.fc8 = Linear(cfg.fc_dim, 4 * C, device=device)
+
+
+def posecnn_forward(
+    model: PoseCNN,
+    cfg: PoseCNNConfig,
+    data: torch.Tensor,
+    extents: torch.Tensor,
+    meta_data: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    """data (B,H,W,3) mean-subtracted BGR; extents (C,3); meta_data (B,48).
+    Returns the named endpoints."""
+    _check_supported(cfg)
+    C = cfg.num_classes
+    dt = cfg.compute_dtype
+    m = model
+
+    net = m.trunk(data, compute_dtype=dt)
+    conv5, conv4 = net["conv5_3"], net["conv4_3"]
+    out: Dict[str, torch.Tensor] = {"conv4_3": conv4, "conv5_3": conv5}
+
+    # semantic labeling branch (posecnn.py:175-192); dropout is off at inference
+    score_conv5 = L.conv2d(m.score_conv5.weight, m.score_conv5.bias, conv5, relu=True, compute_dtype=dt)
+    upscore_conv5 = L.deconv(score_conv5, 4, 2)
+    score_conv4 = L.conv2d(m.score_conv4.weight, m.score_conv4.bias, conv4, relu=True, compute_dtype=dt)
+    add_score = score_conv4 + upscore_conv5
+    score = L.conv1x1_upsample(m.score.weight, m.score.bias, add_score, 16, 8, relu=True, compute_dtype=dt)
+    out["score"] = score
+    out["prob"] = L.log_softmax_hd(score)
+    prob_normalized = L.softmax_hd(score)
+    out["prob_normalized"] = prob_normalized
+    label_2d = L.argmax_2d(prob_normalized)
+    out["label_2d"] = label_2d
+    if not cfg.vertex_reg:
+        return out
+
+    # vertex branch (posecnn.py:200-210)
+    sc5v = L.conv2d(m.score_conv5_vertex.weight, m.score_conv5_vertex.bias, conv5, relu=False, compute_dtype=dt)
+    up5v = L.deconv(sc5v, 4, 2)
+    sc4v = L.conv2d(m.score_conv4_vertex.weight, m.score_conv4_vertex.bias, conv4, relu=False, compute_dtype=dt)
+    addv = sc4v + up5v
+    vertex_pred = L.conv1x1_upsample(
+        m.vertex_pred.weight, m.vertex_pred.bias, addv, 16, 8, relu=False, compute_dtype=dt
+    )
+    out["vertex_pred"] = vertex_pred
+
+    # no GT rows at inference: one zero row, JAX's default (posecnn.py:217-218)
+    gt_poses = torch.zeros((1, 13), dtype=torch.float32, device=data.device)
+    hough = hough_voting(
+        label_2d,
+        vertex_pred.float(),
+        extents,
+        meta_data,
+        gt_poses,
+        num_classes=C,
+        is_train=False,
+        skip_pixels=cfg.skip_pixels,
+        label_threshold=cfg.label_threshold,
+        class_slots=cfg.hough_class_slots,
+        max_samples=cfg.hough_max_samples,
+        center_stride=cfg.hough_center_stride,
+        refine_window=cfg.hough_refine_window,
+        pixel_grid_stride=cfg.hough_pixel_stride,
+        sampler=cfg.hough_sampler,
+    )
+    out["rois"] = hough.rois
+    out["poses_init"] = hough.poses_init
+    out["poses_target"] = hough.poses_target
+    out["poses_weight"] = hough.poses_weight
+    out["rois_valid"] = hough.valid
+    out["num_rois"] = hough.num_rois
+    if not cfg.pose_reg:
+        return out
+
+    # quaternion branch (posecnn.py:296-330): pool in the compute dtype
+    B = data.shape[0]
+    R = hough.rois.shape[0]
+    rois_b = hough.rois.reshape(B, R // B, 7)
+    pool5 = roi_pool_batched(conv5.to(dt), rois_b, 7, 1.0 / 16.0)
+    pool4 = roi_pool_batched(conv4.to(dt), rois_b, 7, 1.0 / 8.0)
+    pool_score = (pool5 + pool4).reshape(R, 7, 7, -1)
+    fc6 = L.fc(m.fc6.weight, m.fc6.bias, pool_score, relu=True, compute_dtype=dt)
+    fc7 = L.fc(m.fc7.weight, m.fc7.bias, fc6, relu=True, compute_dtype=dt)
+    fc8 = L.fc(m.fc8.weight, m.fc8.bias, fc7, relu=False, compute_dtype=dt)
+    poses_tanh = torch.tanh(fc8)
+    poses_mul = poses_tanh * hough.poses_weight
+    # tf.nn.l2_normalize(dim=1) over the whole 4C row (posecnn.py:325-327)
+    out["poses_tanh"] = poses_tanh
+    out["poses_mul"] = poses_mul
+    out["poses_pred"] = L.l2_normalize(poses_mul, dim=1)
+    return out

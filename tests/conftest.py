@@ -30,3 +30,4 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: multi-process / long-compile tests")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips where there is none")

@@ -1,0 +1,136 @@
+"""Shared helpers of the PyTorch port's parity tests (holds no tests).
+
+Inputs are made with numpy and handed to both packages; JAX stays on the
+CPU. `goldens()` loads tools/make_torch_goldens.py, which writes (and the
+tests regenerate) the JAX goldens under tests/golden/. The golden checks
+(`check_hough_golden`, `check_slice_golden`) are shared by the CPU tests,
+tests/test_torch_cuda.py and chip_smoke.py, so all hold the port to one
+limit. The module imports no JAX at module level.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+
+import numpy as np
+import torch
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+
+def goldens():
+    """The tools/make_torch_goldens.py module."""
+    path = os.path.join(ROOT, "tools", "make_torch_goldens.py")
+    spec = importlib.util.spec_from_file_location("make_torch_goldens", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_npz(path: str) -> dict:
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def slice_cfgs(golden: dict, jax_dtype, torch_dtype, **over):
+    """(JAX PoseCNNConfig, port PoseCNNConfig) from a small-slice golden."""
+    from posecnn_tpu.models.posecnn import PoseCNNConfig as JaxCfg
+    from posecnn_torch.config import PoseCNNConfig
+
+    kw = {k[len("cfg/"):]: golden[k].item() for k in golden if k.startswith("cfg/")}
+    kw.update(over)
+    return JaxCfg(compute_dtype=jax_dtype, **kw), PoseCNNConfig(compute_dtype=torch_dtype, **kw)
+
+
+def golden_weights(golden: dict) -> dict:
+    """The golden's weights, flat npz key paths (`['params']['conv1_1']['weights']`)."""
+    return {k[len("weights/"):]: golden[k] for k in golden if k.startswith("weights/")}
+
+
+def vote_samples(rng: np.random.RandomState, S: int, P: int, W: int, H: int) -> np.ndarray:
+    """(S, 8, P) packed Hough samples in the range the front end produces:
+    integer pixel coordinates, unit directions, depths, box thresholds,
+    (0.9*|uv|)^2 and a validity row with some invalid samples."""
+    px = rng.randint(0, W, (S, P)).astype(np.float32)
+    py = rng.randint(0, H, (S, P)).astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi, (S, P)).astype(np.float32)
+    u, v = np.cos(ang), np.sin(ang)
+    d = rng.uniform(0.5, 2.0, (S, P)).astype(np.float32)
+    thr = rng.uniform(2.0, 0.5 * max(W, H), (S, P)).astype(np.float32)
+    tsq = np.float32(0.81) * (u * u + v * v)
+    val = (rng.rand(S, P) > 0.2).astype(np.float32)
+    return np.stack([px, py, u, v, d, thr, tsq, val], axis=1).astype(np.float32)
+
+
+def t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def hough_on_golden_frame(device="cpu"):
+    """The port's `hough_voting` at the Hough golden's flagship settings on
+    frame v4/000000's ground truth, on `device`."""
+    from posecnn_torch.ops.hough_voting import hough_voting
+
+    G = goldens()
+    label, vert, extents, meta = G.hough_inputs()
+    s = G.HOUGH_SETTINGS
+    return hough_voting(
+        t(label[None]).to(device), t(vert[None]).to(device), t(extents).to(device), t(meta[None]).to(device),
+        torch.zeros((1, 13), device=device), num_classes=s["num_classes"], is_train=False,
+        skip_pixels=s["skip_pixels"], label_threshold=s["label_threshold"], class_slots=s["class_slots"],
+        max_samples=s["max_samples"], center_stride=s["center_stride"], refine_window=s["refine_window"],
+        pixel_grid_stride=s["pixel_grid_stride"], sampler=s["sampler"],
+    )
+
+
+def check_hough_golden(out) -> dict:
+    """Holds a `hough_on_golden_frame` result to the JAX golden: valid rows,
+    batch and class exact, rois atol 1e-3, poses_init atol 1e-4 (the mean
+    depth is a float sum taken in another order). Returns the max |err|s."""
+    g = load_npz(goldens().HOUGH_GOLDEN)
+    valid, rois, poses = (x.cpu().numpy() for x in (out.valid, out.rois, out.poses_init))
+    np.testing.assert_array_equal(valid, g["valid"])
+    np.testing.assert_array_equal(rois[:, :2], g["rois"][:, :2])
+    np.testing.assert_allclose(rois, g["rois"], atol=1e-3)
+    np.testing.assert_allclose(poses, g["poses_init"], atol=1e-4)
+    return {"detections": int(valid.sum()), "classes": rois[valid > 0, 1].astype(int).tolist(),
+            "rois": float(np.abs(rois - g["rois"]).max()), "poses_init": float(np.abs(poses - g["poses_init"]).max())}
+
+
+def small_slice_on_golden(device="cpu"):
+    """(port endpoints, golden): the small float32 slice on the golden's
+    weights and frame, on `device`."""
+    from posecnn_torch.config import PIXEL_MEANS, PoseCNNConfig
+    from posecnn_torch.core.convert import make_model
+    from posecnn_torch.models.posecnn import posecnn_forward
+
+    g = load_npz(goldens().SLICE_GOLDEN)
+    cfg = PoseCNNConfig(compute_dtype=torch.float32,
+                        **{k[len("cfg/"):]: g[k].item() for k in g if k.startswith("cfg/")})
+    model = make_model(cfg, golden_weights(g), device)
+    means = torch.tensor(PIXEL_MEANS, device=device).reshape(1, 1, 1, 3)
+    with torch.inference_mode():
+        out = posecnn_forward(model, cfg, t(g["raw"]).to(device).float() - means,
+                              t(g["extents"]).to(device), t(g["meta"]).to(device))
+    return out, g
+
+
+def check_slice_golden(out, g) -> dict:
+    """Holds the small float32 slice to the JAX golden: score and vertex_pred
+    within 1e-5 of the golden's largest magnitude (TF32 would miss it by
+    ~100x); label_2d, valid rows, batch and class exact; rois atol 1e-3,
+    poses_init atol 1e-4, poses_tanh atol 1e-5. Returns the max |err|s."""
+    o = {k: v.cpu().numpy() for k, v in out.items() if torch.is_tensor(v)}
+    err = {}
+    for k in ("score", "vertex_pred"):
+        ref = g[f"out/{k}"]
+        np.testing.assert_allclose(o[k], ref, atol=1e-5 * np.abs(ref).max(), rtol=0, err_msg=k)
+        err[k] = float(np.abs(o[k] - ref).max())
+    np.testing.assert_array_equal(o["label_2d"], g["out/label_2d"])
+    np.testing.assert_array_equal(o["rois_valid"], g["out/rois_valid"])
+    np.testing.assert_array_equal(o["rois"][:, :2], g["out/rois"][:, :2])
+    for k, atol in (("rois", 1e-3), ("poses_init", 1e-4), ("poses_tanh", 1e-5)):
+        np.testing.assert_allclose(o[k], g[f"out/{k}"], atol=atol, err_msg=k)
+        err[k] = float(np.abs(o[k] - g[f"out/{k}"]).max())
+    return err
