@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Smoke check of the PyTorch port (`posecnn_torch`) on one NVIDIA GPU.
 
-Runs the port's main path, flagship PoseCNN inference (raw 640x480 BGR frame
-in, ROIs and 6-DoF poses out), through its user entry points, and checks it:
+Runs the port's main path through its user entry points and checks it:
+flagship PoseCNN inference (raw 640x480 BGR frame in, ROIs and 6-DoF poses
+out) and the flagship training step (B=2 at 640x480 from a device bank).
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
-  2. build: every CUDA kernel of the path, from the sources in this checkout
-  3. kernel against its plain PyTorch version on the card, at the shapes the
-     main path gives it, with median times
+  2. build: every CUDA kernel of the path, from the sources in this
+     checkout, one nvcc per source, all started together
+  3. each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it, with median times: hough_vote (votes
+     exact) and conv3x3 at conv1_2 (both forward modes at B=1 and B=2, dx at
+     B=2; within 1 bf16 ulp; cuDNN's bf16 conv timed beside it)
   4. Hough voting on the card against the JAX package's golden
-  5. the whole network on the card against the JAX package's golden
-     (small config, float32, TF32 off)
+  5. the whole inference network, and one small training step (losses,
+     every gradient, the update), on the card against the JAX package's
+     goldens (small configs, float32, TF32 off)
   (4 and 5 use the checks of tests/torch_parity.py, as the tests do)
   6. flagship inference through `posecnn_torch.entry` and
      `engine.test.make_inference_fn` + `postprocess_detections` on the first
@@ -18,7 +23,13 @@ in, ROIs and 6-DoF poses out), through its user entry points, and checks it:
      and the kernel launch counts of that run; then the same model and
      frames through the port on the CPU, against which the card's labels,
      valid slots, classes and rois are held at bf16 limits
-  7. one JSON line: {"ok": true, "device": {...}}
+  7. flagship training through `posecnn_torch.entry.train_entry`: 8 steps
+     (2 warm-up) with step time, peak memory and the launch counts of every
+     step; then the first step's model, batch and random draws through the
+     port on the CPU, forward and backward, against which the card's
+     continuous losses, gradient norm and conv1_2 weight gradient are held
+     at bf16 limits
+  8. the kernels' JSON line, then {"ok": true, "device": {...}}
 
 Any failure raises and the process exits nonzero; nothing falls back to the
 CPU. It imports no JAX. Usage: python3 chip_smoke.py
@@ -39,6 +50,26 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES_DIR = os.path.join(ROOT, "data", "lov_syn_val_v4")
 N_FRAMES, N_WARMUP = 8, 2
+N_STEPS = 8
+
+# the H100's published peaks (NVIDIA's data sheet, SXM part, dense rates)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_F32_FLOP_PER_S = 67e12
+# f32 operations of one centre x sample vote test: dx, dy, the dot product
+# (2 mul, 1 add), |c-p|^2 (2 mul, 1 add), dot^2 and tsq*|c-p|^2
+VOTE_TEST_OPS = 10
+# the card against the CPU port on one flagship training step with the same
+# draws: relative limits of the continuous loss terms and of the gradient's
+# global norm, and of two weight gradients as their largest |error| over
+# their largest magnitude: conv1_2's (the kernel runs its forward) and
+# conv1_1's (the kernel's dx is its cotangent). Both sides run the bf16
+# network, each summing its convolutions in its own order. Measured before
+# they were set (H100, PERF.md section 6): loss_regu 0, loss_cls 1.7e-5,
+# loss_vertex 3.5e-5, grad_norm 7.0e-4, conv1_2 4.9e-3 (conv1_1's limit was
+# set with no reading of its own; it then read 8.3e-3)
+TRAIN_LOSS_LIMITS = {"loss_regu": 1e-6, "loss_cls": 1e-3, "loss_vertex": 1e-3, "grad_norm": 5e-3}
+TRAIN_GRAD_LIMITS = {"trunk.conv1_1.weight": 5e-2, "trunk.conv1_2.weight": 2e-2}
 
 
 def phase(n: int, msg: str) -> None:
@@ -50,19 +81,46 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    """Median device time of fn() over `reps` launches, CUDA events."""
+def median_ms(fn, reps: int = 20, inner: int = 10) -> float:
+    """Device time of one fn() call: the median over `reps` rounds of
+    `inner` back-to-back calls between one pair of CUDA events, divided by
+    `inner`, so the host's part of a call (allocation, checks, the launch)
+    hides behind the device's work of the call before it."""
     import torch
 
     times = []
     for _ in range(reps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / inner)
     return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float, peak_ops: float):
+    """(least time in ms, "bytes" or "operations"): the larger of the bytes
+    over the memory rate and the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def vote_bound(samples: np.ndarray, centers: np.ndarray):
+    """hough_vote's bound on these inputs: one test per valid sample and
+    centre; reads samples and centres once, writes votes and dsum."""
+    S, nc = samples.shape[0], centers.shape[2]
+    tests = float((samples[:, 7, :] > 0).sum()) * nc
+    nbytes = samples.nbytes + centers.nbytes + 2 * S * nc * 4
+    return bound_ms(nbytes, tests * VOTE_TEST_OPS, PEAK_F32_FLOP_PER_S)
+
+
+def conv_bound(B: int, H: int, W: int, cin: int, cout: int):
+    """conv3x3's bound: 2*9*Cin*Cout MACs' operations a pixel at the bf16
+    tensor-core rate; x and y (bf16), w (bf16) and the bias (f32) moved once."""
+    nbytes = B * H * W * (cin + cout) * 2 + 9 * cin * cout * 2 + cout * 4
+    return bound_ms(nbytes, 2.0 * 9 * cin * cout * B * H * W, PEAK_BF16_FLOP_PER_S)
 
 
 def vote_inputs(rng: np.random.RandomState, S: int, P: int, H: int, W: int):
@@ -92,6 +150,7 @@ def vote_inputs(rng: np.random.RandomState, S: int, P: int, H: int, W: int):
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     # phase 1: the device
     if not torch.cuda.is_available():
@@ -99,12 +158,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from posecnn_torch import _build
-    from posecnn_torch.config import PIXEL_MEANS, flagship_cfg
+    from posecnn_torch.config import PIXEL_MEANS, RNG_SEED, flagship_cfg, flagship_train_cfg
+    from posecnn_torch.engine import train as T
     from posecnn_torch.engine.test import make_inference_fn, postprocess_detections, set_float32_precision
-    from posecnn_torch.entry import entry
-    from posecnn_torch.ops import voting
+    from posecnn_torch.entry import entry, train_entry, train_objects
+    from posecnn_torch.ops import conv3x3, voting
     from posecnn_torch.utils.meta import build_meta_data
-    from tests.torch_parity import check_hough_golden, check_slice_golden, hough_on_golden_frame, small_slice_on_golden
+    from tests.torch_parity import (
+        bf16_ulp_excess, check_hough_golden, check_slice_golden, check_train_golden, hough_on_golden_frame,
+        small_slice_on_golden, small_train_on_golden,
+    )
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -119,27 +182,76 @@ def main() -> int:
     # phase 2: build every kernel of the path
     phase(2, f"built and loaded the CUDA kernels in {_build.build_all():.2f} s")
 
-    # phase 3: kernel against plain at the main path's shapes
-    samples, coarse, window = vote_inputs(np.random.RandomState(0), 8, 512, 480, 640)
-    s_t = torch.from_numpy(samples).to(dev)
-    errs = []
-    for label, centers in (("coarse (S=8, P=512, NC=19200, shared)", coarse), ("refine (S=8, 256 per slot)", window)):
-        c_t = torch.from_numpy(centers).to(dev)
+    # phase 3: each kernel against its plain version at the main path's shapes
+    kernels = {}
+    vote_cases = []
+    for P in (512, 1024):  # inference and training sample counts
+        samples, coarse, window = vote_inputs(np.random.RandomState(0), 8, P, 480, 640)
+        vote_cases += [(f"coarse (S=8, P={P}, NC=19200, shared)", samples, coarse),
+                       (f"refine (S=8, P={P}, 256 per slot)", samples, window)]
+    for label, samples, centers in vote_cases:
+        s_t, c_t = torch.from_numpy(samples).to(dev), torch.from_numpy(centers).to(dev)
         v_k, d_k = voting.accumulate_votes(s_t, c_t)
         v_p, d_p = voting.accumulate_votes_plain(s_t, c_t)
         torch.cuda.synchronize()
         check(torch.equal(v_k, v_p), f"{label}: kernel votes differ from the plain version")
         torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-4)
         err = max((v_k - v_p).abs().max().item(), (d_k - d_p).abs().max().item())
-        errs.append(err)
         t_plain = [median_ms(lambda: voting.accumulate_votes_plain(s_t, c_t))]
         t_kern = [median_ms(lambda: voting.accumulate_votes(s_t, c_t)) for _ in range(2)]
         t_plain.append(median_ms(lambda: voting.accumulate_votes_plain(s_t, c_t)))
         k_ms, p_ms = statistics.median(t_kern), statistics.median(t_plain)
-        if centers is coarse:
-            kernel_ms, plain_ms = k_ms, p_ms
+        b_ms, b_by = vote_bound(samples, centers)
+        if label.startswith("coarse (S=8, P=1024"):  # the training step's coarse pass
+            kernels["hough_vote"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                         library_ms=None)
         phase(3, f"hough_vote {label}: votes equal, dsum max|err| {err:.3g} (rtol 1e-5, atol 1e-4); "
-                 f"kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us (median of 20, runs {t_kern} / {t_plain} ms)")
+                 f"kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us (a call in 10 back-to-back, median of 20, runs {t_kern} / {t_plain} ms); "
+                 f"bound {b_ms * 1e3:.1f} us ({b_by})")
+
+    # conv3x3 at conv1_2: the trunk's mode (zero bias, no ReLU; the bias is
+    # added in bf16 after it) and the Pallas module's (bias + ReLU), at B=1
+    # (inference) and B=2 (training), and dx at B=2 (flipped, transposed
+    # weights, zero bias, no ReLU). Within 1 bf16 ulp of the plain version:
+    # the same f32 sums in another order, each rounded to bf16 once.
+    rng = np.random.RandomState(1)
+    w_np = (rng.randn(3, 3, 64, 64) * np.sqrt(2.0 / (9 * 64))).astype(np.float32)
+    w_t = torch.from_numpy(w_np).to(dev).to(torch.bfloat16)
+    b_t = torch.from_numpy((rng.randn(64) * 0.1).astype(np.float32)).to(dev)
+    zeros = torch.zeros(64, device=dev)
+    conv_errs = []
+    for B, label, w_c, b_c, relu in (
+        (1, "forward, trunk mode", w_t, zeros, False), (1, "forward, bias + ReLU", w_t, b_t, True),
+        (2, "forward, trunk mode", w_t, zeros, False), (2, "forward, bias + ReLU", w_t, b_t, True),
+        (2, "dx (flipped, transposed weights)", conv3x3.flip_transpose(w_t), zeros, False),
+    ):
+        x = torch.from_numpy(rng.randn(B, 480, 640, 64).astype(np.float32)).to(dev)
+        x = (torch.relu(x) if label.startswith("forward") else x).to(torch.bfloat16)  # a ReLU output / a cotangent
+        y_k = conv3x3.conv3x3_raw(x, w_c, b_c, relu)
+        y_p = conv3x3.conv3x3_plain(x, w_c, b_c, relu)
+        torch.cuda.synchronize()
+        ulps = bf16_ulp_excess(y_k, y_p)
+        err = (y_k.float() - y_p.float()).abs().max().item()
+        check(ulps <= 1.0, f"conv3x3 {label} B={B}: kernel {ulps:.3g} bf16 ulps from the plain version")
+        conv_errs.append(err)
+        x_lib = x.permute(0, 3, 1, 2)  # NHWC storage: a channels_last NCHW view
+        w_l = w_c.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib = (lambda: torch.relu(F.conv2d(x_lib, w_l, b_c.to(torch.bfloat16), padding=1))) if relu else \
+            (lambda: F.conv2d(x_lib, w_l, None, padding=1))
+        t_kern = [median_ms(lambda: conv3x3.conv3x3_raw(x, w_c, b_c, relu)) for _ in range(2)]
+        t_plain = [median_ms(lambda: conv3x3.conv3x3_plain(x, w_c, b_c, relu), reps=5, inner=2)]
+        t_lib = [median_ms(lib) for _ in range(2)]
+        k_ms, p_ms, l_ms = statistics.median(t_kern), statistics.median(t_plain), statistics.median(t_lib)
+        b_ms, b_by = conv_bound(B, 480, 640, 64, 64)
+        if B == 2 and label == "forward, trunk mode":  # conv1_2 of the training step
+            kernels["conv3x3"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=l_ms)
+        phase(3, f"conv3x3 {label}, B={B}, 480x640, 64->64: {ulps:.3g} bf16 ulps at most (limit 1), max|err| "
+                 f"{err:.3g}; kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, cuDNN bf16 {l_ms * 1e3:.1f} us "
+                 f"(a call in 10 back-to-back, median of 20; plain 2, median of 5; runs {t_kern} / {t_plain} / {t_lib} ms); bound {b_ms * 1e3:.1f} us ({b_by})")
+    # the later phases' peak memory must not count this phase's tensors
+    del x, x_lib, y_k, y_p, lib
+    torch.cuda.empty_cache()
 
     # phase 4: Hough voting on the card against the JAX golden
     before = voting.VOTE_LAUNCHES
@@ -156,6 +268,10 @@ def main() -> int:
     phase(5, "small slice (f32, TF32 off) against JAX, labels, valid rows and classes exact: "
              + "; ".join(f"{k} max|err| {v:.3g}" for k, v in e.items())
              + " (score, vertex_pred within 1e-5 x max; rois 1e-3, poses_init 1e-4, poses_tanh 1e-5)")
+    e = check_train_golden(*small_train_on_golden(dev))
+    phase(5, "small training step (f32, TF32 off) against JAX: "
+             + "; ".join(f"{k} max|err| {v:.3g}" for k, v in e.items())
+             + " (losses and grad norm 1e-5 relative; each grad 5e-5 x its max; the update from the golden grads)")
 
     # phase 6: flagship inference through the user entry points
     fn, (model, raw0, meta0, extents) = entry(dev)
@@ -172,7 +288,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dev_ms, host_ms, n_rois, outs = [], [], [], []
-    voting.VOTE_LAUNCHES = 0
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
     for color, meta in frames:
         t0 = time.perf_counter()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -188,13 +304,16 @@ def main() -> int:
         n_rois.append(int(out["num_rois"]))
         outs.append({k: v.cpu() for k, v in out.items()})
     launches = voting.VOTE_LAUNCHES
+    conv_launches = conv3x3.CONV3X3_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     check(launches == 2 * len(frames), f"hough_vote launched {launches} times for {len(frames)} frames")
+    check(conv_launches == len(frames), f"conv3x3 launched {conv_launches} times for {len(frames)} frames")
+    infer_launches = {"hough_vote": launches, "conv3x3": conv_launches}
     lat = statistics.median(dev_ms[N_WARMUP:])
     phase(6, f"flagship 640x480 bf16, {len(frames)} frames: per-frame {lat:.3f} ms stream (CUDA events around "
              f"the call, host gaps included; median of frames {N_WARMUP + 1}-{len(frames)}; first {dev_ms[0]:.1f} ms), "
-             f"{statistics.median(host_ms[N_WARMUP:]):.3f} ms wall incl. NMS; num_rois {n_rois}; hough_vote launches "
-             f"{launches}; peak memory {peak / 2**20:.1f} MiB")
+             f"{statistics.median(host_ms[N_WARMUP:]):.3f} ms wall incl. NMS; num_rois {n_rois}; launches "
+             f"{infer_launches}; peak memory {peak / 2**20:.1f} MiB")
     print(f"per-frame stream ms {[round(x, 3) for x in dev_ms]}; wall ms {[round(x, 3) for x in host_ms]}", flush=True)
 
     # the card against the CPU port (held to JAX by the CPU tests), same
@@ -218,12 +337,101 @@ def main() -> int:
              f"label_2d agreement min {min(agree):.6f} (limit 0.999), valid slots and classes equal, roi box "
              f"max|err| {box_err:.3g} px (limit 4), votes max|err| {vote_err:.3g} (limit 2)")
 
+    del model, infer, outs
+    torch.cuda.empty_cache()
+
+    # phase 7: flagship training through the user entry point
+    t0 = time.perf_counter()
+    step, state, bank = train_entry(dev)
+    _, hp = flagship_train_cfg()
+    sched = T.lr_schedule(hp)
+    model0 = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    phase(7, f"train_entry: seed-0 model, bank of {bank['data'].shape[0]} frames on the card "
+             f"({sum(v.numel() * v.element_size() for v in bank.values()) / 2**20:.1f} MiB) in "
+             f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RNG_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_wall, losses, per_step = [], [], [], []
+    first_draws = first_grads = None
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+    for i in range(N_STEPS):
+        v0, c0 = voting.VOTE_LAUNCHES, conv3x3.CONV3X3_LAUNCHES
+        draws = T.Draws(gen, record=(i == 0))
+        lr_expected = sched(state.step)
+        t0 = time.perf_counter()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(state, bank, draws)
+        e1.record()
+        e1.synchronize()
+        step_wall.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append({k: float(v) for k, v in out.items()})
+        per_step.append((voting.VOTE_LAUNCHES - v0, conv3x3.CONV3X3_LAUNCHES - c0))
+        check(losses[-1]["lr"] == lr_expected, f"step {i}: lr {losses[-1]['lr']} is not lr_schedule({i})")
+        if i == 0:
+            first_draws = {k: v.cpu() for k, v in draws.recorded.items()}
+            first_grads = {k: p.grad.detach().float().cpu() for k, p in state.model.named_parameters()
+                           if p.grad is not None}
+    train_launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(p == (4, 2) for p in per_step), f"launches (hough_vote, conv3x3) per step {per_step}, want (4, 2)")
+    check(all(np.isfinite(v) for m in losses for v in m.values()), f"losses not finite: {losses}")
+    check(any(m["loss_pose"] > 0 for m in losses), "loss_pose is 0 on every step: the pose branch is inert")
+    moved = max(float((v.cpu() - model0[k]).abs().max()) for k, v in state.model.state_dict().items())
+    check(moved > 0 and state.step == N_STEPS, f"parameters did not move ({moved}) or step {state.step}")
+    phase(7, f"flagship training B=2 640x480 bf16, {N_STEPS} steps: per-step {statistics.median(step_ms[2:]):.3f} ms "
+             f"stream (CUDA events around the step, host gaps included; median of steps 3-{N_STEPS}; first "
+             f"{step_ms[0]:.1f} ms), {statistics.median(step_wall[2:]):.3f} ms wall; peak memory {peak / 2**20:.1f} "
+             f"MiB; launches {train_launches} ({per_step[0]} a step); largest parameter move {moved:.3g}")
+    for i, m in enumerate(losses):
+        print(f"step {i + 1}: " + " ".join(f"{k} {v:.6g}" for k, v in sorted(m.items())), flush=True)
+    print(f"per-step stream ms {[round(x, 3) for x in step_ms]}; wall ms {[round(x, 3) for x in step_wall]}", flush=True)
+
+    # the card's first step against the CPU port: the same model, batch and
+    # draws (replayed), forward and backward
+    t0 = time.perf_counter()
+    cfg, hp = flagship_train_cfg()
+    model_cpu = copy.deepcopy(state.model).cpu()
+    model_cpu.load_state_dict(model0)
+    state_cpu = T.create_train_state(model_cpu, hp)
+    bank_cpu = {k: v.cpu() for k, v in bank.items()}
+    replay = T.Draws(replay=first_draws)
+    batch = T.sample_batch(bank_cpu, 2, 24, True, True, replay)
+    points, symmetry, extents = (torch.from_numpy(a) for a in train_objects(cfg.num_classes))
+    loss_cpu, ref = T.compute_losses(model_cpu, cfg, hp, batch, points, symmetry, extents, replay)
+    ref = {k: float(v.detach()) for k, v in ref.items()}
+    ref["grad_norm"] = float(T.train_update(state_cpu, loss_cpu, sched(0)))
+    rel = {k: abs(losses[0][k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in TRAIN_LOSS_LIMITS}
+    # each gradient: max |card - CPU| over the CPU's largest magnitude
+    grad_rel = {}
+    for k, p in model_cpu.named_parameters():
+        g = p.grad.float()
+        grad_rel[k] = float((first_grads[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+    worst = sorted(grad_rel, key=grad_rel.get, reverse=True)[:3]
+    check(all(rel[k] <= lim for k, lim in TRAIN_LOSS_LIMITS.items())
+          and all(grad_rel[k] <= lim for k, lim in TRAIN_GRAD_LIMITS.items()),
+          f"card against CPU on step 1: relative errors {rel}, limits {TRAIN_LOSS_LIMITS}; gradients "
+          + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in list(TRAIN_GRAD_LIMITS) + worst)
+          + f", limits {TRAIN_GRAD_LIMITS}")
+    phase(7, f"card against the CPU port on step 1 ({time.perf_counter() - t0:.1f} s): "
+             + "; ".join(f"{k} {losses[0][k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g} (limit {TRAIN_LOSS_LIMITS[k]})"
+                         for k in TRAIN_LOSS_LIMITS)
+             + "; " + "; ".join(f"{k} gradient {grad_rel[k]:.3g} of its largest magnitude (limit {lim})"
+                                for k, lim in TRAIN_GRAD_LIMITS.items())
+             + "; worst gradients (not held: the pose head follows Hough's rois) "
+             + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in worst)
+             + f"; loss_pose {losses[0]['loss_pose']:.6g} vs {ref['loss_pose']:.6g} (not held: Hough follows labels)")
+
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "hough_vote", "route": "cuda", "source": "posecnn_torch/csrc/hough_vote.cu",
-        "replaces": "posecnn_tpu/ops/pallas/voting.py:36", "launches": launches,
-        "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+    sources = {"hough_vote": ("posecnn_torch/csrc/hough_vote.cu", "posecnn_tpu/ops/pallas/voting.py:36"),
+               "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
+    line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
+             "launches": train_launches[k], "launches_inference": infer_launches[k], **kernels[k]}
+            for k in ("hough_vote", "conv3x3")]
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from concurrent.futures import ThreadPoolExecutor
 import hashlib
 import os
 import shutil
@@ -79,8 +80,29 @@ def hough_vote_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def conv3x3_lib() -> ctypes.CDLL:
+    """The loaded 3x3 convolution library, with its entry point's C signature."""
+    lib = ctypes.CDLL(str(build_library("conv3x3")))
+    fn = lib.conv3x3_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+KERNELS = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib}
+
+
 def build_all() -> float:
-    """Build and load every kernel of the port; returns the seconds taken."""
+    """Build every kernel of the port, one `nvcc` per source, all started
+    together, then load them; returns the seconds taken."""
     t0 = time.perf_counter()
-    hough_vote_lib()
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        list(pool.map(build_library, KERNELS))
+    for load in KERNELS.values():
+        load()
     return time.perf_counter() - t0

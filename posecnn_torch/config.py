@@ -4,7 +4,8 @@ Mirrors `posecnn_tpu/models/posecnn.py:PoseCNNConfig` field for field (same
 names and defaults), with `compute_dtype` as a torch dtype, so a config
 written for one package reads the same in the other. Fields for parts of the
 model that the port does not run yet are kept and rejected by
-`models.posecnn.posecnn_forward`.
+`models.posecnn.posecnn_forward`. `flagship_cfg` and `flagship_train_cfg`
+are the flagship inference and training configurations.
 """
 
 from __future__ import annotations
@@ -67,3 +68,66 @@ def flagship_cfg(is_train: bool = False) -> PoseCNNConfig:
         skip_pixels=1,
         hough_sampler="approx",
     )
+
+
+# the classes of YCB-Video whose ADD loss is ADD-S (posecnn_tpu/data/lov.py:33)
+YCB_SYMMETRY = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1)
+# model points per class for the ADD loss (TPU.ADD_NUM_POINTS)
+ADD_NUM_POINTS = 1024
+
+
+def flagship_train_cfg():
+    """(PoseCNNConfig, TrainHParams) of the flagship training run: what
+    `tools/train_net.py:107-146` builds from
+    `experiments/cfgs/lov_syn_capstone.yml` over the TPU defaults of
+    `posecnn_tpu/core/config.py:178-227`, written out as code (the port
+    reads no .yml). Also: IMS_PER_BATCH 2, CHROMATIC and ADD_NOISE on, a
+    device bank (`FLAGSHIP_TRAIN_BATCH`)."""
+    from posecnn_torch.engine.train import TrainHParams
+
+    cfg = PoseCNNConfig(
+        num_classes=22,
+        num_units=64,
+        input_format="COLOR",
+        vertex_reg=True,
+        vertex_reg_3d=False,
+        pose_reg=True,
+        adaptation=False,
+        threshold_label=1.0,
+        vote_threshold=-1.0,
+        is_train=True,
+        keep_prob=0.5,
+        compute_dtype=torch.bfloat16,
+        hough_class_slots=8,
+        hough_max_samples=1024,
+        hough_center_stride=4,
+        hough_sampler="approx",
+        hough_pixel_stride=3,
+        skip_pixels=1,
+        use_crop_pool=True,
+        hough_from_gt=False,
+        hough_gt_mix=0.5,
+    )
+    hp = TrainHParams(
+        learning_rate=0.001,
+        momentum=0.9,
+        gamma=0.1,
+        stepsize=40000,
+        weight_reg=0.0001,
+        vertex_w=5.0,
+        pose_w=1.0,
+        adapt_weight=0.1,
+        clip_grad_norm=10.0,
+        margin=0.0001,
+        pose_norm_valid=True,
+        matching_w=0.0,
+        quat_w=0.5,
+        vertex_z_obj_norm=False,
+    )
+    return cfg, hp
+
+
+# the flagship bank step's settings: IMS_PER_BATCH, TPU.MAX_GT, CHROMATIC, ADD_NOISE
+FLAGSHIP_TRAIN_BATCH = dict(batch_size=2, max_gt=24, chromatic=True, add_noise=True)
+# the seed of the training step's generator (RNG_SEED)
+RNG_SEED = 3

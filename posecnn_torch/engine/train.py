@@ -1,0 +1,347 @@
+"""Training engine: the flagship loss, the optimizer and the device-bank step.
+
+Port of `posecnn_tpu/engine/train.py` for the flagship training step
+(`compute_losses`, `make_bank_train_step`, the training loop of `Solver`):
+
+  * losses as the reference's `train_net` assembles them: L2 regularization
+    (`upscore*` carry none, and the port holds no parameters for them),
+    the fused hard-label cross entropy, the fused vertex smooth-L1, the
+    ADD/ADD-S loss (normalized by the valid Hough rows with
+    `pose_norm_valid`) and the quaternion auxiliary loss;
+  * the optimizer is momentum SGD at unit learning rate after global-norm
+    clipping; the step scales the update by `lr_schedule(hp)(step)`, where
+    `step` is the solver's counter. No learning rate lives in any state
+    (hazard 7: a scheduler's or optimizer's own step count re-initialized by
+    a light resume would apply the undecayed rate while the log shows the
+    decayed one);
+  * the bank step samples the batch and the augmentation draws on the
+    device from a `torch.Generator`, through a `Draws` object that a test
+    or a check can record and replay.
+
+Snapshots, resume and the signal handling of `Solver` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from posecnn_torch.config import PIXEL_MEANS, RNG_SEED, PoseCNNConfig
+from posecnn_torch.models.posecnn import PoseCNN, posecnn_forward
+from posecnn_torch.ops.add_loss import average_distance_loss
+from posecnn_torch.ops.chromatic import add_noise_field, chromatic_device
+from posecnn_torch.ops.losses import loss_cross_entropy_hard_label_sparse
+from posecnn_torch.ops.vertex_targets import smooth_l1_loss_vertex_sparse
+
+
+@dataclass(frozen=True)
+class TrainHParams:
+    """`engine/train.py:TrainHParams`, field for field (same defaults)."""
+
+    learning_rate: float = 0.001
+    momentum: float = 0.9
+    gamma: float = 0.1
+    stepsize: int = 30000
+    weight_reg: float = 0.0001
+    vertex_w: float = 5.0
+    pose_w: float = 1.0
+    adapt_weight: float = 0.1
+    margin: float = 0.01
+    pose_norm_valid: bool = False
+    vertex_w_inside: float = 10.0
+    vertex_z_obj_norm: bool = False
+    matching_w: float = 0.0
+    quat_w: float = 0.0
+    clip_grad_norm: float = 0.0
+    pixel_means: Tuple[float, float, float] = PIXEL_MEANS
+
+
+def lr_schedule(hp: TrainHParams) -> Callable[[int], float]:
+    """Staircase exponential decay (tf.train.exponential_decay, staircase):
+    learning_rate * gamma ** (step // stepsize)."""
+
+    def sched(step: int) -> float:
+        return hp.learning_rate * hp.gamma ** (int(step) // hp.stepsize)
+
+    return sched
+
+
+class Draws:
+    """The random numbers of one training step, by name.
+
+    Drawn from `generator` on the step's device, and kept when `record`;
+    with `replay`, the recorded tensors are handed back instead (moved to
+    the asking device), so one step can be run again elsewhere with the same
+    randomness."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None, replay: Optional[Dict[str, torch.Tensor]] = None,
+                 record: bool = False):
+        self.generator = generator
+        self.replay = replay
+        self.recorded: Optional[Dict[str, torch.Tensor]] = {} if record else None
+
+    def _get(self, name: str, device, make) -> torch.Tensor:
+        if self.replay is not None:
+            return self.replay[name].to(device)
+        x = make()
+        if self.recorded is not None:
+            self.recorded[name] = x
+        return x
+
+    def uniform(self, name: str, shape, device) -> torch.Tensor:
+        return self._get(name, device, lambda: torch.rand(tuple(shape), generator=self.generator, device=device))
+
+    def normal(self, name: str, shape, device) -> torch.Tensor:
+        return self._get(name, device, lambda: torch.randn(tuple(shape), generator=self.generator, device=device))
+
+    def randint(self, name: str, high: int, shape, device) -> torch.Tensor:
+        return self._get(
+            name, device, lambda: torch.randint(0, high, tuple(shape), generator=self.generator, device=device)
+        )
+
+
+class MomentumSGD:
+    """`optax.chain(clip_by_global_norm(clip), sgd(1.0, momentum))`: the
+    gradients are clipped to a global norm (0 = off), the momentum trace is
+    g + momentum * trace, and the parameters move by -lr * trace with the lr
+    handed to `step`. Its state is the trace alone; there is no lr in it.
+    Parameters are updated in place."""
+
+    def __init__(self, params: List[torch.Tensor], momentum: float, clip_grad_norm: float = 0.0):
+        self.params = list(params)
+        self.momentum = momentum
+        self.clip = clip_grad_norm
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+
+    @torch.no_grad()
+    def step(self, lr: float) -> torch.Tensor:
+        """Apply one update from the parameters' .grad; returns the global
+        gradient norm before clipping."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        g_norm = self.global_norm(grads)
+        if self.clip > 0:
+            keep = g_norm < self.clip
+            grads = [torch.where(keep, g, (g / g_norm) * self.clip) for g in grads]
+        for p, g, t in zip(self.params, grads, self.trace):
+            t.mul_(self.momentum).add_(g)
+            p.add_(t, alpha=-lr)
+        return g_norm
+
+    def state_dict(self) -> Dict[str, List[torch.Tensor]]:
+        return {"trace": self.trace}
+
+
+@dataclass
+class TrainState:
+    """(params, opt_state, step) of the JAX package: the model, the
+    optimizer's trace and the solver's step counter."""
+
+    model: PoseCNN
+    optimizer: MomentumSGD
+    step: int = 0
+
+
+def create_train_state(model: PoseCNN, hp: TrainHParams, step: int = 0) -> TrainState:
+    model.train()
+    return TrainState(model, MomentumSGD(list(model.parameters()), hp.momentum, hp.clip_grad_norm), step)
+
+
+def regularization_loss(model: PoseCNN, scale: float) -> torch.Tensor:
+    """scale * sum(w^2) / 2 over every conv and fc weight and bias
+    (`train.py:regularization_loss`); the bilinear `upscore*` filters are
+    not parameters of the port."""
+    total = sum((p * p).sum() for p in model.parameters())
+    return scale * 0.5 * total
+
+
+def preprocess(data: torch.Tensor, hp: TrainHParams, batch: Dict[str, torch.Tensor], draws: Optional[Draws]) -> torch.Tensor:
+    """uint8 BGR -> mean-subtracted float, with the HLS jitter and the noise
+    field when the batch asks for them (`train.py:173-194`)."""
+    means = torch.tensor(hp.pixel_means, dtype=torch.float32, device=data.device).reshape(1, 1, 1, 3)
+    if data.dtype != torch.uint8:
+        return data
+    data = data.to(torch.float32)
+    if "chroma_dhls" in batch:
+        data = chromatic_device(data, batch["chroma_dhls"])
+    if "noise_sigma" in batch:
+        field = draws.normal("noise/field", data.shape[:3], data.device)
+        data = add_noise_field(data, batch["noise_sigma"], field)
+    return data - means
+
+
+def compute_losses(
+    model: PoseCNN,
+    model_cfg: PoseCNNConfig,
+    hp: TrainHParams,
+    batch: Dict[str, torch.Tensor],
+    points: torch.Tensor,
+    symmetry: torch.Tensor,
+    extents: torch.Tensor,
+    draws: Optional[Draws] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The flagship loss (`train.py:compute_losses`): returns (loss, the
+    named loss terms). Without `draws`, random numbers come from torch's
+    default generator."""
+    draws = draws if draws is not None else Draws()
+    if hp.matching_w > 0:
+        raise NotImplementedError("the matching loss is not ported yet")
+    if hp.vertex_z_obj_norm:
+        raise NotImplementedError("vertex_z_obj_norm is not ported: the flagship config sets it False")
+    data = preprocess(batch["data"], hp, batch, draws)
+    out = posecnn_forward(
+        model, model_cfg, data, extents, batch["meta_data"], gt_poses=batch.get("poses"),
+        gt_label_2d=batch["gt_label_2d"], gt_centers=batch.get("gt_centers"), draws=draws,
+    )
+    losses: Dict[str, torch.Tensor] = {}
+    loss = regularization_loss(model, hp.weight_reg)
+    losses["loss_regu"] = loss
+    loss_cls = loss_cross_entropy_hard_label_sparse(out["score"], batch["gt_label_2d"], model_cfg.threshold_label)
+    losses["loss_cls"] = loss_cls
+    loss = loss + loss_cls
+    if model_cfg.vertex_reg:
+        loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse(
+            out["vertex_pred"], batch["gt_label_2d"], batch["gt_centers"], model_cfg.num_classes, hp.vertex_w_inside,
+        )
+        losses["loss_vertex"] = loss_vertex
+        loss = loss + loss_vertex
+        if model_cfg.pose_reg:
+            poses_pred = out["poses_pred"]
+            n_rows = poses_pred.shape[0]
+            n_valid = torch.clamp(out["rois_valid"].float().sum(), min=1.0)
+            loss_pose = average_distance_loss(
+                poses_pred, out["poses_target"], out["poses_weight"], points, symmetry, hp.margin
+            )
+            if hp.pose_norm_valid:
+                loss_pose = loss_pose * (n_rows / n_valid)
+            loss_pose = hp.pose_w * loss_pose
+            losses["loss_pose"] = loss_pose
+            loss = loss + loss_pose
+            if hp.quat_w > 0:
+                Cq = poses_pred.shape[1] // 4
+                qp = poses_pred.reshape(n_rows, Cq, 4)
+                qt = out["poses_target"].reshape(n_rows, Cq, 4)
+                wq = out["poses_weight"].reshape(n_rows, Cq, 4)[..., 0]
+                nonsym = (symmetry[:Cq] <= 0).float()[None, :]
+                per_roi = torch.minimum(((qp - qt) ** 2).sum(dim=-1), ((qp + qt) ** 2).sum(dim=-1)) * wq * nonsym
+                loss_quat = hp.quat_w * per_roi.sum() / n_valid
+                losses["loss_quat"] = loss_quat
+                loss = loss + loss_quat
+    losses["loss"] = loss
+    return loss, losses
+
+
+def assemble_pose_rows(rows: torch.Tensor, max_gt: int) -> torch.Tensor:
+    """(B,G,13) per-frame GT pose rows -> the (max_gt,13) batch `poses`
+    (`train.py:_assemble_pose_rows`): column 0 becomes the image index of
+    each real row, real rows go first in their order (a stable sort), and
+    the result is cut or zero-padded to max_gt rows."""
+    B, G, _ = rows.shape
+    valid = rows[:, :, 1] > 0
+    bidx = torch.arange(B, dtype=rows.dtype, device=rows.device)[:, None].expand(B, G)
+    rows = rows.clone()
+    rows[:, :, 0] = torch.where(valid, bidx, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    flat = rows.reshape(B * G, 13)
+    order = torch.sort((~valid.reshape(B * G)).to(torch.uint8), stable=True).indices
+    flat = flat[order]
+    if B * G >= max_gt:
+        return flat[:max_gt]
+    out = torch.zeros((max_gt, 13), dtype=flat.dtype, device=flat.device)
+    out[: B * G] = flat
+    return out
+
+
+def sample_batch(bank: Dict[str, torch.Tensor], batch_size: int, max_gt: int, chromatic: bool, add_noise: bool,
+                 draws: Draws) -> Dict[str, torch.Tensor]:
+    """The batch and its augmentation parameters, drawn on the bank's device
+    (`train.py:445-471`): frames uniformly with replacement; HLS deltas
+    U(-.5,.5) * (0.02*180, 0.2*256, 0.2*256); noise on 90% of the images
+    with sigma = sqrt(U(0,1) * 0.3 * 256)."""
+    dev = bank["data"].device
+    idx = draws.randint("bank/index", bank["data"].shape[0], (batch_size,), dev)
+    batch = {
+        "data": bank["data"][idx],
+        "gt_label_2d": bank["label"][idx].to(torch.int32),
+        "meta_data": bank["meta_data"][idx],
+        "gt_centers": bank["gt_centers"][idx],
+        "poses": assemble_pose_rows(bank["pose_rows"][idx], max_gt),
+    }
+    if chromatic:
+        u = draws.uniform("chroma", (batch_size, 3), dev) - 0.5
+        batch["chroma_dhls"] = u * torch.tensor([0.02 * 180.0, 0.2 * 256.0, 0.2 * 256.0], device=dev)
+    if add_noise:
+        gate = draws.uniform("noise/gate", (batch_size,), dev) < 0.9
+        sigma = torch.sqrt(draws.uniform("noise/sigma", (batch_size,), dev) * 0.3 * 256.0)
+        batch["noise_sigma"] = torch.where(gate, sigma, torch.zeros((), device=dev))
+    return batch
+
+
+def train_update(state: TrainState, loss: torch.Tensor, lr: float) -> torch.Tensor:
+    """Backward and one optimizer update at `lr`; returns the gradient's
+    global norm before clipping."""
+    for p in state.optimizer.params:
+        p.grad = None
+    loss.backward()
+    g_norm = state.optimizer.step(lr)
+    state.step += 1
+    return g_norm
+
+
+def make_bank_train_step(
+    model_cfg: PoseCNNConfig,
+    hp: TrainHParams,
+    points: torch.Tensor,
+    symmetry: torch.Tensor,
+    extents: torch.Tensor,
+    batch_size: int,
+    max_gt: int = 24,
+    chromatic: bool = False,
+    add_noise: bool = False,
+) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
+    """Train step over a device bank (`train.py:make_bank_train_step`):
+    step(state, bank, draws) samples the batch, computes the losses and
+    their gradients, and updates the state in place at
+    lr_schedule(hp)(state.step). Returns the loss terms (detached), the lr
+    and the gradient norm."""
+    sched = lr_schedule(hp)
+
+    def step_fn(state: TrainState, bank: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
+        batch = sample_batch(bank, batch_size, max_gt, chromatic, add_noise, draws)
+        loss, losses = compute_losses(state.model, model_cfg, hp, batch, points, symmetry, extents, draws)
+        lr = sched(state.step)
+        g_norm = train_update(state, loss, lr)
+        out = {k: v.detach() for k, v in losses.items()}
+        out["lr"] = torch.tensor(lr, dtype=torch.float64)
+        out["grad_norm"] = g_norm
+        return out
+
+    return step_fn
+
+
+class Solver:
+    """The iteration loop of `engine/train.py:Solver` (training only): one
+    step a iteration, each with its own draws from one generator seeded with
+    `RNG_SEED` on the bank's device, and a log line of every step's losses
+    and lr. Snapshots, resume and signal handling are not ported yet."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+
+    def train(self, state: TrainState, bank: Dict[str, torch.Tensor], max_iters: int,
+              log: Optional[Callable[[str], None]] = print) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        gen = torch.Generator(device=bank["data"].device)
+        gen.manual_seed(RNG_SEED)
+        metrics: Dict[str, torch.Tensor] = {}
+        for it in range(state.step, max_iters):
+            t0 = time.perf_counter()
+            metrics = self.step_fn(state, bank, Draws(gen))
+            if log is not None:
+                m = {k: float(v) for k, v in metrics.items()}
+                log(f"iter {it + 1}/{max_iters} " + " ".join(f"{k}: {v:.6g}" for k, v in sorted(m.items()))
+                    + f" ({time.perf_counter() - t0:.3f}s)")
+        return state, metrics

@@ -1,19 +1,37 @@
-"""Entry point of the port: flagship PoseCNN inference, raw frame to poses.
+"""Entry points of the port: flagship PoseCNN inference and training.
 
-Mirrors `__graft_entry__.py:entry`: the 22-class VGG16 PoseCNN at 640x480 in
-bf16, weights drawn from numpy seed 0 (`core.convert.init_params_numpy`),
-Hough voting with 8 class slots, 512 samples, centre stride 4, pixel stride
-3 and the approx sampler.
+`entry` mirrors `__graft_entry__.py:entry`: the 22-class VGG16 PoseCNN at
+640x480 in bf16, weights drawn from numpy seed 0
+(`core.convert.init_params_numpy`), Hough voting with 8 class slots, 512
+samples, centre stride 4, pixel stride 3 and the approx sampler.
+
+`train_entry` builds the flagship training step of
+`experiments/cfgs/lov_syn_capstone.yml` (`config.flagship_train_cfg`) on the
+same seed-0 weights, over a device bank of the frozen frames of
+`data/lov_syn_val_v4/`. The YCB model points and extents are not in the
+repository, so the extents are 0.1 m (as `entry` sets them) and the ADD
+loss's points are seeded uniformly inside those boxes, as
+`__graft_entry__.dryrun_multichip` seeds its own.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
-from posecnn_torch.config import PIXEL_MEANS, flagship_cfg
+from posecnn_torch.config import (
+    ADD_NUM_POINTS, FLAGSHIP_TRAIN_BATCH, PIXEL_MEANS, YCB_SYMMETRY, flagship_cfg, flagship_train_cfg,
+)
 from posecnn_torch.core.convert import init_params_numpy, make_model
+from posecnn_torch.data.device_bank import bank_to_device, load_frozen_bank
+from posecnn_torch.data.minibatch import rescale_points
 from posecnn_torch.engine.test import set_float32_precision
+from posecnn_torch.engine.train import create_train_state, make_bank_train_step
 from posecnn_torch.models.posecnn import posecnn_forward
+
+FRAMES_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "lov_syn_val_v4")
 
 
 def entry(device="cuda"):
@@ -36,3 +54,31 @@ def entry(device="cuda"):
     meta[0, 0], meta[0, 4], meta[0, 2], meta[0, 5] = 1066.8, 1067.5, 312.99, 241.31
     extents = torch.full((C, 3), 0.1, dtype=torch.float32, device=device)
     return fn, (model, raw, meta, extents)
+
+
+def train_objects(num_classes: int, seed: int = 0):
+    """(loss points (C,P,3), symmetry (C,), extents (C,3)), numpy: 0.1 m
+    extents, P = ADD_NUM_POINTS points per class drawn uniformly inside the
+    box from numpy seed `seed` (class 0, the background, has none), rescaled
+    for the loss as the JAX trainer does (`data/minibatch.py:rescale_points`)."""
+    extents = np.full((num_classes, 3), 0.1, np.float32)
+    symmetry = np.asarray(YCB_SYMMETRY[:num_classes], np.float32)
+    points = np.random.RandomState(seed).uniform(-0.05, 0.05, (num_classes, ADD_NUM_POINTS, 3)).astype(np.float32)
+    points[0] = 0.0
+    return rescale_points(points, extents, symmetry).astype(np.float32), symmetry, extents
+
+
+def train_entry(device="cuda"):
+    """Returns (step, state, bank). step(state, bank, draws) runs one
+    flagship training step (B=2 at 640x480, bf16) and updates `state` in
+    place; `state` holds the seed-0 model, the optimizer and the step
+    counter; `bank` is every frozen frame on `device`.
+    `engine.train.Solver` drives it."""
+    cfg, hp = flagship_train_cfg()
+    set_float32_precision()
+    model = make_model(cfg, init_params_numpy(0, cfg), device)
+    state = create_train_state(model, hp)
+    points, symmetry, extents = (torch.from_numpy(a).to(device) for a in train_objects(cfg.num_classes))
+    bank = bank_to_device(load_frozen_bank(FRAMES_DIR, FLAGSHIP_TRAIN_BATCH["max_gt"]), device)
+    step = make_bank_train_step(cfg, hp, points, symmetry, extents, **FLAGSHIP_TRAIN_BATCH)
+    return step, state, bank

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from posecnn_torch.ops.conv3x3 import conv3x3_raw, conv3x3_vjp, oihw_to_hwio
+
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
@@ -50,13 +52,33 @@ def conv2d(
     return y
 
 
+class _Conv3x3MB(torch.autograd.Function):
+    """`layers.py:_conv3x3_mb` (custom_vjp): the bf16 conv body by the
+    conv3x3 kernel (zero bias, no ReLU, bf16 out), then the bias added in
+    bf16 and ReLU; backward `_conv3x3_mb_bwd`, dx by the same kernel."""
+
+    @staticmethod
+    def forward(ctx, xb, w, b):
+        wb = oihw_to_hwio(w).to(torch.bfloat16).contiguous()
+        zeros = torch.zeros((wb.shape[3],), dtype=torch.float32, device=xb.device)
+        y = torch.relu(conv3x3_raw(xb, wb, zeros, False) + b.to(torch.bfloat16))
+        ctx.save_for_backward(xb, wb, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb, y = ctx.saved_tensors
+        g = torch.where(y > 0, g.to(torch.bfloat16), torch.zeros((), dtype=torch.bfloat16, device=g.device))
+        return conv3x3_vjp(xb, wb, g, ctx.needs_input_grad)
+
+
 def conv3x3_bf16_bias_relu(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The trunk's bf16 3x3 branch (forward of `layers.py:conv3x3_manual_bwd`):
-    a bf16 convolution, then the bias added in bf16, then ReLU; the output
-    stays bf16."""
-    xb = x.to(torch.bfloat16)
-    y = _nhwc(F.conv2d(_nchw(xb), weight.to(torch.bfloat16), padding=1))
-    return torch.relu(y + bias.to(torch.bfloat16))
+    """The trunk's bf16 3x3 branch (`layers.py:conv3x3_manual_bwd`): a bf16
+    convolution, then the bias added in bf16, then ReLU; the output stays
+    bf16. The convolution and its dgrad run on the conv3x3 kernel. The cast
+    to bf16 sits outside the autograd function, as in JAX, so dx comes back
+    in the caller's dtype."""
+    return _Conv3x3MB.apply(x.to(torch.bfloat16).contiguous(), weight, bias)
 
 
 def max_pool(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
@@ -103,8 +125,11 @@ def bilinear_matrix(n_in: int, k: int, stride: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _interp_matrix(n_in: int, k: int, stride: int, device: torch.device) -> torch.Tensor:
     # cached on the device: a fresh host-to-device copy per call would stall
-    # the stream behind the work already queued
-    return torch.from_numpy(bilinear_matrix(n_in, k, stride)).to(device)
+    # the stream behind the work already queued. Made outside inference mode:
+    # a cached inference tensor, made by a first call under
+    # torch.inference_mode, could not be saved for a later backward.
+    with torch.inference_mode(False):
+        return torch.from_numpy(bilinear_matrix(n_in, k, stride)).to(device)
 
 
 def deconv(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
@@ -160,6 +185,22 @@ def fc(
     if relu:
         y = torch.relu(y)
     return y
+
+
+def dropout(
+    x: torch.Tensor,
+    keep_prob: float,
+    generator: Optional[torch.Generator] = None,
+    uniform: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """tf.nn.dropout (`layers.py:dropout`): keeps x / keep_prob where a
+    U[0,1) draw is below keep_prob, else 0. The draws come from `generator`
+    (on x's device), or are handed in as `uniform` (a replayed step)."""
+    if keep_prob >= 1.0:
+        return x
+    if uniform is None:
+        uniform = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(uniform < keep_prob, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def softmax_hd(x: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,22 @@
-"""PoseCNN inference: VGG16 trunk, label and vertex heads, Hough voting,
-RoI pooling and the quaternion head.
+"""PoseCNN: VGG16 trunk, label and vertex heads, Hough voting, RoI pooling
+and the quaternion head, for inference and training.
 
-Port of `posecnn_tpu/models/posecnn.py` for inference (`is_train=False`).
-`PoseCNN` holds the parameters under the JAX package's names;
-`posecnn_forward(model, cfg, ...)` is the network, as
-`posecnn_forward(params, cfg, ...)` is in JAX, and returns the same named
-endpoints in the same layouts (NHWC maps, (R, 7) rois).
+Port of `posecnn_tpu/models/posecnn.py`. `PoseCNN` holds the parameters
+under the JAX package's names; `posecnn_forward(model, cfg, ...)` is the
+network, as `posecnn_forward(params, cfg, ...)` is in JAX, and returns the
+same named endpoints in the same layouts (NHWC maps, (R, 7) rois).
+
+Training (`cfg.is_train`) adds dropout on add_score, addv, fc6 and fc7, the
+`gt_label_weight` endpoint, GT rows into Hough voting (targets and 9 rows a
+detection), the per-image `hough_gt_mix` draw that feeds Hough the GT
+labels and vertex targets instead of the heads', and `poses_pred`. Its
+random numbers come from a `draws` object (`engine.train.Draws`): one
+U[0,1) tensor per named use, from a torch.Generator or replayed.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -18,8 +24,10 @@ from torch import nn
 from posecnn_torch.config import PoseCNNConfig
 from posecnn_torch.models import layers as L
 from posecnn_torch.models.backbone import Conv, VGGTrunk, scaled_width
+from posecnn_torch.ops.hard_label import hard_label
 from posecnn_torch.ops.hough_voting import hough_voting
-from posecnn_torch.ops.roi_pool import roi_pool_batched
+from posecnn_torch.ops.roi_pool import crop_pool_batched, roi_pool_batched
+from posecnn_torch.ops.vertex_targets import vertex_targets_device
 
 
 class Linear(nn.Module):
@@ -32,15 +40,14 @@ class Linear(nn.Module):
 
 
 def _check_supported(cfg: PoseCNNConfig) -> None:
-    if cfg.is_train:
-        raise NotImplementedError("slice B: training is not ported yet")
     unported = {
         "input_format != 'COLOR'": cfg.input_format != "COLOR",
         "vertex_reg_3d": cfg.vertex_reg_3d,
         "adaptation": cfg.adaptation,
         "vote_threshold > 0": cfg.vote_threshold > 0,
-        "use_crop_pool": cfg.use_crop_pool,
         "hough_from_gt": cfg.hough_from_gt,
+        # the exact roi_pool_batched backward (roi_pool.py:182-269) is not ported
+        "is_train without use_crop_pool": cfg.is_train and cfg.pose_reg and not cfg.use_crop_pool,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -75,29 +82,44 @@ class PoseCNN(nn.Module):
                 self.fc8 = Linear(cfg.fc_dim, 4 * C, device=device)
 
 
+def _dropout(x: torch.Tensor, keep: float, draws, name: str) -> torch.Tensor:
+    if keep >= 1.0:
+        return x
+    return L.dropout(x, keep, uniform=draws.uniform(name, x.shape, x.device))
+
+
 def posecnn_forward(
     model: PoseCNN,
     cfg: PoseCNNConfig,
     data: torch.Tensor,
     extents: torch.Tensor,
     meta_data: torch.Tensor,
+    gt_poses: Optional[torch.Tensor] = None,
+    gt_label_2d: Optional[torch.Tensor] = None,
+    gt_centers: Optional[torch.Tensor] = None,
+    draws=None,
 ) -> Dict[str, torch.Tensor]:
-    """data (B,H,W,3) mean-subtracted BGR; extents (C,3); meta_data (B,48).
-    Returns the named endpoints."""
+    """data (B,H,W,3) mean-subtracted BGR; extents (C,3); meta_data (B,48);
+    gt_poses (G,13) zero-padded GT rows (training); gt_label_2d (B,H,W) int
+    and gt_centers (B,G,4) (training); `draws` the step's random numbers
+    (training with keep_prob < 1 or hough_gt_mix > 0). Returns the named
+    endpoints."""
     _check_supported(cfg)
     C = cfg.num_classes
     dt = cfg.compute_dtype
+    train = cfg.is_train
+    keep = cfg.keep_prob if train else 1.0
     m = model
 
     net = m.trunk(data, compute_dtype=dt)
     conv5, conv4 = net["conv5_3"], net["conv4_3"]
     out: Dict[str, torch.Tensor] = {"conv4_3": conv4, "conv5_3": conv5}
 
-    # semantic labeling branch (posecnn.py:175-192); dropout is off at inference
+    # semantic labeling branch (posecnn.py:175-192)
     score_conv5 = L.conv2d(m.score_conv5.weight, m.score_conv5.bias, conv5, relu=True, compute_dtype=dt)
     upscore_conv5 = L.deconv(score_conv5, 4, 2)
     score_conv4 = L.conv2d(m.score_conv4.weight, m.score_conv4.bias, conv4, relu=True, compute_dtype=dt)
-    add_score = score_conv4 + upscore_conv5
+    add_score = _dropout(score_conv4 + upscore_conv5, keep, draws, "dropout/add_score")
     score = L.conv1x1_upsample(m.score.weight, m.score.bias, add_score, 16, 8, relu=True, compute_dtype=dt)
     out["score"] = score
     out["prob"] = L.log_softmax_hd(score)
@@ -105,6 +127,8 @@ def posecnn_forward(
     out["prob_normalized"] = prob_normalized
     label_2d = L.argmax_2d(prob_normalized)
     out["label_2d"] = label_2d
+    if gt_label_2d is not None:
+        out["gt_label_weight"] = hard_label(prob_normalized, gt_label_2d, cfg.threshold_label)
     if not cfg.vertex_reg:
         return out
 
@@ -112,31 +136,42 @@ def posecnn_forward(
     sc5v = L.conv2d(m.score_conv5_vertex.weight, m.score_conv5_vertex.bias, conv5, relu=False, compute_dtype=dt)
     up5v = L.deconv(sc5v, 4, 2)
     sc4v = L.conv2d(m.score_conv4_vertex.weight, m.score_conv4_vertex.bias, conv4, relu=False, compute_dtype=dt)
-    addv = sc4v + up5v
+    addv = _dropout(sc4v + up5v, keep, draws, "dropout/addv")
     vertex_pred = L.conv1x1_upsample(
         m.vertex_pred.weight, m.vertex_pred.bias, addv, 16, 8, relu=False, compute_dtype=dt
     )
     out["vertex_pred"] = vertex_pred
 
-    # no GT rows at inference: one zero row, JAX's default (posecnn.py:217-218)
-    gt_poses = torch.zeros((1, 13), dtype=torch.float32, device=data.device)
-    hough = hough_voting(
-        label_2d,
-        vertex_pred.float(),
-        extents,
-        meta_data,
-        gt_poses,
-        num_classes=C,
-        is_train=False,
-        skip_pixels=cfg.skip_pixels,
-        label_threshold=cfg.label_threshold,
-        class_slots=cfg.hough_class_slots,
-        max_samples=cfg.hough_max_samples,
-        center_stride=cfg.hough_center_stride,
-        refine_window=cfg.hough_refine_window,
-        pixel_grid_stride=cfg.hough_pixel_stride,
-        sampler=cfg.hough_sampler,
-    )
+    # Hough voting, no gradient (posecnn.py:216-283); with no GT rows, one
+    # zero row, JAX's default
+    if gt_poses is None:
+        gt_poses = torch.zeros((1, 13), dtype=torch.float32, device=data.device)
+    with torch.no_grad():
+        hough_label, hough_vert = label_2d, vertex_pred.float()
+        if train and cfg.hough_gt_mix > 0.0:
+            if gt_label_2d is None or gt_centers is None:
+                raise ValueError("hough_gt_mix needs gt_label_2d and gt_centers")
+            gt_vt, _ = vertex_targets_device(gt_label_2d, gt_centers, C)
+            pick_gt = draws.uniform("hough_gt_mix", (gt_label_2d.shape[0],), data.device) < cfg.hough_gt_mix
+            hough_label = torch.where(pick_gt[:, None, None], gt_label_2d.to(label_2d.dtype), label_2d)
+            hough_vert = torch.where(pick_gt[:, None, None, None], gt_vt, hough_vert)
+        hough = hough_voting(
+            hough_label,
+            hough_vert,
+            extents,
+            meta_data,
+            gt_poses,
+            num_classes=C,
+            is_train=train,
+            skip_pixels=cfg.skip_pixels,
+            label_threshold=cfg.label_threshold,
+            class_slots=cfg.hough_class_slots,
+            max_samples=cfg.hough_max_samples,
+            center_stride=cfg.hough_center_stride,
+            refine_window=cfg.hough_refine_window,
+            pixel_grid_stride=cfg.hough_pixel_stride,
+            sampler=cfg.hough_sampler,
+        )
     out["rois"] = hough.rois
     out["poses_init"] = hough.poses_init
     out["poses_target"] = hough.poses_target
@@ -150,11 +185,18 @@ def posecnn_forward(
     B = data.shape[0]
     R = hough.rois.shape[0]
     rois_b = hough.rois.reshape(B, R // B, 7)
-    pool5 = roi_pool_batched(conv5.to(dt), rois_b, 7, 1.0 / 16.0)
-    pool4 = roi_pool_batched(conv4.to(dt), rois_b, 7, 1.0 / 8.0)
+    c5, c4 = conv5.to(dt), conv4.to(dt)
+    if cfg.use_crop_pool:
+        pool5 = crop_pool_batched(c5, rois_b, 1.0 / 16.0, 7)
+        pool4 = crop_pool_batched(c4, rois_b, 1.0 / 8.0, 7)
+    else:
+        pool5 = roi_pool_batched(c5, rois_b, 7, 1.0 / 16.0)
+        pool4 = roi_pool_batched(c4, rois_b, 7, 1.0 / 8.0)
     pool_score = (pool5 + pool4).reshape(R, 7, 7, -1)
     fc6 = L.fc(m.fc6.weight, m.fc6.bias, pool_score, relu=True, compute_dtype=dt)
+    fc6 = _dropout(fc6, keep, draws, "dropout/fc6")
     fc7 = L.fc(m.fc7.weight, m.fc7.bias, fc6, relu=True, compute_dtype=dt)
+    fc7 = _dropout(fc7, keep, draws, "dropout/fc7")
     fc8 = L.fc(m.fc8.weight, m.fc8.bias, fc7, relu=False, compute_dtype=dt)
     poses_tanh = torch.tanh(fc8)
     poses_mul = poses_tanh * hough.poses_weight

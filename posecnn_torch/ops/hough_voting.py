@@ -1,13 +1,17 @@
-"""Hough centre voting, inference outputs.
+"""Hough centre voting, inference and training outputs.
 
-Port of `posecnn_tpu/ops/hough_voting.py:hough_voting` with
-`is_train=False`: class slots from the label histogram, a fixed-size pixel
-sample per slot, votes on a coarse centre grid, an exact full-resolution
-refine window around each slot's coarse argmax, the inlier box at the winning
-centre, ROI rows and initial poses. Both vote passes go through
+Port of `posecnn_tpu/ops/hough_voting.py:hough_voting`: class slots from the
+label histogram, a fixed-size pixel sample per slot, votes on a coarse
+centre grid, an exact full-resolution refine window around each slot's
+coarse argmax, the inlier box at the winning centre, ROI rows and initial
+poses. Both vote passes go through
 `ops.voting.accumulate_votes` (the CUDA kernel on the card): the coarse grid
 with one set of centres shared by the slots, the refine window with one set
-per slot. Nothing here reads a value back to the host.
+per slot. Training (`is_train=True`) adds the GT quaternion targets of
+detections matched to a GT row by projected-box IoU > 0.2, and expands each
+detection into 9 rows: the box and 8 copies jittered by 5% of its size, in
+the reference order. Nothing here reads a value back to the host, and no
+gradient flows through the outputs.
 """
 
 from __future__ import annotations
@@ -26,6 +30,13 @@ INLIER_THRESHOLD = 0.9
 _CORNER_SIGNS = (
     (1, 1, 1), (-1, 1, 1), (1, -1, 1), (-1, -1, 1),
     (1, 1, -1), (-1, 1, -1), (1, -1, -1), (-1, -1, -1),
+)
+
+# training jitter offsets in the reference order (hough_voting.py:62-67):
+# row 0 is the box itself, then (-1,-1), (1,-1), (-1,1), (1,1), (0,-1),
+# (-1,0), (0,1), (1,0), in units of 5% of the box's width and height
+_JITTER = (
+    (0, 0), (-1, -1), (1, -1), (-1, 1), (1, 1), (0, -1), (-1, 0), (0, 1), (1, 0),
 )
 
 
@@ -98,7 +109,8 @@ def hough_voting(
     pixel_grid_stride: int = 1,
     sampler: str = "exact",
 ) -> HoughOutputs:
-    """Fixed-shape Hough voting, one detection per active class slot.
+    """Fixed-shape Hough voting, one detection per active class slot (9
+    rows each when `is_train`).
 
     label (B,H,W) int; vertex_pred (B,H,W,3C) f32; extents (C,3);
     meta_data (B,48) (fx=meta[0], px=meta[2], fy=meta[4], py=meta[5]);
@@ -111,8 +123,6 @@ def hough_voting(
     The multi-instance mode (`voting_threshold > 0`, `hough_voting_multi`)
     is not ported yet.
     """
-    if is_train:
-        raise NotImplementedError("slice B")
     if sampler not in ("exact", "approx"):
         raise ValueError(f"unknown sampler {sampler!r}")
     dev = label.device
@@ -258,17 +268,33 @@ def hough_voting(
     slot_cls, slot_valid, box, score, pose, targets, weights, domain = [
         torch.stack(t) for t in zip(*per_image)
     ]  # leading (B, S)
-    R = B * S
+    if is_train:
+        # 9 rows per detection (hough_voting.py:473-486)
+        J = len(_JITTER)
+        shift = torch.tensor(_JITTER, dtype=torch.float32, device=dev)  # (J, 2)
+        ww = (box[..., 2] - box[..., 0])[..., None]
+        hh = (box[..., 3] - box[..., 1])[..., None]
+        bx0 = box[..., None, 0] + shift[:, 0] * 0.05 * ww
+        by0 = box[..., None, 1] + shift[:, 1] * 0.05 * hh
+        box = torch.stack([bx0, by0, bx0 + ww, by0 + hh], dim=-1)  # (B,S,J,4)
+    else:
+        J = 1
+        box = box[:, :, None, :]
+    R = B * S * J
+
+    def rows(x):  # (B, S, ...) -> (R, ...), each slot repeated J times
+        return x[:, :, None].expand(B, S, J, *x.shape[2:]).reshape(R, *x.shape[2:])
+
     batch_col = torch.arange(B, device=dev).float()[:, None].expand(B, S)
     rois = torch.cat(
-        [batch_col[..., None], slot_cls.float()[..., None], box, score[..., None]], dim=-1
-    ).reshape(R, 7)
-    valid = slot_valid.reshape(R)
+        [rows(batch_col)[:, None], rows(slot_cls.float())[:, None], box.reshape(R, 4), rows(score)[:, None]], dim=-1
+    )
+    valid = rows(slot_valid)
     rois = torch.where(valid[:, None], rois, 0.0)
-    poses_init = torch.where(valid[:, None], pose.reshape(R, 7), 0.0)
-    poses_target = torch.where(valid[:, None], targets.reshape(R, 4 * C), 0.0)
-    poses_weight = torch.where(valid[:, None], weights.reshape(R, 4 * C), 0.0)
-    domains = torch.where(valid, domain.reshape(R), 0)
+    poses_init = torch.where(valid[:, None], rows(pose), 0.0)
+    poses_target = torch.where(valid[:, None], rows(targets), 0.0)
+    poses_weight = torch.where(valid[:, None], rows(weights), 0.0)
+    domains = torch.where(valid, rows(domain), 0)
     num_rois = valid.sum().to(torch.int32)
     return HoughOutputs(rois, poses_init, poses_target, poses_weight, domains, valid, num_rois)
 

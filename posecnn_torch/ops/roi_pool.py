@@ -6,12 +6,14 @@ bins over `round(coord * scale)`, clipped to the map; empty bins give 0) and
 an exact max over each bin. The TPU doubling table is a workaround for
 batched gathers on the TPU and is not carried over: this plain version is a
 separable masked max (over W per output column, then over H per output row).
-JAX computes it in XLA, not in a Pallas kernel.
+JAX computes it in XLA, not in a Pallas kernel. `crop_pool_batched`, the
+flagship training pool (`USE_CROP_POOL`), is at the end.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG = -1e30
 
@@ -73,3 +75,49 @@ def roi_pool_batched(
         empty = (hend[b] <= hstart[b])[:, :, None] | (wend[b] <= wstart[b])[:, None, :]
         out.append(torch.where(empty[..., None], torch.zeros((), dtype=feat.dtype, device=feat.device), o))
     return torch.stack(out)
+
+
+def crop_pool_batched(
+    feat: torch.Tensor,
+    rois: torch.Tensor,
+    spatial_scale: float = 1.0 / 16.0,
+    pool_size: int = 7,
+) -> torch.Tensor:
+    """Bilinear crop then 2x2 max pool (`roi_pool.py:crop_pool_batched`, the
+    flagship training pool): feat (B,H,W,C), rois (B,D,7), row (b, d) crops
+    image b -> (B, D, pool_size, pool_size, C).
+
+    Each roi is sampled on a (2p, 2p) grid at the centres of its cells; a
+    bf16 map times the f32 bilinear weights promotes to f32, as it does in
+    JAX, so the crops and the output are f32. The backward is autograd's:
+    the gathers scatter-add into the map, and the 2x2 max sends each cell's
+    gradient to its first largest sample, as XLA's select-and-scatter does.
+    """
+    B, H, W, C = feat.shape
+    D = rois.shape[1]
+    n = 2 * pool_size
+    r = rois.float()
+    x1 = r[..., 2] * spatial_scale
+    y1 = r[..., 3] * spatial_scale
+    x2 = r[..., 4] * spatial_scale
+    y2 = r[..., 5] * spatial_scale
+    t = (torch.arange(n, dtype=torch.float32, device=feat.device) + 0.5) / n
+    sx = x1[..., None] + t * (x2 - x1)[..., None]  # (B,D,n)
+    sy = y1[..., None] + t * (y2 - y1)[..., None]
+    x0 = torch.clamp(torch.floor(sx).long(), 0, W - 1)
+    x1i = torch.clamp(x0 + 1, 0, W - 1)
+    y0 = torch.clamp(torch.floor(sy).long(), 0, H - 1)
+    y1i = torch.clamp(y0 + 1, 0, H - 1)
+    ax = torch.clamp(sx - x0, 0.0, 1.0)[:, :, None, :, None]  # weights along a crop row
+    ay = torch.clamp(sy - y0, 0.0, 1.0)[:, :, :, None, None]
+    flat = feat.reshape(B, H * W, C)
+
+    def corner(yy, xx):
+        idx = (yy[..., :, None] * W + xx[..., None, :]).reshape(B, D * n * n, 1)
+        return torch.gather(flat, 1, idx.expand(B, D * n * n, C)).reshape(B, D, n, n, C)
+
+    top = corner(y0, x0) * (1 - ax) + corner(y0, x1i) * ax
+    bot = corner(y1i, x0) * (1 - ax) + corner(y1i, x1i) * ax
+    crops = top * (1 - ay) + bot * ay  # (B,D,n,n,C) f32
+    pooled = F.max_pool2d(crops.reshape(B * D, n, n, C).permute(0, 3, 1, 2), 2, 2)
+    return pooled.permute(0, 2, 3, 1).reshape(B, D, pool_size, pool_size, C)

@@ -1,23 +1,26 @@
-"""The port on an NVIDIA GPU: the CUDA kernel against its plain version, and
-the card's results against the CPU and the JAX goldens.
+"""The port on an NVIDIA GPU: the CUDA kernels against their plain versions,
+and the card's results against the CPU and the JAX goldens.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so it also runs where JAX is not installed:
 `python -m pytest tests/test_torch_cuda.py -q --noconftest`.
 
 Tolerances: vote counts exact; depth sums rtol 1e-5, atol 1e-4 (another
-summation order); the Hough and small-slice goldens through the checks of
-tests/torch_parity.py that the CPU tests and chip_smoke.py also use (the
-float32 slice with TF32 off, held to 1e-5 of the largest magnitude).
+summation order); conv3x3 outputs within 1 bf16 ulp (`bf16_ulp_excess`: the
+same f32 sums in another order, each rounded to bf16 once); the Hough,
+small-slice and training goldens through the checks of tests/torch_parity.py
+that the CPU tests and chip_smoke.py also use (float32 with TF32 off).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from posecnn_torch.ops import conv3x3 as C
 from posecnn_torch.ops import voting as V
 from tests.torch_parity import (
-    check_hough_golden, check_slice_golden, hough_on_golden_frame, small_slice_on_golden, t, vote_samples,
+    bf16_ulp_excess, check_hough_golden, check_slice_golden, check_train_golden, hough_on_golden_frame,
+    small_slice_on_golden, small_train_on_golden, t, vote_samples,
 )
 
 torch.set_num_threads(1)
@@ -91,3 +94,43 @@ def test_hough_on_cuda_matches_jax_golden(dev):
 @pytest.mark.cuda
 def test_small_slice_on_cuda_matches_jax_golden(dev):
     check_slice_golden(*small_slice_on_golden(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["trunk", "bias_relu", "dx"])
+@pytest.mark.parametrize("B,H,W,cin", [(2, 480, 640, 64), (1, 37, 50, 64)], ids=["conv1_2", "ragged"])
+def test_conv3x3_kernel_matches_plain(dev, mode, B, H, W, cin):
+    """Both forward modes and dx; the ragged shape has H and W off the tile
+    (8 x 64 a block)."""
+    rng = np.random.RandomState(B + H)
+    x = t(rng.randn(B, H, W, cin).astype(np.float32)).to(dev)
+    w = t((rng.randn(3, 3, cin, 64) * 0.06).astype(np.float32)).to(dev).to(torch.bfloat16)
+    b = t((rng.randn(64) * 0.1).astype(np.float32)).to(dev)
+    if mode == "dx":
+        x = t(rng.randn(B, H, W, 64).astype(np.float32)).to(dev)
+        w, b = C.flip_transpose(w), torch.zeros(cin, device=dev)
+    else:
+        x = torch.relu(x)
+        b = b if mode == "bias_relu" else torch.zeros(64, device=dev)
+    x = x.to(torch.bfloat16)
+    relu = mode == "bias_relu"
+    before = C.CONV3X3_LAUNCHES
+    y = C.conv3x3_raw(x, w, b, relu)
+    torch.cuda.synchronize()
+    assert C.CONV3X3_LAUNCHES == before + 1
+    assert bf16_ulp_excess(y, C.conv3x3_plain(x, w, b, relu)) <= 1.0
+
+
+@pytest.mark.cuda
+def test_conv3x3_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((1, 8, 8, 24), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((3, 3, 24, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        C.conv3x3_raw(x, w, torch.zeros(64, device=dev), False)  # Cin not a multiple of 16
+    with pytest.raises(ValueError):
+        C.conv3x3_raw(x[..., :16], w[:, :, :16].cpu(), torch.zeros(64, device=dev), False)  # mixed devices
+
+
+@pytest.mark.cuda
+def test_small_train_step_on_cuda_matches_jax_golden(dev):
+    check_train_golden(*small_train_on_golden(dev))

@@ -113,5 +113,12 @@ def test_hough_golden_is_current():
 
 
 def test_hough_training_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice B"):
-        hough_voting(*[t(a) for a in _scene_args()], num_classes=C, is_train=True)
+    """Training was refused before slice B; it is ported now, so this holds
+    the training outputs (9 jittered rows a detection) to JAX on the scene."""
+    args = _scene_args()
+    kw = dict(num_classes=C, is_train=True, skip_pixels=1, label_threshold=10, class_slots=3,
+              max_samples=64, center_stride=4, refine_window=8)
+    ref = jax_hough_voting(*[jnp.asarray(a) for a in args], sample_chunk=32, use_pallas=False, **kw)
+    out = hough_voting(*[t(a) for a in args], **kw)
+    assert out.rois.shape == (3 * 9, 7) and int(out.num_rois) == 2 * 9
+    _compare(out, ref)

@@ -3,9 +3,10 @@
 Inputs are made with numpy and handed to both packages; JAX stays on the
 CPU. `goldens()` loads tools/make_torch_goldens.py, which writes (and the
 tests regenerate) the JAX goldens under tests/golden/. The golden checks
-(`check_hough_golden`, `check_slice_golden`) are shared by the CPU tests,
-tests/test_torch_cuda.py and chip_smoke.py, so all hold the port to one
-limit. The module imports no JAX at module level.
+(`check_hough_golden`, `check_slice_golden`, `check_train_golden`) and the
+bf16 limit of the conv3x3 kernel (`bf16_ulp_excess`) are shared by the CPU
+tests, tests/test_torch_cuda.py and chip_smoke.py, so all hold the port to
+one limit. The module imports no JAX at module level.
 """
 
 from __future__ import annotations
@@ -133,4 +134,85 @@ def check_slice_golden(out, g) -> dict:
     for k, atol in (("rois", 1e-3), ("poses_init", 1e-4), ("poses_tanh", 1e-5)):
         np.testing.assert_allclose(o[k], g[f"out/{k}"], atol=atol, err_msg=k)
         err[k] = float(np.abs(o[k] - g[f"out/{k}"]).max())
+    return err
+
+
+def bf16_ulp_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |got - ref| in units of one bf16 ulp, the ulp taken at the
+    larger magnitude of the two and no finer than at 2**-8 of ref's largest
+    magnitude. Two bf16 results of the same f32 sum taken in different
+    orders differ by at most 1: the sums part by ~1e-6 of the terms, then
+    each is rounded to bf16 once. Returns the largest ratio; <= 1 passes."""
+    got, ref = got.detach().float(), ref.detach().float()
+    floor = ref.abs().max() / 256.0
+    mag = torch.maximum(torch.maximum(got.abs(), ref.abs()), floor)
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return float(((got - ref).abs() / ulp).max())
+
+
+def small_train_on_golden(device="cpu"):
+    """The port's small training step (f32) on the training golden's
+    weights (`init_params_numpy(seed)`), batch and points, on `device`.
+    Returns (losses, grads by state_dict name, params after the update,
+    the lr, the gradient's global norm, the params before, golden)."""
+    from posecnn_torch.config import PoseCNNConfig
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.engine.train import TrainHParams, compute_losses, create_train_state, lr_schedule, train_update
+
+    g = load_npz(goldens().TRAIN_GOLDEN)
+    cfg = PoseCNNConfig(compute_dtype=torch.float32, **{k[4:]: g[k].item() for k in g if k.startswith("cfg/")})
+    hp = TrainHParams(**{k[3:]: g[k].item() for k in g if k.startswith("hp/")})
+    model = make_model(cfg, init_params_numpy(int(g["seed"]), cfg), device)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = create_train_state(model, hp)
+    batch = {k[len("batch/"):]: t(g[k]).to(device) for k in g if k.startswith("batch/")}
+    loss, losses = compute_losses(model, cfg, hp, batch, t(g["points"]).to(device), t(g["symmetry"]).to(device),
+                                  t(g["extents"]).to(device))
+    lr = lr_schedule(hp)(state.step)
+    g_norm = train_update(state, loss, lr)
+    grads = {k: p.grad.detach() for k, p in model.named_parameters()}
+    after = {k: v.detach() for k, v in model.state_dict().items()}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, after, lr, float(g_norm), before, g
+
+
+def check_train_golden(losses, grads, after, lr, g_norm, before, g) -> dict:
+    """Holds the small training step to the JAX golden: every loss term and
+    the gradient's global norm within 1e-5 relative; each parameter's
+    gradient within 5e-5 of its largest magnitude (f32 sums over thousands
+    of pixels in other orders, with cancellation in the bias sums: the port
+    reads 2.1e-6 on the CPU and 1.7e-5 on the H100, trunk.conv2_2.bias);
+    the lr exactly; the update
+    p - lr * clip(g) (momentum starts at zero) made from the golden's
+    gradients within 2e-5 of the step's largest move (and two f32 ulps of
+    the parameter). Returns the max |err|s."""
+    from posecnn_torch.core.convert import params_from_numpy
+
+    err = {}
+    for k in (k[len("loss/"):] for k in g if k.startswith("loss/")):
+        ref = float(g[f"loss/{k}"])
+        assert abs(losses[k] - ref) <= 1e-5 * max(abs(ref), 1e-3), (k, losses[k], ref)
+        err[k] = abs(losses[k] - ref)
+    assert abs(g_norm - float(g["grad_norm"])) <= 1e-5 * float(g["grad_norm"]), (g_norm, float(g["grad_norm"]))
+    assert lr == float(np.float32(g["lr"])) or abs(lr - float(g["lr"])) <= 1e-9, (lr, float(g["lr"]))
+    ref_grads = params_from_numpy({k[len("grads/"):]: g[k] for k in g if k.startswith("grads/")})
+    assert set(ref_grads) == set(grads), sorted(set(ref_grads) ^ set(grads))
+    clip = float(g["hp/clip_grad_norm"])
+    scale = min(1.0, clip / float(g["grad_norm"])) if clip > 0 else 1.0
+    worst_g = worst_p = 0.0
+    worst_name = ""
+    for k, ref in ref_grads.items():
+        got = grads[k].cpu()
+        tol = 5e-5 * float(ref.abs().max())
+        e = float((got - ref).abs().max())
+        assert e <= tol, (k, e, tol)
+        if e / max(float(ref.abs().max()), 1e-30) > worst_g:
+            worst_g, worst_name = e / max(float(ref.abs().max()), 1e-30), k
+        move = lr * scale * ref
+        e = float((after[k].cpu() - (before[k].cpu() - move)).abs().max())
+        # plus two f32 ulps of the parameter: p - move is rounded once
+        assert e <= 2e-5 * float(move.abs().max()) + 2.4e-7 * float(before[k].abs().max()), (k, e)
+        worst_p = max(worst_p, e)
+    err["grads (relative)"] = worst_g
+    err[f"worst grad: {worst_name}"] = worst_g
+    err["params after the update"] = worst_p
     return err

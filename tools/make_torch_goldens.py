@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes two files:
+Runs the JAX package (on the CPU) and writes three files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -13,7 +13,16 @@ Runs the JAX package (on the CPU) and writes two files:
       checkpoint npz layout (`['params']['conv1_1']['weights']`), the input
       frame, meta, extents and the JAX outputs.
 
-`chip_smoke.py` and the tests read both with numpy alone; the tests also
+  tests/golden/torch_port_small_train.npz
+      one flagship training step at a small config (trunk_scale 0.125,
+      C=22, fc_dim 64, frames v4/000000 and 000001 at 1/8 scale, 64x80,
+      float32, keep_prob 1, hough_gt_mix 1, given chroma deltas, no noise):
+      the config and hyper-parameters, the batch, the ADD points, every loss
+      term, the lr, the gradient's global norm and every parameter's
+      gradient (JAX layout, `['conv1_1']['weights']`). The weights are not
+      stored: both sides draw them with `init_params_numpy(TRAIN_SEED)`.
+
+`chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
 
 Usage: JAX_PLATFORMS=cpu python tools/make_torch_goldens.py
@@ -33,6 +42,7 @@ if ROOT not in sys.path:
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 HOUGH_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_hough_v4_000000.npz")
 SLICE_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_small_slice.npz")
+TRAIN_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_small_train.npz")
 HOUGH_FRAME = "data/lov_syn_val_v4/000000.npz"
 
 # flagship Hough settings (__graft_entry__.py:_flagship_cfg)
@@ -130,9 +140,139 @@ def small_slice_golden() -> dict:
     return g
 
 
+# the small training step: every module of the flagship step at narrow widths
+TRAIN_CFG = dict(
+    num_classes=22, num_units=8, is_train=True, keep_prob=1.0, hough_class_slots=4, hough_max_samples=64,
+    hough_center_stride=4, hough_refine_window=8, label_threshold=10, fc_dim=64, trunk_scale=0.125,
+    hough_pixel_stride=1, skip_pixels=1, hough_sampler="approx", use_crop_pool=True, hough_gt_mix=1.0,
+)
+TRAIN_HP = dict(
+    learning_rate=0.001, momentum=0.9, gamma=0.1, stepsize=40000, weight_reg=0.0001, clip_grad_norm=10.0,
+    margin=0.0001, pose_norm_valid=True, quat_w=0.5,
+)
+TRAIN_FRAMES = ("data/lov_syn_val_v4/000000.npz", "data/lov_syn_val_v4/000001.npz")
+# 480x640 -> 64x80: rows 16, 23, ..., 457 and every 8th column (a frame that
+# needs no padding: the bank's zero rows would be a flat region, whose 2x2
+# max-pool ties break on rounding)
+TRAIN_ROWS = (16, 7, 64)  # first, step, count
+TRAIN_COLS = (0, 8, 80)
+TRAIN_MAX_GT = 8
+TRAIN_POINTS = 64
+TRAIN_SEED = 1
+# HLS deltas (d_h, d_l, d_s) per image, inside the bank step's ranges
+TRAIN_CHROMA = ((0.9, -12.0, 7.5), (-1.2, 20.0, -15.0))
+
+
+def train_frames(paths=TRAIN_FRAMES):
+    """Frozen frames resampled to 64x80 on the TRAIN_ROWS x TRAIN_COLS grid,
+    with K and the centres mapped to the new pixel grid."""
+    from posecnn_torch.data.minibatch import Frame, load_frozen_frame
+
+    (r0, rs, rn), (c0, cs, cn) = TRAIN_ROWS, TRAIN_COLS
+    rows, cols = r0 + rs * np.arange(rn), c0 + cs * np.arange(cn)
+    scale = np.array([1.0 / cs, 1.0 / rs])
+    shift = np.array([c0, r0], np.float64)
+    out = []
+    for p in paths:
+        f = load_frozen_frame(os.path.join(ROOT, p))
+        K = np.array(f.intrinsic_matrix, np.float64)
+        K[0, :] /= cs
+        K[1, :] /= rs
+        K[:2, 2] -= shift * scale
+        centers = ((f.center - shift) * scale).astype(np.float32)
+        out.append(Frame(f.color[np.ix_(rows, cols)], f.label[np.ix_(rows, cols)], f.cls_indexes, f.poses, centers, K))
+    return out
+
+
+def train_inputs(num_classes: int = TRAIN_CFG["num_classes"]):
+    """(batch, points, symmetry, extents), numpy: the bank of the small
+    frames as one batch in frame order (pose rows assembled as the step
+    does), the given chroma deltas, and P=TRAIN_POINTS seeded ADD points in
+    0.1 m boxes, rescaled for the loss."""
+    from posecnn_torch.data.device_bank import pack_frames
+    from posecnn_torch.data.minibatch import rescale_points
+    from posecnn_torch.config import YCB_SYMMETRY
+
+    bank = pack_frames(train_frames(), TRAIN_MAX_GT)
+    rows = bank["pose_rows"].copy()
+    B, G, _ = rows.shape
+    valid = rows[:, :, 1] > 0
+    rows[:, :, 0] = np.where(valid, np.arange(B, dtype=np.float32)[:, None], 0.0)
+    flat, vflat = rows.reshape(B * G, 13), valid.reshape(B * G)
+    poses = np.zeros((TRAIN_MAX_GT, 13), np.float32)
+    packed = np.concatenate([flat[vflat], flat[~vflat]])[:TRAIN_MAX_GT]
+    poses[: len(packed)] = packed
+    batch = {
+        "data": bank["data"], "gt_label_2d": bank["label"].astype(np.int32), "meta_data": bank["meta_data"],
+        "gt_centers": bank["gt_centers"], "poses": poses, "chroma_dhls": np.asarray(TRAIN_CHROMA, np.float32),
+    }
+    extents = np.full((num_classes, 3), 0.1, np.float32)
+    symmetry = np.asarray(YCB_SYMMETRY[:num_classes], np.float32)
+    pts = np.random.RandomState(0).uniform(-0.05, 0.05, (num_classes, TRAIN_POINTS, 3)).astype(np.float32)
+    pts[0] = 0.0
+    return batch, rescale_points(pts, extents, symmetry).astype(np.float32), symmetry, extents
+
+
+def jax_train_steps(cfg_kw: dict, hp_kw: dict, params: dict, batch: dict, points, symmetry, extents, n_steps: int = 1):
+    """Run the JAX package's step (compute_losses + value_and_grad + the
+    optimizer update at lr_schedule(step)) n_steps times on one batch, f32.
+    Returns (losses of the first step, its grads, the lr, the global norm of
+    its grads, the params after n_steps), all numpy, JAX layout."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from posecnn_tpu.engine.train import TrainHParams, compute_losses, lr_schedule, make_optimizer, scale_updates
+    from posecnn_tpu.models.posecnn import PoseCNNConfig
+
+    cfg = PoseCNNConfig(compute_dtype=jnp.float32, **cfg_kw)
+    hp = TrainHParams(**hp_kw)
+    tx, sched = make_optimizer(hp), lr_schedule(hp)
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    opt = tx.init(p)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    args = (jnp.asarray(points), jnp.asarray(symmetry), jnp.asarray(extents), jax.random.PRNGKey(0))
+    grad_fn = jax.jit(jax.value_and_grad(compute_losses, has_aux=True), static_argnums=(1, 2))
+    first = None
+    for step in range(n_steps):
+        (_, losses), grads = grad_fn(p, cfg, hp, jb, *args)
+        lr = sched(step)
+        if first is None:
+            first = (
+                {k: float(v) for k, v in losses.items()},
+                jax.tree_util.tree_map(np.asarray, grads),
+                float(lr),
+                float(optax.global_norm(grads)),
+            )
+        updates, opt = tx.update(grads, opt, p)
+        p = optax.apply_updates(p, scale_updates(updates, lr))
+    return (*first, jax.tree_util.tree_map(np.asarray, p))
+
+
+def train_golden() -> dict:
+    from posecnn_torch.config import PoseCNNConfig as TorchCfg
+    from posecnn_torch.core.convert import init_params_numpy
+
+    params = init_params_numpy(TRAIN_SEED, TorchCfg(**TRAIN_CFG))
+    batch, points, symmetry, extents = train_inputs()
+    losses, grads, lr, g_norm, _ = jax_train_steps(TRAIN_CFG, TRAIN_HP, params, batch, points, symmetry, extents)
+    g = {f"cfg/{k}": np.asarray(v) for k, v in TRAIN_CFG.items()}
+    g.update({f"hp/{k}": np.asarray(v) for k, v in TRAIN_HP.items()})
+    g.update({f"batch/{k}": v for k, v in batch.items()})
+    g.update(points=points, symmetry=symmetry, extents=extents, seed=np.asarray(TRAIN_SEED),
+             lr=np.asarray(lr), grad_norm=np.asarray(g_norm))
+    g.update({f"loss/{k}": np.asarray(v, np.float32) for k, v in losses.items()})
+    for layer, leaves in grads.items():
+        if layer.startswith("upscore"):
+            continue  # fixed bilinear filters: zero gradient, not parameters of the port
+        for leaf, v in leaves.items():
+            g[f"grads/['{layer}']['{leaf}']"] = v
+    return g
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
-    for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden)):
+    for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 

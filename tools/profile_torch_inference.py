@@ -1,13 +1,22 @@
-"""Where a flagship inference frame of the PyTorch port spends its device time.
+"""Where a flagship inference frame, or a flagship training step, of the
+PyTorch port spends its time.
 
-Runs `posecnn_torch` flagship inference (640x480, bf16, seeded weights) on
-frozen frames under torch.profiler and prints the device's busy share of the
-profiled wall window, host and device time per stage, and the device time by
-kernel (the `--top` largest). Stages are spans this tool opens around the
-calls into each layer: the trunk, Hough voting, RoI pooling, the fc layers
-and host NMS; "heads" is the rest of the frame. Needs one NVIDIA GPU.
+Inference (default): `posecnn_torch` flagship inference (640x480, bf16,
+seeded weights) on frozen frames. Training (`--train`): the flagship
+training step of `posecnn_torch.entry.train_entry` (B=2 at 640x480, bf16,
+device bank). Runs under torch.profiler and prints the device's busy share
+of the profiled wall window, host and device time per stage, and the device
+time by kernel (the `--top` largest).
 
-Usage: python tools/profile_torch_inference.py [--frames 6] [--top 25]
+Stages are spans this tool opens around the calls into each layer. For
+inference: the trunk, Hough voting, RoI pooling, the fc layers and host NMS;
+"heads and the rest" is the rest of the frame. For training: batch sampling,
+preprocessing (jitter, noise), the trunk's forward, Hough voting, the crop
+pool, the fc layers, the loss functions and the optimizer update; "backward
+and the rest" is the rest of the step (the backward runs on autograd's own
+thread, outside the spans). Needs one NVIDIA GPU.
+
+Usage: python tools/profile_torch_inference.py [--train] [--frames 6] [--top 25]
 """
 
 from __future__ import annotations
@@ -24,16 +33,9 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 
-def main() -> int:
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from posecnn_torch.config import PIXEL_MEANS, flagship_cfg
-    from posecnn_torch.engine import test as engine
-    from posecnn_torch.entry import entry
-    from posecnn_torch.models import backbone, layers
-    from posecnn_torch.models import posecnn as model_mod
-    from posecnn_torch.utils.meta import build_meta_data
+def _spans(stages, record_function):
+    """Wrap each (owner, attribute) of a stage in a record_function span of
+    the stage's name."""
 
     def span(name, fn):
         def wrapped(*a, **k):
@@ -41,66 +43,113 @@ def main() -> int:
                 return fn(*a, **k)
         return wrapped
 
-    stages = {
-        "stage:trunk": (backbone.VGGTrunk, "forward"),
-        "stage:hough": (model_mod, "hough_voting"),
-        "stage:roi_pool": (model_mod, "roi_pool_batched"),
-        "stage:fc": (layers, "fc"),
-        "stage:host_nms": (engine, "postprocess_detections"),
-    }
-    for name, (owner, attr) in stages.items():
-        setattr(owner, attr, span(name, getattr(owner, attr)))
+    for name, targets in stages.items():
+        for owner, attr in targets:
+            setattr(owner, attr, span(name, getattr(owner, attr)))
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from posecnn_torch.config import PIXEL_MEANS, RNG_SEED, flagship_cfg
+    from posecnn_torch.engine import test as engine
+    from posecnn_torch.engine import train as trainer
+    from posecnn_torch.entry import entry, train_entry
+    from posecnn_torch.models import backbone, layers
+    from posecnn_torch.models import posecnn as model_mod
+    from posecnn_torch.utils.meta import build_meta_data
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--train", action="store_true", help="profile the flagship training step")
+    ap.add_argument("--frames", type=int, default=6, help="frames (or training steps) to profile")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    _, (model, _, _, extents) = entry(dev)
-    infer = engine.make_inference_fn(flagship_cfg(is_train=False), PIXEL_MEANS, dev)
-    d = os.path.join(ROOT, "data", "lov_syn_val_v4")
-    frames = []
-    for name in sorted(os.listdir(d))[: args.frames]:
-        with np.load(os.path.join(d, name)) as f:
-            frames.append((np.ascontiguousarray(f["color"][None]), build_meta_data(f["intrinsic_matrix"])[None]))
 
-    def run(color, meta):
-        with record_function("stage:frame"):
-            out = infer(model, torch.from_numpy(color).to(dev), torch.from_numpy(meta).to(dev), extents)
-            return engine.postprocess_detections(out)
+    if args.train:
+        stages = {
+            "stage:sample": [(trainer, "sample_batch")],
+            "stage:preprocess": [(trainer, "preprocess")],
+            "stage:trunk": [(backbone.VGGTrunk, "forward")],
+            "stage:hough": [(model_mod, "hough_voting")],
+            "stage:crop_pool": [(model_mod, "crop_pool_batched")],
+            "stage:fc": [(layers, "fc")],
+            "stage:losses": [(trainer, f) for f in ("regularization_loss", "loss_cross_entropy_hard_label_sparse",
+                                                    "smooth_l1_loss_vertex_sparse", "average_distance_loss")],
+            "stage:update": [(trainer.MomentumSGD, "step")],
+        }
+        _spans(stages, record_function)
+        step, state, bank = train_entry(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(RNG_SEED)
 
-    for color, meta in frames[:2]:  # warm-up: cuDNN plans, the kernel build
-        run(color, meta)
+        def run():
+            with record_function("stage:frame"):
+                step(state, bank, trainer.Draws(gen))
+
+        runs = [()] * args.frames
+        rest = "backward and the rest"
+        unit = "step"
+    else:
+        stages = {
+            "stage:trunk": [(backbone.VGGTrunk, "forward")],
+            "stage:hough": [(model_mod, "hough_voting")],
+            "stage:roi_pool": [(model_mod, "roi_pool_batched")],
+            "stage:fc": [(layers, "fc")],
+            "stage:host_nms": [(engine, "postprocess_detections")],
+        }
+        _spans(stages, record_function)
+        _, (model, _, _, extents) = entry(dev)
+        infer = engine.make_inference_fn(flagship_cfg(is_train=False), PIXEL_MEANS, dev)
+        d = os.path.join(ROOT, "data", "lov_syn_val_v4")
+        runs = []
+        for name in sorted(os.listdir(d))[: args.frames]:
+            with np.load(os.path.join(d, name)) as f:
+                runs.append((np.ascontiguousarray(f["color"][None]), build_meta_data(f["intrinsic_matrix"])[None]))
+
+        def run(color, meta):
+            with record_function("stage:frame"):
+                out = infer(model, torch.from_numpy(color).to(dev), torch.from_numpy(meta).to(dev), extents)
+                return engine.postprocess_detections(out)
+
+        rest = "heads and the rest"
+        unit = "frame"
+
+    for r in runs[:2]:  # warm-up: cuDNN plans, the kernel builds
+        run(*r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for color, meta in frames:
-            run(color, meta)
+        for r in runs:
+            run(*r)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
     avg = prof.key_averages()
-    n = len(frames)
+    n = len(runs)
     spans = {e.key: e for e in avg if e.key.startswith("stage:") and e.device_type.name == "CPU"}
-    print(f"{'host ms/frame':>13} {'device ms/frame':>15}  stage")
-    frame = spans["stage:frame"]
-    rest_cpu, rest_dev = frame.cpu_time_total, frame.device_time_total
-    for name in stages:
-        e = spans[name]
-        rest_cpu -= e.cpu_time_total
-        rest_dev -= e.device_time_total
-        print(f"{e.cpu_time_total / n / 1e3:13.3f} {e.device_time_total / n / 1e3:15.3f}  {name[6:]}")
-    print(f"{rest_cpu / n / 1e3:13.3f} {rest_dev / n / 1e3:15.3f}  heads and the rest")
-    print(f"{frame.cpu_time_total / n / 1e3:13.3f} {frame.device_time_total / n / 1e3:15.3f}  frame")
     events = [e for e in avg if e.device_time_total > 0 and e.device_type.name == "CUDA" and e.key not in spans]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     total = sum(e.device_time_total for e in events)
-    print(f"{torch.cuda.get_device_name(0)}; {n} frames; device kernel time {total / n / 1e3:.3f} ms/frame; "
-          f"wall {wall_us / n / 1e3:.3f} ms/frame; device busy {100 * total / wall_us:.1f}% of wall")
-    print(f"{'ms/frame':>9} {'share':>6} {'calls/frame':>11}  kernel")
+    print(f"{'host ms/' + unit:>14} {'device ms/' + unit:>16}  stage")
+    frame = spans["stage:frame"]
+    rest_cpu, rest_dev = frame.cpu_time_total, total
+    for name in stages:
+        e = spans.get(name)
+        cpu = e.cpu_time_total if e is not None else 0.0
+        dv = e.device_time_total if e is not None else 0.0
+        rest_cpu -= cpu
+        rest_dev -= dv
+        print(f"{cpu / n / 1e3:14.3f} {dv / n / 1e3:16.3f}  {name[6:]}")
+    print(f"{rest_cpu / n / 1e3:14.3f} {rest_dev / n / 1e3:16.3f}  {rest}")
+    print(f"{frame.cpu_time_total / n / 1e3:14.3f} {total / n / 1e3:16.3f}  {unit}")
+    print(f"{torch.cuda.get_device_name(0)}; {n} {unit}s; device kernel time {total / n / 1e3:.3f} ms/{unit}; "
+          f"wall {wall_us / n / 1e3:.3f} ms/{unit}; device busy {100 * total / wall_us:.1f}% of wall")
+    print(f"{'ms/' + unit:>9} {'share':>6} {'calls/' + unit:>11}  kernel")
     for e in events[: args.top]:
         print(f"{e.device_time_total / n / 1e3:9.4f} {100 * e.device_time_total / total:5.1f}% "
               f"{e.count / n:11.1f}  {e.key[:110]}")
