@@ -10,8 +10,9 @@ out) and the flagship training step (B=2 at 640x480 from a device bank).
      checkout, one nvcc per source, all started together
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, with median times: hough_vote (votes
-     exact) and conv3x3 at conv1_2 (both forward modes at B=1 and B=2, dx at
-     B=2; within 1 bf16 ulp; cuDNN's bf16 conv timed beside it)
+     exact) and conv3x3 at conv1_2 (the trunk's, the bias + ReLU and the
+     zero-bias epilogues at B=1 and B=2, dx at B=2; within 1 bf16 ulp;
+     back-to-back, cold-L2 and single-call times beside cuDNN's bf16 conv)
   4. Hough voting on the card against the JAX package's golden
   5. the whole inference network, and one small training step (losses,
      every gradient, the update), on the card against the JAX package's
@@ -38,6 +39,7 @@ CPU. It imports no JAX. Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import statistics
@@ -85,18 +87,59 @@ def median_ms(fn, reps: int = 20, inner: int = 10) -> float:
     """Device time of one fn() call: the median over `reps` rounds of
     `inner` back-to-back calls between one pair of CUDA events, divided by
     `inner`, so the host's part of a call (allocation, checks, the launch)
-    hides behind the device's work of the call before it."""
+    hides behind the device's work of the call before it. An untimed call
+    ahead of each round keeps the card busy while the first is queued."""
     import torch
 
     times = []
     for _ in range(reps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn()
         e0.record()
         for _ in range(inner):
             fn()
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / inner)
+    return statistics.median(times)
+
+
+def cold_ms(fn, inputs, reps: int = 10) -> float:
+    """Device time of one fn(x) call with a cold L2: each round calls fn on
+    every input in turn, keeping every output, so the inputs and outputs
+    together pass through more than the L2 holds; the median over `reps`
+    rounds of the round's time over its calls. An untimed call on the last
+    input ahead of each round keeps the card busy while the first is
+    queued (the inputs between evict it again)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        outs = [fn(inputs[-1])]
+        e0.record()
+        outs += [fn(x) for x in inputs]
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / len(inputs))
+        del outs
+    return statistics.median(times)
+
+
+def single_ms(fn, reps: int = 20) -> float:
+    """Time of one fn() call on an idle card, the host's part included:
+    CUDA events around the call, median of `reps`."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
     return statistics.median(times)
 
 
@@ -209,48 +252,88 @@ def main() -> int:
                  f"kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us (a call in 10 back-to-back, median of 20, runs {t_kern} / {t_plain} ms); "
                  f"bound {b_ms * 1e3:.1f} us ({b_by})")
 
-    # conv3x3 at conv1_2: the trunk's mode (zero bias, no ReLU; the bias is
-    # added in bf16 after it) and the Pallas module's (bias + ReLU), at B=1
-    # (inference) and B=2 (training), and dx at B=2 (flipped, transposed
-    # weights, zero bias, no ReLU). Within 1 bf16 ulp of the plain version:
-    # the same f32 sums in another order, each rounded to bf16 once.
+    # conv3x3 at conv1_2, 480x640, 64->64, at B=1 (inference) and B=2
+    # (training): the trunk's mode (the sum rounded to bf16, the bias added
+    # in bf16, ReLU), the Pallas module's (f32 bias + ReLU), zero bias with
+    # no ReLU, and dx at B=2 (flipped, transposed weights folded into the
+    # weight image). Within 1 bf16 ulp of the plain version: the same f32
+    # sums in another order, each rounded to bf16 once (in the trunk's mode
+    # the sum, and the epilogue exactly). Timed three ways,
+    # the kernel (its weight image made beforehand) and cuDNN's bf16
+    # channels-last conv (with its bias, one call) alike: back to back,
+    # cold L2 (rotating through inputs and outputs over 3x the 50 MB L2) and
+    # single calls (the host's part of the call included); and the wrapper
+    # as the path calls it (the weight image made in the call), single.
     rng = np.random.RandomState(1)
     w_np = (rng.randn(3, 3, 64, 64) * np.sqrt(2.0 / (9 * 64))).astype(np.float32)
     w_t = torch.from_numpy(w_np).to(dev).to(torch.bfloat16)
     b_t = torch.from_numpy((rng.randn(64) * 0.1).astype(np.float32)).to(dev)
     zeros = torch.zeros(64, device=dev)
-    conv_errs = []
-    for B, label, w_c, b_c, relu in (
-        (1, "forward, trunk mode", w_t, zeros, False), (1, "forward, bias + ReLU", w_t, b_t, True),
-        (2, "forward, trunk mode", w_t, zeros, False), (2, "forward, bias + ReLU", w_t, b_t, True),
-        (2, "dx (flipped, transposed weights)", conv3x3.flip_transpose(w_t), zeros, False),
+    for B, label, relu, bf16_bias, b_c in (
+        (1, "trunk mode (bf16 bias + ReLU)", True, True, b_t), (1, "bias + ReLU", True, False, b_t),
+        (1, "zero bias, no ReLU", False, False, zeros),
+        (2, "trunk mode (bf16 bias + ReLU)", True, True, b_t), (2, "bias + ReLU", True, False, b_t),
+        (2, "zero bias, no ReLU", False, False, zeros), (2, "dx", False, False, None),
     ):
-        x = torch.from_numpy(rng.randn(B, 480, 640, 64).astype(np.float32)).to(dev)
-        x = (torch.relu(x) if label.startswith("forward") else x).to(torch.bfloat16)  # a ReLU output / a cotangent
-        y_k = conv3x3.conv3x3_raw(x, w_c, b_c, relu)
-        y_p = conv3x3.conv3x3_plain(x, w_c, b_c, relu)
+        dx = b_c is None
+        xs = [torch.from_numpy(rng.randn(B, 480, 640, 64).astype(np.float32)).to(dev)]
+        xs[0] = (xs[0] if dx else torch.relu(xs[0])).to(torch.bfloat16)  # a cotangent / a ReLU output
+        xs += [xs[0].clone() for _ in range(max(3, -(-150_000_000 // xs[0].nbytes)) - 1)]
+        x = xs[0]
+        if dx:
+            w_c = conv3x3.flip_transpose(w_t)  # the plain version's and cuDNN's weights
+            wrapper = lambda: conv3x3.conv3x3_dgrad(x, w_t)
+            kern_x = functools.partial(conv3x3._launch, wp=conv3x3.pack_weights(w_t, dgrad=True), b=None, flags=0)
+            plain = lambda: conv3x3.conv3x3_plain(x, w_c, zeros, False)
+        else:
+            w_c = w_t
+            wrapper = lambda: conv3x3.conv3x3_raw(x, w_t, b_c, relu, bf16_bias)
+            kern_x = functools.partial(conv3x3._launch, wp=conv3x3.pack_weights(w_t), b=b_c,
+                                       flags=int(relu) | 2 * int(bf16_bias))
+            plain = lambda: conv3x3.conv3x3_plain(x, w_c, b_c, relu, bf16_bias)
+        y_k, y_w, y_p = kern_x(x), wrapper(), plain()
         torch.cuda.synchronize()
-        ulps = bf16_ulp_excess(y_k, y_p)
+        check(torch.equal(y_k, y_w), f"conv3x3 {label} B={B}: the wrapper differs from the kernel on its image")
+        y_c, p_c = y_k, y_p
+        if bf16_bias:
+            # rounded twice, to bf16 and again with the bias: where the bias
+            # cancels most of the sum, 1 ulp of the sum is many ulps of the
+            # result. So the sum (the zero-bias launch) is held to 1 ulp and
+            # the epilogue exactly to the kernel's own rounded sum.
+            y_c, p_c = kern_x(x, b=None, flags=0), conv3x3.conv3x3_plain(x, w_c, zeros, False)
+            check(torch.equal(y_k, torch.relu(y_c + b_c.to(torch.bfloat16))),
+                  f"conv3x3 {label} B={B}: the trunk epilogue differs from relu(bf16 sum + bf16 bias)")
+        ulps = bf16_ulp_excess(y_c, p_c)
         err = (y_k.float() - y_p.float()).abs().max().item()
         check(ulps <= 1.0, f"conv3x3 {label} B={B}: kernel {ulps:.3g} bf16 ulps from the plain version")
-        conv_errs.append(err)
-        x_lib = x.permute(0, 3, 1, 2)  # NHWC storage: a channels_last NCHW view
         w_l = w_c.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        lib = (lambda: torch.relu(F.conv2d(x_lib, w_l, b_c.to(torch.bfloat16), padding=1))) if relu else \
-            (lambda: F.conv2d(x_lib, w_l, None, padding=1))
-        t_kern = [median_ms(lambda: conv3x3.conv3x3_raw(x, w_c, b_c, relu)) for _ in range(2)]
-        t_plain = [median_ms(lambda: conv3x3.conv3x3_plain(x, w_c, b_c, relu), reps=5, inner=2)]
-        t_lib = [median_ms(lib) for _ in range(2)]
-        k_ms, p_ms, l_ms = statistics.median(t_kern), statistics.median(t_plain), statistics.median(t_lib)
+        b_l = None if dx or not bool(b_c.any()) else b_c.to(torch.bfloat16)
+        lib_x = lambda xi: F.conv2d(xi.permute(0, 3, 1, 2), w_l, b_l, padding=1)  # NHWC as channels_last
+        kern = lambda: kern_x(x)
+        lib = lambda: lib_x(x)
+        t = {"kernel": [median_ms(kern) for _ in range(2)], "cuDNN": [median_ms(lib) for _ in range(2)]}
+        k_ms, l_ms = statistics.median(t["kernel"]), statistics.median(t["cuDNN"])
+        k_cold, l_cold = cold_ms(kern_x, xs), cold_ms(lib_x, xs)
+        k_one, l_one, w_one = single_ms(kern), single_ms(lib), single_ms(wrapper)
+        p_ms = median_ms(plain, reps=5, inner=2)
         b_ms, b_by = conv_bound(B, 480, 640, 64, 64)
-        if B == 2 and label == "forward, trunk mode":  # conv1_2 of the training step
+        if B == 2 and label.startswith("trunk"):  # conv1_2 of the training step
             kernels["conv3x3"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                      library_ms=l_ms)
-        phase(3, f"conv3x3 {label}, B={B}, 480x640, 64->64: {ulps:.3g} bf16 ulps at most (limit 1), max|err| "
-                 f"{err:.3g}; kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, cuDNN bf16 {l_ms * 1e3:.1f} us "
-                 f"(a call in 10 back-to-back, median of 20; plain 2, median of 5; runs {t_kern} / {t_plain} / {t_lib} ms); bound {b_ms * 1e3:.1f} us ({b_by})")
+                                      library_ms=l_ms, ms_cold_l2=k_cold, ms_single=k_one, library_ms_cold_l2=l_cold,
+                                      library_ms_single=l_one, wrapper_ms_single=w_one)
+        extra = ""
+        if label.startswith("trunk"):  # what the trunk ran before its bias and ReLU moved into the kernel
+            lib3 = lambda: torch.relu(lib() + b_t.to(torch.bfloat16).view(1, -1, 1, 1))  # NCHW view
+            extra = f"; cuDNN + bf16 bias add + ReLU (3 calls) {median_ms(lib3) * 1e3:.1f} us back to back"
+        phase(3, f"conv3x3 {label}, B={B}, 480x640, 64->64: {ulps:.3g} bf16 ulps at most (limit 1"
+                 f"{'; the sum, with the epilogue exact' if bf16_bias else ''}), max|err| "
+                 f"{err:.3g}; kernel {k_ms * 1e3:.1f} us back to back, {k_cold * 1e3:.1f} cold L2, {k_one * 1e3:.1f} "
+                 f"single (wrapper with its weight image {w_one * 1e3:.1f}); cuDNN bf16 {l_ms * 1e3:.1f} / "
+                 f"{l_cold * 1e3:.1f} / {l_one * 1e3:.1f} us; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.1f} us "
+                 f"({b_by}){extra} (back to back: a call in 10, median of 20, runs {t}; cold: {len(xs)} inputs "
+                 f"and outputs in turn, median of 10 rounds; single: events around one call, median of 20)")
     # the later phases' peak memory must not count this phase's tensors
-    del x, x_lib, y_k, y_p, lib
+    del x, xs, y_k, y_w, y_p, y_c, p_c, kern, kern_x, lib, lib_x, wrapper, plain
     torch.cuda.empty_cache()
 
     # phase 4: Hough voting on the card against the JAX golden

@@ -53,15 +53,14 @@ def conv2d(
 
 
 class _Conv3x3MB(torch.autograd.Function):
-    """`layers.py:_conv3x3_mb` (custom_vjp): the bf16 conv body by the
-    conv3x3 kernel (zero bias, no ReLU, bf16 out), then the bias added in
-    bf16 and ReLU; backward `_conv3x3_mb_bwd`, dx by the same kernel."""
+    """`layers.py:_conv3x3_mb` (custom_vjp): the bf16 conv body rounded to
+    bf16, the bias added in bf16, then ReLU, all in one conv3x3 kernel launch
+    (its trunk epilogue); backward `_conv3x3_mb_bwd`, dx by the same kernel."""
 
     @staticmethod
     def forward(ctx, xb, w, b):
-        wb = oihw_to_hwio(w).to(torch.bfloat16).contiguous()
-        zeros = torch.zeros((wb.shape[3],), dtype=torch.float32, device=xb.device)
-        y = torch.relu(conv3x3_raw(xb, wb, zeros, False) + b.to(torch.bfloat16))
+        wb = oihw_to_hwio(w).to(torch.bfloat16)
+        y = conv3x3_raw(xb, wb, b.float(), True, bf16_bias=True)
         ctx.save_for_backward(xb, wb, y)
         return y
 

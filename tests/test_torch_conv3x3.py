@@ -86,6 +86,12 @@ def test_conv1_2_branch_matches_manual_bwd():
     y = L.conv3x3_bf16_bias_relu(wt, bt, xt)
     y.backward(t(g).to(torch.bfloat16))
     assert y.dtype == torch.bfloat16 and xt.grad.dtype == torch.float32
+    # the trunk epilogue is, bit for bit, the conv rounded to bf16 with zero
+    # bias, then the bf16 bias added in bf16, then ReLU
+    xb, wb = t(x).to(torch.bfloat16), _oihw(w).permute(2, 3, 1, 0).to(torch.bfloat16)
+    two_step = torch.relu(C.conv3x3_plain(xb, wb, torch.zeros(64), False) + t(b).to(torch.bfloat16))
+    assert torch.equal(C.conv3x3_plain(xb, wb, t(b), True, bf16_bias=True), two_step)
+    assert torch.equal(y, two_step)
     # the bias is added in bf16 after the conv's own rounding: a second
     # rounding, so allow one more ulp than the conv alone
     assert bf16_ulp_excess(y, t(np.asarray(ref.astype(jnp.float32)))) <= 2.0
@@ -130,9 +136,9 @@ def test_trunk_conv1_2_goes_through_the_conv3x3_path(monkeypatch):
     calls = []
     plain = C.conv3x3_plain
 
-    def spy(x, w, b, relu):
+    def spy(x, w, b, relu, bf16_bias=False):
         calls.append(tuple(x.shape))
-        return plain(x, w, b, relu)
+        return plain(x, w, b, relu, bf16_bias)
 
     monkeypatch.setattr(C, "conv3x3_plain", spy)
     trunk = VGGTrunk()  # full width: the branch is for the 64-channel layer
@@ -144,3 +150,55 @@ def test_trunk_conv1_2_goes_through_the_conv3x3_path(monkeypatch):
     out["conv5_3"].float().sum().backward()
     assert calls == [(1, 128, 16, 64)] * 2  # forward, then dgrad
     assert trunk.conv1_1.weight.grad is not None
+
+
+def _unswizzled(wp: np.ndarray) -> np.ndarray:
+    """The packed image (Cout/64, 9, Cin/64, 64, 64) with each row's 16-byte
+    chunks put back in order: slot chunk c of row n holds chunk c ^ (n % 8)."""
+    n = np.arange(64)[:, None]
+    src_chunk = np.arange(8)[None, :] ^ (n % 8)  # (64, 8): the chunk stored at each slot
+    blocks = wp.reshape(wp.shape[:4] + (8, 8))
+    out = np.empty_like(blocks)
+    out[..., n, src_chunk, :] = blocks[..., n, np.arange(8)[None, :], :]
+    return out.reshape(wp.shape)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (128, 64), (128, 128)])
+def test_pack_weights_round_trips_to_hwio(cin, cout):
+    """The kernel's weight image: block (co, tap, kb) holds w[tap][kb*64 + k][co*64 + n]
+    at row n, input channel k, behind the 128-byte swizzle; every weight once."""
+    w = t(np.random.RandomState(cin + cout).randn(3, 3, cin, cout).astype(np.float32)).to(torch.bfloat16)
+    wp = C.pack_weights(w)
+    assert wp.shape == (cout // 64, 9, cin // 64, 64, 64) and wp.dtype == torch.bfloat16 and wp.is_contiguous()
+    bt = _unswizzled(wp.float().numpy())  # (co, tap, kb, n, k)
+    hwio = bt.transpose(1, 2, 4, 0, 3).reshape(9, cin, cout).reshape(3, 3, cin, cout)
+    np.testing.assert_array_equal(hwio, w.float().numpy())
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (128, 64)])
+def test_pack_weights_dgrad_is_flip_transpose(cin, cout):
+    """The dgrad image made in one gather equals the image of
+    flip_transpose(w); the gather reads the weights' strides (an OIHW
+    parameter's HWIO view)."""
+    w_oihw = t(np.random.RandomState(7).randn(cout, cin, 3, 3).astype(np.float32))
+    w = C.oihw_to_hwio(w_oihw).to(torch.bfloat16)
+    assert not w.is_contiguous()
+    assert torch.equal(C.pack_weights(w, dgrad=True), C.pack_weights(C.flip_transpose(w)))
+    assert torch.equal(C.pack_weights(w), C.pack_weights(w.contiguous()))
+
+
+def test_dgrad_on_the_cpu_is_the_plain_flipped_conv():
+    x, w, _, g = _inputs(5, B=2, H=6, W=10)
+    wb, gb = t(w).to(torch.bfloat16), t(g).to(torch.bfloat16)
+    before = C.CONV3X3_LAUNCHES
+    dx = C.conv3x3_dgrad(gb, wb)
+    assert C.CONV3X3_LAUNCHES == before and dx.shape == (2, 6, 10, 64)
+    assert torch.equal(dx, C.conv3x3_plain(gb, C.flip_transpose(wb), torch.zeros(64), False))
+    with pytest.raises(ValueError):
+        C.conv3x3_dgrad(gb[..., :32], wb)
+
+
+@pytest.mark.parametrize("cin,cout", [(48, 64), (64, 96), (16, 64), (256, 64)])
+def test_kernel_takes_only_64_or_128_channels(cin, cout):
+    with pytest.raises(ValueError):
+        C._kernel_channels(cin, cout)

@@ -7,7 +7,9 @@ JAX, so it also runs where JAX is not installed:
 
 Tolerances: vote counts exact; depth sums rtol 1e-5, atol 1e-4 (another
 summation order); conv3x3 outputs within 1 bf16 ulp (`bf16_ulp_excess`: the
-same f32 sums in another order, each rounded to bf16 once); the Hough,
+same f32 sums in another order, each rounded to bf16 once; where the trunk
+adds its bias in bf16 after that rounding, the sum within 1 ulp and the
+epilogue exact); the Hough,
 small-slice and training goldens through the checks of tests/torch_parity.py
 that the CPU tests and chip_smoke.py also use (float32 with TF32 off).
 """
@@ -97,38 +99,91 @@ def test_small_slice_on_cuda_matches_jax_golden(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["trunk", "bias_relu", "dx"])
-@pytest.mark.parametrize("B,H,W,cin", [(2, 480, 640, 64), (1, 37, 50, 64)], ids=["conv1_2", "ragged"])
-def test_conv3x3_kernel_matches_plain(dev, mode, B, H, W, cin):
-    """Both forward modes and dx; the ragged shape has H and W off the tile
-    (8 x 64 a block)."""
-    rng = np.random.RandomState(B + H)
-    x = t(rng.randn(B, H, W, cin).astype(np.float32)).to(dev)
-    w = t((rng.randn(3, 3, cin, 64) * 0.06).astype(np.float32)).to(dev).to(torch.bfloat16)
-    b = t((rng.randn(64) * 0.1).astype(np.float32)).to(dev)
-    if mode == "dx":
-        x = t(rng.randn(B, H, W, 64).astype(np.float32)).to(dev)
-        w, b = C.flip_transpose(w), torch.zeros(cin, device=dev)
-    else:
-        x = torch.relu(x)
-        b = b if mode == "bias_relu" else torch.zeros(64, device=dev)
-    x = x.to(torch.bfloat16)
-    relu = mode == "bias_relu"
+@pytest.mark.parametrize("mode", ["trunk", "bias_relu", "bias", "dx"])
+@pytest.mark.parametrize(
+    "B,H,W,cin,cout",
+    [(2, 480, 640, 64, 64), (1, 480, 640, 64, 64), (1, 37, 50, 64, 64), (1, 37, 130, 64, 64), (2, 1, 641, 64, 64),
+     (1, 37, 130, 128, 128), (1, 9, 200, 64, 128), (2, 9, 200, 128, 64)],
+    ids=["conv1_2", "conv1_2_b1", "ragged", "w130", "h1_w641", "c128", "c64_128", "c128_64"],
+)
+def test_conv3x3_kernel_matches_plain(dev, mode, B, H, W, cin, cout):
+    """Every epilogue and dx, at conv1_2 (B=2 and B=1) and off the kernel's
+    128-pixel tile (W of 50, 130 and 641; H of 1 and 37), at 128 channels
+    (a 64-pixel tile) and at mixed widths. trunk: bias added in bf16 after
+    the sum's rounding, then ReLU; bias_relu and bias: f32 bias, one
+    rounding; dx: the flipped, transposed conv of a cotangent. Within 1 bf16
+    ulp of the plain version (trunk: its sum, and the epilogue exact)."""
+    rng = np.random.RandomState(B + H + W + cin)
+    w = t((rng.randn(3, 3, cin, cout) * np.sqrt(2.0 / (9 * cin))).astype(np.float32)).to(dev).to(torch.bfloat16)
+    b = t((rng.randn(cout) * 0.1).astype(np.float32)).to(dev)
     before = C.CONV3X3_LAUNCHES
-    y = C.conv3x3_raw(x, w, b, relu)
+    if mode == "dx":
+        g = t(rng.randn(B, H, W, cout).astype(np.float32)).to(dev).to(torch.bfloat16)
+        y = C.conv3x3_dgrad(g, w)
+        ref = C.conv3x3_plain(g, C.flip_transpose(w), torch.zeros(cin, device=dev), False)
+    else:
+        x = torch.relu(t(rng.randn(B, H, W, cin).astype(np.float32)).to(dev)).to(torch.bfloat16)
+        relu, bf16_bias = mode != "bias", mode == "trunk"
+        y = C.conv3x3_raw(x, w, b, relu, bf16_bias)
+        ref = C.conv3x3_plain(x, w, b, relu, bf16_bias)
+        if bf16_bias:
+            # the sum is rounded twice (to bf16, then with the bias): where
+            # the bias cancels most of it, 1 ulp of the sum is many of the
+            # result. So the sum is held to 1 ulp, and the epilogue to the
+            # kernel's own rounded sum exactly.
+            y_sum = C.conv3x3_raw(x, w, torch.zeros_like(b), False)
+            assert torch.equal(y, torch.relu(y_sum + b.to(torch.bfloat16)))
+            y, ref = y_sum, C.conv3x3_plain(x, w, torch.zeros_like(b), False)
     torch.cuda.synchronize()
-    assert C.CONV3X3_LAUNCHES == before + 1
-    assert bf16_ulp_excess(y, C.conv3x3_plain(x, w, b, relu)) <= 1.0
+    assert C.CONV3X3_LAUNCHES == before + (2 if mode == "trunk" else 1)
+    assert y.shape == ref.shape and bool(torch.isfinite(y.float()).all())
+    assert bf16_ulp_excess(y, ref) <= 1.0
+
+
+@pytest.mark.cuda
+def test_trunk_conv1_2_is_one_launch_each_way(dev):
+    """The trunk's conv1_2 function runs its forward (bias and ReLU in the
+    epilogue) and its dx as one kernel launch each: the forward is the
+    kernel's sum (within 1 ulp of the plain one) with the bias added in
+    bf16 and ReLU, and dx the plain dgrad of the cotangent under the
+    forward's ReLU mask, within 1 ulp."""
+    from posecnn_torch.models import layers as L
+
+    rng = np.random.RandomState(9)
+    x = t(np.maximum(rng.randn(1, 40, 70, 64), 0).astype(np.float32)).to(dev).requires_grad_(True)
+    w = t((rng.randn(64, 64, 3, 3) * 0.06).astype(np.float32)).to(dev)
+    b = t((rng.randn(64) * 0.1).astype(np.float32)).to(dev)
+    g = t(rng.randn(1, 40, 70, 64).astype(np.float32)).to(dev).to(torch.bfloat16)
+    before = C.CONV3X3_LAUNCHES
+    y = L.conv3x3_bf16_bias_relu(w, b, x)
+    fwd = C.CONV3X3_LAUNCHES - before
+    y.backward(g)
+    assert (fwd, C.CONV3X3_LAUNCHES - before - fwd) == (1, 1)
+    xb, wb, zeros = x.detach().to(torch.bfloat16), C.oihw_to_hwio(w).to(torch.bfloat16), torch.zeros(64, device=dev)
+    y_sum = C.conv3x3_raw(xb, wb, zeros, False)
+    assert torch.equal(y, torch.relu(y_sum + b.to(torch.bfloat16)))
+    assert bf16_ulp_excess(y_sum, C.conv3x3_plain(xb, wb, zeros, False)) <= 1.0
+    gm = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=dev))
+    dx_ref = C.conv3x3_plain(gm, C.flip_transpose(wb), zeros, False)
+    assert x.grad.dtype == torch.float32 and bf16_ulp_excess(x.grad, dx_ref) <= 1.0
 
 
 @pytest.mark.cuda
 def test_conv3x3_wrapper_rejects_what_the_kernel_does_not_take(dev):
-    x = torch.zeros((1, 8, 8, 24), dtype=torch.bfloat16, device=dev)
-    w = torch.zeros((3, 3, 24, 64), dtype=torch.bfloat16, device=dev)
+    x = torch.zeros((1, 8, 8, 48), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((3, 3, 48, 64), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
-        C.conv3x3_raw(x, w, torch.zeros(64, device=dev), False)  # Cin not a multiple of 16
+        C.conv3x3_raw(x, w, torch.zeros(64, device=dev), False)  # Cin 48
     with pytest.raises(ValueError):
-        C.conv3x3_raw(x[..., :16], w[:, :, :16].cpu(), torch.zeros(64, device=dev), False)  # mixed devices
+        C.conv3x3_dgrad(torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16, device=dev), w)  # dx to 48 channels
+    x64 = torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16, device=dev)
+    w96 = torch.zeros((3, 3, 64, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        C.conv3x3_raw(x64, w96, torch.zeros(96, device=dev), False)  # Cout 96
+    with pytest.raises(ValueError):
+        C.conv3x3_raw(x64, w96[..., :64].cpu(), torch.zeros(64, device=dev), False)  # mixed devices
+    with pytest.raises(ValueError):
+        C.conv3x3_dgrad(x64, w96[..., :64].cpu())  # mixed devices
 
 
 @pytest.mark.cuda
