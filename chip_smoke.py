@@ -9,8 +9,13 @@ out) and the flagship training step (B=2 at 640x480 from a device bank).
   2. build: every CUDA kernel of the path, from the sources in this
      checkout, one nvcc per source, all started together
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, with median times: hough_vote (votes
-     exact) and conv3x3 at conv1_2 (the trunk's, the bias + ReLU and the
+     shapes the main path gives it, with median times: hough_vote's coarse
+     and refine passes (votes exact, two launches bit-equal) on synthetic
+     inputs and on the path's own (the 8 frozen frames' ground truth at
+     P=512 and 1024), timed back to back and with a cold L2 from CUDA
+     graphs of its calls and as single calls, beside its bound (the pairs
+     inside a valid sample's box) and the share of pairs its box pruning
+     keeps; and conv3x3 at conv1_2 (the trunk's, the bias + ReLU and the
      zero-bias epilogues at B=1 and B=2, dx at B=2; within 1 bf16 ulp;
      back-to-back, cold-L2 and single-call times beside cuDNN's bf16 conv)
   4. Hough voting on the card against the JAX package's golden
@@ -59,7 +64,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_F32_FLOP_PER_S = 67e12
 # f32 operations of one centre x sample vote test: dx, dy, the dot product
-# (2 mul, 1 add), |c-p|^2 (2 mul, 1 add), dot^2 and tsq*|c-p|^2
+# (2 mul, 1 add), |c-p|^2 (2 mul, 1 add), dot^2 and tsq*|c-p|^2. The vote
+# bound counts one for each pair inside a valid sample's box (`vote_pairs`):
+# the others fail the test whatever they hold, and need none.
 VOTE_TEST_OPS = 10
 # the card against the CPU port on one flagship training step with the same
 # draws: relative limits of the continuous loss terms and of the gradient's
@@ -150,13 +157,78 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def vote_bound(samples: np.ndarray, centers: np.ndarray):
-    """hough_vote's bound on these inputs: one test per valid sample and
-    centre; reads samples and centres once, writes votes and dsum."""
-    S, nc = samples.shape[0], centers.shape[2]
-    tests = float((samples[:, 7, :] > 0).sum()) * nc
-    nbytes = samples.nbytes + centers.nbytes + 2 * S * nc * 4
-    return bound_ms(nbytes, tests * VOTE_TEST_OPS, PEAK_F32_FLOP_PER_S)
+def vote_pairs(samples, centers, chunk: int = 1024):
+    """(pairs that need a test, valid pairs) of hough_vote on these card
+    tensors: a (slot, centre, sample) pair needs one when the sample is valid
+    and the centre lies inside its box, |cx - px| < thr and |cy - py| < thr
+    with the kernel's rounded subtraction; every other pair fails the vote
+    test whatever its direction. Counted on the card in chunks of centres."""
+    px, py, thr = samples[:, 0, :, None], samples[:, 1, :, None], samples[:, 5, :, None]
+    val = samples[:, 7, :, None] > 0
+    inside = 0
+    for c0 in range(0, centers.shape[2], chunk):
+        cx, cy = centers[:, 0, None, c0:c0 + chunk], centers[:, 1, None, c0:c0 + chunk]
+        inside += int((val & ((cx - px).abs() < thr) & ((cy - py).abs() < thr)).sum())
+    return inside, int(val.sum()) * centers.shape[2]
+
+
+def vote_bound(nbytes: float, pairs: float):
+    """hough_vote's bound: one test of VOTE_TEST_OPS f32 operations for each
+    pair that needs one (`vote_pairs`) at the f32 peak, against the bytes
+    of samples and centres read once and votes and dsum written once at
+    the memory rate."""
+    return bound_ms(nbytes, pairs * VOTE_TEST_OPS, PEAK_F32_FLOP_PER_S)
+
+
+def pruned_pairs(samples, centers, grid_w: int, tile_w: int = 16, tile_h: int = 4) -> int:
+    """The pairs hough_vote tests after its box pruning: for each slot and
+    tile of centres (tile_w x tile_h points of a grid of width `grid_w`,
+    else tile_w * tile_h consecutive centres, as csrc/hough_vote.cu tiles
+    them), the tile's centres times the valid samples whose box reaches the
+    tile's bounding rectangle. A measurement of the design, computed here."""
+    import torch
+
+    nc = centers.shape[2]
+    c = torch.arange(nc, device=samples.device)
+    if grid_w > 0:
+        tile = (c // grid_w // tile_h) * -(-grid_w // tile_w) + (c % grid_w) // tile_w
+    else:
+        tile = c // (tile_w * tile_h)
+    n_tiles = int(tile.max()) + 1
+    cx, cy = centers[:, 0], centers[:, 1]  # (Sc, NC)
+    idx = tile.expand_as(cx)
+    inf = torch.full((cx.shape[0], n_tiles), float("inf"), device=samples.device)
+    xmin, ymin = inf.scatter_reduce(1, idx, cx, "amin"), inf.scatter_reduce(1, idx, cy, "amin")
+    xmax, ymax = (-inf).scatter_reduce(1, idx, cx, "amax"), (-inf).scatter_reduce(1, idx, cy, "amax")
+    px, py, thr = samples[:, None, 0], samples[:, None, 1], samples[:, None, 5]  # (S, 1, P)
+    keep = ((samples[:, None, 7] > 0) & ~(xmin[..., None] - px >= thr) & ~(xmax[..., None] - px <= -thr)
+            & ~(ymin[..., None] - py >= thr) & ~(ymax[..., None] - py <= -thr))  # (S, tiles, P)
+    per_tile = torch.bincount(tile, minlength=n_tiles)
+    return int((keep.sum(dim=2) * per_tile).sum())
+
+
+def graph_ms(calls, reps: int = 20) -> float:
+    """Device time of one call with no host work between calls: the
+    no-argument functions `calls` captured once, in order, into a CUDA graph;
+    the median over `reps` replays of a replay's time over len(calls). An
+    untimed replay ahead of each keeps the card busy while it is queued."""
+    import torch
+
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [f() for f in calls]
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        g.replay()
+        e0.record()
+        g.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / len(calls))
+    del outs, g
+    return statistics.median(times)
 
 
 def conv_bound(B: int, H: int, W: int, cin: int, cout: int):
@@ -209,48 +281,117 @@ def main() -> int:
     from posecnn_torch.utils.meta import build_meta_data
     from tests.torch_parity import (
         bf16_ulp_excess, check_hough_golden, check_slice_golden, check_train_golden, hough_on_golden_frame,
-        small_slice_on_golden, small_train_on_golden,
+        path_vote_inputs, small_slice_on_golden, small_train_on_golden,
     )
 
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     set_float32_precision()
-    phase(1, f"device {name}; torch {torch.__version__} cuda {torch.version.cuda}; count {torch.cuda.device_count()}")
+    phase(1, f"device {device_name}; torch {torch.__version__} cuda {torch.version.cuda}; count {torch.cuda.device_count()}")
     print(smi, flush=True)
 
     # phase 2: build every kernel of the path
     phase(2, f"built and loaded the CUDA kernels in {_build.build_all():.2f} s")
 
     # phase 3: each kernel against its plain version at the main path's shapes
+    # hough_vote, both passes: on synthetic inputs (uniform positions) and on
+    # the path's own (the ground truth of the 8 frozen frames, packed by the
+    # functions hough_voting calls) at P=512 (inference) and P=1024
+    # (training). Votes equal to the plain version's, dsum within rtol 1e-5,
+    # atol 1e-4. The kernel's time is read from a CUDA graph of its calls,
+    # which leaves no host work between them: back to back (10 calls on one
+    # input), cold L2 (the inputs and outputs of more calls than fill 150 MB,
+    # in turn); single calls (events around one wrapper call on an idle
+    # card, host work included) and eager back-to-back calls (10 wrapper
+    # calls between events; the host's part of a call shows where it is
+    # longer than the kernel) beside them.
     kernels = {}
-    vote_cases = []
+
+    def time_votes(cases, cold: bool) -> dict:
+        """cases: [(samples, centers, grid_w)] on the card. Checks each against
+        the plain version and returns per-case lists of times, errors, bounds
+        and pair counts."""
+        r = {k: [] for k in ("ms", "eager", "single", "plain", "err", "bytes", "inside", "valid", "tested")}
+        for smp, cen, gw in cases:
+            call = functools.partial(voting.accumulate_votes, smp, cen, grid_w=gw)
+            v_k, d_k = call()
+            v_p, d_p = voting.accumulate_votes_plain(smp, cen)
+            v_2, d_2 = call()
+            torch.cuda.synchronize()
+            check(torch.equal(v_k, v_p), "hough_vote: kernel votes differ from the plain version")
+            torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-4)
+            check(torch.equal(v_k, v_2) and torch.equal(d_k, d_2), "hough_vote: two launches differ")
+            r["err"].append(max((v_k - v_p).abs().max().item(), (d_k - d_p).abs().max().item()))
+            r["ms"].append(statistics.median([graph_ms([call] * 10) for _ in range(2)]))
+            r["eager"].append(median_ms(call))
+            r["single"].append(single_ms(call))
+            r["plain"].append(median_ms(lambda: voting.accumulate_votes_plain(smp, cen), reps=3, inner=1))
+            inside, valid = vote_pairs(smp, cen)
+            r["bytes"].append((smp.numel() + cen.numel() + 2 * smp.shape[0] * cen.shape[2]) * 4)
+            r["inside"].append(inside)
+            r["valid"].append(valid)
+            r["tested"].append(pruned_pairs(smp, cen, gw))
+        # the bound of the mean case: its bytes and pairs; and the bound that
+        # counts every valid pair, the earlier definition, beside it
+        mean_bytes = statistics.fmean(r["bytes"])
+        r["bound"], r["by"] = vote_bound(mean_bytes, statistics.fmean(r["inside"]))
+        r["old"] = vote_bound(mean_bytes, statistics.fmean(r["valid"]))[0]
+        r["cases"] = [vote_bound(b, i)[0] for b, i in zip(r["bytes"], r["inside"])]
+        r["cold"] = None
+        if cold:
+            n = -(-150_000_000 // int(mean_bytes)) + 1
+            rot = [(cases[i % len(cases)][0].clone(), cases[i % len(cases)][1].clone(), cases[i % len(cases)][2])
+                   for i in range(n)]
+            r["cold"] = graph_ms([functools.partial(voting.accumulate_votes, a, b, grid_w=g) for a, b, g in rot],
+                                 reps=5)
+            del rot
+        return r
+
+    def vote_line(label: str, r: dict, total_pairs: int) -> str:
+        mean = lambda k: statistics.fmean(r[k])  # noqa: E731
+        us = lambda xs: [round(x * 1e3, 2) for x in xs]  # noqa: E731
+        cold = "cold L2 not measured" if r["cold"] is None else f"{r['cold'] * 1e3:.2f} cold L2"
+        return (f"hough_vote {label}: votes equal, two launches bit-equal, dsum max|err| {max(r['err']):.3g} "
+                f"(rtol 1e-5, atol 1e-4); kernel {mean('ms') * 1e3:.2f} us back to back (mean; cases {us(r['ms'])}), "
+                f"{cold}, {mean('single') * 1e3:.2f} single, {mean('eager') * 1e3:.2f} "
+                f"eager back to back; plain {mean('plain') * 1e3:.1f} us; bound {r['bound'] * 1e3:.3f} us "
+                f"({r['by']}; cases {us(r['cases'])}), counting the pairs inside a valid "
+                f"sample's box: {[round(x / total_pairs, 4) for x in r['inside']]} of all pairs (the earlier bound "
+                f"counted every valid pair, {[round(x / total_pairs, 4) for x in r['valid']]} of all: "
+                f"{r['old'] * 1e3:.3f} us); pairs tested after pruning "
+                f"{[round(x / total_pairs, 4) for x in r['tested']]} of all")
+
     for P in (512, 1024):  # inference and training sample counts
         samples, coarse, window = vote_inputs(np.random.RandomState(0), 8, P, 480, 640)
-        vote_cases += [(f"coarse (S=8, P={P}, NC=19200, shared)", samples, coarse),
-                       (f"refine (S=8, P={P}, 256 per slot)", samples, window)]
-    for label, samples, centers in vote_cases:
-        s_t, c_t = torch.from_numpy(samples).to(dev), torch.from_numpy(centers).to(dev)
-        v_k, d_k = voting.accumulate_votes(s_t, c_t)
-        v_p, d_p = voting.accumulate_votes_plain(s_t, c_t)
-        torch.cuda.synchronize()
-        check(torch.equal(v_k, v_p), f"{label}: kernel votes differ from the plain version")
-        torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-4)
-        err = max((v_k - v_p).abs().max().item(), (d_k - d_p).abs().max().item())
-        t_plain = [median_ms(lambda: voting.accumulate_votes_plain(s_t, c_t))]
-        t_kern = [median_ms(lambda: voting.accumulate_votes(s_t, c_t)) for _ in range(2)]
-        t_plain.append(median_ms(lambda: voting.accumulate_votes_plain(s_t, c_t)))
-        k_ms, p_ms = statistics.median(t_kern), statistics.median(t_plain)
-        b_ms, b_by = vote_bound(samples, centers)
-        if label.startswith("coarse (S=8, P=1024"):  # the training step's coarse pass
-            kernels["hough_vote"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                         library_ms=None)
-        phase(3, f"hough_vote {label}: votes equal, dsum max|err| {err:.3g} (rtol 1e-5, atol 1e-4); "
-                 f"kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us (a call in 10 back-to-back, median of 20, runs {t_kern} / {t_plain} ms); "
-                 f"bound {b_ms * 1e3:.1f} us ({b_by})")
+        s_t, c_t, w_t = (torch.from_numpy(a).to(dev) for a in (samples, coarse, window))
+        for label, cen, gw in ((f"synthetic coarse (S=8, P={P}, 160x120 grid)", c_t, 160),
+                               (f"synthetic refine (S=8, P={P}, 256 per slot)", w_t, 0)):
+            r = time_votes([(s_t, cen, gw)], cold=False)
+            phase(3, vote_line(label, r, 8 * P * cen.shape[2]))
+    vote_frames = [os.path.join("data", "lov_syn_val_v4", f) for f in sorted(os.listdir(FRAMES_DIR))[:N_FRAMES]]
+    for P in (512, 1024):
+        ins = [path_vote_inputs(f, P, dev) for f in vote_frames]
+        for pass_name, key in (("coarse", "coarse"), ("refine", "window")):
+            r = time_votes([(d["samples"], d[key], d["grid_w"] if key == "coarse" else 0) for d in ins], cold=True)
+            total = 8 * P * ins[0][key].shape[2]
+            phase(3, vote_line(f"path {pass_name} (the {len(vote_frames)} frames' ground truth, S=8, P={P})", r,
+                               total))
+            if P == 1024:  # the training step's passes
+                mean = {k: statistics.fmean(r[k]) for k in ("ms", "single", "plain", "eager")}
+                if pass_name == "coarse":
+                    kernels["hough_vote"] = dict(
+                        max_abs_err=max(r["err"]), ms=mean["ms"], plain_ms=mean["plain"], bound_ms=r["bound"],
+                        bound_by=r["by"], library_ms=None, ms_cold_l2=r["cold"], ms_single=mean["single"],
+                        ms_eager=mean["eager"], bound_ms_every_valid_pair=r["old"])
+                else:
+                    kernels["hough_vote"].update(refine_ms=mean["ms"], refine_ms_cold_l2=r["cold"],
+                                                 refine_ms_single=mean["single"], refine_bound_ms=r["bound"])
+        del ins
+    torch.cuda.empty_cache()
 
     # conv3x3 at conv1_2, 480x640, 64->64, at B=1 (inference) and B=2
     # (training): the trunk's mode (the sum rounded to bf16, the bias added
@@ -515,7 +656,7 @@ def main() -> int:
              "launches": train_launches[k], "launches_inference": infer_launches[k], **kernels[k]}
             for k in ("hough_vote", "conv3x3")]
     print(json.dumps({"kernels": line}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -91,6 +91,79 @@ def _sample_class_pixels(lab_cand, slot_cls, slot_valid, skip_pixels, P, pixel_i
     return samp[:, :P], arange[None, :] < n_kept[:, None]
 
 
+def coarse_centers(H: int, W: int, center_stride: int, device):
+    """The coarse centre grid at `center_stride`: its x and y coordinates
+    and the centres (1, 2, NC), row-major with NC = len(gxs) * len(gys)."""
+    gxs = torch.arange(0, W, center_stride, device=device).float()
+    gys = torch.arange(0, H, center_stride, device=device).float()
+    coarse = torch.stack([gxs.repeat(gys.shape[0]), gys.repeat_interleave(gxs.shape[0])])[None].contiguous()
+    return gxs, gys, coarse
+
+
+def candidate_pixels(H: int, W: int, pixel_grid_stride: int, device) -> torch.Tensor:
+    """Row-major indices of the pixels that may be sampled: every
+    `pixel_grid_stride`-th row and column."""
+    g = pixel_grid_stride
+    if g > 1:
+        rows = torch.arange(0, H, g, device=device)
+        cols = torch.arange(0, W, g, device=device)
+        return (rows[:, None] * W + cols[None, :]).reshape(-1)
+    return torch.arange(H * W, device=device)
+
+
+def slot_samples(lab, vert, meta, extents, cand_index, W, *, num_classes, class_slots, label_threshold, skip,
+                 max_samples):
+    """One image's class slots and their packed vote samples.
+
+    lab (H*W,) int; vert (H*W, 3C); meta (48,); extents (C, 3). Returns the
+    slots' classes (S,) (0 where empty), their validity (S,), extents (S, 3)
+    and the samples (S, 8, P) that `accumulate_votes` takes: px, py, u, v,
+    depth, box_thr, (0.9*|uv|)^2, valid."""
+    dev = lab.device
+    C, S, P = num_classes, class_slots, max_samples
+    fx, px_, fy, py_ = meta[0], meta[2], meta[4], meta[5]
+
+    # class slots: active classes in ascending order (hough_voting.py:309-320)
+    cls_ids = torch.arange(C, device=dev)
+    counts = (lab[None, :] == cls_ids[:, None]).sum(dim=1)
+    active = (counts > label_threshold) & (cls_ids > 0)
+    order = torch.sort(torch.where(active, cls_ids, torch.full_like(cls_ids, C))).values
+    if S > C:
+        order = torch.cat([order, torch.full((S - C,), C, dtype=order.dtype, device=dev)])
+    slot_cls = order[:S]
+    slot_valid = slot_cls < C
+    cls = torch.where(slot_valid, slot_cls, torch.zeros_like(slot_cls))
+    ext = extents[cls]  # (S, 3)
+
+    # samples (hough_voting.py:_slot_samples)
+    idx, svalid = _sample_class_pixels(lab[cand_index], cls, slot_valid, skip, P, cand_index)
+    sx = (idx % W).float()
+    sy = (idx // W).float()
+    col = 3 * cls[:, None]
+    su = torch.where(svalid, vert[idx, col], 0.0)
+    sv = torch.where(svalid, vert[idx, col + 1], 0.0)
+    sd = torch.where(svalid, torch.exp(vert[idx, col + 2]), 0.0)
+    sthr = project_box_threshold(ext, fx, fy, px_, py_, sd)
+    tsq = INLIER_THRESHOLD * INLIER_THRESHOLD * (su * su + sv * sv)
+    packed = torch.stack([sx, sy, su, sv, sd, sthr, tsq, svalid.float()], dim=1).contiguous()
+    return cls, slot_valid, ext, packed
+
+
+def refine_window_centers(bx, by, H: int, W: int, center_stride: int, refine_window: int):
+    """The exact full-resolution refine window around each slot's coarse
+    argmax (bx, by) (S,), clamped into the image: its x and y coordinates
+    (S, RW) and the per-slot centres (S, 2, RW*RW), row-major."""
+    RW = refine_window
+    half = (RW - center_stride) // 2
+    x0 = torch.clamp(bx - half, 0, W - RW)
+    y0 = torch.clamp(by - half, 0, H - RW)
+    off = torch.arange(RW, device=bx.device).float()
+    cxs = x0[:, None] + off  # (S, RW)
+    cys = y0[:, None] + off
+    window = torch.stack([cxs.repeat(1, RW), cys.repeat_interleave(RW, dim=1)], dim=1).contiguous()
+    return cxs, cys, window
+
+
 def hough_voting(
     label: torch.Tensor,
     vertex_pred: torch.Tensor,
@@ -137,51 +210,24 @@ def hough_voting(
     gt_batch = gt_poses[:, 0]
     gt_any = torch.any(gt_cls > 0)
 
-    gxs = torch.arange(0, W, center_stride, device=dev).float()
-    gys = torch.arange(0, H, center_stride, device=dev).float()
-    gw, gh = gxs.shape[0], gys.shape[0]
-    coarse = torch.stack([gxs.repeat(gh), gys.repeat_interleave(gw)])[None].contiguous()  # (1,2,NC)
-
-    g = pixel_grid_stride
-    if g > 1:
-        rows = torch.arange(0, H, g, device=dev)
-        cols = torch.arange(0, W, g, device=dev)
-        cand_index = (rows[:, None] * W + cols[None, :]).reshape(-1)
-    else:
-        cand_index = torch.arange(H * W, device=dev)
-
-    cls_ids = torch.arange(C, device=dev)
+    gxs, gys, coarse = coarse_centers(H, W, center_stride, dev)
+    gw = gxs.shape[0]
+    cand_index = candidate_pixels(H, W, pixel_grid_stride, dev)
     slot_ids = torch.arange(S, device=dev)
     per_image = []
     for b in range(B):
-        lab, vert, meta = label_flat[b], vert_flat[b], meta_data[b]
+        meta = meta_data[b]
         fx, px_, fy, py_ = meta[0], meta[2], meta[4], meta[5]
+        cls, slot_valid, ext, packed = slot_samples(
+            label_flat[b], vert_flat[b], meta, extents, cand_index, W, num_classes=C, class_slots=S,
+            label_threshold=label_threshold, skip=skip, max_samples=P,
+        )
+        sx, sy, su, sv = packed[:, 0], packed[:, 1], packed[:, 2], packed[:, 3]
+        svalid = packed[:, 7] > 0
 
-        # class slots: active classes in ascending order (hough_voting.py:309-320)
-        counts = (lab[None, :] == cls_ids[:, None]).sum(dim=1)
-        active = (counts > label_threshold) & (cls_ids > 0)
-        order = torch.sort(torch.where(active, cls_ids, torch.full_like(cls_ids, C))).values
-        if S > C:
-            order = torch.cat([order, torch.full((S - C,), C, dtype=order.dtype, device=dev)])
-        slot_cls = order[:S]
-        slot_valid = slot_cls < C
-        cls = torch.where(slot_valid, slot_cls, torch.zeros_like(slot_cls))
-        ext = extents[cls]  # (S, 3)
-
-        # samples (hough_voting.py:_slot_samples)
-        idx, svalid = _sample_class_pixels(lab[cand_index], cls, slot_valid, skip, P, cand_index)
-        sx = (idx % W).float()
-        sy = (idx // W).float()
-        col = 3 * cls[:, None]
-        su = torch.where(svalid, vert[idx, col], 0.0)
-        sv = torch.where(svalid, vert[idx, col + 1], 0.0)
-        sd = torch.where(svalid, torch.exp(vert[idx, col + 2]), 0.0)
-        sthr = project_box_threshold(ext, fx, fy, px_, py_, sd)
-        tsq = t2 * (su * su + sv * sv)
-        packed = torch.stack([sx, sy, su, sv, sd, sthr, tsq, svalid.float()], dim=1).contiguous()
-
-        # coarse votes, first maximum wins (thrust::max_element)
-        votes, dsum = accumulate_votes(packed, coarse)
+        # coarse votes, first maximum wins (thrust::max_element); the kernel
+        # tiles the grid in 2-D with its width
+        votes, dsum = accumulate_votes(packed, coarse, grid_w=gw)
         best = torch.argmax(votes, dim=1)
         bx = gxs[best % gw]
         by = gys[best // gw]
@@ -189,13 +235,7 @@ def hough_voting(
         if center_stride > 1:
             # exact full-resolution refine window around the coarse argmax
             RW = refine_window
-            half = (RW - center_stride) // 2
-            x0 = torch.clamp(bx - half, 0, W - RW)
-            y0 = torch.clamp(by - half, 0, H - RW)
-            off = torch.arange(RW, device=dev).float()
-            cxs = x0[:, None] + off  # (S, RW)
-            cys = y0[:, None] + off
-            window = torch.stack([cxs.repeat(1, RW), cys.repeat_interleave(RW, dim=1)], dim=1).contiguous()
+            cxs, cys, window = refine_window_centers(bx, by, H, W, center_stride, RW)
             v2, d2 = accumulate_votes(packed, window)  # (S, RW*RW)
             j = torch.argmax(v2, dim=1)
             cx = cxs[slot_ids, j % RW]

@@ -11,7 +11,10 @@ Layout (as in the JAX package):
   returns votes (S, NC) f32 and dsum (S, NC) f32
 
 No centre padding is needed: the kernel bounds-checks NC itself, where the
-TPU kernel padded NC to its block with centres at -1e9.
+TPU kernel padded NC to its block with centres at -1e9. `grid_w`, the width
+of a row-major centre grid (the coarse pass's), lets the kernel tile the
+grid in 2-D, which prunes more samples a block; the result does not depend
+on it, and the plain version ignores it.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def accumulate_votes_plain(samples: torch.Tensor, centers: torch.Tensor) -> Tupl
     return torch.cat(votes, dim=1), torch.cat(dsum, dim=1)
 
 
-def _check(samples: torch.Tensor, centers: torch.Tensor) -> None:
+def _check(samples: torch.Tensor, centers: torch.Tensor, grid_w: int) -> None:
     if samples.dtype != torch.float32 or centers.dtype != torch.float32:
         raise TypeError(f"accumulate_votes takes float32, got {samples.dtype} and {centers.dtype}")
     if samples.dim() != 3 or samples.shape[1] != 8:
@@ -71,10 +74,15 @@ def _check(samples: torch.Tensor, centers: torch.Tensor) -> None:
         raise ValueError(f"samples on {samples.device}, centers on {centers.device}")
     if not (samples.is_contiguous() and centers.is_contiguous()):
         raise ValueError("accumulate_votes takes contiguous tensors")
+    if not isinstance(grid_w, int) or grid_w < 0:
+        raise ValueError(f"grid_w must be an int >= 0, got {grid_w!r}")
 
 
-def _launch(samples: torch.Tensor, centers: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream; counts the launch."""
+def _launch(samples: torch.Tensor, centers: torch.Tensor, grid_w: int = 0,
+            split: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on the current stream; counts the launch.
+    `split` is the kernel's number of sample chunks (1, 2, 4 or 8), 0 to let
+    it choose; the votes do not depend on it."""
     global VOTE_LAUNCHES
     from posecnn_torch._build import hough_vote_lib
 
@@ -87,7 +95,7 @@ def _launch(samples: torch.Tensor, centers: torch.Tensor) -> Tuple[torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.hough_vote_launch(
             samples.data_ptr(), centers.data_ptr(), votes.data_ptr(), dsum.data_ptr(),
-            S, P, nc, int(centers.shape[0] != 1), stream,
+            S, P, nc, int(centers.shape[0] != 1), grid_w, split, stream,
         )
     if err != 0:
         raise RuntimeError(f"hough_vote_launch failed: CUDA error {err}")
@@ -95,12 +103,14 @@ def _launch(samples: torch.Tensor, centers: torch.Tensor) -> Tuple[torch.Tensor,
     return votes, dsum
 
 
-def accumulate_votes(samples: torch.Tensor, centers: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def accumulate_votes(samples: torch.Tensor, centers: torch.Tensor,
+                     grid_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """votes/dsum (S, NC). A CUDA tensor goes to the kernel (or raises); a CPU
-    tensor goes to the plain version."""
-    _check(samples, centers)
+    tensor goes to the plain version. `grid_w`: the width of the row-major
+    centre grid, 0 for none (module docstring)."""
+    _check(samples, centers, grid_w)
     if samples.device.type == "cuda":
-        return _launch(samples, centers)
+        return _launch(samples, centers, grid_w)
     if samples.device.type == "cpu":
         return accumulate_votes_plain(samples, centers)
     raise ValueError(f"accumulate_votes: unsupported device {samples.device}")

@@ -21,8 +21,8 @@ import torch
 from posecnn_torch.ops import conv3x3 as C
 from posecnn_torch.ops import voting as V
 from tests.torch_parity import (
-    bf16_ulp_excess, check_hough_golden, check_slice_golden, check_train_golden, hough_on_golden_frame,
-    small_slice_on_golden, small_train_on_golden, t, vote_samples,
+    bf16_ulp_excess, check_hough_golden, check_slice_golden, check_train_golden, goldens, hough_on_golden_frame,
+    path_vote_inputs, small_slice_on_golden, small_train_on_golden, t, vote_edge_cases, vote_samples,
 )
 
 torch.set_num_threads(1)
@@ -58,6 +58,76 @@ def test_kernel_matches_plain(dev, S, P, NC, per_slot):
     assert v_ref.sum() > 0
     assert torch.equal(v, v_ref)
     torch.testing.assert_close(d, d_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", vote_edge_cases(), ids=lambda c: c[0])
+def test_kernel_pruning_edges_match_plain(dev, case):
+    """The box pruning's edges (tests/torch_parity.py:vote_edge_cases): the
+    wrapper's launch and every sample split (1 chunk, which stages P=700
+    and 1500 in two and three rounds of shared memory, up to 8 in a
+    cluster), with the grid width and without it, against the plain
+    version; at one split the outputs with and without the width are
+    bit-equal (pruning drops only samples that add nothing, and each
+    sublist sums in sample order)."""
+    _, samples, centers, grid_w = case
+    s, c = t(samples).to(dev), t(centers).to(dev)
+    v_ref, d_ref = V.accumulate_votes_plain(s, c)
+    before = V.VOTE_LAUNCHES
+    outs = {(grid_w, 0): V.accumulate_votes(s, c, grid_w=grid_w)}
+    assert V.VOTE_LAUNCHES == before + 1
+    for split in (1, 2, 4, 8):
+        for gw in {grid_w, 0}:
+            outs[(gw, split)] = V._launch(s, c, gw, split)
+    torch.cuda.synchronize()
+    for v, d in outs.values():
+        assert torch.equal(v, v_ref)
+        torch.testing.assert_close(d, d_ref, rtol=1e-5, atol=1e-4)
+    for split in (1, 2, 4, 8):
+        assert torch.equal(outs[(grid_w, split)][1], outs[(0, split)][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [512, 1024], ids=["inference", "training"])
+def test_kernel_on_path_inputs(dev, P):
+    """Both passes on the main path's own inputs (frame v4/000000's ground
+    truth, tests/torch_parity.py:path_vote_inputs): votes equal to the plain
+    version's, and two launches bit-equal."""
+    d = path_vote_inputs("data/lov_syn_val_v4/000000.npz", P, dev)
+    for centers, grid_w in ((d["coarse"], d["grid_w"]), (d["window"], 0)):
+        v, ds = V.accumulate_votes(d["samples"], centers, grid_w=grid_w)
+        v2, ds2 = V.accumulate_votes(d["samples"], centers, grid_w=grid_w)
+        v_ref, d_ref = V.accumulate_votes_plain(d["samples"], centers)
+        torch.cuda.synchronize()
+        assert v_ref.sum() > 0
+        assert torch.equal(v, v_ref)
+        torch.testing.assert_close(ds, d_ref, rtol=1e-5, atol=1e-4)
+        assert torch.equal(v, v2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.cuda
+def test_training_hough_is_four_launches(dev):
+    """A training step's Hough (B=2, 9 rows a detection) launches the kernel
+    twice an image, and matches the CPU port."""
+    from posecnn_torch.ops.hough_voting import hough_voting
+
+    G = goldens()
+    s = G.HOUGH_SETTINGS
+    ins = [G.hough_inputs(f"data/lov_syn_val_v4/00000{i}.npz") for i in (0, 1)]
+    label, vert, meta = (np.stack([x[i] for x in ins]) for i in (0, 1, 3))
+    kw = dict(num_classes=s["num_classes"], is_train=True, skip_pixels=1, label_threshold=s["label_threshold"],
+              class_slots=8, max_samples=1024, center_stride=4, refine_window=16, pixel_grid_stride=3,
+              sampler="approx")
+    args = (label, vert, ins[0][2], meta, np.zeros((1, 13), np.float32))
+    before = V.VOTE_LAUNCHES
+    out = hough_voting(*[t(a).to(dev) for a in args], **kw)
+    torch.cuda.synchronize()
+    assert V.VOTE_LAUNCHES == before + 4
+    ref = hough_voting(*[t(a) for a in args], **kw)
+    assert torch.equal(out.valid.cpu(), ref.valid) and int(out.num_rois) == int(ref.num_rois) > 0
+    assert torch.equal(out.rois[:, :2].cpu(), ref.rois[:, :2]) and torch.equal(out.rois[:, 6].cpu(), ref.rois[:, 6])
+    torch.testing.assert_close(out.rois.cpu(), ref.rois, rtol=0, atol=1e-3)
+    torch.testing.assert_close(out.poses_init.cpu(), ref.poses_init, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,7 @@ import torch
 from posecnn_tpu.ops.hough_voting import hough_voting as jax_hough_voting
 from posecnn_torch.ops.hough_voting import hough_voting
 from tests.test_hough import C, _scene
-from tests.torch_parity import check_hough_golden, goldens, hough_on_golden_frame, load_npz, t
+from tests.torch_parity import check_hough_golden, goldens, hough_on_golden_frame, load_npz, path_vote_inputs, t
 
 torch.set_num_threads(1)
 
@@ -122,3 +122,49 @@ def test_hough_training_is_not_ported():
     out = hough_voting(*[t(a) for a in args], **kw)
     assert out.rois.shape == (3 * 9, 7) and int(out.num_rois) == 2 * 9
     _compare(out, ref)
+
+
+@pytest.mark.parametrize("frame,P", [("000000", 512), ("000005", 1024)], ids=["inference", "training"])
+def test_factored_vote_inputs_are_what_hough_voting_votes_on(monkeypatch, frame, P):
+    """`path_vote_inputs` (the sample packing, coarse grid and refine window
+    that `hough_voting` calls) gives exactly the two vote calls' inputs of
+    `hough_voting` on a frozen frame's ground truth, and its winners; at the
+    golden's settings `hough_voting` still matches the JAX golden."""
+    import posecnn_torch.ops.hough_voting as HV
+
+    calls = []
+
+    def spy(samples, centers, grid_w=0):
+        calls.append((samples, centers, grid_w))
+        return HV_accumulate(samples, centers, grid_w)
+
+    HV_accumulate = HV.accumulate_votes
+    monkeypatch.setattr(HV, "accumulate_votes", spy)
+    G = goldens()
+    s = dict(G.HOUGH_SETTINGS, max_samples=P)
+    label, vert, extents, meta = G.hough_inputs(f"data/lov_syn_val_v4/{frame}.npz")
+    out = HV.hough_voting(
+        t(label[None]), t(vert[None]), t(extents), t(meta[None]), torch.zeros((1, 13)),
+        num_classes=s["num_classes"], is_train=False, skip_pixels=s["skip_pixels"],
+        label_threshold=s["label_threshold"], class_slots=s["class_slots"], max_samples=P,
+        center_stride=s["center_stride"], refine_window=s["refine_window"],
+        pixel_grid_stride=s["pixel_grid_stride"], sampler=s["sampler"],
+    )
+    d = path_vote_inputs(f"data/lov_syn_val_v4/{frame}.npz", P)
+    (s1, c1, g1), (s2, c2, g2) = calls
+    assert torch.equal(s1, d["samples"]) and torch.equal(s2, d["samples"])
+    assert torch.equal(c1, d["coarse"]) and g1 == d["grid_w"] == 160 and d["coarse"].shape == (1, 2, 160 * 120)
+    assert torch.equal(c2, d["window"]) and g2 == 0 and d["window"].shape == (8, 2, 256)
+    # the refine window's winners are hough_voting's: votes, centre, depth
+    v2, d2 = HV_accumulate(d["samples"], d["window"])
+    j = torch.argmax(v2, dim=1)
+    slots = torch.arange(8)
+    cx, cy = d["window"][slots, 0, j], d["window"][slots, 1, j]
+    valid = out.valid
+    assert int(valid.sum()) >= 3 and torch.equal(valid, d["samples"][:, 7].sum(dim=1) > 0)
+    assert torch.equal(out.rois[valid, 6], v2[slots, j][valid])
+    torch.testing.assert_close(0.5 * (out.rois[valid, 2] + out.rois[valid, 4]), cx[valid], rtol=0, atol=1e-3)
+    torch.testing.assert_close(0.5 * (out.rois[valid, 3] + out.rois[valid, 5]), cy[valid], rtol=0, atol=1e-3)
+    torch.testing.assert_close(out.poses_init[valid, 6], (d2[slots, j] / v2[slots, j])[valid], rtol=1e-6, atol=0)
+    if P == 512 and frame == "000000":
+        assert check_hough_golden(hough_on_golden_frame("cpu"))["detections"] == 5

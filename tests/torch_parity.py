@@ -68,6 +68,103 @@ def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+def path_vote_inputs(frame: str, max_samples: int, device="cpu") -> dict:
+    """The vote kernel's inputs on the main path for one frozen frame's
+    ground truth, at the Hough golden's flagship settings with `max_samples`
+    samples a slot (512 in inference, 1024 in training), made by the
+    functions `hough_voting` calls: the packed samples (S, 8, P), the coarse
+    grid (1, 2, NC) and its width, and the refine windows (S, 2, 256) around
+    the coarse argmax of the plain version's votes."""
+    from posecnn_torch.ops import hough_voting as HV
+    from posecnn_torch.ops.voting import accumulate_votes_plain
+
+    G = goldens()
+    s = G.HOUGH_SETTINGS
+    label, vert, extents, meta = G.hough_inputs(frame)
+    H, W = label.shape
+    cand = HV.candidate_pixels(H, W, s["pixel_grid_stride"], device)
+    _, _, _, samples = HV.slot_samples(
+        t(label).reshape(-1).to(device), t(vert).reshape(H * W, -1).to(device), t(meta).to(device),
+        t(extents).to(device), cand, W, num_classes=s["num_classes"], class_slots=s["class_slots"],
+        label_threshold=s["label_threshold"], skip=1 if s["sampler"] == "approx" else s["skip_pixels"],
+        max_samples=max_samples,
+    )
+    gxs, gys, coarse = HV.coarse_centers(H, W, s["center_stride"], device)
+    best = torch.argmax(accumulate_votes_plain(samples, coarse)[0], dim=1)
+    gw = gxs.shape[0]
+    _, _, window = HV.refine_window_centers(gxs[best % gw], gys[best // gw], H, W, s["center_stride"],
+                                            s["refine_window"])
+    return {"samples": samples, "coarse": coarse, "grid_w": gw, "window": window}
+
+
+def vote_edge_cases() -> list:
+    """(name, samples (S, 8, P), centers (Sc, 2, NC), grid_w) cases at the
+    edges of the vote kernel's per-block box pruning: a sample whose box
+    edge lies exactly on a block's extreme centre (|dx| == thr) and one
+    ulp inside, non-integer coordinates, an all-invalid slot, every sample
+    on one pixel, P of 1, 700 and 1500 (past one and two shared-memory
+    chunks of 512), NC
+    of 1 and 257, the coarse grid with and without its width, and refine
+    windows at the image's corners. numpy float32, from fixed seeds."""
+    f32 = np.float32
+    cases = []
+
+    def grid(gw, gh, step=4.0, x0=0.0, y0=0.0):
+        gx = x0 + np.arange(gw, dtype=f32) * f32(step)
+        gy = y0 + np.arange(gh, dtype=f32) * f32(step)
+        return np.stack([np.tile(gx, gh), np.repeat(gy, gw)])[None].astype(f32)
+
+    # box edges on the extreme centres of a 40x24 grid at stride 4 (x in
+    # [0, 156], y in [0, 92]): samples due left, right, above and below,
+    # their box exactly reaching the grid's edge (pruned: no centre can
+    # vote) and one ulp wider (kept: the edge centre votes), pointing at it
+    rng = np.random.RandomState(11)
+    rows = []
+    for px, py, u, v, edge in ((-10.0, 40.0, 1.0, 0.0, 10.0), (166.0, 40.0, -1.0, 0.0, 10.0),
+                               (60.0, -7.5, 0.0, 1.0, 7.5), (60.0, 99.25, 0.0, -1.0, 7.25),
+                               (158.5, 93.5, -0.6, -0.8, 2.5)):
+        for thr in (f32(edge), np.nextafter(f32(edge), f32(np.inf))):
+            rows.append([px, py, u, v, 1.0 + 0.1 * len(rows), thr, 0.81 * (u * u + v * v), 1.0])
+    edge = np.asarray(rows, f32).T[None]  # (1, 8, 10)
+    cases.append(("box_edge", edge, grid(40, 24), 40))
+    cases.append(("box_edge_consecutive", edge, grid(40, 24), 0))
+
+    # non-integer coordinates, centres and samples, one invalid slot
+    s = vote_samples(rng, 4, 300, 160, 96)
+    s[:, 0] += rng.uniform(-0.5, 0.5, (4, 300)).astype(f32)
+    s[:, 1] += rng.uniform(-0.5, 0.5, (4, 300)).astype(f32)
+    s[2, 7] = 0.0  # all-invalid slot
+    cases.append(("fractional", s, grid(53, 31, 3.1, 0.37, 0.61), 53))
+    cases.append(("fractional_consecutive", s, grid(53, 31, 3.1, 0.37, 0.61), 0))
+
+    # every sample on one pixel
+    s = vote_samples(rng, 3, 256, 160, 96)
+    s[:, 0], s[:, 1] = 77.0, 41.0
+    cases.append(("one_pixel", s, grid(40, 24), 40))
+
+    # sample counts: one sample, 700 and 1500 (two chunks)
+    for P in (1, 700, 1500):
+        cases.append((f"P{P}", vote_samples(rng, 3, P, 160, 96), grid(40, 24), 40))
+
+    # centre counts: one centre, and 257 (a ragged tile) shared and per slot
+    s = vote_samples(rng, 3, 200, 160, 96)
+    cases.append(("NC1", s, np.asarray([[[80.0], [48.0]]], f32), 0))
+    c257 = np.stack([rng.uniform(0, 160, (3, 257)), rng.uniform(0, 96, (3, 257))], axis=1).astype(f32)
+    cases.append(("NC257_per_slot", s, c257, 0))
+    cases.append(("NC257_ragged_grid", s, grid(257, 1, 0.5), 257))
+
+    # refine windows (16x16 per slot) at the four corners of a 640x480 image
+    s = vote_samples(rng, 4, 512, 640, 480)
+    off = np.arange(16, dtype=f32)
+    x0 = np.asarray([0, 624, 0, 624], f32)
+    y0 = np.asarray([0, 0, 464, 464], f32)
+    win = np.stack([np.tile(x0[:, None] + off, (1, 16)), np.repeat(y0[:, None] + off, 16, axis=1)], axis=1)
+    s[:, 0] = np.where(np.arange(512) % 2 == 0, x0[:, None] + 8.0, s[:, 0])  # half the samples near
+    s[:, 1] = np.where(np.arange(512) % 2 == 0, y0[:, None] + 8.0, s[:, 1])  # their corner
+    cases.append(("refine_corners", s, win, 0))
+    return [(name, np.ascontiguousarray(s, f32), np.ascontiguousarray(c, f32), gw) for name, s, c, gw in cases]
+
+
 def hough_on_golden_frame(device="cpu"):
     """The port's `hough_voting` at the Hough golden's flagship settings on
     frame v4/000000's ground truth, on `device`."""
