@@ -35,10 +35,31 @@ out) and the flagship training step (B=2 at 640x480 from a device bank).
      port on the CPU, forward and backward, against which the card's
      continuous losses, gradient norm and conv1_2 weight gradient are held
      at bf16 limits
-  8. the kernels' JSON line, then {"ok": true, "device": {...}}
+  8. snapshots: the flagship train state of phase 7 written full and light
+     from the card (sizes, write and restore times) and restored bit-equal;
+     then `python -m posecnn_torch.train_net --iters 30` in a process of its
+     own, sent SIGTERM once `train_metrics.csv` has its step-20 row: its
+     snapshot at the step reached loads back bit-equal, and `--resume
+     --iters 30` starts at that step and ends with the final snapshot at 30
+     (the time from the start to the restore and to the first step, and the
+     launches of both runs)
+  9. evaluation: `python -m posecnn_torch.test_net --model <the final
+     snapshot> --max_frames 32` (ICP on), and the same on a snapshot of the
+     seed-0 weights, which, unlike 30 steps of training from them, leave
+     classes in the label map for the ICP to refine: detections.npz,
+     eval_summary.json, eval_timing.json (per-frame ms by stage, the
+     launches: hough_vote 2 and conv3x3 1 a frame); the eval golden (ICP
+     and the evaluator) on the card; the ICP at the flagship shapes on the
+     card against the CPU port; 4 of the seed-0 run's frames through the
+     port on the CPU, against which the card's labels, classes and rois are
+     held as in phase 6 (a box further off only on equal votes: a plateau
+     of the vote map) and poses_icp where the boxes match
+  10. the kernels' JSON line, then {"ok": true, "device": {...}}
 
-Any failure raises and the process exits nonzero; nothing falls back to the
-CPU. It imports no JAX. Usage: python3 chip_smoke.py
+The CLIs' scratch directory is made under the checkout's git-ignored
+output/ and removed at the end. Any failure raises and the process exits
+nonzero; nothing falls back to the CPU. It imports no JAX. Usage: python3
+chip_smoke.py
 """
 
 from __future__ import annotations
@@ -47,9 +68,13 @@ import copy
 import functools
 import json
 import os
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +104,13 @@ VOTE_TEST_OPS = 10
 # set with no reading of its own; it then read 8.3e-3)
 TRAIN_LOSS_LIMITS = {"loss_regu": 1e-6, "loss_cls": 1e-3, "loss_vertex": 1e-3, "grad_norm": 5e-3}
 TRAIN_GRAD_LIMITS = {"trunk.conv1_1.weight": 5e-2, "trunk.conv1_2.weight": 2e-2}
+# the card against the CPU port on the eval CLI's frames, where the boxes
+# match: the ICP's translation, and 1 - |cos| of the angle between the
+# quaternions. With random weights a detection's label region is a blob of
+# the frame and the ICP, 20 steps from a random rotation, is ill-posed, so
+# inputs a bf16 rounding apart can end apart (the CPU tests measured 1e-2
+# in the quaternion from inputs one f32 ulp apart, tests/test_torch_eval.py)
+EVAL_ICP_T, EVAL_ICP_Q = 1e-2, 1e-2
 
 
 def phase(n: int, msg: str) -> None:
@@ -261,6 +293,262 @@ def vote_inputs(rng: np.random.RandomState, S: int, P: int, H: int, W: int):
         [np.tile(x0[:, None] + off, (1, 16)), np.repeat(y0[:, None] + off, 16, axis=1)], axis=1
     )
     return samples, np.ascontiguousarray(coarse), np.ascontiguousarray(window)
+
+
+def run_cli(args, log_path: str, timeout: float, until=None) -> tuple:
+    """Run `python -m <args>` from the checkout's root with its output in
+    log_path. With `until`, poll it every 5 ms and send SIGTERM once it
+    returns true. Returns (exit code, the log). The process never outlives
+    the call."""
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            if until is not None:
+                while proc.poll() is None and not until():
+                    time.sleep(0.005)
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        return rc, f.read()
+
+
+def log_seconds(pattern: str, log: str) -> re.Match:
+    """The first line of a CLI log (each line starts with `[<seconds>s] `)
+    that matches `pattern` after its time; group 1 is the time."""
+    m = re.search(r"^\[([\d.]+)s\] " + pattern, log, re.M)
+    check(m is not None, f"no line matching {pattern!r} in the log:\n{log[-3000:]}")
+    return m
+
+
+def launches_of(log: str) -> dict:
+    m = log_seconds(r"done at iteration (\d+); launches hough_vote (\d+) conv3x3 (\d+)", log)
+    return {"step": int(m.group(2)), "hough_vote": int(m.group(3)), "conv3x3": int(m.group(4))}
+
+
+def snapshot_phase(state, model0: dict, work: str, dev) -> tuple:
+    """Phase 8: the flagship train state's snapshots (write, restore,
+    sizes), then `posecnn_torch.train_net` killed by SIGTERM after its
+    step-20 metrics row and resumed to step 30. Returns (the final
+    snapshot's path, a light snapshot of the seed-0 weights `model0`, the
+    CLI runs' launches)."""
+    import torch
+
+    from posecnn_torch.config import FLAGSHIP_SOLVER
+    from posecnn_torch.core.checkpoint import restore_checkpoint, save_checkpoint
+    from posecnn_torch.core.convert import params_to_numpy
+    from posecnn_torch.engine import train as T
+
+    # the phase-7 state (8 steps, a nonzero trace): full and light
+    # snapshots written from the card and restored into a zeroed copy
+    fresh = T.create_train_state(copy.deepcopy(state.model), T.TrainHParams(clip_grad_norm=10.0))
+    rows = []
+    for full in (True, False):
+        with torch.no_grad():
+            for p in fresh.model.parameters():
+                p.zero_()
+            for tr in fresh.optimizer.trace:
+                tr.zero_()
+        fresh.step = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(work, "inproc"), state, step=state.step, prefix="full" if full else "light",
+                               include_opt_state=full)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore_checkpoint(path, fresh)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        check(fresh.step == state.step, "restored step")
+        check(all(torch.equal(a, b) for a, b in zip(state.model.parameters(), fresh.model.parameters())),
+              "restored parameters differ")
+        check(all(torch.equal(a, b) if full else not b.any() for a, b in zip(state.optimizer.trace,
+                                                                           fresh.optimizer.trace)), "restored trace")
+        rows.append(f"{'full' if full else 'light'} {os.path.getsize(path) / 2**20:.1f} MiB, write {t_write:.3f} s, "
+                    f"restore {t_read:.3f} s")
+        os.remove(path)
+    phase(8, "flagship snapshots from the card, restored bit-equal into a zeroed copy on the card: " + "; ".join(rows))
+    # the seed-0 weights as a light snapshot, for phase 9
+    fresh.model.load_state_dict(model0)
+    fresh.step = 0
+    seed0 = save_checkpoint(os.path.join(work, "seed0"), fresh, step=0, prefix="seed0", include_opt_state=False)
+    del fresh
+    torch.cuda.empty_cache()
+
+    # the train CLI: SIGTERM once train_metrics.csv has its step-20 row
+    out = os.path.join(work, "train")
+    prefix = FLAGSHIP_SOLVER["snapshot_prefix"]
+    csv_path = os.path.join(out, "train_metrics.csv")
+
+    def has_row_20() -> bool:
+        try:
+            with open(csv_path) as f:
+                return any(line.startswith("20,") for line in f)
+        except OSError:
+            return False
+
+    args = ["posecnn_torch.train_net", "--iters", "30", "--output", out]
+    rc, log1 = run_cli(args, os.path.join(work, "train_1.log"), 600, until=has_row_20)
+    check(rc == 0, f"train_net exited {rc}:\n{log1[-3000:]}")
+    n = int(log_seconds(r"signal received: snapshotting at iteration (\d+)", log1).group(2))
+    check(20 <= n < 30, f"the signal snapshot is at step {n}")
+    snap = log_seconds(r"snapshot (\S+) \(([\d.]+) MiB, ([\d.]+)s\)", log1)
+    path = os.path.join(out, f"{prefix}_iter_{n}.npz")
+    check(snap.group(2) == path and os.path.exists(path), f"signal snapshot {snap.group(2)}, want {path}")
+    with np.load(path) as d:
+        arrays = {k: d[k] for k in d.files}
+    check(int(arrays["['step']"]) == n and not any(k.startswith("['opt_state']") for k in arrays),
+          "the signal snapshot's step, or a trace in a light snapshot")
+    fresh = T.create_train_state(copy.deepcopy(state.model), T.TrainHParams(clip_grad_norm=10.0))
+    restore_checkpoint(path, fresh)
+    back = {f"['params']['{layer}']['{leaf}']": a for layer, leaves in params_to_numpy(fresh.model.state_dict()).items()
+            for leaf, a in leaves.items()}
+    check(set(back) == {k for k in arrays if k.startswith("['params']")}
+          and all(np.array_equal(v, arrays[k]) for k, v in back.items()), "the snapshot does not load back bit-equal")
+    del fresh
+    l1 = launches_of(log1)
+    check(l1 == {"step": n, "hough_vote": 4 * n, "conv3x3": 2 * n}, f"first run's launches {l1}")
+    t_first1 = float(log_seconds(r"iter 1/30 ", log1).group(1))
+
+    # --resume: from the signal snapshot to the final snapshot at 30
+    rc, log2 = run_cli(args + ["--resume"], os.path.join(work, "train_2.log"), 600)
+    check(rc == 0, f"train_net --resume exited {rc}:\n{log2[-3000:]}")
+    res = log_seconds(r"resumed from (\S+) at iteration (\d+) \(([\d.]+)s\)", log2)
+    check(res.group(2) == path and int(res.group(3)) == n, f"resumed from {res.group(2)} at {res.group(3)}")
+    first = log_seconds(rf"iter {n + 1}/30 ", log2)
+    final = os.path.join(out, f"{prefix}_iter_30.npz")
+    with np.load(final) as d:
+        check(int(d["['step']"]) == 30, "the final snapshot's step")
+    l2 = launches_of(log2)
+    check(l2 == {"step": 30, "hough_vote": 4 * (30 - n), "conv3x3": 2 * (30 - n)}, f"resumed run's launches {l2}")
+    snaps = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+    phase(8, f"train_net --iters 30: SIGTERM after the step-20 row, snapshot at step {n} ({snap.group(3)} MiB light, "
+             f"written in {snap.group(4)} s; first step {t_first1:.3f} s after the start), loaded back bit-equal; "
+             f"--resume restored it in {res.group(4)} s ({res.group(1)} s after the start), first step done "
+             f"{float(first.group(1)) - float(res.group(1)):.3f} s after the restore ({first.group(1)} s after the "
+             f"start), ended with the final snapshot at 30; snapshots {snaps}; launches {l1} then {l2}")
+    return final, seed0, {k: l1[k] + l2[k] for k in ("hough_vote", "conv3x3")}
+
+
+def run_test_net(ckpt: str, out: str, log_path: str) -> tuple:
+    """`python -m posecnn_torch.test_net --model ckpt --max_frames 32` with
+    its checks: the three files, 32 frames, finite detections, the launches
+    (hough_vote 2 and conv3x3 1 a frame). Returns (summary, timing,
+    detections)."""
+    rc, log = run_cli(["posecnn_torch.test_net", "--model", ckpt, "--max_frames", "32", "--output", out], log_path,
+                      900)
+    check(rc == 0, f"test_net exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(out, "eval_summary.json")) as f:
+        summary = json.load(f)
+    with open(os.path.join(out, "eval_timing.json")) as f:
+        timing = json.load(f)
+    with np.load(os.path.join(out, "detections.npz")) as d:
+        dets = {k: d[k] for k in d.files}
+    check(timing["frames"] == 32 and timing["launches"] == {"hough_vote": 64, "conv3x3": 32},
+          f"test_net: {timing['frames']} frames, launches {timing['launches']}")
+    check(all(np.isfinite(v).all() and v.ndim == 2 and v.shape[1] == 7 for v in dets.values()), "detections")
+    check(0 <= summary["mean_iou"] <= 1 and 0 <= summary["adds_auc"] <= 1, f"summary {sorted(summary)}")
+    n_dets = sum(len(v) for k, v in dets.items() if k.endswith("_rois"))
+    phase(9, f"test_net --model {ckpt.rsplit('/', 1)[-1]} --max_frames 32: {timing['wall_s']:.3f} s, {n_dets} "
+             f"detections, {sum(k.endswith('_poses_icp') for k in dets)} frames refined by ICP, launches "
+             f"{timing['launches']}; adds_auc {summary['adds_auc']:.4f}, adds_auc_icp "
+             f"{summary.get('adds_auc_icp', float('nan')):.4f}, mean_iou {summary['mean_iou']:.4f}")
+    return summary, timing, dets
+
+
+def eval_phase(final: str, seed0: str, work: str, dev) -> dict:
+    """Phase 9: `posecnn_torch.test_net` on the train CLI's final snapshot
+    and on the seed-0 weights (32 frames, ICP on; 30 steps from random
+    weights label every pixel background, so only the seed-0 weights give
+    the ICP detections), the eval golden on the card, the ICP on the card
+    against the CPU at the flagship shapes, and 4 of the frames against the
+    CPU port. Returns the seed-0 run's launches."""
+    import torch
+
+    from posecnn_torch.config import FLAGSHIP_TEST, PIXEL_MEANS, flagship_eval_cfg
+    from posecnn_torch.core.convert import make_model
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.engine import test as PT
+    from posecnn_torch.utils.meta import build_meta_data
+    from tests.torch_parity import check_evaluator_golden, check_icp, flagship_icp_scene, icp_on_eval_golden, t
+
+    run_test_net(final, os.path.join(work, "eval_final"), os.path.join(work, "eval_final.log"))
+    summary, timing, dets = run_test_net(seed0, os.path.join(work, "eval"), os.path.join(work, "eval.log"))
+    launches = timing["launches"]
+    check(sum(k.endswith("_poses_icp") for k in dets) > 0 and "adds_auc_icp" in summary, "no ICP ran")
+    ms = {k: statistics.median(v[2:]) for k, v in timing["ms"].items()}
+    phase(9, f"seed-0 weights, ICP at plane weight {timing['icp_plane_weight']}, NMS {timing['nms_threshold']}: per "
+             f"frame (median of frames 3-32) " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+             + " (random weights, stand-in models)")
+    print("eval per-frame ms " + json.dumps({k: [round(x, 3) for x in v] for k, v in timing["ms"].items()}), flush=True)
+
+    # the eval golden: ICP on the card, and the evaluator on fixed detections
+    err = icp_on_eval_golden(dev)
+    ev_err = check_evaluator_golden()
+    # the ICP at the flagship shapes on the card against the CPU port
+    s = flagship_icp_scene()
+    e2 = {}
+    for w in (0.0, 1.0):
+        a = (s["rois"], s["poses"], s["depth"], s["label"])
+        e2[f"plane {w:g}"] = check_icp(*PT.refine_poses(*a, t(s["points_all"]).to(dev), s["meta"], plane_weight=w),
+                                       *PT.refine_poses(*a, t(s["points_all"]), s["meta"], plane_weight=w))
+    phase(9, f"the eval golden on the card: ICP {err} (limits t 2e-4 m, q 5e-3), evaluator summary within "
+             f"{ev_err:.3g} relative (limit 1e-6); ICP at "
+             f"640x480 (6 cubes, 13 detections in 32 rows) on the card against the CPU port: {e2}")
+
+    # 4 of the frames through the port on the CPU, the same snapshot
+    t0 = time.perf_counter()
+    cfg = flagship_eval_cfg()
+    with np.load(seed0) as d:
+        weights = {k: d[k] for k in d.files if not k.startswith("['opt_state']")}
+    data = LovSynVal()
+    model_cpu = make_model(cfg, weights, "cpu")
+    cpu = PT.test_net(model_cpu, cfg, data, PIXEL_MEANS, max_frames=4, log=None, **FLAGSHIP_TEST)
+    model = make_model(cfg, weights, dev)
+    infer, infer_cpu = PT.make_inference_fn(cfg, PIXEL_MEANS, dev), PT.make_inference_fn(cfg, PIXEL_MEANS, "cpu")
+    agree, box_err, vote_err, icp_t, icp_q, matched, plateau = [], 0.0, 0.0, 0.0, 0.0, 0, []
+    for i, r in enumerate(cpu):
+        f = data.load_frame(i)
+        raw, meta = f.color[None], build_meta_data(f.intrinsic_matrix)[None]
+        ext = torch.from_numpy(data._extents)
+        lab = infer(model, t(raw).to(dev), t(meta).to(dev), ext.to(dev))["label_2d"].cpu()
+        agree.append(float((lab == infer_cpu(model_cpu, t(raw), t(meta), ext)["label_2d"]).double().mean()))
+        rois = dets.get(f"{i:06d}_rois", np.zeros((0, 7), np.float32))
+        check(rois.shape == r["rois"].shape and np.array_equal(rois[:, :2], r["rois"][:, :2]),
+              f"frame {i}: the card's rois {rois[:, :2].tolist()} against the CPU's {r['rois'][:, :2].tolist()}")
+        if not len(rois):
+            continue
+        box = np.abs(rois[:, 2:6] - r["rois"][:, 2:6]).max(axis=1)
+        votes = np.abs(rois[:, 6] - r["rois"][:, 6])
+        vote_err = max(vote_err, float(votes.max()))
+        same = box <= 4.0
+        # a box further off must have the same votes: the centre moved along
+        # a plateau of equal vote counts, which the few flipped labels of
+        # bf16 rounding (a changed sample set) can do with random weights
+        check(bool(((box <= 4.0) | (votes == 0)).all()), f"frame {i}: boxes {box} px apart with votes {votes} apart")
+        plateau += [float(b) for b in box[~same]]
+        box_err = max(box_err, float(box[same].max(initial=0.0)))
+        icp = dets[f"{i:06d}_poses_icp"]
+        matched += int(same.sum())
+        q, qr = icp[same, :4], r["poses_icp"][same, :4]
+        icp_t = max(icp_t, float(np.abs(icp[same, 4:] - r["poses_icp"][same, 4:]).max(initial=0.0)))
+        icp_q = max(icp_q, float((1 - np.abs((q * qr).sum(axis=1) / np.linalg.norm(q, axis=1)
+                                            / np.linalg.norm(qr, axis=1))).max(initial=0.0)))
+    check(min(agree) >= 0.999 and box_err <= 4.0 and vote_err <= 2.0,
+          f"card against CPU: label agreement {agree}, roi box max|err| {box_err} px, votes {vote_err}")
+    check(matched > 0 and icp_t <= EVAL_ICP_T and icp_q <= EVAL_ICP_Q,
+          f"card against CPU: {matched} matched detections, poses_icp translation max|err| {icp_t} m (limit "
+          f"{EVAL_ICP_T}), 1 - |cos| of the quaternions {icp_q} (limit {EVAL_ICP_Q})")
+    phase(9, f"4 frames of the seed-0 snapshot on the CPU port ({time.perf_counter() - t0:.1f} s): label_2d "
+             f"agreement min {min(agree):.6f} (limit 0.999), classes equal, roi box max|err| {box_err:.3g} px (limit 4; "
+             f"boxes moved {plateau} px on equal votes), votes max|err| {vote_err:.3g} (limit 2); poses_icp of the "
+             f"{matched} detections whose boxes match: "
+             f"translation max|err| {icp_t:.3g} m (limit {EVAL_ICP_T}), 1 - |cos| {icp_q:.3g} (limit {EVAL_ICP_Q})")
+    return launches
 
 
 def main() -> int:
@@ -649,11 +937,24 @@ def main() -> int:
              + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in worst)
              + f"; loss_pose {losses[0]['loss_pose']:.6g} vs {ref['loss_pose']:.6g} (not held: Hough follows labels)")
 
+    # the rest of the run drives the CLIs in processes of their own; their
+    # scratch directory (under the git-ignored output/) goes at the end
+    os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "output"))
+    try:
+        final, seed0, train_launches_cli = snapshot_phase(state, model0, work, dev)
+        del state, bank, model_cpu, state_cpu, bank_cpu
+        torch.cuda.empty_cache()
+        eval_launches = eval_phase(final, seed0, work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     print(smi, flush=True)
     sources = {"hough_vote": ("posecnn_torch/csrc/hough_vote.cu", "posecnn_tpu/ops/pallas/voting.py:36"),
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
-             "launches": train_launches[k], "launches_inference": infer_launches[k], **kernels[k]}
+             "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
+             "launches_train_cli": train_launches_cli[k], **kernels[k]}
             for k in ("hough_vote", "conv3x3")]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

@@ -4,8 +4,10 @@ Mirrors `posecnn_tpu/models/posecnn.py:PoseCNNConfig` field for field (same
 names and defaults), with `compute_dtype` as a torch dtype, so a config
 written for one package reads the same in the other. Fields for parts of the
 model that the port does not run yet are kept and rejected by
-`models.posecnn.posecnn_forward`. `flagship_cfg` and `flagship_train_cfg`
-are the flagship inference and training configurations.
+`models.posecnn.posecnn_forward`. `flagship_cfg`, `flagship_train_cfg` and
+`flagship_eval_cfg` are the flagship inference, training and evaluation
+configurations; `FLAGSHIP_SOLVER` and `FLAGSHIP_TEST` the capstone's solver
+and test settings.
 """
 
 from __future__ import annotations
@@ -131,3 +133,41 @@ def flagship_train_cfg():
 FLAGSHIP_TRAIN_BATCH = dict(batch_size=2, max_gt=24, chromatic=True, add_noise=True)
 # the seed of the training step's generator (RNG_SEED)
 RNG_SEED = 3
+
+# the capstone's solver settings (lov_syn_capstone.yml over the defaults of
+# posecnn_tpu/core/config.py:105-112,214-217): TRAIN.SNAPSHOT_ITERS,
+# SNAPSHOT_PREFIX, TPU.CHECKPOINT_OPT_STATE, TRAIN.SNAPSHOT_FINAL, DISPLAY
+FLAGSHIP_SOLVER = dict(
+    snapshot_iters=5000, snapshot_prefix="vgg16_fcn_color_lov_syn_capstone", snapshot_opt_state=False,
+    snapshot_final=True, display=20,
+)
+# the capstone's EXP_DIR (the default output directory is output/<EXP_DIR>/<imdb>)
+EXP_DIR = "lov_syn_capstone"
+
+
+def flagship_eval_cfg() -> PoseCNNConfig:
+    """The model config `tools/test_net.py:129-144` builds from
+    `experiments/cfgs/lov_syn_capstone.yml` over the defaults of
+    `posecnn_tpu/core/config.py` (TEST.VOTING_THRESHOLD -1, TPU Hough
+    settings: 8 slots, 1024 samples, centre stride 4, the approx sampler,
+    pixel stride 3, skip 1, crop pool), written out as code."""
+    return PoseCNNConfig(
+        num_classes=22,
+        num_units=64,
+        vertex_reg=True,
+        vertex_reg_3d=False,
+        pose_reg=True,
+        is_train=False,
+        vote_threshold=-1.0,
+        hough_class_slots=8,
+        hough_max_samples=1024,
+        hough_center_stride=4,
+        hough_sampler="approx",
+        hough_pixel_stride=3,
+        skip_pixels=1,
+        use_crop_pool=True,
+    )
+
+
+# the capstone's test settings: TEST.NMS, TEST.POSE_REFINE, TPU.ICP_PLANE_WEIGHT
+FLAGSHIP_TEST = dict(nms_threshold=0.3, pose_refine=True, icp_plane_weight=1.0)

@@ -6,12 +6,13 @@ and snapshots them as one flat npz whose keys are jax key paths, prefixed
 with `['params']` in a train-state snapshot
 (`posecnn_tpu/core/checkpoint.py:_flatten_state`, `load_params_npz`). This
 module reads that layout with numpy alone, so one snapshot loads in both
-packages:
+packages (`params_to_numpy` is the way back):
 
   conv weights  HWIO      -> OIHW      (`<name>.weight`, trunk under `trunk.`)
   fc weights    (in, out) -> (out, in)
   biases        as they are
-  upscore*      not parameters: checked against the bilinear formula
+  upscore*      not parameters: checked against the bilinear formula on the
+                way in, written from it on the way back
 """
 
 from __future__ import annotations
@@ -126,6 +127,30 @@ def params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
         sd[key + ".weight"] = torch.tensor(w)
         sd[key + ".bias"] = torch.tensor(np.asarray(leaves["biases"], dtype=np.float32))
     return sd
+
+
+def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of `params_from_numpy`: tensors by `PoseCNN` parameter
+    name (a state_dict, or anything laid out like one, such as the momentum
+    trace) -> the nested JAX layout, float32 on the host. OIHW -> HWIO,
+    fc (out, in) -> (in, out); the `upscore*` filters, which the JAX package
+    keeps as parameters, are written from the bilinear formula at the widths
+    of the score layers that feed them."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in named.items():
+        path, leaf = key.rsplit(".", 1)
+        name = path.split(".")[-1]
+        a = v.detach().float().cpu().numpy()
+        if leaf == "weight":
+            a = a.T if name in _FCS else a.transpose(2, 3, 1, 0)
+        out.setdefault(name, {})["weights" if leaf == "weight" else "biases"] = np.ascontiguousarray(a)
+    for score, ups in (("score_conv5", ("upscore_conv5", "upscore")),
+                       ("score_conv5_vertex", ("upscore_conv5_vertex", "upscore_vertex"))):
+        if score in out:
+            c = out[score]["weights"].shape[3]
+            for name, k in zip(ups, (4, 16)):
+                out[name] = {"weights": make_deconv_filter(k, c)}
+    return out
 
 
 def load_params_npz(path: str) -> Dict[str, torch.Tensor]:

@@ -2,12 +2,14 @@
 
 The port's own copies of `posecnn_tpu/data/minibatch.py:Frame`, `pose_rows`
 (:308) and `rescale_points` (:319), and `posecnn_tpu/utils/blob.py:pad_im`;
-`load_frozen_frame` reads one frozen frame (`data/lov_syn_val_v4/*.npz`).
+`load_frozen_frame` reads one frozen frame (`data/lov_syn_val_v4/*.npz`,
+with its depth where the file has one).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -17,7 +19,7 @@ from posecnn_torch.utils.quaternion_np import mat2quat
 @dataclass
 class Frame:
     """One annotated frame (the fields of the JAX package's `Frame` that the
-    training bank reads)."""
+    training bank and the evaluation read)."""
 
     color: np.ndarray             # (H,W,3) uint8 BGR
     label: np.ndarray             # (H,W) int class ids
@@ -25,6 +27,8 @@ class Frame:
     poses: np.ndarray             # (3,4,N) [R|t] per instance
     center: np.ndarray            # (N,2) projected object centres (x, y)
     intrinsic_matrix: np.ndarray  # (3,3)
+    depth: Optional[np.ndarray] = None  # (H,W) uint16, metres * factor_depth
+    factor_depth: float = 1.0
 
 
 def load_frozen_frame(path: str) -> Frame:
@@ -32,6 +36,8 @@ def load_frozen_frame(path: str) -> Frame:
         return Frame(
             color=d["color"], label=d["label"], cls_indexes=d["cls_indexes"], poses=d["poses"],
             center=d["center"], intrinsic_matrix=d["intrinsic_matrix"],
+            depth=d["depth"] if "depth" in d.files else None,
+            factor_depth=float(d["factor_depth"]) if "factor_depth" in d.files else 1.0,
         )
 
 

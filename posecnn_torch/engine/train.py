@@ -16,17 +16,21 @@ Port of `posecnn_tpu/engine/train.py` for the flagship training step
     decayed one);
   * the bank step samples the batch and the augmentation draws on the
     device from a `torch.Generator`, through a `Draws` object that a test
-    or a check can record and replay.
-
-Snapshots, resume and the signal handling of `Solver` are not ported yet.
+    or a check can record and replay;
+  * `Solver` snapshots the state in the JAX npz layout
+    (`core/checkpoint.py`), resumes from the latest snapshot, and snapshots
+    on SIGTERM or SIGINT before it returns.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from posecnn_torch.config import PIXEL_MEANS, RNG_SEED, PoseCNNConfig
@@ -323,25 +327,133 @@ def make_bank_train_step(
     return step_fn
 
 
-class Solver:
-    """The iteration loop of `engine/train.py:Solver` (training only): one
-    step a iteration, each with its own draws from one generator seeded with
-    `RNG_SEED` on the bank's device, and a log line of every step's losses
-    and lr. Snapshots, resume and signal handling are not ported yet."""
+def resume_seed(seed: int, start_iter: int) -> int:
+    """The step generator's seed for a run that starts at `start_iter`:
+    `seed` itself at 0, else a hash of (seed, start_iter) (the counterpart
+    of JAX's `fold_in(rng, start_iter)`), so a resumed run never replays
+    step 0's draws."""
+    if start_iter == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, start_iter]).generate_state(1)[0])
 
-    def __init__(self, step_fn):
+
+class Solver:
+    """The iteration loop of `engine/train.py:Solver` over a device bank:
+    one step an iteration, each with its own draws from one generator on
+    the bank's device, seeded with `resume_seed(RNG_SEED, start_iter)`.
+
+    Every `display` steps (and at a run's first step) a log line of the
+    losses and lr, and with an `output_dir` a row of `train_metrics.csv`
+    (`core/metrics.py`). With an `output_dir`, a snapshot every
+    `snapshot_iters` steps and at the end (`snapshot_final`), named
+    `<snapshot_prefix>_iter_<step>.npz`, with the momentum trace when
+    `snapshot_opt_state`; `resume` restores the latest."""
+
+    def __init__(self, step_fn, output_dir: Optional[str] = None, snapshot_iters: int = 10000,
+                 snapshot_prefix: str = "posecnn", display: int = 20, snapshot_opt_state: bool = True,
+                 snapshot_final: bool = True):
+        from posecnn_torch.core.metrics import MetricsLogger
+
         self.step_fn = step_fn
+        self.output_dir = output_dir
+        self.snapshot_iters = snapshot_iters
+        self.snapshot_prefix = snapshot_prefix
+        self.display = display
+        self.snapshot_opt_state = snapshot_opt_state
+        self.snapshot_final = snapshot_final
+        self.metrics_logger = MetricsLogger(output_dir) if output_dir else None
+
+    def resume(self, state: TrainState, log: Optional[Callable[[str], None]] = print) -> Tuple[TrainState, int]:
+        """Restore the latest snapshot of `output_dir` into `state`, if there
+        is one. Returns (state, the step to start from)."""
+        from posecnn_torch.core.checkpoint import latest_checkpoint, restore_checkpoint
+
+        if not self.output_dir:
+            return state, 0
+        path = latest_checkpoint(self.output_dir, prefix=self.snapshot_prefix)
+        if path is None:
+            return state, 0
+        t0 = time.perf_counter()
+        restore_checkpoint(path, state)
+        if log:
+            log(f"resumed from {path} at iteration {state.step} ({time.perf_counter() - t0:.3f}s)")
+        return state, state.step
 
     def train(self, state: TrainState, bank: Dict[str, torch.Tensor], max_iters: int,
-              log: Optional[Callable[[str], None]] = print) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+              log: Optional[Callable[[str], None]] = print, start_iter: int = 0,
+              handle_signals: bool = True) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Run steps start_iter .. max_iters - 1. With `handle_signals`,
+        SIGTERM and SIGINT end the run after the step in flight, with a
+        snapshot at that step (unless a periodic one was just written), so
+        `resume` restarts from there; the old handlers come back on return.
+        A log that raises OSError (a dead pipe) is ignored: logging must not
+        stop the snapshot."""
+        if log is not None:
+            raw_log = log
+
+            def log(msg, _raw=raw_log):  # noqa: F811
+                try:
+                    _raw(msg)
+                except OSError:
+                    pass
+
+        stop = {"flag": False}
+        old_handlers = {}
+        if handle_signals:
+            def on_signal(signum, frame):
+                stop["flag"] = True
+
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    old_handlers[sig] = signal.signal(sig, on_signal)
+                except ValueError:  # not the main thread
+                    for s, h in old_handlers.items():
+                        signal.signal(s, h)
+                    old_handlers.clear()
+                    break
+
         gen = torch.Generator(device=bank["data"].device)
-        gen.manual_seed(RNG_SEED)
+        gen.manual_seed(resume_seed(RNG_SEED, start_iter))
         metrics: Dict[str, torch.Tensor] = {}
-        for it in range(state.step, max_iters):
-            t0 = time.perf_counter()
-            metrics = self.step_fn(state, bank, Draws(gen))
-            if log is not None:
-                m = {k: float(v) for k, v in metrics.items()}
-                log(f"iter {it + 1}/{max_iters} " + " ".join(f"{k}: {v:.6g}" for k, v in sorted(m.items()))
-                    + f" ({time.perf_counter() - t0:.3f}s)")
+        last_snap = -1
+        t0, n0 = time.perf_counter(), start_iter
+        try:
+            for it in range(start_iter, max_iters):
+                metrics = self.step_fn(state, bank, Draws(gen))
+                display = (it + 1) % self.display == 0
+                if log is not None and (display or it == start_iter):
+                    m = {k: float(v) for k, v in metrics.items()}
+                    dt = (time.perf_counter() - t0) / (it + 1 - n0)
+                    log(f"iter {it + 1}/{max_iters} " + " ".join(f"{k}: {v:.6g}" for k, v in sorted(m.items()))
+                        + f" ({dt:.3f}s/it)")
+                    if display and self.metrics_logger is not None:
+                        self.metrics_logger.log(it + 1, {**m, "sec_per_iter": dt})
+                    t0, n0 = time.perf_counter(), it + 1
+                if self.output_dir and (it + 1) % self.snapshot_iters == 0:
+                    self.snapshot(state, it + 1, log)
+                    last_snap = it + 1
+                if stop["flag"]:
+                    if log:
+                        log(f"signal received: snapshotting at iteration {it + 1}")
+                    if self.output_dir and last_snap != it + 1:
+                        self.snapshot(state, it + 1, log)
+                    break
+            else:
+                if self.output_dir and self.snapshot_final and last_snap != max_iters:
+                    self.snapshot(state, max_iters, log)
+        finally:
+            for sig, h in old_handlers.items():
+                signal.signal(sig, h)
+            if self.metrics_logger is not None:
+                self.metrics_logger.close()
         return state, metrics
+
+    def snapshot(self, state: TrainState, it: int, log: Optional[Callable[[str], None]] = None) -> str:
+        from posecnn_torch.core.checkpoint import save_checkpoint
+
+        t0 = time.perf_counter()
+        path = save_checkpoint(self.output_dir, state, step=it, prefix=self.snapshot_prefix,
+                               include_opt_state=self.snapshot_opt_state)
+        if log:
+            log(f"snapshot {path} ({os.path.getsize(path) / 2**20:.1f} MiB, {time.perf_counter() - t0:.3f}s)")
+        return path

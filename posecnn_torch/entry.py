@@ -16,23 +16,17 @@ loss's points are seeded uniformly inside those boxes, as
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
-from posecnn_torch.config import (
-    ADD_NUM_POINTS, FLAGSHIP_TRAIN_BATCH, PIXEL_MEANS, YCB_SYMMETRY, flagship_cfg, flagship_train_cfg,
-)
+from posecnn_torch.config import FLAGSHIP_TRAIN_BATCH, PIXEL_MEANS, flagship_cfg, flagship_train_cfg
 from posecnn_torch.core.convert import init_params_numpy, make_model
 from posecnn_torch.data.device_bank import bank_to_device, load_frozen_bank
+from posecnn_torch.data.lov_syn import FRAMES_DIR, object_models
 from posecnn_torch.data.minibatch import rescale_points
 from posecnn_torch.engine.test import set_float32_precision
 from posecnn_torch.engine.train import create_train_state, make_bank_train_step
 from posecnn_torch.models.posecnn import posecnn_forward
-
-FRAMES_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "lov_syn_val_v4")
-
 
 def entry(device="cuda"):
     """Returns (fn, example_args). fn(model, raw_bgr, meta, extents) ->
@@ -57,14 +51,11 @@ def entry(device="cuda"):
 
 
 def train_objects(num_classes: int, seed: int = 0):
-    """(loss points (C,P,3), symmetry (C,), extents (C,3)), numpy: 0.1 m
-    extents, P = ADD_NUM_POINTS points per class drawn uniformly inside the
-    box from numpy seed `seed` (class 0, the background, has none), rescaled
-    for the loss as the JAX trainer does (`data/minibatch.py:rescale_points`)."""
-    extents = np.full((num_classes, 3), 0.1, np.float32)
-    symmetry = np.asarray(YCB_SYMMETRY[:num_classes], np.float32)
-    points = np.random.RandomState(seed).uniform(-0.05, 0.05, (num_classes, ADD_NUM_POINTS, 3)).astype(np.float32)
-    points[0] = 0.0
+    """(loss points (C,P,3), symmetry (C,), extents (C,3)), numpy: the
+    stand-in object models of `data.lov_syn.object_models` (0.1 m extents,
+    P = ADD_NUM_POINTS seeded points a class), the points rescaled for the
+    loss as the JAX trainer does (`data/minibatch.py:rescale_points`)."""
+    points, symmetry, extents = object_models(num_classes, seed)
     return rescale_points(points, extents, symmetry).astype(np.float32), symmetry, extents
 
 

@@ -1,12 +1,28 @@
-"""NumPy rotation matrix -> quaternion (wxyz).
+"""NumPy quaternion (wxyz) <-> rotation matrix.
 
-Copy of `posecnn_tpu/utils/quaternion_np.py:mat2quat` (the transforms3d
-convention: Bar-Itzhack's method, w >= 0).
+Copy of `posecnn_tpu/utils/quaternion_np.py:quat2mat` and `mat2quat` (the
+transforms3d convention: Bar-Itzhack's method, w >= 0).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def quat2mat(q) -> np.ndarray:
+    q = np.asarray(q, dtype=np.float64)
+    n = np.dot(q, q)
+    if n < 1e-12:
+        return np.eye(3)
+    q = q * np.sqrt(2.0 / n)
+    q = np.outer(q, q)
+    return np.array(
+        [
+            [1.0 - q[2, 2] - q[3, 3], q[1, 2] - q[3, 0], q[1, 3] + q[2, 0]],
+            [q[1, 2] + q[3, 0], 1.0 - q[1, 1] - q[3, 3], q[2, 3] - q[1, 0]],
+            [q[1, 3] - q[2, 0], q[2, 3] + q[1, 0], 1.0 - q[1, 1] - q[2, 2]],
+        ]
+    )
 
 
 def mat2quat(M) -> np.ndarray:

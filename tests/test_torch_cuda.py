@@ -11,7 +11,10 @@ same f32 sums in another order, each rounded to bf16 once; where the trunk
 adds its bias in bf16 after that rounding, the sum within 1 ulp and the
 epilogue exact); the Hough,
 small-slice and training goldens through the checks of tests/torch_parity.py
-that the CPU tests and chip_smoke.py also use (float32 with TF32 off).
+that the CPU tests and chip_smoke.py also use (float32 with TF32 off); the
+depth ICP against the eval golden and against the CPU port at the flagship
+shapes (translation 2e-4 m, quaternion 5e-3: `check_icp`); snapshots
+written from the card's tensors restored bit-equal on the card and the CPU.
 """
 
 import numpy as np
@@ -21,8 +24,9 @@ import torch
 from posecnn_torch.ops import conv3x3 as C
 from posecnn_torch.ops import voting as V
 from tests.torch_parity import (
-    bf16_ulp_excess, check_hough_golden, check_slice_golden, check_train_golden, goldens, hough_on_golden_frame,
-    path_vote_inputs, small_slice_on_golden, small_train_on_golden, t, vote_edge_cases, vote_samples,
+    bf16_ulp_excess, check_hough_golden, check_icp, check_slice_golden, check_train_golden, flagship_icp_scene, goldens,
+    hough_on_golden_frame, icp_on_eval_golden, path_vote_inputs, small_slice_on_golden, small_train_on_golden, t,
+    vote_edge_cases, vote_samples,
 )
 
 torch.set_num_threads(1)
@@ -259,3 +263,50 @@ def test_conv3x3_wrapper_rejects_what_the_kernel_does_not_take(dev):
 @pytest.mark.cuda
 def test_small_train_step_on_cuda_matches_jax_golden(dev):
     check_train_golden(*small_train_on_golden(dev))
+
+
+@pytest.mark.cuda
+def test_icp_on_cuda_matches_eval_golden(dev):
+    icp_on_eval_golden(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane_weight", [0.0, 1.0])
+def test_icp_on_cuda_matches_cpu_at_flagship_size(dev, plane_weight):
+    """refine_poses on a 640x480 scene of six cubes (13 detections padded to
+    32 rows, 1014 model points) on the card against the CPU port."""
+    from posecnn_torch.engine.test import refine_poses
+
+    s = flagship_icp_scene()
+    args = (s["rois"], s["poses"], s["depth"], s["label"])
+    new, icp = refine_poses(*args, t(s["points_all"]).to(dev), s["meta"], plane_weight=plane_weight)
+    ref_new, ref_icp = refine_poses(*args, t(s["points_all"]), s["meta"], plane_weight=plane_weight)
+    check_icp(new, icp, ref_new, ref_icp)
+    assert (np.abs(icp[:12] - s["poses"][:12]).max(axis=1) > 1e-2).all()
+    np.testing.assert_array_equal(icp[12], s["poses"][12])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [True, False], ids=["full", "light"])
+def test_snapshot_round_trip_from_cuda(dev, tmp_path, full):
+    """A train state on the card snapshots and restores bit-equal into a
+    fresh state on the card and on the CPU (the trace only when full)."""
+    from posecnn_torch.config import PoseCNNConfig
+    from posecnn_torch.core.checkpoint import restore_checkpoint, save_checkpoint
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.engine.train import TrainHParams, create_train_state
+
+    cfg = PoseCNNConfig(num_classes=4, num_units=8, trunk_scale=0.125, fc_dim=64, is_train=True, use_crop_pool=True)
+    hp = TrainHParams(clip_grad_norm=10.0)
+    state = create_train_state(make_model(cfg, init_params_numpy(0, cfg), dev), hp, step=9)
+    for tr in state.optimizer.trace:
+        tr.normal_()
+    path = save_checkpoint(str(tmp_path), state, step=9, include_opt_state=full)
+    for device in (dev, "cpu"):
+        fresh = create_train_state(make_model(cfg, init_params_numpy(1, cfg), device), hp)
+        restore_checkpoint(path, fresh)
+        assert fresh.step == 9
+        for a, b in zip(state.model.parameters(), fresh.model.parameters()):
+            assert torch.equal(a.cpu(), b.cpu())
+        for a, b in zip(state.optimizer.trace, fresh.optimizer.trace):
+            assert torch.equal(a.cpu(), b.cpu()) if full else not b.any()

@@ -313,3 +313,104 @@ def check_train_golden(losses, grads, after, lr, g_norm, before, g) -> dict:
     err[f"worst grad: {worst_name}"] = worst_g
     err["params after the update"] = worst_p
     return err
+
+
+# the eval battery's ICP, held to the eval golden (jitted JAX `refine_poses`)
+# and between devices: translation atol 2e-4 m, quaternion atol 5e-3 (the
+# CPU port read 6.0e-5 m and 5.3e-4, tests/test_torch_eval.py; the H100
+# 2.5e-3 in the quaternion of the golden's least-supported detection, a
+# 6 cm cube seen by 140 pixels), poses_new atol 1e-6
+ICP_T_ATOL, ICP_Q_ATOL = 2e-4, 5e-3
+
+
+def check_icp(new, icp, ref_new, ref_icp) -> dict:
+    """Holds (poses_new, poses_icp) to a reference pair at the ICP limits.
+    Returns the max |err|s of the translation and the quaternion."""
+    q, r = icp[:, :4], ref_icp[:, :4]
+    r = np.where((q * r).sum(axis=1, keepdims=True) < 0, -r, r)  # q and -q: w = 0 has no canonical sign
+    np.testing.assert_allclose(new, ref_new, atol=1e-6)
+    np.testing.assert_allclose(icp[:, 4:], ref_icp[:, 4:], atol=ICP_T_ATOL)
+    np.testing.assert_allclose(q, r, atol=ICP_Q_ATOL)
+    return {"poses_new": float(np.abs(new - ref_new).max()), "icp_t": float(np.abs(icp[:, 4:] - ref_icp[:, 4:]).max()),
+            "icp_q": float(np.abs(q - r).max())}
+
+
+def icp_on_eval_golden(device="cpu") -> dict:
+    """The port's refine_poses on the eval golden's scene at each plane
+    weight, on `device`, held to the golden. Returns the max |err|s."""
+    from posecnn_torch.engine.test import refine_poses
+
+    G = goldens()
+    g = load_npz(G.EVAL_GOLDEN)
+    s = G.eval_scene()
+    err = {}
+    for w in G.EVAL_PLANE_WEIGHTS:
+        new, icp = refine_poses(s["rois"], s["poses"], s["depth"], s["label"], t(s["points_all"]).to(device),
+                                s["meta"], plane_weight=w)
+        err[f"plane {w:g}"] = check_icp(new, icp, g[f"plane{w:g}/poses_new"], g[f"plane{w:g}/poses_icp"])
+        np.testing.assert_array_equal(icp[3], s["poses"][3])  # no depth support: the pose comes back
+    return err
+
+
+def flagship_icp_scene(n_objects: int = 6) -> dict:
+    """A 640x480 ICP scene at the flagship K, numpy: n_objects 10 cm cube
+    surfaces (classes 1..n, 1014 points each) splatted into one depth and
+    label map at 0.6-1.2 m, and 2 detections an object (rotations 10 and
+    20 degrees off, translations 2-4 cm off) plus one of a class with no
+    depth: the ICP path's shapes (32 padded rows, 1014 model points, 512
+    target points) on a well-posed problem."""
+    from posecnn_torch.utils.meta import build_meta_data
+    from posecnn_torch.utils.quaternion_np import mat2quat
+
+    G = goldens()
+    rng = np.random.RandomState(5)
+    H, W = 480, 640
+    K = np.array([[1066.8, 0, 312.99], [0, 1067.5, 241.31], [0, 0, 1.0]])
+    cube = G.box_surface(0.05, n=13)
+    dense = G.box_surface(0.05, n=60)
+    C = n_objects + 2
+    points_all = np.zeros((C, cube.shape[0], 3), np.float32)
+    depth = np.zeros((H, W), np.float32)
+    label = np.zeros((H, W), np.int32)
+    rois, poses = [], []
+    for c in range(1, n_objects + 1):
+        points_all[c] = cube
+        R = G.axis_angle(rng.randn(3), rng.uniform(0, 180))
+        u, v, z = 100 + 85 * (c - 1), rng.uniform(150, 330), rng.uniform(0.6, 1.2)
+        t = np.array([(u - K[0, 2]) * z / K[0, 0], (v - K[1, 2]) * z / K[1, 1], z])
+        G.splat(dense.astype(np.float64) @ R.T + t, K, depth, label, c)
+        for deg, dt in ((10, 0.02), (20, 0.04)):
+            rois.append([0, c, 0, 0, 10, 10, rng.uniform(0.5, 1.0)])
+            poses.append(np.concatenate([mat2quat(G.axis_angle(rng.randn(3), deg) @ R), t + rng.randn(3) * dt / 1.7]))
+    points_all[C - 1] = cube
+    rois.append([0, C - 1, 0, 0, 10, 10, 0.5])
+    poses.append(np.array([1.0, 0, 0, 0, 0, 0, 1.0]))
+    return dict(depth=depth, label=label, points_all=points_all, meta=build_meta_data(K),
+                rois=np.asarray(rois, np.float32), poses=np.asarray(poses, np.float32))
+
+
+def summary_rel_err(got, ref) -> float:
+    """Largest relative difference between two evaluator summaries (nested
+    dicts of numbers with the same keys; equal infinities count 0)."""
+    if isinstance(ref, dict):
+        assert set(got) == set(ref), sorted(set(got) ^ set(ref))
+        return max((summary_rel_err(got[k], ref[k]) for k in ref), default=0.0)
+    if got == ref:
+        return 0.0
+    return abs(got - ref) / max(abs(got), abs(ref))
+
+
+def check_evaluator_golden() -> float:
+    """The port's PoseEvaluator on the eval golden's fixed detections, held
+    to the golden's summary within 1e-6 relative: the same numpy code, but
+    it transforms the model points in float32, which another BLAS rounds
+    otherwise (the H100's machine read 2.5e-8). Returns the largest
+    relative difference."""
+    import json
+
+    from posecnn_torch.data.imdb import PoseEvaluator
+
+    G = goldens()
+    err = summary_rel_err(G.score_detections(PoseEvaluator), json.loads(str(load_npz(G.EVAL_GOLDEN)["summary"])))
+    assert err <= 1e-6, err
+    return err

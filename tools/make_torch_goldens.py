@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes three files:
+Runs the JAX package (on the CPU) and writes four files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -21,6 +21,14 @@ Runs the JAX package (on the CPU) and writes three files:
       term, the lr, the gradient's global norm and every parameter's
       gradient (JAX layout, `['conv1_1']['weights']`). The weights are not
       stored: both sides draw them with `init_params_numpy(TRAIN_SEED)`.
+  tests/golden/torch_port_small_eval.npz
+      the eval battery's host and ICP parts: `refine_poses` at plane weight
+      0 and 1 on a fixed scene (`eval_scene`: two box-surface objects
+      splatted into a 96x128 depth and label map, four detections, one of
+      a class with no depth support), with the scene, and the
+      `PoseEvaluator` summary of fixed detections (`eval_detections`:
+      three frames over the 22 YCB classes and the stand-in object models)
+      as JSON.
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -43,6 +51,7 @@ GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 HOUGH_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_hough_v4_000000.npz")
 SLICE_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_small_slice.npz")
 TRAIN_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_small_train.npz")
+EVAL_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_small_eval.npz")
 HOUGH_FRAME = "data/lov_syn_val_v4/000000.npz"
 
 # flagship Hough settings (__graft_entry__.py:_flagship_cfg)
@@ -270,9 +279,161 @@ def train_golden() -> dict:
     return g
 
 
+def axis_angle(axis, deg: float) -> np.ndarray:
+    """Rotation matrix of `deg` degrees about `axis` (Rodrigues)."""
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    a = np.deg2rad(deg)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * (K @ K)
+
+
+def box_surface(half: float, n: int = 12) -> np.ndarray:
+    """(6 * n * n, 3) points on the faces of a cube of half-side `half`."""
+    g = np.linspace(-half, half, n)
+    xs, ys = np.meshgrid(g, g)
+    faces = []
+    for s in (-half, half):
+        faces += [np.stack([xs.ravel(), ys.ravel(), np.full(xs.size, s)], 1),
+                  np.stack([xs.ravel(), np.full(xs.size, s), ys.ravel()], 1),
+                  np.stack([np.full(xs.size, s), xs.ravel(), ys.ravel()], 1)]
+    return np.concatenate(faces).astype(np.float32)
+
+
+def splat(cam: np.ndarray, K: np.ndarray, depth: np.ndarray, label: np.ndarray, cls: int) -> None:
+    """Project camera-frame points (N,3) through K into the depth and label
+    maps in place, keeping the nearest point of each pixel."""
+    H, W = depth.shape
+    uv = cam @ K.T
+    u, v = (uv[:, 0] / uv[:, 2]).astype(int), (uv[:, 1] / uv[:, 2]).astype(int)
+    ok = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    for ui, vi, z in zip(u[ok], v[ok], cam[ok, 2]):
+        if depth[vi, ui] == 0 or z < depth[vi, ui]:
+            depth[vi, ui], label[vi, ui] = z, cls
+
+
+def eval_scene() -> dict:
+    """The ICP scene of the eval golden, numpy: the scene of
+    tests/test_eval_path.py:test_refine_poses_improves_pose (a 10 cm cube
+    surface of class 1 splatted into a 96x128 depth and label map at
+    fx = fy = 120, and its perturbed detection) with a 6 cm cube of class
+    2 beside it, and three more detections: class 2, a second of class 1
+    and one of class 3, which has no depth pixels."""
+    from posecnn_torch.utils.quaternion_np import mat2quat
+
+    H, W = 96, 128
+    K = np.array([[120.0, 0, W / 2], [0, 120.0, H / 2], [0, 0, 1]])
+    points_all = np.zeros((4, 864, 3), np.float32)
+    points_all[1], points_all[2], points_all[3] = box_surface(0.05), box_surface(0.03), 0.5 * box_surface(0.05)
+    gt = {1: (axis_angle([0.3, 1.0, 0.2], 30), np.array([0.02, -0.03, 0.9])),
+          2: (axis_angle([1.0, 0.2, 0.1], -25), np.array([-0.15, 0.05, 0.8]))}
+    depth = np.zeros((H, W), np.float32)
+    label = np.zeros((H, W), np.int32)
+    for cls, (R, t) in gt.items():
+        splat(points_all[cls].astype(np.float64) @ R.T + t, K, depth, label, cls)
+    dets = [  # (roi, rotation perturbation (axis, deg), translation offset)
+        ((0, 1, 30, 20, 100, 80, 0.9), ([0, 0, 1.0], 12), [0.01, -0.01, 0.05]),
+        ((0, 2, 30, 45, 55, 65, 0.8), ([1.0, 0, 0], 8), [-0.01, 0.005, -0.04]),
+        ((0, 1, 50, 30, 85, 60, 0.7), ([0, 1.0, 0], 20), [0.02, 0.0, 0.08]),
+        ((0, 3, 40, 40, 60, 60, 0.6), ([0, 0, 1.0], 5), [0.0, 0.0, 0.1]),
+    ]
+    rois, poses = [], []
+    for roi, (axis, deg), dt in dets:
+        R, t = gt.get(roi[1], gt[1])
+        rois.append(roi)
+        poses.append(np.concatenate([mat2quat(axis_angle(axis, deg) @ R), t + np.asarray(dt)]))
+    meta = np.zeros(48, np.float32)
+    meta[0], meta[2], meta[4], meta[5] = K[0, 0], K[0, 2], K[1, 1], K[1, 2]
+    return dict(depth=depth, label=label, points_all=points_all, meta=meta,
+                rois=np.asarray(rois, np.float32), poses=np.asarray(poses, np.float32))
+
+
+EVAL_PLANE_WEIGHTS = (0.0, 1.0)
+
+
+def eval_detections():
+    """(constructor args, per-frame add_frame kwargs) of the evaluator
+    golden, numpy, from seed 7: three frames of 3-5 GT objects over the 22
+    YCB classes (two of the ADD-S classes among them) with the stand-in
+    object models of `posecnn_torch.data.lov_syn`; detections near every
+    GT but the last, which is missed, a duplicate of the first, one of a
+    class with no GT, refined and ICP poses (none on the last frame) and K
+    for the reprojection error."""
+    from posecnn_torch.data.imdb import YCB_CLASSES, YCB_SYMMETRIC_EVAL
+    from posecnn_torch.data.lov_syn import object_models
+    from posecnn_torch.utils.quaternion_np import mat2quat
+
+    points, _, extents = object_models(len(YCB_CLASSES))
+    args = (list(YCB_CLASSES), extents, list(points), list(YCB_SYMMETRIC_EVAL))
+    rng = np.random.RandomState(7)
+    K = np.array([[1066.8, 0, 312.99], [0, 1067.5, 241.31], [0, 0, 1.0]])
+    frames = []
+    for f, classes in enumerate(([13, 2, 5, 21], [16, 7, 7], [1, 13, 19, 20, 3])):
+        n = len(classes)
+        gt = np.zeros((3, 4, n), np.float32)
+        for j in range(n):
+            gt[:, :3, j] = axis_angle(rng.randn(3), rng.uniform(0, 180))
+            gt[:, 3, j] = [rng.uniform(-0.2, 0.2), rng.uniform(-0.15, 0.15), rng.uniform(0.6, 1.2)]
+        rois, poses, refined, icp = [], [], [], []
+        for j in range(n - 1):
+            for noise in ((0.01, 5),) + (((0.05, 30),) if j == 0 else ()):
+                R = axis_angle(rng.randn(3), rng.uniform(0, noise[1])) @ gt[:, :3, j]
+                t = gt[:, 3, j] + rng.randn(3) * noise[0]
+                rois.append([0, classes[j], 0, 0, 10, 10, rng.uniform(0.2, 1.0)])
+                poses.append(np.concatenate([mat2quat(R), t]))
+                refined.append(np.concatenate([mat2quat(R), gt[:, 3, j] + rng.randn(3) * 0.005]))
+                icp.append(np.concatenate([mat2quat(axis_angle(rng.randn(3), 2.0) @ gt[:, :3, j]),
+                                           gt[:, 3, j] + rng.randn(3) * 0.002]))
+        rois.append([0, 9, 0, 0, 10, 10, 0.5])
+        poses.append(np.array([1.0, 0, 0, 0, 0, 0, 1.0]))
+        refined.append(poses[-1])
+        icp.append(poses[-1])
+        labels = rng.randint(0, 22, (2, 8, 8))
+        last = f == 2
+        frames.append(dict(
+            pred_labels=labels[0], gt_labels=labels[1], rois=np.asarray(rois, np.float32),
+            poses=np.asarray(poses, np.float32), gt_poses=gt, gt_cls_indexes=np.asarray(classes, np.float32),
+            poses_refined=None if last else np.asarray(refined, np.float32),
+            poses_icp=None if last else np.asarray(icp, np.float32), intrinsic_matrix=K,
+        ))
+    return args, frames
+
+
+def score_detections(evaluator_cls) -> dict:
+    """The summary of `evaluator_cls` (either package's PoseEvaluator) on
+    `eval_detections`."""
+    args, frames = eval_detections()
+    ev = evaluator_cls(*args)
+    for f in frames:
+        ev.add_frame(**f)
+    return ev.summary()
+
+
+def eval_golden() -> dict:
+    import json
+
+    import jax.numpy as jnp
+
+    from posecnn_tpu.data.imdb import PoseEvaluator
+    from posecnn_tpu.engine.test import refine_poses
+
+    scene = eval_scene()
+    g = {f"scene/{k}": v for k, v in scene.items()}
+    for w in EVAL_PLANE_WEIGHTS:  # jitted, as the JAX package runs it (no RoI pooling here)
+        poses_new, poses_icp = refine_poses(
+            scene["rois"], scene["poses"], scene["depth"], scene["label"], jnp.asarray(scene["points_all"]),
+            scene["meta"], plane_weight=w,
+        )
+        g[f"plane{w:g}/poses_new"] = np.asarray(poses_new, np.float32)
+        g[f"plane{w:g}/poses_icp"] = np.asarray(poses_icp, np.float32)
+    g["summary"] = np.asarray(json.dumps(score_detections(PoseEvaluator), sort_keys=True))
+    return g
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
-    for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden)):
+    for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
+                       (EVAL_GOLDEN, eval_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 

@@ -1,12 +1,14 @@
-"""Where a flagship inference frame, or a flagship training step, of the
-PyTorch port spends its time.
+"""Where a flagship inference frame, a flagship training step or a
+flagship eval frame of the PyTorch port spends its time.
 
 Inference (default): `posecnn_torch` flagship inference (640x480, bf16,
 seeded weights) on frozen frames. Training (`--train`): the flagship
 training step of `posecnn_torch.entry.train_entry` (B=2 at 640x480, bf16,
-device bank). Runs under torch.profiler and prints the device's busy share
-of the profiled wall window, host and device time per stage, and the device
-time by kernel (the `--top` largest).
+device bank). Evaluation (`--eval`): `engine.test.test_net` as
+`python -m posecnn_torch.test_net` runs it on the seed-0 weights (the eval
+config, NMS 0.3, depth ICP, the evaluator). Runs under torch.profiler and
+prints the device's busy share of the profiled wall window, host and device
+time per stage, and the device time by kernel (the `--top` largest).
 
 Stages are spans this tool opens around the calls into each layer. For
 inference: the trunk, Hough voting, RoI pooling, the fc layers and host NMS;
@@ -14,9 +16,11 @@ inference: the trunk, Hough voting, RoI pooling, the fc layers and host NMS;
 preprocessing (jitter, noise), the trunk's forward, Hough voting, the crop
 pool, the fc layers, the loss functions and the optimizer update; "backward
 and the rest" is the rest of the step (the backward runs on autograd's own
-thread, outside the spans). Needs one NVIDIA GPU.
+thread, outside the spans). For evaluation: the trunk, Hough voting, the
+crop pool, the fc layers, host NMS, the ICP (`refine_poses`) and the
+evaluator. Needs one NVIDIA GPU.
 
-Usage: python tools/profile_torch_inference.py [--train] [--frames 6] [--top 25]
+Usage: python tools/profile_torch_inference.py [--train | --eval] [--frames 6] [--top 25]
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true", help="profile the flagship training step")
+    ap.add_argument("--eval", action="store_true", help="profile test_net's frames (ICP on)")
     ap.add_argument("--frames", type=int, default=6, help="frames (or training steps) to profile")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -94,6 +99,35 @@ def main() -> int:
         runs = [()] * args.frames
         rest = "backward and the rest"
         unit = "step"
+    elif args.eval:
+        from posecnn_torch.config import FLAGSHIP_TEST, flagship_eval_cfg
+        from posecnn_torch.core.convert import init_params_numpy, make_model
+        from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL, PoseEvaluator
+        from posecnn_torch.data.lov_syn import LovSynVal
+
+        stages = {
+            "stage:trunk": [(backbone.VGGTrunk, "forward")],
+            "stage:hough": [(model_mod, "hough_voting")],
+            "stage:crop_pool": [(model_mod, "crop_pool_batched")],
+            "stage:fc": [(layers, "fc")],
+            "stage:host_nms": [(engine, "postprocess_detections")],
+            "stage:icp": [(engine, "refine_poses")],
+            "stage:evaluator": [(PoseEvaluator, "add_frame")],
+        }
+        _spans(stages, record_function)
+        cfg = flagship_eval_cfg()
+        model = make_model(cfg, init_params_numpy(0, cfg), dev)
+        data = LovSynVal()
+        evaluator = PoseEvaluator(data.classes, data._extents, data._points, list(YCB_SYMMETRIC_EVAL))
+
+        def run(n_frames):
+            with record_function("stage:frame"):
+                engine.test_net(model, cfg, data, PIXEL_MEANS, evaluator=evaluator, max_frames=n_frames, log=None,
+                                **FLAGSHIP_TEST)
+
+        runs = [(2,), (args.frames,)]  # a warm-up call of 2 frames, then the profiled one
+        rest = "heads and the rest"
+        unit = "frame"
     else:
         stages = {
             "stage:trunk": [(backbone.VGGTrunk, "forward")],
@@ -119,18 +153,18 @@ def main() -> int:
         rest = "heads and the rest"
         unit = "frame"
 
-    for r in runs[:2]:  # warm-up: cuDNN plans, the kernel builds
+    for r in runs[:2] if not args.eval else runs[:1]:  # warm-up: cuDNN plans, the kernel builds
         run(*r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in runs:
+        for r in runs if not args.eval else runs[1:]:
             run(*r)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
     avg = prof.key_averages()
-    n = len(runs)
+    n = args.frames
     spans = {e.key: e for e in avg if e.key.startswith("stage:") and e.device_type.name == "CPU"}
     events = [e for e in avg if e.device_time_total > 0 and e.device_type.name == "CUDA" and e.key not in spans]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
