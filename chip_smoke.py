@@ -3,7 +3,9 @@
 
 Runs the port's main path through its user entry points and checks it:
 flagship PoseCNN inference (raw 640x480 BGR frame in, ROIs and 6-DoF poses
-out) and the flagship training step (B=2 at 640x480 from a device bank).
+out), the flagship training step (B=2 at 640x480 from a device bank), and
+the cfg-driven CLIs on the toy dataset (host-fed training at 96x128 and
+its scoring).
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
   2. build: every CUDA kernel of the path, from the sources in this
@@ -17,7 +19,12 @@ out) and the flagship training step (B=2 at 640x480 from a device bank).
      inside a valid sample's box) and the share of pairs its box pruning
      keeps; and conv3x3 at conv1_2 (the trunk's, the bias + ReLU and the
      zero-bias epilogues at B=1 and B=2, dx at B=2; within 1 bf16 ulp;
-     back-to-back, cold-L2 and single-call times beside cuDNN's bf16 conv)
+     back-to-back, cold-L2 and single-call times beside cuDNN's bf16 conv);
+     and both at the toy path's shapes (`toy_phase3`): conv3x3 at B=2,
+     96x128 in the path's mode there (the zero-bias sum) and dx, beside
+     cuDNN; hough_vote's coarse
+     (768 centres) and refine passes at P=1024 on the first 8 toy_train
+     frames' ground truth
   4. Hough voting on the card against the JAX package's golden
   5. the whole inference network, and one small training step (losses,
      every gradient, the update), on the card against the JAX package's
@@ -54,7 +61,19 @@ out) and the flagship training step (B=2 at 640x480 from a device bank).
      port on the CPU, against which the card's labels, classes and rois are
      held as in phase 6 (a box further off only on equal votes: a plateau
      of the vote map) and poses_icp where the boxes match
-  10. the kernels' JSON line, then {"ok": true, "device": {...}}
+  10. the toy path (`toy_phase`): `python -m posecnn_torch.train_net --cfg
+     experiments/cfgs/toy_pose.yml --imdb toy_train --iters 100` (per-step
+     stream ms and data-thread wait, the first and last metrics rows, every
+     loss finite, 4 + 2 launches a step); the host-fed step on the card
+     against the CPU port on step 1 (phase 7's limits on the losses and the
+     gradient norm; conv1's weight gradients within 2x the CPU's own bf16
+     gap from float32: on flat toy frames they are small residuals of
+     cancelling sums); the step fed by the
+     prefetch thread and by batches made beforehand; `python -m
+     posecnn_torch.test_net --cfg ... --imdb toy_val --model <the iter-100
+     snapshot>` (seg IoU, ADD(-S) AUC, per-frame ms by stage, 2 + 1
+     launches a frame)
+  11. the kernels' JSON line, then {"ok": true, "device": {...}}
 
 The CLIs' scratch directory is made under the checkout's git-ignored
 output/ and removed at the end. Any failure raises and the process exits
@@ -65,6 +84,7 @@ chip_smoke.py
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import os
@@ -83,6 +103,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES_DIR = os.path.join(ROOT, "data", "lov_syn_val_v4")
 N_FRAMES, N_WARMUP = 8, 2
 N_STEPS = 8
+# phase 10: the toy CLI's steps, the in-process feed comparison's, and the
+# steps left out of the medians
+TOY_STEPS, TOY_FEED_STEPS, TOY_WARMUP = 100, 30, 5
 
 # the H100's published peaks (NVIDIA's data sheet, SXM part, dense rates)
 PEAK_BYTES_PER_S = 3.35e12
@@ -241,11 +264,20 @@ def pruned_pairs(samples, centers, grid_w: int, tile_w: int = 16, tile_h: int = 
 
 def graph_ms(calls, reps: int = 20) -> float:
     """Device time of one call with no host work between calls: the
-    no-argument functions `calls` captured once, in order, into a CUDA graph;
+    no-argument functions `calls` captured once, in order, into a CUDA graph
+    (each called once beforehand on a side stream);
     the median over `reps` replays of a replay's time over len(calls). An
     untimed replay ahead of each keeps the card busy while it is queued."""
     import torch
 
+    # one warm-up call of each on a side stream before the capture (a cuDNN
+    # call picks its algorithm and workspace there)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in {id(f): f for f in calls}.values():
+            f()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
@@ -551,6 +583,241 @@ def eval_phase(final: str, seed0: str, work: str, dev) -> dict:
     return launches
 
 
+def toy_phase(work: str, dev) -> dict:
+    """Phase 10: the cfg-driven path on the toy dataset
+    (experiments/cfgs/toy_pose.yml). `python -m posecnn_torch.train_net
+    --cfg toy_pose.yml --imdb toy_train --iters TOY_STEPS` in a process of
+    its own (every loss of its metrics rows finite, hough_vote 4 and
+    conv3x3 2 launches a step); the host-fed step on the card against the
+    CPU port on step 1 (the same first batch of GtSynthesizeLayer(seed=3),
+    weights and replayed draws; phase 7's limits on the losses and the
+    gradient norm, conv1's weight gradients within two bf16-f32 gaps); the
+    step fed by the
+    prefetch thread and by a list of batches made beforehand; then
+    `python -m posecnn_torch.test_net --cfg toy_pose.yml --imdb toy_val
+    --model <the last snapshot>` (hough_vote 2 and conv3x3 1 launches a
+    frame). Returns the CLI runs' launches."""
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.data.factory import get_imdb
+    from posecnn_torch.data.layer import GtSynthesizeLayer, prefetch
+    from posecnn_torch.data.minibatch import rescale_points
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.ops import conv3x3, voting
+
+    cfg_file = os.path.join("experiments", "cfgs", "toy_pose.yml")
+    out = os.path.join(work, "toy")
+    rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg_file, "--imdb", "toy_train", "--iters",
+                       str(TOY_STEPS), "--output", out], os.path.join(work, "toy_train.log"), 600)
+    check(rc == 0, f"train_net --cfg exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(out, "train_timing.json")) as f:
+        timing = json.load(f)
+    launches = {"train": timing["launches"]}
+    check(timing["launches"] == {"hough_vote": 4 * TOY_STEPS, "conv3x3": 2 * TOY_STEPS},
+          f"train_net --cfg launches {timing['launches']}")
+    ms = {k: statistics.median(v[TOY_WARMUP:]) for k, v in timing["ms"].items()}
+    with open(os.path.join(out, "train_metrics.csv")) as f:
+        rows = [r.split(",") for r in f.read().splitlines()]
+    head, rows = rows[0], [dict(zip(rows[0], map(float, r))) for r in rows[1:]]
+    loss_keys = [k for k in head if k.startswith("loss")]
+    check(len(rows) == TOY_STEPS // 2 and all(np.isfinite(r[k]) for r in rows for k in loss_keys),
+          f"train_metrics.csv: {len(rows)} rows, losses not all finite")
+    snap = os.path.join(out, f"caffenet_fast_rcnn_iter_{TOY_STEPS}.npz")
+    check(os.path.exists(snap), f"no snapshot {snap}")
+    fmt = lambda r: ", ".join(f"{k} {r[k]:.6g}" for k in loss_keys)  # noqa: E731
+    phase(10, f"train_net --cfg toy_pose.yml --imdb toy_train --iters {TOY_STEPS} (B=2, 96x128, bf16 trunk): "
+              f"per step (median of steps {TOY_WARMUP + 1}-{TOY_STEPS}) {ms['step_stream']:.3f} ms stream (CUDA "
+              f"events around the step), {ms['step']:.3f} ms host, data thread wait {ms['data_wait']:.3f} ms; "
+              f"first row (step {int(rows[0]['step'])}): {fmt(rows[0])}; last row (step {int(rows[-1]['step'])}): "
+              f"{fmt(rows[-1])}; launches {timing['launches']}")
+    print("toy train per-step ms " + json.dumps({k: [round(x, 3) for x in v] for k, v in timing["ms"].items()}),
+          flush=True)
+
+    # the host-fed step on the card against the CPU port, step 1
+    t0 = time.perf_counter()
+    cfg = C.cfg_from_file(os.path.join(ROOT, cfg_file))
+    imdb = get_imdb("toy_train")
+    imdb.append_flipped_images()
+    model_cfg, hp, mcfg = C.train_model_cfg(cfg, 4), C.train_hparams(cfg), C.minibatch_cfg(cfg, 4)
+    ext, sym = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
+    consts = [torch.from_numpy(a) for a in (rescale_points(imdb._points_all, ext, sym, mcfg.is_symmetric), sym, ext)]
+    layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
+    batch = layer.forward()
+    weights = init_params_numpy(cfg.RNG_SEED, model_cfg)
+    state = T.create_train_state(make_model(model_cfg, weights, dev), hp)
+    step = T.make_train_step(model_cfg, hp, *(c.to(dev) for c in consts))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.RNG_SEED)
+    draws = T.Draws(gen, record=True)
+    got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), draws).items()}
+    grads = {k: p.grad.detach().float().cpu() for k, p in state.model.named_parameters() if p.grad is not None}
+    state_cpu = T.create_train_state(make_model(model_cfg, weights, "cpu"), hp)
+    replay = T.Draws(replay={k: v.cpu() for k, v in draws.recorded.items()})
+    loss, ref = T.compute_losses(state_cpu.model, model_cfg, hp, T.to_device(batch, "cpu"), *consts, replay)
+    ref = {k: float(v.detach()) for k, v in ref.items()}
+    ref["grad_norm"] = float(T.train_update(state_cpu, loss, T.lr_schedule(hp)(0)))
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in TRAIN_LOSS_LIMITS}
+    cpu_grads = {k: p.grad.float() for k, p in state_cpu.model.named_parameters()}
+    grad_rel = {k: float((grads[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30) for k, g in cpu_grads.items()}
+    # the first layers' gradients on frames of flat colour are small
+    # residuals of cancelling sums, so they are held to the bf16 rounding
+    # of the step itself: the same step on the CPU in float32 gives the gap
+    # of the CPU's bf16 gradient, and two bf16 runs may part by two gaps
+    # (the triangle inequality through the float32 gradient)
+    state_f32 = T.create_train_state(make_model(dataclasses.replace(model_cfg, compute_dtype=torch.float32), weights,
+                                                "cpu"), hp)
+    loss32, _ = T.compute_losses(state_f32.model, dataclasses.replace(model_cfg, compute_dtype=torch.float32), hp,
+                                 T.to_device(batch, "cpu"), *consts, T.Draws(replay=replay.replay))
+    T.train_update(state_f32, loss32, T.lr_schedule(hp)(0))
+    gap = {k: float((cpu_grads[k] - p.grad.float()).abs().max()) for k, p in state_f32.model.named_parameters()}
+    err = {k: float((grads[k] - cpu_grads[k]).abs().max()) for k in TRAIN_GRAD_LIMITS}
+    check(all(rel[k] <= lim for k, lim in TRAIN_LOSS_LIMITS.items()) and all(err[k] <= 2 * gap[k] for k in err),
+          f"toy step 1, card against CPU: relative errors {rel}, limits {TRAIN_LOSS_LIMITS}; gradients "
+          + ", ".join(f"{k} max|err| {err[k]:.3g} ({grad_rel[k]:.3g} of its largest magnitude), limit 2 x the "
+                      f"bf16-f32 gap {gap[k]:.3g}" for k in err))
+    phase(10, f"the host-fed step on the card against the CPU port on step 1 ({time.perf_counter() - t0:.1f} s; "
+              f"the first batch of GtSynthesizeLayer(seed={cfg.RNG_SEED}), replayed draws): "
+              + "; ".join(f"{k} {got[k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g} (limit {TRAIN_LOSS_LIMITS[k]})"
+                          for k in TRAIN_LOSS_LIMITS)
+              + "; " + "; ".join(f"{k} gradient max|err| {err[k]:.3g}, {grad_rel[k]:.3g} of its largest magnitude "
+                                 f"(phase 7's limit {TRAIN_GRAD_LIMITS[k]}), {err[k] / max(gap[k], 1e-30):.3g} of the "
+                                 f"CPU's bf16-f32 gap (limit 2)" for k in err)
+              + f"; loss_pose {got['loss_pose']:.6g} vs {ref['loss_pose']:.6g} (not held)")
+    del state_cpu, state_f32
+
+    # the step fed by the prefetch thread, and by batches made beforehand
+    feeds = {}
+    for name in ("prefetch thread", "batches made beforehand"):
+        src = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
+        if name == "prefetch thread":
+            data_iter = prefetch(iter(src), depth=cfg.TPU.PREFETCH)
+        else:
+            data_iter = iter([src.forward() for _ in range(TOY_FEED_STEPS)])
+        timings = {}
+        v0, c0 = voting.VOTE_LAUNCHES, conv3x3.CONV3X3_LAUNCHES
+        start = state.step
+        T.Solver(step, display=10**9).train(data_iter, state, start + TOY_FEED_STEPS, log=None, start_iter=start,
+                                            handle_signals=False, timings=timings)
+        if hasattr(data_iter, "close"):
+            data_iter.close()
+        n = (voting.VOTE_LAUNCHES - v0, conv3x3.CONV3X3_LAUNCHES - c0)
+        check(n == (4 * TOY_FEED_STEPS, 2 * TOY_FEED_STEPS), f"{name}: launches {n}")
+        feeds[name] = {k: statistics.median(v[TOY_WARMUP:]) for k, v in timings.items()}
+    phase(10, f"{TOY_FEED_STEPS} host-fed steps in this process, medians after {TOY_WARMUP}: "
+              + "; ".join(f"{name}: {m['step_stream']:.3f} ms stream, {m['step']:.3f} ms host, data wait "
+                          f"{m['data_wait']:.3f} ms" for name, m in feeds.items()))
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the eval CLI on the last snapshot
+    ev = os.path.join(work, "toy_eval")
+    rc, log = run_cli(["posecnn_torch.test_net", "--cfg", cfg_file, "--imdb", "toy_val", "--model", snap,
+                       "--output", ev], os.path.join(work, "toy_eval.log"), 600)
+    check(rc == 0, f"test_net --cfg exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(ev, "eval_summary.json")) as f:
+        summary = json.load(f)
+    with open(os.path.join(ev, "eval_timing.json")) as f:
+        timing = json.load(f)
+    with np.load(os.path.join(ev, "detections.npz")) as d:
+        dets = {k: d[k] for k in d.files}
+    n = timing["frames"]
+    check(n == 64 and timing["launches"] == {"hough_vote": 2 * n, "conv3x3": n},
+          f"test_net --cfg: {n} frames, launches {timing['launches']}")
+    check(all(np.isfinite(v).all() and v.ndim == 2 and v.shape[1] == 7 for v in dets.values()), "toy detections")
+    check(0 <= summary["mean_iou"] <= 1 and 0 <= summary["adds_auc"] <= 1 and not timing["pose_refine"],
+          f"toy summary {summary}")
+    launches["eval"] = timing["launches"]
+    ms = {k: statistics.median(v[2:]) for k, v in timing["ms"].items()}
+    phase(10, f"test_net --cfg toy_pose.yml --imdb toy_val --model {os.path.basename(snap)}: {n} frames in "
+              f"{timing['wall_s']:.3f} s, {sum(len(v) for k, v in dets.items() if k.endswith('_rois'))} detections, "
+              f"launches {timing['launches']}; seg IoU {json.dumps(summary['seg_iou'])}, mean {summary['mean_iou']:.4f}; "
+              f"ADD(-S) AUC {summary['adds_auc']:.4f} (per class, ADD-S for {imdb.classes[-1]}: "
+              f"{json.dumps(summary['adds_auc_per_class'])}); per frame (median of frames 3-{n}) "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return launches
+
+
+def toy_phase3(kernels: dict, w_t, dev) -> None:
+    """Phase 3 at the toy path's shapes (experiments/cfgs/toy_pose.yml):
+    conv3x3 at conv1_2, B=2, 96x128, 64->64, in the path's mode below 128
+    rows (the zero-bias sum: the JAX trunk's plain bf16 conv2d there, its
+    f32 bias and ReLU after the kernel) and dx, within 1 bf16 ulp of the
+    plain version, timed from CUDA graphs back to back and as single calls
+    beside cuDNN's bf16 conv; and hough_vote's coarse (the 24x32 grid at stride 4, 768 centres)
+    and refine passes at S=8, P=1024 on the ground truth of the first 8
+    toy_train frames, votes equal to the plain version's. Adds `toy_*`
+    numbers to each kernel's entry of `kernels`."""
+    import torch
+    import torch.nn.functional as F
+
+    from posecnn_torch.ops import conv3x3, voting
+    from tests.torch_parity import bf16_ulp_excess, toy_vote_inputs
+
+    rng = np.random.RandomState(2)
+    B, H, W = 2, 96, 128
+    zeros = torch.zeros(64, device=dev)
+    for label in ("forward (the zero-bias sum; the bias and ReLU follow in f32)", "dx"):
+        dx = label == "dx"
+        x = torch.from_numpy(rng.randn(B, H, W, 64).astype(np.float32)).to(dev)
+        x = (x if dx else torch.relu(x)).to(torch.bfloat16)
+        w_c = conv3x3.flip_transpose(w_t) if dx else w_t
+        kern = functools.partial(conv3x3._launch, x, conv3x3.pack_weights(w_t, dgrad=dx), None, 0)
+        plain = functools.partial(conv3x3.conv3x3_plain, x, w_c, zeros, False)
+        y_k, y_p = kern(), plain()
+        torch.cuda.synchronize()
+        ulps = bf16_ulp_excess(y_k, y_p)
+        check(ulps <= 1.0, f"conv3x3 toy {label}: kernel {ulps:.3g} bf16 ulps from the plain version")
+        err = (y_k.float() - y_p.float()).abs().max().item()
+        w_l = w_c.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib = lambda: F.conv2d(x.permute(0, 3, 1, 2), w_l, None, padding=1)  # noqa: E731
+        # a call's host work outlasts the kernel at this size: CUDA graphs
+        k_ms = statistics.median([graph_ms([kern] * 10) for _ in range(2)])
+        l_ms = statistics.median([graph_ms([lib] * 10) for _ in range(2)])
+        p_ms = median_ms(plain, reps=5, inner=2)
+        k_one, l_one = single_ms(kern), single_ms(lib)
+        b_ms, b_by = conv_bound(B, H, W, 64, 64)
+        key = "toy_dx" if dx else "toy"
+        kernels["conv3x3"].update({f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms, f"{key}_library_ms": l_ms,
+                                   f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by, f"{key}_max_abs_err": err,
+                                   f"{key}_ms_single": k_one, f"{key}_library_ms_single": l_one})
+        phase(3, f"conv3x3 toy {label}, B=2, 96x128, 64->64: {ulps:.3g} bf16 ulps at most (limit 1), max|err| "
+                 f"{err:.3g}; kernel {k_ms * 1e3:.2f} us back to back (CUDA graph of 10 calls), {k_one * 1e3:.2f} "
+                 f"single; cuDNN bf16 {l_ms * 1e3:.2f} / {l_one * 1e3:.2f} us; plain {p_ms * 1e3:.1f} us; bound "
+                 f"{b_ms * 1e3:.2f} us ({b_by})")
+    ins = [toy_vote_inputs(i, dev) for i in range(8)]
+    for pass_name, key in (("coarse", "coarse"), ("refine", "window")):
+        r = {k: [] for k in ("ms", "single", "plain", "err", "bytes", "inside")}
+        for d in ins:
+            smp, cen, gw = d["samples"], d[key], d["grid_w"] if key == "coarse" else 0
+            call = functools.partial(voting.accumulate_votes, smp, cen, grid_w=gw)
+            v_k, d_k = call()
+            v_p, d_p = voting.accumulate_votes_plain(smp, cen)
+            torch.cuda.synchronize()
+            check(torch.equal(v_k, v_p), f"hough_vote toy {pass_name}: votes differ from the plain version")
+            torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-4)
+            r["err"].append(max((v_k - v_p).abs().max().item(), (d_k - d_p).abs().max().item()))
+            r["ms"].append(graph_ms([call] * 10))
+            r["single"].append(single_ms(call))
+            r["plain"].append(median_ms(lambda: voting.accumulate_votes_plain(smp, cen), reps=3, inner=1))
+            r["inside"].append(vote_pairs(smp, cen)[0])
+            r["bytes"].append((smp.numel() + cen.numel() + 2 * smp.shape[0] * cen.shape[2]) * 4)
+        mean = {k: statistics.fmean(v) for k, v in r.items() if k != "err"}
+        b_ms, b_by = vote_bound(mean["bytes"], mean["inside"])
+        pre = "toy" if pass_name == "coarse" else "toy_refine"
+        kernels["hough_vote"].update({f"{pre}_ms": mean["ms"], f"{pre}_plain_ms": mean["plain"],
+                                      f"{pre}_bound_ms": b_ms, f"{pre}_bound_by": b_by,
+                                      f"{pre}_ms_single": mean["single"], f"{pre}_max_abs_err": max(r["err"])})
+        phase(3, f"hough_vote toy {pass_name} (the first 8 toy_train frames' ground truth, S=8, P=1024, "
+                 f"{ins[0][key].shape[2]} centres{' a slot' if key == 'window' else ''}; valid samples "
+                 f"{[int((d['samples'][:, 7] > 0).sum()) for d in ins]}): votes equal, dsum max|err| "
+                 f"{max(r['err']):.3g}; kernel {mean['ms'] * 1e3:.2f} us back to back (CUDA graph of 10 calls; "
+                 f"cases {[round(x * 1e3, 2) for x in r['ms']]}), {mean['single'] * 1e3:.2f} single; plain "
+                 f"{mean['plain'] * 1e3:.1f} us; bound {b_ms * 1e3:.3f} us ({b_by})")
+    del ins
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -764,6 +1031,7 @@ def main() -> int:
     # the later phases' peak memory must not count this phase's tensors
     del x, xs, y_k, y_w, y_p, y_c, p_c, kern, kern_x, lib, lib_x, wrapper, plain
     torch.cuda.empty_cache()
+    toy_phase3(kernels, w_t, dev)
 
     # phase 4: Hough voting on the card against the JAX golden
     before = voting.VOTE_LAUNCHES
@@ -946,6 +1214,7 @@ def main() -> int:
         del state, bank, model_cpu, state_cpu, bank_cpu
         torch.cuda.empty_cache()
         eval_launches = eval_phase(final, seed0, work, dev)
+        toy_launches = toy_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -954,7 +1223,8 @@ def main() -> int:
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
-             "launches_train_cli": train_launches_cli[k], **kernels[k]}
+             "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],
+             "launches_toy_eval": toy_launches["eval"][k], **kernels[k]}
             for k in ("hough_vote", "conv3x3")]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

@@ -9,13 +9,12 @@ needs no host work.
 
 from __future__ import annotations
 
-import os
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from posecnn_torch.data.minibatch import Frame, load_frozen_frame, pad_im, pose_rows
+from posecnn_torch.data.minibatch import Frame, pad_im, pose_rows
 from posecnn_torch.utils.meta import build_meta_data
 
 
@@ -48,11 +47,10 @@ def pack_frames(frames: List[Frame], g_max: int) -> Dict[str, np.ndarray]:
     return {"data": data, "label": label, "gt_centers": gt_centers, "pose_rows": prow, "meta_data": metas}
 
 
-def load_frozen_bank(frames_dir: str, max_gt: int = 24) -> Dict[str, np.ndarray]:
-    """Every frozen frame of `frames_dir` (sorted) packed with G = the
-    largest instance count, capped at `max_gt` (`device_bank.py:build_bank`)."""
-    names = sorted(f for f in os.listdir(frames_dir) if f.endswith(".npz"))
-    frames = [load_frozen_frame(os.path.join(frames_dir, f)) for f in names]
+def build_bank(dataset, max_gt: int = 24) -> Dict[str, np.ndarray]:
+    """Every frame of `dataset` packed with G = the largest instance count,
+    capped at `max_gt` (`device_bank.py:build_bank`)."""
+    frames = [dataset.load_frame(i) for i in range(dataset.num_images)]
     g_max = min(max(1, max(int(f.poses.shape[2]) for f in frames)), max_gt)
     return pack_frames(frames, g_max)
 

@@ -1,8 +1,16 @@
-"""Pose evaluation: segmentation IoU, ADD(-S) accuracy and AUC.
+"""The dataset base class, and pose evaluation: segmentation IoU, ADD(-S)
+accuracy and AUC.
 
-The port's own copy of `posecnn_tpu/data/imdb.py:imdb.fast_hist` and
+The port's own copy of `posecnn_tpu/data/imdb.py`: the `imdb` base class
+(`roidb`, `num_images`, `append_flipped_images`), `fast_hist` and
 `PoseEvaluator` (numpy), with the YCB-Video class names and the classes
 scored with ADD-S (`posecnn_tpu/data/lov.py:21,39`).
+
+`append_flipped_images` appends a flipped copy of every roidb entry and
+doubles the image index, so a dataset of N frames then has 2N entries. The
+training layer reads entry i >= N as `load_frame(i)` mirrored: for a
+procedural dataset (`data/toy.py`) that is a new scene, not a mirror of
+frame i - N, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +36,57 @@ YCB_CLASSES = (
 
 # classes evaluated with ADD-S at test time (lov.py:484-487)
 YCB_SYMMETRIC_EVAL = ("024_bowl", "036_wood_block", "061_foam_brick")
+
+
+class imdb:
+    """Image database base (`posecnn_tpu/data/imdb.py:21-79`)."""
+
+    def __init__(self, name: str):
+        self._name = name
+        self._classes: Sequence[str] = []
+        self._image_index: List[str] = []
+        self._roidb: Optional[List[Dict]] = None
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def num_classes(self):
+        return len(self._classes)
+
+    @property
+    def classes(self):
+        return self._classes
+
+    @property
+    def image_index(self):
+        return self._image_index
+
+    @property
+    def num_images(self):
+        return len(self._image_index)
+
+    @property
+    def roidb(self):
+        if self._roidb is None:
+            self._roidb = self.gt_roidb()
+        return self._roidb
+
+    def gt_roidb(self):
+        raise NotImplementedError
+
+    def append_flipped_images(self):
+        """Horizontal-flip augmentation: the roidb gains a flipped copy of
+        every entry, and the image index doubles."""
+        roidb = self.roidb
+        flipped = []
+        for entry in roidb:
+            e = dict(entry)
+            e["flipped"] = True
+            flipped.append(e)
+        self._roidb = roidb + flipped
+        self._image_index = self._image_index * 2
 
 
 def fast_hist(a: np.ndarray, b: np.ndarray, n: int) -> np.ndarray:

@@ -1,0 +1,127 @@
+"""Data layer: a shuffled stream of host minibatches, and a prefetch thread.
+
+The port's own copy of `posecnn_tpu/data/layer.py:25-196` for real frames:
+`IndexStream` (an endless shuffled index stream), `GtSynthesizeLayer`
+(`ims_per_batch` frames an iteration through `data.minibatch.get_minibatch`,
+honouring the flipped roidb entries of `imdb.append_flipped_images`),
+`GtSingleDataLayer` and `prefetch`. One `RandomState(seed)` draws the
+index permutations and the chromatic deltas in the JAX package's order, so
+the batches are bit-equal to its. The synthetic and adaptation streams are
+not ported.
+
+`prefetch` runs the batch assembly (numpy work only) on a daemon thread and
+hands the batches over through a bounded queue; an exception in the thread
+reaches the consumer. The copy to the device happens on the consumer's
+thread (`engine.train.Solver`).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import replace
+from typing import Iterator, List
+
+import numpy as np
+
+from posecnn_torch.data.minibatch import Frame, MinibatchConfig, get_minibatch
+
+
+class IndexStream:
+    """Endless shuffled index stream: a new permutation of range(n) from
+    `rng` each time the last one is used up."""
+
+    def __init__(self, n: int, rng: np.random.RandomState):
+        self.n = n
+        self.rng = rng
+        self._perm = None
+        self._cur = 0
+
+    def next(self, count: int) -> np.ndarray:
+        if self.n <= 0:
+            raise ValueError("IndexStream over an empty dataset (0 images)")
+        out = []
+        while len(out) < count:
+            if self._perm is None or self._cur >= self.n:
+                self._perm = self.rng.permutation(np.arange(self.n))
+                self._cur = 0
+            take = min(count - len(out), self.n - self._cur)
+            out.extend(self._perm[self._cur : self._cur + take])
+            self._cur += take
+        return np.asarray(out)
+
+
+class GtSynthesizeLayer:
+    """Minibatches of real frames: `ims_per_batch` indices of the stream a
+    batch, each frame loaded from `dataset` and mirrored where its roidb
+    entry is flipped."""
+
+    def __init__(self, dataset, mcfg: MinibatchConfig, ims_per_batch: int = 2, seed: int = 3):
+        self.dataset = dataset
+        self.mcfg = mcfg
+        self.ims_per_batch = ims_per_batch
+        self.rng = np.random.RandomState(seed)
+        self.stream = IndexStream(dataset.num_images, self.rng)
+
+    def forward(self) -> dict:
+        frames: List[Frame] = []
+        rdb = getattr(self.dataset, "_roidb", None)
+        for i in self.stream.next(self.ims_per_batch):
+            fr = self.dataset.load_frame(int(i))
+            if rdb is not None and rdb[int(i)].get("flipped"):
+                fr = replace(fr, flipped=True)  # a copy: a dataset may cache its frames
+            frames.append(fr)
+        return get_minibatch(frames, self.mcfg, self.rng)
+
+    def __iter__(self):
+        while True:
+            yield self.forward()
+
+
+class GtSingleDataLayer(GtSynthesizeLayer):
+    """The single-frame layer (`lib/gt_single_data_layer/layer.py`); the
+    same stream of real frames."""
+
+
+def prefetch(source: Iterator[dict], depth: int = 4) -> Iterator[dict]:
+    """Items of `source`, made ahead on a daemon thread (at most `depth`
+    waiting). An exception in the thread is raised to the consumer; when
+    the consumer stops (closes the generator), the thread ends after the
+    item it is making."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        # any failure must reach the consumer: a dead worker with no
+        # sentinel would leave it waiting forever
+        try:
+            for item in source:
+                if stop.is_set():
+                    return
+                if not put(item):
+                    return
+            put(None)
+        except BaseException as e:  # noqa: BLE001 - re-raised on the consumer's side
+            put(e)
+
+    t = threading.Thread(target=worker, name="prefetch", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()

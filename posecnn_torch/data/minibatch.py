@@ -1,18 +1,30 @@
-"""Host-side frame helpers of the training data, in numpy.
+"""Host-side training data, in numpy: frames and the host minibatch.
 
-The port's own copies of `posecnn_tpu/data/minibatch.py:Frame`, `pose_rows`
-(:308) and `rescale_points` (:319), and `posecnn_tpu/utils/blob.py:pad_im`;
-`load_frozen_frame` reads one frozen frame (`data/lov_syn_val_v4/*.npz`,
-with its depth where the file has one).
+The port's own copies of `posecnn_tpu/data/minibatch.py`: `Frame`,
+`MinibatchConfig`, `flip_poses`, `flip_frame`, `pose_rows` (:308),
+`rescale_points` (:319) and `get_minibatch` (:335-528), and of
+`posecnn_tpu/utils/blob.py:pad_im`; `load_frozen_frame` reads one frozen
+frame (`data/lov_syn_val_v4/*.npz`, with its depth where the file has one).
+
+`get_minibatch` builds the batch of the COLOR input with device targets
+(`TPU.DEVICE_TARGETS`): uint8 frames padded to a multiple of 16, the
+int32 labels, the (B, MAX_GT, 4) table of GT centres [cls, cx, cy, z], the
+(MAX_GT, 13) GT pose rows and K in meta_data; with CHROMATIC, three HLS
+deltas an image, drawn from `rng` in the JAX package's order, which the
+train step applies on the device. The other branches of the JAX function
+raise NotImplementedError: dense host targets, the DEPTH, RGBD and NORMAL
+inputs, GAN blobs, adaptation and synthetic frames, VERTEX_REG_3D, input
+rescaling, and host noise (its motion-blur branch is cv2).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field, replace
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from posecnn_torch.utils.meta import build_meta_data
 from posecnn_torch.utils.quaternion_np import mat2quat
 
 
@@ -29,6 +41,27 @@ class Frame:
     intrinsic_matrix: np.ndarray  # (3,3)
     depth: Optional[np.ndarray] = None  # (H,W) uint16, metres * factor_depth
     factor_depth: float = 1.0
+    is_synthetic: bool = False    # composite over a random background
+    flipped: bool = False         # mirror horizontally when batched
+
+
+@dataclass
+class MinibatchConfig:
+    """`posecnn_tpu/data/minibatch.py:MinibatchConfig`, field for field."""
+
+    num_classes: int = 22
+    pixel_means: np.ndarray = field(default_factory=lambda: np.array([[[102.9801, 115.9465, 122.7717]]]))
+    chromatic: bool = True
+    add_noise: bool = False
+    vertex_reg: bool = True
+    vertex_reg_3d: bool = False
+    vertex_w_inside: float = 10.0
+    max_gt: int = 24
+    scale: float = 1.0
+    is_symmetric: bool = True
+    input_format: str = "COLOR"
+    gan: bool = False
+    device_targets: bool = False
 
 
 def load_frozen_frame(path: str) -> Frame:
@@ -61,17 +94,124 @@ def pose_rows(frame_index: int, frame: Frame) -> np.ndarray:
     return qt
 
 
-def rescale_points(points: np.ndarray, extents: np.ndarray, symmetry: np.ndarray) -> np.ndarray:
+def rescale_points(points: np.ndarray, extents: np.ndarray, symmetry: np.ndarray,
+                   is_symmetric: bool = True) -> np.ndarray:
     """The ADD loss's model points, scaled per class by max(10, 2/extent)
-    and 4x more for a symmetric class (reference minibatch.py:49-63)."""
+    and 4x more for a symmetric class when `is_symmetric` (reference
+    minibatch.py:49-63)."""
     out = points.copy()
     for i in range(1, points.shape[0]):
         ext_max = np.amax(extents[i, :])
         weight = 2.0 / ext_max if ext_max > 0 else 10.0
         if weight < 10:
             weight = 10
-        if symmetry[i] > 0:
+        if symmetry[i] > 0 and is_symmetric:
             out[i] = 4 * weight * points[i]
         else:
             out[i] = weight * points[i]
     return out
+
+
+def flip_poses(poses: np.ndarray, K: np.ndarray, width: int) -> np.ndarray:
+    """Mirror object poses for a horizontally flipped image: with K1 = K
+    after fx -> -fx, cx -> width - cx, the flipped pose is K^-1 K1 [R|t]."""
+    K = np.asarray(K, np.float64)
+    K1 = K.copy()
+    K1[0, 0] = -K1[0, 0]
+    K1[0, 2] = width - K1[0, 2]
+    A = np.linalg.inv(K) @ K1
+    out = poses.copy()
+    for j in range(poses.shape[2]):
+        out[:, :, j] = A @ poses[:, :, j]
+    return out
+
+
+def flip_frame(fr: Frame) -> Frame:
+    """The frame mirrored horizontally: colour, label and depth flipped,
+    centres x -> width - x, poses through `flip_poses`; `flipped` cleared."""
+    width = fr.color.shape[1]
+    center = fr.center.copy()
+    center[:, 0] = width - center[:, 0]
+    return replace(
+        fr,
+        color=np.ascontiguousarray(fr.color[:, ::-1]),
+        label=np.ascontiguousarray(fr.label[:, ::-1]),
+        depth=np.ascontiguousarray(fr.depth[:, ::-1]) if fr.depth is not None else None,
+        center=center,
+        poses=flip_poses(fr.poses, fr.intrinsic_matrix, width),
+        flipped=False,  # consumed
+    )
+
+
+def _check_host_batch(mcfg: MinibatchConfig, frames: List[Frame]) -> None:
+    unported = {
+        "dense host vertex targets (device_targets False)": not mcfg.device_targets,
+        f"input_format {mcfg.input_format!r}": mcfg.input_format != "COLOR",
+        "gan": mcfg.gan,
+        "vertex_reg_3d": mcfg.vertex_reg_3d,
+        "input rescaling (scale != 1, cv2)": mcfg.scale != 1.0,
+        "host noise (its motion-blur branch is cv2)": mcfg.add_noise,
+        "synthetic frames over backgrounds": any(f.is_synthetic for f in frames),
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(f"get_minibatch: not ported yet: {', '.join(bad)}")
+
+
+def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
+    """The host batch of `frames` with fixed shapes (the COLOR,
+    device-targets branch of `posecnn_tpu/data/minibatch.py:get_minibatch`):
+
+      data         (B,H,W,3)      uint8   BGR, padded to a multiple of 16
+      gt_label_2d  (B,H,W)        int32
+      meta_data    (B,48)         float32
+      poses        (max_gt,13)    float32 GT pose rows, column 0 the image
+      gt_centers   (B,max_gt,4)   float32 [cls, cx, cy, z] (vertex_reg)
+      chroma_dhls  (B,3)          float32 HLS deltas (chromatic)
+
+    A frame marked `flipped` is mirrored first (`flip_frame`). The chroma
+    deltas are three `rng.rand(1)` draws an image, in order."""
+    _check_host_batch(mcfg, frames)
+    ims, labels, metas, center_rows, chroma_rows = [], [], [], [], []
+    pose_blob = np.zeros((0, 13), dtype=np.float32)
+    for i, fr in enumerate(frames):
+        if fr.flipped:
+            fr = flip_frame(fr)
+        im = pad_im(fr.color, 16)
+        label = pad_im(fr.label.astype(np.int32), 16)
+        if mcfg.chromatic:
+            chroma_rows.append([
+                float((rng.rand(1)[0] - 0.5) * 0.02 * 180),
+                float((rng.rand(1)[0] - 0.5) * 0.2 * 256),
+                float((rng.rand(1)[0] - 0.5) * 0.2 * 256),
+            ])
+        ims.append(np.ascontiguousarray(np.clip(np.round(im[..., :3]), 0, 255)).astype(np.uint8))
+        metas.append(build_meta_data(fr.intrinsic_matrix, mcfg.scale))
+        labels.append(label)
+        if mcfg.vertex_reg:
+            n_inst = fr.poses.shape[2]
+            rows = np.zeros((n_inst, 4), np.float32)
+            rows[:, 0] = fr.cls_indexes[:n_inst]
+            rows[:, 1:3] = fr.center[:n_inst]
+            rows[:, 3] = fr.poses[2, 3, :n_inst]
+            center_rows.append(rows)
+        pose_blob = np.concatenate([pose_blob, pose_rows(i, fr)], axis=0)
+
+    gt = np.zeros((mcfg.max_gt, 13), dtype=np.float32)
+    n = min(len(pose_blob), mcfg.max_gt)
+    gt[:n] = pose_blob[:n]
+    batch = {
+        "data": np.stack(ims),
+        "gt_label_2d": np.stack(labels).astype(np.int32),
+        "meta_data": np.stack(metas).astype(np.float32),
+        "poses": gt,
+    }
+    if chroma_rows:
+        batch["chroma_dhls"] = np.asarray(chroma_rows, np.float32)
+    if mcfg.vertex_reg:
+        gc = np.zeros((len(frames), mcfg.max_gt, 4), np.float32)
+        for i, rows in enumerate(center_rows):
+            k = min(len(rows), mcfg.max_gt)
+            gc[i, :k] = rows[:k]
+        batch["gt_centers"] = gc
+    return batch

@@ -1,7 +1,9 @@
-"""Training engine: the flagship loss, the optimizer and the device-bank step.
+"""Training engine: the loss, the optimizer, the host-fed and device-bank
+steps, and the training loop.
 
-Port of `posecnn_tpu/engine/train.py` for the flagship training step
-(`compute_losses`, `make_bank_train_step`, the training loop of `Solver`):
+Port of `posecnn_tpu/engine/train.py` for the PoseCNN training steps
+(`compute_losses`, `make_train_step` on one device, `make_bank_train_step`,
+the training loop of `Solver`):
 
   * losses as the reference's `train_net` assembles them: L2 regularization
     (`upscore*` carry none, and the port holds no parameters for them),
@@ -14,9 +16,10 @@ Port of `posecnn_tpu/engine/train.py` for the flagship training step
     (hazard 7: a scheduler's or optimizer's own step count re-initialized by
     a light resume would apply the undecayed rate while the log shows the
     decayed one);
-  * the bank step samples the batch and the augmentation draws on the
-    device from a `torch.Generator`, through a `Draws` object that a test
-    or a check can record and replay;
+  * the host-fed step takes a host minibatch moved to the device
+    (`to_device`); the bank step samples the batch and the augmentation
+    draws on the device. Random numbers come from a `torch.Generator`,
+    through a `Draws` object that a test or a check can record and replay;
   * `Solver` snapshots the state in the JAX npz layout
     (`core/checkpoint.py`), resumes from the latest snapshot, and snapshots
     on SIGTERM or SIGINT before it returns.
@@ -28,7 +31,7 @@ import os
 import signal
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -195,8 +198,6 @@ def compute_losses(
     draws = draws if draws is not None else Draws()
     if hp.matching_w > 0:
         raise NotImplementedError("the matching loss is not ported yet")
-    if hp.vertex_z_obj_norm:
-        raise NotImplementedError("vertex_z_obj_norm is not ported: the flagship config sets it False")
     data = preprocess(batch["data"], hp, batch, draws)
     out = posecnn_forward(
         model, model_cfg, data, extents, batch["meta_data"], gt_poses=batch.get("poses"),
@@ -211,6 +212,7 @@ def compute_losses(
     if model_cfg.vertex_reg:
         loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse(
             out["vertex_pred"], batch["gt_label_2d"], batch["gt_centers"], model_cfg.num_classes, hp.vertex_w_inside,
+            z_obj_norm=hp.vertex_z_obj_norm,
         )
         losses["loss_vertex"] = loss_vertex
         loss = loss + loss_vertex
@@ -312,10 +314,30 @@ def make_bank_train_step(
     their gradients, and updates the state in place at
     lr_schedule(hp)(state.step). Returns the loss terms (detached), the lr
     and the gradient norm."""
-    sched = lr_schedule(hp)
+    host_step = make_train_step(model_cfg, hp, points, symmetry, extents)
 
     def step_fn(state: TrainState, bank: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
-        batch = sample_batch(bank, batch_size, max_gt, chromatic, add_noise, draws)
+        return host_step(state, sample_batch(bank, batch_size, max_gt, chromatic, add_noise, draws), draws)
+
+    return step_fn
+
+
+def make_train_step(
+    model_cfg: PoseCNNConfig,
+    hp: TrainHParams,
+    points: torch.Tensor,
+    symmetry: torch.Tensor,
+    extents: torch.Tensor,
+) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
+    """Train step over a batch on the device (`train.py:make_train_step`,
+    one device): step(state, batch, draws) computes the losses and their
+    gradients and updates the state in place at lr_schedule(hp)(state.step).
+    `batch` is a host minibatch (`data.minibatch.get_minibatch`) moved to
+    the device (`to_device`). Returns the loss terms (detached), the lr and
+    the gradient norm."""
+    sched = lr_schedule(hp)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
         loss, losses = compute_losses(state.model, model_cfg, hp, batch, points, symmetry, extents, draws)
         lr = sched(state.step)
         g_norm = train_update(state, loss, lr)
@@ -325,6 +347,21 @@ def make_bank_train_step(
         return out
 
     return step_fn
+
+
+def to_device(item: Dict, device) -> Dict[str, torch.Tensor]:
+    """A batch on `device`: numpy arrays are copied there (through pinned
+    memory and without blocking the host, on a card), tensors moved (a bank
+    already there stays as it is)."""
+    dev = torch.device(device)
+    out = {}
+    for k, v in item.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(v)
+            if dev.type == "cuda":
+                v = v.pin_memory()
+        out[k] = v.to(dev, non_blocking=True)
+    return out
 
 
 def resume_seed(seed: int, start_iter: int) -> int:
@@ -338,9 +375,12 @@ def resume_seed(seed: int, start_iter: int) -> int:
 
 
 class Solver:
-    """The iteration loop of `engine/train.py:Solver` over a device bank:
-    one step an iteration, each with its own draws from one generator on
-    the bank's device, seeded with `resume_seed(RNG_SEED, start_iter)`.
+    """The iteration loop of `engine/train.py:Solver`: one step an
+    iteration on the next item of a data iterator (host minibatches, or the
+    device bank again and again), each step with its own draws from one
+    generator on the model's device, seeded with
+    `resume_seed(RNG_SEED, start_iter)`. The next item is fetched and its
+    copy to the device started before the step runs, as JAX's solver does.
 
     Every `display` steps (and at a run's first step) a log line of the
     losses and lr, and with an `output_dir` a row of `train_metrics.csv`
@@ -379,15 +419,21 @@ class Solver:
             log(f"resumed from {path} at iteration {state.step} ({time.perf_counter() - t0:.3f}s)")
         return state, state.step
 
-    def train(self, state: TrainState, bank: Dict[str, torch.Tensor], max_iters: int,
+    def train(self, data_iter: Iterator, state: TrainState, max_iters: int,
               log: Optional[Callable[[str], None]] = print, start_iter: int = 0,
-              handle_signals: bool = True) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Run steps start_iter .. max_iters - 1. With `handle_signals`,
-        SIGTERM and SIGINT end the run after the step in flight, with a
-        snapshot at that step (unless a periodic one was just written), so
-        `resume` restarts from there; the old handlers come back on return.
-        A log that raises OSError (a dead pipe) is ignored: logging must not
-        stop the snapshot."""
+              handle_signals: bool = True, timings: Optional[Dict[str, List[float]]] = None,
+              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Run steps start_iter .. max_iters - 1 on the items of `data_iter`.
+        With `handle_signals`, SIGTERM and SIGINT end the run after the step
+        in flight, with a snapshot at that step (unless a periodic one was
+        just written), so `resume` restarts from there; the old handlers
+        come back on return. A log that raises OSError (a dead pipe) is
+        ignored: logging must not stop the snapshot.
+
+        `timings`, when given, gets per-step lists of milliseconds:
+        `data_wait` (the host blocked on `data_iter` for the next item),
+        `step` (wall, the step's host work) and, on a card, `step_stream`
+        (CUDA events around the step: its span on the device's stream)."""
         if log is not None:
             raw_log = log
 
@@ -412,15 +458,47 @@ class Solver:
                     old_handlers.clear()
                     break
 
-        gen = torch.Generator(device=bank["data"].device)
+        dev = next(state.model.parameters()).device
+        cuda = dev.type == "cuda"
+        gen = torch.Generator(device=dev)
         gen.manual_seed(resume_seed(RNG_SEED, start_iter))
+        pending: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+        def fetch():
+            t = time.perf_counter()
+            item = next(data_iter)
+            if timings is not None:
+                timings.setdefault("data_wait", []).append((time.perf_counter() - t) * 1e3)
+            return to_device(item, dev)
+
+        def flush_events():
+            for e0, e1 in pending:
+                e1.synchronize()
+                timings.setdefault("step_stream", []).append(e0.elapsed_time(e1))
+            pending.clear()
+
         metrics: Dict[str, torch.Tensor] = {}
         last_snap = -1
         t0, n0 = time.perf_counter(), start_iter
         try:
+            batch_next = fetch() if start_iter < max_iters else None
             for it in range(start_iter, max_iters):
-                metrics = self.step_fn(state, bank, Draws(gen))
+                batch = batch_next
+                if it + 1 < max_iters:
+                    batch_next = fetch()
+                t_step = time.perf_counter()
+                if timings is not None and cuda:
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                metrics = self.step_fn(state, batch, Draws(gen))
+                if timings is not None:
+                    if cuda:
+                        e1.record()
+                        pending.append((e0, e1))
+                    timings.setdefault("step", []).append((time.perf_counter() - t_step) * 1e3)
                 display = (it + 1) % self.display == 0
+                if timings is not None and display:
+                    flush_events()
                 if log is not None and (display or it == start_iter):
                     m = {k: float(v) for k, v in metrics.items()}
                     dt = (time.perf_counter() - t0) / (it + 1 - n0)
@@ -446,6 +524,8 @@ class Solver:
                 signal.signal(sig, h)
             if self.metrics_logger is not None:
                 self.metrics_logger.close()
+            if timings is not None:
+                flush_events()
         return state, metrics
 
     def snapshot(self, state: TrainState, it: int, log: Optional[Callable[[str], None]] = None) -> str:

@@ -21,8 +21,8 @@ import torch
 
 from posecnn_torch.config import FLAGSHIP_TRAIN_BATCH, PIXEL_MEANS, flagship_cfg, flagship_train_cfg
 from posecnn_torch.core.convert import init_params_numpy, make_model
-from posecnn_torch.data.device_bank import bank_to_device, load_frozen_bank
-from posecnn_torch.data.lov_syn import FRAMES_DIR, object_models
+from posecnn_torch.data.device_bank import bank_to_device, build_bank
+from posecnn_torch.data.lov_syn import LovSynVal, object_models
 from posecnn_torch.data.minibatch import rescale_points
 from posecnn_torch.engine.test import set_float32_precision
 from posecnn_torch.engine.train import create_train_state, make_bank_train_step
@@ -70,6 +70,6 @@ def train_entry(device="cuda"):
     model = make_model(cfg, init_params_numpy(0, cfg), device)
     state = create_train_state(model, hp)
     points, symmetry, extents = (torch.from_numpy(a).to(device) for a in train_objects(cfg.num_classes))
-    bank = bank_to_device(load_frozen_bank(FRAMES_DIR, FLAGSHIP_TRAIN_BATCH["max_gt"]), device)
+    bank = bank_to_device(build_bank(LovSynVal(), FLAGSHIP_TRAIN_BATCH["max_gt"]), device)
     step = make_bank_train_step(cfg, hp, points, symmetry, extents, **FLAGSHIP_TRAIN_BATCH)
     return step, state, bank

@@ -11,7 +11,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from posecnn_torch.models.layers import conv2d, conv3x3_bf16_bias_relu, max_pool
+from posecnn_torch.models.layers import conv2d, conv3x3_bf16_bias_relu, conv3x3_bf16_conv2d, max_pool
 
 VGG_CONV_DEFS = [
     # (name, c_i, c_o, pool_after)
@@ -70,9 +70,14 @@ class VGGTrunk(nn.Module):
         h = x
         for name, _, c_out, pool_after in self.defs:
             p = getattr(self, name)
-            if compute_dtype == torch.bfloat16 and c_out == 64 and name != "conv1_1" and h.shape[1] >= 128:
-                # conv1_2 at full resolution: bias added in bf16 (backbone.py:69-76)
-                h = conv3x3_bf16_bias_relu(p.weight, p.bias, h)
+            if compute_dtype == torch.bfloat16 and c_out == 64 and name != "conv1_1":
+                # conv1_2 on the conv3x3 kernel: from 128 rows the JAX trunk's
+                # conv3x3_manual_bwd (bias added in bf16), below them its plain
+                # bf16 conv2d (f32 bias) (backbone.py:69-76)
+                if h.shape[1] >= 128:
+                    h = conv3x3_bf16_bias_relu(p.weight, p.bias, h)
+                else:
+                    h = conv3x3_bf16_conv2d(p.weight, p.bias, h)
             else:
                 h = conv2d(p.weight, p.bias, h, relu=True, compute_dtype=compute_dtype)
             out[name] = h

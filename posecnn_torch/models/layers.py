@@ -71,6 +71,40 @@ class _Conv3x3MB(torch.autograd.Function):
         return conv3x3_vjp(xb, wb, g, ctx.needs_input_grad)
 
 
+class _Conv3x3F32Bias(torch.autograd.Function):
+    """`layers.py:conv2d` in bf16 with its bias and ReLU, the convolution on
+    the conv3x3 kernel: its zero-bias launch gives the f32 sum rounded to
+    bf16 once (what a bf16 conv returns); the f32 bias and the ReLU follow
+    in f32. The backward is XLA's autodiff of it: db sums the f32 cotangent;
+    dx (the kernel's dgrad) and dw (rounded to bf16) come from the
+    cotangent rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, xb, w, b):
+        wb = oihw_to_hwio(w).to(torch.bfloat16)
+        y = torch.relu(conv3x3_raw(xb, wb, torch.zeros_like(b, dtype=torch.float32), False).float() + b)
+        ctx.save_for_backward(xb, wb, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb, y = ctx.saved_tensors
+        g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+        dx, dw, _ = conv3x3_vjp(xb, wb, g.to(torch.bfloat16), ctx.needs_input_grad[:2] + (False,))
+        if dw is not None:
+            dw = dw.to(torch.bfloat16).float()
+        db = g.float().sum(dim=(0, 1, 2)) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def conv3x3_bf16_conv2d(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`conv2d(..., relu=True, compute_dtype=bf16)` of a 64 -> 64 3x3 layer
+    with the convolution and its dgrad on the conv3x3 kernel (float32 NHWC
+    out, as conv2d): the trunk's conv1_2 below 128 rows, where the JAX trunk
+    runs the plain conv2d (`backbone.py:69-76`)."""
+    return _Conv3x3F32Bias.apply(x.to(torch.bfloat16).contiguous(), weight, bias)
+
+
 def conv3x3_bf16_bias_relu(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The trunk's bf16 3x3 branch (`layers.py:conv3x3_manual_bwd`): a bf16
     convolution, then the bias added in bf16, then ReLU; the output stays

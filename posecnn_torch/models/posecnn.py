@@ -9,7 +9,8 @@ same named endpoints in the same layouts (NHWC maps, (R, 7) rois).
 Training (`cfg.is_train`) adds dropout on add_score, addv, fc6 and fc7, the
 `gt_label_weight` endpoint, GT rows into Hough voting (targets and 9 rows a
 detection), the per-image `hough_gt_mix` draw that feeds Hough the GT
-labels and vertex targets instead of the heads', and `poses_pred`. Its
+labels and vertex targets instead of the heads', and `poses_pred`. With
+`hough_from_gt`, Hough always reads the GT label and vertex targets. Its
 random numbers come from a `draws` object (`engine.train.Draws`): one
 U[0,1) tensor per named use, from a torch.Generator or replayed.
 """
@@ -45,7 +46,6 @@ def _check_supported(cfg: PoseCNNConfig) -> None:
         "vertex_reg_3d": cfg.vertex_reg_3d,
         "adaptation": cfg.adaptation,
         "vote_threshold > 0": cfg.vote_threshold > 0,
-        "hough_from_gt": cfg.hough_from_gt,
         # the exact roi_pool_batched backward (roi_pool.py:182-269) is not ported
         "is_train without use_crop_pool": cfg.is_train and cfg.pose_reg and not cfg.use_crop_pool,
     }
@@ -148,7 +148,12 @@ def posecnn_forward(
         gt_poses = torch.zeros((1, 13), dtype=torch.float32, device=data.device)
     with torch.no_grad():
         hough_label, hough_vert = label_2d, vertex_pred.float()
-        if train and cfg.hough_gt_mix > 0.0:
+        if cfg.hough_from_gt:
+            if gt_label_2d is None or gt_centers is None:
+                raise ValueError("hough_from_gt needs gt_label_2d and gt_centers")
+            hough_vert, _ = vertex_targets_device(gt_label_2d, gt_centers, C)
+            hough_label = gt_label_2d.to(label_2d.dtype)
+        elif train and cfg.hough_gt_mix > 0.0:
             if gt_label_2d is None or gt_centers is None:
                 raise ValueError("hough_gt_mix needs gt_label_2d and gt_centers")
             gt_vt, _ = vertex_targets_device(gt_label_2d, gt_centers, C)

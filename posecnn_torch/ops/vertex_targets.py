@@ -72,9 +72,14 @@ def smooth_l1_loss_vertex_sparse(
     """Fused target generation + smooth-L1 (`vertex_targets.py:52`): only
     the 3 channels of each pixel's class enter, and the (B,H,W,3C) target
     and weight maps are never built. The L1/L2 switch is detached, as JAX's
-    stop_gradient is."""
-    if z_obj_norm:
-        raise NotImplementedError("z_obj_norm is not ported: the flagship config sets it False")
+    stop_gradient is.
+
+    z_obj_norm (TPU.VERTEX_Z_OBJ_NORM, `vertex_targets.py:94-126`): each
+    pixel's log-z weight is scaled by the mean foreground pixel count of
+    the batch's (image, class) instances over its own instance's count,
+    clipped to [0.2, 5], so every instance weighs about the same in the
+    depth channel; the loss is then normalised by the sum of the three
+    channels' weights."""
     B, H, W = label.shape
     C = num_classes
     sigma_2 = sigma ** 2
@@ -84,8 +89,20 @@ def smooth_l1_loss_vertex_sparse(
     w = torch.where(fg, torch.tensor(weight_value, dtype=torch.float32, device=label.device), 0.0)
     pred5 = vertex_pred.reshape(B, H, W, C, 3)
     pred3 = torch.gather(pred5, 3, lab_safe[..., None, None].expand(B, H, W, 1, 3))[..., 0, :]
-    diff = w[..., None] * (pred3.float() - t3)
+    if z_obj_norm:
+        onehot = torch.nn.functional.one_hot(lab_safe, C).float() * fg[..., None]
+        cnt = onehot.sum(dim=(1, 2))  # (B,C) foreground pixels of each instance
+        n_inst = (cnt > 0).sum().float()
+        mean_cnt = cnt.sum() / torch.clamp(n_inst, min=1.0)
+        cnt_pix = torch.gather(cnt, 1, lab_safe.reshape(B, H * W)).reshape(B, H, W)
+        factor = torch.clamp(mean_cnt / torch.clamp(cnt_pix, min=1.0), 0.2, 5.0)
+        wv = torch.stack([w, w, w * factor], dim=-1)
+    else:
+        wv = w[..., None]
+    diff = wv * (pred3.float() - t3)
     abs_diff = diff.abs()
     sign = (abs_diff < 1.0 / sigma_2).to(diff.dtype).detach()
     in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
+    if z_obj_norm:
+        return in_loss.sum() / (wv.sum() + 1e-10)
     return in_loss.sum() / (3.0 * w.sum() + 1e-10)

@@ -1,42 +1,135 @@
-"""Train the flagship PoseCNN on the card: `engine.train.Solver` over the
-step of `entry.train_entry`, with the capstone's solver settings
-(`config.FLAGSHIP_SOLVER`): a log line and a `train_metrics.csv` row every
-20 steps, a light snapshot (`vgg16_fcn_color_lov_syn_capstone_iter_N.npz`,
-the JAX npz layout) every 5000 steps and at the end, and one at the step
-reached when SIGTERM or SIGINT arrives.
+"""Train PoseCNN on the card.
 
-Usage: python -m posecnn_torch.train_net --iters N [--output DIR] [--resume] [--device cuda]
+With --cfg, the port of `tools/train_net.py` for the VGG16 PoseCNN: the
+config is read from the `.yml` file (`core.config.cfg_from_file`),
+`np.random.seed(RNG_SEED)` unless --rand, the dataset comes from
+`data.factory` (--imdb, default toy_train) with its roidb doubled by flipped
+entries under TRAIN.USE_FLIPPED, and the output directory is
+output/<EXP_DIR>/<imdb>/<network> unless --output. The model, the
+hyper-parameters and the minibatch settings are built from the config
+(`core.config`), the weights drawn from numpy seed RNG_SEED
+(`core.convert.init_params_numpy`), the ADD loss reads the dataset's points
+rescaled (`data.minibatch.rescale_points`), and SNAPSHOT_ITERS,
+SNAPSHOT_PREFIX, CHECKPOINT_OPT_STATE, SNAPSHOT_FINAL and DISPLAY set the
+solver. With TPU.DEVICE_BANK the step samples from every frame of the
+dataset held on the card; otherwise a thread assembles host minibatches
+(`data.layer.GtSynthesizeLayer` through `prefetch`, TPU.PREFETCH deep) and
+the solver copies each to the card. A config with a setting the port does
+not run raises NotImplementedError naming it; so do --weights and --ckpt,
+which read weights from outside the repository.
 
---resume restarts from the latest snapshot in the output directory, at its
-step, with a fresh momentum trace where the snapshot is light. Each log line
-starts with the seconds since the program started.
+Without --cfg, the flagship run: `engine.train.Solver` over the step of
+`entry.train_entry` (a device bank of `data/lov_syn_val_v4/`), with the
+capstone's solver settings (`config.FLAGSHIP_SOLVER`). The JAX CLI's own
+default without a config is INPUT RGBD, whose dual tower is not ported.
+
+Either way: a log line and a `train_metrics.csv` row every DISPLAY steps,
+snapshots in the JAX npz layout (`<prefix>_iter_N.npz`) every SNAPSHOT_ITERS
+steps and at the end, and one at the step reached when SIGTERM or SIGINT
+arrives; --resume restarts from the latest snapshot in the output
+directory. Each log line starts with the seconds since the program started.
+At the end, `train_timing.json` in the output directory holds per-step
+milliseconds (`data_wait`: the main thread waiting for the next batch;
+`step`: the step's host time; `step_stream`: CUDA events around the step)
+and the kernels' launches.
+
+Usage: python -m posecnn_torch.train_net [--cfg FILE.yml] [--imdb NAME] [--iters N]
+           [--output DIR] [--resume] [--rand] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
+import json
 import os
+import pprint
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def cfg_run(args, log):
+    """(step, state, data iterator, Solver arguments, output directory) of a
+    --cfg run (`tools/train_net.py:main`)."""
+    import numpy as np
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.data.device_bank import bank_to_device, build_bank
+    from posecnn_torch.data.factory import get_imdb
+    from posecnn_torch.data.layer import GtSynthesizeLayer, prefetch
+    from posecnn_torch.data.minibatch import rescale_points
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.engine.test import set_float32_precision
+
+    for flag, what in (("weights", "vgg16.npy"), ("ckpt", "TF1 checkpoint")):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: reading a {what} needs a file from outside the repository")
+    if args.network != "vgg16_convs":
+        raise NotImplementedError(f"--network {args.network}: only vgg16_convs is ported")
+    cfg = C.cfg_from_file(args.cfg)
+    if not args.rand:
+        np.random.seed(cfg.RNG_SEED)
+    log("Using config:\n" + pprint.pformat(cfg))
+    imdb = get_imdb(args.imdb)
+    if cfg.TRAIN.USE_FLIPPED:
+        try:
+            imdb.append_flipped_images()
+            log("appended flipped images")
+        except NotImplementedError:
+            log("dataset has no roidb; USE_FLIPPED ignored")
+    log(f"Loaded dataset `{imdb.name}`: {imdb.num_images} images")
+
+    model_cfg = C.train_model_cfg(cfg, imdb.num_classes)
+    hp = C.train_hparams(cfg)
+    mcfg = C.minibatch_cfg(cfg, imdb.num_classes)
+    output = args.output or C.get_output_dir(cfg, imdb.name, args.network)
+    log(f"Output will be saved to {output}")
+    dev = torch.device(args.device)
+    set_float32_precision()
+    points_raw = np.asarray(imdb._points_all, np.float32)
+    extents, symmetry = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
+    points = rescale_points(points_raw, extents, symmetry, mcfg.is_symmetric)
+    points, symmetry, extents = (torch.from_numpy(a).to(dev) for a in (points, symmetry, extents))
+    model = make_model(model_cfg, init_params_numpy(cfg.RNG_SEED, model_cfg), dev)
+    state = T.create_train_state(model, hp)
+    if cfg.TPU.DEVICE_BANK:
+        T_ = cfg.TRAIN
+        if T_.USE_FLIPPED or tuple(T_.SCALES_BASE) != (1.0,):
+            raise ValueError("TPU.DEVICE_BANK supports the fixed single-frame COLOR flagship path")
+        bank = bank_to_device(build_bank(imdb, mcfg.max_gt), dev)
+        log(f"device bank: {bank['data'].shape[0]} frames on {dev}")
+        step = T.make_bank_train_step(model_cfg, hp, points, symmetry, extents, batch_size=T_.IMS_PER_BATCH,
+                                      max_gt=cfg.TPU.MAX_GT, chromatic=T_.CHROMATIC, add_noise=T_.ADD_NOISE)
+        data_iter = itertools.repeat(bank)
+    else:
+        layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
+        step = T.make_train_step(model_cfg, hp, points, symmetry, extents)
+        data_iter = prefetch(iter(layer), depth=cfg.TPU.PREFETCH)
+    return step, state, data_iter, C.solver_settings(cfg), output
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--iters", type=int, required=True, help="train up to this step")
-    ap.add_argument("--output", default=None,
-                    help="snapshot and metrics directory (default output/lov_syn_capstone/lov_syn_val_v4/vgg16_convs)")
+    ap.add_argument("--iters", type=int, default=40000, help="train up to this step")
+    ap.add_argument("--cfg", default=None, help="an experiments/cfgs/*.yml config (without it: the flagship run)")
+    ap.add_argument("--imdb", default=None, help="dataset (with --cfg; default toy_train)")
+    ap.add_argument("--network", default="vgg16_convs")
+    ap.add_argument("--rand", action="store_true", help="do not seed numpy's global generator with RNG_SEED")
+    ap.add_argument("--weights", default=None, help="vgg16.npy initial weights (not ported)")
+    ap.add_argument("--ckpt", default=None, help="TF1 checkpoint (not ported)")
+    ap.add_argument("--output", default=None, help="snapshot and metrics directory")
     ap.add_argument("--resume", action="store_true", help="resume from the latest snapshot in the output directory")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     import torch
 
-    from posecnn_torch.config import EXP_DIR, FLAGSHIP_SOLVER
     from posecnn_torch.engine.train import Solver
-    from posecnn_torch.entry import train_entry
     from posecnn_torch.ops import conv3x3, voting
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -46,17 +139,39 @@ def main(argv=None) -> int:
     def log(msg: str) -> None:
         print(f"[{time.perf_counter() - t_start:.3f}s] {msg}", flush=True)
 
-    output = args.output or os.path.join(ROOT, "output", EXP_DIR, "lov_syn_val_v4", "vgg16_convs")
-    step, state, bank = train_entry(args.device)
-    log(f"bank: {bank['data'].shape[0]} frames on {args.device}; output {output}")
-    solver = Solver(step, output_dir=output, **FLAGSHIP_SOLVER)
+    if args.cfg:
+        args.imdb = args.imdb or "toy_train"
+        step, state, data_iter, solver_kw, output = cfg_run(args, log)
+    else:
+        from posecnn_torch.config import EXP_DIR, FLAGSHIP_SOLVER
+        from posecnn_torch.entry import train_entry
+
+        if args.imdb not in (None, "lov_syn_val_v4"):
+            ap.error("without --cfg the flagship run trains on lov_syn_val_v4")
+        output = args.output or os.path.join(ROOT, "output", EXP_DIR, "lov_syn_val_v4", "vgg16_convs")
+        step, state, bank = train_entry(args.device)
+        log(f"bank: {bank['data'].shape[0]} frames on {args.device}; output {output}")
+        data_iter, solver_kw = itertools.repeat(bank), FLAGSHIP_SOLVER
+    solver = Solver(step, output_dir=output, **solver_kw)
     start = 0
     if args.resume:
         state, start = solver.resume(state, log=log)
+    timings = {}
     voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
-    solver.train(state, bank, args.iters, log=log, start_iter=start)
-    log(f"done at iteration {state.step}; launches hough_vote {voting.VOTE_LAUNCHES} "
-        f"conv3x3 {conv3x3.CONV3X3_LAUNCHES}")
+    try:
+        solver.train(data_iter, state, args.iters, log=log, start_iter=start, timings=timings)
+    finally:
+        close = getattr(data_iter, "close", None)
+        if close is not None:
+            close()
+    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
+    device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
+    os.makedirs(output, exist_ok=True)
+    with open(os.path.join(output, "train_timing.json"), "w") as f:
+        json.dump({"device": device, "start_step": start, "end_step": state.step, "launches": launches,
+                   "ms": timings}, f, indent=1)
+    log(f"done at iteration {state.step}; launches hough_vote {launches['hough_vote']} "
+        f"conv3x3 {launches['conv3x3']}")
     return 0
 
 

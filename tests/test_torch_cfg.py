@@ -1,0 +1,260 @@
+"""The port's config reader and builders against the JAX package's.
+
+`posecnn_torch.core.config` reads the shipped `.yml` files without PyYAML.
+Each file of experiments/cfgs/ is one case: the port's `cfg_from_file` must
+equal JAX's `cfg_fresh` field by field (values and types), and the port's
+builders must either give what `tools/train_net.py:107-164` and
+`tools/test_net.py:129-144` build from it, or raise NotImplementedError
+naming a config key. The YAML reader is also held to PyYAML (with the JAX
+package's `!!python/tuple` loader) on edge cases, and the strict merge to
+JAX's `ConfigError`s.
+"""
+
+from __future__ import annotations
+
+import dataclasses as dc
+import glob
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from posecnn_tpu.core import config as JC
+from posecnn_tpu.data.minibatch import MinibatchConfig as JaxMB
+from posecnn_tpu.engine.train import TrainHParams as JaxHP
+from posecnn_tpu.models.posecnn import PoseCNNConfig as JaxCfg
+from posecnn_torch.core import config as C
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+CFG_FILES = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "experiments", "cfgs", "*.yml")))
+
+
+def _same_tree(got, ref, path=""):
+    """Field by field, with types: dataclass trees, tuples, scalars."""
+    if dc.is_dataclass(ref):
+        assert type(got).__name__ == type(ref).__name__, path
+        names = [f.name for f in dc.fields(ref)]
+        assert [f.name for f in dc.fields(got)] == names, path
+        for n in names:
+            _same_tree(getattr(got, n), getattr(ref, n), f"{path}{n}.")
+        return
+    assert type(got) is type(ref), (path, got, ref)
+    if isinstance(ref, tuple):
+        assert len(got) == len(ref), path
+        for a, b in zip(got, ref):
+            _same_tree(a, b, path)
+    else:
+        assert got == ref, (path, got, ref)
+
+
+def jax_train_objects(c, num_classes: int):
+    """(PoseCNNConfig, TrainHParams, MinibatchConfig) of the JAX package,
+    with the expressions of tools/train_net.py:107-164."""
+    model_cfg = JaxCfg(
+        num_classes=num_classes, num_units=c.TRAIN.NUM_UNITS, input_format=c.INPUT,
+        vertex_reg=c.TRAIN.VERTEX_REG_2D or c.TRAIN.VERTEX_REG_3D, vertex_reg_3d=c.TRAIN.VERTEX_REG_3D,
+        pose_reg=c.TRAIN.POSE_REG and not c.TRAIN.VERTEX_REG_3D, adaptation=c.TRAIN.ADAPT,
+        threshold_label=c.TRAIN.THRESHOLD_LABEL, vote_threshold=c.TRAIN.VOTING_THRESHOLD, is_train=True,
+        keep_prob=0.5, hough_class_slots=c.TPU.HOUGH_CLASS_SLOTS, hough_max_samples=c.TPU.HOUGH_MAX_SAMPLES,
+        hough_center_stride=c.TPU.HOUGH_CENTER_STRIDE, hough_sampler=c.TPU.HOUGH_SAMPLER,
+        hough_pixel_stride=c.TPU.HOUGH_PIXEL_STRIDE, skip_pixels=c.TPU.HOUGH_SKIP_PIXELS,
+        use_crop_pool=c.TPU.USE_CROP_POOL, hough_from_gt=c.TPU.HOUGH_FROM_GT, hough_gt_mix=c.TPU.HOUGH_GT_MIX,
+    )
+    hp = JaxHP(
+        learning_rate=c.TRAIN.LEARNING_RATE, momentum=c.TRAIN.MOMENTUM, gamma=c.TRAIN.GAMMA,
+        stepsize=c.TRAIN.STEPSIZE, weight_reg=c.TRAIN.WEIGHT_REG, vertex_w=c.TRAIN.VERTEX_W, pose_w=c.TRAIN.POSE_W,
+        adapt_weight=c.TRAIN.ADAPT_WEIGHT, clip_grad_norm=c.TRAIN.GRAD_CLIP, margin=c.TRAIN.POSE_MARGIN,
+        pose_norm_valid=c.TRAIN.POSE_NORM_VALID, matching_w=1.0 if c.TRAIN.MATCHING else 0.0,
+        quat_w=c.TPU.QUAT_AUX_W, vertex_z_obj_norm=c.TPU.VERTEX_Z_OBJ_NORM,
+    )
+    mcfg = JaxMB(
+        num_classes=num_classes, pixel_means=c.pixel_means(), scale=float(c.TRAIN.SCALES_BASE[0]),
+        chromatic=c.TRAIN.CHROMATIC, add_noise=c.TRAIN.ADD_NOISE, vertex_reg=model_cfg.vertex_reg,
+        vertex_reg_3d=c.TRAIN.VERTEX_REG_3D, vertex_w_inside=c.TRAIN.VERTEX_W_INSIDE, max_gt=c.TPU.MAX_GT,
+        device_targets=c.TPU.DEVICE_TARGETS, input_format=c.INPUT, gan=c.TRAIN.GAN,
+    )
+    return model_cfg, hp, mcfg
+
+
+def jax_test_model_cfg(c, num_classes: int):
+    """The model config of tools/test_net.py:129-144."""
+    return JaxCfg(
+        num_classes=num_classes, num_units=c.TRAIN.NUM_UNITS, vertex_reg=c.TEST.VERTEX_REG_2D or c.TEST.VERTEX_REG_3D,
+        vertex_reg_3d=c.TEST.VERTEX_REG_3D, pose_reg=c.TEST.POSE_REG and not c.TEST.VERTEX_REG_3D, is_train=False,
+        vote_threshold=c.TEST.VOTING_THRESHOLD, hough_class_slots=c.TPU.HOUGH_CLASS_SLOTS,
+        hough_max_samples=c.TPU.HOUGH_MAX_SAMPLES, hough_center_stride=c.TPU.HOUGH_CENTER_STRIDE,
+        hough_sampler=c.TPU.HOUGH_SAMPLER, hough_pixel_stride=c.TPU.HOUGH_PIXEL_STRIDE,
+        skip_pixels=c.TPU.HOUGH_SKIP_PIXELS, use_crop_pool=c.TPU.USE_CROP_POOL,
+    )
+
+
+def assert_model_cfg_equal(got, ref):
+    g, r = dc.asdict(got), dc.asdict(ref)
+    assert set(g) == set(r)
+    for k, v in r.items():
+        if k == "compute_dtype":
+            assert v == jnp.bfloat16 and g[k] == torch.bfloat16
+        else:
+            assert g[k] == v and type(g[k]) is type(v), (k, g[k], v)
+
+
+def assert_fields_equal(got, ref):
+    g, r = dc.asdict(got), dc.asdict(ref)
+    assert set(g) == set(r)
+    for k, v in r.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(g[k], v, err_msg=k)
+        else:
+            assert g[k] == v, (k, g[k], v)
+
+
+def _config_keys(c, prefix="") -> set:
+    out = set()
+    for f in dc.fields(c):
+        v = getattr(c, f.name)
+        out |= _config_keys(v, f"{prefix}{f.name}.") if dc.is_dataclass(v) else {prefix + f.name}
+    return out
+
+
+def _refused_key(err: NotImplementedError) -> str:
+    m = re.search(r"not ported yet: ([A-Z0-9_.]+): ", str(err))
+    assert m is not None, str(err)
+    return m.group(1)
+
+
+@pytest.mark.parametrize("name", CFG_FILES)
+def test_cfg_from_file_matches_jax(name):
+    """The port's reader equals JAX's on the file, field by field; its
+    builders give the JAX CLIs' objects or refuse a named key."""
+    path = os.path.join(ROOT, "experiments", "cfgs", name)
+    ref = JC.cfg_fresh(path)
+    got = C.cfg_from_file(path)
+    _same_tree(got, ref)
+    keys = _config_keys(got)
+    n = got.TRAIN.NUM_CLASSES
+    try:
+        objs = C.train_model_cfg(got, n), C.train_hparams(got), C.minibatch_cfg(got, n)
+    except NotImplementedError as e:
+        assert _refused_key(e) in keys and C.unsupported(got, train=True), str(e)
+    else:
+        assert not C.unsupported(got, train=True)
+        want = jax_train_objects(ref, n)
+        assert_model_cfg_equal(objs[0], want[0])
+        assert dc.asdict(objs[1]) == dc.asdict(want[1])
+        assert_fields_equal(objs[2], want[2])
+    try:
+        model_cfg, settings = C.test_model_cfg(got, n), C.test_settings(got)
+    except NotImplementedError as e:
+        assert _refused_key(e) in keys, str(e)
+    else:
+        assert_model_cfg_equal(model_cfg, jax_test_model_cfg(ref, n))
+        assert settings == dict(nms_threshold=ref.TEST.NMS, pose_refine=ref.TEST.POSE_REFINE,
+                                icp_plane_weight=ref.TPU.ICP_PLANE_WEIGHT,
+                                reference_nms_bug=ref.TEST.REFERENCE_NMS_BUG)
+
+
+def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
+    """toy_pose.yml and lov_syn_capstone.yml minus its refresh build for
+    both CLIs; every shipped file either builds or names one of the
+    unported settings of `unsupported`."""
+    toy = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml"))
+    assert not C.unsupported(toy, train=True) and not C.unsupported(toy, train=False)
+    cap = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml"))
+    assert C.unsupported(cap) == ["TPU.BANK_REFRESH: True"]
+    assert not C.unsupported(C.cfg_replace(cap, TPU={"BANK_REFRESH": False}))
+    refused = set()
+    for name in CFG_FILES:
+        c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name))
+        refused |= {r.split(":")[0] for r in C.unsupported(c, train=True) + C.unsupported(c, train=False)}
+    assert {"INPUT", "NETWORK", "TRAIN.VERTEX_REG_3D", "TRAIN.SYNTHESIZE", "TRAIN.ADAPT", "TPU.BANK_REFRESH",
+            "TRAIN.ADD_NOISE"} <= refused
+
+
+# texts the reader must read as PyYAML does
+YAML_CASES = [
+    "a: 1e-4", "a: .5", "a: -.5", "a: +.5", "a: -1", "a: +1", "a: 1.", "a: 3.0", "a: 1.0e+4", "a: 1.0e4",
+    "a: 6.8523015e+5", "a: 685.230_15e+03", "a: 190:20:30.15", "a: 010", "a: 08", "a: 0x1F", "a: 0b101",
+    "a: 0o7", "a: 1_000", "a: 1:30", "a: -1:00", "a: .inf", "a: -.Inf", "a: yes", "a: Off", "a: ~", "a: null",
+    "a:", "a: 'it''s'", 'a: "x\\ty \\u00e9"', "a: 'x' # y", 'a: "q # r"', "a: foo bar # c", "a: foo#bar",
+    "a: http://x/y", "a: [1, 'a', b, 2.5]", "a: []", "a: !!python/tuple [1.0]  # c", "a: !!python/tuple []",
+    "a: !!python/tuple [0.5, 1, 2]", "1: x", "True: x", "a:\n  b: 1\n  c:\n    d: x\n  e: 2\nf: 3",
+    "# top\na:\n  # inside\n  b: 1   # trailing\n\nc: 2\n", "a:\nb: 1", "a: 1\na: 2", "",
+]
+
+
+@pytest.mark.parametrize("text", YAML_CASES)
+def test_yaml_reader_matches_pyyaml(text, tmp_path):
+    p = tmp_path / "c.yml"
+    p.write_text(text)
+    ref = JC._yaml_load(str(p))
+    got = C.load_yaml(text)
+    assert got == ref and repr(got) == repr(ref), (got, ref)
+
+
+YAML_REFUSED = [
+    "a: 2001-12-14", "a: &x 1", "a: *x", "a: !!str 1", "a: |\n  x", "a: >\n  x", "- 1", "a:\n  - 1",
+    "a: {b: 1}", "---\na: 1", "a: [1, [2]]", "a: b: c", "a:\n\tb: 1", "a: 1\n  b: 2", "a: 'x", "a: [1, 2",
+    "a: 'x' y", "  a: 1", "a: x\n  y", "<<: 1", "a: \"\\q\"",
+]
+
+
+@pytest.mark.parametrize("text", YAML_REFUSED)
+def test_yaml_reader_refuses_what_it_does_not_read(text):
+    with pytest.raises(C.YamlError):
+        C.load_yaml(text)
+
+
+CONFIG_ERRORS = [
+    "FOO: 1", "TRAIN:\n  FOO: 1", "TRAIN: 3", "TRAIN:\n  IMS_PER_BATCH: True", "TRAIN:\n  IMS_PER_BATCH: 2.5",
+    "TRAIN:\n  LEARNING_RATE: 1e-4", "TRAIN:\n  USE_FLIPPED: 1", "EXP_DIR:", "TEST:\n  SCALES_BASE: 1.0",
+    "TPU:\n  HOUGH_SAMPLER: 3", "True: 1",
+]
+
+
+@pytest.mark.parametrize("text", CONFIG_ERRORS)
+def test_config_errors_match_jax(text, tmp_path):
+    """Unknown keys and type mismatches: the same ConfigError message."""
+    p = tmp_path / "c.yml"
+    p.write_text(text)
+    with pytest.raises(JC.ConfigError) as ref:
+        JC.cfg_fresh(str(p))
+    with pytest.raises(C.ConfigError) as got:
+        C.cfg_from_file(str(p))
+    assert str(got.value) == str(ref.value)
+
+
+def test_coercions_match_jax(tmp_path):
+    """What the strict merge accepts: an int for a float, a whole float for
+    an int, a list for a tuple; and cfg_replace, get_output_dir."""
+    text = "TRAIN:\n  IMS_PER_BATCH: 2.0\n  LEARNING_RATE: 1\nTEST:\n  SCALES_BASE: [1.0, 2]\nEXP_DIR: e\n"
+    p = tmp_path / "c.yml"
+    p.write_text(text)
+    ref, got = JC.cfg_fresh(str(p)), C.cfg_from_file(str(p))
+    _same_tree(got, ref)
+    assert got.TRAIN.IMS_PER_BATCH == 2 and got.TEST.SCALES_BASE == (1.0, 2)
+    _same_tree(C.cfg_replace(got, TPU={"MAX_GT": 8}, RNG_SEED=5), JC.cfg_replace(ref, TPU={"MAX_GT": 8}, RNG_SEED=5))
+    assert got.TPU.MAX_GT == 24  # cfg_replace copies
+    assert C.get_output_dir(got, "toy_train", "vgg16_convs") == JC.get_output_dir("toy_train", "vgg16_convs", ref)
+    assert C.get_output_dir(got, "toy_train") == JC.get_output_dir("toy_train", config=ref)
+
+
+def test_flagship_settings_are_the_capstone_builders():
+    """flagship_train_cfg, flagship_eval_cfg, FLAGSHIP_SOLVER and
+    FLAGSHIP_TEST equal what the builders make from lov_syn_capstone.yml,
+    with its BANK_REFRESH set aside (the refresh is not ported)."""
+    from posecnn_torch.config import FLAGSHIP_SOLVER, FLAGSHIP_TEST, FLAGSHIP_TRAIN_BATCH, flagship_eval_cfg, \
+        flagship_train_cfg
+
+    cap = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml"))
+    cap = C.cfg_replace(cap, TPU={"BANK_REFRESH": False})
+    model_cfg, hp = flagship_train_cfg()
+    assert model_cfg == C.train_model_cfg(cap, 22) and hp == C.train_hparams(cap)
+    assert flagship_eval_cfg() == C.test_model_cfg(cap, 22)
+    assert FLAGSHIP_SOLVER == C.solver_settings(cap)
+    assert {**FLAGSHIP_TEST, "reference_nms_bug": False} == C.test_settings(cap)
+    assert FLAGSHIP_TRAIN_BATCH == dict(batch_size=cap.TRAIN.IMS_PER_BATCH, max_gt=cap.TPU.MAX_GT,
+                                        chromatic=cap.TRAIN.CHROMATIC, add_noise=cap.TRAIN.ADD_NOISE)
+    assert cap.TPU.DEVICE_BANK and cap.INPUT == "COLOR"

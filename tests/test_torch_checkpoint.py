@@ -11,6 +11,7 @@ Tolerance: none; every array must be equal after the layout conversion
 (OIHW <-> HWIO, fc (out,in) <-> (in,out)), as float32 round trips exactly.
 """
 
+import itertools
 import os
 import signal
 import threading
@@ -138,8 +139,8 @@ def _toy_step(record: list, sleep: float = 0.0):
     """A step for the Solver tests: records one draw and moves the step
     counter (the model is the small PoseCNN, which the snapshots hold)."""
 
-    def step(state, bank, draws):
-        record.append(float(draws.uniform("u", (1,), bank["data"].device)))
+    def step(state, batch, draws):
+        record.append(float(draws.uniform("u", (1,), batch["data"].device)))
         state.step += 1
         if sleep:
             time.sleep(sleep)
@@ -176,7 +177,7 @@ def test_solver_snapshot_final_gate(tmp_path):
         out = tmp_path / f"final_{final}"
         solver = T.Solver(_toy_step([]), output_dir=str(out), snapshot_iters=2, snapshot_prefix="s",
                           display=10**9, snapshot_final=final, snapshot_opt_state=False)
-        solver.train(_port_state(0, 10.0), BANK, 3, log=None, handle_signals=False)
+        solver.train(itertools.repeat(BANK), _port_state(0, 10.0), 3, log=None, handle_signals=False)
         assert sorted(f for f in os.listdir(out) if "iter_" in f) == sorted(["s_iter_2.npz"] + expect)
     with np.load(out / "s_iter_3.npz") as d:
         assert int(d["['step']"]) == 3 and not any(k.startswith("['opt_state']") for k in d.files)
@@ -189,7 +190,7 @@ def test_solver_resume_generator_is_deterministic_and_fresh():
     runs = {}
     for start in (0, 5, 5, 6):
         rec = []
-        T.Solver(_toy_step(rec)).train(_port_state(0, 10.0, step=start), BANK, start + 3, log=None,
+        T.Solver(_toy_step(rec)).train(itertools.repeat(BANK), _port_state(0, 10.0, step=start), start + 3, log=None,
                                        start_iter=start, handle_signals=False)
         runs.setdefault(start, []).append(rec)
     assert runs[5][0] == runs[5][1]
@@ -204,7 +205,7 @@ def test_solver_logs_display_rows_and_metrics_csv(tmp_path):
     metrics CSV gets a row (step first) only at display steps."""
     lines = []
     T.Solver(_toy_step([]), output_dir=str(tmp_path), display=2, snapshot_final=False).train(
-        _port_state(0, 10.0), BANK, 5, log=lines.append, handle_signals=False)
+        itertools.repeat(BANK), _port_state(0, 10.0), 5, log=lines.append, handle_signals=False)
     assert [ln.split()[1] for ln in lines] == ["1/5", "2/5", "4/5"]
     rows = (tmp_path / "train_metrics.csv").read_text().splitlines()
     assert rows[0].startswith("step,time,loss,sec_per_iter") and [r.split(",")[0] for r in rows[1:]] == ["2", "4"]
@@ -224,7 +225,8 @@ def test_solver_sigterm_snapshot_survives_broken_log(tmp_path):
     timer.start()
     try:
         state, _ = T.Solver(_toy_step(rec, sleep=0.01), output_dir=str(tmp_path), display=1,
-                            snapshot_prefix="s").train(_port_state(0, 10.0), BANK, 10**6, log=broken_log)
+                            snapshot_prefix="s").train(itertools.repeat(BANK), _port_state(0, 10.0), 10**6,
+                                                       log=broken_log)
     finally:
         timer.cancel()
     snaps = [f for f in os.listdir(tmp_path) if "iter_" in f]

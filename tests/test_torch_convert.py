@@ -97,16 +97,21 @@ def test_init_params_numpy_matches_jax_init_rules():
 
 
 def test_port_imports_no_jax():
-    """Every module of posecnn_torch imports without jax or posecnn_tpu."""
+    """Every module of posecnn_torch (the whole package, walked) imports
+    without jax, posecnn_tpu or yaml (the card's machine has no PyYAML: the
+    port reads its .yml configs itself), the cfg-driven modules among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import posecnn_torch\n"
         "for m in pkgutil.walk_packages(posecnn_torch.__path__, 'posecnn_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'posecnn_tpu')))\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'yaml') or k.startswith(('jax.', 'yaml.', 'posecnn_tpu')))\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('posecnn_torch')]))\n"
+        "print(' '.join(sorted(k for k in sys.modules if k.startswith('posecnn_torch'))))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    mods = set(res.stdout.split())
+    assert len(mods) >= 15
+    assert {"posecnn_torch.core.config", "posecnn_torch.data.toy", "posecnn_torch.data.factory",
+            "posecnn_torch.data.layer", "posecnn_torch.train_net", "posecnn_torch.test_net"} <= mods

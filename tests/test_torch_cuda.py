@@ -243,6 +243,34 @@ def test_trunk_conv1_2_is_one_launch_each_way(dev):
 
 
 @pytest.mark.cuda
+def test_conv1_2_below_128_rows_on_the_kernel(dev):
+    """conv1_2 below 128 rows (the toy path's 96x128): the kernel's
+    zero-bias sum then the f32 bias and ReLU, and dx, one launch each; the
+    sum and dx within 1 bf16 ulp of the plain versions, the epilogue
+    exact, db the f32 sum of the masked cotangent."""
+    from posecnn_torch.models import layers as L
+
+    rng = np.random.RandomState(10)
+    x = t(np.maximum(rng.randn(2, 96, 128, 64), 0).astype(np.float32)).to(dev).requires_grad_(True)
+    w = t((rng.randn(64, 64, 3, 3) * 0.06).astype(np.float32)).to(dev).requires_grad_(True)
+    b = t((rng.randn(64) * 0.1).astype(np.float32)).to(dev).requires_grad_(True)
+    g = t(rng.randn(2, 96, 128, 64).astype(np.float32)).to(dev)
+    before = C.CONV3X3_LAUNCHES
+    y = L.conv3x3_bf16_conv2d(w, b, x)
+    fwd = C.CONV3X3_LAUNCHES - before
+    y.backward(g)
+    assert (fwd, C.CONV3X3_LAUNCHES - before - fwd) == (1, 1) and y.dtype == torch.float32
+    xb, wb, zeros = x.detach().to(torch.bfloat16), C.oihw_to_hwio(w.detach()).to(torch.bfloat16), torch.zeros(64, device=dev)
+    y_sum = C.conv3x3_raw(xb, wb, zeros, False)
+    assert torch.equal(y, torch.relu(y_sum.float() + b.detach()))
+    assert bf16_ulp_excess(y_sum, C.conv3x3_plain(xb, wb, zeros, False)) <= 1.0
+    gm = torch.where(y > 0, g, torch.zeros((), device=dev))
+    dx_ref = C.conv3x3_plain(gm.to(torch.bfloat16), C.flip_transpose(wb), zeros, False)
+    assert x.grad.dtype == torch.float32 and bf16_ulp_excess(x.grad, dx_ref) <= 1.0
+    assert torch.equal(b.grad, gm.sum(dim=(0, 1, 2)))
+
+
+@pytest.mark.cuda
 def test_conv3x3_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x = torch.zeros((1, 8, 8, 48), dtype=torch.bfloat16, device=dev)
     w = torch.zeros((3, 3, 48, 64), dtype=torch.bfloat16, device=dev)

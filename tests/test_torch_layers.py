@@ -66,6 +66,53 @@ def test_conv1_2_bf16_branch_matches_jax():
     _close(got.float(), np.asarray(ref.astype(jnp.float32)), BF16_RTOL)
 
 
+def test_conv1_2_below_128_rows_matches_jax_conv2d():
+    """Below 128 rows the trunk's conv1_2 is JAX's plain bf16 conv2d (f32
+    bias, f32 out); the port runs its convolution on the conv3x3 path
+    (`conv3x3_bf16_conv2d`). Forward and backward against jax.vjp of
+    conv2d: the output, dx and dw within bf16 rounding, db within f32."""
+    import jax
+
+    rng = np.random.RandomState(4)
+    p = _conv_params(rng, 3, 64, 64)
+    x = np.maximum(rng.randn(2, 24, 20, 64), 0).astype(np.float32)
+    g = rng.randn(2, 24, 20, 64).astype(np.float32)
+    f = lambda x_, w_, b_: JL.conv2d({"weights": w_, "biases": b_}, x_, relu=True,  # noqa: E731
+                                     compute_dtype=jnp.bfloat16)
+    ref, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(p["weights"]), jnp.asarray(p["biases"]))
+    rdx, rdw, rdb = vjp(jnp.asarray(g))
+    xt, wt, bt = t(x).requires_grad_(True), _oihw(p["weights"]).requires_grad_(True), t(p["biases"]).requires_grad_(True)
+    got = L.conv3x3_bf16_conv2d(wt, bt, xt)
+    got.backward(t(g))
+    assert got.dtype == torch.float32 and xt.grad.dtype == torch.float32
+    _close(got.detach(), ref, BF16_RTOL)
+    _close(xt.grad, rdx, BF16_RTOL)
+    _close(wt.grad.permute(2, 3, 1, 0), rdw, BF16_RTOL)
+    _close(bt.grad, rdb, 1e-5)
+    # the same as the port's cuDNN/torch bf16 conv2d
+    _close(got.detach(), L.conv2d(wt.detach(), bt.detach(), t(x), relu=True, compute_dtype=torch.bfloat16), BF16_RTOL)
+
+
+def test_trunk_below_128_rows_matches_jax_bf16_full_width():
+    """The VGG trunk in bf16 at full width on a 96x32 frame (the toy
+    dataset's 96 rows): conv1_2 on the conv3x3 path with conv2d's
+    numerics."""
+    import jax
+
+    params = JB.init_vgg_trunk(jax.random.PRNGKey(1))
+    x = np.random.RandomState(5).uniform(-120, 130, (1, 96, 32, 3)).astype(np.float32)
+    ref = JB.vgg_trunk(params, jnp.asarray(x), compute_dtype=jnp.bfloat16)
+    trunk = VGGTrunk()
+    sd = params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
+    trunk.load_state_dict({k[len("trunk."):]: v for k, v in sd.items()}, strict=True)
+    with torch.no_grad():
+        got = trunk(t(x), compute_dtype=torch.bfloat16)
+    assert got["conv1_2"].dtype == torch.float32 and ref["conv1_2"].dtype == jnp.float32
+    _close(got["conv1_2"], ref["conv1_2"], BF16_RTOL)
+    for name in ("conv4_3", "conv5_3"):
+        _close(got[name], ref[name], 5e-2)
+
+
 def test_trunk_matches_jax_bf16_full_width():
     """VGG trunk in bf16 at full width, H >= 128 so the conv1_2 branch runs."""
     import jax

@@ -15,6 +15,7 @@ largest move plus two f32 ulps of the parameter.
 """
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -266,7 +267,7 @@ def test_solver_logs_every_step():
     step = T.make_bank_train_step(cfg, hp, t(points), t(symmetry), t(extents), 2, 8)
     state = T.create_train_state(make_model(cfg, init_params_numpy(G.TRAIN_SEED, cfg), "cpu"), hp)
     lines = []
-    state, metrics = T.Solver(step, display=1).train(state, bank, 2, log=lines.append)
+    state, metrics = T.Solver(step, display=1).train(itertools.repeat(bank), state, 2, log=lines.append)
     assert state.step == 2 and len(lines) == 2
     assert lines[0].startswith("iter 1/2 ") and "lr: 0.001 " in lines[0] and "loss_pose: " in lines[1]
     assert all(np.isfinite(float(v)) for v in metrics.values())

@@ -104,18 +104,19 @@ def test_vertex_targets_match_jax():
 
 
 def test_vertex_loss_matches_jax():
+    """The loss and its gradient, with and without z_obj_norm
+    (TPU.VERTEX_Z_OBJ_NORM)."""
     label, centers, vert = _vertex_scene(3)
     vert[0, :, :, :3] *= 4.0  # some |diff| > 1: both arms of the smooth L1
-    ref, vjp = jax.vjp(lambda v: JV.smooth_l1_loss_vertex_sparse(v, jnp.asarray(label), jnp.asarray(centers), 4, 10.0),
-                       jnp.asarray(vert))
-    (rg,) = vjp(jnp.float32(1.0))
-    vt = t(vert).requires_grad_(True)
-    got = V.smooth_l1_loss_vertex_sparse(vt, t(label), t(centers), 4, 10.0)
-    got.backward()
-    _close(got, ref)
-    _close(vt.grad, rg)
-    with pytest.raises(NotImplementedError):
-        V.smooth_l1_loss_vertex_sparse(vt, t(label), t(centers), 4, z_obj_norm=True)
+    for z_obj_norm in (False, True):
+        ref, vjp = jax.vjp(lambda v: JV.smooth_l1_loss_vertex_sparse(
+            v, jnp.asarray(label), jnp.asarray(centers), 4, 10.0, z_obj_norm=z_obj_norm), jnp.asarray(vert))
+        (rg,) = vjp(jnp.float32(1.0))
+        vt = t(vert).requires_grad_(True)
+        got = V.smooth_l1_loss_vertex_sparse(vt, t(label), t(centers), 4, 10.0, z_obj_norm=z_obj_norm)
+        got.backward()
+        _close(got, ref)
+        _close(vt.grad, rg)
 
 
 def _unit(q):

@@ -68,19 +68,18 @@ def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-def path_vote_inputs(frame: str, max_samples: int, device="cpu") -> dict:
-    """The vote kernel's inputs on the main path for one frozen frame's
-    ground truth, at the Hough golden's flagship settings with `max_samples`
-    samples a slot (512 in inference, 1024 in training), made by the
-    functions `hough_voting` calls: the packed samples (S, 8, P), the coarse
-    grid (1, 2, NC) and its width, and the refine windows (S, 2, 256) around
-    the coarse argmax of the plain version's votes."""
+def vote_inputs_from_gt(label, vert, meta, extents, settings: dict, max_samples: int, device="cpu") -> dict:
+    """The vote kernel's inputs on the main path for a frame's ground truth
+    (label (H,W), vertex field (H,W,3C), meta (48,), extents (C,3), numpy)
+    at Hough `settings` (`make_torch_goldens.HOUGH_SETTINGS`' keys) with
+    `max_samples` samples a slot, made by the functions `hough_voting`
+    calls: the packed samples (S, 8, P), the coarse grid (1, 2, NC) and its
+    width, and the refine windows (S, 2, RW*RW) around the coarse argmax of
+    the plain version's votes."""
     from posecnn_torch.ops import hough_voting as HV
     from posecnn_torch.ops.voting import accumulate_votes_plain
 
-    G = goldens()
-    s = G.HOUGH_SETTINGS
-    label, vert, extents, meta = G.hough_inputs(frame)
+    s = settings
     H, W = label.shape
     cand = HV.candidate_pixels(H, W, s["pixel_grid_stride"], device)
     _, _, _, samples = HV.slot_samples(
@@ -95,6 +94,37 @@ def path_vote_inputs(frame: str, max_samples: int, device="cpu") -> dict:
     _, _, window = HV.refine_window_centers(gxs[best % gw], gys[best // gw], H, W, s["center_stride"],
                                             s["refine_window"])
     return {"samples": samples, "coarse": coarse, "grid_w": gw, "window": window}
+
+
+def path_vote_inputs(frame: str, max_samples: int, device="cpu") -> dict:
+    """`vote_inputs_from_gt` for one frozen frame's ground truth at the
+    Hough golden's flagship settings (512 samples in inference, 1024 in
+    training)."""
+    G = goldens()
+    label, vert, extents, meta = G.hough_inputs(frame)
+    return vote_inputs_from_gt(label, vert, meta, extents, G.HOUGH_SETTINGS, max_samples, device)
+
+
+# the toy path's Hough settings (experiments/cfgs/toy_pose.yml over the
+# TPU defaults and PoseCNNConfig's label_threshold): 96x128 frames, a
+# 24x32 coarse grid at stride 4
+TOY_HOUGH_SETTINGS = dict(num_classes=4, skip_pixels=1, label_threshold=500, class_slots=8, max_samples=1024,
+                          center_stride=4, refine_window=16, pixel_grid_stride=3, sampler="approx")
+
+
+def toy_vote_inputs(index: int, device="cpu") -> dict:
+    """`vote_inputs_from_gt` on the ground truth of toy_train frame `index`
+    at the toy path's settings (`TOY_HOUGH_SETTINGS`)."""
+    from posecnn_torch.data.toy import toy
+    from posecnn_torch.utils.frames import gt_vertex_field
+    from posecnn_torch.utils.meta import build_meta_data
+
+    d = toy("train")
+    f = d.load_frame(index)
+    s = TOY_HOUGH_SETTINGS
+    vert = gt_vertex_field(f.label, f.cls_indexes, f.center, f.poses, s["num_classes"])
+    return vote_inputs_from_gt(f.label.astype(np.int32), vert, build_meta_data(f.intrinsic_matrix), d._extents, s,
+                               s["max_samples"], device)
 
 
 def vote_edge_cases() -> list:
@@ -413,4 +443,61 @@ def check_evaluator_golden() -> float:
     G = goldens()
     err = summary_rel_err(G.score_detections(PoseEvaluator), json.loads(str(load_npz(G.EVAL_GOLDEN)["summary"])))
     assert err <= 1e-6, err
+    return err
+
+
+def toy_train_on_golden(device="cpu"):
+    """The port's host-fed steps (`make_train_step`, f32) on the toy golden's
+    weights (`init_params_numpy(seed)`), batches and points, on `device`.
+    Returns (per-step outputs as floats, the flat parameters before and
+    after, golden)."""
+    from posecnn_torch.config import PoseCNNConfig
+    from posecnn_torch.core.convert import init_params_numpy, make_model, params_to_numpy
+    from posecnn_torch.engine.train import Draws, TrainHParams, create_train_state, make_train_step, to_device
+
+    g = load_npz(goldens().TOY_TRAIN_GOLDEN)
+    cfg = PoseCNNConfig(compute_dtype=torch.float32, **{k[4:]: g[k].item() for k in g if k.startswith("cfg/")})
+    hp = TrainHParams(**{k[3:]: g[k].item() for k in g if k.startswith("hp/")})
+    params = init_params_numpy(int(g["seed"]), cfg)
+    state = create_train_state(make_model(cfg, params, device), hp)
+    step = make_train_step(cfg, hp, *(t(g[k]).to(device) for k in ("points", "symmetry", "extents")))
+    outs, n = [], 0
+    while f"batch{n}/data" in g:
+        batch = {k.split("/", 1)[1]: g[k] for k in g if k.startswith(f"batch{n}/")}
+        outs.append({k: float(v) for k, v in step(state, to_device(batch, device), Draws()).items()})
+        n += 1
+
+    def flat(nested):
+        return {f"['{layer}']['{leaf}']": a for layer, leaves in nested.items() for leaf, a in leaves.items()}
+
+    return outs, flat(params), flat(params_to_numpy(state.model.state_dict())), g
+
+
+def check_toy_train_golden(outs, before, after, g) -> dict:
+    """Holds the host-fed toy steps to the JAX golden: every loss term and
+    each step's gradient norm within 1e-5 relative (the CPU port read
+    1.1e-6, loss_pose of step 2); each step's lr within 1e-9 (the golden's
+    is float32); each parameter slice after the second step within 1e-3 of
+    its largest move from the start, plus two float32 ulps of the
+    parameter (the CPU port read 1.0e-4 on fc6's biases, which only the
+    second step's single pose row moves, through sums over the RoI rows
+    with cancellation; 6e-5 or less elsewhere). Returns the largest
+    errors."""
+    err = {}
+    for n, out in enumerate(outs):
+        for k, v in out.items():
+            ref = float(g[f"step{n}/{k}"])
+            if k == "lr":
+                assert abs(v - ref) <= 1e-9, (n, v, ref)
+                continue
+            e = abs(v - ref) / max(abs(ref), 1e-3)
+            assert e <= 1e-5, (n, k, v, ref)
+            err[k] = max(err.get(k, 0.0), e)
+    for k in (k[len("after/"):] for k in g if k.startswith("after/")):
+        ref, sl = g[f"after/{k}"], goldens().TOY_SLICES[k]
+        got, start = after[k][sl], before[k][sl]
+        move = float(np.abs(ref - start).max())
+        e = float(np.abs(got - ref).max())
+        assert e <= 1e-3 * move + 2.4e-7 * float(np.abs(start).max()), (k, e, move)
+        err[f"params {k} (relative to the move)"] = e / max(move, 1e-30)
     return err

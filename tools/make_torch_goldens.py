@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes four files:
+Runs the JAX package (on the CPU) and writes five files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -29,6 +29,16 @@ Runs the JAX package (on the CPU) and writes four files:
       `PoseEvaluator` summary of fixed detections (`eval_detections`:
       three frames over the 22 YCB classes and the stand-in object models)
       as JSON.
+  tests/golden/torch_port_toy_train.npz
+      two host-fed training steps (JAX's `make_train_step` on one device)
+      under experiments/cfgs/toy_pose.yml at narrow widths (its model: 4
+      classes, NUM_UNITS 16, its Hough settings; the trunk at 1/8 width, fc
+      64, float32, keep_prob 1, STEPSIZE 1 so the second step runs at
+      lr * GAMMA) on the first two batches of `GtSynthesizeLayer` (flipped
+      roidb entries included): the config and hyper-parameters, the
+      batches, the ADD points, each step's losses, lr and gradient norm,
+      and slices of the parameters after the second step (`TOY_SLICES`).
+      The weights are `init_params_numpy(TOY_SEED)` on both sides.
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -52,6 +62,7 @@ HOUGH_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_hough_v4_000000.npz")
 SLICE_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_small_slice.npz")
 TRAIN_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_small_train.npz")
 EVAL_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_small_eval.npz")
+TOY_TRAIN_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_toy_train.npz")
 HOUGH_FRAME = "data/lov_syn_val_v4/000000.npz"
 
 # flagship Hough settings (__graft_entry__.py:_flagship_cfg)
@@ -430,10 +441,95 @@ def eval_golden() -> dict:
     return g
 
 
+# the toy host-fed steps: toy_pose.yml's model and solver at narrow widths
+TOY_CFG_FILE = "experiments/cfgs/toy_pose.yml"
+TOY_NARROW = dict(trunk_scale=0.125, fc_dim=64, keep_prob=1.0)
+TOY_STEPSIZE = 1
+TOY_STEPS = 2
+TOY_SEED = 4  # weights whose labels give the second step a pose row (loss_pose > 0)
+# parameter slices held after the second step (JAX layout)
+TOY_SLICES = {
+    "['conv1_1']['weights']": np.s_[:, :, :, :4],
+    "['conv1_2']['weights']": np.s_[1, 1, :8, :8],
+    "['conv5_3']['biases']": np.s_[:16],
+    "['score']['weights']": np.s_[...],
+    "['vertex_pred']['weights']": np.s_[..., :12],
+    "['fc6']['biases']": np.s_[:16],
+    "['fc8']['weights']": np.s_[:16],
+}
+
+
+def toy_train_inputs():
+    """(model config kwargs, hp kwargs, batches, points, symmetry, extents),
+    numpy, from the port's config builders (held to the JAX CLI's by the
+    tests): toy_pose.yml over `toy_train` with its flipped entries, the
+    first TOY_STEPS batches of `GtSynthesizeLayer(seed=RNG_SEED)` (bit-equal
+    to JAX's), and the toy models' points rescaled for the ADD loss."""
+    from dataclasses import fields
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.data.factory import get_imdb
+    from posecnn_torch.data.layer import GtSynthesizeLayer
+    from posecnn_torch.data.minibatch import rescale_points
+
+    cfg = C.cfg_from_file(os.path.join(ROOT, TOY_CFG_FILE))
+    imdb = get_imdb("toy_train")
+    imdb.append_flipped_images()
+    mcfg = C.minibatch_cfg(cfg, imdb.num_classes)
+    layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
+    batches = [layer.forward() for _ in range(TOY_STEPS)]
+    mc = C.train_model_cfg(cfg, imdb.num_classes)
+    cfg_kw = {f.name: getattr(mc, f.name) for f in fields(mc) if f.name != "compute_dtype"}
+    cfg_kw.update(TOY_NARROW)
+    hp = C.train_hparams(cfg)
+    hp_kw = {f.name: getattr(hp, f.name) for f in fields(hp) if f.name != "pixel_means"}
+    hp_kw["stepsize"] = TOY_STEPSIZE
+    extents, symmetry = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
+    points = rescale_points(np.asarray(imdb._points_all, np.float32), extents, symmetry, mcfg.is_symmetric)
+    return cfg_kw, hp_kw, batches, points.astype(np.float32), symmetry, extents
+
+
+def toy_train_golden() -> dict:
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from posecnn_tpu.core.checkpoint import _flatten_state
+    from posecnn_tpu.engine.train import TrainHParams, compute_losses, make_optimizer, make_train_step
+    from posecnn_tpu.models.posecnn import PoseCNNConfig
+    from posecnn_tpu.parallel.mesh import MeshSpec, make_mesh
+    from posecnn_torch.config import PoseCNNConfig as TorchCfg
+    from posecnn_torch.core.convert import init_params_numpy
+
+    cfg_kw, hp_kw, batches, points, symmetry, extents = toy_train_inputs()
+    cfg = PoseCNNConfig(compute_dtype=jnp.float32, **cfg_kw)
+    hp = TrainHParams(**hp_kw)
+    consts = tuple(jnp.asarray(a) for a in (points, symmetry, extents))
+    step = make_train_step(cfg, hp, make_mesh(MeshSpec(data=1, model=1)), *consts, donate=False)
+    grad_fn = jax.jit(jax.value_and_grad(compute_losses, has_aux=True), static_argnums=(1, 2))
+    params = jax.tree_util.tree_map(jnp.asarray, init_params_numpy(TOY_SEED, TorchCfg(**cfg_kw)))
+    state = (params, make_optimizer(hp).init(params), jnp.asarray(0, jnp.int32))
+    key = jax.random.PRNGKey(0)  # read by nothing: keep_prob 1, no noise, no GT mix
+    g = {f"cfg/{k}": np.asarray(v) for k, v in cfg_kw.items()}
+    g.update({f"hp/{k}": np.asarray(v) for k, v in hp_kw.items()})
+    g.update(points=points, symmetry=symmetry, extents=extents, seed=np.asarray(TOY_SEED))
+    for n, batch in enumerate(batches):
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        _, grads = grad_fn(state[0], cfg, hp, jb, *consts, key)
+        state, metrics = step(state, jb, key)
+        g.update({f"batch{n}/{k}": v for k, v in batch.items()})
+        g.update({f"step{n}/{k}": np.asarray(v, np.float32) for k, v in metrics.items()})
+        g[f"step{n}/grad_norm"] = np.asarray(optax.global_norm(grads), np.float32)
+    flat = _flatten_state({"params": jax.tree_util.tree_map(np.asarray, state[0])})
+    for k, sl in TOY_SLICES.items():
+        g[f"after/{k}"] = np.ascontiguousarray(flat[f"['params']{k}"][sl])
+    return g
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
-                       (EVAL_GOLDEN, eval_golden)):
+                       (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 

@@ -1,12 +1,18 @@
 """Where a flagship inference frame, a flagship training step or a
-flagship eval frame of the PyTorch port spends its time.
+flagship eval frame of the PyTorch port spends its time; with `--toy`, a
+toy training step or eval frame.
 
 Inference (default): `posecnn_torch` flagship inference (640x480, bf16,
 seeded weights) on frozen frames. Training (`--train`): the flagship
 training step of `posecnn_torch.entry.train_entry` (B=2 at 640x480, bf16,
 device bank). Evaluation (`--eval`): `engine.test.test_net` as
 `python -m posecnn_torch.test_net` runs it on the seed-0 weights (the eval
-config, NMS 0.3, depth ICP, the evaluator). Runs under torch.profiler and
+config, NMS 0.3, depth ICP, the evaluator). With `--toy`, the training
+step and the eval frames are those of `experiments/cfgs/toy_pose.yml` (B=2
+at 96x128, bf16, 4 classes, RNG_SEED weights): `--train --toy` the
+host-fed step on batches of `GtSynthesizeLayer` moved to the card
+beforehand (no data thread), `--eval --toy` `test_net` on `toy_val` (no
+ICP). Runs under torch.profiler and
 prints the device's busy share of the profiled wall window, host and device
 time per stage, and the device time by kernel (the `--top` largest).
 
@@ -20,7 +26,7 @@ thread, outside the spans). For evaluation: the trunk, Hough voting, the
 crop pool, the fc layers, host NMS, the ICP (`refine_poses`) and the
 evaluator. Needs one NVIDIA GPU.
 
-Usage: python tools/profile_torch_inference.py [--train | --eval] [--frames 6] [--top 25]
+Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy] [--frames 6] [--top 25]
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true", help="profile the flagship training step")
     ap.add_argument("--eval", action="store_true", help="profile test_net's frames (ICP on)")
+    ap.add_argument("--toy", action="store_true", help="with --train or --eval: the toy_pose.yml step or frames")
     ap.add_argument("--frames", type=int, default=6, help="frames (or training steps) to profile")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -75,7 +82,78 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
 
-    if args.train:
+    if args.toy and not (args.train or args.eval):
+        ap.error("--toy goes with --train or --eval")
+    if args.toy:
+        from posecnn_torch.core import config as C
+        from posecnn_torch.core.convert import init_params_numpy, make_model
+        from posecnn_torch.data.factory import get_imdb
+
+        toy_cfg = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml"))
+    if args.train and args.toy:
+        from posecnn_torch.data.layer import GtSynthesizeLayer
+        from posecnn_torch.data.minibatch import rescale_points
+
+        stages = {
+            "stage:preprocess": [(trainer, "preprocess")],
+            "stage:trunk": [(backbone.VGGTrunk, "forward")],
+            "stage:hough": [(model_mod, "hough_voting")],
+            "stage:crop_pool": [(model_mod, "crop_pool_batched")],
+            "stage:fc": [(layers, "fc")],
+            "stage:losses": [(trainer, f) for f in ("regularization_loss", "loss_cross_entropy_hard_label_sparse",
+                                                    "smooth_l1_loss_vertex_sparse", "average_distance_loss")],
+            "stage:update": [(trainer.MomentumSGD, "step")],
+        }
+        _spans(stages, record_function)
+        imdb = get_imdb("toy_train")
+        imdb.append_flipped_images()
+        model_cfg, hp = C.train_model_cfg(toy_cfg, imdb.num_classes), C.train_hparams(toy_cfg)
+        mcfg = C.minibatch_cfg(toy_cfg, imdb.num_classes)
+        ext, sym = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
+        consts = [torch.from_numpy(a).to(dev) for a in (rescale_points(imdb._points_all, ext, sym), sym, ext)]
+        engine.set_float32_precision()
+        state = trainer.create_train_state(
+            make_model(model_cfg, init_params_numpy(toy_cfg.RNG_SEED, model_cfg), dev), hp)
+        step = trainer.make_train_step(model_cfg, hp, *consts)
+        layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=toy_cfg.TRAIN.IMS_PER_BATCH, seed=toy_cfg.RNG_SEED)
+        runs = [(trainer.to_device(layer.forward(), dev),) for _ in range(args.frames + 2)]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(toy_cfg.RNG_SEED)
+
+        def run(batch):
+            with record_function("stage:frame"):
+                step(state, batch, trainer.Draws(gen))
+
+        warmup, runs = runs[:2], runs[2:]
+        rest = "backward and the rest"
+        unit = "step"
+    elif args.eval and args.toy:
+        from posecnn_torch.data.imdb import PoseEvaluator
+
+        stages = {
+            "stage:trunk": [(backbone.VGGTrunk, "forward")],
+            "stage:hough": [(model_mod, "hough_voting")],
+            "stage:crop_pool": [(model_mod, "crop_pool_batched")],
+            "stage:fc": [(layers, "fc")],
+            "stage:host_nms": [(engine, "postprocess_detections")],
+            "stage:evaluator": [(PoseEvaluator, "add_frame")],
+        }
+        _spans(stages, record_function)
+        data = get_imdb("toy_val")
+        cfg = C.test_model_cfg(toy_cfg, data.num_classes)
+        model = make_model(cfg, init_params_numpy(toy_cfg.RNG_SEED, cfg), dev)
+        sym = [data.classes[i] for i in range(data.num_classes) if data._symmetry[i] > 0]
+        evaluator = PoseEvaluator(data.classes, data._extents, data._points, sym)
+
+        def run(n_frames):
+            with record_function("stage:frame"):
+                engine.test_net(model, cfg, data, PIXEL_MEANS, evaluator=evaluator, max_frames=n_frames, log=None,
+                                **C.test_settings(toy_cfg))
+
+        warmup, runs = [(2,)], [(args.frames,)]  # a warm-up call of 2 frames, then the profiled one
+        rest = "heads and the rest"
+        unit = "frame"
+    elif args.train:
         stages = {
             "stage:sample": [(trainer, "sample_batch")],
             "stage:preprocess": [(trainer, "preprocess")],
@@ -97,6 +175,7 @@ def main() -> int:
                 step(state, bank, trainer.Draws(gen))
 
         runs = [()] * args.frames
+        warmup = runs[:2]
         rest = "backward and the rest"
         unit = "step"
     elif args.eval:
@@ -125,7 +204,7 @@ def main() -> int:
                 engine.test_net(model, cfg, data, PIXEL_MEANS, evaluator=evaluator, max_frames=n_frames, log=None,
                                 **FLAGSHIP_TEST)
 
-        runs = [(2,), (args.frames,)]  # a warm-up call of 2 frames, then the profiled one
+        warmup, runs = [(2,)], [(args.frames,)]  # a warm-up call of 2 frames, then the profiled one
         rest = "heads and the rest"
         unit = "frame"
     else:
@@ -150,15 +229,16 @@ def main() -> int:
                 out = infer(model, torch.from_numpy(color).to(dev), torch.from_numpy(meta).to(dev), extents)
                 return engine.postprocess_detections(out)
 
+        warmup = runs[:2]
         rest = "heads and the rest"
         unit = "frame"
 
-    for r in runs[:2] if not args.eval else runs[:1]:  # warm-up: cuDNN plans, the kernel builds
+    for r in warmup:  # cuDNN plans, the kernel builds
         run(*r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in runs if not args.eval else runs[1:]:
+        for r in runs:
             run(*r)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
