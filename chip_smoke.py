@@ -3,13 +3,15 @@
 
 Runs the port's main path through its user entry points and checks it:
 flagship PoseCNN inference (raw 640x480 BGR frame in, ROIs and 6-DoF poses
-out), the flagship training step (B=2 at 640x480 from a device bank), and
-the cfg-driven CLIs on the toy dataset (host-fed training at 96x128 and
-its scoring).
+out), the flagship training step (B=2 at 640x480 from a device bank), the
+cfg-driven CLIs on the toy dataset (host-fed training at 96x128 and its
+scoring), and the flagship cfg's bank refresh (a host thread rendering
+fresh scenes into the bank).
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
-  2. build: every CUDA kernel of the path, from the sources in this
-     checkout, one nvcc per source, all started together
+  2. build: every CUDA kernel of the path and the host rasterizer, from
+     the sources in this checkout, one compiler (nvcc, g++) per source, all
+     started together
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, with median times: hough_vote's coarse
      and refine passes (votes exact, two launches bit-equal) on synthetic
@@ -73,7 +75,14 @@ its scoring).
      posecnn_torch.test_net --cfg ... --imdb toy_val --model <the iter-100
      snapshot>` (seg IoU, ADD(-S) AUC, per-frame ms by stage, 2 + 1
      launches a frame)
-  11. the kernels' JSON line, then {"ok": true, "device": {...}}
+  11. the bank refresh (`refresh_phase`): the port's renders against the
+     JAX render golden (labels, depth and colour within the limits of
+     tests/torch_parity.py:check_render_golden) and the renderer's rate;
+     `python -m posecnn_torch.train_net --cfg lov_syn_thr_00.yml --imdb
+     lov_syn_val_v4` until its second splice (SIGTERM), with the counter
+     sidecar, finite losses and the refresh's record; the flagship step in
+     this process with and without the refresh, in blocks A B B A
+  12. the kernels' JSON line, then {"ok": true, "device": {...}}
 
 The CLIs' scratch directory is made under the checkout's git-ignored
 output/ and removed at the end. Any failure raises and the process exits
@@ -106,6 +115,9 @@ N_STEPS = 8
 # phase 10: the toy CLI's steps, the in-process feed comparison's, and the
 # steps left out of the medians
 TOY_STEPS, TOY_FEED_STEPS, TOY_WARMUP = 100, 30, 5
+# phase 11: renders timed alone, the refresh CLI's cap on steps, and the
+# steps of each block of the in-process comparison
+REFRESH_RENDERS, REFRESH_MAX_STEPS, REFRESH_BLOCK = 32, 2000, 40
 
 # the H100's published peaks (NVIDIA's data sheet, SXM part, dense rates)
 PEAK_BYTES_PER_S = 3.35e12
@@ -739,6 +751,167 @@ def toy_phase(work: str, dev) -> dict:
     return launches
 
 
+def refresh_phase(work: str, dev) -> dict:
+    """Phase 11: the bank refresh on the flagship data (lov_syn_val_v4's
+    stand-in hulls at 640x480). (a) The port's renders of the render
+    golden's scenes against the JAX renders (`check_render_golden`: labels
+    on >= 0.999 of the pixels, depth within 1e-5 relative and colour
+    within 2 levels where they agree), and render_scene alone on this host
+    (ms a frame, render passes and objects a frame). (b) `python -m
+    posecnn_torch.train_net --cfg lov_syn_thr_00.yml --imdb lov_syn_val_v4`
+    (the capstone with throttle 0), sent SIGTERM once its log shows the
+    fourth splice (REFRESH_MAX_STEPS steps at most): at least two splice
+    log lines, the counter sidecar at >= 128, finite losses, both kernels
+    launched, and the refresh's record. (c) The flagship step of
+    `entry.train_entry` in this process, blocks of REFRESH_BLOCK steps
+    from the bank as it is (A), and through `refreshing_bank_iter` with a
+    refresher of its own rendering at full rate (B, lov_syn_thr_00's
+    throttle 0) or sleeping 0.3 s after each frame (C, the capstone's), in
+    the order A B C C B A: the median step stream ms (CUDA events) and
+    data wait of each arm, the splices and their ms, and the refreshers'
+    frames a second. Returns the launches of (b) and (c)."""
+    import itertools
+    import platform
+
+    import scipy
+    import torch
+
+    from posecnn_torch.data.bank_refresh import REFRESH_SEED0, BankRefresher, refresh_synthesizer, \
+        refreshing_bank_iter
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.entry import train_entry
+    from posecnn_torch.ops import conv3x3, voting
+    from tests.torch_parity import (RENDER_COLOR_LEVELS, RENDER_DEPTH_REL, RENDER_LABEL_AGREE, check_render_golden,
+                                    goldens, load_npz, port_renders)
+
+    # (a) the renders against the JAX golden, and the renderer alone
+    t0 = time.perf_counter()
+    err = check_render_golden(port_renders(), load_npz(goldens().RENDER_GOLDEN))
+    phase(11, f"renders of the JAX golden's scenes on this host ({platform.machine()}, numpy {np.__version__}, "
+              f"scipy {scipy.__version__}; {time.perf_counter() - t0:.1f} s): "
+              + "; ".join(f"{k} labels agree {a:.6f}, depth max rel err {d:.3g}, colour max err {c}"
+                          for k, (a, d, c) in err.items())
+              + f" (limits >= {RENDER_LABEL_AGREE}, {RENDER_DEPTH_REL}, {RENDER_COLOR_LEVELS} levels)")
+    synth = refresh_synthesizer(LovSynVal())
+    orig, passes, n_obj, n_pass = synth._render_objects, [], [], []
+    synth._render_objects = lambda *a: passes.append(1) or orig(*a)
+    t0 = time.perf_counter()
+    for i in range(REFRESH_RENDERS):
+        k = len(passes)
+        n_obj.append(len(synth.render_scene(np.random.RandomState(REFRESH_SEED0 + i)).cls_indexes))
+        n_pass.append(len(passes) - k)
+    alone_ms = (time.perf_counter() - t0) * 1e3 / REFRESH_RENDERS
+    del synth._render_objects
+    phase(11, f"render_scene alone, lov_syn_val_v4's render params (640x480, 5 objects, 800-pixel gate), seeds "
+              f"REFRESH_SEED0 + 0..{REFRESH_RENDERS - 1}: {alone_ms:.2f} ms a frame ({1e3 / alone_ms:.1f} frames/s); "
+              f"render passes a frame mean {np.mean(n_pass):.2f}, max {max(n_pass)} (6: five tries and the "
+              f"fall-through, {sum(p == 6 for p in n_pass)} frames); objects a frame mean {np.mean(n_obj):.2f}, "
+              f"min {min(n_obj)}")
+
+    # (b) the CLI on the shipped measurement arm, until its fourth splice
+    out = os.path.join(work, "refresh")
+    log_path = os.path.join(work, "refresh_train.log")
+
+    def fourth_splice() -> bool:
+        with open(log_path) as f:
+            return "spliced (4 chunks)" in f.read()
+
+    rc, log = run_cli(["posecnn_torch.train_net", "--cfg", os.path.join("experiments", "cfgs", "lov_syn_thr_00.yml"),
+                       "--imdb", "lov_syn_val_v4", "--iters", str(REFRESH_MAX_STEPS), "--output", out],
+                      log_path, 900, until=fourth_splice)
+    check(rc == 0, f"train_net --cfg lov_syn_thr_00.yml exited {rc}:\n{log[-3000:]}")
+    splices = re.findall(r"^\[([\d.]+)s\] bank refresh: (\d+) fresh frames spliced \((\d+) chunks\)", log, re.M)
+    start = log_seconds(r"bank refresh: streaming fresh scenes in chunks of (\d+) \(seed offset (\d+)\)", log)
+    with open(os.path.join(out, "bank_refresh_counter.txt")) as f:
+        counter = int(f.read())
+    with open(os.path.join(out, "train_timing.json")) as f:
+        timing = json.load(f)
+    rec = timing["bank_refresh"]
+    rows = re.findall(r"^\[[\d.]+s\] iter (\d+)/\d+ (.*) \([\d.]+s/it\)$", log, re.M)
+    losses = [float(v) for _, r in rows for k, v in re.findall(r"(\S+): (\S+)", r) if k.startswith("loss")]
+    check(len(splices) >= 2 and counter >= 128 and rows and all(np.isfinite(losses))
+          and all(v > 0 for v in timing["launches"].values()),
+          f"refresh CLI: {len(splices)} splice lines, counter {counter}, {len(rows)} log rows, losses {losses}, "
+          f"launches {timing['launches']}:\n{log[-3000:]}")
+    n = timing["end_step"]
+    ms = {k: statistics.median(v[2:]) for k, v in timing["ms"].items()}
+    phase(11, f"train_net --cfg lov_syn_thr_00.yml --imdb lov_syn_val_v4 (B=2, 640x480, bf16, chunks of "
+              f"{start.group(2)}, seed offset {start.group(3)}, refresher started {start.group(1)} s after the "
+              f"start), SIGTERM after the fourth splice: splices at "
+              + ", ".join(f"{t} s ({c} chunks, {fr} frames)" for t, fr, c in splices)
+              + f"; {n} steps, per step (median of steps 3-{n}) {ms['step_stream']:.3f} ms stream, "
+              f"{ms['data_wait']:.3f} ms data wait; the refresher rendered {rec['frames_rendered']} frames at "
+              f"{rec['frames_per_s']:.2f} frames/s of its render time ({rec['render_s']:.2f} s), "
+              f"{rec['chunks_spliced']} chunks spliced in {', '.join(f'{x:.2f}' for x in rec['splice_ms'])} ms; "
+              f"counter sidecar {counter}; losses finite; launches {timing['launches']}")
+
+    # (c) the flagship step without the refresh (A), with it at full rate
+    # (B) and throttled as the capstone (C), A B C C B A
+    from posecnn_torch.core.config import cfg_from_file
+
+    capstone_throttle = cfg_from_file(os.path.join(ROOT, "experiments", "cfgs",
+                                                   "lov_syn_capstone.yml")).TPU.BANK_REFRESH_THROTTLE
+    t0 = time.perf_counter()
+    step, state, bank = train_entry(dev)
+    solver = T.Solver(step, display=10**9)
+    load_s = time.perf_counter() - t0
+
+    def block(it) -> dict:
+        timings = {}
+        _, m = solver.train(it, state, state.step + REFRESH_BLOCK, log=None, start_iter=state.step,
+                            handle_signals=False, timings=timings)
+        check(all(np.isfinite(float(v)) for v in m.values()), f"losses not finite: {m}")
+        return timings
+
+    def refreshed_block(throttle: float) -> tuple:
+        r = BankRefresher(synth, g_max=bank["gt_centers"].shape[1], chunk_size=64,
+                          seed_offset=REFRESH_RENDERS + 10**6 * len(runs), throttle_sec=throttle)
+        stats = {}
+        r.start()
+        t = time.perf_counter()
+        try:
+            timings = block(refreshing_bank_iter(bank, r, stats=stats))
+        finally:
+            r.stop()
+            r.join(timeout=60)
+        check(not r.is_alive(), "the refresher outlived its block")
+        return timings, stats.get("splice_ms", []), r.frames_rendered, r.render_s, time.perf_counter() - t
+
+    runs = []
+    block(itertools.repeat(bank))  # warm-up
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+    for arm in "ABCCBA":
+        if arm == "A":
+            runs.append(("A", block(itertools.repeat(bank)), [], 0, 0.0, 0.0))
+        else:
+            runs.append((arm, *refreshed_block(0.0 if arm == "B" else capstone_throttle)))
+    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
+    n_steps = len(runs) * REFRESH_BLOCK
+    check(launches == {"hough_vote": 4 * n_steps, "conv3x3": 2 * n_steps},
+          f"A/B/C launches {launches}, want 4 and 2 a step")
+    arms = {}
+    for arm in "ABC":
+        rs = [r for r in runs if r[0] == arm]
+        frames, render_s, wall = (sum(r[i] for r in rs) for i in (3, 4, 5))
+        blocks = ", ".join(f"{statistics.median(r[1]['step_stream']):.3f}" for r in rs)
+        arms[arm] = (f"{arm}: step stream {statistics.median([x for r in rs for x in r[1]['step_stream']]):.3f} ms "
+                     f"(blocks {blocks}), data wait {statistics.median([x for r in rs for x in r[1]['data_wait']]):.3f} "
+                     f"ms")
+        if arm != "A":
+            splice_ms = [x for r in rs for x in r[2]]
+            arms[arm] += (f", {len(splice_ms)} splices" + (f" ({', '.join(f'{x:.2f}' for x in splice_ms)} ms)"
+                                                            if splice_ms else "") + ", "
+                          f"{frames} frames rendered in {wall:.1f} s ({frames / wall:.2f} frames/s of wall, "
+                          f"{frames / max(render_s, 1e-9):.2f} of render time)")
+    phase(11, f"flagship step (train_entry, loaded in {load_s:.1f} s), {REFRESH_BLOCK}-step blocks A B C C B A (A: "
+              f"the bank as it is; B: refreshing_bank_iter, chunks of 64, no throttle; C: the same with the "
+              f"capstone's {capstone_throttle} s throttle): " + "; ".join(arms.values()) + f"; launches {launches}")
+    del step, state, bank, solver
+    torch.cuda.empty_cache()
+    return {"cli": timing["launches"], "ab": launches}
+
+
 def toy_phase3(kernels: dict, w_t, dev) -> None:
     """Phase 3 at the toy path's shapes (experiments/cfgs/toy_pose.yml):
     conv3x3 at conv1_2, B=2, 96x128, 64->64, in the path's mode below 128
@@ -850,7 +1023,7 @@ def main() -> int:
     print(smi, flush=True)
 
     # phase 2: build every kernel of the path
-    phase(2, f"built and loaded the CUDA kernels in {_build.build_all():.2f} s")
+    phase(2, f"built and loaded the CUDA kernels and the host rasterizer in {_build.build_all():.2f} s")
 
     # phase 3: each kernel against its plain version at the main path's shapes
     # hough_vote, both passes: on synthetic inputs (uniform positions) and on
@@ -1215,6 +1388,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         eval_launches = eval_phase(final, seed0, work, dev)
         toy_launches = toy_phase(work, dev)
+        refresh_launches = refresh_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1224,7 +1398,8 @@ def main() -> int:
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],
-             "launches_toy_eval": toy_launches["eval"][k], **kernels[k]}
+             "launches_toy_eval": toy_launches["eval"][k], "launches_refresh_cli": refresh_launches["cli"][k],
+             "launches_refresh_ab": refresh_launches["ab"][k], **kernels[k]}
             for k in ("hough_vote", "conv3x3")]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's native libraries at first use and load them with ctypes.
 
-Each kernel is a `.cu` file under `posecnn_torch/csrc/` with a plain C entry
-point. `nvcc` compiles it into a shared library under `posecnn_torch/_build/`
+Each CUDA kernel is a `.cu` file under `posecnn_torch/csrc/` with a plain C
+entry point, compiled by `nvcc`; the host renderer is `csrc/rasterizer.cc`,
+compiled by `g++`. Each becomes a shared library under `posecnn_torch/_build/`
 (listed in `.gitignore`); the file name carries a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused. Nothing
-here runs at import time: the CPU tests import every module of the port on a
-machine with no `nvcc`.
+here runs at import time: the CPU tests import every module of the port, and
+the CUDA kernels build only on a machine with `nvcc`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -31,6 +34,8 @@ NVCC_FLAGS = (
     # no FMA contraction: the kernels must round like the plain versions
     "-fmad=false",
 )
+# the JAX package's rasterizer flags, and no FMA contraction (csrc/rasterizer.cc)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 
 
 def _nvcc() -> str:
@@ -44,9 +49,14 @@ def _nvcc() -> str:
 
 
 def build_library(name: str) -> Path:
-    """Compile `csrc/<name>.cu` (if not built yet) and return the .so path."""
+    """Compile `csrc/<name>.cu` with nvcc, or `csrc/<name>.cc` with g++, if
+    not built yet, and return the .so path. A failed build raises."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    cuda = src.exists()
+    if not cuda:
+        src = CSRC / f"{name}.cc"
+    flags = NVCC_FLAGS if cuda else GXX_FLAGS
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
         return out
@@ -56,10 +66,10 @@ def build_library(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [_nvcc() if cuda else "g++", *flags, "-o", tmp, str(src)]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            raise RuntimeError(f"{cmd[0]} failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -94,15 +104,39 @@ def conv3x3_lib() -> ctypes.CDLL:
     return lib
 
 
-KERNELS = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib}
+@functools.lru_cache(maxsize=None)
+def rasterizer_lib() -> ctypes.CDLL:
+    """The loaded host rasterizer, with its entry points' C signatures."""
+    lib = ctypes.CDLL(str(build_library("rasterizer")))
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.rasterize_mesh.argtypes = [
+        f32p, ctypes.c_int, i32p, ctypes.c_int,
+        ctypes.c_void_p, f32p, f32p, f32p, f32p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        u8p, f32p, i32p, f32p,
+    ]
+    lib.rasterize_mesh.restype = None
+    lib.rasterize_depth.argtypes = [
+        f32p, ctypes.c_int, i32p, ctypes.c_int,
+        f32p, f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        f32p, i32p,
+    ]
+    lib.rasterize_depth.restype = None
+    return lib
+
+
+LIBRARIES = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib, "rasterizer": rasterizer_lib}
 
 
 def build_all() -> float:
-    """Build every kernel of the port, one `nvcc` per source, all started
-    together, then load them; returns the seconds taken."""
+    """Build every native library of the port (the CUDA kernels and the host
+    rasterizer), one compiler per source, all started together, then load
+    them; returns the seconds taken."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        list(pool.map(build_library, KERNELS))
-    for load in KERNELS.values():
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
+        list(pool.map(build_library, LIBRARIES))
+    for load in LIBRARIES.values():
         load()
     return time.perf_counter() - t0

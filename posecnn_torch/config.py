@@ -83,9 +83,9 @@ def flagship_train_cfg():
     `tools/train_net.py:107-146` builds from
     `experiments/cfgs/lov_syn_capstone.yml` over the TPU defaults of
     `posecnn_tpu/core/config.py:178-227`, written out as code (equal to
-    what `core.config`'s builders make of the file with its bank refresh
-    set aside). Also: IMS_PER_BATCH 2, CHROMATIC and ADD_NOISE on, a
-    device bank (`FLAGSHIP_TRAIN_BATCH`)."""
+    what `core.config`'s builders make of the file; its bank refresh is a
+    data setting, run by `train_net --cfg`). Also: IMS_PER_BATCH 2,
+    CHROMATIC and ADD_NOISE on, a device bank (`FLAGSHIP_TRAIN_BATCH`)."""
     from posecnn_torch.engine.train import TrainHParams
 
     cfg = PoseCNNConfig(

@@ -560,9 +560,6 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
             ("TRAIN.VISUALIZE", T.VISUALIZE, T.VISUALIZE),
             ("TRAIN.SCALES_BASE", T.SCALES_BASE, tuple(T.SCALES_BASE)[:1] != (1.0,)),
             ("TPU.DEVICE_TARGETS", P.DEVICE_TARGETS, not P.DEVICE_TARGETS),
-            ("TPU.BANK_REFRESH", P.BANK_REFRESH, P.DEVICE_BANK and P.BANK_REFRESH),
-            # the host's motion-blur branch (10% of the noisy frames) is cv2
-            ("TRAIN.ADD_NOISE", T.ADD_NOISE, T.ADD_NOISE and not P.DEVICE_BANK),
             ("TPU.USE_CROP_POOL", P.USE_CROP_POOL,
              T.POSE_REG and T.VERTEX_REG_2D and not P.USE_CROP_POOL),
         ]

@@ -23,6 +23,18 @@ from posecnn_torch.config import ADD_NUM_POINTS, YCB_SYMMETRY
 from posecnn_torch.data.imdb import YCB_CLASSES
 from posecnn_torch.data.minibatch import Frame, load_frozen_frame
 
+# the YCB classes' label colours (posecnn_tpu/data/lov.py:41): the base
+# colours of the synthesizer's objects
+YCB_CLASS_COLORS = [
+    (255, 255, 255), (255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0),
+    (255, 0, 255), (0, 255, 255), (128, 0, 0), (0, 128, 0), (0, 0, 128),
+    (128, 128, 0), (128, 0, 128), (0, 128, 128), (64, 0, 0), (0, 64, 0),
+    (0, 0, 64), (64, 64, 0), (64, 0, 64), (0, 64, 64), (192, 0, 0),
+    (0, 192, 0), (0, 0, 192),
+]
+# the intrinsics of the frozen frames, and build_ycb_synthesizer's default
+YCB_K = np.array([[1066.778, 0, 312.9869], [0, 1067.487, 241.3109], [0, 0, 1]])
+
 FRAMES_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                           "data", "lov_syn_val_v4")
 
@@ -49,7 +61,11 @@ def frame_digest(f: Frame) -> str:
 class LovSynVal:
     """`lov_syn_val_v4`: the 256 frozen frames, with the 22 YCB classes and
     the stand-in object models (`_extents`, `_points_all`, `_points`,
-    `_symmetry`, named as in the JAX package's datasets)."""
+    `_symmetry`, named as in the JAX package's datasets), the class colours
+    (`_class_colors`) and the intrinsics `K`: what
+    `data.synthetic.build_ycb_synthesizer` reads. The manifest's
+    `render_params` are the frames' render settings, which the bank refresh
+    renders with (`data.bank_refresh.refresh_synthesizer`)."""
 
     name = "lov_syn_val_v4"
 
@@ -62,6 +78,8 @@ class LovSynVal:
         self.num_classes = len(YCB_CLASSES)
         self._points_all, self._symmetry, self._extents = object_models(self.num_classes)
         self._points = list(self._points_all)
+        self._class_colors = YCB_CLASS_COLORS
+        self.K = YCB_K.copy()
         self._cache = {}
 
     def load_frame(self, i: int) -> Frame:

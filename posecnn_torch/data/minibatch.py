@@ -11,10 +11,13 @@ frame (`data/lov_syn_val_v4/*.npz`, with its depth where the file has one).
 int32 labels, the (B, MAX_GT, 4) table of GT centres [cls, cx, cy, z], the
 (MAX_GT, 13) GT pose rows and K in meta_data; with CHROMATIC, three HLS
 deltas an image, drawn from `rng` in the JAX package's order, which the
-train step applies on the device. The other branches of the JAX function
-raise NotImplementedError: dense host targets, the DEPTH, RGBD and NORMAL
-inputs, GAN blobs, adaptation and synthetic frames, VERTEX_REG_3D, input
-rescaling, and host noise (its motion-blur branch is cv2).
+train step applies on the device; with ADD_NOISE, per image a gate, then
+either the sigma of the Gaussian noise the train step adds on the device
+(90%) or a motion blur applied here (10%, `motion_blur`: the copy of
+`posecnn_tpu/utils/blob.py:add_noise`'s cv2 branch). The other branches of
+the JAX function raise NotImplementedError: dense host targets, the DEPTH,
+RGBD and NORMAL inputs, GAN blobs, adaptation and synthetic frames,
+VERTEX_REG_3D and input rescaling.
 """
 
 from __future__ import annotations
@@ -150,12 +153,36 @@ def _check_host_batch(mcfg: MinibatchConfig, frames: List[Frame]) -> None:
         "gan": mcfg.gan,
         "vertex_reg_3d": mcfg.vertex_reg_3d,
         "input rescaling (scale != 1, cv2)": mcfg.scale != 1.0,
-        "host noise (its motion-blur branch is cv2)": mcfg.add_noise,
         "synthetic frames over backgrounds": any(f.is_synthetic for f in frames),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"get_minibatch: not ported yet: {', '.join(bad)}")
+
+
+BLUR_SIZES = (3, 5, 7, 9, 11, 15)
+
+
+def motion_blur(im: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """The motion-blur branch of `posecnn_tpu/utils/blob.py:add_noise`
+    (force_blur): a kernel size drawn from BLUR_SIZES, then the axis (rand <
+    0.5: along x, else along y), and a box average of that size along the
+    axis: `cv2.filter2D(im, -1, kernel / size)` with its default border
+    (BORDER_REFLECT_101), its float32 sums and its rounding to the nearest
+    uint8 (ties to even). For odd sizes an average of integers never lies
+    within 1/(2 size) of a tie, so float32 rounding cannot move a level."""
+    size = BLUR_SIZES[int(rng.randint(len(BLUR_SIZES)))]
+    axis = 1 if rng.rand(1) < 0.5 else 0
+    r = (size - 1) // 2
+    pad = [(0, 0)] * im.ndim
+    pad[axis] = (r, r)
+    src = np.pad(im, pad, mode="reflect").astype(np.float32)  # reflect: edge not repeated
+    w = np.float32(1.0 / size)
+    n = im.shape[axis]
+    acc = np.zeros(im.shape, np.float32)
+    for k in range(size):
+        acc += np.take(src, np.arange(k, k + n), axis=axis) * w
+    return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
 
 
 def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
@@ -168,11 +195,15 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
       poses        (max_gt,13)    float32 GT pose rows, column 0 the image
       gt_centers   (B,max_gt,4)   float32 [cls, cx, cy, z] (vertex_reg)
       chroma_dhls  (B,3)          float32 HLS deltas (chromatic)
+      noise_sigma  (B,)           float32 Gaussian noise sigma, 0 for a
+                                          blurred image (add_noise)
 
-    A frame marked `flipped` is mirrored first (`flip_frame`). The chroma
-    deltas are three `rng.rand(1)` draws an image, in order."""
+    A frame marked `flipped` is mirrored first (`flip_frame`). The draws of
+    `rng`, an image at a time: the three chroma deltas (`rng.rand(1)` each),
+    then the noise gate (`rng.rand(1)` < 0.9: noise) and either the sigma's
+    `rng.rand(1)` or `motion_blur`'s size and axis."""
     _check_host_batch(mcfg, frames)
-    ims, labels, metas, center_rows, chroma_rows = [], [], [], [], []
+    ims, labels, metas, center_rows, chroma_rows, noise_sigmas = [], [], [], [], [], []
     pose_blob = np.zeros((0, 13), dtype=np.float32)
     for i, fr in enumerate(frames):
         if fr.flipped:
@@ -185,6 +216,12 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
                 float((rng.rand(1)[0] - 0.5) * 0.2 * 256),
                 float((rng.rand(1)[0] - 0.5) * 0.2 * 256),
             ])
+        if mcfg.add_noise:
+            if rng.rand(1)[0] < 0.9:
+                noise_sigmas.append(float(rng.rand(1)[0] * 0.3 * 256) ** 0.5)
+            else:
+                im = motion_blur(im, rng)
+                noise_sigmas.append(0.0)
         ims.append(np.ascontiguousarray(np.clip(np.round(im[..., :3]), 0, 255)).astype(np.uint8))
         metas.append(build_meta_data(fr.intrinsic_matrix, mcfg.scale))
         labels.append(label)
@@ -206,6 +243,8 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
         "meta_data": np.stack(metas).astype(np.float32),
         "poses": gt,
     }
+    if noise_sigmas:
+        batch["noise_sigma"] = np.asarray(noise_sigmas, np.float32)
     if chroma_rows:
         batch["chroma_dhls"] = np.asarray(chroma_rows, np.float32)
     if mcfg.vertex_reg:

@@ -12,7 +12,10 @@ hyper-parameters and the minibatch settings are built from the config
 rescaled (`data.minibatch.rescale_points`), and SNAPSHOT_ITERS,
 SNAPSHOT_PREFIX, CHECKPOINT_OPT_STATE, SNAPSHOT_FINAL and DISPLAY set the
 solver. With TPU.DEVICE_BANK the step samples from every frame of the
-dataset held on the card; otherwise a thread assembles host minibatches
+dataset held on the card, and with TPU.BANK_REFRESH a host thread renders
+fresh scenes (`data.bank_refresh`) that are spliced into that bank between
+steps; the snapshot is restored before the refresh starts, whose seeds
+begin at the resume step; otherwise a thread assembles host minibatches
 (`data.layer.GtSynthesizeLayer` through `prefetch`, TPU.PREFETCH deep) and
 the solver copies each to the card. A config with a setting the port does
 not run raises NotImplementedError naming it; so do --weights and --ckpt,
@@ -29,9 +32,12 @@ steps and at the end, and one at the step reached when SIGTERM or SIGINT
 arrives; --resume restarts from the latest snapshot in the output
 directory. Each log line starts with the seconds since the program started.
 At the end, `train_timing.json` in the output directory holds per-step
-milliseconds (`data_wait`: the main thread waiting for the next batch;
-`step`: the step's host time; `step_stream`: CUDA events around the step)
-and the kernels' launches.
+milliseconds (`data_wait`: the main thread waiting for the next batch, a
+bank refresh's splices included; `step`: the step's host time;
+`step_stream`: CUDA events around the step), the kernels' launches, and
+with the bank refresh its record (`bank_refresh`: the first seed, frames
+rendered, chunks spliced, each splice's ms, the render seconds and frames
+a second of the thread).
 
 Usage: python -m posecnn_torch.train_net [--cfg FILE.yml] [--imdb NAME] [--iters N]
            [--output DIR] [--resume] [--rand] [--device cuda]
@@ -51,8 +57,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def cfg_run(args, log):
-    """(step, state, data iterator, Solver arguments, output directory) of a
-    --cfg run (`tools/train_net.py:main`)."""
+    """(step, state, open_data, Solver arguments, output directory) of a
+    --cfg run (`tools/train_net.py:main`). `open_data(start_iter)` returns
+    the data iterator and, with the bank refresh, a function that stops the
+    refresher and returns its record for `train_timing.json` (else None);
+    it is called after the resume, since the refresh's seeds start from the
+    resume iteration."""
     import numpy as np
     import torch
 
@@ -104,12 +114,50 @@ def cfg_run(args, log):
         log(f"device bank: {bank['data'].shape[0]} frames on {dev}")
         step = T.make_bank_train_step(model_cfg, hp, points, symmetry, extents, batch_size=T_.IMS_PER_BATCH,
                                       max_gt=cfg.TPU.MAX_GT, chromatic=T_.CHROMATIC, add_noise=T_.ADD_NOISE)
-        data_iter = itertools.repeat(bank)
+        if cfg.TPU.BANK_REFRESH:
+            def open_data(start_iter):
+                return refreshing_data(imdb, bank, cfg, start_iter, output, log)
+        else:
+            def open_data(start_iter):
+                return itertools.repeat(bank), None
     else:
         layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
         step = T.make_train_step(model_cfg, hp, points, symmetry, extents)
-        data_iter = prefetch(iter(layer), depth=cfg.TPU.PREFETCH)
-    return step, state, data_iter, C.solver_settings(cfg), output
+
+        def open_data(start_iter):
+            return prefetch(iter(layer), depth=cfg.TPU.PREFETCH), None
+    return step, state, open_data, C.solver_settings(cfg), output
+
+
+def refreshing_data(imdb, bank, cfg, start_iter: int, output: str, log):
+    """The TPU.BANK_REFRESH iterator (`tools/train_net.py:353-375`): a
+    thread renders fresh scenes in chunks of BANK_REFRESH_CHUNK frames
+    (BANK_REFRESH_THROTTLE s of sleep after each) and the iterator splices
+    them into the bank; the seeds start from `start_iter` or the counter
+    sidecar `<output>/bank_refresh_counter.txt`, whichever is larger.
+    Returns (iterator, a function that stops the refresher's thread and
+    returns its record)."""
+    from posecnn_torch.data.bank_refresh import BankRefresher, refresh_synthesizer, refreshing_bank_iter
+
+    os.makedirs(output, exist_ok=True)
+    refresher = BankRefresher(
+        refresh_synthesizer(imdb), g_max=bank["gt_centers"].shape[1], chunk_size=cfg.TPU.BANK_REFRESH_CHUNK,
+        seed_offset=start_iter, throttle_sec=cfg.TPU.BANK_REFRESH_THROTTLE,
+        counter_path=os.path.join(output, "bank_refresh_counter.txt"))
+    refresher.start()
+    log(f"bank refresh: streaming fresh scenes in chunks of {refresher.chunk_size} "
+        f"(seed offset {refresher.seed_start})")
+    stats = {"splice_ms": []}
+
+    def finish():
+        r = refresher
+        r.stop()
+        r.join(timeout=30)
+        return {"seed_start": r.seed_start, "frames_rendered": r.frames_rendered,
+                "chunks_spliced": len(stats["splice_ms"]), "splice_ms": stats["splice_ms"],
+                "render_s": r.render_s, "frames_per_s": r.frames_rendered / r.render_s if r.render_s else None}
+
+    return refreshing_bank_iter(bank, refresher, log=log, stats=stats), finish
 
 
 def main(argv=None) -> int:
@@ -141,7 +189,7 @@ def main(argv=None) -> int:
 
     if args.cfg:
         args.imdb = args.imdb or "toy_train"
-        step, state, data_iter, solver_kw, output = cfg_run(args, log)
+        step, state, open_data, solver_kw, output = cfg_run(args, log)
     else:
         from posecnn_torch.config import EXP_DIR, FLAGSHIP_SOLVER
         from posecnn_torch.entry import train_entry
@@ -151,25 +199,34 @@ def main(argv=None) -> int:
         output = args.output or os.path.join(ROOT, "output", EXP_DIR, "lov_syn_val_v4", "vgg16_convs")
         step, state, bank = train_entry(args.device)
         log(f"bank: {bank['data'].shape[0]} frames on {args.device}; output {output}")
-        data_iter, solver_kw = itertools.repeat(bank), FLAGSHIP_SOLVER
+        solver_kw = FLAGSHIP_SOLVER
+
+        def open_data(start_iter):
+            return itertools.repeat(bank), None
     solver = Solver(step, output_dir=output, **solver_kw)
     start = 0
     if args.resume:
         state, start = solver.resume(state, log=log)
+    data_iter, finish_refresh = open_data(start)
     timings = {}
     voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+    refresh = None
     try:
         solver.train(data_iter, state, args.iters, log=log, start_iter=start, timings=timings)
     finally:
         close = getattr(data_iter, "close", None)
         if close is not None:
             close()
+        if finish_refresh is not None:
+            refresh = finish_refresh()
     launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
     device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
     os.makedirs(output, exist_ok=True)
+    record = {"device": device, "start_step": start, "end_step": state.step, "launches": launches, "ms": timings}
+    if refresh is not None:
+        record["bank_refresh"] = refresh
     with open(os.path.join(output, "train_timing.json"), "w") as f:
-        json.dump({"device": device, "start_step": start, "end_step": state.step, "launches": launches,
-                   "ms": timings}, f, indent=1)
+        json.dump(record, f, indent=1)
     log(f"done at iteration {state.step}; launches hough_vote {launches['hough_vote']} "
         f"conv3x3 {launches['conv3x3']}")
     return 0

@@ -156,21 +156,43 @@ def test_cfg_from_file_matches_jax(name):
                                 reference_nms_bug=ref.TEST.REFERENCE_NMS_BUG)
 
 
+# the shipped training configs whose one unported setting was the host
+# noise branch (TRAIN.ADD_NOISE without TPU.DEVICE_BANK)
+HOST_NOISE_CFGS = (
+    "linemod_ape_pose", "linemod_benchvise_pose", "linemod_camera_pose", "linemod_can_pose", "linemod_cat_pose",
+    "linemod_color_2d", "linemod_driller_pose", "linemod_duck_pose", "linemod_eggbox_pose", "linemod_glue_pose",
+    "linemod_holepuncher_pose", "linemod_iron_pose", "linemod_lamp_pose", "linemod_phone_pose",
+    "lov_color_2d_pose", "lov_color_banana", "lov_color_bowl", "lov_color_gelatin_box", "lov_color_sugar_box",
+    "lov_color_wood_block", "lov_single_color_pose", "lov_syn_color_2d", "lov_syn_color_2d_long",
+    "lov_syn_pose_isolation", "lov_syn_tex_long", "lov_syn_tex_mix", "rgbd_scene_single_color",
+    "shapenet_scene_single_color", "shapenet_single_single_color", "sym", "ycb_color_2d", "ycb_color_2d_pose",
+    "ycb_color_cracker_box", "ycb_color_mustard_bottle", "ycb_color_potted_meat_can", "ycb_color_sugar_box",
+    "ycb_color_tomato_soup_can", "yumi_color_2d",
+)
+
+
 def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
-    """toy_pose.yml and lov_syn_capstone.yml minus its refresh build for
-    both CLIs; every shipped file either builds or names one of the
+    """toy_pose.yml, lov_syn_capstone.yml (with its bank refresh), the 10
+    shipped files with TPU.BANK_REFRESH and the 38 with host noise build
+    for training; every shipped file either builds or names one of the
     unported settings of `unsupported`."""
     toy = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml"))
     assert not C.unsupported(toy, train=True) and not C.unsupported(toy, train=False)
     cap = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml"))
-    assert C.unsupported(cap) == ["TPU.BANK_REFRESH: True"]
-    assert not C.unsupported(C.cfg_replace(cap, TPU={"BANK_REFRESH": False}))
-    refused = set()
+    assert cap.TPU.BANK_REFRESH and C.unsupported(cap) == [] and not C.unsupported(cap, train=False)
+    refused, refresh = set(), []
     for name in CFG_FILES:
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name))
         refused |= {r.split(":")[0] for r in C.unsupported(c, train=True) + C.unsupported(c, train=False)}
-    assert {"INPUT", "NETWORK", "TRAIN.VERTEX_REG_3D", "TRAIN.SYNTHESIZE", "TRAIN.ADAPT", "TPU.BANK_REFRESH",
-            "TRAIN.ADD_NOISE"} <= refused
+        if c.TPU.BANK_REFRESH:
+            refresh.append(name)
+            assert C.unsupported(c) == [], name
+    assert len(refresh) == 10
+    for name in HOST_NOISE_CFGS:
+        c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
+        assert c.TRAIN.ADD_NOISE and not c.TPU.DEVICE_BANK and C.unsupported(c) == [], name
+    assert {"INPUT", "NETWORK", "TRAIN.VERTEX_REG_3D", "TRAIN.SYNTHESIZE", "TRAIN.ADAPT"} <= refused
+    assert not refused & {"TPU.BANK_REFRESH", "TRAIN.ADD_NOISE"}
 
 
 # texts the reader must read as PyYAML does
@@ -243,13 +265,13 @@ def test_coercions_match_jax(tmp_path):
 
 def test_flagship_settings_are_the_capstone_builders():
     """flagship_train_cfg, flagship_eval_cfg, FLAGSHIP_SOLVER and
-    FLAGSHIP_TEST equal what the builders make from lov_syn_capstone.yml,
-    with its BANK_REFRESH set aside (the refresh is not ported)."""
+    FLAGSHIP_TEST equal what the builders make from lov_syn_capstone.yml
+    (whose bank refresh is a data setting: it changes none of them)."""
     from posecnn_torch.config import FLAGSHIP_SOLVER, FLAGSHIP_TEST, FLAGSHIP_TRAIN_BATCH, flagship_eval_cfg, \
         flagship_train_cfg
 
     cap = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml"))
-    cap = C.cfg_replace(cap, TPU={"BANK_REFRESH": False})
+    assert cap.TPU.BANK_REFRESH
     model_cfg, hp = flagship_train_cfg()
     assert model_cfg == C.train_model_cfg(cap, 22) and hp == C.train_hparams(cap)
     assert flagship_eval_cfg() == C.test_model_cfg(cap, 22)

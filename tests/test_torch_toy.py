@@ -133,7 +133,7 @@ def test_index_stream_matches_jax():
 
 @pytest.mark.parametrize("over", [
     dict(device_targets=False), dict(input_format="RGBD"), dict(input_format="DEPTH"), dict(gan=True),
-    dict(vertex_reg_3d=True), dict(scale=0.5), dict(add_noise=True),
+    dict(vertex_reg_3d=True), dict(scale=0.5), dict(input_format="NORMAL"),
 ])
 def test_get_minibatch_refuses_unported_branches(over):
     fr = Toy("train").load_frame(0)

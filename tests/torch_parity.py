@@ -3,7 +3,8 @@
 Inputs are made with numpy and handed to both packages; JAX stays on the
 CPU. `goldens()` loads tools/make_torch_goldens.py, which writes (and the
 tests regenerate) the JAX goldens under tests/golden/. The golden checks
-(`check_hough_golden`, `check_slice_golden`, `check_train_golden`) and the
+(`check_hough_golden`, `check_slice_golden`, `check_train_golden`,
+`check_render_golden`) and the
 bf16 limit of the conv3x3 kernel (`bf16_ulp_excess`) are shared by the CPU
 tests, tests/test_torch_cuda.py and chip_smoke.py, so all hold the port to
 one limit. The module imports no JAX at module level.
@@ -501,3 +502,40 @@ def check_toy_train_golden(outs, before, after, g) -> dict:
         assert e <= 1e-3 * move + 2.4e-7 * float(np.abs(start).max()), (k, e, move)
         err[f"params {k} (relative to the move)"] = e / max(move, 1e-30)
     return err
+
+
+def port_renders() -> dict:
+    """The port's renders of the render golden's scenes
+    (`make_torch_goldens.RENDER_SCENES`), in its layout."""
+    from posecnn_torch.data import synthetic
+    from posecnn_torch.data.toy import toy
+
+    G = goldens()
+    return G.render_scenes(G.render_synthesizers(synthetic, toy))
+
+
+# the renders of another machine against the golden (its compiler, CPU and
+# Qhull may round or order faces otherwise): labels agree on this share of
+# the pixels; where they agree, depth within this relative error and colour
+# within this many levels
+RENDER_LABEL_AGREE, RENDER_DEPTH_REL, RENDER_COLOR_LEVELS = 0.999, 1e-5, 2
+
+
+def check_render_golden(got: dict, g: dict) -> dict:
+    """Holds renders to the render golden scene by scene: the same classes,
+    poses within 1e-6, and RENDER_LABEL_AGREE, RENDER_DEPTH_REL and
+    RENDER_COLOR_LEVELS. Returns {scene: (label agreement, largest depth
+    error, largest colour error)}."""
+    out = {}
+    for name in sorted({k.split("/")[0] for k in g}):
+        r = {k: got[f"{name}/{k}"] for k in ("color", "label", "depth", "cls_indexes", "poses")}
+        assert np.array_equal(r["cls_indexes"], g[f"{name}/cls_indexes"]), name
+        assert np.allclose(r["poses"], g[f"{name}/poses"], rtol=0, atol=1e-6), name
+        agree = r["label"] == g[f"{name}/label"]
+        dg = g[f"{name}/depth"]
+        depth_err = float((np.abs(r["depth"] - dg) / np.maximum(dg, 1e-9))[agree & (dg > 0)].max(initial=0.0))
+        color_err = int(np.abs(r["color"].astype(int) - g[f"{name}/color"].astype(int))[agree].max(initial=0))
+        out[name] = (float(agree.mean()), depth_err, color_err)
+        assert out[name][0] >= RENDER_LABEL_AGREE and depth_err <= RENDER_DEPTH_REL \
+            and color_err <= RENDER_COLOR_LEVELS, (name, out[name])
+    return out

@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes five files:
+Runs the JAX package (on the CPU) and writes six files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -39,6 +39,14 @@ Runs the JAX package (on the CPU) and writes five files:
       batches, the ADD points, each step's losses, lr and gradient norm,
       and slices of the parameters after the second step (`TOY_SLICES`).
       The weights are `init_params_numpy(TOY_SEED)` on both sides.
+  tests/golden/torch_port_renders.npz
+      scenes of the JAX package's host renderer (`Synthesizer.render_scene`):
+      frames 0-3 of a toy SyntheticDataset (the toy base of 4 classes,
+      96x128, 3 objects at most) and the bank refresh's first scene of
+      lov_syn_val_v4 (seed REFRESH_SEED0; 640x480 over the stand-in hulls,
+      the manifest's render params; it retries and drops objects): colour,
+      label, the float32 depth of the last render pass, the classes and
+      the poses (`RENDER_SCENES`).
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -526,10 +534,59 @@ def toy_train_golden() -> dict:
     return g
 
 
+RENDER_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_renders.npz")
+# (name, dataset, seed): the toy SyntheticDataset's frames 0-3 (seeds 0-3 of
+# its train split) and the refresh's first lov_syn_val_v4 scene
+RENDER_SCENES = tuple((f"toy{i}", "toy", i) for i in range(4)) + (("lov", "lov_syn_val_v4", 50_000_000),)
+RENDER_TOY = dict(split="train", num_images=4, width=128, height=96, max_objects=3)
+
+
+def render_synthesizers(synthetic, toy_cls) -> dict:
+    """{dataset: Synthesizer} of one package's `data.synthetic` module: the
+    toy SyntheticDataset's, and lov_syn_val_v4's refresh synthesizer over
+    the port's stand-in arrays (`data.lov_syn.LovSynVal`, handed to
+    `build_ycb_synthesizer` as a plain namespace)."""
+    from types import SimpleNamespace
+
+    from posecnn_torch.data.lov_syn import LovSynVal
+
+    lv = LovSynVal()
+    base = SimpleNamespace(classes=lv.classes, num_classes=lv.num_classes, _points_all=lv._points_all,
+                           _extents=lv._extents, _class_colors=lv._class_colors, K=lv.K)
+    toy = synthetic.SyntheticDataset(toy_cls("train", num_classes=4, num_images=4), **RENDER_TOY)
+    return {"toy": toy.synth, "lov_syn_val_v4": synthetic.build_ycb_synthesizer(base, **lv.manifest["render_params"])}
+
+
+def render_scenes(synths: dict) -> dict:
+    """Each scene of RENDER_SCENES rendered by `synths`: `<name>/color`,
+    `label` (uint8), `depth` (the float32 depth buffer of the render pass
+    that made the frame), `cls_indexes` and `poses`."""
+    g = {}
+    for name, ds, seed in RENDER_SCENES:
+        synth, last = synths[ds], []
+        orig = synth._render_objects
+        synth._render_objects = lambda *a, _o=orig: last.append(_o(*a)) or last[-1]
+        try:
+            f = synth.render_scene(np.random.RandomState(seed))
+        finally:
+            del synth._render_objects
+        g.update({f"{name}/color": f.color, f"{name}/label": f.label.astype(np.uint8), f"{name}/depth": last[-1].depth,
+                  f"{name}/cls_indexes": f.cls_indexes, f"{name}/poses": f.poses})
+    return g
+
+
+def render_golden() -> dict:
+    import posecnn_tpu.data.synthetic as JS
+    from posecnn_tpu.data.toy import toy
+
+    return render_scenes(render_synthesizers(JS, toy))
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
-                       (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden)):
+                       (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden),
+                       (RENDER_GOLDEN, render_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 
