@@ -5,11 +5,13 @@ Runs the port's main path through its user entry points and checks it:
 flagship PoseCNN inference (raw 640x480 BGR frame in, ROIs and 6-DoF poses
 out), the flagship training step (B=2 at 640x480 from a device bank), the
 cfg-driven CLIs on the toy dataset (host-fed training at 96x128 and its
-scoring), and the flagship cfg's bank refresh (a host thread rendering
-fresh scenes into the bank).
+scoring), the flagship cfg's bank refresh (a host thread rendering fresh
+scenes into the bank), and the depth inputs (DEPTH, NORMAL, the RGBD dual
+tower) and FCN-8s through the cfg-driven CLIs.
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
-  2. build: every CUDA kernel of the path and the host rasterizer, from
+  2. build: every CUDA kernel of the path, the host rasterizer and the
+     host bilateral filter, from
      the sources in this checkout, one compiler (nvcc, g++) per source, all
      started together
   3. each kernel against its plain PyTorch version on the card, at the
@@ -64,7 +66,7 @@ fresh scenes into the bank).
      held as in phase 6 (a box further off only on equal votes: a plateau
      of the vote map) and poses_icp where the boxes match
   10. the toy path (`toy_phase`): `python -m posecnn_torch.train_net --cfg
-     experiments/cfgs/toy_pose.yml --imdb toy_train --iters 100` (per-step
+     experiments/cfgs/toy_pose.yml --imdb toy_train --iters 60` (per-step
      stream ms and data-thread wait, the first and last metrics rows, every
      loss finite, 4 + 2 launches a step); the host-fed step on the card
      against the CPU port on step 1 (phase 7's limits on the losses and the
@@ -72,7 +74,7 @@ fresh scenes into the bank).
      gap from float32: on flat toy frames they are small residuals of
      cancelling sums); the step fed by the
      prefetch thread and by batches made beforehand; `python -m
-     posecnn_torch.test_net --cfg ... --imdb toy_val --model <the iter-100
+     posecnn_torch.test_net --cfg ... --imdb toy_val --model <the iter-60
      snapshot>` (seg IoU, ADD(-S) AUC, per-frame ms by stage, 2 + 1
      launches a frame)
   11. the bank refresh (`refresh_phase`): the port's renders against the
@@ -82,7 +84,17 @@ fresh scenes into the bank).
      lov_syn_val_v4` until its second splice (SIGTERM), with the counter
      sidecar, finite losses and the refresh's record; the flagship step in
      this process with and without the refresh, in blocks A B B A
-  12. the kernels' JSON line, then {"ok": true, "device": {...}}
+  12. the depth inputs and FCN-8s (`input_modes_phase`): the host image
+     functions (HLS jitter, noise, depth and normal images, the bilateral
+     filter) against the JAX golden and timed; one full-width RGBD step
+     with the vertex and pose heads on the card against the CPU port;
+     `train_net --cfg rgbd_scene_single_rgbd.yml` (4 conv3x3 launches a
+     step: both trunks' conv1_2, forward and dx); `train_net` and
+     `test_net --cfg lov_single_depth.yml` (DEPTH, the vote kernel on its
+     vertex head); `train_net` and `test_net --cfg
+     rgbd_scene_single_normal_fcn8.yml` (NORMAL, FCN-8s, mean IoU) and the
+     FCN-8s forward on the card against the CPU port
+  13. the kernels' JSON line, then {"ok": true, "device": {...}}
 
 The CLIs' scratch directory is made under the checkout's git-ignored
 output/ and removed at the end. Any failure raises and the process exits
@@ -93,6 +105,7 @@ chip_smoke.py
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import functools
 import json
@@ -114,10 +127,17 @@ N_FRAMES, N_WARMUP = 8, 2
 N_STEPS = 8
 # phase 10: the toy CLI's steps, the in-process feed comparison's, and the
 # steps left out of the medians
-TOY_STEPS, TOY_FEED_STEPS, TOY_WARMUP = 100, 30, 5
+TOY_STEPS, TOY_FEED_STEPS, TOY_WARMUP = 60, 30, 5
 # phase 11: renders timed alone, the refresh CLI's cap on steps, and the
 # steps of each block of the in-process comparison
-REFRESH_RENDERS, REFRESH_MAX_STEPS, REFRESH_BLOCK = 32, 2000, 40
+REFRESH_RENDERS, REFRESH_MAX_STEPS, REFRESH_BLOCK = 32, 2000, 30
+# phase 12: each train CLI's steps (the DEPTH and FCN-8s runs end in the
+# snapshot their test_net scores) and the steps left out of the medians
+# (the first step's warm-up, then the prefetch queue's 4 batches made
+# meanwhile, which hide the data thread's rate); the frames each test_net
+# scores and those left out of its medians; the timed calls of each host
+# image function
+INPUT_STEPS, INPUT_WARMUP, INPUT_EVAL_FRAMES, INPUT_EVAL_WARMUP, HOST_REPS = 24, 8, 12, 3, 10
 
 # the H100's published peaks (NVIDIA's data sheet, SXM part, dense rates)
 PEAK_BYTES_PER_S = 3.35e12
@@ -912,6 +932,283 @@ def refresh_phase(work: str, dev) -> dict:
     return {"cli": timing["launches"], "ab": launches}
 
 
+def _first_losses(log: str, n: int) -> dict:
+    """The loss terms of a train_net log's line for iteration 1 of n."""
+    m = log_seconds(rf"iter 1/{n} (.*) \(", log)
+    vals = dict(re.findall(r"(\w+): ([-\d.e+na]+)", m.group(2)))
+    return {k: float(v) for k, v in vals.items() if k.startswith("loss")}
+
+
+def _host_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def input_modes_phase(work: str, dev) -> dict:
+    """Phase 12: the depth inputs and FCN-8s. (a) The host image functions
+    on this host against the JAX golden (tests/golden/torch_port_input_modes.npz:
+    HLS, the jitter, the depth image, the normals bit-equal, the bilateral
+    filter at its limits), and each timed on a 640x480 frame, beside the
+    jitter converted without the tables and the filter built without its
+    FMA dispatch (each held equal to the port's). (b) One
+    full-width RGBD PoseCNN step with the vertex and pose heads (B=2, the
+    first host batch of lov_syn_val_v4 under rgbd_scene_single_rgbd.yml)
+    on the card against the CPU port with the same draws, at phase 7's
+    limits, both trunks' conv1 gradients held; 4 conv3x3 and 4 hough_vote
+    launches. (c) `train_net --cfg rgbd_scene_single_rgbd.yml --imdb
+    lov_syn_val_v4 --iters INPUT_STEPS`: stream ms a step, the data
+    thread's wait, peak memory, 4 conv3x3 launches a step. (d) `train_net`
+    then `test_net --cfg lov_single_depth.yml` (DEPTH, no pose head): 4
+    hough_vote and 2 conv3x3 launches a step, 2 and 1 a frame. (e)
+    `train_net` then `test_net --cfg rgbd_scene_single_normal_fcn8.yml`
+    (NORMAL, FCN-8s): 2 conv3x3 launches a step, 1 a frame, the mean IoU;
+    and the FCN-8s forward on the card against the CPU port (bf16 both:
+    the labels that differ, and the mean |score error|, within the CPU's
+    own bf16-float32 gap: seed weights leave close class scores, so bf16
+    rounding in another order flips labels). Returns the launches of each
+    path."""
+    import torch
+
+    from posecnn_torch import _build
+    from posecnn_torch.config import PIXEL_MEANS
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.data import minibatch as M
+    from posecnn_torch.data.factory import get_imdb
+    from posecnn_torch.data.layer import GtSynthesizeLayer
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.models import fcn8 as F
+    from posecnn_torch.native import bilateral_filter
+    from posecnn_torch.ops import conv3x3, voting
+    from posecnn_torch.utils import blob
+    from tests.torch_parity import check_host_images, goldens, load_npz, port_host_images
+
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a) the host functions against the golden, then timed
+    G = goldens()
+    g = load_npz(G.INPUT_MODES_GOLDEN)
+    t0 = time.perf_counter()
+    blob.hls_tables()
+    table_s = time.perf_counter() - t0
+    errs = [check_host_images(port_host_images(path), g, i) for i, path in enumerate(G.TRAIN_FRAMES)]
+    f = M.load_frozen_frame(os.path.join(FRAMES_DIR, "000000.npz"))
+    depth_m = f.depth.astype(np.float32) / f.factor_depth
+    normal_u8 = np.ascontiguousarray((127.5 * M.normals_np(depth_m, f.intrinsic_matrix) + 127.5)
+                                     .astype(np.uint8)[:, :, (2, 1, 0)])
+    rng = np.random.RandomState(0)
+
+    class Gaussian:  # the draws of add_noise's Gaussian branch
+        def rand(self, n):
+            return np.array([0.5])
+
+        def randint(self, n):
+            return int(rng.randint(n))
+
+    host = {
+        "chromatic_transform": lambda: blob.chromatic_transform(f.color, rng=rng),
+        "add_noise Gaussian": lambda: blob.add_noise(f.color, rng=Gaussian()),
+        "add_noise blur (uint8)": lambda: blob.add_noise(f.color, rng=rng, force_blur=True),
+        "depth_input_image": lambda: M.depth_input_image(f.depth),
+        "add_noise Gaussian (depth image)": lambda: blob.add_noise(M.depth_input_image(f.depth), rng=Gaussian()),
+        "normals_np": lambda: M.normals_np(depth_m, f.intrinsic_matrix),
+        "bilateral_filter": lambda: bilateral_filter(normal_u8, 9, 75, 75),
+        "normal_input_image": lambda: M.normal_input_image(f.depth, f.factor_depth, f.intrinsic_matrix),
+    }
+    # the two designs the port did not take, timed beside its own on the same
+    # image and held equal to it: the jitter converted directly, without the
+    # tables, and the filter built without its FMA dispatch
+    jitter = (3.0, -7.0, 11.0)
+
+    def direct_jitter():
+        hls = blob.bgr_to_hls(f.color)
+        base = np.arange(256, dtype=np.float64)
+        luts = (((base + jitter[0]) % 180).astype(np.uint8), np.clip(base + jitter[1], 0, 255).astype(np.uint8),
+                np.clip(base + jitter[2], 0, 255).astype(np.uint8))
+        return blob.hls_to_bgr(np.stack([lut[hls[..., c]] for c, lut in enumerate(luts)], axis=-1))
+
+    generic_so = os.path.join(work, "bilateral_no_dispatch.so")
+    subprocess.run(["g++", *_build.GXX_FLAGS, "-DBILATERAL_NO_DISPATCH", "-o", generic_so,
+                    str(_build.CSRC / "bilateral.cc")], check=True, timeout=300)
+    generic = ctypes.CDLL(generic_so).bilateral_filter_u8c3
+    generic.argtypes = _build.bilateral_lib().bilateral_filter_u8c3.argtypes
+
+    def generic_filter():
+        out = np.empty_like(normal_u8)
+        assert generic(normal_u8, out, *normal_u8.shape[:2], 9, 75.0, 75.0) == 0
+        return out
+
+    check(np.array_equal(direct_jitter(), blob.chromatic_transform(f.color, d_h=jitter[0], d_l=jitter[1],
+                                                                      d_s=jitter[2])),
+          "the direct HLS jitter differs from the tables'")
+    check(np.array_equal(generic_filter(), bilateral_filter(normal_u8, 9, 75, 75)),
+          "the bilateral filter without its FMA dispatch differs from the one with it")
+    host["chromatic_transform direct, no tables"] = direct_jitter
+    host["bilateral_filter without the FMA dispatch"] = generic_filter
+    host_ms = {k: _host_ms(fn, HOST_REPS) for k, fn in host.items()}
+    phase(12, f"host images of frames v4/000000-000001 on this host against the JAX golden: HLS, jitter, depth "
+              f"image, normals bit-equal; bilateral filter exact on "
+              + ", ".join(f"{e['exact']:.6f}" for e in errs)
+              + f" of the values, max diff {max(e['max_diff'] for e in errs)} (limits 0.999, 1); HLS tables built "
+              f"in {table_s:.2f} s; ms a 640x480 image (median of {HOST_REPS}): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in host_ms.items()))
+
+    # (b) one full-width RGBD step with the vertex and pose heads, card against CPU
+    cfg_file = os.path.join("experiments", "cfgs", "rgbd_scene_single_rgbd.yml")
+    cfg = C.cfg_from_file(os.path.join(ROOT, cfg_file))
+    imdb = get_imdb("lov_syn_val_v4")
+    n = imdb.num_classes
+    model_cfg = dataclasses.replace(C.train_model_cfg(cfg, n), vertex_reg=True, pose_reg=True, use_crop_pool=True)
+    hp, mcfg = C.train_hparams(cfg), dataclasses.replace(C.minibatch_cfg(cfg, n), vertex_reg=True)
+    t0 = time.perf_counter()
+    batch = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=2, seed=cfg.RNG_SEED).forward()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    check(batch["data_p"].shape == batch["data"].shape == (2, 480, 640, 3), f"RGBD batch {batch['data'].shape}")
+    ext, sym = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
+    consts = [torch.from_numpy(a) for a in (M.rescale_points(imdb._points_all, ext, sym, mcfg.is_symmetric), sym, ext)]
+    weights = init_params_numpy(cfg.RNG_SEED, model_cfg)
+    state = T.create_train_state(make_model(model_cfg, weights, dev), hp)
+    step = T.make_train_step(model_cfg, hp, *(c.to(dev) for c in consts))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.RNG_SEED)
+    draws = T.Draws(gen, record=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+    got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), draws).items()}
+    launches["rgbd_step"] = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["rgbd_step"] == {"hough_vote": 4, "conv3x3": 4}, f"RGBD step launches {launches['rgbd_step']}")
+    check(all(np.isfinite(v) for v in got.values()), f"RGBD step losses {got}")
+    grads = {k: p.grad.detach().float().cpu() for k, p in state.model.named_parameters() if p.grad is not None}
+    del state, step
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state_cpu = T.create_train_state(make_model(model_cfg, weights, "cpu"), hp)
+    replay = T.Draws(replay={k: v.cpu() for k, v in draws.recorded.items()})
+    loss, ref = T.compute_losses(state_cpu.model, model_cfg, hp, T.to_device(batch, "cpu"), *consts, replay)
+    ref = {k: float(v.detach()) for k, v in ref.items()}
+    ref["grad_norm"] = float(T.train_update(state_cpu, loss, T.lr_schedule(hp)(0)))
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in TRAIN_LOSS_LIMITS}
+    grad_lim = {**TRAIN_GRAD_LIMITS, **{k.replace("trunk.", "trunk_p."): v for k, v in TRAIN_GRAD_LIMITS.items()}}
+    grad_rel = {}
+    for k, p in state_cpu.model.named_parameters():
+        gc = p.grad.float()
+        grad_rel[k] = float((grads[k] - gc).abs().max()) / max(float(gc.abs().max()), 1e-30)
+    worst = sorted(grad_rel, key=grad_rel.get, reverse=True)[:3]
+    check(all(rel[k] <= lim for k, lim in TRAIN_LOSS_LIMITS.items())
+          and all(grad_rel[k] <= lim for k, lim in grad_lim.items()),
+          f"RGBD step, card against CPU: relative errors {rel}, limits {TRAIN_LOSS_LIMITS}; gradients "
+          + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in list(grad_lim) + worst) + f", limits {grad_lim}")
+    phase(12, f"RGBD PoseCNN step with the vertex and pose heads (B=2, 640x480, bf16, both trunks; the host batch "
+              f"in {batch_ms:.0f} ms), card against the CPU port ({time.perf_counter() - t0:.1f} s): "
+              + "; ".join(f"{k} {got[k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g} (limit {TRAIN_LOSS_LIMITS[k]})"
+                          for k in TRAIN_LOSS_LIMITS)
+              + "; " + "; ".join(f"{k} gradient {grad_rel[k]:.3g} of its largest magnitude (limit {lim})"
+                                 for k, lim in grad_lim.items())
+              + "; worst gradients (not held) " + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in worst)
+              + f"; launches {launches['rgbd_step']}; peak memory {peak / 2**20:.1f} MiB")
+    del state_cpu, grads
+
+    def train_cli(name: str, cfg_name: str, iters: int, want: dict) -> tuple:
+        out = os.path.join(work, name)
+        rc, log = run_cli(["posecnn_torch.train_net", "--cfg", os.path.join("experiments", "cfgs", cfg_name),
+                           "--imdb", "lov_syn_val_v4", "--iters", str(iters), "--output", out],
+                          os.path.join(work, name + ".log"), 600)
+        check(rc == 0, f"train_net --cfg {cfg_name} exited {rc}:\n{log[-3000:]}")
+        with open(os.path.join(out, "train_timing.json")) as fh:
+            timing = json.load(fh)
+        check(timing["launches"] == {k: v * iters for k, v in want.items()},
+              f"{cfg_name}: launches {timing['launches']}, want {want} a step")
+        first = _first_losses(log, iters)
+        check(first and all(np.isfinite(v) for v in first.values()), f"{cfg_name}: first losses {first}")
+        ms = {k: statistics.median(v[INPUT_WARMUP:]) for k, v in timing["ms"].items()}
+        return out, timing, ms, first
+
+    def test_cli(name: str, cfg_name: str, snap: str, want: dict) -> tuple:
+        ev = os.path.join(work, name)
+        rc, log = run_cli(["posecnn_torch.test_net", "--cfg", os.path.join("experiments", "cfgs", cfg_name),
+                           "--imdb", "lov_syn_val_v4", "--model", snap, "--max_frames", str(INPUT_EVAL_FRAMES),
+                           "--output", ev], os.path.join(work, name + ".log"), 600)
+        check(rc == 0, f"test_net --cfg {cfg_name} exited {rc}:\n{log[-3000:]}")
+        with open(os.path.join(ev, "eval_summary.json")) as fh:
+            summary = json.load(fh)
+        with open(os.path.join(ev, "eval_timing.json")) as fh:
+            timing = json.load(fh)
+        nf = timing["frames"]
+        check(nf == INPUT_EVAL_FRAMES and timing["launches"] == {k: v * nf for k, v in want.items()},
+              f"test_net --cfg {cfg_name}: {nf} frames, launches {timing['launches']}, want {want} a frame")
+        check(0 <= summary["mean_iou"] <= 1, f"{cfg_name}: mean IoU {summary['mean_iou']}")
+        return summary, timing, {k: statistics.median(v[INPUT_EVAL_WARMUP:]) for k, v in timing["ms"].items()}
+
+    # (c) the RGBD CLI
+    _, timing, ms, first = train_cli("rgbd", "rgbd_scene_single_rgbd.yml", INPUT_STEPS, {"hough_vote": 0, "conv3x3": 4})
+    launches["rgbd_train_cli"] = timing["launches"]
+    phase(12, f"train_net --cfg rgbd_scene_single_rgbd.yml --imdb lov_syn_val_v4 --iters {INPUT_STEPS} (RGBD dual "
+              f"tower, the label head, B=2, 640x480, bf16, host jitter and noise): per step (median of steps "
+              f"{INPUT_WARMUP + 1}-{INPUT_STEPS}) {ms['step_stream']:.3f} ms stream, {ms['step']:.3f} ms host, data "
+              f"thread wait {ms['data_wait']:.3f} ms; peak memory {timing['peak_memory_mib']:.1f} MiB; first losses "
+              f"{first}; launches {timing['launches']}")
+    print("rgbd train per-step ms " + json.dumps({k: [round(x, 3) for x in v] for k, v in timing["ms"].items()}),
+          flush=True)
+
+    # (d) DEPTH: the vertex head and Hough, no pose head
+    out, timing, ms, first = train_cli("depth", "lov_single_depth.yml", INPUT_STEPS,
+                                       {"hough_vote": 4, "conv3x3": 2})
+    launches["depth_train_cli"] = timing["launches"]
+    summary, ev_timing, ev_ms = test_cli("depth_eval", "lov_single_depth.yml",
+                                         os.path.join(out, f"vgg16_fcn_depth_single_iter_{INPUT_STEPS}.npz"),
+                                         {"hough_vote": 2, "conv3x3": 1})
+    launches["depth_eval"] = ev_timing["launches"]
+    phase(12, f"train_net --cfg lov_single_depth.yml --iters {INPUT_STEPS} (DEPTH, the vertex head and Hough): "
+              f"{ms['step_stream']:.3f} ms stream a step, data wait {ms['data_wait']:.3f} ms, peak "
+              f"{timing['peak_memory_mib']:.1f} MiB, first losses {first}, launches {timing['launches']}; test_net "
+              f"--cfg on its snapshot ({INPUT_EVAL_FRAMES} colour frames, the COLOR model, no pose head): mean IoU "
+              f"{summary['mean_iou']:.4f}, per frame " + ", ".join(f"{k} {v:.3f} ms" for k, v in ev_ms.items())
+              + f", launches {ev_timing['launches']}")
+
+    # (e) NORMAL on FCN-8s
+    out, timing, ms, first = train_cli("fcn8", "rgbd_scene_single_normal_fcn8.yml", INPUT_STEPS,
+                                       {"hough_vote": 0, "conv3x3": 2})
+    launches["fcn8_train_cli"] = timing["launches"]
+    summary, ev_timing, ev_ms = test_cli("fcn8_eval", "rgbd_scene_single_normal_fcn8.yml",
+                                         os.path.join(out, f"fcn8_normal_single_iter_{INPUT_STEPS}.npz"),
+                                         {"hough_vote": 0, "conv3x3": 1})
+    launches["fcn8_eval"] = ev_timing["launches"]
+    phase(12, f"train_net --cfg rgbd_scene_single_normal_fcn8.yml --iters {INPUT_STEPS} (NORMAL, FCN-8s): "
+              f"{ms['step_stream']:.3f} ms stream a step, {ms['step']:.3f} ms host, data wait {ms['data_wait']:.3f} "
+              f"ms, peak {timing['peak_memory_mib']:.1f} MiB, first losses {first}, launches {timing['launches']}; "
+              f"test_net --cfg on its snapshot ({INPUT_EVAL_FRAMES} colour frames): mean IoU "
+              f"{summary['mean_iou']:.4f}, per frame " + ", ".join(f"{k} {v:.3f} ms" for k, v in ev_ms.items())
+              + f", peak {ev_timing['peak_memory_mib']:.1f} MiB, launches {ev_timing['launches']}")
+
+    # the FCN-8s forward on the card against the CPU port
+    params = F.init_fcn8_params_numpy(cfg.RNG_SEED, n)
+    data = torch.from_numpy(f.color[None].astype(np.float32)) - torch.tensor(PIXEL_MEANS).reshape(1, 1, 1, 3)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card = F.fcn8_forward(F.make_fcn8(n, params, dev), data.to(dev), n)
+        model_cpu = F.make_fcn8(n, params, "cpu")
+        cpu = F.fcn8_forward(model_cpu, data, n)
+        cpu32 = F.fcn8_forward(model_cpu, data, n, compute_dtype=torch.float32)
+    agree = float((card["label_2d"].cpu() == cpu["label_2d"]).double().mean())
+    agree_gap = float((cpu32["label_2d"] == cpu["label_2d"]).double().mean())
+    err = float((card["score"].cpu() - cpu["score"]).abs().mean())
+    gap = float((cpu32["score"] - cpu["score"]).abs().mean())
+    check(1 - agree <= 1 - agree_gap and err <= gap,
+          f"FCN-8s card against CPU: label agreement {agree} (the CPU's bf16 against f32: {agree_gap}), mean |score "
+          f"error| {err}, the CPU's bf16-f32 gap {gap}")
+    phase(12, f"FCN-8s forward (bf16, 640x480, seed weights) card against the CPU port ({time.perf_counter() - t0:.1f} "
+              f"s): label_2d agreement {agree:.6f} (limit: the CPU's bf16 against f32, {agree_gap:.6f}), mean |score "
+              f"error| {err:.3g} (limit: the CPU's bf16-f32 gap {gap:.3g}); phase 12 took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def toy_phase3(kernels: dict, w_t, dev) -> None:
     """Phase 3 at the toy path's shapes (experiments/cfgs/toy_pose.yml):
     conv3x3 at conv1_2, B=2, 96x128, 64->64, in the path's mode below 128
@@ -1023,7 +1320,8 @@ def main() -> int:
     print(smi, flush=True)
 
     # phase 2: build every kernel of the path
-    phase(2, f"built and loaded the CUDA kernels and the host rasterizer in {_build.build_all():.2f} s")
+    phase(2, f"built and loaded the CUDA kernels, the host rasterizer and the bilateral filter in "
+             f"{_build.build_all():.2f} s")
 
     # phase 3: each kernel against its plain version at the main path's shapes
     # hough_vote, both passes: on synthetic inputs (uniform positions) and on
@@ -1389,6 +1687,7 @@ def main() -> int:
         eval_launches = eval_phase(final, seed0, work, dev)
         toy_launches = toy_phase(work, dev)
         refresh_launches = refresh_phase(work, dev)
+        input_launches = input_modes_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1399,7 +1698,8 @@ def main() -> int:
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],
              "launches_toy_eval": toy_launches["eval"][k], "launches_refresh_cli": refresh_launches["cli"][k],
-             "launches_refresh_ab": refresh_launches["ab"][k], **kernels[k]}
+             "launches_refresh_ab": refresh_launches["ab"][k],
+             **{f"launches_{path}": n[k] for path, n in input_launches.items()}, **kernels[k]}
             for k in ("hough_vote", "conv3x3")]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

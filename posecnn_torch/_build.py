@@ -1,8 +1,8 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
 Each CUDA kernel is a `.cu` file under `posecnn_torch/csrc/` with a plain C
-entry point, compiled by `nvcc`; the host renderer is `csrc/rasterizer.cc`,
-compiled by `g++`. Each becomes a shared library under `posecnn_torch/_build/`
+entry point, compiled by `nvcc`; the host renderer (`csrc/rasterizer.cc`) and
+the host bilateral filter (`csrc/bilateral.cc`) are compiled by `g++`. Each becomes a shared library under `posecnn_torch/_build/`
 (listed in `.gitignore`); the file name carries a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused. Nothing
 here runs at import time: the CPU tests import every module of the port, and
@@ -105,6 +105,17 @@ def conv3x3_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def bilateral_lib() -> ctypes.CDLL:
+    """The loaded host bilateral filter, with its entry point's C signature."""
+    lib = ctypes.CDLL(str(build_library("bilateral")))
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.bilateral_filter_u8c3.argtypes = [u8p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                          ctypes.c_double]
+    lib.bilateral_filter_u8c3.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def rasterizer_lib() -> ctypes.CDLL:
     """The loaded host rasterizer, with its entry points' C signatures."""
     lib = ctypes.CDLL(str(build_library("rasterizer")))
@@ -127,12 +138,13 @@ def rasterizer_lib() -> ctypes.CDLL:
     return lib
 
 
-LIBRARIES = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib, "rasterizer": rasterizer_lib}
+LIBRARIES = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib, "rasterizer": rasterizer_lib,
+             "bilateral": bilateral_lib}
 
 
 def build_all() -> float:
-    """Build every native library of the port (the CUDA kernels and the host
-    rasterizer), one compiler per source, all started together, then load
+    """Build every native library of the port (the CUDA kernels, the host
+    rasterizer and bilateral filter), one compiler per source, all started together, then load
     them; returns the seconds taken."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:

@@ -143,3 +143,62 @@ def restore_checkpoint(path: str, state):
         for p, t in zip(opt.params, opt.trace):
             t.copy_(trace[names[id(p)]])
     return state
+
+
+def _leaf(data, layer: str, leaf: str):
+    """(the key, the array or None) of a parameter leaf in an open npz, read
+    under `['params']<key>` (a train-state snapshot) or `<key>` (a
+    params-only export)."""
+    key = f"['{layer}']['{leaf}']"
+    found = [k for k in ("['params']" + key, key) if k in data.files]
+    return key, (data[found[0]] if found else None)
+
+
+def load_params_npz(path: str, params: Dict[str, Dict[str, np.ndarray]], log=None) -> Dict[str, Dict[str, np.ndarray]]:
+    """Parameters from any of the JAX package's npz layouts, a train-state
+    snapshot or a params-only export (`core/checkpoint.py:load_params_npz`,
+    which its test_net uses for FCN8VGG): leaves the file lacks, and leaves
+    of another shape, keep their values in `params`; keys the file has
+    beyond `params` are not read."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    n = 0
+    with np.load(path) as data:
+        for layer, leaves in params.items():
+            for leaf, a in leaves.items():
+                key, arr = _leaf(data, layer, leaf)
+                if arr is not None and arr.shape != a.shape:
+                    if log:
+                        log(f"shape mismatch, skipping {key}")
+                    arr = None
+                out.setdefault(layer, {})[leaf] = a if arr is None else arr.astype(a.dtype)
+                n += arr is not None
+    if log:
+        log(f"restored {n}/{sum(len(v) for v in params.values())} tensors from {path}")
+    return out
+
+
+def restore_params(path: str, shapes: Dict[str, Dict[str, tuple]]) -> Dict[str, Dict[str, np.ndarray]]:
+    """Every parameter of the model that `shapes` describes
+    (`convert.param_shapes`), read from a snapshot of either package for
+    test_net --model. Keys the model lacks (the second trunk of an RGBD
+    snapshot) are not read. A leaf the file lacks, or has at another shape,
+    raises ValueError naming it: the JAX package's test_net keeps the
+    init value of a missing leaf, and loads a leaf of another shape and
+    fails in the forward."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    missing = []
+    with np.load(path) as data:
+        for layer, leaves in shapes.items():
+            for leaf, shape in leaves.items():
+                key, arr = _leaf(data, layer, leaf)
+                if arr is None:
+                    missing.append(key)
+                elif arr.shape != tuple(shape):
+                    raise ValueError(f"{path}: {key} has shape {tuple(arr.shape)}, the model's is {tuple(shape)} "
+                                     "(test_net builds the COLOR model whatever INPUT the snapshot was trained on)")
+                else:
+                    out.setdefault(layer, {})[leaf] = arr.astype(np.float32)
+    if missing:
+        n = sum(len(v) for v in shapes.values())
+        raise ValueError(f"{path} lacks {len(missing)} of the model's {n} parameter tensors: {', '.join(missing)}")
+    return out

@@ -16,11 +16,12 @@ which has no dot, is a string), flow sequences of scalars and the
 block sequences, multi-line or block scalars, flow maps, timestamps,
 document markers, tabs) raises `YamlError`. PyYAML is not needed.
 
-The builders assemble what `tools/train_net.py:107-164` and
+The builders assemble what `tools/train_net.py:107-164, 396-414` and
 `tools/test_net.py:129-144` build from a config: the model config for
 training (`train_model_cfg`) or testing (`test_model_cfg`), the training
 hyper-parameters (`train_hparams`), the minibatch settings
-(`minibatch_cfg`) and the test settings (`test_settings`). Each first calls
+(`minibatch_cfg`), FCN-8s's hyper-parameters and minibatch settings
+(`seg_settings`) and the test settings (`test_settings`). Each first calls
 `check_supported`, which raises `NotImplementedError` naming the first key
 whose setting the port does not run.
 """
@@ -537,13 +538,16 @@ def get_output_dir(config: Config, imdb_name: str, net_name: Optional[str] = Non
 # -------------------------------------------------------------- the builders
 
 
+# the networks the port runs: PoseCNN and FCN-8s (`models/factory.py`)
+NETWORKS = ("VGG16", "FCN8VGG")
+
+
 def unsupported(cfg: Config, train: bool = True) -> List[str]:
     """The settings of `cfg` that the port does not run, as 'KEY: value'
     (training settings only with `train`)."""
     T, S, P = cfg.TRAIN, cfg.TEST, cfg.TPU
     rules = [
-        ("NETWORK", cfg.NETWORK, cfg.NETWORK != "VGG16"),
-        ("INPUT", cfg.INPUT, cfg.INPUT != "COLOR"),
+        ("NETWORK", cfg.NETWORK, cfg.NETWORK not in NETWORKS),
         ("TPU.MESH_MODEL", P.MESH_MODEL, P.MESH_MODEL != 1),
         ("TPU.CHECKPOINT_FORMAT", P.CHECKPOINT_FORMAT, P.CHECKPOINT_FORMAT != "npz"),
         ("TPU.DEBUG_NANS", P.DEBUG_NANS, P.DEBUG_NANS),
@@ -570,9 +574,10 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
             ("TEST.GAN", S.GAN, S.GAN),
             ("TEST.VISUALIZE", S.VISUALIZE, S.VISUALIZE),
             ("TEST.SCALES_BASE", S.SCALES_BASE, tuple(S.SCALES_BASE)[:1] != (1.0,)),
-            # test_net scores poses: the 2D vertex head and the pose head
-            ("TEST.VERTEX_REG_2D", S.VERTEX_REG_2D, not S.VERTEX_REG_2D),
-            ("TEST.POSE_REG", S.POSE_REG, not S.POSE_REG),
+            # the JAX package's test_net on PoseCNN without the vertex head
+            # raises KeyError: postprocess_detections reads rois, which the
+            # inference function returns only with it (engine/test.py:87)
+            ("TEST.VERTEX_REG_2D", S.VERTEX_REG_2D, cfg.NETWORK == "VGG16" and not S.VERTEX_REG_2D),
         ]
     return [f"{k}: {v!r}" for k, v, bad in rules if bad]
 
@@ -615,8 +620,9 @@ def train_model_cfg(cfg: Config, num_classes: int):
 
 def test_model_cfg(cfg: Config, num_classes: int):
     """The evaluation `PoseCNNConfig` of `tools/test_net.py:129-144`: the
-    TEST section's heads; the input format keeps PoseCNNConfig's default,
-    as it does there."""
+    TEST section's heads. The input format keeps PoseCNNConfig's default,
+    COLOR, whatever INPUT says, as it does there: a DEPTH, NORMAL or RGBD
+    snapshot is scored on colour frames."""
     from posecnn_torch.config import PoseCNNConfig
 
     check_supported(cfg, train=False)
@@ -683,6 +689,24 @@ def minibatch_cfg(cfg: Config, num_classes: int):
         input_format=cfg.INPUT,
         gan=T.GAN,
     )
+
+
+def seg_settings(cfg: Config, num_classes: int):
+    """(TrainHParams, MinibatchConfig) of the segmentation networks'
+    training (`tools/train_net.py:396-414`, `train_segmentation`): the
+    solver's rates, decay, L2 weight and clipping; minibatches without the
+    vertex targets, in the config's INPUT."""
+    from posecnn_torch.data.minibatch import MinibatchConfig
+    from posecnn_torch.engine.train import TrainHParams
+
+    check_supported(cfg, train=True)
+    T = cfg.TRAIN
+    hp = TrainHParams(learning_rate=T.LEARNING_RATE, momentum=T.MOMENTUM, gamma=T.GAMMA, stepsize=T.STEPSIZE,
+                      weight_reg=T.WEIGHT_REG, clip_grad_norm=T.GRAD_CLIP)
+    mcfg = MinibatchConfig(num_classes=num_classes, pixel_means=cfg.pixel_means(), chromatic=T.CHROMATIC,
+                           add_noise=T.ADD_NOISE, vertex_reg=False, device_targets=cfg.TPU.DEVICE_TARGETS,
+                           input_format=cfg.INPUT)
+    return hp, mcfg
 
 
 def solver_settings(cfg: Config) -> Dict[str, Any]:

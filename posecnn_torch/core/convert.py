@@ -8,11 +8,17 @@ with `['params']` in a train-state snapshot
 module reads that layout with numpy alone, so one snapshot loads in both
 packages (`params_to_numpy` is the way back):
 
-  conv weights  HWIO      -> OIHW      (`<name>.weight`, trunk under `trunk.`)
+  conv weights  HWIO      -> OIHW      (`<name>.weight`; the trunk under
+                                       `trunk.`, the RGBD input's second
+                                       trunk, `conv*_p`, under `trunk_p.`)
   fc weights    (in, out) -> (out, in)
   biases        as they are
   upscore*      not parameters: checked against the bilinear formula on the
                 way in, written from it on the way back
+
+A weight's rank tells the two apart, so the same functions serve PoseCNN
+(`fc6` a fully connected layer) and FCN-8s (`fc6` a 7x7 convolution,
+`models/fcn8.py`).
 """
 
 from __future__ import annotations
@@ -29,9 +35,18 @@ from posecnn_torch.models.backbone import VGG_CONV_DEFS, scaled_width, trunk_sha
 from posecnn_torch.models.layers import make_deconv_filter
 
 _TRUNK = {name for name, *_ in VGG_CONV_DEFS}
-_HEAD_CONVS = {"score_conv5", "score_conv4", "score", "score_conv5_vertex", "score_conv4_vertex", "vertex_pred"}
-_FCS = {"fc6", "fc7", "fc8"}
-_DECONVS = {"upscore_conv5", "upscore", "upscore_conv5_vertex", "upscore_vertex"}
+_HEADS = {
+    "score_conv5", "score_conv4", "score", "score_conv5_vertex", "score_conv4_vertex", "vertex_pred",
+    "fc6", "fc7", "fc8",  # PoseCNN's pose head, FCN-8s's fc6 and fc7
+    "score_fr", "score_pool4", "score_pool3",  # FCN-8s
+}
+# each score layer's bilinear upsampling filters (name, size), which the JAX
+# package keeps as parameters at the score layer's width
+_UPSCORES = {
+    "score_conv5": (("upscore_conv5", 4), ("upscore", 16)),
+    "score_conv5_vertex": (("upscore_conv5_vertex", 4), ("upscore_vertex", 16)),
+    "score_fr": (("upscore2", 4), ("upscore4", 4), ("upscore32", 16)),
+}
 _KEY = re.compile(r"\['([^']*)'\]")
 
 
@@ -46,26 +61,37 @@ def _trunc_normal(rng: np.random.Generator, shape, stddev: float) -> np.ndarray:
     return (z * np.float32(stddev)).astype(np.float32)
 
 
+def init_conv(rng: np.random.Generator, k: int, ci: int, co: int, stddev=None) -> Dict[str, np.ndarray]:
+    """A k x k convolution in the JAX layout: HWIO weights, He
+    sqrt(2/fan_in) (or `stddev`) truncated at 2 sigma, zero biases."""
+    std = math.sqrt(2.0 / (k * k * ci)) if stddev is None else stddev
+    return {"weights": _trunc_normal(rng, (k, k, ci, co), std), "biases": np.zeros((co,), np.float32)}
+
+
 def init_params_numpy(seed: int, cfg: PoseCNNConfig) -> Dict[str, Dict[str, np.ndarray]]:
     """Random weights in the JAX layout, with the shapes and init rules of
     `init_posecnn_params` (He sqrt(2/fan_in) truncated at 2 sigma; `score`
-    0.01, `vertex_pred` and `fc8` 0.001; zero biases; bilinear upscore)."""
+    0.01, `vertex_pred` and `fc8` 0.001; zero biases; bilinear upscore; the
+    `conv*_p` trunk and 2x wide `score_conv5`/`score_conv4` for RGBD)."""
     rng = np.random.default_rng(seed)
     C, U = cfg.num_classes, cfg.num_units
     c5 = scaled_width(512, cfg.trunk_scale)
 
     def conv(k, ci, co, stddev=None):
-        std = math.sqrt(2.0 / (k * k * ci)) if stddev is None else stddev
-        return {"weights": _trunc_normal(rng, (k, k, ci, co), std), "biases": np.zeros((co,), np.float32)}
+        return init_conv(rng, k, ci, co, stddev)
 
     def fc(ci, co, stddev=None):
         std = math.sqrt(2.0 / ci) if stddev is None else stddev
         return {"weights": _trunc_normal(rng, (ci, co), std), "biases": np.zeros((co,), np.float32)}
 
     params = {name: conv(3, ci, co) for name, ci, co, _ in trunk_shapes(cfg.trunk_scale)}
-    params["score_conv5"] = conv(1, c5, U)
+    dual = cfg.input_format == "RGBD"
+    if dual:
+        params.update({name + "_p": conv(3, ci, co) for name, ci, co, _ in trunk_shapes(cfg.trunk_scale)})
+    c5_label = 2 * c5 if dual else c5
+    params["score_conv5"] = conv(1, c5_label, U)
     params["upscore_conv5"] = {"weights": make_deconv_filter(4, U)}
-    params["score_conv4"] = conv(1, c5, U)
+    params["score_conv4"] = conv(1, c5_label, U)
     params["upscore"] = {"weights": make_deconv_filter(16, U)}
     params["score"] = conv(1, U, C, stddev=0.01)
     if cfg.vertex_reg:
@@ -101,37 +127,47 @@ def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Dict[str, np.ndarray]]:
     return out
 
 
+def _module_key(name: str) -> str:
+    """A JAX layer name -> its module's path in the port."""
+    if name in _TRUNK:
+        return f"trunk.{name}"
+    if name.endswith("_p") and name[:-2] in _TRUNK:
+        return f"trunk_p.{name[:-2]}"
+    if name in _HEADS:
+        return name
+    raise ValueError(f"parameter {name!r} belongs to a part of the network the port does not run")
+
+
+def _layer_name(path: str) -> str:
+    """The inverse of `_module_key`."""
+    if path.startswith("trunk_p."):
+        return path[len("trunk_p."):] + "_p"
+    return path.split(".")[-1]
+
+
 def params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX-layout parameters (nested `{layer: {'weights', 'biases'}}` or flat
-    npz key paths) -> a state_dict for `models.posecnn.PoseCNN`."""
+    npz key paths) -> a state_dict for `models.posecnn.PoseCNN` or
+    `models.fcn8.FCN8`."""
     nested = params if all(isinstance(v, Mapping) for v in params.values()) else _nest(params)
     sd: Dict[str, torch.Tensor] = {}
     for name, leaves in nested.items():
         w = np.asarray(leaves["weights"], dtype=np.float32)
-        if name in _DECONVS:
+        if name.startswith("upscore"):
             k, c = w.shape[0], w.shape[2]
             if w.shape != (k, k, c, c) or not np.array_equal(w, make_deconv_filter(k, c)):
                 raise ValueError(f"{name}: not the fixed bilinear filter the port rebuilds")
             continue
-        if name in _TRUNK:
-            key = f"trunk.{name}"
-            w = w.transpose(3, 2, 0, 1)
-        elif name in _HEAD_CONVS:
-            key = name
-            w = w.transpose(3, 2, 0, 1)
-        elif name in _FCS:
-            key = name
-            w = w.T
-        else:
-            raise ValueError(f"parameter {name!r} belongs to a part of PoseCNN the port does not run")
-        sd[key + ".weight"] = torch.tensor(w)
+        key = _module_key(name)
+        w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
+        sd[key + ".weight"] = torch.tensor(np.ascontiguousarray(w))
         sd[key + ".bias"] = torch.tensor(np.asarray(leaves["biases"], dtype=np.float32))
     return sd
 
 
 def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
-    """The inverse of `params_from_numpy`: tensors by `PoseCNN` parameter
-    name (a state_dict, or anything laid out like one, such as the momentum
+    """The inverse of `params_from_numpy`: tensors by module parameter name
+    (a state_dict, or anything laid out like one, such as the momentum
     trace) -> the nested JAX layout, float32 on the host. OIHW -> HWIO,
     fc (out, in) -> (in, out); the `upscore*` filters, which the JAX package
     keeps as parameters, are written from the bilinear formula at the widths
@@ -139,17 +175,31 @@ def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for key, v in named.items():
         path, leaf = key.rsplit(".", 1)
-        name = path.split(".")[-1]
         a = v.detach().float().cpu().numpy()
         if leaf == "weight":
-            a = a.T if name in _FCS else a.transpose(2, 3, 1, 0)
-        out.setdefault(name, {})["weights" if leaf == "weight" else "biases"] = np.ascontiguousarray(a)
-    for score, ups in (("score_conv5", ("upscore_conv5", "upscore")),
-                       ("score_conv5_vertex", ("upscore_conv5_vertex", "upscore_vertex"))):
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        out.setdefault(_layer_name(path), {})["weights" if leaf == "weight" else "biases"] = np.ascontiguousarray(a)
+    for score, ups in _UPSCORES.items():
         if score in out:
             c = out[score]["weights"].shape[3]
-            for name, k in zip(ups, (4, 16)):
+            for name, k in ups:
                 out[name] = {"weights": make_deconv_filter(k, c)}
+    return out
+
+
+def param_shapes(cfg: PoseCNNConfig) -> Dict[str, Dict[str, tuple]]:
+    """The JAX-layout shape of every parameter of `PoseCNN(cfg)` (the
+    `upscore*` filters, which it rebuilds, left out), read from a model on
+    the meta device: no weights are drawn."""
+    from posecnn_torch.models.posecnn import PoseCNN
+
+    out: Dict[str, Dict[str, tuple]] = {}
+    for key, v in PoseCNN(cfg, device="meta").state_dict().items():
+        path, leaf = key.rsplit(".", 1)
+        s = tuple(v.shape)
+        if leaf == "weight":
+            s = (s[2], s[3], s[1], s[0]) if len(s) == 4 else s[::-1]
+        out.setdefault(_layer_name(path), {})["weights" if leaf == "weight" else "biases"] = s
     return out
 
 

@@ -6,18 +6,21 @@ The port's own copies of `posecnn_tpu/data/minibatch.py`: `Frame`,
 `posecnn_tpu/utils/blob.py:pad_im`; `load_frozen_frame` reads one frozen
 frame (`data/lov_syn_val_v4/*.npz`, with its depth where the file has one).
 
-`get_minibatch` builds the batch of the COLOR input with device targets
-(`TPU.DEVICE_TARGETS`): uint8 frames padded to a multiple of 16, the
-int32 labels, the (B, MAX_GT, 4) table of GT centres [cls, cx, cy, z], the
-(MAX_GT, 13) GT pose rows and K in meta_data; with CHROMATIC, three HLS
-deltas an image, drawn from `rng` in the JAX package's order, which the
-train step applies on the device; with ADD_NOISE, per image a gate, then
-either the sigma of the Gaussian noise the train step adds on the device
-(90%) or a motion blur applied here (10%, `motion_blur`: the copy of
-`posecnn_tpu/utils/blob.py:add_noise`'s cv2 branch). The other branches of
-the JAX function raise NotImplementedError: dense host targets, the DEPTH,
-RGBD and NORMAL inputs, GAN blobs, adaptation and synthetic frames,
-VERTEX_REG_3D and input rescaling.
+`get_minibatch` builds the batch with device targets (`TPU.DEVICE_TARGETS`):
+uint8 frames padded to a multiple of 16, the int32 labels, the (B, MAX_GT,
+4) table of GT centres [cls, cx, cy, z], the (MAX_GT, 13) GT pose rows and
+K in meta_data. For the COLOR input, with CHROMATIC three HLS deltas an
+image, drawn from `rng` in the JAX package's order, which the train step
+applies on the device; with ADD_NOISE, per image a gate, then either the
+sigma of the Gaussian noise the train step adds on the device (90%) or a
+motion blur applied here (10%, `utils.blob.motion_blur`). For the DEPTH,
+RGBD and NORMAL inputs the jitter and the noise run here
+(`utils.blob.chromatic_transform`, `add_noise`), and the input image is
+the depth image (`depth_input_image`), the colour image with the depth
+image as `data_p` (RGBD), or the normal image (`normals_np`,
+`normal_input_image`). The other branches of the JAX function raise
+NotImplementedError: dense host targets, GAN blobs, adaptation and
+synthetic frames, VERTEX_REG_3D and input rescaling.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from posecnn_torch.native import bilateral_filter
+from posecnn_torch.utils.blob import BLUR_SIZES, add_noise, chromatic_transform, motion_blur  # noqa: F401
 from posecnn_torch.utils.meta import build_meta_data
 from posecnn_torch.utils.quaternion_np import mat2quat
 
@@ -149,7 +154,6 @@ def flip_frame(fr: Frame) -> Frame:
 def _check_host_batch(mcfg: MinibatchConfig, frames: List[Frame]) -> None:
     unported = {
         "dense host vertex targets (device_targets False)": not mcfg.device_targets,
-        f"input_format {mcfg.input_format!r}": mcfg.input_format != "COLOR",
         "gan": mcfg.gan,
         "vertex_reg_3d": mcfg.vertex_reg_3d,
         "input rescaling (scale != 1, cv2)": mcfg.scale != 1.0,
@@ -160,50 +164,80 @@ def _check_host_batch(mcfg: MinibatchConfig, frames: List[Frame]) -> None:
         raise NotImplementedError(f"get_minibatch: not ported yet: {', '.join(bad)}")
 
 
-BLUR_SIZES = (3, 5, 7, 9, 11, 15)
+def depth_input_image(depth: np.ndarray) -> np.ndarray:
+    """Depth -> the DEPTH input image: depth / max * 255 in float32, tiled
+    over 3 channels (`posecnn_tpu/data/minibatch.py:243-250`)."""
+    d = depth.astype(np.float32)
+    m = float(d.max())
+    if m > 0:
+        d = d / m * 255.0
+    return np.tile(d[:, :, None], (1, 1, 3))
 
 
-def motion_blur(im: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
-    """The motion-blur branch of `posecnn_tpu/utils/blob.py:add_noise`
-    (force_blur): a kernel size drawn from BLUR_SIZES, then the axis (rand <
-    0.5: along x, else along y), and a box average of that size along the
-    axis: `cv2.filter2D(im, -1, kernel / size)` with its default border
-    (BORDER_REFLECT_101), its float32 sums and its rounding to the nearest
-    uint8 (ties to even). For odd sizes an average of integers never lies
-    within 1/(2 size) of a tie, so float32 rounding cannot move a level."""
-    size = BLUR_SIZES[int(rng.randint(len(BLUR_SIZES)))]
-    axis = 1 if rng.rand(1) < 0.5 else 0
-    r = (size - 1) // 2
-    pad = [(0, 0)] * im.ndim
-    pad[axis] = (r, r)
-    src = np.pad(im, pad, mode="reflect").astype(np.float32)  # reflect: edge not repeated
-    w = np.float32(1.0 / size)
-    n = im.shape[axis]
-    acc = np.zeros(im.shape, np.float32)
-    for k in range(size):
-        acc += np.take(src, np.arange(k, k + n), axis=axis) * w
-    return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+def normals_np(depth_m: np.ndarray, K: np.ndarray, depth_cutoff: float = 20.0) -> np.ndarray:
+    """(H,W,3) float32 unit normals of a depth map in metres
+    (`posecnn_tpu/data/minibatch.py:253-271`): central differences of the
+    back-projected points, their cross product, turned towards the camera,
+    zero where the depth is 0 or past `depth_cutoff`."""
+    h, w = depth_m.shape
+    fx, fy, px, py = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    x = np.arange(w, dtype=np.float32)[None, :]
+    y = np.arange(h, dtype=np.float32)[:, None]
+    pts = np.stack([(x - px) / fx * depth_m, (y - py) / fy * depth_m, depth_m], axis=-1)
+    dx = np.gradient(pts, axis=1)
+    dy = np.gradient(pts, axis=0)
+    n = np.cross(dy, dx)
+    norm = np.linalg.norm(n, axis=-1, keepdims=True)
+    n = n / np.maximum(norm, 1e-8)
+    flip = np.sum(n * pts, axis=-1, keepdims=True) > 0
+    n = np.where(flip, -n, n)
+    valid = (depth_m > 0) & (depth_m < depth_cutoff)
+    return np.where(valid[..., None], n, 0.0).astype(np.float32)
+
+
+def normal_input_image(depth: np.ndarray, factor_depth: float, K: np.ndarray) -> np.ndarray:
+    """Depth -> the NORMAL input image (`posecnn_tpu/data/minibatch.py:
+    274-282`): normals mapped to 127.5 n + 127.5 and truncated to uint8, in
+    BGR order, smoothed by the bilateral filter (d 9, sigma 75 and 75:
+    `native.bilateral_filter`, cv2's `bilateralFilter`); float32 out."""
+    nmap = normals_np(depth.astype(np.float32) / float(factor_depth), K)
+    im = (127.5 * nmap + 127.5).astype(np.uint8)
+    im = im[:, :, (2, 1, 0)]
+    im = bilateral_filter(im, 9, 75, 75)
+    return im.astype(np.float32)
 
 
 def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
-    """The host batch of `frames` with fixed shapes (the COLOR,
-    device-targets branch of `posecnn_tpu/data/minibatch.py:get_minibatch`):
+    """The host batch of `frames` with fixed shapes (the device-targets
+    branches of `posecnn_tpu/data/minibatch.py:get_minibatch`):
 
-      data         (B,H,W,3)      uint8   BGR, padded to a multiple of 16
+      data         (B,H,W,3)      uint8   BGR, padded to a multiple of 16; the
+                                          depth or normal image for DEPTH and
+                                          NORMAL
+      data_p       (B,H,W,3)      uint8   the depth image (RGBD)
       gt_label_2d  (B,H,W)        int32
       meta_data    (B,48)         float32
       poses        (max_gt,13)    float32 GT pose rows, column 0 the image
       gt_centers   (B,max_gt,4)   float32 [cls, cx, cy, z] (vertex_reg)
-      chroma_dhls  (B,3)          float32 HLS deltas (chromatic)
+      chroma_dhls  (B,3)          float32 HLS deltas (chromatic, COLOR)
       noise_sigma  (B,)           float32 Gaussian noise sigma, 0 for a
-                                          blurred image (add_noise)
+                                          blurred image (add_noise, COLOR)
 
     A frame marked `flipped` is mirrored first (`flip_frame`). The draws of
-    `rng`, an image at a time: the three chroma deltas (`rng.rand(1)` each),
-    then the noise gate (`rng.rand(1)` < 0.9: noise) and either the sigma's
-    `rng.rand(1)` or `motion_blur`'s size and axis."""
+    `rng`, an image at a time. COLOR: the three chroma deltas (`rng.rand(1)`
+    each), which the train step applies, then the noise gate (`rng.rand(1)`
+    < 0.9: noise) and either the sigma's `rng.rand(1)` or `motion_blur`'s
+    size and axis. Other inputs: the jitter and the noise run here on the
+    colour image (`utils.blob.chromatic_transform`, `add_noise`), whose
+    draws are taken even where the image is then replaced: DEPTH and RGBD
+    build the depth image (`depth_input_image`, from zeros for a frame
+    without depth) and draw its own `add_noise`; NORMAL builds the normal
+    image (`normal_input_image`)."""
     _check_host_batch(mcfg, frames)
-    ims, labels, metas, center_rows, chroma_rows, noise_sigmas = [], [], [], [], [], []
+    host_aug = mcfg.input_format != "COLOR"
+    want_depth_input = mcfg.input_format in ("DEPTH", "RGBD")
+    want_normal_input = mcfg.input_format == "NORMAL"
+    ims, ims_p, labels, metas, center_rows, chroma_rows, noise_sigmas = [], [], [], [], [], [], []
     pose_blob = np.zeros((0, 13), dtype=np.float32)
     for i, fr in enumerate(frames):
         if fr.flipped:
@@ -211,18 +245,35 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
         im = pad_im(fr.color, 16)
         label = pad_im(fr.label.astype(np.int32), 16)
         if mcfg.chromatic:
-            chroma_rows.append([
-                float((rng.rand(1)[0] - 0.5) * 0.02 * 180),
-                float((rng.rand(1)[0] - 0.5) * 0.2 * 256),
-                float((rng.rand(1)[0] - 0.5) * 0.2 * 256),
-            ])
+            if host_aug:
+                im = chromatic_transform(im, rng=rng)
+            else:
+                chroma_rows.append([
+                    float((rng.rand(1)[0] - 0.5) * 0.02 * 180),
+                    float((rng.rand(1)[0] - 0.5) * 0.2 * 256),
+                    float((rng.rand(1)[0] - 0.5) * 0.2 * 256),
+                ])
         if mcfg.add_noise:
-            if rng.rand(1)[0] < 0.9:
+            if host_aug:
+                im = add_noise(im, rng=rng)
+            elif rng.rand(1)[0] < 0.9:
                 noise_sigmas.append(float(rng.rand(1)[0] * 0.3 * 256) ** 0.5)
             else:
                 im = motion_blur(im, rng)
                 noise_sigmas.append(0.0)
-        ims.append(np.ascontiguousarray(np.clip(np.round(im[..., :3]), 0, 255)).astype(np.uint8))
+        if want_depth_input or want_normal_input:
+            depth_raw = pad_im(fr.depth, 16) if fr.depth is not None else np.zeros(im.shape[:2], np.float32)
+            if want_depth_input:
+                im_d = depth_input_image(depth_raw)
+                if mcfg.add_noise:
+                    im_d = add_noise(im_d, rng=rng)
+                if mcfg.input_format == "DEPTH":
+                    im = im_d
+                else:
+                    ims_p.append(_to_u8(im_d))
+            else:
+                im = normal_input_image(depth_raw, fr.factor_depth, fr.intrinsic_matrix)
+        ims.append(_to_u8(im))
         metas.append(build_meta_data(fr.intrinsic_matrix, mcfg.scale))
         labels.append(label)
         if mcfg.vertex_reg:
@@ -247,6 +298,8 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
         batch["noise_sigma"] = np.asarray(noise_sigmas, np.float32)
     if chroma_rows:
         batch["chroma_dhls"] = np.asarray(chroma_rows, np.float32)
+    if ims_p:
+        batch["data_p"] = np.stack(ims_p)
     if mcfg.vertex_reg:
         gc = np.zeros((len(frames), mcfg.max_gt, 4), np.float32)
         for i, rows in enumerate(center_rows):
@@ -254,3 +307,9 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
             gc[i, :k] = rows[:k]
         batch["gt_centers"] = gc
     return batch
+
+
+def _to_u8(im: np.ndarray) -> np.ndarray:
+    """An image of the batch on the device-targets path: rounded and clipped
+    to uint8, its first 3 channels."""
+    return np.ascontiguousarray(np.clip(np.round(im[..., :3]), 0, 255)).astype(np.uint8)

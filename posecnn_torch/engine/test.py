@@ -2,7 +2,8 @@
 the evaluation loop.
 
 Port of `posecnn_tpu/engine/test.py:make_inference_fn`,
-`postprocess_detections`, `refine_poses` and `test_net`. The device part
+`postprocess_detections`, `refine_poses`, `test_net` and
+`test_net_segmentation`. The device part
 (mean subtraction, network, Hough voting, pose head) runs in one call with
 no host round trip; host NMS then runs on the box columns 2:6 and score
 column 6 (the reference read columns 0..4 of its 7-column rois, a latent
@@ -172,7 +173,9 @@ def test_net(
     timings: Optional[Dict[str, List[float]]] = None,
 ) -> List[Dict[str, Optional[np.ndarray]]]:
     """The evaluation loop (`engine/test.py:test_net`, PoseCNN with 2D vertex
-    regression): `eval_batch` frames an inference call, host NMS, and with
+    regression, with or without the pose head: without it a detection's
+    pose is Hough's `poses_init`): `eval_batch` frames an inference call,
+    host NMS, and with
     `pose_refine` the depth ICP of each frame's detections (`refine_poses`
     at `icp_plane_weight`); `evaluator.add_frame` scores each frame. Returns
     per-frame dicts of rois, poses, poses_refined and poses_icp (None
@@ -185,8 +188,13 @@ def test_net(
     (CUDA events around it, on a card), `evaluator` and `frame` (the sum)."""
     if im_scale != 1.0:
         raise NotImplementedError("TEST.SCALES_BASE != 1 is not ported (the JAX package resizes with cv2)")
-    if model_cfg.vertex_reg_3d or not (model_cfg.vertex_reg and model_cfg.pose_reg):
-        raise NotImplementedError("test_net runs the PoseCNN with 2D vertex regression and the pose head only")
+    if model_cfg.vertex_reg_3d:
+        raise NotImplementedError("test_net with 3D vertex regression (RANSAC) is not ported yet")
+    if not model_cfg.vertex_reg:
+        # the JAX package's postprocess_detections reads rois, which its
+        # inference function returns only with the vertex head: a KeyError
+        raise ValueError("test_net needs the 2D vertex head (TEST.VERTEX_REG_2D): without it the JAX "
+                         "package's test_net raises KeyError 'rois'")
     dev = next(model.parameters()).device
     cuda = dev.type == "cuda"
     infer = make_inference_fn(model_cfg, pixel_means, dev)
@@ -244,3 +252,42 @@ def test_net(
     if evaluator is not None and log:
         log(str(evaluator.summary()))
     return results
+
+
+def test_net_segmentation(
+    model,
+    apply_fn,
+    dataset,
+    pixel_means,
+    evaluator=None,
+    max_frames: Optional[int] = None,
+    log=print,
+    timings: Optional[Dict[str, List[float]]] = None,
+) -> None:
+    """The evaluation of the segmentation networks
+    (`engine/test.py:test_net_segmentation`, FCN8VGG): each frame's colour
+    image, its pixel means subtracted, through `apply_fn(model, data)` to
+    its `label_2d`, scored by `evaluator.add_frame` (the IoU histogram). The
+    colour image whatever input the network was trained on, as in the JAX
+    package. `timings`, when given, gets per-frame lists of milliseconds:
+    `infer` (to the label map on the host) and `evaluator`."""
+    dev = next(model.parameters()).device
+    means = torch.tensor(np.asarray(pixel_means, np.float32).reshape(-1)[:3], device=dev).reshape(1, 1, 1, 3)
+    set_float32_precision()
+    n = dataset.num_images if max_frames is None else min(max_frames, dataset.num_images)
+    for i in range(n):
+        frame = dataset.load_frame(i)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            data = torch.from_numpy(frame.color[None]).to(dev).to(torch.float32) - means
+            label_pred = apply_fn(model, data)["label_2d"].cpu().numpy()[0]
+        t1 = time.perf_counter()
+        if evaluator is not None:
+            evaluator.add_frame(label_pred, frame.label)
+        if timings is not None:
+            timings.setdefault("infer", []).append((t1 - t0) * 1e3)
+            timings.setdefault("evaluator", []).append((time.perf_counter() - t1) * 1e3)
+        if log and (i + 1) % 50 == 0:
+            log(f"frame {i + 1}/{n}")
+    if evaluator is not None and log:
+        log(str(evaluator.summary()))

@@ -3,7 +3,8 @@ steps, and the training loop.
 
 Port of `posecnn_tpu/engine/train.py` for the PoseCNN training steps
 (`compute_losses`, `make_train_step` on one device, `make_bank_train_step`,
-the training loop of `Solver`):
+the training loop of `Solver`) and the segmentation step
+(`make_seg_train_step`, FCN-8s):
 
   * losses as the reference's `train_net` assembles them: L2 regularization
     (`upscore*` carry none, and the port holds no parameters for them),
@@ -40,7 +41,7 @@ from posecnn_torch.config import PIXEL_MEANS, RNG_SEED, PoseCNNConfig
 from posecnn_torch.models.posecnn import PoseCNN, posecnn_forward
 from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.chromatic import add_noise_field, chromatic_device
-from posecnn_torch.ops.losses import loss_cross_entropy_hard_label_sparse
+from posecnn_torch.ops.losses import loss_cross_entropy_hard_label_sparse, loss_cross_entropy_single_frame
 from posecnn_torch.ops.vertex_targets import smooth_l1_loss_vertex_sparse
 
 
@@ -149,7 +150,7 @@ class TrainState:
     """(params, opt_state, step) of the JAX package: the model, the
     optimizer's trace and the solver's step counter."""
 
-    model: PoseCNN
+    model: torch.nn.Module  # models.posecnn.PoseCNN or models.fcn8.FCN8
     optimizer: MomentumSGD
     step: int = 0
 
@@ -193,15 +194,20 @@ def compute_losses(
     draws: Optional[Draws] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The flagship loss (`train.py:compute_losses`): returns (loss, the
-    named loss terms). Without `draws`, random numbers come from torch's
-    default generator."""
+    named loss terms). A uint8 `data_p` (the RGBD input's depth image) has
+    the pixel means subtracted and nothing else. Without `draws`, random
+    numbers come from torch's default generator."""
     draws = draws if draws is not None else Draws()
     if hp.matching_w > 0:
         raise NotImplementedError("the matching loss is not ported yet")
     data = preprocess(batch["data"], hp, batch, draws)
+    data_p = batch.get("data_p")
+    if data_p is not None and data_p.dtype == torch.uint8:
+        # the RGBD depth image: the pixel means only (train.py:205-208)
+        data_p = data_p.to(torch.float32) - torch.tensor(hp.pixel_means, device=data_p.device).reshape(1, 1, 1, 3)
     out = posecnn_forward(
         model, model_cfg, data, extents, batch["meta_data"], gt_poses=batch.get("poses"),
-        gt_label_2d=batch["gt_label_2d"], gt_centers=batch.get("gt_centers"), draws=draws,
+        gt_label_2d=batch["gt_label_2d"], gt_centers=batch.get("gt_centers"), draws=draws, data_p=data_p,
     )
     losses: Dict[str, torch.Tensor] = {}
     loss = regularization_loss(model, hp.weight_reg)
@@ -345,6 +351,40 @@ def make_train_step(
         out["lr"] = torch.tensor(lr, dtype=torch.float64)
         out["grad_norm"] = g_norm
         return out
+
+    return step_fn
+
+
+def make_seg_train_step(
+    apply_fn: Callable, hp: TrainHParams, num_classes: int
+) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
+    """Train step of the segmentation networks (`train.py:make_seg_train_step`,
+    FCN8VGG): the cross entropy of the log-softmax `prob` against the
+    one-hot labels of the pixels with a label >= 0, plus the L2 term over
+    every parameter (the bilinear upscore filters are none). The step reads
+    only `data` and `gt_label_2d`: uint8 data has the pixel means subtracted
+    and nothing else, so a batch's `chroma_dhls` and `noise_sigma` are not
+    applied, as in the JAX step. `apply_fn(model, data, draws)` returns the
+    endpoints. step(state, batch, draws) updates the state in place at
+    lr_schedule(hp)(state.step) and returns the loss terms (detached), the
+    lr and the gradient norm."""
+    sched = lr_schedule(hp)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
+        data = batch["data"]
+        if data.dtype == torch.uint8:
+            data = data.to(torch.float32) - torch.tensor(hp.pixel_means, device=data.device).reshape(1, 1, 1, 3)
+        out = apply_fn(state.model, data, draws)
+        logp = out["prob"]
+        gt = batch["gt_label_2d"].long()
+        onehot = torch.nn.functional.one_hot(gt.clamp(0, num_classes - 1), num_classes).to(logp.dtype)
+        onehot = onehot * (gt >= 0).to(logp.dtype)[..., None]
+        loss_cls = loss_cross_entropy_single_frame(logp, onehot)
+        loss = loss_cls + regularization_loss(state.model, hp.weight_reg)
+        lr = sched(state.step)
+        g_norm = train_update(state, loss, lr)
+        return {"loss": loss.detach(), "loss_cls": loss_cls.detach(),
+                "lr": torch.tensor(lr, dtype=torch.float64), "grad_norm": g_norm}
 
     return step_fn
 

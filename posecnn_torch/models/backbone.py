@@ -1,7 +1,9 @@
-"""VGG16 convolutional trunk (conv1_1 ... conv5_3), COLOR single tower.
+"""VGG16 convolutional trunk (conv1_1 ... conv5_3).
 
 Port of `posecnn_tpu/models/backbone.py`. Parameters are named as in the JAX
-package (`conv1_1.weight` holds `['conv1_1']['weights']`, OIHW).
+package (`conv1_1.weight` holds `['conv1_1']['weights']`, OIHW); the second
+tower of the RGBD input is another `VGGTrunk`, whose layers the JAX package
+names with the suffix `_p` (`conv1_1_p`).
 """
 
 from __future__ import annotations

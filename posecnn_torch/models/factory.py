@@ -1,0 +1,32 @@
+"""Network factory: name -> (init_fn, forward_fn).
+
+Port of `posecnn_tpu/models/factory.py` for the networks the port runs:
+`vgg16_convs` (PoseCNN: `core.convert.init_params_numpy`,
+`models.posecnn.posecnn_forward`) and `fcn8_vgg` (FCN-8s:
+`models.fcn8.init_fcn8_params_numpy`, `fcn8_forward`). The JAX package's
+other names raise NotImplementedError naming the network; a name it does
+not know raises KeyError, as there.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+# every name of the JAX package's registry
+JAX_NETWORKS = ("dcgan", "fcn8_vgg", "resnet50", "vgg16", "vgg16_3d", "vgg16_convs", "vgg16_det", "vgg16_full",
+                "vgg16_gan")
+
+
+def get_network(name: str) -> Tuple[Callable, Callable]:
+    if name == "vgg16_convs":
+        from posecnn_torch.core.convert import init_params_numpy
+        from posecnn_torch.models.posecnn import posecnn_forward
+
+        return init_params_numpy, posecnn_forward
+    if name == "fcn8_vgg":
+        from posecnn_torch.models.fcn8 import fcn8_forward, init_fcn8_params_numpy
+
+        return init_fcn8_params_numpy, fcn8_forward
+    if name in JAX_NETWORKS:
+        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, vgg16_convs)")
+    raise KeyError(f"Unknown network: {name}. Known: {sorted(JAX_NETWORKS)}")

@@ -4,7 +4,11 @@ and the quaternion head, for inference and training.
 Port of `posecnn_tpu/models/posecnn.py`. `PoseCNN` holds the parameters
 under the JAX package's names; `posecnn_forward(model, cfg, ...)` is the
 network, as `posecnn_forward(params, cfg, ...)` is in JAX, and returns the
-same named endpoints in the same layouts (NHWC maps, (R, 7) rois).
+same named endpoints in the same layouts (NHWC maps, (R, 7) rois). The
+DEPTH and NORMAL inputs run the one trunk on their image; RGBD adds a
+second trunk on the depth image (`data_p`), whose conv5_3 and conv4_3 the
+label head reads concatenated with the colour trunk's, while the vertex
+head and the RoI pools read the colour trunk's alone.
 
 Training (`cfg.is_train`) adds dropout on add_score, addv, fc6 and fc7, the
 `gt_label_weight` endpoint, GT rows into Hough voting (targets and 9 rows a
@@ -42,7 +46,6 @@ class Linear(nn.Module):
 
 def _check_supported(cfg: PoseCNNConfig) -> None:
     unported = {
-        "input_format != 'COLOR'": cfg.input_format != "COLOR",
         "vertex_reg_3d": cfg.vertex_reg_3d,
         "adaptation": cfg.adaptation,
         "vote_threshold > 0": cfg.vote_threshold > 0,
@@ -55,8 +58,10 @@ def _check_supported(cfg: PoseCNNConfig) -> None:
 
 
 class PoseCNN(nn.Module):
-    """The parameters of `init_posecnn_params` (COLOR, inference heads);
-    `posecnn_forward` runs the network on them.
+    """The parameters of `init_posecnn_params`; `posecnn_forward` runs the
+    network on them. The RGBD input has a second trunk for the depth image
+    (`trunk_p`, the JAX package's `conv*_p` layers), and the label head's
+    `score_conv5` and `score_conv4` read both trunks' maps, concatenated.
 
     The `upscore*` deconvolutions are fixed bilinear filters, not parameters:
     `layers.deconv` rebuilds them from the formula.
@@ -69,8 +74,12 @@ class PoseCNN(nn.Module):
         C, U = cfg.num_classes, cfg.num_units
         c5 = scaled_width(512, cfg.trunk_scale)
         self.trunk = VGGTrunk(cfg.trunk_scale, device=device)
-        self.score_conv5 = Conv(c5, U, 1, device=device)
-        self.score_conv4 = Conv(c5, U, 1, device=device)
+        dual = cfg.input_format == "RGBD"
+        if dual:
+            self.trunk_p = VGGTrunk(cfg.trunk_scale, device=device)
+        c5_label = 2 * c5 if dual else c5
+        self.score_conv5 = Conv(c5_label, U, 1, device=device)
+        self.score_conv4 = Conv(c5_label, U, 1, device=device)
         self.score = Conv(U, C, 1, device=device)
         if cfg.vertex_reg:
             self.score_conv5_vertex = Conv(c5, 128, 1, device=device)
@@ -98,8 +107,11 @@ def posecnn_forward(
     gt_label_2d: Optional[torch.Tensor] = None,
     gt_centers: Optional[torch.Tensor] = None,
     draws=None,
+    data_p: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """data (B,H,W,3) mean-subtracted BGR; extents (C,3); meta_data (B,48);
+    """data (B,H,W,3) mean-subtracted BGR (for DEPTH and NORMAL the depth or
+    normal image); data_p (B,H,W,3) the mean-subtracted depth image of the
+    RGBD input; extents (C,3); meta_data (B,48);
     gt_poses (G,13) zero-padded GT rows (training); gt_label_2d (B,H,W) int
     and gt_centers (B,G,4) (training); `draws` the step's random numbers
     (training with keep_prob < 1 or hough_gt_mix > 0). Returns the named
@@ -114,11 +126,21 @@ def posecnn_forward(
     net = m.trunk(data, compute_dtype=dt)
     conv5, conv4 = net["conv5_3"], net["conv4_3"]
     out: Dict[str, torch.Tensor] = {"conv4_3": conv4, "conv5_3": conv5}
+    if cfg.input_format == "RGBD":
+        # the dual tower (posecnn.py:165-170): the label head reads both
+        # trunks; the vertex head and the RoI pools read the colour trunk
+        if data_p is None:
+            raise ValueError("the RGBD input needs data_p, the depth image")
+        net_p = m.trunk_p(data_p, compute_dtype=dt)
+        label5 = torch.cat([conv5, net_p["conv5_3"]], dim=-1)
+        label4 = torch.cat([conv4, net_p["conv4_3"]], dim=-1)
+    else:
+        label5, label4 = conv5, conv4
 
     # semantic labeling branch (posecnn.py:175-192)
-    score_conv5 = L.conv2d(m.score_conv5.weight, m.score_conv5.bias, conv5, relu=True, compute_dtype=dt)
+    score_conv5 = L.conv2d(m.score_conv5.weight, m.score_conv5.bias, label5, relu=True, compute_dtype=dt)
     upscore_conv5 = L.deconv(score_conv5, 4, 2)
-    score_conv4 = L.conv2d(m.score_conv4.weight, m.score_conv4.bias, conv4, relu=True, compute_dtype=dt)
+    score_conv4 = L.conv2d(m.score_conv4.weight, m.score_conv4.bias, label4, relu=True, compute_dtype=dt)
     add_score = _dropout(score_conv4 + upscore_conv5, keep, draws, "dropout/add_score")
     score = L.conv1x1_upsample(m.score.weight, m.score.bias, add_score, 16, 8, relu=True, compute_dtype=dt)
     out["score"] = score

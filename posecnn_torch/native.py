@@ -1,10 +1,13 @@
-"""ctypes binding of the host rasterizer (`csrc/rasterizer.cc`).
+"""ctypes bindings of the host rasterizer (`csrc/rasterizer.cc`) and the
+host bilateral filter (`csrc/bilateral.cc`).
 
 The port's copy of `posecnn_tpu/native/__init__.py`: `SceneBuffers`,
 `DEFAULT_LIGHT`, `rasterize_mesh` and `rasterize_depth`. The library is
 built with g++ at first use (`_build.build_library`), and a failed build
 raises: nothing falls back to NumPy. `_rasterize_numpy` is the plain
-version of `rasterize_mesh`, which only the tests call.
+version of `rasterize_mesh`, which only the tests call. `bilateral_filter`
+is cv2's `bilateralFilter` for uint8 BGR images; ctypes releases the GIL
+for the call, so the data thread filters while the trainer runs.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from posecnn_torch._build import rasterizer_lib
+from posecnn_torch._build import bilateral_lib, rasterizer_lib
 
 
 class SceneBuffers:
@@ -89,6 +92,20 @@ def rasterize_depth(
         pose.reshape(-1), K33.reshape(-1), h, w, int(cls_id),
         depth.reshape(-1), label.reshape(-1),
     )
+
+
+def bilateral_filter(im: np.ndarray, d: int, sigma_color: float, sigma_space: float) -> np.ndarray:
+    """`cv2.bilateralFilter(im, d, sigma_color, sigma_space)` of an (H,W,3)
+    uint8 image with the default border (csrc/bilateral.cc says how)."""
+    if im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 3:
+        raise ValueError(f"bilateral_filter: an (H,W,3) uint8 image, got {im.shape} {im.dtype}")
+    src = np.ascontiguousarray(im)
+    out = np.empty_like(src)
+    rc = bilateral_lib().bilateral_filter_u8c3(src, out, src.shape[0], src.shape[1], int(d), float(sigma_color),
+                                               float(sigma_space))
+    if rc != 0:
+        raise ValueError(f"bilateral_filter: empty image {im.shape}")
+    return out
 
 
 def _check_mesh(vertices: np.ndarray, faces: np.ndarray) -> None:

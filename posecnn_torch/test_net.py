@@ -11,6 +11,15 @@ dataset's own symmetric classes (the last cuboid of `toy`). Without
 --model, the weights are drawn from numpy seed RNG_SEED. The output
 directory is output/<EXP_DIR>/<imdb>/<network> unless --output.
 
+With --cfg of NETWORK FCN8VGG (or --network fcn8_vgg), the segmentation
+evaluation (`segmentation`): the colour frames through FCN-8s, scored by
+the label IoU; `eval_summary.json`, `eval_timing.json` and the mean IoU
+printed. A PoseCNN config without the pose head (TEST.POSE_REG False)
+scores Hough's poses; the model is built for the COLOR input whatever
+INPUT says, as the JAX CLI builds it. --model must hold every parameter
+of that model at its shape: a snapshot that lacks one, or whose
+parameters do not fit (the RGBD input's), raises ValueError.
+
 Without --cfg, the flagship evaluation: `config.flagship_eval_cfg` with the
 capstone's test settings (`config.FLAGSHIP_TEST`: NMS 0.3, depth ICP with
 the point-to-plane term at weight 1.0) on `lov_syn_val_v4`, with ADD-S for
@@ -24,7 +33,8 @@ Usage: python -m posecnn_torch.test_net [--cfg FILE.yml] [--imdb NAME] [--model 
 --model takes an npz snapshot of either package. Writes to the output
 directory: `detections.npz` (keys `<frame:06d>_<rois|poses|poses_refined|poses_icp>`)
 and `eval_summary.json`, as the JAX CLI does, and `eval_timing.json`: the
-device, per-frame milliseconds by stage and the kernels' launches.
+device, per-frame milliseconds by stage, the kernels' launches and, on a
+card, the peak device memory.
 """
 
 from __future__ import annotations
@@ -56,7 +66,8 @@ def main(argv=None) -> int:
     import torch
 
     from posecnn_torch.config import PIXEL_MEANS
-    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.core.checkpoint import restore_params
+    from posecnn_torch.core.convert import make_model, param_shapes
     from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL, PoseEvaluator
     from posecnn_torch.engine import test as engine
     from posecnn_torch.ops import conv3x3, voting
@@ -66,14 +77,20 @@ def main(argv=None) -> int:
         return 2
     if args.model and not args.model.endswith(".npz"):
         raise NotImplementedError(f"{args.model}: only npz snapshots are read (TF1 .ckpt needs tensorflow)")
-    if args.network != "vgg16_convs":
-        raise NotImplementedError(f"--network {args.network}: only vgg16_convs is ported")
+    from posecnn_torch.core import config as C
+    from posecnn_torch.models.factory import get_network
+
+    config = C.cfg_from_file(args.cfg) if args.cfg else None
+    # NETWORK FCN8VGG takes over --network (tools/test_net.py:99-109); a
+    # network the port does not run raises here
+    name = "fcn8_vgg" if config is not None and config.NETWORK == "FCN8VGG" else args.network
+    init_fn, forward_fn = get_network(name)
     if args.cfg:
-        from posecnn_torch.core import config as C
         from posecnn_torch.data.factory import get_imdb
 
-        config = C.cfg_from_file(args.cfg)
         dataset = get_imdb(args.imdb or "toy_val")
+        if name == "fcn8_vgg":
+            return segmentation(args, config, dataset, init_fn, forward_fn)
         cfg = C.test_model_cfg(config, dataset.num_classes)
         test_cfg = C.test_settings(config)
         seed = config.RNG_SEED
@@ -82,17 +99,15 @@ def main(argv=None) -> int:
         from posecnn_torch.config import EXP_DIR, FLAGSHIP_TEST, flagship_eval_cfg
         from posecnn_torch.data.lov_syn import LovSynVal
 
+        if name != "vgg16_convs":
+            ap.error("without --cfg the flagship eval runs vgg16_convs")
         if args.imdb not in (None, "lov_syn_val_v4"):
             ap.error("without --cfg the flagship eval scores lov_syn_val_v4")
         dataset, cfg, test_cfg, seed = LovSynVal(), flagship_eval_cfg(), dict(FLAGSHIP_TEST), 0
         out_dir = args.output or os.path.join(ROOT, "output", EXP_DIR, dataset.name, args.network)
     if args.icp_plane_weight is not None:
         test_cfg["icp_plane_weight"] = args.icp_plane_weight
-    if args.model:
-        with np.load(args.model) as d:
-            weights = {k: d[k] for k in d.files if not k.startswith("['opt_state']")}  # the trace is not read
-    else:
-        weights = init_params_numpy(seed, cfg)
+    weights = restore_params(args.model, param_shapes(cfg)) if args.model else init_fn(seed, cfg)
     model = make_model(cfg, weights, args.device)
     sym = [c for c in dataset.classes if c in YCB_SYMMETRIC_EVAL] or [
         dataset.classes[i] for i in range(dataset.num_classes) if dataset._symmetry[i] > 0
@@ -117,9 +132,60 @@ def main(argv=None) -> int:
     device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
     with open(os.path.join(out_dir, "eval_timing.json"), "w") as f:
         json.dump({"device": device, "imdb": dataset.name, "frames": len(results), "eval_batch": args.eval_batch,
-                   "wall_s": wall, "launches": launches, "ms": timings, **test_cfg}, f, indent=1)
+                   "wall_s": wall, "launches": launches, "ms": timings, **test_cfg, **_peak(args.device)}, f,
+                  indent=1)
     print(json.dumps(summary, indent=2))
     print(f"{len(results)} frames in {wall:.3f} s on {device}; launches {launches}", flush=True)
+    return 0
+
+
+def _peak(device: str) -> dict:
+    """The process's peak device memory, on a card."""
+    import torch
+
+    return {"peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20} if device.startswith("cuda") else {}
+
+
+def segmentation(args, config, dataset, init_fn, forward) -> int:
+    """NETWORK FCN8VGG (`tools/test_net.py:99-127`): FCN-8s (the factory's
+    `init_fn`, `forward`) from numpy seed RNG_SEED, or the parameters of --model read as the JAX package's
+    `load_params_npz` reads them; `engine.test.test_net_segmentation` on the
+    dataset's colour frames; the IoU summary in `eval_summary.json` and the
+    mean IoU printed. The output directory ends in fcn8_vgg."""
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.checkpoint import load_params_npz
+    from posecnn_torch.data.imdb import PoseEvaluator
+    from posecnn_torch.engine import test as engine
+    from posecnn_torch.models.fcn8 import make_fcn8
+    from posecnn_torch.ops import conv3x3, voting
+
+    n = dataset.num_classes
+    params = init_fn(config.RNG_SEED, n)
+    if args.model:
+        params = load_params_npz(args.model, params, log=lambda m: print(m, flush=True))
+    model = make_fcn8(n, params, args.device)
+    evaluator = PoseEvaluator(dataset.classes, dataset._extents, dataset._points, [])
+    out_dir = args.output or C.get_output_dir(config, dataset.name, "fcn8_vgg")
+    os.makedirs(out_dir, exist_ok=True)
+    timings = {}
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+    t0 = time.perf_counter()
+    engine.test_net_segmentation(model, lambda m, d: forward(m, d, n), dataset, config.pixel_means(),
+                                 evaluator=evaluator, max_frames=args.max_frames,
+                                 log=lambda m: print(m, flush=True), timings=timings)
+    wall = time.perf_counter() - t0
+    summary = evaluator.summary()
+    with open(os.path.join(out_dir, "eval_summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
+    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
+    with open(os.path.join(out_dir, "eval_timing.json"), "w") as f:
+        json.dump({"device": device, "imdb": dataset.name, "frames": len(timings.get("infer", [])), "wall_s": wall,
+                   "launches": launches, "ms": timings, **_peak(args.device)}, f, indent=1)
+    print(json.dumps({"mean_iou": summary["mean_iou"]}, indent=2))
+    print(f"{len(timings.get('infer', []))} frames in {wall:.3f} s on {device}; launches {launches}", flush=True)
     return 0
 
 

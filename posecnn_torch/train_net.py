@@ -17,14 +17,19 @@ fresh scenes (`data.bank_refresh`) that are spliced into that bank between
 steps; the snapshot is restored before the refresh starts, whose seeds
 begin at the resume step; otherwise a thread assembles host minibatches
 (`data.layer.GtSynthesizeLayer` through `prefetch`, TPU.PREFETCH deep) and
-the solver copies each to the card. A config with a setting the port does
-not run raises NotImplementedError naming it; so do --weights and --ckpt,
-which read weights from outside the repository.
+the solver copies each to the card; for INPUT DEPTH, NORMAL and RGBD that
+thread also jitters and noises the colour image and builds the depth or
+normal image (`data.minibatch.get_minibatch`), and RGBD trains the dual
+tower. NETWORK FCN8VGG (or --network fcn8_vgg) trains FCN-8s on the
+segmentation loss alone (`seg_run`, the JAX CLI's `train_segmentation`),
+under output/<EXP_DIR>/<imdb>/fcn8_vgg. A config with a setting the port
+does not run raises NotImplementedError naming it; so do --weights and
+--ckpt, which read weights from outside the repository.
 
 Without --cfg, the flagship run: `engine.train.Solver` over the step of
 `entry.train_entry` (a device bank of `data/lov_syn_val_v4/`), with the
 capstone's solver settings (`config.FLAGSHIP_SOLVER`). The JAX CLI's own
-default without a config is INPUT RGBD, whose dual tower is not ported.
+default without a config is INPUT RGBD; the port's is the flagship run.
 
 Either way: a log line and a `train_metrics.csv` row every DISPLAY steps,
 snapshots in the JAX npz layout (`<prefix>_iter_N.npz`) every SNAPSHOT_ITERS
@@ -34,7 +39,8 @@ directory. Each log line starts with the seconds since the program started.
 At the end, `train_timing.json` in the output directory holds per-step
 milliseconds (`data_wait`: the main thread waiting for the next batch, a
 bank refresh's splices included; `step`: the step's host time;
-`step_stream`: CUDA events around the step), the kernels' launches, and
+`step_stream`: CUDA events around the step), the kernels' launches, the
+peak device memory of the process (`peak_memory_mib`, on a card), and
 with the bank refresh its record (`bank_refresh`: the first seed, frames
 rendered, chunks spliced, each splice's ms, the render seconds and frames
 a second of the thread).
@@ -67,20 +73,23 @@ def cfg_run(args, log):
     import torch
 
     from posecnn_torch.core import config as C
-    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.core.convert import make_model
     from posecnn_torch.data.device_bank import bank_to_device, build_bank
     from posecnn_torch.data.factory import get_imdb
     from posecnn_torch.data.layer import GtSynthesizeLayer, prefetch
     from posecnn_torch.data.minibatch import rescale_points
     from posecnn_torch.engine import train as T
     from posecnn_torch.engine.test import set_float32_precision
+    from posecnn_torch.models.factory import get_network
 
     for flag, what in (("weights", "vgg16.npy"), ("ckpt", "TF1 checkpoint")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: reading a {what} needs a file from outside the repository")
-    if args.network != "vgg16_convs":
-        raise NotImplementedError(f"--network {args.network}: only vgg16_convs is ported")
     cfg = C.cfg_from_file(args.cfg)
+    # NETWORK FCN8VGG takes over --network (tools/train_net.py:89-92); a
+    # network the port does not run raises here
+    name = "fcn8_vgg" if cfg.NETWORK == "FCN8VGG" else args.network
+    init_fn, forward_fn = get_network(name)
     if not args.rand:
         np.random.seed(cfg.RNG_SEED)
     log("Using config:\n" + pprint.pformat(cfg))
@@ -92,23 +101,26 @@ def cfg_run(args, log):
         except NotImplementedError:
             log("dataset has no roidb; USE_FLIPPED ignored")
     log(f"Loaded dataset `{imdb.name}`: {imdb.num_images} images")
+    dev = torch.device(args.device)
+    set_float32_precision()
+    if name == "fcn8_vgg":
+        return seg_run(args, cfg, imdb, dev, log, init_fn, forward_fn)
 
     model_cfg = C.train_model_cfg(cfg, imdb.num_classes)
     hp = C.train_hparams(cfg)
     mcfg = C.minibatch_cfg(cfg, imdb.num_classes)
     output = args.output or C.get_output_dir(cfg, imdb.name, args.network)
     log(f"Output will be saved to {output}")
-    dev = torch.device(args.device)
-    set_float32_precision()
     points_raw = np.asarray(imdb._points_all, np.float32)
     extents, symmetry = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
     points = rescale_points(points_raw, extents, symmetry, mcfg.is_symmetric)
     points, symmetry, extents = (torch.from_numpy(a).to(dev) for a in (points, symmetry, extents))
-    model = make_model(model_cfg, init_params_numpy(cfg.RNG_SEED, model_cfg), dev)
+    model = make_model(model_cfg, init_fn(cfg.RNG_SEED, model_cfg), dev)
     state = T.create_train_state(model, hp)
     if cfg.TPU.DEVICE_BANK:
         T_ = cfg.TRAIN
-        if T_.USE_FLIPPED or tuple(T_.SCALES_BASE) != (1.0,):
+        # the bank holds raw COLOR frames at scale 1 (tools/train_net.py:331-336)
+        if T_.USE_FLIPPED or tuple(T_.SCALES_BASE) != (1.0,) or cfg.INPUT != "COLOR":
             raise ValueError("TPU.DEVICE_BANK supports the fixed single-frame COLOR flagship path")
         bank = bank_to_device(build_bank(imdb, mcfg.max_gt), dev)
         log(f"device bank: {bank['data'].shape[0]} frames on {dev}")
@@ -127,6 +139,36 @@ def cfg_run(args, log):
         def open_data(start_iter):
             return prefetch(iter(layer), depth=cfg.TPU.PREFETCH), None
     return step, state, open_data, C.solver_settings(cfg), output
+
+
+def seg_run(args, cfg, imdb, dev, log, init_fn, forward_fn):
+    """What `cfg_run` returns for FCN8VGG (`tools/train_net.py:385-442`,
+    `train_segmentation`): FCN-8s (the factory's `init_fn`, `forward_fn`)
+    with dropout at keep 0.5 from numpy seed RNG_SEED, `engine.train.make_seg_train_step` on host minibatches of the
+    config's INPUT without vertex targets; the output directory ends in
+    fcn8_vgg, and the solver snapshots at the end of the run whatever
+    SNAPSHOT_FINAL says, as the JAX loop does."""
+    from posecnn_torch.core import config as C
+    from posecnn_torch.data.layer import GtSynthesizeLayer, prefetch
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.models.fcn8 import make_fcn8
+
+    n = imdb.num_classes
+    hp, mcfg = C.seg_settings(cfg, n)
+    output = args.output or C.get_output_dir(cfg, imdb.name, "fcn8_vgg")
+    log(f"Output will be saved to {output}")
+    state = T.create_train_state(make_fcn8(n, init_fn(cfg.RNG_SEED, n), dev), hp)
+
+    def apply_fn(model, data, draws):
+        return forward_fn(model, data, n, keep_prob=0.5, draws=draws)
+
+    step = T.make_seg_train_step(apply_fn, hp, n)
+    layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
+
+    def open_data(start_iter):
+        return prefetch(iter(layer), depth=cfg.TPU.PREFETCH), None
+
+    return step, state, open_data, {**C.solver_settings(cfg), "snapshot_final": True}, output
 
 
 def refreshing_data(imdb, bank, cfg, start_iter: int, output: str, log):
@@ -223,6 +265,8 @@ def main(argv=None) -> int:
     device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
     os.makedirs(output, exist_ok=True)
     record = {"device": device, "start_step": start, "end_step": state.step, "launches": launches, "ms": timings}
+    if args.device.startswith("cuda"):
+        record["peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
     if refresh is not None:
         record["bank_refresh"] = refresh
     with open(os.path.join(output, "train_timing.json"), "w") as f:

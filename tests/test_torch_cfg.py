@@ -173,26 +173,75 @@ HOST_NOISE_CFGS = (
 
 def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
     """toy_pose.yml, lov_syn_capstone.yml (with its bank refresh), the 10
-    shipped files with TPU.BANK_REFRESH and the 38 with host noise build
-    for training; every shipped file either builds or names one of the
-    unported settings of `unsupported`."""
+    shipped files with TPU.BANK_REFRESH, the 38 with host noise and the 16
+    of the depth inputs and FCN8VGG build for training; of the 105 shipped
+    files 70 build for training, 58 for testing and 53 for both; every
+    other file names one of the unported settings of `unsupported`."""
     toy = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml"))
     assert not C.unsupported(toy, train=True) and not C.unsupported(toy, train=False)
     cap = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml"))
     assert cap.TPU.BANK_REFRESH and C.unsupported(cap) == [] and not C.unsupported(cap, train=False)
     refused, refresh = set(), []
+    train = test = both = 0
     for name in CFG_FILES:
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name))
         refused |= {r.split(":")[0] for r in C.unsupported(c, train=True) + C.unsupported(c, train=False)}
         if c.TPU.BANK_REFRESH:
             refresh.append(name)
             assert C.unsupported(c) == [], name
+        tr, te = not C.unsupported(c, train=True), not C.unsupported(c, train=False)
+        train, test, both = train + tr, test + te, both + (tr and te)
+    assert len(CFG_FILES) == 105 and (train, test, both) == (70, 58, 53)
     assert len(refresh) == 10
     for name in HOST_NOISE_CFGS:
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
         assert c.TRAIN.ADD_NOISE and not c.TPU.DEVICE_BANK and C.unsupported(c) == [], name
-    assert {"INPUT", "NETWORK", "TRAIN.VERTEX_REG_3D", "TRAIN.SYNTHESIZE", "TRAIN.ADAPT"} <= refused
-    assert not refused & {"TPU.BANK_REFRESH", "TRAIN.ADD_NOISE"}
+    for name in INPUT_MODE_CFGS:
+        c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
+        assert not c.TPU.DEVICE_BANK and C.unsupported(c) == [], name
+    assert {"NETWORK", "TRAIN.VERTEX_REG_3D", "TRAIN.SYNTHESIZE", "TRAIN.ADAPT", "TEST.VERTEX_REG_2D"} <= refused
+    assert not refused & {"INPUT", "TPU.BANK_REFRESH", "TRAIN.ADD_NOISE", "TEST.POSE_REG"}
+
+
+# the shipped training configs that the depth inputs (INPUT DEPTH, NORMAL,
+# RGBD) and the segmentation network (NETWORK FCN8VGG) made buildable
+INPUT_MODE_CFGS = (
+    "lov_single_depth", "rgbd_scene_multi_depth", "rgbd_scene_multi_normal", "rgbd_scene_multi_rgbd",
+    "rgbd_scene_single_color_fcn8", "rgbd_scene_single_depth", "rgbd_scene_single_depth_fcn8",
+    "rgbd_scene_single_normal", "rgbd_scene_single_normal_fcn8", "rgbd_scene_single_rgbd",
+    "shapenet_scene_multi_depth", "shapenet_scene_multi_normal", "shapenet_scene_multi_rgbd",
+    "shapenet_scene_single_depth", "shapenet_scene_single_normal", "shapenet_scene_single_rgbd",
+)
+
+
+@pytest.mark.parametrize("name", INPUT_MODE_CFGS)
+def test_input_mode_cfgs_build_a_model_a_minibatch_config_and_hparams(name):
+    """Each of the 16: PoseCNN (its trunks, 2 for RGBD) or FCN-8s at narrow
+    widths from the builders, the minibatch settings of its INPUT, and the
+    hyper-parameters of the JAX CLI (`train_segmentation`'s for FCN8VGG)."""
+    import dataclasses as dc
+
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.models import fcn8 as F
+
+    c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
+    ref = JC.cfg_fresh(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
+    n = c.TRAIN.NUM_CLASSES
+    if c.NETWORK == "FCN8VGG":
+        hp, mcfg = C.seg_settings(c, n)
+        model = F.make_fcn8(n, F.init_fcn8_params_numpy(0, n, trunk_scale=0.125, fc_dim=16), "cpu",
+                            trunk_scale=0.125, fc_dim=16)
+        assert model.score_fr.weight.shape[0] == n and not mcfg.vertex_reg
+    else:
+        model_cfg, hp, mcfg = C.train_model_cfg(c, n), C.train_hparams(c), C.minibatch_cfg(c, n)
+        want = jax_train_objects(ref, n)
+        assert_model_cfg_equal(model_cfg, want[0])
+        assert dc.asdict(hp) == dc.asdict(want[1])
+        narrow = dc.replace(model_cfg, trunk_scale=0.125, fc_dim=16)
+        model = make_model(narrow, init_params_numpy(0, narrow), "cpu")
+        assert hasattr(model, "trunk_p") == (c.INPUT == "RGBD") and model_cfg.input_format == c.INPUT
+    assert mcfg.input_format == c.INPUT == ref.INPUT and mcfg.device_targets
+    assert hp.learning_rate == ref.TRAIN.LEARNING_RATE and hp.weight_reg == ref.TRAIN.WEIGHT_REG
 
 
 # texts the reader must read as PyYAML does

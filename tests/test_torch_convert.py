@@ -98,14 +98,16 @@ def test_init_params_numpy_matches_jax_init_rules():
 
 def test_port_imports_no_jax():
     """Every module of posecnn_torch (the whole package, walked) imports
-    without jax, posecnn_tpu or yaml (the card's machine has no PyYAML: the
-    port reads its .yml configs itself), the cfg-driven modules among them."""
+    without jax, posecnn_tpu, yaml or cv2 (the card's machine has neither
+    PyYAML nor cv2: the port reads its .yml configs and makes its host
+    images itself), the cfg-driven modules among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import posecnn_torch\n"
         "for m in pkgutil.walk_packages(posecnn_torch.__path__, 'posecnn_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k in ('jax', 'yaml') or k.startswith(('jax.', 'yaml.', 'posecnn_tpu')))\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'yaml', 'cv2')\n"
+        "             or k.startswith(('jax.', 'yaml.', 'cv2.', 'posecnn_tpu')))\n"
         "assert not bad, bad\n"
         "print(' '.join(sorted(k for k in sys.modules if k.startswith('posecnn_torch'))))\n"
     )
@@ -114,4 +116,5 @@ def test_port_imports_no_jax():
     mods = set(res.stdout.split())
     assert len(mods) >= 15
     assert {"posecnn_torch.core.config", "posecnn_torch.data.toy", "posecnn_torch.data.factory",
-            "posecnn_torch.data.layer", "posecnn_torch.train_net", "posecnn_torch.test_net"} <= mods
+            "posecnn_torch.data.layer", "posecnn_torch.train_net", "posecnn_torch.test_net",
+            "posecnn_torch.utils.blob", "posecnn_torch.models.fcn8", "posecnn_torch.models.factory"} <= mods

@@ -135,12 +135,13 @@ def test_small_slice_bf16_label_agreement(golden):
 
 
 @pytest.mark.parametrize(
-    "over", [dict(is_train=True), dict(input_format="RGBD"), dict(vote_threshold=0.5), dict(vertex_reg_3d=True)]
+    "over", [dict(is_train=True), dict(adaptation=True), dict(vote_threshold=0.5), dict(vertex_reg_3d=True)]
 )
 def test_unported_configs_raise(over):
     """Options the port does not run yet raise; training with the exact
     roi_pool (no crop pool) waits for its backward. (hough_from_gt is
-    ported: tests/test_torch_toy_train.py.)"""
+    ported: tests/test_torch_toy_train.py; the RGBD dual tower:
+    tests/test_torch_input_modes.py.)"""
     cfg = PoseCNNConfig(**{**dict(num_classes=4, is_train=False, trunk_scale=0.125, fc_dim=64), **over})
     with pytest.raises(NotImplementedError):
         PoseCNN(cfg)

@@ -4,7 +4,8 @@ Inputs are made with numpy and handed to both packages; JAX stays on the
 CPU. `goldens()` loads tools/make_torch_goldens.py, which writes (and the
 tests regenerate) the JAX goldens under tests/golden/. The golden checks
 (`check_hough_golden`, `check_slice_golden`, `check_train_golden`,
-`check_render_golden`) and the
+`check_render_golden`, `check_host_images` with the bilateral filter's
+limits of `check_bilateral`) and the
 bf16 limit of the conv3x3 kernel (`bf16_ulp_excess`) are shared by the CPU
 tests, tests/test_torch_cuda.py and chip_smoke.py, so all hold the port to
 one limit. The module imports no JAX at module level.
@@ -278,16 +279,17 @@ def bf16_ulp_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(((got - ref).abs() / ulp).max())
 
 
-def small_train_on_golden(device="cpu"):
+def small_train_on_golden(device="cpu", g=None):
     """The port's small training step (f32) on the training golden's
-    weights (`init_params_numpy(seed)`), batch and points, on `device`.
+    weights (`init_params_numpy(seed)`), batch and points, on `device`
+    (`g`: a golden of that layout, default the training golden).
     Returns (losses, grads by state_dict name, params after the update,
     the lr, the gradient's global norm, the params before, golden)."""
     from posecnn_torch.config import PoseCNNConfig
     from posecnn_torch.core.convert import init_params_numpy, make_model
     from posecnn_torch.engine.train import TrainHParams, compute_losses, create_train_state, lr_schedule, train_update
 
-    g = load_npz(goldens().TRAIN_GOLDEN)
+    g = load_npz(goldens().TRAIN_GOLDEN) if g is None else g
     cfg = PoseCNNConfig(compute_dtype=torch.float32, **{k[4:]: g[k].item() for k in g if k.startswith("cfg/")})
     hp = TrainHParams(**{k[3:]: g[k].item() for k in g if k.startswith("hp/")})
     model = make_model(cfg, init_params_numpy(int(g["seed"]), cfg), device)
@@ -301,6 +303,57 @@ def small_train_on_golden(device="cpu"):
     grads = {k: p.grad.detach() for k, p in model.named_parameters()}
     after = {k: v.detach() for k, v in model.state_dict().items()}
     return {k: float(v.detach()) for k, v in losses.items()}, grads, after, lr, float(g_norm), before, g
+
+
+def rgbd_train_on_golden(device="cpu"):
+    """`small_train_on_golden` on the input-modes golden's RGBD step."""
+    g = load_npz(goldens().INPUT_MODES_GOLDEN)
+    return small_train_on_golden(device, {k[len("step/"):]: v for k, v in g.items() if k.startswith("step/")})
+
+
+# the bilateral filter against cv2 (with Intel's IPP, as the cv2 wheels
+# call it): at least this share of values exact, none off by more than one
+# level (the port's C++ is OpenCV's own arithmetic; IPP rounds about one
+# value in 10^5 the other way)
+BILATERAL_EXACT, BILATERAL_MAX_DIFF = 0.999, 1
+
+
+def check_bilateral(got: np.ndarray, ref: np.ndarray) -> dict:
+    """Holds a filtered image to cv2's at the bilateral limits. Returns the
+    share of exact values and the largest difference."""
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    exact, worst = float((diff == 0).mean()), int(diff.max())
+    assert got.shape == ref.shape and exact >= BILATERAL_EXACT and worst <= BILATERAL_MAX_DIFF, (exact, worst)
+    return {"exact": exact, "max_diff": worst}
+
+
+def port_host_images(path: str) -> dict:
+    """The port's counterparts of `make_torch_goldens.host_images` on one
+    frozen frame: the same digests, and `bilateral` whole."""
+    from posecnn_torch.data import minibatch as M
+    from posecnn_torch.native import bilateral_filter
+    from posecnn_torch.utils import blob
+
+    G = goldens()
+    d_h, d_l, d_s = G.INPUT_CHROMA
+    with np.load(os.path.join(ROOT, path)) as f:
+        color, depth, fd, K = f["color"], f["depth"], float(f["factor_depth"]), f["intrinsic_matrix"]
+    normals = M.normals_np(depth.astype(np.float32) / fd, K)
+    normal_u8 = np.ascontiguousarray((127.5 * normals + 127.5).astype(np.uint8)[:, :, (2, 1, 0)])
+    return {"hls": G.digest(blob.bgr_to_hls(color)),
+            "chroma": G.digest(blob.chromatic_transform(color, d_h=d_h, d_l=d_l, d_s=d_s)),
+            "depth_image": G.digest(M.depth_input_image(depth)), "normals": G.digest(normals),
+            "normal_u8": G.digest(normal_u8), "bilateral": bilateral_filter(normal_u8, 9, 75, 75)}
+
+
+def check_host_images(got: dict, g: dict, i: int) -> dict:
+    """Holds `port_host_images` of frame i to the input-modes golden: the
+    digests equal, the bilateral filter at its limits. Returns the
+    filter's share of exact values and largest difference."""
+    for k, v in got.items():
+        if k != "bilateral":
+            assert v == str(g[f"frame{i}/{k}"]), (i, k)
+    return check_bilateral(got["bilateral"], g[f"frame{i}/bilateral"])
 
 
 def check_train_golden(losses, grads, after, lr, g_norm, before, g) -> dict:

@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes six files:
+Runs the JAX package (on the CPU) and writes seven files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -47,6 +47,14 @@ Runs the JAX package (on the CPU) and writes six files:
       the manifest's render params; it retries and drops objects): colour,
       label, the float32 depth of the last render pass, the classes and
       the poses (`RENDER_SCENES`).
+  tests/golden/torch_port_input_modes.npz
+      the host images of the DEPTH, NORMAL and RGBD inputs on frames
+      v4/000000 and 000001 (640x480; `host_images`: SHA-256 digests of
+      cv2's HLS, `chromatic_transform`, `depth_input_image`, `normals_np`
+      and the normal image before its filter, and cv2's bilateral filter
+      of it, whole), and one RGBD training step in the layout of the small
+      training step (`step/`, `RGBD_CFG`: the dual tower at 1/16 width,
+      the depth images as `data_p`).
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -56,6 +64,7 @@ Usage: JAX_PLATFORMS=cpu python tools/make_torch_goldens.py
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 
@@ -191,9 +200,10 @@ TRAIN_SEED = 1
 TRAIN_CHROMA = ((0.9, -12.0, 7.5), (-1.2, 20.0, -15.0))
 
 
-def train_frames(paths=TRAIN_FRAMES):
+def train_frames(paths=TRAIN_FRAMES, depth: bool = False):
     """Frozen frames resampled to 64x80 on the TRAIN_ROWS x TRAIN_COLS grid,
-    with K and the centres mapped to the new pixel grid."""
+    with K and the centres mapped to the new pixel grid (and the depth on
+    the same grid with `depth`)."""
     from posecnn_torch.data.minibatch import Frame, load_frozen_frame
 
     (r0, rs, rn), (c0, cs, cn) = TRAIN_ROWS, TRAIN_COLS
@@ -208,7 +218,8 @@ def train_frames(paths=TRAIN_FRAMES):
         K[1, :] /= rs
         K[:2, 2] -= shift * scale
         centers = ((f.center - shift) * scale).astype(np.float32)
-        out.append(Frame(f.color[np.ix_(rows, cols)], f.label[np.ix_(rows, cols)], f.cls_indexes, f.poses, centers, K))
+        out.append(Frame(f.color[np.ix_(rows, cols)], f.label[np.ix_(rows, cols)], f.cls_indexes, f.poses, centers, K,
+                         depth=f.depth[np.ix_(rows, cols)] if depth else None, factor_depth=f.factor_depth))
     return out
 
 
@@ -277,14 +288,16 @@ def jax_train_steps(cfg_kw: dict, hp_kw: dict, params: dict, batch: dict, points
     return (*first, jax.tree_util.tree_map(np.asarray, p))
 
 
-def train_golden() -> dict:
+def train_golden(cfg_kw: dict = TRAIN_CFG, inputs=None) -> dict:
+    """One step of `jax_train_steps` at `cfg_kw` on `inputs` (batch,
+    points, symmetry, extents; default `train_inputs()`)."""
     from posecnn_torch.config import PoseCNNConfig as TorchCfg
     from posecnn_torch.core.convert import init_params_numpy
 
-    params = init_params_numpy(TRAIN_SEED, TorchCfg(**TRAIN_CFG))
-    batch, points, symmetry, extents = train_inputs()
-    losses, grads, lr, g_norm, _ = jax_train_steps(TRAIN_CFG, TRAIN_HP, params, batch, points, symmetry, extents)
-    g = {f"cfg/{k}": np.asarray(v) for k, v in TRAIN_CFG.items()}
+    params = init_params_numpy(TRAIN_SEED, TorchCfg(**cfg_kw))
+    batch, points, symmetry, extents = inputs if inputs is not None else train_inputs()
+    losses, grads, lr, g_norm, _ = jax_train_steps(cfg_kw, TRAIN_HP, params, batch, points, symmetry, extents)
+    g = {f"cfg/{k}": np.asarray(v) for k, v in cfg_kw.items()}
     g.update({f"hp/{k}": np.asarray(v) for k, v in TRAIN_HP.items()})
     g.update({f"batch/{k}": v for k, v in batch.items()})
     g.update(points=points, symmetry=symmetry, extents=extents, seed=np.asarray(TRAIN_SEED),
@@ -534,6 +547,59 @@ def toy_train_golden() -> dict:
     return g
 
 
+INPUT_MODES_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_input_modes.npz")
+# the HLS deltas (d_h, d_l, d_s) of the chromatic golden
+INPUT_CHROMA = TRAIN_CHROMA[0]
+# the RGBD step: the small training step with the dual tower, at 1/16 width
+RGBD_CFG = dict(TRAIN_CFG, input_format="RGBD", trunk_scale=0.0625, fc_dim=32)
+
+
+def digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def host_images(path: str) -> dict:
+    """The JAX package's host images of the depth inputs on one frozen frame
+    (640x480): digests of cv2's HLS of the colour image, of
+    `chromatic_transform` at INPUT_CHROMA, of `depth_input_image`, of
+    `normals_np` and of the uint8 normal image before its filter, and
+    cv2's bilateral filter of that image (`bilateral`, whole)."""
+    import cv2
+
+    from posecnn_tpu.data import minibatch as JM
+    from posecnn_tpu.utils.blob import chromatic_transform
+
+    d_h, d_l, d_s = INPUT_CHROMA
+    with np.load(os.path.join(ROOT, path)) as f:
+        color, depth, fd, K = f["color"], f["depth"], float(f["factor_depth"]), f["intrinsic_matrix"]
+    normals = JM.normals_np(depth.astype(np.float32) / fd, K)
+    normal_u8 = np.ascontiguousarray((127.5 * normals + 127.5).astype(np.uint8)[:, :, (2, 1, 0)])
+    return {"hls": digest(cv2.cvtColor(color, cv2.COLOR_BGR2HLS)),
+            "chroma": digest(chromatic_transform(color, d_h=d_h, d_l=d_l, d_s=d_s)),
+            "depth_image": digest(JM.depth_input_image(depth)), "normals": digest(normals),
+            "normal_u8": digest(normal_u8), "bilateral": cv2.bilateralFilter(normal_u8, 9, 75, 75)}
+
+
+def rgbd_train_inputs():
+    """`train_inputs()` for the RGBD step: the batch gains `data_p`, each
+    frame's depth image (`depth_input_image`, rounded to uint8), and loses
+    the chroma deltas (the host jitters a depth input's colour image)."""
+    from posecnn_torch.data.minibatch import _to_u8, depth_input_image
+
+    batch, points, symmetry, extents = train_inputs()
+    del batch["chroma_dhls"]
+    batch["data_p"] = np.stack([_to_u8(depth_input_image(f.depth)) for f in train_frames(depth=True)])
+    return batch, points, symmetry, extents
+
+
+def input_modes_golden() -> dict:
+    g = {}
+    for i, path in enumerate(TRAIN_FRAMES):
+        g.update({f"frame{i}/{k}": np.asarray(v) for k, v in host_images(path).items()})
+    g.update({f"step/{k}": v for k, v in train_golden(RGBD_CFG, rgbd_train_inputs()).items()})
+    return g
+
+
 RENDER_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_renders.npz")
 # (name, dataset, seed): the toy SyntheticDataset's frames 0-3 (seeds 0-3 of
 # its train split) and the refresh's first lov_syn_val_v4 scene
@@ -586,7 +652,7 @@ def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
                        (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden),
-                       (RENDER_GOLDEN, render_golden)):
+                       (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 
