@@ -6,12 +6,13 @@ flagship PoseCNN inference (raw 640x480 BGR frame in, ROIs and 6-DoF poses
 out), the flagship training step (B=2 at 640x480 from a device bank), the
 cfg-driven CLIs on the toy dataset (host-fed training at 96x128 and its
 scoring), the flagship cfg's bank refresh (a host thread rendering fresh
-scenes into the bank), and the depth inputs (DEPTH, NORMAL, the RGBD dual
-tower) and FCN-8s through the cfg-driven CLIs.
+scenes into the bank), the depth inputs (DEPTH, NORMAL, the RGBD dual
+tower) and FCN-8s through the cfg-driven CLIs, and the detection network
+(VGG16DET) and the 3D head (VERTEX_REG_3D) through them.
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
-  2. build: every CUDA kernel of the path, the host rasterizer and the
-     host bilateral filter, from
+  2. build: every CUDA kernel of the path (hough_vote, conv3x3, nms), the
+     host rasterizer and the host bilateral filter, from
      the sources in this checkout, one compiler (nvcc, g++) per source, all
      started together
   3. each kernel against its plain PyTorch version on the card, at the
@@ -94,7 +95,20 @@ tower) and FCN-8s through the cfg-driven CLIs.
      vertex head); `train_net` and `test_net --cfg
      rgbd_scene_single_normal_fcn8.yml` (NORMAL, FCN-8s, mean IoU) and the
      FCN-8s forward on the card against the CPU port
-  13. the kernels' JSON line, then {"ok": true, "device": {...}}
+  13. the detection network and the 3D head (`det_3d_phase`): the NMS
+     kernel against its plain version on 6000 real proposals and on
+     random boxes, NaN and infinite coordinates among them (keep masks
+     equal; back-to-back and single times beside its bound);
+     `train_net --cfg lov_det.yml --imdb lov_syn_val_v4` (20 steps as
+     shipped, then 40 at a stable rate: stream and host ms, peak memory, 2
+     conv3x3 and 1 nms launches a step) and `test_net --cfg lov_det.yml` on its snapshot (mAP@0.5, ms
+     a frame by stage); one full-width det step at float32, card against
+     CPU, the proposals of identical RPN outputs on both, the JAX det
+     golden on the card; `test_net --cfg lov_color_3d.yml` (RANSAC poses,
+     its device ms) and RANSAC card against CPU on a well-posed scene; one
+     3D step on rendered scenes with their vertmaps, card against CPU, and
+     `train_net --cfg lov_color_3d.yml` failing on frames without one
+  14. the kernels' JSON line, then {"ok": true, "device": {...}}
 
 The CLIs' scratch directory is made under the checkout's git-ignored
 output/ and removed at the end. Any failure raises and the process exits
@@ -166,10 +180,39 @@ TRAIN_GRAD_LIMITS = {"trunk.conv1_1.weight": 5e-2, "trunk.conv1_2.weight": 2e-2}
 # inputs a bf16 rounding apart can end apart (the CPU tests measured 1e-2
 # in the quaternion from inputs one f32 ulp apart, tests/test_torch_eval.py)
 EVAL_ICP_T, EVAL_ICP_Q = 1e-2, 1e-2
+# phase 13: the detection trainer's steps (a multiple of lov_det.yml's
+# DISPLAY, 20, so the log shows the last step's losses) and those left out of
+# the medians; the frames each detection and 3D test_net scores and those
+# left out of its medians
+DET_STEPS, DET_WARMUP, DET_EVAL_FRAMES, DET_EVAL_WARMUP = 40, 8, 12, 3
+# the shipped lov_det.yml's steps (its LEARNING_RATE 0.001 diverges from the
+# init rules, in the JAX trainer too), and the rate of the timed run
+DET_SHIPPED_STEPS, DET_STABLE_LR = 20, 1e-5
+# f32 operations of one IoU test of the NMS kernel: the intersection's two
+# widths (min, max, subtract, add 1, clamp at 0: 5 each), their product, the
+# union (the two areas' sum less the intersection: 2), the division and the
+# comparison with the threshold. The bound counts the tests a greedy sweep
+# of this run's boxes needs: each kept box against each later box that no
+# kept box before it has removed (`nms_sweep_tests`).
+NMS_TEST_OPS = 15
+# the card against the CPU port on one full-width det step at float32 (TF32
+# off): relative limits of the loss terms and of the gradient's global norm
+# (phase 7's), and of the gradients of the proposal path, fc6 and conv1_2 as
+# their largest |error| over their largest magnitude (phase 7's conv1_2
+# limit). Both sides must sample the same rois first (labels equal, boxes
+# within 1e-2 px): the RCNN terms and the gradients follow them
+DET_LOSS_LIMITS = {"loss_rpn_cls": 1e-3, "loss_rpn_box": 1e-3, "loss_cls": 1e-3, "loss_box": 1e-3,
+                   "loss_pose": 1e-3, "loss_regu": 1e-6, "grad_norm": 5e-3}
+DET_GRAD_LIMITS = {"rpn_bbox_pred.weight": 2e-2, "conv_rpn.weight": 2e-2, "fc6.weight": 2e-2,
+                   "trunk.conv1_2.weight": 2e-2}
+
+
+_T0 = time.perf_counter()
 
 
 def phase(n: int, msg: str) -> None:
-    print(f"[phase {n}] {msg}", flush=True)
+    """A phase's line, with the seconds since the script started."""
+    print(f"[phase {n}] [{time.perf_counter() - _T0:.1f} s] {msg}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -512,7 +555,7 @@ def run_test_net(ckpt: str, out: str, log_path: str) -> tuple:
         timing = json.load(f)
     with np.load(os.path.join(out, "detections.npz")) as d:
         dets = {k: d[k] for k in d.files}
-    check(timing["frames"] == 32 and timing["launches"] == {"hough_vote": 64, "conv3x3": 32},
+    check(timing["frames"] == 32 and timing["launches"] == {"hough_vote": 64, "conv3x3": 32, "nms": 0},
           f"test_net: {timing['frames']} frames, launches {timing['launches']}")
     check(all(np.isfinite(v).all() and v.ndim == 2 and v.shape[1] == 7 for v in dets.values()), "detections")
     check(0 <= summary["mean_iou"] <= 1 and 0 <= summary["adds_auc"] <= 1, f"summary {sorted(summary)}")
@@ -647,7 +690,7 @@ def toy_phase(work: str, dev) -> dict:
     with open(os.path.join(out, "train_timing.json")) as f:
         timing = json.load(f)
     launches = {"train": timing["launches"]}
-    check(timing["launches"] == {"hough_vote": 4 * TOY_STEPS, "conv3x3": 2 * TOY_STEPS},
+    check(timing["launches"] == {"hough_vote": 4 * TOY_STEPS, "conv3x3": 2 * TOY_STEPS, "nms": 0},
           f"train_net --cfg launches {timing['launches']}")
     ms = {k: statistics.median(v[TOY_WARMUP:]) for k, v in timing["ms"].items()}
     with open(os.path.join(out, "train_metrics.csv")) as f:
@@ -755,7 +798,7 @@ def toy_phase(work: str, dev) -> dict:
     with np.load(os.path.join(ev, "detections.npz")) as d:
         dets = {k: d[k] for k in d.files}
     n = timing["frames"]
-    check(n == 64 and timing["launches"] == {"hough_vote": 2 * n, "conv3x3": n},
+    check(n == 64 and timing["launches"] == {"hough_vote": 2 * n, "conv3x3": n, "nms": 0},
           f"test_net --cfg: {n} frames, launches {timing['launches']}")
     check(all(np.isfinite(v).all() and v.ndim == 2 and v.shape[1] == 7 for v in dets.values()), "toy detections")
     check(0 <= summary["mean_iou"] <= 1 and 0 <= summary["adds_auc"] <= 1 and not timing["pose_refine"],
@@ -851,7 +894,8 @@ def refresh_phase(work: str, dev) -> dict:
     rows = re.findall(r"^\[[\d.]+s\] iter (\d+)/\d+ (.*) \([\d.]+s/it\)$", log, re.M)
     losses = [float(v) for _, r in rows for k, v in re.findall(r"(\S+): (\S+)", r) if k.startswith("loss")]
     check(len(splices) >= 2 and counter >= 128 and rows and all(np.isfinite(losses))
-          and all(v > 0 for v in timing["launches"].values()),
+          and timing["launches"]["hough_vote"] > 0 and timing["launches"]["conv3x3"] > 0
+          and timing["launches"]["nms"] == 0,
           f"refresh CLI: {len(splices)} splice lines, counter {counter}, {len(rows)} log rows, losses {losses}, "
           f"launches {timing['launches']}:\n{log[-3000:]}")
     n = timing["end_step"]
@@ -1122,7 +1166,7 @@ def input_modes_phase(work: str, dev) -> dict:
         check(rc == 0, f"train_net --cfg {cfg_name} exited {rc}:\n{log[-3000:]}")
         with open(os.path.join(out, "train_timing.json")) as fh:
             timing = json.load(fh)
-        check(timing["launches"] == {k: v * iters for k, v in want.items()},
+        check(timing["launches"] == {"nms": 0, **{k: v * iters for k, v in want.items()}},
               f"{cfg_name}: launches {timing['launches']}, want {want} a step")
         first = _first_losses(log, iters)
         check(first and all(np.isfinite(v) for v in first.values()), f"{cfg_name}: first losses {first}")
@@ -1140,7 +1184,7 @@ def input_modes_phase(work: str, dev) -> dict:
         with open(os.path.join(ev, "eval_timing.json")) as fh:
             timing = json.load(fh)
         nf = timing["frames"]
-        check(nf == INPUT_EVAL_FRAMES and timing["launches"] == {k: v * nf for k, v in want.items()},
+        check(nf == INPUT_EVAL_FRAMES and timing["launches"] == {"nms": 0, **{k: v * nf for k, v in want.items()}},
               f"test_net --cfg {cfg_name}: {nf} frames, launches {timing['launches']}, want {want} a frame")
         check(0 <= summary["mean_iou"] <= 1, f"{cfg_name}: mean IoU {summary['mean_iou']}")
         return summary, timing, {k: statistics.median(v[INPUT_EVAL_WARMUP:]) for k, v in timing["ms"].items()}
@@ -1207,6 +1251,374 @@ def input_modes_phase(work: str, dev) -> dict:
               f"error| {err:.3g} (limit: the CPU's bf16-f32 gap {gap:.3g}); phase 12 took "
               f"{time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def nms_sweep_tests(over: np.ndarray) -> tuple:
+    """(keep mask, IoU tests) of a greedy sweep over the suppression matrix
+    of sorted boxes: a box not removed when it is reached is kept, and is
+    tested against each later box that is still there."""
+    n = over.shape[0]
+    removed = np.zeros(n, bool)
+    tests = 0
+    for i in range(n):
+        if not removed[i]:
+            tests += int(n - 1 - i - removed[i + 1:].sum())
+            removed[i + 1:] |= over[i, i + 1:]
+    return ~removed, tests
+
+
+def _cli_losses(log: str, it: int, n: int) -> dict:
+    """The loss terms of a train_net log's line for iteration `it` of n."""
+    m = log_seconds(rf"iter {it}/{n} (.*) \(", log)
+    return {k: float(v) for k, v in re.findall(r"(\w+): ([-\d.e+na]+)", m.group(2)) if k.startswith("loss")}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def det_3d_phase(work: str, dev) -> tuple:
+    """Phase 13: the detection network (VGG16DET) and the 3D head
+    (VERTEX_REG_3D). (a) The NMS kernel against its plain version on the
+    6000 top proposals of a full-width forward and on random boxes, NaN and
+    infinite coordinates among them (keep masks equal), timed back to back
+    and single, beside its bound. (b)
+    `train_net --cfg lov_det.yml --imdb lov_syn_val_v4 --iters DET_STEPS`:
+    finite losses, the snapshot, stream and host ms a step, peak memory,
+    2 conv3x3 and 1 nms launches a step. (c) `test_net --cfg lov_det.yml
+    --model <that snapshot> --max_frames DET_EVAL_FRAMES`: mAP@0.5, ms a
+    frame by stage, 1 conv3x3 and 1 nms launch a frame. (d) One full-width
+    det step at float32 (TF32 off), card against the CPU port on the same
+    frame, weights and draws (the sampled rois equal, the losses and the
+    gradients of the proposal path, fc6 and conv1_2 within
+    DET_LOSS_LIMITS, DET_GRAD_LIMITS); the
+    proposals of the card's RPN outputs on the card and the CPU; the JAX
+    det golden (forward, proposals, RANSAC) on the card. (e) `test_net
+    --cfg lov_color_3d.yml --max_frames DET_EVAL_FRAMES`: finite poses, ms
+    a frame, RANSAC's device ms; RANSAC on the card against the CPU on a
+    well-posed scene with the same draws. (f) One full-width 3D step (B=2,
+    bf16) on rendered scenes with their vertmaps, card against CPU at
+    phase 7's limits; then `train_net --cfg lov_color_3d.yml` on
+    lov_syn_val_v4 fails with the port's Frame.vertmap message. Returns
+    (the nms kernel's record, the launches of each path)."""
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.data import minibatch as M
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.engine import test as E
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.models import detection as D
+    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.ops.bbox import bbox_transform_inv, clip_boxes
+    from posecnn_torch.ops.rpn import proposal_layer
+    from tests.torch_parity import check_det_golden, det_on_golden, ransac_scene, rendered_3d_frames
+
+    t_phase = time.perf_counter()
+    launches = {}
+    imdb = LovSynVal()
+    n_cls = imdb.num_classes
+    det_file = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_det.yml"))
+    frame = imdb.load_frame(0)
+
+    def reset():
+        voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+
+    def counts():
+        return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
+
+    # (a) the NMS kernel on the 6000 top proposals of a full-width bf16
+    # forward (seed weights, frame v4/000000) and on random boxes
+    test_cfg = C.det_model_cfg(det_file, n_cls, train=False)
+    params = D.init_vgg16_det_params_numpy(det_file.RNG_SEED, test_cfg)
+    model = D.make_det_model(test_cfg, params, dev)
+    data = torch.from_numpy(frame.color[None]).to(dev).float() - torch.tensor(det_file.PIXEL_MEANS, device=dev)
+    with torch.inference_mode():
+        out = D.vgg16_det_forward(model, test_cfg, data)
+        A = test_cfg.num_anchors
+        Hf, Wf = out["rpn_cls_prob"].shape[1:3]
+        anchors = D._anchors(Hf, Wf, 16, tuple(test_cfg.anchor_ratios), tuple(test_cfg.anchor_scales), dev)
+        props = clip_boxes(bbox_transform_inv(anchors, out["rpn_bbox_pred"][0].reshape(-1, 4)), (480, 640))
+        order = torch.sort(out["rpn_cls_prob"][0, :, :, A:].reshape(-1), descending=True, stable=True).indices
+        real = props[order[:test_cfg.rpn_pre_nms_top_n]].contiguous()
+    rng = np.random.RandomState(0)
+
+    def random_boxes(n):
+        xy = rng.randint(0, 560, (n, 2))
+        wh = rng.randint(8, 200, (n, 2))
+        return torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(np.float32)).to(dev)
+
+    nonfinite = random_boxes(1000)
+    nonfinite[3, 0] = nonfinite[5, 1] = nonfinite[13, 2:] = float("nan")
+    nonfinite[8, 2] = nonfinite[17, :2] = float("inf")
+    nonfinite[11, 1] = -float("inf")
+    cases = ([("real proposals", real, 0.7)]
+             + [(f"random integer boxes N={n}", random_boxes(n), thr)
+                for n, thr in ((6000, 0.7), (4097, 0.3), (1000, 0.5), (63, 0.7))]
+             + [("random integer boxes N=1000 with NaN and infinite coordinates", nonfinite, 0.5)])
+    lines = []
+    for label, boxes, thr in cases:
+        keep = nms.nms_keep_sorted(boxes, thr)
+        plain = nms.nms_keep_sorted_plain(boxes, thr)
+        again = nms.nms_keep_sorted(boxes, thr)
+        torch.cuda.synchronize()
+        first = int((keep != plain).nonzero()[0]) if not torch.equal(keep, plain) else -1
+        check(torch.equal(keep, plain) and torch.equal(keep, again),
+              f"nms {label}: kernel keeps {int(keep.sum())}, plain {int(plain.sum())}, second launch "
+              f"{int(again.sum())}; first difference at {first}")
+        lines.append(f"{label} at {thr}: {int(keep.sum())} of {boxes.shape[0]} kept, equal")
+    boxes = real
+    keep = nms.nms_keep_sorted(boxes, 0.7)
+    n = boxes.shape[0]
+    swept, pairs = nms_sweep_tests(nms.suppression_matrix(boxes, 0.7))
+    check(np.array_equal(swept, keep.cpu().numpy()), "nms: the counting sweep keeps other boxes than the kernel")
+    nbytes = n * 16 + n
+    b_ms, b_by = bound_ms(nbytes, pairs * NMS_TEST_OPS, PEAK_F32_FLOP_PER_S)
+    call = functools.partial(nms.nms_keep_sorted, boxes, 0.7)
+    k_ms, k_single = median_ms(call), single_ms(call)
+    p_ms = median_ms(lambda: nms.nms_keep_sorted_plain(boxes, 0.7), reps=3, inner=1)
+    record = dict(max_abs_err=0.0, ms=k_ms, single_ms=k_single, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=None, boxes=n, kept=int(keep.sum()), pairs_needed=pairs)
+    phase(13, "nms kernel against its plain version, keep masks equal: " + "; ".join(lines)
+              + f". On the real proposals (N={n}, threshold 0.7, {int(keep.sum())} kept): kernel {k_ms * 1e3:.1f} us "
+              f"back to back, {k_single * 1e3:.1f} us single; plain {p_ms:.1f} ms; bound {b_ms * 1e3:.2f} us "
+              f"({b_by}: {pairs} IoU tests of {NMS_TEST_OPS} f32 operations, each kept box against the later boxes "
+              f"still there when it is reached; {nbytes} bytes); no PyTorch call computes NMS (library_ms null)")
+    del model, out, props, real
+    torch.cuda.empty_cache()
+
+    # (b) the detection trainer's CLI: the shipped cfg, whose LEARNING_RATE
+    # (0.001) from the init rules without ImageNet weights diverges as the
+    # JAX trainer's does; then the same cfg at DET_STABLE_LR for the timings
+    # and the snapshot that (c) scores
+    cfg_rel = os.path.join("experiments", "cfgs", "lov_det.yml")
+
+    def det_cli(name: str, cfg_path: str, iters: int) -> tuple:
+        out_dir = os.path.join(work, name)
+        rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg_path, "--imdb", "lov_syn_val_v4", "--iters",
+                           str(iters), "--output", out_dir], os.path.join(work, name + ".log"), 600)
+        check(rc == 0, f"train_net --cfg {cfg_path} exited {rc}:\n{log[-3000:]}")
+        snap = os.path.join(out_dir, f"{det_file.TRAIN.SNAPSHOT_PREFIX}_iter_{iters}.npz")
+        check(os.path.exists(snap), f"no snapshot {snap}")
+        with open(os.path.join(out_dir, "train_timing.json")) as fh:
+            timing = json.load(fh)
+        want = {"hough_vote": 0, "conv3x3": 2 * iters, "nms": iters}
+        check(timing["launches"] == want, f"{name}: launches {timing['launches']}, want {want}")
+        display = det_file.TRAIN.DISPLAY  # the trainer logs the first step and every DISPLAY steps
+        check(iters % display == 0, f"{name}: {iters} steps, not a multiple of DISPLAY {display}")
+        losses = {it: _cli_losses(log, it, iters) for it in (1, *range(display, iters + 1, display))}
+        check(all(np.isfinite(v) for v in losses[1].values()), f"{name}: first losses {losses[1]}")
+        return snap, timing, losses
+
+    _, timing, losses = det_cli("det_shipped", cfg_rel, DET_SHIPPED_STEPS)
+    launches["det_train_cli_shipped"] = timing["launches"]
+    diverged = not all(np.isfinite(v) for v in losses[DET_SHIPPED_STEPS].values())
+    phase(13, f"train_net --cfg lov_det.yml (as shipped: LEARNING_RATE 0.001) --iters {DET_SHIPPED_STEPS}: losses at "
+              f"step 1 {losses[1]}, at step {DET_SHIPPED_STEPS} {losses[DET_SHIPPED_STEPS]} ("
+              + ("diverged, as the JAX trainer does from its own init" if diverged else "finite")
+              + f"); launches {timing['launches']}")
+    stable = os.path.join(work, "lov_det_stable.yml")
+    with open(os.path.join(ROOT, cfg_rel)) as fh:
+        text = fh.read()
+    check("  LEARNING_RATE: 0.001\n" in text, "lov_det.yml's LEARNING_RATE line moved")
+    with open(stable, "w") as fh:
+        # positional: YAML 1.1 reads "1e-05" (no dot) as a string
+        fh.write(text.replace("  LEARNING_RATE: 0.001\n",
+                              f"  LEARNING_RATE: {np.format_float_positional(DET_STABLE_LR)}\n"))
+    snap, timing, losses = det_cli("det", stable, DET_STEPS)
+    launches["det_train_cli"] = timing["launches"]
+    check(all(np.isfinite(v) for m in losses.values() for v in m.values()), f"det losses {losses}")
+    ms = {k: statistics.median(v[DET_WARMUP:]) for k, v in timing["ms"].items()}
+    phase(13, f"train_net --cfg lov_det.yml at LEARNING_RATE {DET_STABLE_LR} --imdb lov_syn_val_v4 --iters {DET_STEPS} "
+              f"(VGG16DET, B=1, 640x480, bf16, 22 classes, raw frames): per step (median of steps "
+              f"{DET_WARMUP + 1}-{DET_STEPS}) {ms['step_stream']:.3f} ms stream, {ms['step']:.3f} ms host, data wait "
+              f"{ms['data_wait']:.3f} ms; peak memory {timing['peak_memory_mib']:.1f} MiB; losses "
+              + "; ".join(f"step {it}: {m}" for it, m in losses.items()) + f"; launches {timing['launches']}")
+    print("det train per-step ms " + json.dumps({k: [round(x, 3) for x in v] for k, v in timing["ms"].items()}),
+          flush=True)
+
+    # (c) the detection evaluation on that snapshot
+    ev = os.path.join(work, "det_eval")
+    rc, log = run_cli(["posecnn_torch.test_net", "--cfg", cfg_rel, "--imdb", "lov_syn_val_v4", "--model", snap,
+                       "--max_frames", str(DET_EVAL_FRAMES), "--output", ev], os.path.join(work, "det_eval.log"), 600)
+    check(rc == 0, f"test_net --cfg lov_det.yml exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(ev, "eval_summary.json")) as fh:
+        summary = json.load(fh)
+    with open(os.path.join(ev, "eval_timing.json")) as fh:
+        ev_timing = json.load(fh)
+    launches["det_eval"] = ev_timing["launches"]
+    want = {"hough_vote": 0, "conv3x3": DET_EVAL_FRAMES, "nms": DET_EVAL_FRAMES}
+    check(ev_timing["launches"] == want and 0 <= summary["mAP@0.5"] <= 1,
+          f"det eval launches {ev_timing['launches']} (want {want}), mAP {summary['mAP@0.5']}")
+    ev_ms = {k: statistics.median(v[DET_EVAL_WARMUP:]) for k, v in ev_timing["ms"].items()}
+    phase(13, f"test_net --cfg lov_det.yml --model <the iter-{DET_STEPS} snapshot> --max_frames {DET_EVAL_FRAMES}: "
+              f"mAP@0.5 {summary['mAP@0.5']:.4f} over {len(summary['ap_per_class'])} classes with GT; detections a "
+              f"frame {ev_timing['detections']}; per frame (median of frames {DET_EVAL_WARMUP + 1}-{DET_EVAL_FRAMES}) "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ev_ms.items())
+              + f"; peak {ev_timing['peak_memory_mib']:.1f} MiB; launches {ev_timing['launches']}")
+
+    # (d) one full-width det step at float32, card against CPU
+    t0 = time.perf_counter()
+    hp = C.det_hparams(det_file)
+    cfg32 = dataclasses.replace(C.det_model_cfg(det_file, n_cls, train=True), compute_dtype=torch.float32)
+    params = D.init_vgg16_det_params_numpy(det_file.RNG_SEED, cfg32)
+    sym = np.asarray(imdb._symmetry, np.float32)
+    pts = M.rescale_points(np.asarray(imdb._points_all, np.float32), np.asarray(imdb._extents), sym)
+    batch = T.det_batch_from_frame(frame, det_file.TPU.MAX_GT)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(det_file.RNG_SEED)
+    draws = T.Draws(gen, record=True)
+    state = T.create_train_state(D.make_det_model(cfg32, params, dev), hp)
+    step = T.make_det_train_step(cfg32, hp, torch.from_numpy(pts).to(dev), torch.from_numpy(sym).to(dev))
+    reset()
+    got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), draws).items()}
+    launches["det_step"] = counts()
+    check(launches["det_step"] == {"hough_vote": 0, "conv3x3": 0, "nms": 1}, f"det f32 step {launches['det_step']}")
+    grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
+    del state, step
+    torch.cuda.empty_cache()
+    state_cpu = T.create_train_state(D.make_det_model(cfg32, params, "cpu"), hp)
+    step_cpu = T.make_det_train_step(cfg32, hp, torch.from_numpy(pts), torch.from_numpy(sym))
+    ref = {k: float(v) for k, v in step_cpu(state_cpu, T.to_device(batch, "cpu"),
+                                            T.Draws(replay={k: v.cpu() for k, v in draws.recorded.items()})).items()}
+    rel = {k: _rel(got[k], ref[k]) for k in DET_LOSS_LIMITS}
+    grad_rel = {k: float((grads[k] - p.grad).abs().max()) / max(float(p.grad.abs().max()), 1e-30)
+                for k, p in state_cpu.model.named_parameters()}
+    # the RCNN losses and every gradient follow the sampled rois, so both
+    # sides must sample the same ones (the same forward, no update, the
+    # recorded draws again): a fault that moves them fails here
+    rois_side = []
+    for d in (dev, "cpu"):
+        m = D.make_det_model(cfg32, params, d)
+        with torch.no_grad():
+            b = T.to_device(batch, d)
+            x = b["data"].float() - torch.tensor(hp.pixel_means, device=d).reshape(1, 1, 1, 3)
+            o = D.vgg16_det_forward(m, cfg32, x, b["gt_boxes"], b["poses"],
+                                    T.Draws(replay={k: v.cpu() for k, v in draws.recorded.items()}))
+            rois_side.append((o["rois"].cpu(), o["labels"].cpu()))
+    roi_err = float((rois_side[0][0] - rois_side[1][0]).abs().max())
+    check(torch.equal(rois_side[0][1], rois_side[1][1]) and roi_err <= 1e-2,
+          f"det f32 step: the sampled rois differ between card and CPU (labels equal "
+          f"{torch.equal(rois_side[0][1], rois_side[1][1])}, rois max|err| {roi_err} px, limit 1e-2)")
+    check(all(rel[k] <= DET_LOSS_LIMITS[k] for k in DET_LOSS_LIMITS)
+          and all(grad_rel[k] <= DET_GRAD_LIMITS[k] for k in DET_GRAD_LIMITS),
+          f"det f32 step, card against CPU: relative errors {rel}, limits {DET_LOSS_LIMITS}; gradients "
+          + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in DET_GRAD_LIMITS) + f", limits {DET_GRAD_LIMITS}")
+    step_s = time.perf_counter() - t0
+    # the proposals of identical RPN outputs (the card's bf16 forward of
+    # (a)'s model), on the card and on the CPU
+    model = D.make_det_model(test_cfg, D.init_vgg16_det_params_numpy(det_file.RNG_SEED, test_cfg), dev)
+    with torch.inference_mode():
+        o = D.vgg16_det_forward(model, test_cfg, data)
+        args = (o["rpn_cls_prob"][0], o["rpn_bbox_pred"][0])
+        Hf, Wf = args[0].shape[:2]
+        anchors = D._anchors(Hf, Wf, 16, tuple(test_cfg.anchor_ratios), tuple(test_cfg.anchor_scales), dev)
+        r_card, s_card = proposal_layer(*args, anchors, (480, 640), A)
+        r_cpu, s_cpu = proposal_layer(*(a.cpu() for a in args), anchors.cpu(), (480, 640), A)
+    prop_err = float((r_card.cpu() - r_cpu).abs().max())
+    check(torch.equal(s_card.cpu(), s_cpu) and prop_err <= 1e-3,
+          f"proposals on identical RPN inputs: scores equal {torch.equal(s_card.cpu(), s_cpu)}, rois max|err| "
+          f"{prop_err} (limit 1e-3 px)")
+    del model
+    torch.cuda.empty_cache()
+    golden_err = check_det_golden(*det_on_golden(dev))
+    phase(13, f"det step at float32 (B=1, 640x480, 22 classes, TF32 off, seed weights, recorded draws), card against "
+              f"the CPU port ({step_s:.1f} s; the sampled labels equal on the two sides, rois within "
+              f"{roi_err:.3g} px, limit 1e-2): "
+              + "; ".join(f"{k} {got[k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g} (limit {DET_LOSS_LIMITS[k]})"
+                          for k in DET_LOSS_LIMITS)
+              + "; " + "; ".join(f"{k} gradient {grad_rel[k]:.3g} of its largest magnitude (limit {lim})"
+                                 for k, lim in DET_GRAD_LIMITS.items())
+              + f"; launches {launches['det_step']}. Proposals of the card's bf16 RPN outputs (6000 -> 300 at 0.7) "
+              f"on the card and the CPU: scores equal, {int((s_cpu > 0).sum())} rows, rois max|err| {prop_err:.3g} px "
+              f"(limit 1e-3). The JAX det golden on the card (f32 forward, proposals, RANSAC): "
+              + ", ".join(f"{k} {v:.3g}" for k, v in golden_err.items()))
+
+    # (e) the 3D head's evaluation, and RANSAC on the card against the CPU
+    cfg3_rel = os.path.join("experiments", "cfgs", "lov_color_3d.yml")
+    ev3 = os.path.join(work, "eval3d")
+    rc, log = run_cli(["posecnn_torch.test_net", "--cfg", cfg3_rel, "--imdb", "lov_syn_val_v4", "--max_frames",
+                       str(DET_EVAL_FRAMES), "--output", ev3], os.path.join(work, "eval3d.log"), 600)
+    check(rc == 0, f"test_net --cfg lov_color_3d.yml exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(ev3, "eval_timing.json")) as fh:
+        t3 = json.load(fh)
+    launches["eval_3d"] = t3["launches"]
+    check(t3["launches"] == {"hough_vote": 0, "conv3x3": DET_EVAL_FRAMES, "nms": 0}, f"3D eval {t3['launches']}")
+    with np.load(os.path.join(ev3, "detections.npz")) as d:
+        poses3 = [d[k] for k in d.files if k.endswith("_poses")]
+    check(all(np.isfinite(p).all() and p.shape[1] == 7 for p in poses3), "3D eval: poses not finite")
+    ms3 = {k: statistics.median(v[DET_EVAL_WARMUP:]) for k, v in t3["ms"].items()}
+    label, depth, vp, extents, meta = ransac_scene()
+    rec = T.Draws(torch.Generator(device=dev).manual_seed(0), record=True)
+    vp_card = torch.from_numpy(vp[None]).to(dev)
+    rois_c, poses_c = E.decode_poses_3d({"label_2d": label[None], "vertex_pred": vp_card}, depth, meta, extents, 4,
+                                        draws=rec)
+    rois_p, poses_p = E.decode_poses_3d({"label_2d": label[None], "vertex_pred": torch.from_numpy(vp[None])}, depth,
+                                        meta, extents, 4, draws=T.Draws(replay={k: v.cpu() for k, v in
+                                                                                rec.recorded.items()}))
+    t_err = float(np.abs(poses_c[:, 4:] - poses_p[:, 4:]).max())
+    q_err = max(1 - abs(float(np.dot(a, b))) for a, b in zip(poses_c[:, :4], poses_p[:, :4]))
+    check(np.array_equal(rois_c, rois_p) and rois_c.shape[0] == 2 and t_err <= 2e-4 and q_err <= 5e-3,
+          f"RANSAC card against CPU: rois {rois_c} vs {rois_p}, t {t_err}, q {q_err}")
+    dec_ms = single_ms(lambda: E.decode_poses_3d({"label_2d": label[None], "vertex_pred": vp_card}, depth, meta,
+                                                 extents, 4))
+    phase(13, f"test_net --cfg lov_color_3d.yml --imdb lov_syn_val_v4 --max_frames {DET_EVAL_FRAMES} (the 3D head, "
+              f"RANSAC, seed weights): {sum(len(p) for p in poses3)} poses, all finite; per frame (median of frames "
+              f"{DET_EVAL_WARMUP + 1}-{DET_EVAL_FRAMES}) " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms3.items())
+              + f"; peak {t3['peak_memory_mib']:.1f} MiB; launches {t3['launches']}. RANSAC on a well-posed scene "
+              f"(2 boxes, 256 hypotheses, 512 points, recorded draws) card against CPU: rois equal (inliers "
+              f"{rois_c[:, 6].tolist()}), t max|err| {t_err:.3g} m, 1-|q.q'| {q_err:.3g} (limits 2e-4, 5e-3); "
+              f"decode_poses_3d on the card {dec_ms:.3f} ms a call (2 classes, host label count included)")
+
+    # (f) one 3D step on rendered scenes with their vertmaps, card against CPU
+    t0 = time.perf_counter()
+    cfg3 = C.cfg_from_file(os.path.join(ROOT, cfg3_rel))
+    model_cfg, hp3, mcfg = C.train_model_cfg(cfg3, n_cls), C.train_hparams(cfg3), C.minibatch_cfg(cfg3, n_cls)
+    frames = rendered_3d_frames(2, seed=cfg3.RNG_SEED)
+    batch = M.get_minibatch(frames, mcfg, np.random.RandomState(cfg3.RNG_SEED), extents=imdb._extents)
+    check("vertex_targets3" in batch and batch["vertex_weights3"].sum() > 0, "3D batch without targets")
+    ext = np.asarray(imdb._extents, np.float32)
+    consts = [torch.from_numpy(a) for a in (M.rescale_points(np.asarray(imdb._points_all, np.float32), ext, sym),
+                                            sym, ext)]
+    weights = init_params_numpy(cfg3.RNG_SEED, model_cfg)
+    state = T.create_train_state(make_model(model_cfg, weights, dev), hp3)
+    step = T.make_train_step(model_cfg, hp3, *(c.to(dev) for c in consts))
+    draws = T.Draws(torch.Generator(device=dev).manual_seed(cfg3.RNG_SEED), record=True)
+    reset()
+    got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), draws).items()}
+    launches["step_3d"] = counts()
+    check(launches["step_3d"] == {"hough_vote": 0, "conv3x3": 2, "nms": 0}, f"3D step {launches['step_3d']}")
+    check(np.isfinite(got["loss_vertex"]) and got["loss_vertex"] > 0, f"3D step losses {got}")
+    grads = {k: p.grad.detach().float().cpu() for k, p in state.model.named_parameters()}
+    del state, step
+    torch.cuda.empty_cache()
+    state_cpu = T.create_train_state(make_model(model_cfg, weights, "cpu"), hp3)
+    replay = T.Draws(replay={k: v.cpu() for k, v in draws.recorded.items()})
+    loss, ref = T.compute_losses(state_cpu.model, model_cfg, hp3, T.to_device(batch, "cpu"), *consts, replay)
+    ref = {k: float(v.detach()) for k, v in ref.items()}
+    ref["grad_norm"] = float(T.train_update(state_cpu, loss, T.lr_schedule(hp3)(0)))
+    rel = {k: _rel(got[k], ref[k]) for k in TRAIN_LOSS_LIMITS}
+    grad_rel = {k: float((grads[k] - p.grad.float()).abs().max()) / max(float(p.grad.abs().max()), 1e-30)
+                for k, p in state_cpu.model.named_parameters()}
+    check(all(rel[k] <= lim for k, lim in TRAIN_LOSS_LIMITS.items())
+          and all(grad_rel[k] <= lim for k, lim in TRAIN_GRAD_LIMITS.items()),
+          f"3D step, card against CPU: relative errors {rel}, limits {TRAIN_LOSS_LIMITS}; gradients "
+          + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in TRAIN_GRAD_LIMITS) + f", limits {TRAIN_GRAD_LIMITS}")
+    step_s = time.perf_counter() - t0
+    rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg3_rel, "--imdb", "lov_syn_val_v4", "--iters", "1",
+                       "--output", os.path.join(work, "train3d")], os.path.join(work, "train3d.log"), 300)
+    check(rc != 0 and "Frame.vertmap" in log, f"train_net --cfg lov_color_3d.yml: exit {rc}, log:\n{log[-2000:]}")
+    message = [ln for ln in log.splitlines() if "Frame.vertmap" in ln][-1].strip()
+    phase(13, f"3D step (lov_color_3d.yml: B=2, 640x480, bf16, keep 0.5, device chroma and noise) on two rendered "
+              f"scenes with the rasterizer's vertmaps, card against the CPU port ({step_s:.1f} s): "
+              + "; ".join(f"{k} {got[k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g} (limit {TRAIN_LOSS_LIMITS[k]})"
+                          for k in TRAIN_LOSS_LIMITS)
+              + "; " + "; ".join(f"{k} gradient {grad_rel[k]:.3g} (limit {lim})"
+                                 for k, lim in TRAIN_GRAD_LIMITS.items())
+              + f"; launches {launches['step_3d']}. train_net --cfg lov_color_3d.yml --imdb lov_syn_val_v4 exits {rc}: "
+              f"{message[:200]}; phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return record, launches
 
 
 def toy_phase3(kernels: dict, w_t, dev) -> None:
@@ -1688,19 +2100,28 @@ def main() -> int:
         toy_launches = toy_phase(work, dev)
         refresh_launches = refresh_phase(work, dev)
         input_launches = input_modes_phase(work, dev)
+        nms_record, det_launches = det_3d_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     print(smi, flush=True)
     sources = {"hough_vote": ("posecnn_torch/csrc/hough_vote.cu", "posecnn_tpu/ops/pallas/voting.py:36"),
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
+    det_paths = {f"launches_{path}": n for path, n in det_launches.items()}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],
              "launches_toy_eval": toy_launches["eval"][k], "launches_refresh_cli": refresh_launches["cli"][k],
              "launches_refresh_ab": refresh_launches["ab"][k],
-             **{f"launches_{path}": n[k] for path, n in input_launches.items()}, **kernels[k]}
+             **{f"launches_{path}": n[k] for path, n in input_launches.items()},
+             **{key: n[k] for key, n in det_paths.items()}, **kernels[k]}
             for k in ("hough_vote", "conv3x3")]
+    # the NMS kernel has no Pallas counterpart: it replaces the JAX
+    # package's fori_loop sweep, nms_jax; its main path is the detection
+    # trainer's run (phase 13 (b))
+    line.append({"name": "nms", "route": "cuda", "source": "posecnn_torch/csrc/nms.cu",
+                 "replaces": "posecnn_tpu/ops/nms.py:38", "launches": det_launches["det_train_cli"]["nms"],
+                 **{key: n["nms"] for key, n in det_paths.items()}, **nms_record})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,10 +1,12 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Each CUDA kernel is a `.cu` file under `posecnn_torch/csrc/` with a plain C
-entry point, compiled by `nvcc`; the host renderer (`csrc/rasterizer.cc`) and
-the host bilateral filter (`csrc/bilateral.cc`) are compiled by `g++`. Each becomes a shared library under `posecnn_torch/_build/`
-(listed in `.gitignore`); the file name carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. Nothing
+Each CUDA kernel (`hough_vote.cu`, `conv3x3.cu`, `nms.cu`) is a `.cu` file
+under `posecnn_torch/csrc/` with a plain C entry point, compiled by `nvcc`;
+the host renderer (`csrc/rasterizer.cc`) and the host bilateral filter
+(`csrc/bilateral.cc`) are compiled by `g++`. Each becomes a shared library
+under `posecnn_torch/_build/` (listed in `.gitignore`); the file name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and an unchanged one is reused. Nothing
 here runs at import time: the CPU tests import every module of the port, and
 the CUDA kernels build only on a machine with `nvcc`.
 """
@@ -105,6 +107,16 @@ def conv3x3_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def nms_lib() -> ctypes.CDLL:
+    """The loaded NMS keep-mask library, with its entry point's C signature."""
+    lib = ctypes.CDLL(str(build_library("nms")))
+    fn = lib.nms_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def bilateral_lib() -> ctypes.CDLL:
     """The loaded host bilateral filter, with its entry point's C signature."""
     lib = ctypes.CDLL(str(build_library("bilateral")))
@@ -138,7 +150,7 @@ def rasterizer_lib() -> ctypes.CDLL:
     return lib
 
 
-LIBRARIES = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib, "rasterizer": rasterizer_lib,
+LIBRARIES = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib, "nms": nms_lib, "rasterizer": rasterizer_lib,
              "bilateral": bilateral_lib}
 
 

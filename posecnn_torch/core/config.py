@@ -21,7 +21,9 @@ The builders assemble what `tools/train_net.py:107-164, 396-414` and
 training (`train_model_cfg`) or testing (`test_model_cfg`), the training
 hyper-parameters (`train_hparams`), the minibatch settings
 (`minibatch_cfg`), FCN-8s's hyper-parameters and minibatch settings
-(`seg_settings`) and the test settings (`test_settings`). Each first calls
+(`seg_settings`), the detection network's model config and
+hyper-parameters (`det_model_cfg`, `det_hparams`) and the test settings
+(`test_settings`). Each first calls
 `check_supported`, which raises `NotImplementedError` naming the first key
 whose setting the port does not run.
 """
@@ -538,8 +540,9 @@ def get_output_dir(config: Config, imdb_name: str, net_name: Optional[str] = Non
 # -------------------------------------------------------------- the builders
 
 
-# the networks the port runs: PoseCNN and FCN-8s (`models/factory.py`)
-NETWORKS = ("VGG16", "FCN8VGG")
+# the networks the port runs: PoseCNN, FCN-8s and the detection network
+# (`models/factory.py`)
+NETWORKS = ("VGG16", "FCN8VGG", "VGG16DET")
 
 
 def unsupported(cfg: Config, train: bool = True) -> List[str]:
@@ -555,7 +558,6 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
     ]
     if train:
         rules += [
-            ("TRAIN.VERTEX_REG_3D", T.VERTEX_REG_3D, T.VERTEX_REG_3D),
             ("TRAIN.VOTING_THRESHOLD", T.VOTING_THRESHOLD, T.VOTING_THRESHOLD > 0),
             ("TRAIN.SYNTHESIZE", T.SYNTHESIZE, T.SYNTHESIZE),
             ("TRAIN.ADAPT", T.ADAPT, T.ADAPT),
@@ -569,15 +571,16 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
         ]
     else:
         rules += [
-            ("TEST.VERTEX_REG_3D", S.VERTEX_REG_3D, S.VERTEX_REG_3D),
             ("TEST.VOTING_THRESHOLD", S.VOTING_THRESHOLD, S.VOTING_THRESHOLD > 0),
             ("TEST.GAN", S.GAN, S.GAN),
             ("TEST.VISUALIZE", S.VISUALIZE, S.VISUALIZE),
             ("TEST.SCALES_BASE", S.SCALES_BASE, tuple(S.SCALES_BASE)[:1] != (1.0,)),
             # the JAX package's test_net on PoseCNN without the vertex head
             # raises KeyError: postprocess_detections reads rois, which the
-            # inference function returns only with it (engine/test.py:87)
-            ("TEST.VERTEX_REG_2D", S.VERTEX_REG_2D, cfg.NETWORK == "VGG16" and not S.VERTEX_REG_2D),
+            # inference function returns only with it (engine/test.py:87);
+            # the 3D head decodes its own rois by RANSAC (:351-377)
+            ("TEST.VERTEX_REG_2D", S.VERTEX_REG_2D,
+             cfg.NETWORK == "VGG16" and not S.VERTEX_REG_2D and not S.VERTEX_REG_3D),
         ]
     return [f"{k}: {v!r}" for k, v, bad in rules if bad]
 
@@ -643,6 +646,34 @@ def test_model_cfg(cfg: Config, num_classes: int):
         skip_pixels=P.HOUGH_SKIP_PIXELS,
         use_crop_pool=P.USE_CROP_POOL,
     )
+
+
+def det_model_cfg(cfg: Config, num_classes: int, train: bool = True):
+    """The `DetConfig` of the detection network (NETWORK VGG16DET): for
+    training `tools/train_net.py:455`'s, the defaults (pre-NMS 6000,
+    post-NMS 300, NMS 0.7) whatever TRAIN.RPN_* say; for testing
+    `tools/test_net.py:70-76`'s, TEST.RPN_NMS_THRESH, RPN_PRE_NMS_TOP_N and
+    RPN_POST_NMS_TOP_N."""
+    from posecnn_torch.models.detection import DetConfig
+
+    check_supported(cfg, train=train)
+    if train:
+        return DetConfig(num_classes=num_classes, is_train=True)
+    S = cfg.TEST
+    return DetConfig(num_classes=num_classes, is_train=False, rpn_nms_thresh=S.RPN_NMS_THRESH,
+                     rpn_pre_nms_top_n=S.RPN_PRE_NMS_TOP_N, rpn_post_nms_top_n=S.RPN_POST_NMS_TOP_N)
+
+
+def det_hparams(cfg: Config):
+    """The detection trainer's `TrainHParams` (`tools/train_net.py:456-460`):
+    the solver's rates and decay, the L2 weight and POSE_W; no clipping
+    whatever TRAIN.GRAD_CLIP says."""
+    from posecnn_torch.engine.train import TrainHParams
+
+    check_supported(cfg, train=True)
+    T = cfg.TRAIN
+    return TrainHParams(learning_rate=T.LEARNING_RATE, momentum=T.MOMENTUM, gamma=T.GAMMA, stepsize=T.STEPSIZE,
+                        weight_reg=T.WEIGHT_REG, pose_w=T.POSE_W)
 
 
 def train_hparams(cfg: Config):

@@ -17,7 +17,8 @@ packages (`params_to_numpy` is the way back):
                 way in, written from it on the way back
 
 A weight's rank tells the two apart, so the same functions serve PoseCNN
-(`fc6` a fully connected layer) and FCN-8s (`fc6` a 7x7 convolution,
+and the detection network (`fc6` a fully connected layer,
+`models/detection.py`) and FCN-8s (`fc6` a 7x7 convolution,
 `models/fcn8.py`).
 """
 
@@ -39,6 +40,8 @@ _HEADS = {
     "score_conv5", "score_conv4", "score", "score_conv5_vertex", "score_conv4_vertex", "vertex_pred",
     "fc6", "fc7", "fc8",  # PoseCNN's pose head, FCN-8s's fc6 and fc7
     "score_fr", "score_pool4", "score_pool3",  # FCN-8s
+    # the detection network (fc6 and fc7 as above)
+    "conv_rpn", "rpn_cls_score", "rpn_bbox_pred", "cls_score", "bbox_pred", "poses_pred_unnormalized",
 }
 # each score layer's bilinear upsampling filters (name, size), which the JAX
 # package keeps as parameters at the score layer's width
@@ -187,14 +190,17 @@ def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np
     return out
 
 
-def param_shapes(cfg: PoseCNNConfig) -> Dict[str, Dict[str, tuple]]:
-    """The JAX-layout shape of every parameter of `PoseCNN(cfg)` (the
-    `upscore*` filters, which it rebuilds, left out), read from a model on
-    the meta device: no weights are drawn."""
+def param_shapes(cfg) -> Dict[str, Dict[str, tuple]]:
+    """The JAX-layout shape of every parameter of `PoseCNN(cfg)`, or of
+    `VGG16Det(cfg)` for a `models.detection.DetConfig` (the `upscore*`
+    filters, which PoseCNN rebuilds, left out), read from a model on the
+    meta device: no weights are drawn."""
+    from posecnn_torch.models.detection import DetConfig, VGG16Det
     from posecnn_torch.models.posecnn import PoseCNN
 
+    model = VGG16Det(cfg, device="meta") if isinstance(cfg, DetConfig) else PoseCNN(cfg, device="meta")
     out: Dict[str, Dict[str, tuple]] = {}
-    for key, v in PoseCNN(cfg, device="meta").state_dict().items():
+    for key, v in model.state_dict().items():
         path, leaf = key.rsplit(".", 1)
         s = tuple(v.shape)
         if leaf == "weight":

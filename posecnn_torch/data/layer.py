@@ -70,8 +70,13 @@ class GtSynthesizeLayer:
             fr = self.dataset.load_frame(int(i))
             if rdb is not None and rdb[int(i)].get("flipped"):
                 fr = replace(fr, flipped=True)  # a copy: a dataset may cache its frames
+            if self.mcfg.vertex_reg_3d and fr.vertmap is None:
+                # the JAX package's loaders set no vertmap either, and its
+                # get_minibatch stops here with a TypeError
+                raise ValueError(f"VERTEX_REG_3D training needs Frame.vertmap (per-pixel object coordinates): "
+                                 f"frame {int(i)} of {getattr(self.dataset, 'name', 'the dataset')} has none")
             frames.append(fr)
-        return get_minibatch(frames, self.mcfg, self.rng)
+        return get_minibatch(frames, self.mcfg, self.rng, extents=getattr(self.dataset, "_extents", None))
 
     def __iter__(self):
         while True:

@@ -18,9 +18,11 @@ RGBD and NORMAL inputs the jitter and the noise run here
 (`utils.blob.chromatic_transform`, `add_noise`), and the input image is
 the depth image (`depth_input_image`), the colour image with the depth
 image as `data_p` (RGBD), or the normal image (`normals_np`,
-`normal_input_image`). The other branches of the JAX function raise
-NotImplementedError: dense host targets, GAN blobs, adaptation and
-synthetic frames, VERTEX_REG_3D and input rescaling.
+`normal_input_image`). With VERTEX_REG_3D each image carries the scaled
+object coordinates of its pixels' classes (`vertex_targets_3d`, from the
+frame's `vertmap`) instead of the centre table. The other branches of the
+JAX function raise NotImplementedError: dense host targets, GAN blobs,
+adaptation and synthetic frames, and input rescaling.
 """
 
 from __future__ import annotations
@@ -51,6 +53,11 @@ class Frame:
     factor_depth: float = 1.0
     is_synthetic: bool = False    # composite over a random background
     flipped: bool = False         # mirror horizontally when batched
+    # instance mask: pixel value j + 1 for poses[:, :, j] (multi-instance
+    # frames), and the per-pixel object coordinates (H,W,3) in the model
+    # frame that VERTEX_REG_3D trains on
+    mask: Optional[np.ndarray] = None
+    vertmap: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -135,8 +142,9 @@ def flip_poses(poses: np.ndarray, K: np.ndarray, width: int) -> np.ndarray:
 
 
 def flip_frame(fr: Frame) -> Frame:
-    """The frame mirrored horizontally: colour, label and depth flipped,
-    centres x -> width - x, poses through `flip_poses`; `flipped` cleared."""
+    """The frame mirrored horizontally: colour, label, depth, mask and
+    vertmap flipped, centres x -> width - x, poses through `flip_poses`;
+    `flipped` cleared."""
     width = fr.color.shape[1]
     center = fr.center.copy()
     center[:, 0] = width - center[:, 0]
@@ -145,6 +153,8 @@ def flip_frame(fr: Frame) -> Frame:
         color=np.ascontiguousarray(fr.color[:, ::-1]),
         label=np.ascontiguousarray(fr.label[:, ::-1]),
         depth=np.ascontiguousarray(fr.depth[:, ::-1]) if fr.depth is not None else None,
+        mask=np.ascontiguousarray(fr.mask[:, ::-1]) if fr.mask is not None else None,
+        vertmap=np.ascontiguousarray(fr.vertmap[:, ::-1]) if fr.vertmap is not None else None,
         center=center,
         poses=flip_poses(fr.poses, fr.intrinsic_matrix, width),
         flipped=False,  # consumed
@@ -155,13 +165,68 @@ def _check_host_batch(mcfg: MinibatchConfig, frames: List[Frame]) -> None:
     unported = {
         "dense host vertex targets (device_targets False)": not mcfg.device_targets,
         "gan": mcfg.gan,
-        "vertex_reg_3d": mcfg.vertex_reg_3d,
         "input rescaling (scale != 1, cv2)": mcfg.scale != 1.0,
         "synthetic frames over backgrounds": any(f.is_synthetic for f in frames),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"get_minibatch: not ported yet: {', '.join(bad)}")
+
+
+def scale_vertmap(vertmap: np.ndarray, index, extents: np.ndarray) -> np.ndarray:
+    """Object coordinates at the pixels `index` = (ys, xs), normalized to
+    [0,1] per axis by the class extent (`minibatch.py:scale_vertmap` :84,
+    the reference's `_scale_vertmap`); an axis of zero extent gives 0."""
+    out = np.zeros((len(index[0]), 3), dtype=np.float32)
+    for i in range(3):
+        vmin, vmax = -extents[i] / 2.0, extents[i] / 2.0
+        if vmax - vmin > 0:
+            a = 1.0 / (vmax - vmin)
+            b = -vmin / (vmax - vmin)
+        else:
+            a = b = 0.0
+        out[:, i] = a * vertmap[index[0], index[1], i] + b
+    return out
+
+
+def unscale_vertmap(scaled: np.ndarray, cls_index: int, extents: np.ndarray) -> np.ndarray:
+    """The inverse of `scale_vertmap` for one class (`minibatch.py:99`):
+    [0,1]^3 -> model coordinates."""
+    out = np.zeros_like(scaled, dtype=np.float32)
+    for i in range(3):
+        vmin, vmax = -extents[cls_index, i] / 2.0, extents[cls_index, i] / 2.0
+        out[..., i] = scaled[..., i] * (vmax - vmin) + vmin
+    return out
+
+
+def vertex_targets_3d(im_label: np.ndarray, cls_indexes: np.ndarray, num_classes: int, weight: float,
+                      vertmap: np.ndarray, extents: np.ndarray, mask: Optional[np.ndarray] = None):
+    """The 3D branches of `minibatch.py:generate_vertex_targets` (:119-181):
+    each labelled pixel gets its scaled object coordinates (`scale_vertmap`
+    by its class's extent) and `weight` on the 3 channels of its class,
+    (H,W,3C) each. Several instances of one class with a `mask` (pixel
+    value = instance slot + 1): each pixel by its own instance; otherwise
+    per class, where the frame has an instance of it."""
+    height, width = im_label.shape
+    targets = np.zeros((height, width, 3 * num_classes), dtype=np.float32)
+    weights = np.zeros((height, width, 3 * num_classes), dtype=np.float32)
+    if mask is not None and len(np.unique(cls_indexes)) < len(cls_indexes):
+        for j in range(len(cls_indexes)):
+            cls = int(cls_indexes[j])
+            if cls <= 0 or cls >= num_classes:
+                continue
+            y, x = np.where((mask == j + 1) & (im_label == cls))
+            if len(x) == 0:
+                continue
+            targets[y, x, 3 * cls:3 * cls + 3] = scale_vertmap(vertmap, (y, x), extents[cls, :])
+            weights[y, x, 3 * cls:3 * cls + 3] = weight
+    else:
+        for i in range(1, num_classes):
+            y, x = np.where(im_label == i)
+            if len(x) > 0 and len(np.where(cls_indexes == i)[0]) > 0:
+                targets[y, x, 3 * i:3 * i + 3] = scale_vertmap(vertmap, (y, x), extents[i, :])
+                weights[y, x, 3 * i:3 * i + 3] = weight
+    return targets, weights
 
 
 def depth_input_image(depth: np.ndarray) -> np.ndarray:
@@ -207,7 +272,8 @@ def normal_input_image(depth: np.ndarray, factor_depth: float, K: np.ndarray) ->
     return im.astype(np.float32)
 
 
-def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
+def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.RandomState,
+                  extents: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
     """The host batch of `frames` with fixed shapes (the device-targets
     branches of `posecnn_tpu/data/minibatch.py:get_minibatch`):
 
@@ -219,6 +285,12 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
       meta_data    (B,48)         float32
       poses        (max_gt,13)    float32 GT pose rows, column 0 the image
       gt_centers   (B,max_gt,4)   float32 [cls, cx, cy, z] (vertex_reg)
+      vertex_targets3 (B,H,W,3)   float32 scaled object coordinates of each
+                                          pixel's class (vertex_reg_3d, in
+                                          place of gt_centers; needs
+                                          `extents` (C,3) and frames with a
+                                          vertmap)
+      vertex_weights3 (B,H,W)     float32 their weights
       chroma_dhls  (B,3)          float32 HLS deltas (chromatic, COLOR)
       noise_sigma  (B,)           float32 Gaussian noise sigma, 0 for a
                                           blurred image (add_noise, COLOR)
@@ -238,6 +310,8 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
     want_depth_input = mcfg.input_format in ("DEPTH", "RGBD")
     want_normal_input = mcfg.input_format == "NORMAL"
     ims, ims_p, labels, metas, center_rows, chroma_rows, noise_sigmas = [], [], [], [], [], [], []
+    vt3, vw3 = [], []
+    C = mcfg.num_classes
     pose_blob = np.zeros((0, 13), dtype=np.float32)
     for i, fr in enumerate(frames):
         if fr.flipped:
@@ -276,7 +350,19 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
         ims.append(_to_u8(im))
         metas.append(build_meta_data(fr.intrinsic_matrix, mcfg.scale))
         labels.append(label)
-        if mcfg.vertex_reg:
+        if mcfg.vertex_reg and mcfg.vertex_reg_3d:
+            if fr.vertmap is None:
+                raise ValueError("VERTEX_REG_3D training needs Frame.vertmap (per-pixel object coordinates), "
+                                 "and a frame of the batch has none")
+            mask = pad_im(fr.mask, 16) if fr.mask is not None else None
+            t, w = vertex_targets_3d(label, fr.cls_indexes, C, mcfg.vertex_w_inside, pad_im(fr.vertmap, 16),
+                                     np.asarray(extents), mask)
+            # the 3 channels of each pixel's class (minibatch.py:460-470)
+            lab_safe = np.clip(label, 0, C - 1)
+            idx = (3 * lab_safe[..., None] + np.arange(3)).reshape(*label.shape, 3)
+            vt3.append(np.take_along_axis(t, idx, axis=2))
+            vw3.append(np.take_along_axis(w, idx[..., :1], axis=2)[..., 0])
+        elif mcfg.vertex_reg:
             n_inst = fr.poses.shape[2]
             rows = np.zeros((n_inst, 4), np.float32)
             rows[:, 0] = fr.cls_indexes[:n_inst]
@@ -300,7 +386,10 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
         batch["chroma_dhls"] = np.asarray(chroma_rows, np.float32)
     if ims_p:
         batch["data_p"] = np.stack(ims_p)
-    if mcfg.vertex_reg:
+    if mcfg.vertex_reg and mcfg.vertex_reg_3d:
+        batch["vertex_targets3"] = np.stack(vt3)
+        batch["vertex_weights3"] = np.stack(vw3)
+    elif mcfg.vertex_reg:
         gc = np.zeros((len(frames), mcfg.max_gt, 4), np.float32)
         for i, rows in enumerate(center_rows):
             k = min(len(rows), mcfg.max_gt)

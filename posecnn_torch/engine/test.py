@@ -2,8 +2,10 @@
 the evaluation loop.
 
 Port of `posecnn_tpu/engine/test.py:make_inference_fn`,
-`postprocess_detections`, `refine_poses`, `test_net` and
-`test_net_segmentation`. The device part
+`postprocess_detections`, `refine_poses`, `decode_poses_3d`, `test_net`,
+`test_net_segmentation` and the detection network's evaluation
+(`gt_boxes_from_poses`, `DetectionEvaluator`, `make_det_inference_fn`,
+`postprocess_det`, `test_net_detection`). The device part
 (mean subtraction, network, Hough voting, pose head) runs in one call with
 no host round trip; host NMS then runs on the box columns 2:6 and score
 column 6 (the reference read columns 0..4 of its 7-column rois, a latent
@@ -39,8 +41,9 @@ def set_float32_precision() -> None:
 def make_inference_fn(model_cfg: PoseCNNConfig, pixel_means: Tuple[float, float, float], device):
     """Returns infer(model, raw_bgr_u8 (B,H,W,3), meta (B,48), extents (C,3))
     -> dict of label_2d, rois, poses_init, rois_valid, num_rois, poses_tanh
-    (the outputs the JAX engine returns by default). `model` is a
-    `models.posecnn.PoseCNN` on `device`."""
+    (the outputs the JAX engine returns by default); with 3D vertex
+    regression label_2d and vertex_pred, which the RANSAC decode reads.
+    `model` is a `models.posecnn.PoseCNN` on `device`."""
     cfg = replace(model_cfg, is_train=False, keep_prob=1.0)
     means = torch.tensor(pixel_means, dtype=torch.float32, device=device).reshape(1, 1, 1, 3)
     set_float32_precision()
@@ -50,7 +53,9 @@ def make_inference_fn(model_cfg: PoseCNNConfig, pixel_means: Tuple[float, float,
         data = raw_bgr.to(torch.float32) - means
         out = posecnn_forward(model, cfg, data, extents, meta)
         keep = {"label_2d": out["label_2d"]}
-        if cfg.vertex_reg:
+        if cfg.vertex_reg_3d:
+            keep["vertex_pred"] = out["vertex_pred"]
+        elif cfg.vertex_reg:
             keep.update(
                 rois=out["rois"],
                 poses_init=out["poses_init"],
@@ -138,6 +143,58 @@ def refine_poses(rois: np.ndarray, poses: np.ndarray, depth_m, label, points_all
     return poses_new, poses_icp
 
 
+def decode_poses_3d(
+    out: Dict,
+    depth_m: np.ndarray,
+    meta: np.ndarray,
+    extents,
+    num_classes: int,
+    label_threshold: int = 500,
+    seed: int = 0,
+    draws=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """VERTEX_REG_3D pose decoding (`engine/test.py:decode_poses_3d`
+    :190-232): each class with at least `label_threshold` predicted pixels
+    gets a Kabsch-RANSAC pose between its predicted (unscaled) object
+    coordinates and the back-projected depth points, all such classes in
+    one batched pass on the device of `out["vertex_pred"]` (1,H,W,3C);
+    out["label_2d"] (1,H,W) on the host. A class with no inliers (no depth
+    under it) is skipped. The triplets come from `draws`, by default a
+    generator seeded with `seed` on that device (JAX: PRNGKey(seed), split
+    per class). Returns numpy (rois (N,7) [0, cls, x1, y1, x2, y2,
+    inliers], poses (N,7) [quat wxyz, t])."""
+    from posecnn_torch.engine.ransac import ransac_from_maps
+    from posecnn_torch.engine.train import Draws
+
+    label = np.asarray(out["label_2d"][0])
+    vp = out["vertex_pred"][0]
+    dev = vp.device
+    fx, px, fy, py = float(meta[0]), float(meta[2]), float(meta[4]), float(meta[5])
+    counts = np.bincount(label.reshape(-1).clip(0), minlength=num_classes)
+    classes = [c for c in range(1, num_classes) if counts[c] >= label_threshold]
+    if not classes:
+        return np.zeros((0, 7), np.float32), np.zeros((0, 7), np.float32)
+    if draws is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        draws = Draws(gen)
+    q, t, n_inl = ransac_from_maps(
+        draws, vp, torch.as_tensor(label).to(dev), torch.as_tensor(depth_m, dtype=torch.float32).to(dev),
+        torch.tensor(classes, device=dev), torch.as_tensor(extents, dtype=torch.float32).to(dev), fx, fy, px, py,
+    )
+    q, t, n_inl = q.cpu().numpy(), t.cpu().numpy(), n_inl.cpu().numpy()
+    rois, poses = [], []
+    for r, c in enumerate(classes):
+        if n_inl[r] <= 0:
+            continue
+        ys, xs = np.nonzero(label == c)
+        rois.append([0, c, xs.min(), ys.min(), xs.max(), ys.max(), float(n_inl[r])])
+        poses.append(np.concatenate([q[r], t[r]]))
+    if not rois:
+        return np.zeros((0, 7), np.float32), np.zeros((0, 7), np.float32)
+    return np.asarray(rois, np.float32), np.asarray(poses, np.float32)
+
+
 def _slice_batch(out: Dict[str, np.ndarray], b: int) -> Dict[str, np.ndarray]:
     """Image b's view of a batched inference output (host arrays): the label
     map by batch row, detection rows by their batch column, which is set to
@@ -174,7 +231,9 @@ def test_net(
 ) -> List[Dict[str, Optional[np.ndarray]]]:
     """The evaluation loop (`engine/test.py:test_net`, PoseCNN with 2D vertex
     regression, with or without the pose head: without it a detection's
-    pose is Hough's `poses_init`): `eval_batch` frames an inference call,
+    pose is Hough's `poses_init`; with 3D vertex regression the RANSAC
+    decode of `decode_poses_3d`, one detection a class, in place of host
+    NMS): `eval_batch` frames an inference call,
     host NMS, and with
     `pose_refine` the depth ICP of each frame's detections (`refine_poses`
     at `icp_plane_weight`); `evaluator.add_frame` scores each frame. Returns
@@ -185,11 +244,11 @@ def test_net(
     `timings`, when given, gets per-frame lists of milliseconds: `infer`
     (the inference call to its outputs on the host, shared by a batch's
     frames), `nms`, `icp` (wall, to its result on the host), `icp_device`
-    (CUDA events around it, on a card), `evaluator` and `frame` (the sum)."""
+    (CUDA events around it, on a card), `evaluator` and `frame` (the sum);
+    with 3D vertex regression `ransac` (wall) and `ransac_device` (CUDA
+    events, on a card) in place of `nms`."""
     if im_scale != 1.0:
         raise NotImplementedError("TEST.SCALES_BASE != 1 is not ported (the JAX package resizes with cv2)")
-    if model_cfg.vertex_reg_3d:
-        raise NotImplementedError("test_net with 3D vertex regression (RANSAC) is not ported yet")
     if not model_cfg.vertex_reg:
         # the JAX package's postprocess_detections reads rois, which its
         # inference function returns only with the vertex head: a KeyError
@@ -209,12 +268,31 @@ def test_net(
         raw = torch.from_numpy(np.stack([f.color for f in frames])).to(dev)
         meta = torch.from_numpy(np.stack([build_meta_data(f.intrinsic_matrix) for f in frames])).to(dev)
         out_dev = infer(model, raw, meta, extents)
-        out_all = {k: v.cpu().numpy() for k, v in out_dev.items()}
+        # the 3D object-coordinate map stays on the device for RANSAC
+        out_all = {k: v.cpu().numpy() for k, v in out_dev.items() if k != "vertex_pred"}
         t_infer = (time.perf_counter() - t0) * 1e3
         for b, (i, frame) in enumerate(zip(idxs, frames)):
             t1 = time.perf_counter()
-            out = _slice_batch(out_all, b) if eval_batch > 1 else out_all
-            rois, poses = postprocess_detections(out, nms_threshold, reference_nms_bug)
+            decode_dev = 0.0
+            if model_cfg.vertex_reg_3d:
+                out = {"label_2d": out_all["label_2d"][b:b + 1]}
+                depth3d = (frame.depth.astype(np.float32) / float(frame.factor_depth) if frame.depth is not None
+                           else np.zeros(frame.label.shape, np.float32))
+                if cuda:
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                rois, poses = decode_poses_3d(
+                    {"label_2d": out["label_2d"], "vertex_pred": out_dev["vertex_pred"][b:b + 1]}, depth3d,
+                    build_meta_data(frame.intrinsic_matrix), extents, model_cfg.num_classes,
+                    label_threshold=model_cfg.label_threshold, seed=i,
+                )
+                if cuda:
+                    e1.record()
+                    e1.synchronize()
+                    decode_dev = e0.elapsed_time(e1)
+            else:
+                out = _slice_batch(out_all, b) if eval_batch > 1 else out_all
+                rois, poses = postprocess_detections(out, nms_threshold, reference_nms_bug)
             label_pred = out["label_2d"][0]
             t2 = time.perf_counter()
             poses_refined = poses_icp = None
@@ -242,9 +320,12 @@ def test_net(
                 )
             t4 = time.perf_counter()
             if timings is not None:
-                ms = {"infer": t_infer, "nms": (t2 - t1) * 1e3, "icp": (t3 - t2) * 1e3, "icp_device": icp_dev,
+                decode = "ransac" if model_cfg.vertex_reg_3d else "nms"
+                ms = {"infer": t_infer, decode: (t2 - t1) * 1e3, "icp": (t3 - t2) * 1e3, "icp_device": icp_dev,
                       "evaluator": (t4 - t3) * 1e3}
-                ms["frame"] = ms["infer"] / len(idxs) + ms["nms"] + ms["icp"] + ms["evaluator"]
+                if model_cfg.vertex_reg_3d:
+                    ms["ransac_device"] = decode_dev
+                ms["frame"] = ms["infer"] / len(idxs) + ms[decode] + ms["icp"] + ms["evaluator"]
                 for key, v in ms.items():
                     timings.setdefault(key, []).append(v)
             if log and (i + 1) % 50 == 0:
@@ -291,3 +372,216 @@ def test_net_segmentation(
             log(f"frame {i + 1}/{n}")
     if evaluator is not None and log:
         log(str(evaluator.summary()))
+
+
+# --------------------------------------------------------------- detection path
+
+
+def project_box_corners(extent: np.ndarray, quat: np.ndarray, trans: np.ndarray, K: np.ndarray) -> np.ndarray:
+    """The 8 projected 2D corners (pixels) of the model-frame bounding box
+    under pose (quat, trans): the port's copy of
+    `posecnn_tpu/engine/visualize.py:project_box_corners` (:36), whose
+    module needs cv2."""
+    from posecnn_torch.utils.quaternion_np import quat2mat
+
+    signs = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)], np.float64)
+    corners = signs * (np.asarray(extent, np.float64) / 2.0)  # (8,3)
+    R = quat2mat(np.asarray(quat, np.float64))
+    cam = corners @ R.T + np.asarray(trans, np.float64)
+    uv = cam @ np.asarray(K, np.float64).T
+    return uv[:, :2] / np.maximum(uv[:, 2:3], 1e-9)
+
+
+def gt_boxes_from_poses(frame, extents) -> np.ndarray:
+    """The frame's GT boxes (M,5) [cls, x1, y1, x2, y2]: each GT object's 3D
+    extent box projected through its pose and clipped to the image
+    (`engine/test.py:gt_boxes_from_poses` :511); objects behind the camera
+    or with an empty box are left out."""
+    from posecnn_torch.utils.quaternion_np import mat2quat
+
+    H, W = frame.label.shape[:2]
+    K = np.asarray(frame.intrinsic_matrix, np.float64)
+    rows = []
+    for j, c in enumerate(np.asarray(frame.cls_indexes).astype(int)):
+        R, t = frame.poses[:, :3, j], frame.poses[:, 3, j]
+        if t[2] <= 0:
+            continue
+        uv = project_box_corners(np.asarray(extents)[c], mat2quat(R), t, K)
+        x1, y1 = uv.min(axis=0)
+        x2, y2 = uv.max(axis=0)
+        x1, x2 = np.clip([x1, x2], 0, W - 1)
+        y1, y2 = np.clip([y1, y2], 0, H - 1)
+        if x2 > x1 and y2 > y1:
+            rows.append([c, x1, y1, x2, y2])
+    return np.asarray(rows, np.float32).reshape(-1, 5)
+
+
+class DetectionEvaluator:
+    """VOC AP@0.5 over GT boxes (`engine/test.py:DetectionEvaluator` :537):
+    each frame's detections, by score, match greedily the unused GT box of
+    their class with the highest IoU >= 0.5; AP is the 11-point VOC
+    average. GT boxes come from `gt_boxes` rows [cls, x1, y1, x2, y2], or
+    from the label map's per-class extents (classes with > 10 pixels)."""
+
+    def __init__(self, classes):
+        self.classes = list(classes)
+        self.records = {c: [] for c in range(1, len(self.classes))}
+        self.n_gt = {c: 0 for c in range(1, len(self.classes))}
+
+    @staticmethod
+    def _gt_boxes_from_label(label, num_classes):
+        rows = []
+        for c in range(1, num_classes):
+            ys, xs = np.nonzero(label == c)
+            if len(xs) > 10:
+                rows.append([c, xs.min(), ys.min(), xs.max(), ys.max()])
+        return np.asarray(rows, np.float32).reshape(-1, 5)
+
+    @staticmethod
+    def _iou(bb, gb):
+        ix = max(0.0, min(bb[2], gb[2]) - max(bb[0], gb[0]) + 1)
+        iy = max(0.0, min(bb[3], gb[3]) - max(bb[1], gb[1]) + 1)
+        inter = ix * iy
+        union = (bb[2] - bb[0] + 1) * (bb[3] - bb[1] + 1) + (gb[2] - gb[0] + 1) * (gb[3] - gb[1] + 1) - inter
+        return inter / max(union, 1e-9)
+
+    def add_frame(self, detections, gt_label=None, gt_boxes=None):
+        """detections (N,10) rows [cls, x1, y1, x2, y2, score, quat4];
+        gt_boxes (M,5) rows [cls, x1, y1, x2, y2]."""
+        if gt_boxes is None:
+            if gt_label is None:
+                raise ValueError("DetectionEvaluator.add_frame needs gt_boxes or gt_label")
+            gt_boxes = self._gt_boxes_from_label(gt_label, len(self.classes))
+        gt_boxes = np.asarray(gt_boxes, np.float32).reshape(-1, 5)
+        for row in gt_boxes:
+            c = int(row[0])
+            if c in self.n_gt:
+                self.n_gt[c] += 1
+        used = set()
+        order = np.argsort(-detections[:, 5]) if len(detections) else []
+        for i in order:
+            c = int(detections[i, 0])
+            if c not in self.records:
+                continue
+            bb = detections[i, 1:5]
+            best, best_j = 0.5, -1  # the VOC IoU threshold
+            for j, row in enumerate(gt_boxes):
+                if int(row[0]) != c or j in used:
+                    continue
+                iou = self._iou(bb, row[1:5])
+                if iou >= best:
+                    best, best_j = iou, j
+            if best_j >= 0:
+                used.add(best_j)
+            self.records[c].append((float(detections[i, 5]), best_j >= 0))
+
+    def summary(self):
+        aps = {}
+        for c, recs in self.records.items():
+            n_gt = self.n_gt[c]
+            if n_gt == 0:
+                continue
+            recs = sorted(recs, key=lambda r: -r[0])
+            tp = np.cumsum([r[1] for r in recs]) if recs else np.zeros(0)
+            fp = np.cumsum([not r[1] for r in recs]) if recs else np.zeros(0)
+            recall = tp / n_gt if len(tp) else np.zeros(0)
+            precision = tp / np.maximum(tp + fp, 1e-9) if len(tp) else np.zeros(0)
+            ap = 0.0
+            for t in np.linspace(0, 1, 11):
+                p = precision[recall >= t].max() if np.any(recall >= t) else 0.0
+                ap += p / 11
+            aps[self.classes[c]] = float(ap)
+        mean_ap = float(np.mean(list(aps.values()))) if aps else 0.0
+        return {"ap_per_class": aps, "mAP@0.5": mean_ap}
+
+
+def make_det_inference_fn(det_cfg, pixel_means, device):
+    """Returns infer(model, raw_bgr_u8 (1,H,W,3)) -> dict of rois, cls_prob,
+    bbox_pred and poses_tanh (`engine/test.py:make_det_inference_fn` :624).
+    `model` is a `models.detection.VGG16Det` on `device`."""
+    from posecnn_torch.models.detection import vgg16_det_forward
+
+    cfg = replace(det_cfg, is_train=False, keep_prob=1.0)
+    means = torch.tensor(np.asarray(pixel_means, np.float32).reshape(-1)[:3], device=device).reshape(1, 1, 1, 3)
+    set_float32_precision()
+
+    @torch.inference_mode()
+    def infer(model, raw_bgr) -> Dict[str, torch.Tensor]:
+        out = vgg16_det_forward(model, cfg, raw_bgr.to(torch.float32) - means)
+        return {k: out[k] for k in ("rois", "cls_prob", "bbox_pred", "poses_tanh")}
+
+    return infer
+
+
+def postprocess_det(out, num_classes: int, im_shape, nms_threshold: float = 0.3, score_threshold: float = 0.05,
+                    bbox_reg: bool = True) -> np.ndarray:
+    """RCNN outputs (host arrays) to detections (`engine/test.py:
+    postprocess_det` :645): each roi's class boxes decoded and clipped, then
+    for each class the rows scoring above `score_threshold` through host NMS
+    at `nms_threshold`. Returns (N,10) rows [cls, x1, y1, x2, y2, score,
+    quaternion wxyz normalized]."""
+    from posecnn_torch.ops.bbox import bbox_transform_inv, clip_boxes
+
+    rois = np.asarray(out["rois"])
+    cls_prob = np.asarray(out["cls_prob"])
+    boxes = rois[:, 1:5]
+    if bbox_reg:
+        boxes_all = clip_boxes(bbox_transform_inv(boxes, np.asarray(out["bbox_pred"])), im_shape)
+    else:
+        boxes_all = np.tile(boxes, (1, num_classes))
+    poses_tanh = np.asarray(out["poses_tanh"])
+    dets = []
+    for c in range(1, num_classes):
+        scores = cls_prob[:, c]
+        keep = scores > score_threshold
+        if not np.any(keep):
+            continue
+        cls_boxes = boxes_all[keep, 4 * c:4 * c + 4]
+        cls_scores = scores[keep]
+        quats = poses_tanh[keep, 4 * c:4 * c + 4]
+        quats = quats / np.maximum(np.linalg.norm(quats, axis=1, keepdims=True), 1e-12)
+        d5 = np.concatenate([cls_boxes, cls_scores[:, None]], axis=1).astype(np.float32)
+        for i in nms_np(d5, nms_threshold):
+            dets.append(np.concatenate([[c], cls_boxes[i], [cls_scores[i]], quats[i]]).astype(np.float32))
+    return np.asarray(dets, np.float32).reshape(-1, 10)
+
+
+def test_net_detection(model, det_cfg, dataset, pixel_means, evaluator=None, max_frames: Optional[int] = None,
+                       nms_threshold: float = 0.3, log=print,
+                       timings: Optional[Dict[str, List[float]]] = None) -> List[np.ndarray]:
+    """The detection network's evaluation (`engine/test.py:test_net_detection`
+    :688): each frame's colour image through `make_det_inference_fn`, then
+    `postprocess_det` at `nms_threshold`; `evaluator.add_frame` scores it
+    against `gt_boxes_from_poses` (the label map's extents for a frame
+    without poses). Returns each frame's (N,10) detections. `timings`, when
+    given, gets per-frame milliseconds: `infer` (to the outputs on the
+    host), `postprocess`, `evaluator` and `frame` (the sum)."""
+    dev = next(model.parameters()).device
+    infer = make_det_inference_fn(det_cfg, pixel_means, dev)
+    n = dataset.num_images if max_frames is None else min(max_frames, dataset.num_images)
+    ext = getattr(dataset, "_extents", None)
+    results = []
+    for i in range(n):
+        frame = dataset.load_frame(i)
+        t0 = time.perf_counter()
+        out = {k: v.cpu().numpy() for k, v in infer(model, torch.from_numpy(frame.color[None]).to(dev)).items()}
+        t1 = time.perf_counter()
+        dets = postprocess_det(out, det_cfg.num_classes, frame.color.shape[:2], nms_threshold=nms_threshold)
+        results.append(dets)
+        t2 = time.perf_counter()
+        if evaluator is not None:
+            gt_boxes = None
+            if getattr(frame, "poses", None) is not None and frame.poses.shape[-1] and ext is not None:
+                gt_boxes = gt_boxes_from_poses(frame, ext)
+            evaluator.add_frame(dets, gt_label=frame.label, gt_boxes=gt_boxes)
+        t3 = time.perf_counter()
+        if timings is not None:
+            ms = {"infer": (t1 - t0) * 1e3, "postprocess": (t2 - t1) * 1e3, "evaluator": (t3 - t2) * 1e3}
+            ms["frame"] = sum(ms.values())
+            for key, v in ms.items():
+                timings.setdefault(key, []).append(v)
+        if log and (i + 1) % 50 == 0:
+            log(f"frame {i + 1}/{n}: {len(dets)} detections")
+    if evaluator is not None and log:
+        log(str(evaluator.summary()))
+    return results

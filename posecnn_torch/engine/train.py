@@ -42,7 +42,7 @@ from posecnn_torch.models.posecnn import PoseCNN, posecnn_forward
 from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.chromatic import add_noise_field, chromatic_device
 from posecnn_torch.ops.losses import loss_cross_entropy_hard_label_sparse, loss_cross_entropy_single_frame
-from posecnn_torch.ops.vertex_targets import smooth_l1_loss_vertex_sparse
+from posecnn_torch.ops.vertex_targets import smooth_l1_loss_vertex_sparse, smooth_l1_loss_vertex_sparse3d
 
 
 @dataclass(frozen=True)
@@ -109,6 +109,22 @@ class Draws:
         return self._get(
             name, device, lambda: torch.randint(0, high, tuple(shape), generator=self.generator, device=device)
         )
+
+    def choice(self, name: str, p: torch.Tensor, shape) -> torch.Tensor:
+        """Indices into the last axis of `p` (..., N), drawn with replacement
+        with probabilities p, `shape` of them for each leading row (...,
+        *shape): `jax.random.choice(key, N, shape, p=p)`'s formula, the
+        cumulative sum searched for cumsum[-1] * (1 - u). A replay hands
+        back the recorded indices."""
+        def make():
+            cum = torch.cumsum(p, dim=-1)
+            lead = p.shape[:-1]
+            u = torch.rand(tuple(lead) + tuple(shape), generator=self.generator, device=p.device)
+            r = cum[..., -1:].reshape(tuple(lead) + (1,) * len(shape)) * (1 - u)
+            idx = torch.searchsorted(cum.contiguous(), r.reshape(tuple(lead) + (-1,)).contiguous())
+            return idx.reshape(u.shape)
+
+        return self._get(name, p.device, make)
 
 
 class MomentumSGD:
@@ -216,10 +232,17 @@ def compute_losses(
     losses["loss_cls"] = loss_cls
     loss = loss + loss_cls
     if model_cfg.vertex_reg:
-        loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse(
-            out["vertex_pred"], batch["gt_label_2d"], batch["gt_centers"], model_cfg.num_classes, hp.vertex_w_inside,
-            z_obj_norm=hp.vertex_z_obj_norm,
-        )
+        if "vertex_targets3" in batch:
+            # VERTEX_REG_3D: the compact scaled object coordinates (train.py:225-232)
+            loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse3d(
+                out["vertex_pred"], batch["gt_label_2d"], batch["vertex_targets3"], batch["vertex_weights3"],
+                model_cfg.num_classes,
+            )
+        else:
+            loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse(
+                out["vertex_pred"], batch["gt_label_2d"], batch["gt_centers"], model_cfg.num_classes,
+                hp.vertex_w_inside, z_obj_norm=hp.vertex_z_obj_norm,
+            )
         losses["loss_vertex"] = loss_vertex
         loss = loss + loss_vertex
         if model_cfg.pose_reg:
@@ -577,3 +600,96 @@ class Solver:
         if log:
             log(f"snapshot {path} ({os.path.getsize(path) / 2**20:.1f} MiB, {time.perf_counter() - t0:.3f}s)")
         return path
+
+
+# ------------------------------------------------------------- detection path
+
+
+def det_batch_from_frame(frame, max_gt: int = 24) -> Dict[str, np.ndarray]:
+    """The single-image detection batch (`train.py:det_batch_from_frame`):
+    the raw colour frame (1,H,W,3) uint8, no jitter and no noise whatever
+    the config says; GT boxes (max_gt,5) [x1,y1,x2,y2,cls] from each
+    class's label extent (classes with >= 10 pixels, in class order); the
+    GT pose rows (max_gt,13)."""
+    from posecnn_torch.data.minibatch import pose_rows
+
+    label = frame.label
+    boxes = np.zeros((max_gt, 5), np.float32)
+    k = 0
+    for c in np.unique(label):
+        if c <= 0 or k >= max_gt:
+            continue
+        ys, xs = np.nonzero(label == c)
+        if len(xs) < 10:
+            continue
+        boxes[k] = [xs.min(), ys.min(), xs.max(), ys.max(), c]
+        k += 1
+    poses = np.zeros((max_gt, 13), np.float32)
+    rows = pose_rows(0, frame)
+    poses[: min(len(rows), max_gt)] = rows[:max_gt]
+    return {"data": frame.color[None].astype(np.uint8), "gt_boxes": boxes, "poses": poses}
+
+
+def det_losses(model, det_cfg, hp: TrainHParams, batch: Dict[str, torch.Tensor], points: torch.Tensor,
+               symmetry: torch.Tensor, draws: Draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The detection loss (`train.py:make_det_train_step`'s losses_fn,
+    reference train_net_det): the RPN cross entropy over the anchors with a
+    label, the RPN box loss (sigma 3, summed over the anchors), the RCNN
+    cross entropy and box loss, the ADD pose loss at pose_w and the L2 term.
+    uint8 data has the pixel means subtracted and nothing else."""
+    from posecnn_torch.models.detection import vgg16_det_forward
+    from posecnn_torch.models.layers import log_softmax_hd
+    from posecnn_torch.ops.losses import smooth_l1_loss, sparse_softmax_cross_entropy
+
+    data = batch["data"]
+    if data.dtype == torch.uint8:
+        data = data.to(torch.float32) - torch.tensor(hp.pixel_means, device=data.device).reshape(1, 1, 1, 3)
+    out = vgg16_det_forward(model, det_cfg, data, gt_boxes=batch["gt_boxes"], gt_poses=batch["poses"], draws=draws)
+    losses: Dict[str, torch.Tensor] = {}
+    logits = out["rpn_cls_score"].reshape(-1, 2)
+    rpn_labels = out["rpn_labels"].reshape(-1)
+    keep = rpn_labels != -1
+    lab_safe = torch.where(keep, rpn_labels, torch.zeros((), dtype=rpn_labels.dtype, device=rpn_labels.device))
+    ce = -torch.gather(log_softmax_hd(logits), 1, lab_safe.long()[:, None])[:, 0]
+    zero = torch.zeros((), device=ce.device)
+    losses["loss_rpn_cls"] = torch.where(keep, ce, zero).sum() / torch.clamp(keep.sum(), min=1)
+    losses["loss_rpn_box"] = smooth_l1_loss(
+        out["rpn_bbox_pred"].reshape(1, -1, 4), out["rpn_bbox_targets"].reshape(1, -1, 4),
+        out["rpn_bbox_inside_weights"].reshape(1, -1, 4), out["rpn_bbox_outside_weights"].reshape(1, -1, 4),
+        sigma=3.0, dim=(1, 2),
+    )
+    losses["loss_cls"] = sparse_softmax_cross_entropy(out["cls_score"], out["labels"])
+    losses["loss_box"] = smooth_l1_loss(out["bbox_pred"], out["bbox_targets"], out["bbox_inside_weights"],
+                                        out["bbox_outside_weights"], dim=(1,))
+    losses["loss_pose"] = hp.pose_w * average_distance_loss(
+        out["poses_pred"], out["poses_target"], out["poses_weight"], points, symmetry, hp.margin)
+    losses["loss_regu"] = regularization_loss(model, hp.weight_reg)
+    loss = sum(losses[k] for k in ("loss_rpn_cls", "loss_rpn_box", "loss_cls", "loss_box", "loss_pose",
+                                   "loss_regu"))
+    losses["loss"] = loss
+    return loss, losses
+
+
+def make_det_train_step(
+    det_cfg, hp: TrainHParams, points: torch.Tensor, symmetry: torch.Tensor
+) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
+    """The detection train step (`train.py:make_det_train_step`):
+    step(state, batch, draws) computes `det_losses` and their gradients
+    (through the proposals: nothing on that path is detached, as in JAX)
+    and updates the state in place by momentum SGD at
+    lr_schedule(hp)(state.step), without clipping (hp.clip_grad_norm is 0
+    there). batch: data (1,H,W,3) uint8, gt_boxes (G,5), poses (G,13), on
+    the device. Returns the loss terms (detached), the lr and the gradient
+    norm."""
+    sched = lr_schedule(hp)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
+        loss, losses = det_losses(state.model, det_cfg, hp, batch, points, symmetry, draws)
+        lr = sched(state.step)
+        g_norm = train_update(state, loss, lr)
+        out = {k: v.detach() for k, v in losses.items()}
+        out["lr"] = torch.tensor(lr, dtype=torch.float64)
+        out["grad_norm"] = g_norm
+        return out
+
+    return step_fn

@@ -2,8 +2,10 @@
 
 Port of `posecnn_tpu/models/factory.py` for the networks the port runs:
 `vgg16_convs` (PoseCNN: `core.convert.init_params_numpy`,
-`models.posecnn.posecnn_forward`) and `fcn8_vgg` (FCN-8s:
-`models.fcn8.init_fcn8_params_numpy`, `fcn8_forward`). The JAX package's
+`models.posecnn.posecnn_forward`), `fcn8_vgg` (FCN-8s:
+`models.fcn8.init_fcn8_params_numpy`, `fcn8_forward`) and `vgg16_det`
+(the detection network: `models.detection.init_vgg16_det_params_numpy`,
+`vgg16_det_forward`). The JAX package's
 other names raise NotImplementedError naming the network; a name it does
 not know raises KeyError, as there.
 """
@@ -27,6 +29,10 @@ def get_network(name: str) -> Tuple[Callable, Callable]:
         from posecnn_torch.models.fcn8 import fcn8_forward, init_fcn8_params_numpy
 
         return init_fcn8_params_numpy, fcn8_forward
+    if name == "vgg16_det":
+        from posecnn_torch.models.detection import init_vgg16_det_params_numpy, vgg16_det_forward
+
+        return init_vgg16_det_params_numpy, vgg16_det_forward
     if name in JAX_NETWORKS:
-        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, vgg16_convs)")
+        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, vgg16_convs, vgg16_det)")
     raise KeyError(f"Unknown network: {name}. Known: {sorted(JAX_NETWORKS)}")

@@ -10,6 +10,9 @@ second trunk on the depth image (`data_p`), whose conv5_3 and conv4_3 the
 label head reads concatenated with the colour trunk's, while the vertex
 head and the RoI pools read the colour trunk's alone.
 
+With `vertex_reg_3d` the vertex head predicts extent-normalized object
+coordinates (3 channels a class) and the network ends there.
+
 Training (`cfg.is_train`) adds dropout on add_score, addv, fc6 and fc7, the
 `gt_label_weight` endpoint, GT rows into Hough voting (targets and 9 rows a
 detection), the per-image `hough_gt_mix` draw that feeds Hough the GT
@@ -46,7 +49,6 @@ class Linear(nn.Module):
 
 def _check_supported(cfg: PoseCNNConfig) -> None:
     unported = {
-        "vertex_reg_3d": cfg.vertex_reg_3d,
         "adaptation": cfg.adaptation,
         "vote_threshold > 0": cfg.vote_threshold > 0,
         # the exact roi_pool_batched backward (roi_pool.py:182-269) is not ported
@@ -163,6 +165,10 @@ def posecnn_forward(
         m.vertex_pred.weight, m.vertex_pred.bias, addv, 16, 8, relu=False, compute_dtype=dt
     )
     out["vertex_pred"] = vertex_pred
+    if cfg.vertex_reg_3d:
+        # 3D object coordinates: no Hough voting and no pose head
+        # (posecnn.py:212-214); the poses come from RANSAC (engine/ransac.py)
+        return out
 
     # Hough voting, no gradient (posecnn.py:216-283); with no GT rows, one
     # zero row, JAX's default

@@ -4,7 +4,9 @@ Port of `posecnn_tpu/ops/losses.py:loss_cross_entropy_single_frame` (line
 18), the cross entropy of a log-softmax against one-hot or soft label
 weights, and `loss_cross_entropy_hard_label_sparse` (lines 24-47): the
 hard-label gate and the cross entropy fused on raw logits, never
-materialising the dense one-hot, softmax or log-softmax.
+materialising the dense one-hot, softmax or log-softmax; and the
+detection network's `smooth_l1_loss` (:75) and
+`sparse_softmax_cross_entropy` (:98).
 """
 
 from __future__ import annotations
@@ -34,3 +36,24 @@ def loss_cross_entropy_hard_label_sparse(score: torch.Tensor, gt: torch.Tensor, 
     select = (gt != -1) & ((gt > 0) | (prob_gt < threshold))
     gate = select.to(score.dtype).detach()
     return -(gate * logp_gt).sum() / (gate.sum() + 1e-10)
+
+
+def smooth_l1_loss(bbox_pred: torch.Tensor, bbox_targets: torch.Tensor, bbox_inside_weights: torch.Tensor,
+                   bbox_outside_weights: torch.Tensor, sigma: float = 1.0, dim=(1,)) -> torch.Tensor:
+    """The RPN and RCNN box loss (`ops/losses.py:smooth_l1_loss` :75): the
+    smooth L1 of the inside-weighted difference (quadratic below 1/sigma^2,
+    its switch detached), outside-weighted, summed over `dim` and averaged
+    over the rest."""
+    sigma_2 = sigma ** 2
+    diff = bbox_inside_weights * (bbox_pred - bbox_targets)
+    abs_diff = diff.abs()
+    sign = (abs_diff < 1.0 / sigma_2).to(diff.dtype).detach()
+    in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
+    return (bbox_outside_weights * in_loss).sum(dim=dim).mean()
+
+
+def sparse_softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of integer labels (`ops/losses.py:98`)."""
+    from posecnn_torch.models.layers import log_softmax_hd
+
+    return -torch.gather(log_softmax_hd(logits), -1, labels.long()[..., None])[..., 0].mean()

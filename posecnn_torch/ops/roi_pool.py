@@ -77,6 +77,14 @@ def roi_pool_batched(
     return torch.stack(out)
 
 
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.clip(x, 0, 1)`: maximum, then minimum, so that a value exactly
+    on a bound passes half its gradient, as there (torch.clamp passes all:
+    a zero roi, whose weights sit on 0, would get twice JAX's gradient)."""
+    return torch.minimum(torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device)),
+                         torch.ones((), dtype=x.dtype, device=x.device))
+
+
 def crop_pool_batched(
     feat: torch.Tensor,
     rois: torch.Tensor,
@@ -108,8 +116,8 @@ def crop_pool_batched(
     x1i = torch.clamp(x0 + 1, 0, W - 1)
     y0 = torch.clamp(torch.floor(sy).long(), 0, H - 1)
     y1i = torch.clamp(y0 + 1, 0, H - 1)
-    ax = torch.clamp(sx - x0, 0.0, 1.0)[:, :, None, :, None]  # weights along a crop row
-    ay = torch.clamp(sy - y0, 0.0, 1.0)[:, :, :, None, None]
+    ax = _clip01(sx - x0)[:, :, None, :, None]  # weights along a crop row
+    ay = _clip01(sy - y0)[:, :, :, None, None]
     flat = feat.reshape(B, H * W, C)
 
     def corner(yy, xx):

@@ -5,7 +5,8 @@ Port of `posecnn_tpu/ops/vertex_targets.py`: from a small table of GT rows
 its object's projected centre and the log of the object's depth, with
 `weight_value` on the 3 channels of its class. A pixel whose class has
 several rows is routed to the nearest centre. Adaptation frames (label -1)
-get zero targets and weights.
+get zero targets and weights. `smooth_l1_loss_vertex_sparse3d` is the
+VERTEX_REG_3D loss on the host's compact object-coordinate targets.
 """
 
 from __future__ import annotations
@@ -105,4 +106,32 @@ def smooth_l1_loss_vertex_sparse(
     in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
     if z_obj_norm:
         return in_loss.sum() / (wv.sum() + 1e-10)
+    return in_loss.sum() / (3.0 * w.sum() + 1e-10)
+
+
+def smooth_l1_loss_vertex_sparse3d(
+    vertex_pred: torch.Tensor,
+    label: torch.Tensor,
+    targets3: torch.Tensor,
+    weights3: torch.Tensor,
+    num_classes: int,
+    sigma: float = 1.0,
+) -> torch.Tensor:
+    """The VERTEX_REG_3D loss on compact host targets
+    (`vertex_targets.py:smooth_l1_loss_vertex_sparse3d` :158): targets3
+    (B,H,W,3) holds each pixel's extent-normalized object coordinates,
+    weights3 (B,H,W) its weight; the prediction's 3 channels of the pixel's
+    class (label clipped to [0, C-1]) enter the smooth L1, normalised by
+    3 * sum(weights3)."""
+    B, H, W = label.shape
+    C = num_classes
+    sigma_2 = sigma ** 2
+    lab_safe = label.long().clamp(0, C - 1)
+    pred5 = vertex_pred.reshape(B, H, W, C, 3)
+    pred3 = torch.gather(pred5, 3, lab_safe[..., None, None].expand(B, H, W, 1, 3))[..., 0, :]
+    w = weights3.float()
+    diff = w[..., None] * (pred3.float() - targets3)
+    abs_diff = diff.abs()
+    sign = (abs_diff < 1.0 / sigma_2).to(diff.dtype).detach()
+    in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
     return in_loss.sum() / (3.0 * w.sum() + 1e-10)

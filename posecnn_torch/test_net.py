@@ -14,8 +14,12 @@ directory is output/<EXP_DIR>/<imdb>/<network> unless --output.
 With --cfg of NETWORK FCN8VGG (or --network fcn8_vgg), the segmentation
 evaluation (`segmentation`): the colour frames through FCN-8s, scored by
 the label IoU; `eval_summary.json`, `eval_timing.json` and the mean IoU
-printed. A PoseCNN config without the pose head (TEST.POSE_REG False)
-scores Hough's poses; the model is built for the COLOR input whatever
+printed. With --cfg of NETWORK VGG16DET, the detection evaluation
+(`detection`): VOC AP@0.5 per class and its mean (`mAP@0.5`) in
+`eval_summary.json`. With TEST.VERTEX_REG_3D, the 3D head's object
+coordinates and the depth give each class's pose by RANSAC
+(`engine.test.decode_poses_3d`). A PoseCNN config without the pose head
+(TEST.POSE_REG False) scores Hough's poses; the model is built for the COLOR input whatever
 INPUT says, as the JAX CLI builds it. --model must hold every parameter
 of that model at its shape: a snapshot that lacks one, or whose
 parameters do not fit (the RGBD input's), raises ValueError.
@@ -70,7 +74,6 @@ def main(argv=None) -> int:
     from posecnn_torch.core.convert import make_model, param_shapes
     from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL, PoseEvaluator
     from posecnn_torch.engine import test as engine
-    from posecnn_torch.ops import conv3x3, voting
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("test_net: no CUDA device (pass --device cpu to evaluate on the CPU)", file=sys.stderr)
@@ -81,9 +84,9 @@ def main(argv=None) -> int:
     from posecnn_torch.models.factory import get_network
 
     config = C.cfg_from_file(args.cfg) if args.cfg else None
-    # NETWORK FCN8VGG takes over --network (tools/test_net.py:99-109); a
-    # network the port does not run raises here
-    name = "fcn8_vgg" if config is not None and config.NETWORK == "FCN8VGG" else args.network
+    # NETWORK FCN8VGG and VGG16DET take over --network (tools/test_net.py:
+    # 66-109); a network the port does not run raises here
+    name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det"}.get(getattr(config, "NETWORK", None), args.network)
     init_fn, forward_fn = get_network(name)
     if args.cfg:
         from posecnn_torch.data.factory import get_imdb
@@ -91,6 +94,8 @@ def main(argv=None) -> int:
         dataset = get_imdb(args.imdb or "toy_val")
         if name == "fcn8_vgg":
             return segmentation(args, config, dataset, init_fn, forward_fn)
+        if name == "vgg16_det":
+            return detection(args, config, dataset, init_fn)
         cfg = C.test_model_cfg(config, dataset.num_classes)
         test_cfg = C.test_settings(config)
         seed = config.RNG_SEED
@@ -116,13 +121,13 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
 
     timings = {}
-    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     results = engine.test_net(model, cfg, dataset, PIXEL_MEANS, evaluator=evaluator, max_frames=args.max_frames,
                               log=lambda m: print(m, flush=True), eval_batch=args.eval_batch, timings=timings,
                               **test_cfg)
     wall = time.perf_counter() - t0
-    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
+    launches = _launches()
 
     arrays = {f"{fi:06d}_{k}": np.asarray(v) for fi, r in enumerate(results) for k, v in r.items() if v is not None}
     np.savez_compressed(os.path.join(out_dir, "detections.npz"), **arrays)
@@ -139,11 +144,68 @@ def main(argv=None) -> int:
     return 0
 
 
+def _reset_launches() -> None:
+    from posecnn_torch.ops import conv3x3, nms, voting
+
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+
+
+def _launches() -> dict:
+    """Each kernel's launches since `_reset_launches`."""
+    from posecnn_torch.ops import conv3x3, nms, voting
+
+    return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
+
+
 def _peak(device: str) -> dict:
     """The process's peak device memory, on a card."""
     import torch
 
     return {"peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20} if device.startswith("cuda") else {}
+
+
+def detection(args, config, dataset, init_fn) -> int:
+    """NETWORK VGG16DET (`tools/test_net.py:66-95`): the detection network
+    with the TEST section's RPN settings (`core.config.det_model_cfg`), from
+    numpy seed RNG_SEED or the parameters of --model (every one at its
+    shape, as for PoseCNN: the JAX CLI hands `restore_checkpoint` a params
+    dict there and fails); `engine.test.test_net_detection` at TEST.NMS,
+    scored by `DetectionEvaluator` (VOC AP@0.5 against the boxes of the GT
+    poses); `eval_summary.json` (`ap_per_class`, `mAP@0.5`) and
+    `eval_timing.json`. The output directory ends in vgg16_det."""
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.checkpoint import restore_params
+    from posecnn_torch.core.convert import param_shapes
+    from posecnn_torch.engine import test as engine
+    from posecnn_torch.models.detection import make_det_model
+
+    det_cfg = C.det_model_cfg(config, dataset.num_classes, train=False)
+    params = restore_params(args.model, param_shapes(det_cfg)) if args.model else init_fn(config.RNG_SEED, det_cfg)
+    model = make_det_model(det_cfg, params, args.device)
+    evaluator = engine.DetectionEvaluator(dataset.classes)
+    out_dir = args.output or C.get_output_dir(config, dataset.name, "vgg16_det")
+    os.makedirs(out_dir, exist_ok=True)
+    timings = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = engine.test_net_detection(model, det_cfg, dataset, config.pixel_means(), evaluator=evaluator,
+                                        max_frames=args.max_frames, nms_threshold=config.TEST.NMS,
+                                        log=lambda m: print(m, flush=True), timings=timings)
+    wall = time.perf_counter() - t0
+    summary = evaluator.summary()
+    with open(os.path.join(out_dir, "eval_summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
+    launches = _launches()
+    with open(os.path.join(out_dir, "eval_timing.json"), "w") as f:
+        json.dump({"device": device, "imdb": dataset.name, "frames": len(results), "wall_s": wall,
+                   "detections": [len(d) for d in results], "launches": launches, "ms": timings,
+                   **_peak(args.device)}, f, indent=1)
+    print(json.dumps(summary, indent=2))
+    print(f"{len(results)} frames in {wall:.3f} s on {device}; launches {launches}", flush=True)
+    return 0
 
 
 def segmentation(args, config, dataset, init_fn, forward) -> int:
@@ -159,7 +221,6 @@ def segmentation(args, config, dataset, init_fn, forward) -> int:
     from posecnn_torch.data.imdb import PoseEvaluator
     from posecnn_torch.engine import test as engine
     from posecnn_torch.models.fcn8 import make_fcn8
-    from posecnn_torch.ops import conv3x3, voting
 
     n = dataset.num_classes
     params = init_fn(config.RNG_SEED, n)
@@ -170,7 +231,7 @@ def segmentation(args, config, dataset, init_fn, forward) -> int:
     out_dir = args.output or C.get_output_dir(config, dataset.name, "fcn8_vgg")
     os.makedirs(out_dir, exist_ok=True)
     timings = {}
-    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     engine.test_net_segmentation(model, lambda m, d: forward(m, d, n), dataset, config.pixel_means(),
                                  evaluator=evaluator, max_frames=args.max_frames,
@@ -180,7 +241,7 @@ def segmentation(args, config, dataset, init_fn, forward) -> int:
     with open(os.path.join(out_dir, "eval_summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
-    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
+    launches = _launches()
     with open(os.path.join(out_dir, "eval_timing.json"), "w") as f:
         json.dump({"device": device, "imdb": dataset.name, "frames": len(timings.get("infer", [])), "wall_s": wall,
                    "launches": launches, "ms": timings, **_peak(args.device)}, f, indent=1)

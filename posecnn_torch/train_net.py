@@ -20,9 +20,15 @@ begin at the resume step; otherwise a thread assembles host minibatches
 the solver copies each to the card; for INPUT DEPTH, NORMAL and RGBD that
 thread also jitters and noises the colour image and builds the depth or
 normal image (`data.minibatch.get_minibatch`), and RGBD trains the dual
-tower. NETWORK FCN8VGG (or --network fcn8_vgg) trains FCN-8s on the
-segmentation loss alone (`seg_run`, the JAX CLI's `train_segmentation`),
-under output/<EXP_DIR>/<imdb>/fcn8_vgg. A config with a setting the port
+tower; with VERTEX_REG_3D the vertex head learns object coordinates from
+the frames' vertmaps (a dataset whose frames have none, such as every one
+in this repository, stops at the first batch with ValueError, where the
+JAX package raises TypeError). NETWORK FCN8VGG (or --network fcn8_vgg)
+trains FCN-8s on the segmentation loss alone (`seg_run`, the JAX CLI's
+`train_segmentation`), under output/<EXP_DIR>/<imdb>/fcn8_vgg. NETWORK
+VGG16DET trains the detection network (`det_run`, the JAX CLI's
+`train_det`: one raw frame a step, no resume), under
+output/<EXP_DIR>/<imdb>/vgg16_det. A config with a setting the port
 does not run raises NotImplementedError naming it; so do --weights and
 --ckpt, which read weights from outside the repository.
 
@@ -86,9 +92,9 @@ def cfg_run(args, log):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: reading a {what} needs a file from outside the repository")
     cfg = C.cfg_from_file(args.cfg)
-    # NETWORK FCN8VGG takes over --network (tools/train_net.py:89-92); a
-    # network the port does not run raises here
-    name = "fcn8_vgg" if cfg.NETWORK == "FCN8VGG" else args.network
+    # NETWORK FCN8VGG and VGG16DET take over --network (tools/train_net.py:
+    # 83-92); a network the port does not run raises here
+    name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det"}.get(cfg.NETWORK, args.network)
     init_fn, forward_fn = get_network(name)
     if not args.rand:
         np.random.seed(cfg.RNG_SEED)
@@ -105,6 +111,8 @@ def cfg_run(args, log):
     set_float32_precision()
     if name == "fcn8_vgg":
         return seg_run(args, cfg, imdb, dev, log, init_fn, forward_fn)
+    if name == "vgg16_det":
+        return det_run(args, cfg, imdb, dev, log, init_fn)
 
     model_cfg = C.train_model_cfg(cfg, imdb.num_classes)
     hp = C.train_hparams(cfg)
@@ -171,6 +179,49 @@ def seg_run(args, cfg, imdb, dev, log, init_fn, forward_fn):
     return step, state, open_data, {**C.solver_settings(cfg), "snapshot_final": True}, output
 
 
+def det_run(args, cfg, imdb, dev, log, init_fn):
+    """What `cfg_run` returns for VGG16DET (`tools/train_net.py:445-498`,
+    `train_det`): the detection network (`core.config.det_model_cfg`: the
+    DetConfig defaults, not TRAIN.RPN_*) from numpy seed RNG_SEED, one
+    image a step whatever IMS_PER_BATCH says, the raw colour frame (no
+    chroma, no noise) with its label-extent GT boxes
+    (`engine.train.det_batch_from_frame`), the frames in the order of
+    `RandomState(RNG_SEED).permutation`, momentum SGD without clipping, a
+    snapshot at the last step whatever SNAPSHOT_FINAL says (the JAX loop
+    writes one there). No --resume, as in the JAX loop. The output
+    directory ends in vgg16_det."""
+    import numpy as np
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.data.layer import prefetch
+    from posecnn_torch.data.minibatch import rescale_points
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.models.detection import make_det_model
+
+    if args.resume:
+        raise NotImplementedError("--resume: the detection trainer has no resume, as in the JAX CLI")
+    det_cfg = C.det_model_cfg(cfg, imdb.num_classes, train=True)
+    hp = C.det_hparams(cfg)
+    output = args.output or C.get_output_dir(cfg, imdb.name, "vgg16_det")
+    log(f"Output will be saved to {output}")
+    symmetry = np.asarray(imdb._symmetry, np.float32)
+    points = rescale_points(np.asarray(imdb._points_all, np.float32), np.asarray(imdb._extents), symmetry)
+    points, symmetry = torch.from_numpy(points).to(dev), torch.from_numpy(symmetry).to(dev)
+    state = T.create_train_state(make_det_model(det_cfg, init_fn(cfg.RNG_SEED, det_cfg), dev), hp)
+    step = T.make_det_train_step(det_cfg, hp, points, symmetry)
+    order = np.random.RandomState(cfg.RNG_SEED).permutation(imdb.num_images)
+
+    def batches(start_iter):
+        for it in itertools.count(start_iter):
+            yield T.det_batch_from_frame(imdb.load_frame(int(order[it % imdb.num_images])), max_gt=cfg.TPU.MAX_GT)
+
+    def open_data(start_iter):
+        return prefetch(batches(start_iter), depth=cfg.TPU.PREFETCH), None
+
+    return step, state, open_data, {**C.solver_settings(cfg), "snapshot_final": True}, output
+
+
 def refreshing_data(imdb, bank, cfg, start_iter: int, output: str, log):
     """The TPU.BANK_REFRESH iterator (`tools/train_net.py:353-375`): a
     thread renders fresh scenes in chunks of BANK_REFRESH_CHUNK frames
@@ -220,7 +271,7 @@ def main(argv=None) -> int:
     import torch
 
     from posecnn_torch.engine.train import Solver
-    from posecnn_torch.ops import conv3x3, voting
+    from posecnn_torch.ops import conv3x3, nms, voting
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("train_net: no CUDA device (pass --device cpu to train on the CPU)", file=sys.stderr)
@@ -247,11 +298,11 @@ def main(argv=None) -> int:
             return itertools.repeat(bank), None
     solver = Solver(step, output_dir=output, **solver_kw)
     start = 0
-    if args.resume:
+    if args.resume:  # det_run refuses --resume
         state, start = solver.resume(state, log=log)
     data_iter, finish_refresh = open_data(start)
     timings = {}
-    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
     refresh = None
     try:
         solver.train(data_iter, state, args.iters, log=log, start_iter=start, timings=timings)
@@ -261,7 +312,7 @@ def main(argv=None) -> int:
             close()
         if finish_refresh is not None:
             refresh = finish_refresh()
-    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES}
+    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
     device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
     os.makedirs(output, exist_ok=True)
     record = {"device": device, "start_step": start, "end_step": state.step, "launches": launches, "ms": timings}
@@ -272,7 +323,7 @@ def main(argv=None) -> int:
     with open(os.path.join(output, "train_timing.json"), "w") as f:
         json.dump(record, f, indent=1)
     log(f"done at iteration {state.step}; launches hough_vote {launches['hough_vote']} "
-        f"conv3x3 {launches['conv3x3']}")
+        f"conv3x3 {launches['conv3x3']} nms {launches['nms']}")
     return 0
 
 

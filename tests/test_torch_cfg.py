@@ -173,10 +173,11 @@ HOST_NOISE_CFGS = (
 
 def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
     """toy_pose.yml, lov_syn_capstone.yml (with its bank refresh), the 10
-    shipped files with TPU.BANK_REFRESH, the 38 with host noise and the 16
-    of the depth inputs and FCN8VGG build for training; of the 105 shipped
-    files 70 build for training, 58 for testing and 53 for both; every
-    other file names one of the unported settings of `unsupported`."""
+    shipped files with TPU.BANK_REFRESH, the 38 with host noise, the 16 of
+    the depth inputs and FCN8VGG, and the 28 of the detection network and
+    the 3D head build for training; of the 105 shipped files 98 build for
+    training, 86 for testing and 81 for both; every other file names one
+    of the unported settings of `unsupported`."""
     toy = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml"))
     assert not C.unsupported(toy, train=True) and not C.unsupported(toy, train=False)
     cap = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml"))
@@ -191,7 +192,7 @@ def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
             assert C.unsupported(c) == [], name
         tr, te = not C.unsupported(c, train=True), not C.unsupported(c, train=False)
         train, test, both = train + tr, test + te, both + (tr and te)
-    assert len(CFG_FILES) == 105 and (train, test, both) == (70, 58, 53)
+    assert len(CFG_FILES) == 105 and (train, test, both) == (98, 86, 81)
     assert len(refresh) == 10
     for name in HOST_NOISE_CFGS:
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
@@ -199,8 +200,20 @@ def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
     for name in INPUT_MODE_CFGS:
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
         assert not c.TPU.DEVICE_BANK and C.unsupported(c) == [], name
-    assert {"NETWORK", "TRAIN.VERTEX_REG_3D", "TRAIN.SYNTHESIZE", "TRAIN.ADAPT", "TEST.VERTEX_REG_2D"} <= refused
-    assert not refused & {"INPUT", "TPU.BANK_REFRESH", "TRAIN.ADD_NOISE", "TEST.POSE_REG"}
+    for name in DET_3D_CFGS:
+        c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
+        assert C.unsupported(c) == [] and C.unsupported(c, train=False) == [], name
+        assert (c.NETWORK == "VGG16DET") != (c.TRAIN.VERTEX_REG_3D and c.TEST.VERTEX_REG_3D), name
+    assert {"NETWORK", "TRAIN.SYNTHESIZE", "TRAIN.ADAPT", "TEST.VERTEX_REG_2D"} <= refused
+    assert not refused & {"INPUT", "TPU.BANK_REFRESH", "TRAIN.ADD_NOISE", "TEST.POSE_REG", "TRAIN.VERTEX_REG_3D",
+                          "TEST.VERTEX_REG_3D"}
+
+
+# the shipped configs of the detection network (NETWORK VGG16DET) and the
+# 3D head (VERTEX_REG_3D), which build for training and testing
+DET_3D_CFGS = tuple(f"linemod_{o}_{k}" for k in ("det", "3d") for o in (
+    "ape", "benchvise", "camera", "can", "cat", "driller", "duck", "eggbox", "glue", "holepuncher", "iron", "lamp",
+    "phone")) + ("lov_det", "lov_color_3d")
 
 
 # the shipped training configs that the depth inputs (INPUT DEPTH, NORMAL,

@@ -14,7 +14,10 @@ small-slice and training goldens through the checks of tests/torch_parity.py
 that the CPU tests and chip_smoke.py also use (float32 with TF32 off); the
 depth ICP against the eval golden and against the CPU port at the flagship
 shapes (translation 2e-4 m, quaternion 5e-3: `check_icp`); snapshots
-written from the card's tensors restored bit-equal on the card and the CPU.
+written from the card's tensors restored bit-equal on the card and the CPU;
+the NMS kernel's keep masks equal to the plain version's, and the small
+detection network, its proposals and RANSAC against the JAX det golden
+(`check_det_golden`).
 """
 
 import numpy as np
@@ -338,3 +341,39 @@ def test_snapshot_round_trip_from_cuda(dev, tmp_path, full):
             assert torch.equal(a.cpu(), b.cpu())
         for a, b in zip(state.optimizer.trace, fresh.optimizer.trace):
             assert torch.equal(a.cpu(), b.cpu()) if full else not b.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,thresh", [(1, 0.7), (63, 0.7), (64, 0.5), (65, 0.3), (4097, 0.7), (6000, 0.3)])
+def test_nms_kernel_matches_plain(dev, n, thresh):
+    """Keep masks equal on integer boxes (IoUs exactly at the threshold
+    among them, equal scores, NaN and infinite coordinates), at sizes around
+    the kernel's 64-box blocks; one launch a call."""
+    from posecnn_torch.ops import nms as N
+
+    rng = np.random.RandomState(n)
+    xy = rng.randint(0, 560, (n, 2))
+    boxes = np.concatenate([xy, xy + rng.randint(4, 120, (n, 2))], 1).astype(np.float32)
+    if n >= 3:
+        boxes[:3] = [[0, 0, 9, 9], [0, 0, 9, 6], [0, 0, 9, 2]]  # IoU 0.7 and 0.3 with the first
+    if n >= 18:  # NaN and infinite coordinates, as a diverged network's proposals have them
+        boxes[3, 0] = boxes[5, 1] = boxes[13, 2:] = np.nan
+        boxes[8, 2] = boxes[17, :2] = np.inf
+        boxes[11, 1] = -np.inf
+    b = t(boxes).to(dev)
+    before = N.NMS_LAUNCHES
+    keep = N.nms_keep_sorted(b, thresh)
+    torch.cuda.synchronize()
+    assert N.NMS_LAUNCHES == before + 1
+    assert torch.equal(keep.cpu(), N.nms_keep_sorted_plain(t(boxes), thresh))
+    scores = t(np.round(rng.rand(n) * 8).astype(np.float32)).to(dev)
+    assert torch.equal(N.nms_keep(b, scores, thresh).cpu(), N.nms_keep(t(boxes), scores.cpu(), thresh))
+
+
+@pytest.mark.cuda
+def test_det_and_ransac_on_cuda_match_jax_golden(dev):
+    """The small float32 detection network, its proposals (NMS on the
+    kernel) and RANSAC on the card against the JAX det golden."""
+    from tests.torch_parity import check_det_golden, det_on_golden
+
+    check_det_golden(*det_on_golden(dev))

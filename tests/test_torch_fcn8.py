@@ -318,8 +318,11 @@ def test_factory_names():
     from posecnn_torch.core.convert import init_params_numpy
     from posecnn_torch.models.posecnn import posecnn_forward
 
+    from posecnn_torch.models.detection import init_vgg16_det_params_numpy, vgg16_det_forward
+
     assert factory.get_network("vgg16_convs") == (init_params_numpy, posecnn_forward)
-    for name in ("vgg16_full", "vgg16_det", "resnet50", "dcgan"):
+    assert factory.get_network("vgg16_det") == (init_vgg16_det_params_numpy, vgg16_det_forward)
+    for name in ("vgg16_full", "vgg16_gan", "resnet50", "dcgan"):
         with pytest.raises(NotImplementedError, match=name):
             factory.get_network(name)
     with pytest.raises(KeyError):

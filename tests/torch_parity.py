@@ -13,6 +13,7 @@ one limit. The module imports no JAX at module level.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import os
 
@@ -592,3 +593,116 @@ def check_render_golden(got: dict, g: dict) -> dict:
         assert out[name][0] >= RENDER_LABEL_AGREE and depth_err <= RENDER_DEPTH_REL \
             and color_err <= RENDER_COLOR_LEVELS, (name, out[name])
     return out
+
+
+def det_on_golden(device="cpu") -> tuple:
+    """(port outputs, golden): the small float32 detection network
+    (`DET_CFG`, the seeded weights) on the det golden's frame, the
+    golden's two proposal_layer calls, and ransac_pose with the golden's
+    triplets, on `device`. NMS runs on the kernel on a card."""
+    from posecnn_torch.config import PIXEL_MEANS
+    from posecnn_torch.engine.ransac import hypothesis_index, ransac_pose
+    from posecnn_torch.engine.train import Draws
+    from posecnn_torch.models.detection import DetConfig, init_vgg16_det_params_numpy, make_det_model, \
+        vgg16_det_forward
+    from posecnn_torch.ops.rpn import proposal_layer
+
+    G = goldens()
+    g = load_npz(G.DET_GOLDEN)
+    cfg = DetConfig(compute_dtype=torch.float32, is_train=False, keep_prob=1.0, trunk_scale=G.DET_TRUNK_SCALE,
+                    **G.DET_CFG)
+    model = make_det_model(cfg, init_vgg16_det_params_numpy(G.DET_SEED, cfg), device)
+    means = torch.tensor(PIXEL_MEANS, device=device).reshape(1, 1, 1, 3)
+    out = {}
+    with torch.inference_mode():
+        o = vgg16_det_forward(model, cfg, t(g["raw"]).to(device).float() - means)
+        out.update({f"out/{k}": o[k] for k in ("rpn_cls_prob", "rpn_bbox_pred", "rois", "rpn_scores", "cls_prob",
+                                               "bbox_pred", "poses_tanh")})
+        args = [t(g[f"prop/{k}"]).to(device) for k in ("prob", "deltas", "anchors")]
+        for name, (pre, post, thr) in (("a", (6000, 300, 0.7)), ("b", (200, 50, 0.5))):
+            rois, scores = proposal_layer(*args, G.DET_PROPOSAL_HW, 9, pre_nms_top_n=pre, post_nms_top_n=post,
+                                          nms_thresh=thr)
+            out[f"prop/{name}/rois"], out[f"prop/{name}/scores"] = rois, scores
+        oc, cam, valid, _, _ = G.det_ransac_inputs()
+        valid_t = t(valid[None]).to(device)
+        idx = hypothesis_index(Draws(replay={"ransac": t(g["ransac/idx"][None])}), valid_t)
+        q, tr, n = ransac_pose(t(oc[None]).to(device), t(cam[None]).to(device), valid_t, idx)
+        out.update({"ransac/q": q[0], "ransac/t": tr[0], "ransac/n": n[0]})
+    return out, g
+
+
+def check_det_golden(out, g) -> dict:
+    """Holds the detection network to the JAX golden: each float output of
+    the forward within 1e-5 of the golden's largest magnitude; the
+    proposals' scores exact and boxes within 2e-5 px (the decode's exp, a
+    few ulps of the image's size); RANSAC's inlier count exact, its
+    translation within 2e-4 m and its quaternion within 5e-3 (1 - |q.q'|,
+    the ICP's limits). Returns the max |err|s."""
+    o = {k: v.detach().cpu().numpy() for k, v in out.items()}
+    err = {}
+    for k in ("rpn_cls_prob", "rpn_bbox_pred", "rois", "rpn_scores", "cls_prob", "bbox_pred", "poses_tanh"):
+        ref = g[f"out/{k}"]
+        np.testing.assert_allclose(o[f"out/{k}"], ref, atol=1e-5 * np.abs(ref).max(), rtol=0, err_msg=k)
+        err[k] = float(np.abs(o[f"out/{k}"] - ref).max())
+    for name in ("a", "b"):
+        np.testing.assert_array_equal(o[f"prop/{name}/scores"], g[f"prop/{name}/scores"])
+        np.testing.assert_allclose(o[f"prop/{name}/rois"], g[f"prop/{name}/rois"], atol=2e-5, rtol=0)
+        err[f"proposals_{name}"] = float(np.abs(o[f"prop/{name}/rois"] - g[f"prop/{name}/rois"]).max())
+    assert int(o["ransac/n"]) == int(g["ransac/n"]), (o["ransac/n"], g["ransac/n"])
+    err["ransac_t"] = float(np.abs(o["ransac/t"] - g["ransac/t"]).max())
+    err["ransac_q"] = float(1 - abs(np.dot(o["ransac/q"], g["ransac/q"])))
+    assert err["ransac_t"] <= 2e-4 and err["ransac_q"] <= 5e-3, err
+    return err
+
+
+def rendered_3d_frames(n: int = 2, seed: int = 0) -> list:
+    """`n` scenes of the lov_syn_val_v4 synthesizer (the stand-in hulls,
+    640x480) with the rasterizer's object-coordinate buffer as their
+    `vertmap` (`native.SceneBuffers.vertmap`), marked as real frames (no
+    background composite)."""
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.data.synthetic import build_ycb_synthesizer
+
+    synth = build_ycb_synthesizer(LovSynVal())
+    frame_from = synth._frame_from
+    synth._frame_from = lambda buf, *a: dataclasses.replace(frame_from(buf, *a), vertmap=buf.vertmap.copy(),
+                                                            is_synthetic=False)
+    rng = np.random.RandomState(seed)
+    return [synth.render_scene(rng) for _ in range(n)]
+
+
+def ransac_scene() -> tuple:
+    """A 96x128 scene for the RANSAC decode: the front faces of two boxes
+    (classes 1 and 3, K with f = 400) with their depth and their scaled
+    object coordinates in the vertex map's class channels, and a 5x5 patch
+    of class 2, under decode_poses_3d's 500-pixel threshold. Returns
+    (label, depth, vertex map (H,W,12), extents (4,3), meta (48,))."""
+    from posecnn_torch.utils.quaternion_np import quat2mat
+
+    H, W, C = 96, 128, 4
+    K = np.array([[400.0, 0, W / 2], [0, 400.0, H / 2], [0, 0, 1]])
+    rng = np.random.RandomState(0)
+    label = np.zeros((H, W), np.int32)
+    depth = np.zeros((H, W), np.float32)
+    vp = np.zeros((H, W, 3 * C), np.float32)
+    extents = np.zeros((C, 3), np.float32)
+    for cls, t_gt, extent in ((1, [0.03, -0.02, 0.8], [0.12, 0.09, 0.06]), (3, [-0.06, 0.03, 0.9], [0.1, 0.1, 0.08])):
+        extent = np.array(extent)
+        extents[cls] = extent
+        q = rng.randn(4)
+        R_gt = quat2mat(q / np.linalg.norm(q))
+        xs, ys = np.meshgrid(np.arange(-extent[0] / 2, extent[0] / 2, 0.0015),
+                             np.arange(-extent[1] / 2, extent[1] / 2, 0.0015))
+        model = np.stack([xs.ravel(), ys.ravel(), np.full(xs.size, -extent[2] / 2)], 1)
+        cam = model @ R_gt.T + np.array(t_gt)
+        uv = cam @ K.T
+        u, v = (uv[:, 0] / uv[:, 2]).astype(int), (uv[:, 1] / uv[:, 2]).astype(int)
+        ok = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+        label[v[ok], u[ok]] = cls
+        depth[v[ok], u[ok]] = cam[ok, 2]
+        vp[v[ok], u[ok], 3 * cls:3 * cls + 3] = (model / extent + 0.5)[ok]
+    label[:5, :5] = 2
+    extents[2] = 0.05
+    meta = np.zeros(48, np.float32)
+    meta[0], meta[2], meta[4], meta[5] = K[0, 0], K[0, 2], K[1, 1], K[1, 2]
+    return label, depth, vp, extents, meta

@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes seven files:
+Runs the JAX package (on the CPU) and writes eight files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -55,6 +55,13 @@ Runs the JAX package (on the CPU) and writes seven files:
       of it, whole), and one RGBD training step in the layout of the small
       training step (`step/`, `RGBD_CFG`: the dual tower at 1/16 width,
       the depth images as `data_p`).
+
+  tests/golden/torch_port_det.npz
+      the detection network's inference (`DET_CFG`: 4 classes, fc 64, the
+      trunk at 1/4 width, float32) on frame v4/000000 at 192x192 with the
+      port's seeded weights (not stored), `proposal_layer` on bf16-rounded
+      scores with ties, and `ransac_pose` on a well-posed scene with its
+      triplet indices (`det_golden`).
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -648,11 +655,111 @@ def render_golden() -> dict:
     return render_scenes(render_synthesizers(JS, toy))
 
 
+DET_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_det.npz")
+# the detection network at a small config: 4 classes, fc 64, the trunk at
+# 1/4 width (JAX reads the widths from the weights), float32, inference
+DET_CFG = dict(num_classes=4, fc_dim=64)
+DET_TRUNK_SCALE = 0.25
+DET_SEED = 7
+DET_FRAME = "data/lov_syn_val_v4/000000.npz"
+DET_ROWS, DET_COLS = (48, 2, 192), (128, 2, 192)  # 480x640 -> 192x192 (first, step, count)
+# proposal_layer's inputs: a 6x7 map of 9 anchors, bf16-rounded fg
+# probabilities (ties) and deltas, a 96x112 image
+DET_PROPOSAL_SEED, DET_PROPOSAL_HW = 1, (96, 112)
+# RANSAC: a well-posed scene of 512 correspondences (30% outliers, 40
+# invalid slots) and JAX's 256 triplets under PRNGKey(DET_RANSAC_KEY)
+DET_RANSAC_SEED, DET_RANSAC_KEY = 4, 9
+
+
+def det_frame() -> np.ndarray:
+    """(1,192,192,3) uint8: frozen frame 000000 on the DET_ROWS x DET_COLS grid."""
+    from posecnn_torch.data.minibatch import load_frozen_frame
+
+    (r0, rs, rn), (c0, cs, cn) = DET_ROWS, DET_COLS
+    f = load_frozen_frame(os.path.join(ROOT, DET_FRAME))
+    return np.ascontiguousarray(f.color[np.ix_(r0 + rs * np.arange(rn), c0 + cs * np.arange(cn))][None])
+
+
+def det_proposal_inputs():
+    """(prob (6,7,18), deltas (6,7,36), anchors (378,4)) of the golden's
+    proposal_layer call."""
+    import jax
+    import jax.numpy as jnp
+
+    from posecnn_torch.ops.rpn import generate_anchors, shifted_anchors
+
+    A, Hf, Wf = 9, 6, 7
+    rng = np.random.RandomState(DET_PROPOSAL_SEED)
+    logits = jnp.asarray(rng.randn(Hf, Wf, A, 2).astype(np.float32)).astype(jnp.bfloat16).astype(jnp.float32)
+    prob = jax.nn.softmax(logits, axis=-1)
+    prob = np.asarray(jnp.concatenate([prob[..., 0], prob[..., 1]], axis=-1).astype(jnp.bfloat16).astype(jnp.float32))
+    deltas = (rng.randn(Hf, Wf, 4 * A) * 0.2).astype(np.float32)
+    return prob, deltas, shifted_anchors(Hf, Wf, 16, generate_anchors())
+
+
+def det_ransac_inputs():
+    """(object coordinates (512,3), camera points (512,3), valid (512,),
+    the true R and t) of a well-posed scene: coordinates in a 12x8x6 cm
+    box, 1 mm noise, 30% outliers moved by 5 cm, the last 40 slots invalid."""
+    from posecnn_torch.utils.quaternion_np import quat2mat
+
+    rng = np.random.RandomState(DET_RANSAC_SEED)
+    q = rng.randn(4)
+    R_gt, t_gt = quat2mat(q / np.linalg.norm(q)), np.array([0.05, -0.03, 0.9])
+    n = 512
+    oc = (rng.rand(n, 3) - 0.5) * np.array([0.12, 0.08, 0.06])
+    cam = oc @ R_gt.T + t_gt + rng.randn(n, 3) * 1e-3
+    bad = rng.rand(n) < 0.3
+    cam[bad] += rng.randn(int(bad.sum()), 3) * 0.05
+    valid = np.arange(n) < n - 40
+    return oc.astype(np.float32), cam.astype(np.float32), valid, R_gt, t_gt
+
+
+def det_golden() -> dict:
+    """The detection network's inference outputs on `det_frame()` with the
+    port's seeded weights (`init_vgg16_det_params_numpy(DET_SEED)`, not
+    stored), `proposal_layer` on `det_proposal_inputs()` (6000/300/0.7 and
+    200/50/0.5), and `ransac_pose` on `det_ransac_inputs()` with its
+    triplet indices, all from the JAX package run eagerly."""
+    import jax
+    import jax.numpy as jnp
+
+    from posecnn_torch.models.detection import DetConfig as TorchDet
+    from posecnn_torch.models.detection import init_vgg16_det_params_numpy
+    from posecnn_tpu.engine.ransac import ransac_pose
+    from posecnn_tpu.models.detection import DetConfig, vgg16_det_forward
+    from posecnn_tpu.ops.rpn import proposal_layer
+
+    params = init_vgg16_det_params_numpy(DET_SEED, TorchDet(trunk_scale=DET_TRUNK_SCALE, **DET_CFG))
+    raw = det_frame()
+    data = raw.astype(np.float32) - np.asarray(PIXEL_MEANS, np.float32)
+    cfg = DetConfig(compute_dtype=jnp.float32, is_train=False, keep_prob=1.0, **DET_CFG)
+    out = {"raw": raw}
+    with jax.disable_jit():
+        ref = vgg16_det_forward(jax.tree_util.tree_map(jnp.asarray, params), cfg, jnp.asarray(data))
+        for k in ("rpn_cls_prob", "rpn_bbox_pred", "rois", "rpn_scores", "cls_prob", "bbox_pred", "poses_tanh"):
+            out[f"out/{k}"] = np.asarray(ref[k])
+        prob, deltas, anchors = det_proposal_inputs()
+        out.update({"prop/prob": prob, "prop/deltas": deltas, "prop/anchors": anchors})
+        for name, (pre, post, thr) in (("a", (6000, 300, 0.7)), ("b", (200, 50, 0.5))):
+            rois, scores = proposal_layer(jnp.asarray(prob), jnp.asarray(deltas), jnp.asarray(anchors),
+                                          DET_PROPOSAL_HW, 9, pre_nms_top_n=pre, post_nms_top_n=post, nms_thresh=thr)
+            out[f"prop/{name}/rois"], out[f"prop/{name}/scores"] = np.asarray(rois), np.asarray(scores)
+        oc, cam, valid, _, _ = det_ransac_inputs()
+        key = jax.random.PRNGKey(DET_RANSAC_KEY)
+        p = jnp.asarray(valid / valid.sum(), jnp.float32)
+        out["ransac/idx"] = np.asarray(jax.random.choice(key, oc.shape[0], shape=(256, 3), p=p))
+        q, t, n = ransac_pose(key, jnp.asarray(oc), jnp.asarray(cam), jnp.asarray(valid))
+        out.update({"ransac/q": np.asarray(q), "ransac/t": np.asarray(t), "ransac/n": np.asarray(n)})
+    return out
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
                        (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden),
-                       (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden)):
+                       (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden),
+                       (DET_GOLDEN, det_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 

@@ -12,7 +12,15 @@ step and the eval frames are those of `experiments/cfgs/toy_pose.yml` (B=2
 at 96x128, bf16, 4 classes, RNG_SEED weights): `--train --toy` the
 host-fed step on batches of `GtSynthesizeLayer` moved to the card
 beforehand (no data thread), `--eval --toy` `test_net` on `toy_val` (no
-ICP). Runs under torch.profiler and
+ICP). With `--det`, the detection network of
+`experiments/cfgs/lov_det.yml` (640x480, bf16, 22 classes, RNG_SEED
+weights): `--det` `test_net_detection`'s frames on `lov_syn_val_v4`,
+`--det --train` its training step (B=1, batches of
+`engine.train.det_batch_from_frame` moved to the card beforehand; `--lr`
+sets its learning rate: the cfg's 0.001 diverges from the init rules
+within a few steps, and NMS then keeps every NaN box). With
+`--3d`, `test_net` under `experiments/cfgs/lov_color_3d.yml` on
+`lov_syn_val_v4` (the 3D head, RANSAC on the card). Runs under torch.profiler and
 prints the device's busy share of the profiled wall window, host and device
 time per stage, and the device time by kernel (the `--top` largest).
 
@@ -24,9 +32,15 @@ pool, the fc layers, the loss functions and the optimizer update; "backward
 and the rest" is the rest of the step (the backward runs on autograd's own
 thread, outside the spans). For evaluation: the trunk, Hough voting, the
 crop pool, the fc layers, host NMS, the ICP (`refine_poses`) and the
-evaluator. Needs one NVIDIA GPU.
+evaluator. For the detection network: the trunk, the RPN heads, the anchor
+targets, the proposals (decode, top-k, NMS), the proposal targets, the crop
+pool, the fc layers (fc6 to the output heads), and for evaluation the host
+postprocess (per-class NMS) and the evaluator, for training the loss
+functions and the update. For the 3D head: the trunk, the RANSAC decode and
+the evaluator. Needs one NVIDIA GPU.
 
-Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy] [--frames 6] [--top 25]
+Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy | --det | --3d] [--lr LR] [--frames 6]
+           [--top 25]
 """
 
 from __future__ import annotations
@@ -74,6 +88,10 @@ def main() -> int:
     ap.add_argument("--train", action="store_true", help="profile the flagship training step")
     ap.add_argument("--eval", action="store_true", help="profile test_net's frames (ICP on)")
     ap.add_argument("--toy", action="store_true", help="with --train or --eval: the toy_pose.yml step or frames")
+    ap.add_argument("--det", action="store_true", help="the detection network's eval frames (--train: its step)")
+    ap.add_argument("--3d", dest="three_d", action="store_true", help="test_net's frames with the 3D head")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="with --det --train: the learning rate (lov_det.yml's 0.001 diverges from the init rules)")
     ap.add_argument("--frames", type=int, default=6, help="frames (or training steps) to profile")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -84,13 +102,101 @@ def main() -> int:
 
     if args.toy and not (args.train or args.eval):
         ap.error("--toy goes with --train or --eval")
+    if args.toy + args.det + args.three_d > 1 or (args.three_d and args.train):
+        ap.error("one of --toy, --det and --3d; --3d profiles evaluation")
     if args.toy:
         from posecnn_torch.core import config as C
         from posecnn_torch.core.convert import init_params_numpy, make_model
         from posecnn_torch.data.factory import get_imdb
 
         toy_cfg = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml"))
-    if args.train and args.toy:
+    if args.det or args.three_d:
+        from posecnn_torch.core import config as C
+        from posecnn_torch.data.lov_syn import LovSynVal
+        from posecnn_torch.models import detection as det_mod
+        from posecnn_torch.ops import losses as loss_mod
+
+        data = LovSynVal()
+        engine.set_float32_precision()
+        det_stages = {
+            "stage:trunk": [(backbone.VGGTrunk, "forward")],
+            "stage:rpn_heads": [(layers, "conv2d")],
+            "stage:anchor_targets": [(det_mod, "anchor_target_layer")],
+            "stage:proposals_nms": [(det_mod, "proposal_layer")],
+            "stage:proposal_targets": [(det_mod, "proposal_target_layer")],
+            "stage:crop_pool": [(det_mod, "crop_pool_batched")],
+            "stage:fc": [(layers, "fc")],
+        }
+    if args.det and args.train:
+        cfg_file = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_det.yml"))
+        stages = {**det_stages,
+                  "stage:losses": [(loss_mod, f) for f in ("smooth_l1_loss", "sparse_softmax_cross_entropy")]
+                  + [(trainer, "average_distance_loss"), (trainer, "regularization_loss")],
+                  "stage:update": [(trainer.MomentumSGD, "step")]}
+        _spans(stages, record_function)
+        from posecnn_torch.data.minibatch import rescale_points
+
+        det_cfg, hp = C.det_model_cfg(cfg_file, data.num_classes, train=True), C.det_hparams(cfg_file)
+        if args.lr is not None:
+            import dataclasses
+
+            hp = dataclasses.replace(hp, learning_rate=args.lr)
+        sym = np.asarray(data._symmetry, np.float32)
+        pts = rescale_points(np.asarray(data._points_all, np.float32), np.asarray(data._extents), sym)
+        state = trainer.create_train_state(det_mod.make_det_model(
+            det_cfg, det_mod.init_vgg16_det_params_numpy(cfg_file.RNG_SEED, det_cfg), dev), hp)
+        step = trainer.make_det_train_step(det_cfg, hp, torch.from_numpy(pts).to(dev), torch.from_numpy(sym).to(dev))
+        runs = [(trainer.to_device(trainer.det_batch_from_frame(data.load_frame(i), cfg_file.TPU.MAX_GT), dev),)
+                for i in range(args.frames + 2)]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg_file.RNG_SEED)
+
+        def run(batch):
+            with record_function("stage:frame"):
+                step(state, batch, trainer.Draws(gen))
+
+        warmup, runs = runs[:2], runs[2:]
+        rest = "backward and the rest"
+        unit = "step"
+    elif args.det:
+        cfg_file = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_det.yml"))
+        stages = {k: v for k, v in det_stages.items() if k not in ("stage:anchor_targets", "stage:proposal_targets")}
+        stages.update({"stage:postprocess": [(engine, "postprocess_det")],
+                       "stage:evaluator": [(engine.DetectionEvaluator, "add_frame")]})
+        _spans(stages, record_function)
+        det_cfg = C.det_model_cfg(cfg_file, data.num_classes, train=False)
+        model = det_mod.make_det_model(det_cfg, det_mod.init_vgg16_det_params_numpy(cfg_file.RNG_SEED, det_cfg), dev)
+        evaluator = engine.DetectionEvaluator(data.classes)
+
+        def run(n_frames):
+            with record_function("stage:frame"):
+                engine.test_net_detection(model, det_cfg, data, cfg_file.pixel_means(), evaluator=evaluator,
+                                          max_frames=n_frames, nms_threshold=cfg_file.TEST.NMS, log=None)
+
+        warmup, runs = [(2,)], [(args.frames,)]  # a warm-up call of 2 frames, then the profiled one
+        rest = "heads and the rest"
+        unit = "frame"
+    elif args.three_d:
+        from posecnn_torch.core.convert import init_params_numpy, make_model
+        from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL, PoseEvaluator
+
+        cfg_file = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_color_3d.yml"))
+        stages = {"stage:trunk": [(backbone.VGGTrunk, "forward")], "stage:ransac": [(engine, "decode_poses_3d")],
+                  "stage:evaluator": [(PoseEvaluator, "add_frame")]}
+        _spans(stages, record_function)
+        cfg = C.test_model_cfg(cfg_file, data.num_classes)
+        model = make_model(cfg, init_params_numpy(cfg_file.RNG_SEED, cfg), dev)
+        evaluator = PoseEvaluator(data.classes, data._extents, data._points, list(YCB_SYMMETRIC_EVAL))
+
+        def run(n_frames):
+            with record_function("stage:frame"):
+                engine.test_net(model, cfg, data, PIXEL_MEANS, evaluator=evaluator, max_frames=n_frames, log=None,
+                                **C.test_settings(cfg_file))
+
+        warmup, runs = [(2,)], [(args.frames,)]
+        rest = "heads and the rest"
+        unit = "frame"
+    elif args.train and args.toy:
         from posecnn_torch.data.layer import GtSynthesizeLayer
         from posecnn_torch.data.minibatch import rescale_points
 
