@@ -7,8 +7,9 @@ out), the flagship training step (B=2 at 640x480 from a device bank), the
 cfg-driven CLIs on the toy dataset (host-fed training at 96x128 and its
 scoring), the flagship cfg's bank refresh (a host thread rendering fresh
 scenes into the bank), the depth inputs (DEPTH, NORMAL, the RGBD dual
-tower) and FCN-8s through the cfg-driven CLIs, and the detection network
-(VGG16DET) and the 3D head (VERTEX_REG_3D) through them.
+tower) and FCN-8s through the cfg-driven CLIs, the detection network
+(VGG16DET) and the 3D head (VERTEX_REG_3D) through them, and VGG16FULL,
+the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them.
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
   2. build: every CUDA kernel of the path (hough_vote, conv3x3, nms), the
@@ -107,13 +108,29 @@ tower) and FCN-8s through the cfg-driven CLIs, and the detection network
      golden on the card; `test_net --cfg lov_color_3d.yml` (RANSAC poses,
      its device ms) and RANSAC card against CPU on a well-posed scene; one
      3D step on rendered scenes with their vertmaps, card against CPU, and
-     `train_net --cfg lov_color_3d.yml` failing on frames without one
-  14. the kernels' JSON line, then {"ok": true, "device": {...}}
+     `train_net --cfg lov_color_3d.yml` failing on frames without one;
+     the NMS kernel's times include one with a cold L2
+  14. VGG16FULL, the domain head and the VGG16GAN cfg
+     (`full_adapt_gan_phase`): `train_net --cfg lov_color_2d_full.yml`
+     and `lov_color_sugar_box_adapt.yml` (20 steps each, B=2, 640x480,
+     bf16, 4 hough_vote and 2 conv3x3 launches a step; loss_domain in the
+     second's log), `test_net --cfg` on each snapshot (12 frames),
+     `train_net --cfg shapenet_single_single_color_gan.yml` (10 steps, the
+     label head alone, the jitter and the noise on the host); one float32
+     step of VGG16FULL and one of the adaptation cfg on the card against
+     the CPU port (the same Hough rows on both sides; losses within 1e-4
+     relative, the gradients of conv1_2, score_conv1 or fc9, and fc6
+     within 5e-3 of their largest magnitude); VGG16FULL's inference
+     against the JAX golden
+  15. each phase's seconds and each CLI run's (where it ran, its set-up
+     time), the kernels' JSON line, then {"ok": true, "device": {...}}
 
-The CLIs' scratch directory is made under the checkout's git-ignored
-output/ and removed at the end. Any failure raises and the process exits
-nonzero; nothing falls back to the CPU. It imports no JAX. Usage: python3
-chip_smoke.py
+The CLIs run in this process through their `main(argv)` (`run_cli`), but
+for phase 8's SIGTERM and --resume runs and phase 11's SIGTERM run, which
+have processes of their own. Their scratch directory is made under the
+checkout's git-ignored output/ and removed at the end. Any failure raises
+and the process exits nonzero; nothing falls back to the CPU. It imports
+no JAX. Usage: python3 chip_smoke.py
 """
 
 from __future__ import annotations
@@ -195,6 +212,9 @@ DET_SHIPPED_STEPS, DET_STABLE_LR = 20, 1e-5
 # of this run's boxes needs: each kept box against each later box that no
 # kept box before it has removed (`nms_sweep_tests`).
 NMS_TEST_OPS = 15
+# the NMS kernel's cold-L2 time: calls on this many copies of the boxes in
+# turn, each with its mask words in a block of its own (~180 MB at 6000)
+NMS_COLD_CALLS = 40
 # the card against the CPU port on one full-width det step at float32 (TF32
 # off): relative limits of the loss terms and of the gradient's global norm
 # (phase 7's), and of the gradients of the proposal path, fc6 and conv1_2 as
@@ -205,14 +225,55 @@ DET_LOSS_LIMITS = {"loss_rpn_cls": 1e-3, "loss_rpn_box": 1e-3, "loss_cls": 1e-3,
                    "loss_pose": 1e-3, "loss_regu": 1e-6, "grad_norm": 5e-3}
 DET_GRAD_LIMITS = {"rpn_bbox_pred.weight": 2e-2, "conv_rpn.weight": 2e-2, "fc6.weight": 2e-2,
                    "trunk.conv1_2.weight": 2e-2}
+# phase 14: the VGG16FULL and adaptation trainers' steps (DISPLAY, 20, so
+# the log shows the last step's losses) and the GAN trainer's, the steps
+# left out of the medians (the first step's warm-up, then the prefetch
+# queue's batches made meanwhile); the frames each test_net scores and those
+# left out of its medians
+SLICE_J_STEPS, GAN_STEPS, SLICE_J_WARMUP, GAN_WARMUP = 20, 10, 8, 5
+SLICE_J_EVAL_FRAMES, SLICE_J_EVAL_WARMUP = 12, 3
+SLICE_J_CFGS = {"full": "lov_color_2d_full.yml", "adapt": "lov_color_sugar_box_adapt.yml",
+                "gan": "shapenet_single_single_color_gan.yml"}
+# the card against the CPU port on one float32 step (TF32 off) of VGG16FULL
+# and of the adaptation cfg, with the same batch, weights and draws: each
+# loss term within SLICE_J_LOSS_LIMIT relative, the gradient's global norm
+# within SLICE_J_GRAD_LIMIT relative, and these gradients within
+# SLICE_J_GRAD_LIMIT of their largest magnitude. Both sides must sample the
+# same Hough rows first (valid rows and classes equal, boxes within 1e-2 px)
+SLICE_J_LOSS_LIMIT, SLICE_J_GRAD_LIMIT = 1e-4, 5e-3
+SLICE_J_GRADS = {"full": ("trunk.conv1_2.weight", "score_conv1.weight", "fc6.weight"),
+                 "adapt": ("trunk.conv1_2.weight", "fc6.weight", "fc9.weight")}
 
 
 _T0 = time.perf_counter()
 
 
+# the seconds since the script started at each phase's first line
+PHASE_START = {}
+
+
 def phase(n: int, msg: str) -> None:
     """A phase's line, with the seconds since the script started."""
-    print(f"[phase {n}] [{time.perf_counter() - _T0:.1f} s] {msg}", flush=True)
+    now = time.perf_counter() - _T0
+    PHASE_START.setdefault(n, now)
+    print(f"[phase {n}] [{now:.1f} s] {msg}", flush=True)
+
+
+def print_timeline() -> None:
+    """Each phase's seconds (from its first line to the next phase's; the
+    first line comes when the phase's first check is done), then each CLI
+    run's: where it ran, its wall seconds, the seconds to its first step's
+    log line (train_net), and the card memory already allocated when an
+    in-process run began."""
+    ends = sorted(PHASE_START.items()) + [(None, time.perf_counter() - _T0)]
+    print("phase seconds: " + json.dumps({n: round(b - a, 1) for (n, a), (_, b) in zip(ends, ends[1:])}),
+          flush=True)
+    for r in CLI_RUNS:
+        print(f"[cli] {r['args']}: {r['where']}, {r['wall_s']:.1f} s"
+              + (f", first step's line at {r['first_step_s']:.1f} s" if r["first_step_s"] is not None else "")
+              + (f", set-up and output {r['wall_s'] - r['loop_s']:.1f} s (the evaluation loop {r['loop_s']:.1f} s)"
+                 if "loop_s" in r else "")
+              + (f", {r['resident_mib']:.0f} MiB already allocated" if "resident_mib" in r else ""), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -402,24 +463,101 @@ def vote_inputs(rng: np.random.RandomState, S: int, P: int, H: int, W: int):
     return samples, np.ascontiguousarray(coarse), np.ascontiguousarray(window)
 
 
-def run_cli(args, log_path: str, timeout: float, until=None) -> tuple:
+# each CLI run: its arguments, where it ran, its wall seconds and its set-up
+# time (`run_cli`); printed at the end beside each phase's seconds
+CLI_RUNS = []
+
+
+def run_cli(args, log_path: str, timeout: float, until=None, own_process: bool = False) -> tuple:
     """Run `python -m <args>` from the checkout's root with its output in
-    log_path. With `until`, poll it every 5 ms and send SIGTERM once it
-    returns true. Returns (exit code, the log). The process never outlives
-    the call."""
-    with open(log_path, "w") as logf:
-        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
-        try:
-            if until is not None:
-                while proc.poll() is None and not until():
+    log_path. Returns (exit code, the log), and appends the run's record to
+    CLI_RUNS.
+
+    With `until` (polled every 5 ms; SIGTERM once it returns true) or
+    `own_process`, in a process of its own, which never outlives the call;
+    its set-up time is from the start of the process to the moment its
+    first step's log line appears. Otherwise in this process, through the
+    module's `main(argv)` (the card, the built kernels and the host tables
+    are already there): stdout and stderr go to the log, an exception is
+    written there as a traceback and gives exit code 1, and the working
+    directory, the float32-precision flags and the kernels' launch counters
+    (which the CLI resets for its own record) are put back afterwards; its
+    set-up time is the time of its first step's log line, which the CLI
+    stamps from the start of `main`. A test_net run has no step lines: its
+    record takes the evaluation loop's seconds (`wall_s` of its
+    eval_timing.json), and its set-up time is the rest of its wall time."""
+    t0 = time.perf_counter()
+    first_step = None
+    if until is not None or own_process:
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+            try:
+                while proc.poll() is None and not (until is not None and until()):
+                    if first_step is None:
+                        with open(log_path) as f:
+                            if re.search(r"^\[[\d.]+s\] iter \d+/", f.read(), re.M):
+                                first_step = time.perf_counter() - t0
                     time.sleep(0.005)
                 if proc.poll() is None:
                     proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=timeout)
+                rc = proc.wait(timeout=timeout)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(log_path) as f:
+            log = f.read()
+        where = "own process"
+    else:
+        import torch
+
+        resident = torch.cuda.memory_allocated() / 2**20
+        rc, log = _run_main(args, log_path)
+        m = re.search(r"^\[([\d.]+)s\] iter \d+/", log, re.M)
+        first_step = float(m.group(1)) if m else None
+        where = "in process"
+    CLI_RUNS.append({"args": " ".join(a if len(a) < 60 else "..." + a[-40:] for a in args), "where": where,
+                     "wall_s": time.perf_counter() - t0, "first_step_s": first_step})
+    if where == "in process":
+        CLI_RUNS[-1]["resident_mib"] = resident
+    timing = os.path.join(args[args.index("--output") + 1], "eval_timing.json") if "--output" in args else ""
+    if args[0] == "posecnn_torch.test_net" and rc == 0 and os.path.exists(timing):
+        with open(timing) as f:
+            CLI_RUNS[-1]["loop_s"] = json.load(f)["wall_s"]
+    return rc, log
+
+
+def _run_main(args, log_path: str) -> tuple:
+    """(exit code, log) of `<module>.main(argv)` run in this process."""
+    import contextlib
+    import gc
+    import importlib
+    import traceback
+
+    import torch
+
+    from posecnn_torch.ops import conv3x3, nms, voting
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    counts = (voting.VOTE_LAUNCHES, conv3x3.CONV3X3_LAUNCHES, nms.NMS_LAUNCHES)
+    cwd = os.getcwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the CLI's record reads the peak since here
+    with open(log_path, "w") as logf, contextlib.redirect_stdout(logf), contextlib.redirect_stderr(logf):
+        try:
+            os.chdir(ROOT)
+            rc = importlib.import_module(args[0]).main(list(args[1:]))
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+        except Exception:  # noqa: BLE001 - the CLI's failure, as its process would report it
+            traceback.print_exc()
+            rc = 1
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            os.chdir(cwd)
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            voting.VOTE_LAUNCHES, conv3x3.CONV3X3_LAUNCHES, nms.NMS_LAUNCHES = counts
+    gc.collect()
+    torch.cuda.empty_cache()
     with open(log_path) as f:
         return rc, f.read()
 
@@ -522,7 +660,7 @@ def snapshot_phase(state, model0: dict, work: str, dev) -> tuple:
     t_first1 = float(log_seconds(r"iter 1/30 ", log1).group(1))
 
     # --resume: from the signal snapshot to the final snapshot at 30
-    rc, log2 = run_cli(args + ["--resume"], os.path.join(work, "train_2.log"), 600)
+    rc, log2 = run_cli(args + ["--resume"], os.path.join(work, "train_2.log"), 600, own_process=True)
     check(rc == 0, f"train_net --resume exited {rc}:\n{log2[-3000:]}")
     res = log_seconds(r"resumed from (\S+) at iteration (\d+) \(([\d.]+)s\)", log2)
     check(res.group(2) == path and int(res.group(3)) == n, f"resumed from {res.group(2)} at {res.group(3)}")
@@ -661,8 +799,7 @@ def eval_phase(final: str, seed0: str, work: str, dev) -> dict:
 def toy_phase(work: str, dev) -> dict:
     """Phase 10: the cfg-driven path on the toy dataset
     (experiments/cfgs/toy_pose.yml). `python -m posecnn_torch.train_net
-    --cfg toy_pose.yml --imdb toy_train --iters TOY_STEPS` in a process of
-    its own (every loss of its metrics rows finite, hough_vote 4 and
+    --cfg toy_pose.yml --imdb toy_train --iters TOY_STEPS` (every loss of its metrics rows finite, hough_vote 4 and
     conv3x3 2 launches a step); the host-fed step on the card against the
     CPU port on step 1 (the same first batch of GtSynthesizeLayer(seed=3),
     weights and replayed draws; phase 7's limits on the losses and the
@@ -1377,12 +1514,24 @@ def det_3d_phase(work: str, dev) -> tuple:
     b_ms, b_by = bound_ms(nbytes, pairs * NMS_TEST_OPS, PEAK_F32_FLOP_PER_S)
     call = functools.partial(nms.nms_keep_sorted, boxes, 0.7)
     k_ms, k_single = median_ms(call), single_ms(call)
+    # cold L2: NMS_COLD_CALLS copies of the boxes in turn, each call's mask
+    # words (n x ceil(n/64) int64, 4.5 MB at 6000 boxes) in a block of their
+    # own: an empty tensor of their size, kept with the output, takes the
+    # block the call has just freed, so the next call's mask lands elsewhere
+    mask_numel = n * ((n + 63) // 64)
+    copies = [boxes.clone() for _ in range(NMS_COLD_CALLS)]
+    k_cold = cold_ms(lambda b: (nms.nms_keep_sorted(b, 0.7),
+                                torch.empty(mask_numel, dtype=torch.int64, device=dev)), copies)
+    cold_mb = NMS_COLD_CALLS * (mask_numel * 8 + n * 17) / 1e6
+    del copies
     p_ms = median_ms(lambda: nms.nms_keep_sorted_plain(boxes, 0.7), reps=3, inner=1)
-    record = dict(max_abs_err=0.0, ms=k_ms, single_ms=k_single, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                  library_ms=None, boxes=n, kept=int(keep.sum()), pairs_needed=pairs)
+    record = dict(max_abs_err=0.0, ms=k_ms, cold_ms=k_cold, single_ms=k_single, plain_ms=p_ms, bound_ms=b_ms,
+                  bound_by=b_by, library_ms=None, boxes=n, kept=int(keep.sum()), pairs_needed=pairs)
     phase(13, "nms kernel against its plain version, keep masks equal: " + "; ".join(lines)
               + f". On the real proposals (N={n}, threshold 0.7, {int(keep.sum())} kept): kernel {k_ms * 1e3:.1f} us "
-              f"back to back, {k_single * 1e3:.1f} us single; plain {p_ms:.1f} ms; bound {b_ms * 1e3:.2f} us "
+              f"back to back, {k_cold * 1e3:.1f} us with a cold L2 ({NMS_COLD_CALLS} copies of the boxes and their "
+              f"mask words in turn, {cold_mb:.0f} MB; median of 10 rounds), {k_single * 1e3:.1f} us single; plain "
+              f"{p_ms:.1f} ms; bound {b_ms * 1e3:.2f} us "
               f"({b_by}: {pairs} IoU tests of {NMS_TEST_OPS} f32 operations, each kept box against the later boxes "
               f"still there when it is reached; {nbytes} bytes); no PyTorch call computes NMS (library_ms null)")
     del model, out, props, real
@@ -1619,6 +1768,185 @@ def det_3d_phase(work: str, dev) -> tuple:
               + f"; launches {launches['step_3d']}. train_net --cfg lov_color_3d.yml --imdb lov_syn_val_v4 exits {rc}: "
               f"{message[:200]}; phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return record, launches
+
+
+def full_adapt_gan_phase(work: str, dev) -> dict:
+    """Phase 14: VGG16FULL, the domain head (TRAIN.ADAPT) and the VGG16GAN
+    cfg. (a) `train_net --cfg lov_color_2d_full.yml --imdb lov_syn_val_v4
+    --iters SLICE_J_STEPS` (B=2, 640x480, bf16: 4 hough_vote and 2 conv3x3
+    launches a step) and `test_net --cfg` on its snapshot (2 and 1 a
+    frame); the same for lov_color_sugar_box_adapt.yml (loss_domain in its
+    log); `train_net --cfg shapenet_single_single_color_gan.yml --iters
+    GAN_STEPS` (the label head alone: 2 conv3x3 launches a step; the
+    jitter and the noise on the host). Each: stream and host ms a step,
+    data wait, peak memory, the launches; the eval's ms a frame by stage.
+    (b) One float32 step of VGG16FULL and one of the adaptation cfg on the
+    card against the CPU port (the first host batch of the cfg, seed
+    weights, the card's draws replayed): the Hough rows equal on the two
+    sides, the losses and gradients within SLICE_J_LOSS_LIMIT and
+    SLICE_J_GRAD_LIMIT. (c) VGG16FULL's float32 inference on the card
+    against the JAX golden (`check_full_golden`). Returns the launches of
+    each path."""
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.data.layer import GtSynthesizeLayer
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.data.minibatch import rescale_points
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.models import posecnn_full as PF
+    from posecnn_torch.models.posecnn import posecnn_forward
+    from posecnn_torch.ops import conv3x3, nms, voting
+    from tests.torch_parity import check_full_golden, full_on_golden
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def counts():
+        return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
+
+    def cfg_path(key):
+        return os.path.join("experiments", "cfgs", SLICE_J_CFGS[key])
+
+    # (a) the trainers' CLIs, and test_net on FULL's and the adaptation
+    # cfg's snapshots
+    snaps = {}
+    for key, iters, warm in (("full", SLICE_J_STEPS, SLICE_J_WARMUP), ("adapt", SLICE_J_STEPS, SLICE_J_WARMUP),
+                             ("gan", GAN_STEPS, GAN_WARMUP)):
+        cfg = C.cfg_from_file(os.path.join(ROOT, cfg_path(key)))
+        out = os.path.join(work, key)
+        rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg_path(key), "--imdb", "lov_syn_val_v4", "--iters",
+                           str(iters), "--output", out], os.path.join(work, key + ".log"), 600)
+        check(rc == 0, f"train_net --cfg {SLICE_J_CFGS[key]} exited {rc}:\n{log[-3000:]}")
+        resident = CLI_RUNS[-1]["resident_mib"]
+        snaps[key] = os.path.join(out, f"{cfg.TRAIN.SNAPSHOT_PREFIX}_iter_{iters}.npz")
+        check(os.path.exists(snaps[key]), f"no snapshot {snaps[key]}")
+        with open(os.path.join(out, "train_timing.json")) as fh:
+            timing = json.load(fh)
+        launches[f"{key}_train_cli"] = timing["launches"]
+        per_step = 0 if key == "gan" else 4  # the GAN cfg trains the label head alone: no Hough
+        want = {"hough_vote": per_step * iters, "conv3x3": 2 * iters, "nms": 0}
+        check(timing["launches"] == want, f"{key}: launches {timing['launches']}, want {want}")
+        lines = (1, *range(cfg.TRAIN.DISPLAY, iters + 1, cfg.TRAIN.DISPLAY))
+        losses = {it: _cli_losses(log, it, iters) for it in lines}
+        check(all(np.isfinite(v) for m in losses.values() for v in m.values()), f"{key}: losses {losses}")
+        check(("loss_domain" in losses[1]) == (key == "adapt") and ("loss_vertex" in losses[1]) == (key != "gan"),
+              f"{key}: loss terms {sorted(losses[1])}")
+        ms = {k: statistics.median(v[warm:]) for k, v in timing["ms"].items()}
+        phase(14, f"train_net --cfg {SLICE_J_CFGS[key]} --imdb lov_syn_val_v4 --iters {iters} (B=2, 640x480, bf16, "
+                  f"22 classes): per step (median of steps {warm + 1}-{iters}) {ms['step_stream']:.3f} ms stream, "
+                  f"{ms['step']:.3f} ms host, data wait {ms['data_wait']:.3f} ms; peak memory "
+                  f"{timing['peak_memory_mib']:.1f} MiB ({resident:.0f} MiB of it allocated before the run); losses "
+                  + "; ".join(f"step {it}: {m}" for it, m in losses.items()) + f"; launches {timing['launches']}")
+        print(f"{key} train per-step ms " + json.dumps({k: [round(x, 3) for x in v] for k, v in timing["ms"].items()}),
+              flush=True)
+        if key == "gan":
+            continue
+        ev = os.path.join(work, key + "_eval")
+        rc, log = run_cli(["posecnn_torch.test_net", "--cfg", cfg_path(key), "--imdb", "lov_syn_val_v4", "--model",
+                           snaps[key], "--max_frames", str(SLICE_J_EVAL_FRAMES), "--output", ev],
+                          os.path.join(work, key + "_eval.log"), 600)
+        check(rc == 0, f"test_net --cfg {SLICE_J_CFGS[key]} exited {rc}:\n{log[-3000:]}")
+        with open(os.path.join(ev, "eval_summary.json")) as fh:
+            summary = json.load(fh)
+        with open(os.path.join(ev, "eval_timing.json")) as fh:
+            ev_timing = json.load(fh)
+        with np.load(os.path.join(ev, "detections.npz")) as d:
+            dets = {k: d[k] for k in d.files}
+        launches[f"{key}_eval"] = ev_timing["launches"]
+        n = SLICE_J_EVAL_FRAMES
+        want = {"hough_vote": 2 * n, "conv3x3": n, "nms": 0}
+        check(ev_timing["frames"] == n and ev_timing["launches"] == want,
+              f"{key} eval: {ev_timing['frames']} frames, launches {ev_timing['launches']}, want {want}")
+        check(all(np.isfinite(v).all() and v.shape[1:] == (7,) for v in dets.values()), f"{key} eval: detections")
+        check(0 <= summary["mean_iou"] <= 1 and 0 <= summary["adds_auc"] <= 1, f"{key} eval: summary {summary}")
+        ev_ms = {k: statistics.median(v[SLICE_J_EVAL_WARMUP:]) for k, v in ev_timing["ms"].items()}
+        phase(14, f"test_net --cfg {SLICE_J_CFGS[key]} --model <the iter-{SLICE_J_STEPS} snapshot> --max_frames {n}: "
+                  f"{sum(len(v) for k, v in dets.items() if k.endswith('_rois'))} detections, mean IoU "
+                  f"{summary['mean_iou']:.4f}, ADD-S AUC {summary['adds_auc']:.4f}; per frame (median of frames "
+                  f"{SLICE_J_EVAL_WARMUP + 1}-{n}) " + ", ".join(f"{k} {v:.3f} ms" for k, v in ev_ms.items())
+                  + f"; peak {ev_timing['peak_memory_mib']:.1f} MiB; launches {ev_timing['launches']}")
+
+    # (b) one float32 step of VGG16FULL and of the adaptation cfg, card
+    # against CPU
+    imdb = LovSynVal()
+    n_cls = imdb.num_classes
+    ext, sym = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
+    consts = [torch.from_numpy(a) for a in (rescale_points(np.asarray(imdb._points_all, np.float32), ext, sym),
+                                            sym, ext)]
+    for key in ("full", "adapt"):
+        t0 = time.perf_counter()
+        full = key == "full"
+        cfg = C.cfg_from_file(os.path.join(ROOT, cfg_path(key)))
+        model_cfg = dataclasses.replace(C.train_model_cfg(cfg, n_cls), compute_dtype=torch.float32)
+        hp, mcfg = C.train_hparams(cfg), C.minibatch_cfg(cfg, n_cls)
+        batch = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED).forward()
+        weights = (PF.init_posecnn_full_params_numpy if full else init_params_numpy)(cfg.RNG_SEED, model_cfg)
+        make = PF.make_full_model if full else make_model
+        rows = []  # Hough's rows and the label map of each side's step
+
+        def forward(*a, _net=PF.posecnn_full_forward if full else posecnn_forward, **k):
+            out = _net(*a, **k)
+            rows.append((out["rois"].detach().cpu(), out["rois_valid"].cpu(), out["label_2d"].cpu()))
+            return out
+
+        kw = dict(forward_fn=forward, ce_threshold=PF.CE_THRESHOLD if full else None)
+        state = T.create_train_state(make(model_cfg, weights, dev), hp)
+        step = T.make_train_step(model_cfg, hp, *(c.to(dev) for c in consts), **kw)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.RNG_SEED)
+        draws = T.Draws(gen, record=True)
+        voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+        got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), draws).items()}
+        launches[f"{key}_f32_step"] = counts()
+        check(launches[f"{key}_f32_step"] == {"hough_vote": 4, "conv3x3": 0, "nms": 0},
+              f"{key} f32 step: launches {launches[f'{key}_f32_step']}")
+        grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
+        recorded = {k: v.cpu() for k, v in draws.recorded.items()}
+        del state, step
+        torch.cuda.empty_cache()
+        state_cpu = T.create_train_state(make(model_cfg, weights, "cpu"), hp)
+        ref = {k: float(v) for k, v in T.make_train_step(model_cfg, hp, *consts, **kw)(
+            state_cpu, T.to_device(batch, "cpu"), T.Draws(replay=recorded)).items()}
+        rel = {k: _rel(got[k], ref[k]) for k in ref if k.startswith("loss") or k == "grad_norm"}
+        grad_rel = {k: float((grads[k] - p.grad).abs().max()) / max(float(p.grad.abs().max()), 1e-30)
+                    for k, p in state_cpu.model.named_parameters()}
+        del state_cpu
+        # the losses and the gradients follow Hough's rows, so both steps
+        # must have sampled the same ones
+        agree = float((rows[0][2] == rows[1][2]).double().mean())
+        roi_err = float((rows[0][0][:, 2:6] - rows[1][0][:, 2:6]).abs().max())
+        check(torch.equal(rows[0][1], rows[1][1]) and torch.equal(rows[0][0][:, :2], rows[1][0][:, :2])
+              and roi_err <= 1e-2,
+              f"{key} f32 step: Hough's rows differ between card and CPU (valid {rows[0][1].tolist()} vs "
+              f"{rows[1][1].tolist()}, classes equal {torch.equal(rows[0][0][:, :2], rows[1][0][:, :2])}, boxes "
+              f"max|err| {roi_err} px, limit 1e-2; label agreement {agree})")
+        limits = {k: SLICE_J_GRAD_LIMIT if k == "grad_norm" else SLICE_J_LOSS_LIMIT for k in rel}
+        check(all(rel[k] <= limits[k] for k in rel) and all(grad_rel[k] <= SLICE_J_GRAD_LIMIT
+                                                             for k in SLICE_J_GRADS[key]),
+              f"{key} f32 step, card against CPU: relative errors {rel}, limits {limits}; gradients "
+              + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in SLICE_J_GRADS[key]) + f", limit {SLICE_J_GRAD_LIMIT}")
+        worst = sorted(grad_rel, key=grad_rel.get, reverse=True)[:3]
+        phase(14, f"{'VGG16FULL' if full else 'adaptation (domain head)'} step at float32 ({SLICE_J_CFGS[key]}: B=2, "
+                  f"640x480, 22 classes, TF32 off, seed weights, the cfg's first host batch, recorded draws), card "
+                  f"against the CPU port ({time.perf_counter() - t0:.1f} s; Hough's {int(rows[0][1].sum())} valid rows "
+                  f"equal, boxes within {roi_err:.3g} px; label agreement {agree:.6f}): "
+                  + "; ".join(f"{k} {got[k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g} (limit {limits[k]})" for k in rel)
+                  + "; " + "; ".join(f"{k} gradient {grad_rel[k]:.3g} of its largest magnitude (limit "
+                                     f"{SLICE_J_GRAD_LIMIT})" for k in SLICE_J_GRADS[key])
+                  + "; worst gradients (not held) " + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in worst)
+                  + f"; launches {launches[f'{key}_f32_step']}")
+    torch.cuda.empty_cache()
+
+    # (c) VGG16FULL's inference on the card against the JAX golden
+    err = check_full_golden(*full_on_golden(dev))
+    phase(14, "VGG16FULL inference (f32, TF32 off, the golden's small config, 2 frames at 64x80) against JAX, "
+              "labels, valid rows, num_rois and classes exact: " + "; ".join(f"{k} max|err| {v:.3g}"
+                                                                          for k, v in err.items())
+              + f" (prob_normalized, vertex_pred within 1e-5 x max; rois 1e-3, poses_init 1e-4, poses_tanh 1e-5); "
+              f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def toy_phase3(kernels: dict, w_t, dev) -> None:
@@ -2088,8 +2416,8 @@ def main() -> int:
              + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in worst)
              + f"; loss_pose {losses[0]['loss_pose']:.6g} vs {ref['loss_pose']:.6g} (not held: Hough follows labels)")
 
-    # the rest of the run drives the CLIs in processes of their own; their
-    # scratch directory (under the git-ignored output/) goes at the end
+    # the rest of the run drives the CLIs (`run_cli`); their scratch
+    # directory (under the git-ignored output/) goes at the end
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "output"))
     try:
@@ -2101,13 +2429,15 @@ def main() -> int:
         refresh_launches = refresh_phase(work, dev)
         input_launches = input_modes_phase(work, dev)
         nms_record, det_launches = det_3d_phase(work, dev)
+        slice_j_launches = full_adapt_gan_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    print_timeline()
     print(smi, flush=True)
     sources = {"hough_vote": ("posecnn_torch/csrc/hough_vote.cu", "posecnn_tpu/ops/pallas/voting.py:36"),
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
-    det_paths = {f"launches_{path}": n for path, n in det_launches.items()}
+    det_paths = {f"launches_{path}": n for path, n in {**det_launches, **slice_j_launches}.items()}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],

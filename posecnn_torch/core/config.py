@@ -540,9 +540,11 @@ def get_output_dir(config: Config, imdb_name: str, net_name: Optional[str] = Non
 # -------------------------------------------------------------- the builders
 
 
-# the networks the port runs: PoseCNN, FCN-8s and the detection network
-# (`models/factory.py`)
-NETWORKS = ("VGG16", "FCN8VGG", "VGG16DET")
+# the networks the port runs: PoseCNN, its all-scale variant, FCN-8s and
+# the detection network (`models/factory.py`); VGG16GAN has no branch in the
+# JAX CLIs, which train and score it as PoseCNN (`models/gan.py` is reached
+# through the factory alone)
+NETWORKS = ("VGG16", "VGG16FULL", "VGG16GAN", "FCN8VGG", "VGG16DET")
 
 
 def unsupported(cfg: Config, train: bool = True) -> List[str]:
@@ -560,8 +562,14 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
         rules += [
             ("TRAIN.VOTING_THRESHOLD", T.VOTING_THRESHOLD, T.VOTING_THRESHOLD > 0),
             ("TRAIN.SYNTHESIZE", T.SYNTHESIZE, T.SYNTHESIZE),
-            ("TRAIN.ADAPT", T.ADAPT, T.ADAPT),
-            ("TRAIN.GAN", T.GAN, T.GAN),
+            # the adaptation frames of ADAPT_ROOT are image files read by
+            # cv2 (tools/train_net.py:200-225): not in the repository
+            ("TRAIN.ADAPT_ROOT", T.ADAPT_ROOT, T.ADAPT and bool(T.ADAPT_ROOT)),
+            # JAX's step reads a domain_score that vgg16_full never returns
+            ("TRAIN.ADAPT", T.ADAPT, T.ADAPT and cfg.NETWORK == "VGG16FULL"),
+            # JAX's step hands vgg16_full gt_centers, which it does not take
+            ("TPU.HOUGH_FROM_GT", P.HOUGH_FROM_GT, P.HOUGH_FROM_GT and cfg.NETWORK == "VGG16FULL"),
+            ("TPU.HOUGH_GT_MIX", P.HOUGH_GT_MIX, P.HOUGH_GT_MIX > 0 and cfg.NETWORK == "VGG16FULL"),
             ("TRAIN.MATCHING", T.MATCHING, T.MATCHING),
             ("TRAIN.VISUALIZE", T.VISUALIZE, T.VISUALIZE),
             ("TRAIN.SCALES_BASE", T.SCALES_BASE, tuple(T.SCALES_BASE)[:1] != (1.0,)),
@@ -572,15 +580,15 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
     else:
         rules += [
             ("TEST.VOTING_THRESHOLD", S.VOTING_THRESHOLD, S.VOTING_THRESHOLD > 0),
-            ("TEST.GAN", S.GAN, S.GAN),
             ("TEST.VISUALIZE", S.VISUALIZE, S.VISUALIZE),
             ("TEST.SCALES_BASE", S.SCALES_BASE, tuple(S.SCALES_BASE)[:1] != (1.0,)),
             # the JAX package's test_net on PoseCNN without the vertex head
             # raises KeyError: postprocess_detections reads rois, which the
             # inference function returns only with it (engine/test.py:87);
-            # the 3D head decodes its own rois by RANSAC (:351-377)
+            # the 3D head decodes its own rois by RANSAC (:351-377);
+            # VGG16GAN is scored as PoseCNN there
             ("TEST.VERTEX_REG_2D", S.VERTEX_REG_2D,
-             cfg.NETWORK == "VGG16" and not S.VERTEX_REG_2D and not S.VERTEX_REG_3D),
+             cfg.NETWORK in ("VGG16", "VGG16GAN") and not S.VERTEX_REG_2D and not S.VERTEX_REG_3D),
         ]
     return [f"{k}: {v!r}" for k, v, bad in rules if bad]
 
@@ -592,7 +600,9 @@ def check_supported(cfg: Config, train: bool = True) -> None:
 
 
 def train_model_cfg(cfg: Config, num_classes: int):
-    """The training `PoseCNNConfig` of `tools/train_net.py:107-128`."""
+    """The training `PoseCNNConfig` of `tools/train_net.py:107-128`, for
+    VGG16 PoseCNN and VGG16FULL alike (the network is NETWORK's: VGG16FULL
+    is `models.posecnn_full`, VGG16GAN PoseCNN)."""
     from posecnn_torch.config import PoseCNNConfig
 
     check_supported(cfg, train=True)
@@ -623,7 +633,7 @@ def train_model_cfg(cfg: Config, num_classes: int):
 
 def test_model_cfg(cfg: Config, num_classes: int):
     """The evaluation `PoseCNNConfig` of `tools/test_net.py:129-144`: the
-    TEST section's heads. The input format keeps PoseCNNConfig's default,
+    TEST section's heads, for VGG16 PoseCNN and VGG16FULL alike. The input format keeps PoseCNNConfig's default,
     COLOR, whatever INPUT says, as it does there: a DEPTH, NORMAL or RGBD
     snapshot is scored on colour frames."""
     from posecnn_torch.config import PoseCNNConfig

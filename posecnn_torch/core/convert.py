@@ -17,7 +17,9 @@ packages (`params_to_numpy` is the way back):
                 way in, written from it on the way back
 
 A weight's rank tells the two apart, so the same functions serve PoseCNN
-and the detection network (`fc6` a fully connected layer,
+(with its domain head, `fc9` and `domain_score`), VGG16FULL
+(`models/posecnn_full.py`: `score_conv1`..`score_conv5` and their
+`_vertex` twins), the detection network (`fc6` a fully connected layer,
 `models/detection.py`) and FCN-8s (`fc6` a 7x7 convolution,
 `models/fcn8.py`).
 """
@@ -39,6 +41,10 @@ _TRUNK = {name for name, *_ in VGG_CONV_DEFS}
 _HEADS = {
     "score_conv5", "score_conv4", "score", "score_conv5_vertex", "score_conv4_vertex", "vertex_pred",
     "fc6", "fc7", "fc8",  # PoseCNN's pose head, FCN-8s's fc6 and fc7
+    "fc9", "domain_score",  # PoseCNN's domain head (adaptation)
+    # VGG16FULL's other scales (score_conv5 and 4 as above)
+    "score_conv3", "score_conv2", "score_conv1",
+    "score_conv3_vertex", "score_conv2_vertex", "score_conv1_vertex",
     "score_fr", "score_pool4", "score_pool3",  # FCN-8s
     # the detection network (fc6 and fc7 as above)
     "conv_rpn", "rpn_cls_score", "rpn_bbox_pred", "cls_score", "bbox_pred", "poses_pred_unnormalized",
@@ -50,6 +56,8 @@ _UPSCORES = {
     "score_conv5_vertex": (("upscore_conv5_vertex", 4), ("upscore_vertex", 16)),
     "score_fr": (("upscore2", 4), ("upscore4", 4), ("upscore32", 16)),
 }
+# VGG16FULL's x2 filters between its five scales, at num_units
+_FULL_UPSCORES = tuple((f"upscore_conv{lvl}", 4) for lvl in "5432")
 _KEY = re.compile(r"\['([^']*)'\]")
 
 
@@ -71,11 +79,20 @@ def init_conv(rng: np.random.Generator, k: int, ci: int, co: int, stddev=None) -
     return {"weights": _trunc_normal(rng, (k, k, ci, co), std), "biases": np.zeros((co,), np.float32)}
 
 
+def init_fc(rng: np.random.Generator, ci: int, co: int, stddev=None) -> Dict[str, np.ndarray]:
+    """A fully connected layer in the JAX layout: (in, out) weights, He
+    sqrt(2/fan_in) (or `stddev`) truncated at 2 sigma, zero biases."""
+    std = math.sqrt(2.0 / ci) if stddev is None else stddev
+    return {"weights": _trunc_normal(rng, (ci, co), std), "biases": np.zeros((co,), np.float32)}
+
+
 def init_params_numpy(seed: int, cfg: PoseCNNConfig) -> Dict[str, Dict[str, np.ndarray]]:
     """Random weights in the JAX layout, with the shapes and init rules of
     `init_posecnn_params` (He sqrt(2/fan_in) truncated at 2 sigma; `score`
-    0.01, `vertex_pred` and `fc8` 0.001; zero biases; bilinear upscore; the
-    `conv*_p` trunk and 2x wide `score_conv5`/`score_conv4` for RGBD)."""
+    0.01, `vertex_pred` and `fc8` 0.001, `domain_score` 0.01; zero biases;
+    bilinear upscore; the `conv*_p` trunk and 2x wide
+    `score_conv5`/`score_conv4` for RGBD; `fc9` and `domain_score` with
+    `adaptation`)."""
     rng = np.random.default_rng(seed)
     C, U = cfg.num_classes, cfg.num_units
     c5 = scaled_width(512, cfg.trunk_scale)
@@ -84,8 +101,7 @@ def init_params_numpy(seed: int, cfg: PoseCNNConfig) -> Dict[str, Dict[str, np.n
         return init_conv(rng, k, ci, co, stddev)
 
     def fc(ci, co, stddev=None):
-        std = math.sqrt(2.0 / ci) if stddev is None else stddev
-        return {"weights": _trunc_normal(rng, (ci, co), std), "biases": np.zeros((co,), np.float32)}
+        return init_fc(rng, ci, co, stddev)
 
     params = {name: conv(3, ci, co) for name, ci, co, _ in trunk_shapes(cfg.trunk_scale)}
     dual = cfg.input_format == "RGBD"
@@ -107,6 +123,9 @@ def init_params_numpy(seed: int, cfg: PoseCNNConfig) -> Dict[str, Dict[str, np.n
             params["fc6"] = fc(7 * 7 * c5, cfg.fc_dim)
             params["fc7"] = fc(cfg.fc_dim, cfg.fc_dim)
             params["fc8"] = fc(cfg.fc_dim, 4 * C, stddev=0.001)
+            if cfg.adaptation:
+                params["fc9"] = fc(7 * 7 * c5, 256)
+                params["domain_score"] = fc(256, 2, stddev=0.01)
     return params
 
 
@@ -174,7 +193,8 @@ def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np
     trace) -> the nested JAX layout, float32 on the host. OIHW -> HWIO,
     fc (out, in) -> (in, out); the `upscore*` filters, which the JAX package
     keeps as parameters, are written from the bilinear formula at the widths
-    of the score layers that feed them."""
+    of the score layers that feed them (VGG16FULL's, recognised by its
+    `score_conv1`, between its five scales)."""
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for key, v in named.items():
         path, leaf = key.rsplit(".", 1)
@@ -182,23 +202,33 @@ def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np
         if leaf == "weight":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         out.setdefault(_layer_name(path), {})["weights" if leaf == "weight" else "biases"] = np.ascontiguousarray(a)
-    for score, ups in _UPSCORES.items():
+    if "score_conv1" in out:
+        ups = {s: tuple((name + s[len("score_conv5"):], k) for name, k in _FULL_UPSCORES)
+               for s in ("score_conv5", "score_conv5_vertex")}
+    else:
+        ups = _UPSCORES
+    for score, names in ups.items():
         if score in out:
             c = out[score]["weights"].shape[3]
-            for name, k in ups:
+            for name, k in names:
                 out[name] = {"weights": make_deconv_filter(k, c)}
     return out
 
 
-def param_shapes(cfg) -> Dict[str, Dict[str, tuple]]:
-    """The JAX-layout shape of every parameter of `PoseCNN(cfg)`, or of
-    `VGG16Det(cfg)` for a `models.detection.DetConfig` (the `upscore*`
-    filters, which PoseCNN rebuilds, left out), read from a model on the
-    meta device: no weights are drawn."""
+def param_shapes(cfg, network: str = "vgg16_convs") -> Dict[str, Dict[str, tuple]]:
+    """The JAX-layout shape of every parameter of `PoseCNN(cfg)`, of
+    `PoseCNNFull(cfg)` for network "vgg16_full", or of `VGG16Det(cfg)` for
+    a `models.detection.DetConfig` (the `upscore*` filters, which the port
+    rebuilds, left out), read from a model on the meta device: no weights
+    are drawn."""
     from posecnn_torch.models.detection import DetConfig, VGG16Det
     from posecnn_torch.models.posecnn import PoseCNN
+    from posecnn_torch.models.posecnn_full import PoseCNNFull
 
-    model = VGG16Det(cfg, device="meta") if isinstance(cfg, DetConfig) else PoseCNN(cfg, device="meta")
+    if isinstance(cfg, DetConfig):
+        model = VGG16Det(cfg, device="meta")
+    else:
+        model = (PoseCNNFull if network == "vgg16_full" else PoseCNN)(cfg, device="meta")
     out: Dict[str, Dict[str, tuple]] = {}
     for key, v in model.state_dict().items():
         path, leaf = key.rsplit(".", 1)

@@ -6,8 +6,8 @@ The port's own copy of `posecnn_tpu/data/layer.py:25-196` for real frames:
 honouring the flipped roidb entries of `imdb.append_flipped_images`),
 `GtSingleDataLayer` and `prefetch`. One `RandomState(seed)` draws the
 index permutations and the chromatic deltas in the JAX package's order, so
-the batches are bit-equal to its. The synthetic and adaptation streams are
-not ported.
+the batches are bit-equal to its. The adaptation stream (TRAIN.ADAPT with
+frames from `adapt_frames`) is ported; the synthetic stream is not.
 
 `prefetch` runs the batch assembly (numpy work only) on a daemon thread and
 hands the batches over through a bounded queue; an exception in the thread
@@ -20,7 +20,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import replace
-from typing import Iterator, List
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -54,16 +54,32 @@ class IndexStream:
 class GtSynthesizeLayer:
     """Minibatches of real frames: `ims_per_batch` indices of the stream a
     batch, each frame loaded from `dataset` and mirrored where its roidb
-    entry is flipped."""
+    entry is flipped. With `adapt`, a batch is first drawn to be one of
+    adaptation frames with probability adapt_ratio / (adapt_ratio + 1)
+    (`rng.rand()`, `layer.py:107-113`); its `ims_per_batch` frames then
+    come from `adapt_frames(iteration, rng)`, marked `is_adaptation`."""
 
-    def __init__(self, dataset, mcfg: MinibatchConfig, ims_per_batch: int = 2, seed: int = 3):
+    def __init__(self, dataset, mcfg: MinibatchConfig, ims_per_batch: int = 2, adapt: bool = False,
+                 adapt_ratio: int = 1, adapt_frames: Optional[Callable[[int, np.random.RandomState], Frame]] = None,
+                 seed: int = 3):
+        if adapt and adapt_frames is None:
+            raise ValueError("the adaptation stream needs adapt_frames")
         self.dataset = dataset
         self.mcfg = mcfg
         self.ims_per_batch = ims_per_batch
+        self.adapt = adapt
+        self.adapt_ratio = adapt_ratio
+        self.adapt_frames = adapt_frames
         self.rng = np.random.RandomState(seed)
         self.stream = IndexStream(dataset.num_images, self.rng)
+        self._iter = 0
 
     def forward(self) -> dict:
+        adapt = self.adapt and self.rng.rand() < self.adapt_ratio / (self.adapt_ratio + 1.0)
+        it, self._iter = self._iter, self._iter + 1
+        if adapt:
+            frames = [replace(self.adapt_frames(it, self.rng), is_adaptation=True) for _ in range(self.ims_per_batch)]
+            return get_minibatch(frames, self.mcfg, self.rng, extents=getattr(self.dataset, "_extents", None))
         frames: List[Frame] = []
         rdb = getattr(self.dataset, "_roidb", None)
         for i in self.stream.next(self.ims_per_batch):

@@ -20,9 +20,13 @@ the depth image (`depth_input_image`), the colour image with the depth
 image as `data_p` (RGBD), or the normal image (`normals_np`,
 `normal_input_image`). With VERTEX_REG_3D each image carries the scaled
 object coordinates of its pixels' classes (`vertex_targets_3d`, from the
-frame's `vertmap`) instead of the centre table. The other branches of the
-JAX function raise NotImplementedError: dense host targets, GAN blobs,
-adaptation and synthetic frames, and input rescaling.
+frame's `vertmap`) instead of the centre table. With TRAIN.GAN the jitter
+and the noise run here for the COLOR input too, and the batch carries the
+jittered image scaled to [-1, 1] (`data_gan`) and the generator's noise
+(`gan_z`). An adaptation frame (`is_adaptation`, the domain stream of
+`data.layer`) has the label -1 everywhere, no centre rows and no pose
+rows. The other branches of the JAX function raise NotImplementedError:
+dense host targets, synthetic frames, and input rescaling.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ class Frame:
     depth: Optional[np.ndarray] = None  # (H,W) uint16, metres * factor_depth
     factor_depth: float = 1.0
     is_synthetic: bool = False    # composite over a random background
+    is_adaptation: bool = False   # an unlabelled frame of the domain stream
     flipped: bool = False         # mirror horizontally when batched
     # instance mask: pixel value j + 1 for poses[:, :, j] (multi-instance
     # frames), and the per-pixel object coordinates (H,W,3) in the model
@@ -164,7 +169,6 @@ def flip_frame(fr: Frame) -> Frame:
 def _check_host_batch(mcfg: MinibatchConfig, frames: List[Frame]) -> None:
     unported = {
         "dense host vertex targets (device_targets False)": not mcfg.device_targets,
-        "gan": mcfg.gan,
         "input rescaling (scale != 1, cv2)": mcfg.scale != 1.0,
         "synthetic frames over backgrounds": any(f.is_synthetic for f in frames),
     }
@@ -294,23 +298,29 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
       chroma_dhls  (B,3)          float32 HLS deltas (chromatic, COLOR)
       noise_sigma  (B,)           float32 Gaussian noise sigma, 0 for a
                                           blurred image (add_noise, COLOR)
+      data_gan     (B,H,W,3)      float32 the jittered image / 127.5 - 1
+                                          (gan)
+      gan_z        (B,100)        float32 U(-1, 1) (gan)
 
     A frame marked `flipped` is mirrored first (`flip_frame`). The draws of
     `rng`, an image at a time. COLOR: the three chroma deltas (`rng.rand(1)`
     each), which the train step applies, then the noise gate (`rng.rand(1)`
     < 0.9: noise) and either the sigma's `rng.rand(1)` or `motion_blur`'s
-    size and axis. Other inputs: the jitter and the noise run here on the
-    colour image (`utils.blob.chromatic_transform`, `add_noise`), whose
-    draws are taken even where the image is then replaced: DEPTH and RGBD
-    build the depth image (`depth_input_image`, from zeros for a frame
-    without depth) and draw its own `add_noise`; NORMAL builds the normal
-    image (`normal_input_image`)."""
+    size and axis. GAN and the other inputs: the jitter and the noise run
+    here on the colour image (`utils.blob.chromatic_transform`,
+    `add_noise`), whose draws are taken even where the image is then
+    replaced: DEPTH and RGBD build the depth image (`depth_input_image`,
+    from zeros for a frame without depth) and draw its own `add_noise`;
+    NORMAL builds the normal image (`normal_input_image`). With `gan`,
+    `gan_z`'s draw comes after every image's (`minibatch.py:500-506`).
+    An adaptation frame's label is -1 everywhere; it adds no centre rows
+    (zero targets with VERTEX_REG_3D) and no pose rows."""
     _check_host_batch(mcfg, frames)
-    host_aug = mcfg.input_format != "COLOR"
+    host_aug = mcfg.input_format != "COLOR" or mcfg.gan
     want_depth_input = mcfg.input_format in ("DEPTH", "RGBD")
     want_normal_input = mcfg.input_format == "NORMAL"
     ims, ims_p, labels, metas, center_rows, chroma_rows, noise_sigmas = [], [], [], [], [], [], []
-    vt3, vw3 = [], []
+    vt3, vw3, gan_ims = [], [], []
     C = mcfg.num_classes
     pose_blob = np.zeros((0, 13), dtype=np.float32)
     for i, fr in enumerate(frames):
@@ -347,8 +357,18 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
                     ims_p.append(_to_u8(im_d))
             else:
                 im = normal_input_image(depth_raw, fr.factor_depth, fr.intrinsic_matrix)
+        if mcfg.gan:
+            gan_ims.append(im[..., :3].astype(np.float32) / 127.5 - 1.0)
         ims.append(_to_u8(im))
         metas.append(build_meta_data(fr.intrinsic_matrix, mcfg.scale))
+        if fr.is_adaptation:
+            # no labels: the domain head alone reads the frame (minibatch.py:436-445)
+            labels.append(-1 * np.ones_like(label))
+            center_rows.append(np.zeros((0, 4), np.float32))
+            if mcfg.vertex_reg_3d:
+                vt3.append(np.zeros(label.shape + (3,), dtype=np.float32))
+                vw3.append(np.zeros(label.shape, dtype=np.float32))
+            continue
         labels.append(label)
         if mcfg.vertex_reg and mcfg.vertex_reg_3d:
             if fr.vertmap is None:
@@ -386,6 +406,9 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
         batch["chroma_dhls"] = np.asarray(chroma_rows, np.float32)
     if ims_p:
         batch["data_p"] = np.stack(ims_p)
+    if gan_ims:
+        batch["data_gan"] = np.stack(gan_ims)
+        batch["gan_z"] = rng.uniform(-1, 1, (len(gan_ims), 100)).astype(np.float32)
     if mcfg.vertex_reg and mcfg.vertex_reg_3d:
         batch["vertex_targets3"] = np.stack(vt3)
         batch["vertex_weights3"] = np.stack(vw3)

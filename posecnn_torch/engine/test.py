@@ -38,20 +38,23 @@ def set_float32_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def make_inference_fn(model_cfg: PoseCNNConfig, pixel_means: Tuple[float, float, float], device):
+def make_inference_fn(model_cfg: PoseCNNConfig, pixel_means: Tuple[float, float, float], device, forward_fn=None):
     """Returns infer(model, raw_bgr_u8 (B,H,W,3), meta (B,48), extents (C,3))
     -> dict of label_2d, rois, poses_init, rois_valid, num_rois, poses_tanh
     (the outputs the JAX engine returns by default); with 3D vertex
     regression label_2d and vertex_pred, which the RANSAC decode reads.
-    `model` is a `models.posecnn.PoseCNN` on `device`."""
+    `model` is a `models.posecnn.PoseCNN` on `device`, or the model of
+    `forward_fn` (`posecnn_full.posecnn_full_forward` and `PoseCNNFull` for
+    VGG16FULL, whose pose branch crop-pools at inference too)."""
     cfg = replace(model_cfg, is_train=False, keep_prob=1.0)
     means = torch.tensor(pixel_means, dtype=torch.float32, device=device).reshape(1, 1, 1, 3)
+    forward = posecnn_forward if forward_fn is None else forward_fn
     set_float32_precision()
 
     @torch.inference_mode()
     def infer(model, raw_bgr, meta, extents) -> Dict[str, torch.Tensor]:
         data = raw_bgr.to(torch.float32) - means
-        out = posecnn_forward(model, cfg, data, extents, meta)
+        out = forward(model, cfg, data, extents, meta)
         keep = {"label_2d": out["label_2d"]}
         if cfg.vertex_reg_3d:
             keep["vertex_pred"] = out["vertex_pred"]
@@ -228,6 +231,7 @@ def test_net(
     eval_batch: int = 1,
     icp_plane_weight: float = 0.0,
     timings: Optional[Dict[str, List[float]]] = None,
+    forward_fn=None,
 ) -> List[Dict[str, Optional[np.ndarray]]]:
     """The evaluation loop (`engine/test.py:test_net`, PoseCNN with 2D vertex
     regression, with or without the pose head: without it a detection's
@@ -240,7 +244,8 @@ def test_net(
     per-frame dicts of rois, poses, poses_refined and poses_icp (None
     without refinement or detections).
 
-    `model` is a `models.posecnn.PoseCNN`; the work runs on its device.
+    `model` is a `models.posecnn.PoseCNN`, or the model of `forward_fn`
+    (`make_inference_fn`'s; VGG16FULL); the work runs on its device.
     `timings`, when given, gets per-frame lists of milliseconds: `infer`
     (the inference call to its outputs on the host, shared by a batch's
     frames), `nms`, `icp` (wall, to its result on the host), `icp_device`
@@ -256,7 +261,7 @@ def test_net(
                          "package's test_net raises KeyError 'rois'")
     dev = next(model.parameters()).device
     cuda = dev.type == "cuda"
-    infer = make_inference_fn(model_cfg, pixel_means, dev)
+    infer = make_inference_fn(model_cfg, pixel_means, dev, forward_fn)
     extents = torch.as_tensor(np.asarray(dataset._extents, np.float32), device=dev)
     points_all = torch.as_tensor(np.asarray(dataset._points_all, np.float32), device=dev)
     n = dataset.num_images if max_frames is None else min(max_frames, dataset.num_images)

@@ -2,15 +2,16 @@
 steps, and the training loop.
 
 Port of `posecnn_tpu/engine/train.py` for the PoseCNN training steps
-(`compute_losses`, `make_train_step` on one device, `make_bank_train_step`,
-the training loop of `Solver`) and the segmentation step
-(`make_seg_train_step`, FCN-8s):
+(`compute_losses`, `make_train_step` on one device, with its
+`forward_fn` hook for VGG16FULL, `make_bank_train_step`, the training loop
+of `Solver`) and the segmentation step (`make_seg_train_step`, FCN-8s):
 
   * losses as the reference's `train_net` assembles them: L2 regularization
     (`upscore*` carry none, and the port holds no parameters for them),
     the fused hard-label cross entropy, the fused vertex smooth-L1, the
     ADD/ADD-S loss (normalized by the valid Hough rows with
-    `pose_norm_valid`) and the quaternion auxiliary loss;
+    `pose_norm_valid`), the quaternion auxiliary loss and, with the domain
+    head (`adaptation`), the domain cross entropy at `adapt_weight`;
   * the optimizer is momentum SGD at unit learning rate after global-norm
     clipping; the step scales the update by `lr_schedule(hp)(step)`, where
     `step` is the solver's counter. No learning rate lives in any state
@@ -41,7 +42,8 @@ from posecnn_torch.config import PIXEL_MEANS, RNG_SEED, PoseCNNConfig
 from posecnn_torch.models.posecnn import PoseCNN, posecnn_forward
 from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.chromatic import add_noise_field, chromatic_device
-from posecnn_torch.ops.losses import loss_cross_entropy_hard_label_sparse, loss_cross_entropy_single_frame
+from posecnn_torch.ops.losses import (loss_cross_entropy_hard_label_sparse, loss_cross_entropy_single_frame,
+                                      sparse_softmax_cross_entropy)
 from posecnn_torch.ops.vertex_targets import smooth_l1_loss_vertex_sparse, smooth_l1_loss_vertex_sparse3d
 
 
@@ -208,27 +210,35 @@ def compute_losses(
     symmetry: torch.Tensor,
     extents: torch.Tensor,
     draws: Optional[Draws] = None,
+    forward_fn: Optional[Callable] = None,
+    ce_threshold: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The flagship loss (`train.py:compute_losses`): returns (loss, the
-    named loss terms). A uint8 `data_p` (the RGBD input's depth image) has
-    the pixel means subtracted and nothing else. Without `draws`, random
-    numbers come from torch's default generator."""
+    named loss terms). `forward_fn` is the network (default
+    `posecnn_forward`; `posecnn_full.posecnn_full_forward` for VGG16FULL,
+    which reads no `data_p`) and `ce_threshold` the hard-label gate of the
+    cross entropy in place of `threshold_label` (VGG16FULL: 0.7). A uint8
+    `data_p` (the RGBD input's depth image) has the pixel means subtracted
+    and nothing else. Without `draws`, random numbers come from torch's
+    default generator."""
     draws = draws if draws is not None else Draws()
+    forward = posecnn_forward if forward_fn is None else forward_fn
+    thr = model_cfg.threshold_label if ce_threshold is None else ce_threshold
     if hp.matching_w > 0:
         raise NotImplementedError("the matching loss is not ported yet")
     data = preprocess(batch["data"], hp, batch, draws)
-    data_p = batch.get("data_p")
+    data_p = batch.get("data_p") if forward is posecnn_forward else None
     if data_p is not None and data_p.dtype == torch.uint8:
         # the RGBD depth image: the pixel means only (train.py:205-208)
         data_p = data_p.to(torch.float32) - torch.tensor(hp.pixel_means, device=data_p.device).reshape(1, 1, 1, 3)
-    out = posecnn_forward(
+    out = forward(
         model, model_cfg, data, extents, batch["meta_data"], gt_poses=batch.get("poses"),
         gt_label_2d=batch["gt_label_2d"], gt_centers=batch.get("gt_centers"), draws=draws, data_p=data_p,
     )
     losses: Dict[str, torch.Tensor] = {}
     loss = regularization_loss(model, hp.weight_reg)
     losses["loss_regu"] = loss
-    loss_cls = loss_cross_entropy_hard_label_sparse(out["score"], batch["gt_label_2d"], model_cfg.threshold_label)
+    loss_cls = loss_cross_entropy_hard_label_sparse(out["score"], batch["gt_label_2d"], thr)
     losses["loss_cls"] = loss_cls
     loss = loss + loss_cls
     if model_cfg.vertex_reg:
@@ -267,6 +277,12 @@ def compute_losses(
                 loss_quat = hp.quat_w * per_roi.sum() / n_valid
                 losses["loss_quat"] = loss_quat
                 loss = loss + loss_quat
+            if model_cfg.adaptation:
+                # the mean over all R rows, invalid ones (domain 0) included
+                # (train.py:311-316)
+                loss_domain = hp.adapt_weight * sparse_softmax_cross_entropy(out["domain_score"], out["label_domain"])
+                losses["loss_domain"] = loss_domain
+                loss = loss + loss_domain
     losses["loss"] = loss
     return loss, losses
 
@@ -357,17 +373,21 @@ def make_train_step(
     points: torch.Tensor,
     symmetry: torch.Tensor,
     extents: torch.Tensor,
+    forward_fn: Optional[Callable] = None,
+    ce_threshold: Optional[float] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
     """Train step over a batch on the device (`train.py:make_train_step`,
     one device): step(state, batch, draws) computes the losses and their
     gradients and updates the state in place at lr_schedule(hp)(state.step).
     `batch` is a host minibatch (`data.minibatch.get_minibatch`) moved to
-    the device (`to_device`). Returns the loss terms (detached), the lr and
-    the gradient norm."""
+    the device (`to_device`). `forward_fn` and `ce_threshold` as in
+    `compute_losses` (VGG16FULL: `posecnn_full_forward`, 0.7). Returns the
+    loss terms (detached), the lr and the gradient norm."""
     sched = lr_schedule(hp)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
-        loss, losses = compute_losses(state.model, model_cfg, hp, batch, points, symmetry, extents, draws)
+        loss, losses = compute_losses(state.model, model_cfg, hp, batch, points, symmetry, extents, draws,
+                                      forward_fn, ce_threshold)
         lr = sched(state.step)
         g_norm = train_update(state, loss, lr)
         out = {k: v.detach() for k, v in losses.items()}

@@ -18,7 +18,6 @@ trunk for tests; the JAX package has no such field.
 from __future__ import annotations
 
 import functools
-import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -88,15 +87,14 @@ def init_vgg16_det_params_numpy(seed: int, cfg: DetConfig) -> Dict[str, Dict[str
     output heads at 0.01 (`rpn_cls_score`, `cls_score`) and 0.001
     (`rpn_bbox_pred`, `bbox_pred`, `poses_pred_unnormalized`); zero biases),
     from numpy seed `seed`."""
-    from posecnn_torch.core.convert import _trunc_normal, init_conv
+    from posecnn_torch.core.convert import init_conv, init_fc
 
     rng = np.random.default_rng(seed)
     C, A = cfg.num_classes, cfg.num_anchors
     c5 = scaled_width(512, cfg.trunk_scale)
 
     def fc(ci, co, stddev=None):
-        std = math.sqrt(2.0 / ci) if stddev is None else stddev
-        return {"weights": _trunc_normal(rng, (ci, co), std), "biases": np.zeros((co,), np.float32)}
+        return init_fc(rng, ci, co, stddev)
 
     p = {name: init_conv(rng, 3, ci, co) for name, ci, co, _ in trunk_shapes(cfg.trunk_scale)}
     p["conv_rpn"] = init_conv(rng, 3, c5, c5)

@@ -2,7 +2,9 @@
 
 Port of `posecnn_tpu/models/factory.py` for the networks the port runs:
 `vgg16_convs` (PoseCNN: `core.convert.init_params_numpy`,
-`models.posecnn.posecnn_forward`), `fcn8_vgg` (FCN-8s:
+`models.posecnn.posecnn_forward`), `vgg16_full` (the all-scale variant:
+`models.posecnn_full.init_posecnn_full_params_numpy`,
+`posecnn_full_forward`), `fcn8_vgg` (FCN-8s:
 `models.fcn8.init_fcn8_params_numpy`, `fcn8_forward`) and `vgg16_det`
 (the detection network: `models.detection.init_vgg16_det_params_numpy`,
 `vgg16_det_forward`). The JAX package's
@@ -25,6 +27,10 @@ def get_network(name: str) -> Tuple[Callable, Callable]:
         from posecnn_torch.models.posecnn import posecnn_forward
 
         return init_params_numpy, posecnn_forward
+    if name == "vgg16_full":
+        from posecnn_torch.models.posecnn_full import init_posecnn_full_params_numpy, posecnn_full_forward
+
+        return init_posecnn_full_params_numpy, posecnn_full_forward
     if name == "fcn8_vgg":
         from posecnn_torch.models.fcn8 import fcn8_forward, init_fcn8_params_numpy
 
@@ -34,5 +40,6 @@ def get_network(name: str) -> Tuple[Callable, Callable]:
 
         return init_vgg16_det_params_numpy, vgg16_det_forward
     if name in JAX_NETWORKS:
-        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, vgg16_convs, vgg16_det)")
+        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, vgg16_convs, vgg16_det, "
+                                  "vgg16_full)")
     raise KeyError(f"Unknown network: {name}. Known: {sorted(JAX_NETWORKS)}")

@@ -13,9 +13,13 @@ head and the RoI pools read the colour trunk's alone.
 With `vertex_reg_3d` the vertex head predicts extent-normalized object
 coordinates (3 channels a class) and the network ends there.
 
-Training (`cfg.is_train`) adds dropout on add_score, addv, fc6 and fc7, the
-`gt_label_weight` endpoint, GT rows into Hough voting (targets and 9 rows a
-detection), the per-image `hough_gt_mix` draw that feeds Hough the GT
+With `adaptation` the pooled RoI features also go through the gradient
+reversal layer to `fc9` and the 2-way `domain_score` (the domain
+classifier; its labels `label_domain` are Hough's per-row domains).
+
+Training (`cfg.is_train`) adds dropout on add_score, addv, fc6, fc7 and
+fc9, the `gt_label_weight` endpoint, GT rows into Hough voting (targets
+and 9 rows a detection), the per-image `hough_gt_mix` draw that feeds Hough the GT
 labels and vertex targets instead of the heads', and `poses_pred`. With
 `hough_from_gt`, Hough always reads the GT label and vertex targets. Its
 random numbers come from a `draws` object (`engine.train.Draws`): one
@@ -32,6 +36,7 @@ from torch import nn
 from posecnn_torch.config import PoseCNNConfig
 from posecnn_torch.models import layers as L
 from posecnn_torch.models.backbone import Conv, VGGTrunk, scaled_width
+from posecnn_torch.ops.gradient_reversal import gradient_reversal
 from posecnn_torch.ops.hard_label import hard_label
 from posecnn_torch.ops.hough_voting import hough_voting
 from posecnn_torch.ops.roi_pool import crop_pool_batched, roi_pool_batched
@@ -49,7 +54,6 @@ class Linear(nn.Module):
 
 def _check_supported(cfg: PoseCNNConfig) -> None:
     unported = {
-        "adaptation": cfg.adaptation,
         "vote_threshold > 0": cfg.vote_threshold > 0,
         # the exact roi_pool_batched backward (roi_pool.py:182-269) is not ported
         "is_train without use_crop_pool": cfg.is_train and cfg.pose_reg and not cfg.use_crop_pool,
@@ -91,6 +95,9 @@ class PoseCNN(nn.Module):
                 self.fc6 = Linear(7 * 7 * c5, cfg.fc_dim, device=device)
                 self.fc7 = Linear(cfg.fc_dim, cfg.fc_dim, device=device)
                 self.fc8 = Linear(cfg.fc_dim, 4 * C, device=device)
+                if cfg.adaptation:
+                    self.fc9 = Linear(7 * 7 * c5, 256, device=device)
+                    self.domain_score = Linear(256, 2, device=device)
 
 
 def _dropout(x: torch.Tensor, keep: float, draws, name: str) -> torch.Tensor:
@@ -211,6 +218,8 @@ def posecnn_forward(
     out["poses_weight"] = hough.poses_weight
     out["rois_valid"] = hough.valid
     out["num_rois"] = hough.num_rois
+    if cfg.adaptation:
+        out["label_domain"] = hough.domains
     if not cfg.pose_reg:
         return out
 
@@ -237,4 +246,15 @@ def posecnn_forward(
     out["poses_tanh"] = poses_tanh
     out["poses_mul"] = poses_mul
     out["poses_pred"] = L.l2_normalize(poses_mul, dim=1)
+    if cfg.adaptation:
+        # the domain classifier (posecnn.py:332-343): reversed gradient,
+        # fc9, and 2-way logits without ReLU (the JAX package's departure
+        # from the reference, whose ReLU'd logits could zero the gradient)
+        fc9 = L.fc(m.fc9.weight, m.fc9.bias, gradient_reversal(pool_score, cfg.adapt_lambda), relu=True,
+                   compute_dtype=dt)
+        fc9 = _dropout(fc9, keep, draws, "dropout/fc9")
+        domain_score = L.fc(m.domain_score.weight, m.domain_score.bias, fc9, relu=False)
+        out["domain_score"] = domain_score
+        out["domain_prob"] = L.softmax_hd(domain_score)
+        out["domain_label"] = torch.argmax(domain_score, dim=-1).to(torch.int32)
     return out

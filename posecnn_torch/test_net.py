@@ -11,6 +11,14 @@ dataset's own symmetric classes (the last cuboid of `toy`). Without
 --model, the weights are drawn from numpy seed RNG_SEED. The output
 directory is output/<EXP_DIR>/<imdb>/<network> unless --output.
 
+With --cfg of NETWORK VGG16FULL (or --network vgg16_full), the all-scale
+network (`models.posecnn_full`, its pose branch crop-pooling at inference)
+through the same evaluation, its parameters built and read at its own
+shapes (the JAX CLI builds PoseCNN's there, and its forward fails). A
+snapshot trained with the domain head (TRAIN.ADAPT) is scored without it:
+its fc9 and domain_score are not read, as JAX's `restore_checkpoint`
+reads only the keys of the model it restores into.
+
 With --cfg of NETWORK FCN8VGG (or --network fcn8_vgg), the segmentation
 evaluation (`segmentation`): the colour frames through FCN-8s, scored by
 the label IoU; `eval_summary.json`, `eval_timing.json` and the mean IoU
@@ -73,6 +81,7 @@ def main(argv=None) -> int:
     from posecnn_torch.core.checkpoint import restore_params
     from posecnn_torch.core.convert import make_model, param_shapes
     from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL, PoseEvaluator
+    from posecnn_torch.models.posecnn_full import make_full_model
     from posecnn_torch.engine import test as engine
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -84,9 +93,11 @@ def main(argv=None) -> int:
     from posecnn_torch.models.factory import get_network
 
     config = C.cfg_from_file(args.cfg) if args.cfg else None
-    # NETWORK FCN8VGG and VGG16DET take over --network (tools/test_net.py:
-    # 66-109); a network the port does not run raises here
-    name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det"}.get(getattr(config, "NETWORK", None), args.network)
+    # NETWORK FCN8VGG, VGG16DET and VGG16FULL take over --network
+    # (tools/test_net.py:61-109); VGG16GAN is scored as PoseCNN; a network
+    # the port does not run raises here
+    name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det", "VGG16FULL": "vgg16_full"}.get(
+        getattr(config, "NETWORK", None), args.network)
     init_fn, forward_fn = get_network(name)
     if args.cfg:
         from posecnn_torch.data.factory import get_imdb
@@ -112,8 +123,9 @@ def main(argv=None) -> int:
         out_dir = args.output or os.path.join(ROOT, "output", EXP_DIR, dataset.name, args.network)
     if args.icp_plane_weight is not None:
         test_cfg["icp_plane_weight"] = args.icp_plane_weight
-    weights = restore_params(args.model, param_shapes(cfg)) if args.model else init_fn(seed, cfg)
-    model = make_model(cfg, weights, args.device)
+    full = name == "vgg16_full"
+    weights = restore_params(args.model, param_shapes(cfg, name)) if args.model else init_fn(seed, cfg)
+    model = (make_full_model if full else make_model)(cfg, weights, args.device)
     sym = [c for c in dataset.classes if c in YCB_SYMMETRIC_EVAL] or [
         dataset.classes[i] for i in range(dataset.num_classes) if dataset._symmetry[i] > 0
     ]
@@ -125,7 +137,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     results = engine.test_net(model, cfg, dataset, PIXEL_MEANS, evaluator=evaluator, max_frames=args.max_frames,
                               log=lambda m: print(m, flush=True), eval_batch=args.eval_batch, timings=timings,
-                              **test_cfg)
+                              forward_fn=forward_fn, **test_cfg)
     wall = time.perf_counter() - t0
     launches = _launches()
 

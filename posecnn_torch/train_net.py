@@ -23,7 +23,16 @@ normal image (`data.minibatch.get_minibatch`), and RGBD trains the dual
 tower; with VERTEX_REG_3D the vertex head learns object coordinates from
 the frames' vertmaps (a dataset whose frames have none, such as every one
 in this repository, stops at the first batch with ValueError, where the
-JAX package raises TypeError). NETWORK FCN8VGG (or --network fcn8_vgg)
+JAX package raises TypeError). NETWORK VGG16FULL (or --network
+vgg16_full) trains the all-scale network (`models.posecnn_full`) through
+the same step, with the hard-label gate of its cross entropy at 0.7
+whatever THRESHOLD_LABEL says; NETWORK VGG16GAN trains PoseCNN, as the JAX
+CLI does, on host batches that also carry the GAN blobs (TRAIN.GAN: the
+jitter and the noise on the host, `data_gan`, `gan_z`), which the step
+does not read. TRAIN.ADAPT adds the domain head and its loss; as in the
+JAX CLI, the adaptation frames come only from TRAIN.ADAPT_ROOT, so without
+it (the shipped cfgs) the data stream has none, and a non-empty
+ADAPT_ROOT is refused (its images need cv2). NETWORK FCN8VGG (or --network fcn8_vgg)
 trains FCN-8s on the segmentation loss alone (`seg_run`, the JAX CLI's
 `train_segmentation`), under output/<EXP_DIR>/<imdb>/fcn8_vgg. NETWORK
 VGG16DET trains the detection network (`det_run`, the JAX CLI's
@@ -80,6 +89,7 @@ def cfg_run(args, log):
 
     from posecnn_torch.core import config as C
     from posecnn_torch.core.convert import make_model
+    from posecnn_torch.models.posecnn_full import CE_THRESHOLD, make_full_model
     from posecnn_torch.data.device_bank import bank_to_device, build_bank
     from posecnn_torch.data.factory import get_imdb
     from posecnn_torch.data.layer import GtSynthesizeLayer, prefetch
@@ -92,9 +102,11 @@ def cfg_run(args, log):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: reading a {what} needs a file from outside the repository")
     cfg = C.cfg_from_file(args.cfg)
-    # NETWORK FCN8VGG and VGG16DET take over --network (tools/train_net.py:
-    # 83-92); a network the port does not run raises here
-    name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det"}.get(cfg.NETWORK, args.network)
+    # NETWORK FCN8VGG, VGG16DET and VGG16FULL take over --network
+    # (tools/train_net.py:83-105); VGG16GAN trains PoseCNN; a network the
+    # port does not run raises here
+    name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det", "VGG16FULL": "vgg16_full"}.get(cfg.NETWORK,
+                                                                                          args.network)
     init_fn, forward_fn = get_network(name)
     if not args.rand:
         np.random.seed(cfg.RNG_SEED)
@@ -123,12 +135,15 @@ def cfg_run(args, log):
     extents, symmetry = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
     points = rescale_points(points_raw, extents, symmetry, mcfg.is_symmetric)
     points, symmetry, extents = (torch.from_numpy(a).to(dev) for a in (points, symmetry, extents))
-    model = make_model(model_cfg, init_fn(cfg.RNG_SEED, model_cfg), dev)
+    full = name == "vgg16_full"
+    model = (make_full_model if full else make_model)(model_cfg, init_fn(cfg.RNG_SEED, model_cfg), dev)
     state = T.create_train_state(model, hp)
+    # vgg16_full: its own forward and the 0.7 gate (tools/train_net.py:94-105)
+    step_kw = dict(forward_fn=forward_fn, ce_threshold=CE_THRESHOLD) if full else {}
     if cfg.TPU.DEVICE_BANK:
         T_ = cfg.TRAIN
         # the bank holds raw COLOR frames at scale 1 (tools/train_net.py:331-336)
-        if T_.USE_FLIPPED or tuple(T_.SCALES_BASE) != (1.0,) or cfg.INPUT != "COLOR":
+        if T_.USE_FLIPPED or tuple(T_.SCALES_BASE) != (1.0,) or cfg.INPUT != "COLOR" or T_.ADAPT or full:
             raise ValueError("TPU.DEVICE_BANK supports the fixed single-frame COLOR flagship path")
         bank = bank_to_device(build_bank(imdb, mcfg.max_gt), dev)
         log(f"device bank: {bank['data'].shape[0]} frames on {dev}")
@@ -142,7 +157,7 @@ def cfg_run(args, log):
                 return itertools.repeat(bank), None
     else:
         layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
-        step = T.make_train_step(model_cfg, hp, points, symmetry, extents)
+        step = T.make_train_step(model_cfg, hp, points, symmetry, extents, **step_kw)
 
         def open_data(start_iter):
             return prefetch(iter(layer), depth=cfg.TPU.PREFETCH), None

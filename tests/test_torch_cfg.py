@@ -27,6 +27,8 @@ from posecnn_tpu.data.minibatch import MinibatchConfig as JaxMB
 from posecnn_tpu.engine.train import TrainHParams as JaxHP
 from posecnn_tpu.models.posecnn import PoseCNNConfig as JaxCfg
 from posecnn_torch.core import config as C
+from posecnn_torch.data.lov_syn import LovSynVal
+from tests.torch_parity import goldens
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CFG_FILES = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "experiments", "cfgs", "*.yml")))
@@ -174,10 +176,13 @@ HOST_NOISE_CFGS = (
 def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
     """toy_pose.yml, lov_syn_capstone.yml (with its bank refresh), the 10
     shipped files with TPU.BANK_REFRESH, the 38 with host noise, the 16 of
-    the depth inputs and FCN8VGG, and the 28 of the detection network and
-    the 3D head build for training; of the 105 shipped files 98 build for
-    training, 86 for testing and 81 for both; every other file names one
-    of the unported settings of `unsupported`."""
+    the depth inputs and FCN8VGG, the 28 of the detection network and the
+    3D head, and VGG16FULL, the adaptation cfg and VGG16GAN build for
+    training; of the 105 shipped files 101 build for training, 87 for
+    testing and 83 for both; every other file names one of the unported
+    settings of `unsupported`: only TRAIN.SYNTHESIZE (4 files, which need
+    data/LOV) and TEST.VERTEX_REG_2D False on PoseCNN (18, where JAX's
+    test_net raises KeyError)."""
     toy = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml"))
     assert not C.unsupported(toy, train=True) and not C.unsupported(toy, train=False)
     cap = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml"))
@@ -192,7 +197,7 @@ def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
             assert C.unsupported(c) == [], name
         tr, te = not C.unsupported(c, train=True), not C.unsupported(c, train=False)
         train, test, both = train + tr, test + te, both + (tr and te)
-    assert len(CFG_FILES) == 105 and (train, test, both) == (98, 86, 81)
+    assert len(CFG_FILES) == 105 and (train, test, both) == (101, 87, 83)
     assert len(refresh) == 10
     for name in HOST_NOISE_CFGS:
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
@@ -204,9 +209,17 @@ def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
         assert C.unsupported(c) == [] and C.unsupported(c, train=False) == [], name
         assert (c.NETWORK == "VGG16DET") != (c.TRAIN.VERTEX_REG_3D and c.TEST.VERTEX_REG_3D), name
-    assert {"NETWORK", "TRAIN.SYNTHESIZE", "TRAIN.ADAPT", "TEST.VERTEX_REG_2D"} <= refused
+    for name in SLICE_J_CFGS:
+        c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
+        assert C.unsupported(c) == [], name
+    assert refused == {"TRAIN.SYNTHESIZE", "TEST.VERTEX_REG_2D"}
     assert not refused & {"INPUT", "TPU.BANK_REFRESH", "TRAIN.ADD_NOISE", "TEST.POSE_REG", "TRAIN.VERTEX_REG_3D",
-                          "TEST.VERTEX_REG_3D"}
+                          "TEST.VERTEX_REG_3D", "NETWORK", "TRAIN.ADAPT", "TRAIN.GAN", "TEST.GAN"}
+
+
+# the shipped configs of VGG16FULL, the domain head (TRAIN.ADAPT) and
+# VGG16GAN, which build for training
+SLICE_J_CFGS = ("lov_color_2d_full", "lov_color_sugar_box_adapt", "shapenet_single_single_color_gan")
 
 
 # the shipped configs of the detection network (NETWORK VGG16DET) and the
@@ -255,6 +268,47 @@ def test_input_mode_cfgs_build_a_model_a_minibatch_config_and_hparams(name):
         assert hasattr(model, "trunk_p") == (c.INPUT == "RGBD") and model_cfg.input_format == c.INPUT
     assert mcfg.input_format == c.INPUT == ref.INPUT and mcfg.device_targets
     assert hp.learning_rate == ref.TRAIN.LEARNING_RATE and hp.weight_reg == ref.TRAIN.WEIGHT_REG
+
+
+class _SmallFrames(LovSynVal):
+    """The frozen frames of data/lov_syn_val_v4 at 64x80 (22 classes)."""
+
+    def load_frame(self, i):
+        return goldens().train_frames((f"data/lov_syn_val_v4/{i:06d}.npz",), depth=True)[0]
+
+
+@pytest.mark.parametrize("name,missing", [("lov_color_2d_full", "upscore_conv4"),
+                                          ("shapenet_single_single_color_gan", "rois")])
+def test_jax_test_net_raises_on_vgg16_full_and_vgg16_gan(name, missing):
+    """Two faults of the JAX package, called at narrow widths as its
+    tools/test_net.py calls them: on VGG16FULL it draws PoseCNN's
+    parameters (:145) and hands them to posecnn_full_forward, which reads
+    the upscore_conv4 between its scales, which they lack (KeyError; next
+    would come score_conv3); VGG16GAN falls through to PoseCNN
+    without the vertex head (TEST.VERTEX_REG_2D False), whose rois
+    postprocess_detections reads (KeyError 'rois', item 23). The port
+    builds VGG16FULL's own parameters (tests/test_torch_full.py) and
+    refuses VGG16GAN for testing."""
+    import jax
+
+    from posecnn_tpu.engine import test as JT
+    from posecnn_tpu.models.posecnn import init_posecnn_params
+    from posecnn_tpu.models.posecnn_full import posecnn_full_forward
+
+    path = os.path.join(ROOT, "experiments", "cfgs", name + ".yml")
+    ref, got = JC.cfg_fresh(path), C.cfg_from_file(path)
+    data = _SmallFrames()
+    jcfg = dc.replace(jax_test_model_cfg(ref, data.num_classes), trunk_scale=0.125, fc_dim=16,
+                      compute_dtype=jnp.float32)
+    params = init_posecnn_params(jax.random.PRNGKey(ref.RNG_SEED), jcfg)
+    forward_fn = posecnn_full_forward if ref.NETWORK == "VGG16FULL" else None
+    with pytest.raises(KeyError, match=missing):
+        JT.test_net(params, jcfg, data, ref.pixel_means(), max_frames=1, forward_fn=forward_fn, log=None)
+    if ref.NETWORK == "VGG16FULL":
+        assert C.unsupported(got, train=False) == [] and not {"upscore_conv4", "score_conv3"} & set(params)
+    else:
+        assert C.unsupported(got, train=True) == [] and C.unsupported(got, train=False) == [
+            "TEST.VERTEX_REG_2D: False"]
 
 
 # texts the reader must read as PyYAML does

@@ -319,10 +319,12 @@ def test_factory_names():
     from posecnn_torch.models.posecnn import posecnn_forward
 
     from posecnn_torch.models.detection import init_vgg16_det_params_numpy, vgg16_det_forward
+    from posecnn_torch.models.posecnn_full import init_posecnn_full_params_numpy, posecnn_full_forward
 
     assert factory.get_network("vgg16_convs") == (init_params_numpy, posecnn_forward)
     assert factory.get_network("vgg16_det") == (init_vgg16_det_params_numpy, vgg16_det_forward)
-    for name in ("vgg16_full", "vgg16_gan", "resnet50", "dcgan"):
+    assert factory.get_network("vgg16_full") == (init_posecnn_full_params_numpy, posecnn_full_forward)
+    for name in ("vgg16_3d", "vgg16_gan", "resnet50", "dcgan"):
         with pytest.raises(NotImplementedError, match=name):
             factory.get_network(name)
     with pytest.raises(KeyError):

@@ -133,13 +133,14 @@ def test_index_stream_matches_jax():
 
 @pytest.mark.parametrize("over", [
     dict(device_targets=False), dict(input_format="RGBD", device_targets=False),
-    dict(input_format="DEPTH", vertex_reg_3d=True, scale=0.5), dict(gan=True), dict(vertex_reg_3d=True, gan=True),
-    dict(scale=0.5), dict(input_format="NORMAL", scale=2.0),
+    dict(input_format="DEPTH", vertex_reg_3d=True, scale=0.5), dict(gan=True, device_targets=False),
+    dict(vertex_reg_3d=True, gan=True, scale=0.5), dict(scale=0.5), dict(input_format="NORMAL", scale=2.0),
 ])
 def test_get_minibatch_refuses_unported_branches(over):
-    """The branches still unported refuse, for the depth inputs and the 3D
-    targets too (their host paths: tests/test_torch_input_modes.py,
-    tests/test_torch_vertex3d.py)."""
+    """The branches still unported refuse, for the depth inputs, the 3D
+    targets and the GAN blobs too (their host paths:
+    tests/test_torch_input_modes.py, tests/test_torch_vertex3d.py,
+    tests/test_torch_adapt.py)."""
     fr = Toy("train").load_frame(0)
     with pytest.raises(NotImplementedError):
         M.get_minibatch([fr], M.MinibatchConfig(**{"num_classes": 4, "device_targets": True, **over}),

@@ -267,6 +267,54 @@ def check_slice_golden(out, g) -> dict:
     return err
 
 
+def full_on_golden(device="cpu"):
+    """(port outputs, golden): VGG16FULL's inference function
+    (`engine.test.make_inference_fn` with `posecnn_full_forward`) at the
+    FULL golden's float32 config, its seeded weights, frames, meta and
+    extents, on `device`, with prob_normalized and vertex_pred beside the
+    outputs the engine keeps."""
+    from posecnn_torch.config import PIXEL_MEANS, PoseCNNConfig
+    from posecnn_torch.engine.test import make_inference_fn
+    from posecnn_torch.models import posecnn_full as PF
+
+    G = goldens()
+    g = load_npz(G.FULL_GOLDEN)
+    cfg = PoseCNNConfig(compute_dtype=torch.float32, **{k[len("cfg/"):]: g[k].item() for k in g if k.startswith("cfg/")})
+    model = PF.make_full_model(cfg, PF.init_posecnn_full_params_numpy(int(g["seed"]), cfg), device)
+    dense = {}
+
+    def forward(*a, **k):  # the engine's forward, keeping the dense maps it drops
+        out = PF.posecnn_full_forward(*a, **k)
+        dense.update(prob_normalized=out["prob_normalized"], vertex_pred=out["vertex_pred"])
+        return out
+
+    infer = make_inference_fn(cfg, PIXEL_MEANS, device, forward_fn=forward)
+    out = infer(model, t(g["raw"]).to(device), t(g["meta"]).to(device), t(g["extents"]).to(device))
+    out.update(dense)
+    return out, g
+
+
+def check_full_golden(out, g) -> dict:
+    """Holds VGG16FULL's float32 inference to the JAX golden at the slice
+    golden's limits: prob_normalized and vertex_pred within 1e-5 of the
+    golden's largest magnitude; label_2d, valid rows, num_rois, batch and
+    class exact; rois atol 1e-3, poses_init atol 1e-4, poses_tanh atol
+    1e-5. Returns the max |err|s."""
+    o = {k: v.cpu().numpy() for k, v in out.items()}
+    err = {}
+    for k in ("prob_normalized", "vertex_pred"):
+        ref = g[f"out/{k}"]
+        np.testing.assert_allclose(o[k], ref, atol=1e-5 * np.abs(ref).max(), rtol=0, err_msg=k)
+        err[k] = float(np.abs(o[k] - ref).max())
+    for k in ("label_2d", "rois_valid", "num_rois"):
+        np.testing.assert_array_equal(o[k], g[f"out/{k}"], err_msg=k)
+    np.testing.assert_array_equal(o["rois"][:, :2], g["out/rois"][:, :2])
+    for k, atol in (("rois", 1e-3), ("poses_init", 1e-4), ("poses_tanh", 1e-5)):
+        np.testing.assert_allclose(o[k], g[f"out/{k}"], atol=atol, err_msg=k)
+        err[k] = float(np.abs(o[k] - g[f"out/{k}"]).max())
+    return err
+
+
 def bf16_ulp_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
     """Largest |got - ref| in units of one bf16 ulp, the ulp taken at the
     larger magnitude of the two and no finer than at 2**-8 of ref's largest

@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes eight files:
+Runs the JAX package (on the CPU) and writes nine files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -62,6 +62,13 @@ Runs the JAX package (on the CPU) and writes eight files:
       port's seeded weights (not stored), `proposal_layer` on bf16-rounded
       scores with ties, and `ransac_pose` on a well-posed scene with its
       triplet indices (`det_golden`).
+  tests/golden/torch_port_full.npz
+      VGG16FULL's inference (`make_inference_fn` with
+      `posecnn_full_forward`, every output) at a small config (`FULL_CFG`:
+      22 classes, NUM_UNITS 8, the trunk at 1/4 width, fc 64, float32) on
+      frames v4/000000 and 000001 at 64x80 with the port's seeded weights
+      (`init_posecnn_full_params_numpy(FULL_SEED)`, not stored)
+      (`full_golden`).
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -754,12 +761,60 @@ def det_golden() -> dict:
     return out
 
 
+FULL_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_full.npz")
+# VGG16FULL at a small config: every scale and both fused branches, Hough
+# with the approx sampler at stride 1, the crop-pooled pose branch
+FULL_CFG = dict(
+    num_classes=22, num_units=8, trunk_scale=0.25, fc_dim=64, is_train=False, hough_class_slots=4,
+    hough_max_samples=64, hough_center_stride=4, hough_refine_window=8, label_threshold=10, hough_pixel_stride=1,
+    skip_pixels=1, hough_sampler="approx", use_crop_pool=True,
+)
+FULL_SEED = 3
+FULL_OUTPUTS = ("label_2d", "prob_normalized", "vertex_pred", "rois", "poses_init", "rois_valid", "num_rois",
+                "poses_tanh")
+
+
+def full_inputs():
+    """(raw uint8 (2,64,80,3), meta (2,48), extents (22,3)): frames
+    v4/000000 and 000001 on the small training grid (`train_frames`)."""
+    from posecnn_torch.utils.meta import build_meta_data
+
+    frames = train_frames()
+    raw = np.stack([f.color for f in frames])
+    meta = np.stack([build_meta_data(f.intrinsic_matrix) for f in frames])
+    return raw, meta, np.full((FULL_CFG["num_classes"], 3), 0.1, np.float32)
+
+
+def full_golden() -> dict:
+    """JAX's inference function on VGG16FULL (`make_inference_fn` with
+    `forward_fn=posecnn_full_forward`, `full_outputs`) on `full_inputs()`
+    with the port's seeded weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from posecnn_torch.config import PoseCNNConfig as TorchCfg
+    from posecnn_torch.models.posecnn_full import init_posecnn_full_params_numpy
+    from posecnn_tpu.engine.test import make_inference_fn
+    from posecnn_tpu.models.posecnn import PoseCNNConfig
+    from posecnn_tpu.models.posecnn_full import posecnn_full_forward
+
+    params = init_posecnn_full_params_numpy(FULL_SEED, TorchCfg(**FULL_CFG))
+    raw, meta, extents = full_inputs()
+    infer = make_inference_fn(PoseCNNConfig(compute_dtype=jnp.float32, **FULL_CFG), PIXEL_MEANS,
+                              forward_fn=posecnn_full_forward, full_outputs=True)
+    out = infer(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(raw), jnp.asarray(meta), jnp.asarray(extents))
+    g = {f"cfg/{k}": np.asarray(v) for k, v in FULL_CFG.items()}
+    g.update(raw=raw, meta=meta, extents=extents, seed=np.asarray(FULL_SEED))
+    g.update({f"out/{k}": np.asarray(out[k]) for k in FULL_OUTPUTS})
+    return g
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
                        (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden),
                        (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden),
-                       (DET_GOLDEN, det_golden)):
+                       (DET_GOLDEN, det_golden), (FULL_GOLDEN, full_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 

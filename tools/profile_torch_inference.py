@@ -20,7 +20,13 @@ weights): `--det` `test_net_detection`'s frames on `lov_syn_val_v4`,
 sets its learning rate: the cfg's 0.001 diverges from the init rules
 within a few steps, and NMS then keeps every NaN box). With
 `--3d`, `test_net` under `experiments/cfgs/lov_color_3d.yml` on
-`lov_syn_val_v4` (the 3D head, RANSAC on the card). Runs under torch.profiler and
+`lov_syn_val_v4` (the 3D head, RANSAC on the card). With `--full --train`
+and `--adapt --train`, the host-fed step of
+`experiments/cfgs/lov_color_2d_full.yml` (VGG16FULL) or of
+`lov_color_sugar_box_adapt.yml` (PoseCNN with the domain head) on
+`lov_syn_val_v4` (B=2 at 640x480, bf16, RNG_SEED weights, batches of
+`GtSynthesizeLayer` moved to the card beforehand), after `--warm` steps
+that train the weights before the profiled ones. Runs under torch.profiler and
 prints the device's busy share of the profiled wall window, host and device
 time per stage, and the device time by kernel (the `--top` largest).
 
@@ -39,8 +45,8 @@ postprocess (per-class NMS) and the evaluator, for training the loss
 functions and the update. For the 3D head: the trunk, the RANSAC decode and
 the evaluator. Needs one NVIDIA GPU.
 
-Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy | --det | --3d] [--lr LR] [--frames 6]
-           [--top 25]
+Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy | --det | --3d | --full | --adapt]
+           [--lr LR] [--warm 2] [--frames 6] [--top 25]
 """
 
 from __future__ import annotations
@@ -92,6 +98,9 @@ def main() -> int:
     ap.add_argument("--3d", dest="three_d", action="store_true", help="test_net's frames with the 3D head")
     ap.add_argument("--lr", type=float, default=None,
                     help="with --det --train: the learning rate (lov_det.yml's 0.001 diverges from the init rules)")
+    ap.add_argument("--full", action="store_true", help="with --train: the VGG16FULL step")
+    ap.add_argument("--adapt", action="store_true", help="with --train: the step with the domain head")
+    ap.add_argument("--warm", type=int, default=2, help="with --full or --adapt: the steps before the profiled ones")
     ap.add_argument("--frames", type=int, default=6, help="frames (or training steps) to profile")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -102,8 +111,10 @@ def main() -> int:
 
     if args.toy and not (args.train or args.eval):
         ap.error("--toy goes with --train or --eval")
-    if args.toy + args.det + args.three_d > 1 or (args.three_d and args.train):
-        ap.error("one of --toy, --det and --3d; --3d profiles evaluation")
+    if args.toy + args.det + args.three_d + args.full + args.adapt > 1 or (args.three_d and args.train):
+        ap.error("one of --toy, --det, --3d, --full and --adapt; --3d profiles evaluation")
+    if (args.full or args.adapt) and not args.train:
+        ap.error("--full and --adapt profile the training step: add --train")
     if args.toy:
         from posecnn_torch.core import config as C
         from posecnn_torch.core.convert import init_params_numpy, make_model
@@ -196,6 +207,54 @@ def main() -> int:
         warmup, runs = [(2,)], [(args.frames,)]
         rest = "heads and the rest"
         unit = "frame"
+    elif args.full or args.adapt:
+        from posecnn_torch.core import config as C
+        from posecnn_torch.core.convert import init_params_numpy, make_model
+        from posecnn_torch.data.layer import GtSynthesizeLayer
+        from posecnn_torch.data.lov_syn import LovSynVal
+        from posecnn_torch.data.minibatch import rescale_points
+        from posecnn_torch.models import posecnn_full as full_mod
+
+        name = "lov_color_2d_full.yml" if args.full else "lov_color_sugar_box_adapt.yml"
+        cfg_file = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name))
+        net = full_mod if args.full else model_mod
+        stages = {
+            "stage:preprocess": [(trainer, "preprocess")],
+            "stage:trunk": [(backbone.VGGTrunk, "forward")],
+            "stage:hough": [(net, "hough_voting")],
+            "stage:crop_pool": [(net, "crop_pool_batched")],
+            "stage:fc": [(layers, "fc")],
+            "stage:losses": [(trainer, f) for f in ("regularization_loss", "loss_cross_entropy_hard_label_sparse",
+                                                    "smooth_l1_loss_vertex_sparse", "average_distance_loss",
+                                                    "sparse_softmax_cross_entropy")],
+            "stage:update": [(trainer.MomentumSGD, "step")],
+        }
+        _spans(stages, record_function)
+        data = LovSynVal()
+        model_cfg, hp = C.train_model_cfg(cfg_file, data.num_classes), C.train_hparams(cfg_file)
+        mcfg = C.minibatch_cfg(cfg_file, data.num_classes)
+        ext, sym = np.asarray(data._extents, np.float32), np.asarray(data._symmetry, np.float32)
+        consts = [torch.from_numpy(a).to(dev) for a in (rescale_points(np.asarray(data._points_all, np.float32),
+                                                                       ext, sym), sym, ext)]
+        engine.set_float32_precision()
+        init, make = ((full_mod.init_posecnn_full_params_numpy, full_mod.make_full_model) if args.full
+                      else (init_params_numpy, make_model))
+        state = trainer.create_train_state(make(model_cfg, init(cfg_file.RNG_SEED, model_cfg), dev), hp)
+        kw = dict(forward_fn=full_mod.posecnn_full_forward, ce_threshold=full_mod.CE_THRESHOLD) if args.full else {}
+        step = trainer.make_train_step(model_cfg, hp, *consts, **kw)
+        layer = GtSynthesizeLayer(data, mcfg, ims_per_batch=cfg_file.TRAIN.IMS_PER_BATCH, seed=cfg_file.RNG_SEED)
+        runs = [(trainer.to_device(layer.forward(), dev),) for _ in range(args.warm + args.frames)]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg_file.RNG_SEED)
+
+        def run(batch):
+            with record_function("stage:frame"):
+                out = step(state, batch, trainer.Draws(gen))
+            return out
+
+        warmup, runs = runs[:args.warm], runs[args.warm:]
+        rest = "backward and the rest"
+        unit = "step"
     elif args.train and args.toy:
         from posecnn_torch.data.layer import GtSynthesizeLayer
         from posecnn_torch.data.minibatch import rescale_points
@@ -344,8 +403,7 @@ def main() -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in runs:
-            run(*r)
+        last = [run(*r) for r in runs][-1]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -369,6 +427,8 @@ def main() -> int:
     print(f"{frame.cpu_time_total / n / 1e3:14.3f} {total / n / 1e3:16.3f}  {unit}")
     print(f"{torch.cuda.get_device_name(0)}; {n} {unit}s; device kernel time {total / n / 1e3:.3f} ms/{unit}; "
           f"wall {wall_us / n / 1e3:.3f} ms/{unit}; device busy {100 * total / wall_us:.1f}% of wall")
+    if args.full or args.adapt:  # where the warm steps have taken the weights
+        print("last step: " + " ".join(f"{k} {float(v):.6g}" for k, v in sorted(last.items())))
     print(f"{'ms/' + unit:>9} {'share':>6} {'calls/' + unit:>11}  kernel")
     for e in events[: args.top]:
         print(f"{e.device_time_total / n / 1e3:9.4f} {100 * e.device_time_total / total:5.1f}% "
