@@ -98,8 +98,11 @@ the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them.
      FCN-8s forward on the card against the CPU port
   13. the detection network and the 3D head (`det_3d_phase`): the NMS
      kernel against its plain version on 6000 real proposals and on
-     random boxes, NaN and infinite coordinates among them (keep masks
-     equal; back-to-back and single times beside its bound);
+     random boxes (N = 1 to 6000 on the sweep's staged route, 12000 and
+     20000 on its window route, IoUs exactly at the threshold, NaN and infinite
+     coordinates; keep masks equal; back-to-back, cold-L2 and single
+     times, the mask pass and the sweep by torch.profiler, beside its
+     bound);
      `train_net --cfg lov_det.yml --imdb lov_syn_val_v4` (20 steps as
      shipped, then 40 at a stable rate: stream and host ms, peak memory, 2
      conv3x3 and 1 nms launches a step) and `test_net --cfg lov_det.yml` on its snapshot (mAP@0.5, ms
@@ -108,8 +111,7 @@ the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them.
      golden on the card; `test_net --cfg lov_color_3d.yml` (RANSAC poses,
      its device ms) and RANSAC card against CPU on a well-posed scene; one
      3D step on rendered scenes with their vertmaps, card against CPU, and
-     `train_net --cfg lov_color_3d.yml` failing on frames without one;
-     the NMS kernel's times include one with a cold L2
+     `train_net --cfg lov_color_3d.yml` failing on frames without one
   14. VGG16FULL, the domain head and the VGG16GAN cfg
      (`full_adapt_gan_phase`): `train_net --cfg lov_color_2d_full.yml`
      and `lov_color_sugar_box_adapt.yml` (20 steps each, B=2, 640x480,
@@ -118,10 +120,12 @@ the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them.
      `train_net --cfg shapenet_single_single_color_gan.yml` (10 steps, the
      label head alone, the jitter and the noise on the host); one float32
      step of VGG16FULL and one of the adaptation cfg on the card against
-     the CPU port (the same Hough rows on both sides; losses within 1e-4
-     relative, the gradients of conv1_2, score_conv1 or fc9, and fc6
-     within 5e-3 of their largest magnitude); VGG16FULL's inference
-     against the JAX golden
+     the CPU port, on the cfg's first host batch with its GT pose rows put
+     at the detections of a forward on the card (the same Hough rows on
+     both sides; loss_pose > 0 on both; losses within 1e-4 relative, the
+     gradients of conv1_2, score_conv1 or fc9, fc6, fc7, fc8 and conv5_3
+     non-zero and within 5e-3 of their largest magnitude); VGG16FULL's
+     inference against the JAX golden
   15. each phase's seconds and each CLI run's (where it ran, its set-up
      time), the kernels' JSON line, then {"ok": true, "device": {...}}
 
@@ -213,8 +217,11 @@ DET_SHIPPED_STEPS, DET_STABLE_LR = 20, 1e-5
 # kept box before it has removed (`nms_sweep_tests`).
 NMS_TEST_OPS = 15
 # the NMS kernel's cold-L2 time: calls on this many copies of the boxes in
-# turn, each with its mask words in a block of its own (~180 MB at 6000)
+# turn, each with its mask words in a block of its own (~92 MB at 6000)
 NMS_COLD_CALLS = 40
+# boxes of an NMS case on the sweep's second route (more than the 9408
+# whose tiles the sweep stages whole in shared memory; 12000 is another)
+NMS_WINDOW_BOXES = 20000
 # the card against the CPU port on one full-width det step at float32 (TF32
 # off): relative limits of the loss terms and of the gradient's global norm
 # (phase 7's), and of the gradients of the proposal path, fc6 and conv1_2 as
@@ -237,12 +244,18 @@ SLICE_J_CFGS = {"full": "lov_color_2d_full.yml", "adapt": "lov_color_sugar_box_a
 # the card against the CPU port on one float32 step (TF32 off) of VGG16FULL
 # and of the adaptation cfg, with the same batch, weights and draws: each
 # loss term within SLICE_J_LOSS_LIMIT relative, the gradient's global norm
-# within SLICE_J_GRAD_LIMIT relative, and these gradients within
-# SLICE_J_GRAD_LIMIT of their largest magnitude. Both sides must sample the
-# same Hough rows first (valid rows and classes equal, boxes within 1e-2 px)
+# within SLICE_J_GRAD_LIMIT relative, and these gradients non-zero and
+# within SLICE_J_GRAD_LIMIT of their largest magnitude: the trunk's, the
+# heads', and the pose branch's fc6, fc7, fc8 (VGG16FULL's
+# poses_pred_unnormalized) and conv5_3 (read through the crop pool), which
+# get a gradient once the batch's GT pose rows sit at the detections. Both
+# sides must sample the same Hough rows first (valid rows and classes
+# equal, boxes within 1e-2 px)
 SLICE_J_LOSS_LIMIT, SLICE_J_GRAD_LIMIT = 1e-4, 5e-3
-SLICE_J_GRADS = {"full": ("trunk.conv1_2.weight", "score_conv1.weight", "fc6.weight"),
-                 "adapt": ("trunk.conv1_2.weight", "fc6.weight", "fc9.weight")}
+SLICE_J_GRADS = {"full": ("trunk.conv1_2.weight", "score_conv1.weight", "fc6.weight", "fc7.weight",
+                          "poses_pred_unnormalized.weight", "trunk.conv5_3.weight"),
+                 "adapt": ("trunk.conv1_2.weight", "fc6.weight", "fc9.weight", "fc7.weight", "fc8.weight",
+                           "trunk.conv5_3.weight")}
 
 
 _T0 = time.perf_counter()
@@ -1404,6 +1417,69 @@ def nms_sweep_tests(over: np.ndarray) -> tuple:
     return ~removed, tests
 
 
+def det_proposals(dev):
+    """The NMS kernel's input on the detection path: the 6000 top-scoring
+    proposals, sorted by score, of a full-width bf16 VGG16DET forward
+    (lov_det.yml, its RNG_SEED weights, test mode) on frame v4/000000."""
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.models import detection as D
+    from posecnn_torch.ops.bbox import bbox_transform_inv, clip_boxes
+
+    imdb = LovSynVal()
+    det_file = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_det.yml"))
+    test_cfg = C.det_model_cfg(det_file, imdb.num_classes, train=False)
+    model = D.make_det_model(test_cfg, D.init_vgg16_det_params_numpy(det_file.RNG_SEED, test_cfg), dev)
+    frame = imdb.load_frame(0)
+    data = torch.from_numpy(frame.color[None]).to(dev).float() - torch.tensor(det_file.PIXEL_MEANS, device=dev)
+    with torch.inference_mode():
+        out = D.vgg16_det_forward(model, test_cfg, data)
+        A = test_cfg.num_anchors
+        Hf, Wf = out["rpn_cls_prob"].shape[1:3]
+        anchors = D._anchors(Hf, Wf, 16, tuple(test_cfg.anchor_ratios), tuple(test_cfg.anchor_scales), dev)
+        props = clip_boxes(bbox_transform_inv(anchors, out["rpn_bbox_pred"][0].reshape(-1, 4)), (480, 640))
+        order = torch.sort(out["rpn_cls_prob"][0, :, :, A:].reshape(-1), descending=True, stable=True).indices
+        return props[order[:test_cfg.rpn_pre_nms_top_n]].clone()
+
+
+def nms_times(boxes, dev, threshold: float = 0.7) -> dict:
+    """The NMS kernel's time on `boxes` (ms): back to back (`median_ms`),
+    with a cold L2 (`cold_ms` over NMS_COLD_CALLS copies of the boxes, each
+    call's mask words in a block of their own: an empty tensor of their
+    size, kept with the output, takes the block the call has just freed, so
+    the next call's words land elsewhere; `cold_mb` is what the round
+    passes through), single (`single_ms`), and each of its two kernels'
+    device time a call from torch.profiler (`mask_ms`, `sweep_ms`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from posecnn_torch.ops import nms
+
+    n = boxes.shape[0]
+    call = functools.partial(nms.nms_keep_sorted, boxes, threshold)
+    out = dict(ms=median_ms(call), single_ms=single_ms(call))
+    words = nms.mask_words(n)
+    copies = [boxes.clone() for _ in range(NMS_COLD_CALLS)]
+    out["cold_ms"] = cold_ms(lambda b: (nms.nms_keep_sorted(b, threshold),
+                                        torch.empty(words, dtype=torch.int64, device=dev)), copies)
+    out["cold_mb"] = NMS_COLD_CALLS * (words * 8 + n * 17) / 1e6
+    del copies
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    out["mask_ms"] = out["sweep_ms"] = None  # None: the profiler saw no device time (not measured)
+    for e in prof.key_averages():
+        for name in ("mask", "sweep"):
+            if f"nms_{name}_kernel" in e.key and e.device_time_total > 0:
+                out[f"{name}_ms"] = e.device_time_total / e.count / 1e3
+    return out
+
+
 def _cli_losses(log: str, it: int, n: int) -> dict:
     """The loss terms of a train_net log's line for iteration `it` of n."""
     m = log_seconds(rf"iter {it}/{n} (.*) \(", log)
@@ -1417,9 +1493,11 @@ def _rel(a: float, b: float) -> float:
 def det_3d_phase(work: str, dev) -> tuple:
     """Phase 13: the detection network (VGG16DET) and the 3D head
     (VERTEX_REG_3D). (a) The NMS kernel against its plain version on the
-    6000 top proposals of a full-width forward and on random boxes, NaN and
-    infinite coordinates among them (keep masks equal), timed back to back
-    and single, beside its bound. (b)
+    6000 top proposals of a full-width forward (`det_proposals`) and on
+    random boxes at sizes around its 64-box blocks and on both routes of
+    its sweep, IoUs exactly at the threshold, NaN and infinite coordinates
+    among them (keep masks equal), timed back to back, with a cold L2 and
+    single, and by kernel (`nms_times`), beside its bound. (b)
     `train_net --cfg lov_det.yml --imdb lov_syn_val_v4 --iters DET_STEPS`:
     finite losses, the snapshot, stream and host ms a step, peak memory,
     2 conv3x3 and 1 nms launches a step. (c) `test_net --cfg lov_det.yml
@@ -1448,7 +1526,6 @@ def det_3d_phase(work: str, dev) -> tuple:
     from posecnn_torch.engine import train as T
     from posecnn_torch.models import detection as D
     from posecnn_torch.ops import conv3x3, nms, voting
-    from posecnn_torch.ops.bbox import bbox_transform_inv, clip_boxes
     from posecnn_torch.ops.rpn import proposal_layer
     from tests.torch_parity import check_det_golden, det_on_golden, ransac_scene, rendered_3d_frames
 
@@ -1467,18 +1544,7 @@ def det_3d_phase(work: str, dev) -> tuple:
 
     # (a) the NMS kernel on the 6000 top proposals of a full-width bf16
     # forward (seed weights, frame v4/000000) and on random boxes
-    test_cfg = C.det_model_cfg(det_file, n_cls, train=False)
-    params = D.init_vgg16_det_params_numpy(det_file.RNG_SEED, test_cfg)
-    model = D.make_det_model(test_cfg, params, dev)
-    data = torch.from_numpy(frame.color[None]).to(dev).float() - torch.tensor(det_file.PIXEL_MEANS, device=dev)
-    with torch.inference_mode():
-        out = D.vgg16_det_forward(model, test_cfg, data)
-        A = test_cfg.num_anchors
-        Hf, Wf = out["rpn_cls_prob"].shape[1:3]
-        anchors = D._anchors(Hf, Wf, 16, tuple(test_cfg.anchor_ratios), tuple(test_cfg.anchor_scales), dev)
-        props = clip_boxes(bbox_transform_inv(anchors, out["rpn_bbox_pred"][0].reshape(-1, 4)), (480, 640))
-        order = torch.sort(out["rpn_cls_prob"][0, :, :, A:].reshape(-1), descending=True, stable=True).indices
-        real = props[order[:test_cfg.rpn_pre_nms_top_n]].contiguous()
+    real = det_proposals(dev)
     rng = np.random.RandomState(0)
 
     def random_boxes(n):
@@ -1490,10 +1556,16 @@ def det_3d_phase(work: str, dev) -> tuple:
     nonfinite[3, 0] = nonfinite[5, 1] = nonfinite[13, 2:] = float("nan")
     nonfinite[8, 2] = nonfinite[17, :2] = float("inf")
     nonfinite[11, 1] = -float("inf")
+    exact = random_boxes(129)
+    exact[:3] = torch.tensor([[0, 0, 9, 9], [0, 0, 9, 6], [0, 0, 9, 2]], dtype=torch.float32)  # IoU 0.7, 0.3
     cases = ([("real proposals", real, 0.7)]
              + [(f"random integer boxes N={n}", random_boxes(n), thr)
-                for n, thr in ((6000, 0.7), (4097, 0.3), (1000, 0.5), (63, 0.7))]
+                for n, thr in ((NMS_WINDOW_BOXES, 0.7), (12000, 0.5), (6000, 0.7), (4097, 0.3), (1000, 0.5),
+                               (128, 0.7), (127, 0.5), (65, 0.3), (64, 0.7), (63, 0.7), (1, 0.7))]
+             + [("N=129 with IoUs exactly at 0.7 and 0.3", exact, thr) for thr in (0.7, 0.3)]
              + [("random integer boxes N=1000 with NaN and infinite coordinates", nonfinite, 0.5)])
+    routes = {n: nms.sweep_route(n) for n in (6000, 12000, NMS_WINDOW_BOXES)}
+    check(routes == {6000: "staged", 12000: "window", NMS_WINDOW_BOXES: "window"}, f"nms routes: {routes}")
     lines = []
     for label, boxes, thr in cases:
         keep = nms.nms_keep_sorted(boxes, thr)
@@ -1504,7 +1576,8 @@ def det_3d_phase(work: str, dev) -> tuple:
         check(torch.equal(keep, plain) and torch.equal(keep, again),
               f"nms {label}: kernel keeps {int(keep.sum())}, plain {int(plain.sum())}, second launch "
               f"{int(again.sum())}; first difference at {first}")
-        lines.append(f"{label} at {thr}: {int(keep.sum())} of {boxes.shape[0]} kept, equal")
+        lines.append(f"{label} at {thr} ({nms.sweep_route(boxes.shape[0])}): {int(keep.sum())} of "
+                     f"{boxes.shape[0]} kept, equal")
     boxes = real
     keep = nms.nms_keep_sorted(boxes, 0.7)
     n = boxes.shape[0]
@@ -1512,29 +1585,25 @@ def det_3d_phase(work: str, dev) -> tuple:
     check(np.array_equal(swept, keep.cpu().numpy()), "nms: the counting sweep keeps other boxes than the kernel")
     nbytes = n * 16 + n
     b_ms, b_by = bound_ms(nbytes, pairs * NMS_TEST_OPS, PEAK_F32_FLOP_PER_S)
-    call = functools.partial(nms.nms_keep_sorted, boxes, 0.7)
-    k_ms, k_single = median_ms(call), single_ms(call)
-    # cold L2: NMS_COLD_CALLS copies of the boxes in turn, each call's mask
-    # words (n x ceil(n/64) int64, 4.5 MB at 6000 boxes) in a block of their
-    # own: an empty tensor of their size, kept with the output, takes the
-    # block the call has just freed, so the next call's mask lands elsewhere
-    mask_numel = n * ((n + 63) // 64)
-    copies = [boxes.clone() for _ in range(NMS_COLD_CALLS)]
-    k_cold = cold_ms(lambda b: (nms.nms_keep_sorted(b, 0.7),
-                                torch.empty(mask_numel, dtype=torch.int64, device=dev)), copies)
-    cold_mb = NMS_COLD_CALLS * (mask_numel * 8 + n * 17) / 1e6
-    del copies
+    times = nms_times(boxes, dev)
     p_ms = median_ms(lambda: nms.nms_keep_sorted_plain(boxes, 0.7), reps=3, inner=1)
-    record = dict(max_abs_err=0.0, ms=k_ms, cold_ms=k_cold, single_ms=k_single, plain_ms=p_ms, bound_ms=b_ms,
-                  bound_by=b_by, library_ms=None, boxes=n, kept=int(keep.sum()), pairs_needed=pairs)
+
+    def us(ms):
+        return "not measured" if ms is None else f"{ms * 1e3:.1f} us"
+
+    record = dict(max_abs_err=0.0, ms=times["ms"], cold_ms=times["cold_ms"], single_ms=times["single_ms"],
+                  plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, boxes=n, kept=int(keep.sum()),
+                  pairs_needed=pairs, mask_ms=times["mask_ms"], sweep_ms=times["sweep_ms"])
     phase(13, "nms kernel against its plain version, keep masks equal: " + "; ".join(lines)
-              + f". On the real proposals (N={n}, threshold 0.7, {int(keep.sum())} kept): kernel {k_ms * 1e3:.1f} us "
-              f"back to back, {k_cold * 1e3:.1f} us with a cold L2 ({NMS_COLD_CALLS} copies of the boxes and their "
-              f"mask words in turn, {cold_mb:.0f} MB; median of 10 rounds), {k_single * 1e3:.1f} us single; plain "
-              f"{p_ms:.1f} ms; bound {b_ms * 1e3:.2f} us "
+              + f". On the real proposals (N={n}, threshold 0.7, {int(keep.sum())} kept): kernel "
+              f"{times['ms'] * 1e3:.1f} us back to back, {times['cold_ms'] * 1e3:.1f} us with a cold L2 "
+              f"({NMS_COLD_CALLS} copies of the boxes and their mask words in turn, {times['cold_mb']:.0f} MB; median "
+              f"of 10 rounds), {times['single_ms'] * 1e3:.1f} us single; by kernel (torch.profiler, device time a "
+              f"call) mask pass {us(times['mask_ms'])}, sweep {us(times['sweep_ms'])}; "
+              f"plain {p_ms:.1f} ms; bound {b_ms * 1e3:.3f} us "
               f"({b_by}: {pairs} IoU tests of {NMS_TEST_OPS} f32 operations, each kept box against the later boxes "
               f"still there when it is reached; {nbytes} bytes); no PyTorch call computes NMS (library_ms null)")
-    del model, out, props, real
+    del real, cases, exact, nonfinite
     torch.cuda.empty_cache()
 
     # (b) the detection trainer's CLI: the shipped cfg, whose LEARNING_RATE
@@ -1656,7 +1725,10 @@ def det_3d_phase(work: str, dev) -> tuple:
           + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in DET_GRAD_LIMITS) + f", limits {DET_GRAD_LIMITS}")
     step_s = time.perf_counter() - t0
     # the proposals of identical RPN outputs (the card's bf16 forward of
-    # (a)'s model), on the card and on the CPU
+    # (a)'s model, `det_proposals`), on the card and on the CPU
+    test_cfg = C.det_model_cfg(det_file, n_cls, train=False)
+    A = test_cfg.num_anchors
+    data = torch.from_numpy(frame.color[None]).to(dev).float() - torch.tensor(det_file.PIXEL_MEANS, device=dev)
     model = D.make_det_model(test_cfg, D.init_vgg16_det_params_numpy(det_file.RNG_SEED, test_cfg), dev)
     with torch.inference_mode():
         o = D.vgg16_det_forward(model, test_cfg, data)
@@ -1781,9 +1853,12 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
     jitter and the noise on the host). Each: stream and host ms a step,
     data wait, peak memory, the launches; the eval's ms a frame by stage.
     (b) One float32 step of VGG16FULL and one of the adaptation cfg on the
-    card against the CPU port (the first host batch of the cfg, seed
-    weights, the card's draws replayed): the Hough rows equal on the two
-    sides, the losses and gradients within SLICE_J_LOSS_LIMIT and
+    card against the CPU port (the first host batch of the cfg with its GT
+    pose rows put at the detections of one training forward on the card
+    (`gt_rows_at_detections`), seed weights, that forward's draws replayed
+    on both sides): the Hough rows equal on the two sides, loss_pose > 0,
+    the gradients of SLICE_J_GRADS (fc6-fc8 and conv5_3 among them)
+    non-zero, the losses and gradients within SLICE_J_LOSS_LIMIT and
     SLICE_J_GRAD_LIMIT. (c) VGG16FULL's float32 inference on the card
     against the JAX golden (`check_full_golden`). Returns the launches of
     each path."""
@@ -1798,7 +1873,7 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
     from posecnn_torch.models import posecnn_full as PF
     from posecnn_torch.models.posecnn import posecnn_forward
     from posecnn_torch.ops import conv3x3, nms, voting
-    from tests.torch_parity import check_full_golden, full_on_golden
+    from tests.torch_parity import check_full_golden, full_on_golden, gt_rows_at_detections
 
     t_phase = time.perf_counter()
     launches = {}
@@ -1884,26 +1959,35 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
         batch = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED).forward()
         weights = (PF.init_posecnn_full_params_numpy if full else init_params_numpy)(cfg.RNG_SEED, model_cfg)
         make = PF.make_full_model if full else make_model
-        rows = []  # Hough's rows and the label map of each side's step
+        outs = []  # Hough's rows, the label map and poses_init of each forward
 
         def forward(*a, _net=PF.posecnn_full_forward if full else posecnn_forward, **k):
             out = _net(*a, **k)
-            rows.append((out["rois"].detach().cpu(), out["rois_valid"].cpu(), out["label_2d"].cpu()))
+            outs.append({n: out[n].detach().cpu() for n in ("rois", "rois_valid", "label_2d", "poses_init")})
             return out
 
         kw = dict(forward_fn=forward, ce_threshold=PF.CE_THRESHOLD if full else None)
-        state = T.create_train_state(make(model_cfg, weights, dev), hp)
-        step = T.make_train_step(model_cfg, hp, *(c.to(dev) for c in consts), **kw)
+        dev_consts = [c.to(dev) for c in consts]
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.RNG_SEED)
         draws = T.Draws(gen, record=True)
+        # the GT pose rows at the network's own detections: one training
+        # forward on the card with the draws recorded, whose valid rows give
+        # each GT row its image, class and translation
+        with torch.no_grad():
+            _, drawn = T.compute_losses(make(model_cfg, weights, dev), model_cfg, hp, T.to_device(batch, dev),
+                                        *dev_consts, draws, forward, kw["ce_threshold"])
+        batch["poses"] = gt_rows_at_detections(outs.pop(), batch["poses"])
+        n_gt = int((batch["poses"][:, 1] > 0).sum())
+        recorded = {k: v.cpu() for k, v in draws.recorded.items()}
+        state = T.create_train_state(make(model_cfg, weights, dev), hp)
+        step = T.make_train_step(model_cfg, hp, *dev_consts, **kw)
         voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
-        got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), draws).items()}
+        got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), T.Draws(replay=recorded)).items()}
         launches[f"{key}_f32_step"] = counts()
         check(launches[f"{key}_f32_step"] == {"hough_vote": 4, "conv3x3": 0, "nms": 0},
               f"{key} f32 step: launches {launches[f'{key}_f32_step']}")
         grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
-        recorded = {k: v.cpu() for k, v in draws.recorded.items()}
         del state, step
         torch.cuda.empty_cache()
         state_cpu = T.create_train_state(make(model_cfg, weights, "cpu"), hp)
@@ -1912,16 +1996,24 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
         rel = {k: _rel(got[k], ref[k]) for k in ref if k.startswith("loss") or k == "grad_norm"}
         grad_rel = {k: float((grads[k] - p.grad).abs().max()) / max(float(p.grad.abs().max()), 1e-30)
                     for k, p in state_cpu.model.named_parameters()}
+        grad_max = {k: (float(grads[k].abs().max()), float(p.grad.abs().max()))
+                    for k, p in state_cpu.model.named_parameters() if k in SLICE_J_GRADS[key]}
         del state_cpu
         # the losses and the gradients follow Hough's rows, so both steps
         # must have sampled the same ones
-        agree = float((rows[0][2] == rows[1][2]).double().mean())
-        roi_err = float((rows[0][0][:, 2:6] - rows[1][0][:, 2:6]).abs().max())
-        check(torch.equal(rows[0][1], rows[1][1]) and torch.equal(rows[0][0][:, :2], rows[1][0][:, :2])
-              and roi_err <= 1e-2,
-              f"{key} f32 step: Hough's rows differ between card and CPU (valid {rows[0][1].tolist()} vs "
-              f"{rows[1][1].tolist()}, classes equal {torch.equal(rows[0][0][:, :2], rows[1][0][:, :2])}, boxes "
-              f"max|err| {roi_err} px, limit 1e-2; label agreement {agree})")
+        card, cpu = outs
+        agree = float((card["label_2d"] == cpu["label_2d"]).double().mean())
+        roi_err = float((card["rois"][:, 2:6] - cpu["rois"][:, 2:6]).abs().max())
+        same_cls = torch.equal(card["rois"][:, :2], cpu["rois"][:, :2])
+        check(torch.equal(card["rois_valid"], cpu["rois_valid"]) and same_cls and roi_err <= 1e-2,
+              f"{key} f32 step: Hough's rows differ between card and CPU (valid {card['rois_valid'].tolist()} vs "
+              f"{cpu['rois_valid'].tolist()}, classes equal {same_cls}, "
+              f"boxes max|err| {roi_err} px, limit 1e-2; label agreement {agree})")
+        # the GT rows at the detections give the pose branch its targets:
+        # loss_pose and the gradients of fc6-fc8 and conv5_3 are not 0
+        check(got["loss_pose"] > 0 and ref["loss_pose"] > 0 and all(min(v) > 0 for v in grad_max.values()),
+              f"{key} f32 step with {n_gt} GT rows at the detections: loss_pose {got['loss_pose']} (card) vs "
+              f"{ref['loss_pose']} (CPU), {float(drawn['loss_pose'])} before; largest gradient (card, CPU) {grad_max}")
         limits = {k: SLICE_J_GRAD_LIMIT if k == "grad_norm" else SLICE_J_LOSS_LIMIT for k in rel}
         check(all(rel[k] <= limits[k] for k in rel) and all(grad_rel[k] <= SLICE_J_GRAD_LIMIT
                                                              for k in SLICE_J_GRADS[key]),
@@ -1929,9 +2021,11 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
               + ", ".join(f"{k} {grad_rel[k]:.3g}" for k in SLICE_J_GRADS[key]) + f", limit {SLICE_J_GRAD_LIMIT}")
         worst = sorted(grad_rel, key=grad_rel.get, reverse=True)[:3]
         phase(14, f"{'VGG16FULL' if full else 'adaptation (domain head)'} step at float32 ({SLICE_J_CFGS[key]}: B=2, "
-                  f"640x480, 22 classes, TF32 off, seed weights, the cfg's first host batch, recorded draws), card "
-                  f"against the CPU port ({time.perf_counter() - t0:.1f} s; Hough's {int(rows[0][1].sum())} valid rows "
-                  f"equal, boxes within {roi_err:.3g} px; label agreement {agree:.6f}): "
+                  f"640x480, 22 classes, TF32 off, seed weights, the cfg's first host batch with its {n_gt} GT pose "
+                  f"rows put at the detections of a forward on the card (loss_pose {float(drawn['loss_pose']):.3g} "
+                  f"before), that forward's draws replayed), card "
+                  f"against the CPU port ({time.perf_counter() - t0:.1f} s; Hough's {int(card['rois_valid'].sum())} "
+                  f"valid rows equal, boxes within {roi_err:.3g} px; label agreement {agree:.6f}): "
                   + "; ".join(f"{k} {got[k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g} (limit {limits[k]})" for k in rel)
                   + "; " + "; ".join(f"{k} gradient {grad_rel[k]:.3g} of its largest magnitude (limit "
                                      f"{SLICE_J_GRAD_LIMIT})" for k in SLICE_J_GRADS[key])

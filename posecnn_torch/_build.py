@@ -111,7 +111,8 @@ def nms_lib() -> ctypes.CDLL:
     """The loaded NMS keep-mask library, with its entry point's C signature."""
     lib = ctypes.CDLL(str(build_library("nms")))
     fn = lib.nms_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 

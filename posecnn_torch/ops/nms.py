@@ -9,10 +9,13 @@ float32, and a box suppressed when a kept box before it overlaps it by
 IoU > thresh; the keep mask comes back in the input order. The JAX package
 sweeps an (N, N) IoU matrix in a fori_loop; the port sorts with torch and
 computes the keep mask of the sorted boxes with `nms_keep_sorted`: on a
-CUDA tensor the kernel `csrc/nms.cu` (a pass of 64-bit suppression masks,
-then one block's sweep), on a CPU tensor the plain version. The RPN's
-proposal layer runs it over 6000 boxes a frame, which in eager PyTorch
-would be 6000 dependent steps.
+CUDA tensor the kernel `csrc/nms.cu` (a pass of 64-bit suppression words
+over the upper triangle of 64 x 64 tiles, then one block's sweep over
+them, staged in shared memory), on a CPU tensor the plain version. The
+RPN's proposal layer runs it over 6000 boxes a frame, which in eager
+PyTorch would be 6000 dependent steps. The helpers below give the
+kernel's layout and its sweep's shared memory for N boxes; the kernel
+computes the same offsets.
 """
 
 from __future__ import annotations
@@ -23,6 +26,19 @@ import torch
 # Kernel launches by `nms_keep_sorted` since the count was last reset (one
 # call launches the mask pass and the sweep; it counts once).
 NMS_LAUNCHES = 0
+
+# boxes in a row or column block: the bits of one suppression word
+BLOCK = 64
+# the bytes of dynamic shared memory the sweep may take: 220 KB of the 227
+# KB an sm_90 block can have, beside its static part (the walker's ring of
+# tiles and the barriers, 4.1 KB)
+SWEEP_SMEM = 225280
+# row blocks whose tiles the sweep's helpers stage ahead (their buffers)
+SWEEP_STAGES = 3
+# the most boxes the kernel takes: its `removed` words and kept bits (one
+# each a column block) must leave room for a window of tiles in shared
+# memory
+MAX_BOXES = 64 * 6144
 
 
 def nms_np(dets: np.ndarray, thresh: float) -> np.ndarray:
@@ -82,18 +98,65 @@ def nms_keep_sorted_plain(boxes: torch.Tensor, thresh: float) -> torch.Tensor:
     return torch.from_numpy(keep).to(boxes.device)
 
 
+def col_blocks(n: int) -> int:
+    """C: the row (and column) blocks of 64 boxes."""
+    return -(-n // BLOCK)
+
+
+def row_tile(r: int, cb: int) -> int:
+    """The first tile of row block r in the mask: the tiles (r, c), c >= r,
+    are stored row block by row block, cb - r of them in row block r."""
+    return r * cb - r * (r - 1) // 2
+
+
+def tile_count(n: int) -> int:
+    """The tiles of the upper triangle, c >= r: C (C + 1) / 2."""
+    return row_tile(col_blocks(n), col_blocks(n))
+
+
+def mask_words(n: int) -> int:
+    """The mask pass's 64-bit words: 64 for each tile."""
+    return tile_count(n) * BLOCK
+
+
+def sweep_smem_bytes(n: int, window: int) -> int:
+    """The sweep's dynamic shared memory: `removed` and the kept bits (C
+    words each, rounded up to an even count) and SWEEP_STAGES buffers of
+    `window` tiles of 512 bytes."""
+    cb = col_blocks(n)
+    return 16 * (cb + (cb & 1)) + SWEEP_STAGES * window * BLOCK * 8
+
+
+def sweep_window(n: int, smem: int = SWEEP_SMEM) -> int:
+    """Tiles of a row block that the sweep's helpers stage in shared memory,
+    past the two that its walker stages: all C - 2 of the first row block
+    where they fit in `smem` bytes, else as many as fit."""
+    cb = col_blocks(n)
+    return max(0, min(max(cb - 2, 0), (smem - sweep_smem_bytes(n, 0)) // (SWEEP_STAGES * BLOCK * 8)))
+
+
+def sweep_route(n: int, smem: int = SWEEP_SMEM) -> str:
+    """"staged" where every row block's tiles fit in shared memory, else
+    "window" (the first `sweep_window` of the helpers' tiles staged, the
+    rest read from global memory)."""
+    return "staged" if sweep_window(n, smem) >= col_blocks(n) - 2 else "window"
+
+
 def _launch(boxes: torch.Tensor, thresh: float) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; counts the launch."""
     global NMS_LAUNCHES
     from posecnn_torch._build import nms_lib
 
     n = boxes.shape[0]
+    if boxes.data_ptr() % 16:  # the mask pass reads a box as one float4
+        boxes = boxes.clone()
     keep = torch.empty((n,), dtype=torch.uint8, device=boxes.device)
-    mask = torch.empty((n * ((n + 63) // 64),), dtype=torch.int64, device=boxes.device)
+    mask = torch.empty((mask_words(n),), dtype=torch.int64, device=boxes.device)
     lib = nms_lib()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.nms_launch(boxes.data_ptr(), n, float(thresh), mask.data_ptr(), keep.data_ptr(), stream)
+        err = lib.nms_launch(boxes.data_ptr(), n, float(thresh), mask.data_ptr(), keep.data_ptr(), sweep_window(n),
+                             stream)
     if err != 0:
         raise RuntimeError(f"nms_launch failed: CUDA error {err}")
     NMS_LAUNCHES += 1
@@ -108,8 +171,8 @@ def nms_keep_sorted(boxes: torch.Tensor, thresh: float) -> torch.Tensor:
         raise ValueError(f"nms_keep_sorted takes float32 (N, 4) boxes, got {boxes.dtype} {tuple(boxes.shape)}")
     boxes = boxes.contiguous()
     if boxes.device.type == "cuda":
-        if boxes.shape[0] > 64 * 6144:  # the sweep's words must fit in 48 KB of shared memory
-            raise ValueError(f"nms_keep_sorted: at most {64 * 6144} boxes, got {boxes.shape[0]}")
+        if boxes.shape[0] > MAX_BOXES:
+            raise ValueError(f"nms_keep_sorted: at most {MAX_BOXES} boxes, got {boxes.shape[0]}")
         return _launch(boxes, thresh)
     if boxes.device.type == "cpu":
         return nms_keep_sorted_plain(boxes, thresh)

@@ -344,11 +344,13 @@ def test_snapshot_round_trip_from_cuda(dev, tmp_path, full):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,thresh", [(1, 0.7), (63, 0.7), (64, 0.5), (65, 0.3), (4097, 0.7), (6000, 0.3)])
+@pytest.mark.parametrize("n,thresh", [(1, 0.7), (63, 0.7), (64, 0.5), (65, 0.3), (127, 0.7), (128, 0.5), (129, 0.3),
+                                      (4097, 0.7), (6000, 0.3), (12000, 0.7), (20000, 0.5)])
 def test_nms_kernel_matches_plain(dev, n, thresh):
     """Keep masks equal on integer boxes (IoUs exactly at the threshold
     among them, equal scores, NaN and infinite coordinates), at sizes around
-    the kernel's 64-box blocks; one launch a call."""
+    the kernel's 64-box blocks, on the staged route (up to 9408 boxes) and
+    the window route (12000, 20000); one launch a call."""
     from posecnn_torch.ops import nms as N
 
     rng = np.random.RandomState(n)
@@ -366,6 +368,7 @@ def test_nms_kernel_matches_plain(dev, n, thresh):
     torch.cuda.synchronize()
     assert N.NMS_LAUNCHES == before + 1
     assert torch.equal(keep.cpu(), N.nms_keep_sorted_plain(t(boxes), thresh))
+    assert N.sweep_route(n) == ("window" if n > 9408 else "staged")
     scores = t(np.round(rng.rand(n) * 8).astype(np.float32)).to(dev)
     assert torch.equal(N.nms_keep(b, scores, thresh).cpu(), N.nms_keep(t(boxes), scores.cpu(), thresh))
 

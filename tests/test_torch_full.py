@@ -46,12 +46,13 @@ from posecnn_tpu.parallel.mesh import MeshSpec, make_mesh
 from posecnn_torch.config import PoseCNNConfig
 from posecnn_torch.core import checkpoint as CK
 from posecnn_torch.core import config as C
-from posecnn_torch.core.convert import param_shapes, params_to_numpy
+from posecnn_torch.core.convert import init_params_numpy, make_model, param_shapes, params_to_numpy
 from posecnn_torch.engine import train as T
 from posecnn_torch.engine.test import set_float32_precision
 from posecnn_torch.models import posecnn_full as PF
+from posecnn_torch.models.posecnn import posecnn_forward
 from posecnn_torch.ops.hard_label import hard_label
-from tests.torch_parity import check_full_golden, full_on_golden, goldens, load_npz, t
+from tests.torch_parity import check_full_golden, full_on_golden, goldens, gt_rows_at_detections, load_npz, t
 
 G = goldens()
 FULL_CFG = os.path.join(G.ROOT, "experiments", "cfgs", "lov_color_2d_full.yml")
@@ -93,16 +94,50 @@ def _batch_with_gt_at_detections(params, draws):
         data = T.preprocess(bt["data"], T.TrainHParams(), bt, None)
         out = PF.posecnn_full_forward(PF.make_full_model(cfg, params, "cpu"), cfg, data, t(extents), bt["meta_data"],
                                       gt_poses=bt["poses"], gt_label_2d=bt["gt_label_2d"], draws=T.Draws(replay=draws))
-    valid = out["rois_valid"].numpy()
-    rois, poses = out["rois"].numpy()[valid][::9], out["poses_init"].numpy()[valid][::9]  # jitter row 0 of each
-    q = np.random.RandomState(0).randn(len(rois), 4)
-    rows = np.zeros_like(batch["poses"])
-    n = min(len(rois), len(rows))
-    rows[:n, :2] = rois[:n, :2]
-    rows[:n, 6:10] = q[:n] / np.linalg.norm(q[:n], axis=1, keepdims=True)
-    rows[:n, 10:] = poses[:n, 4:]
-    batch["poses"] = rows
+    batch["poses"] = gt_rows_at_detections(out, batch["poses"])
     return batch, points, symmetry, extents
+
+
+@pytest.mark.parametrize("net", ["full", "adapt"])
+def test_gt_rows_at_detections_train_the_pose_branch(net):
+    """chip_smoke.py phase 14 (b)'s batch, at the golden's small widths:
+    one training forward with its draws recorded, the GT pose rows put at
+    its detections (`gt_rows_at_detections`), then the step on that batch
+    with the draws replayed. VGG16FULL and PoseCNN with the domain head
+    (TRAIN.ADAPT): loss_pose 0 on the batch as drawn, > 0 on the new one,
+    and the gradients of fc6, fc7, fc8 (FULL's `poses_pred_unnormalized`)
+    and conv5_3 (read through the crop pool) non-zero."""
+    full = net == "full"
+    cfg = _cfg(adaptation=not full)
+    params = (PF.init_posecnn_full_params_numpy if full else init_params_numpy)(G.FULL_SEED, cfg)
+    make = PF.make_full_model if full else make_model
+    forward = PF.posecnn_full_forward if full else posecnn_forward
+    kw = dict(forward_fn=forward, ce_threshold=PF.CE_THRESHOLD if full else None)
+    batch, points, symmetry, extents = G.train_inputs()
+    consts = (t(points), t(symmetry), t(extents))
+    hp = T.TrainHParams(**HP)
+    outs = []
+
+    def recording(*a, **k):
+        outs.append(forward(*a, **k))
+        return outs[-1]
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    draws = T.Draws(gen, record=True)
+    with torch.no_grad():
+        _, drawn = T.compute_losses(make(cfg, params, "cpu"), cfg, hp, T.to_device(batch, "cpu"), *consts, draws,
+                                    recording, kw["ce_threshold"])
+    assert float(drawn["loss_pose"]) == 0.0
+    batch["poses"] = gt_rows_at_detections(outs[0], batch["poses"])
+    assert batch["poses"][:, 1].astype(bool).sum() >= 2
+    state = T.create_train_state(make(cfg, params, "cpu"), hp)
+    got = T.make_train_step(cfg, hp, *consts, **kw)(state, T.to_device(batch, "cpu"), T.Draws(replay=draws.recorded))
+    assert float(got["loss_pose"]) > 0
+    grads = {k: p.grad for k, p in state.model.named_parameters()}
+    for k in ("fc6.weight", "fc7.weight", "poses_pred_unnormalized.weight" if full else "fc8.weight",
+              "trunk.conv5_3.weight"):
+        assert float(grads[k].abs().max()) > 0, k
 
 
 def test_full_golden_is_current():

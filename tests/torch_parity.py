@@ -5,10 +5,11 @@ CPU. `goldens()` loads tools/make_torch_goldens.py, which writes (and the
 tests regenerate) the JAX goldens under tests/golden/. The golden checks
 (`check_hough_golden`, `check_slice_golden`, `check_train_golden`,
 `check_render_golden`, `check_host_images` with the bilateral filter's
-limits of `check_bilateral`) and the
-bf16 limit of the conv3x3 kernel (`bf16_ulp_excess`) are shared by the CPU
-tests, tests/test_torch_cuda.py and chip_smoke.py, so all hold the port to
-one limit. The module imports no JAX at module level.
+limits of `check_bilateral`), the
+bf16 limit of the conv3x3 kernel (`bf16_ulp_excess`) and the GT pose rows
+put at a forward's detections (`gt_rows_at_detections`) are shared by the
+CPU tests, tests/test_torch_cuda.py and chip_smoke.py, so all hold the
+port to one limit. The module imports no JAX at module level.
 """
 
 from __future__ import annotations
@@ -313,6 +314,27 @@ def check_full_golden(out, g) -> dict:
         np.testing.assert_allclose(o[k], g[f"out/{k}"], atol=atol, err_msg=k)
         err[k] = float(np.abs(o[k] - g[f"out/{k}"]).max())
     return err
+
+
+def gt_rows_at_detections(out: dict, poses: np.ndarray, seed: int = 0) -> np.ndarray:
+    """A batch's GT pose rows (max_gt, 13) put at a training forward's own
+    detections: for each valid detection (the first of its 9 jittered
+    rows), its image and class, a rotation from RandomState(seed) and the
+    translation of its `poses_init`; the rows past the detections 0. From
+    random weights Hough's detections meet no GT row of the batch, so the
+    pose branch gets no target and no gradient; with these rows it gets
+    both. `out` is the forward's endpoints (`rois`, `rois_valid`,
+    `poses_init`; any device), `poses` the batch's rows."""
+    valid = out["rois_valid"].cpu().numpy()
+    rois = out["rois"].detach().cpu().numpy()[valid][::9]
+    init = out["poses_init"].detach().cpu().numpy()[valid][::9]
+    q = np.random.RandomState(seed).randn(len(rois), 4)
+    rows = np.zeros_like(poses)
+    n = min(len(rois), len(rows))
+    rows[:n, :2] = rois[:n, :2]
+    rows[:n, 6:10] = q[:n] / np.linalg.norm(q[:n], axis=1, keepdims=True)
+    rows[:n, 10:] = init[:n, 4:]
+    return rows
 
 
 def bf16_ulp_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
