@@ -8,12 +8,13 @@ cfg-driven CLIs on the toy dataset (host-fed training at 96x128 and its
 scoring), the flagship cfg's bank refresh (a host thread rendering fresh
 scenes into the bank), the depth inputs (DEPTH, NORMAL, the RGBD dual
 tower) and FCN-8s through the cfg-driven CLIs, the detection network
-(VGG16DET) and the 3D head (VERTEX_REG_3D) through them, and VGG16FULL,
-the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them.
+(VGG16DET) and the 3D head (VERTEX_REG_3D) through them, VGG16FULL,
+the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them, and the
+YCB-Video and LINEMOD loaders with the synthesis mix (TRAIN.SYNTHESIZE).
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
   2. build: every CUDA kernel of the path (hough_vote, conv3x3, nms), the
-     host rasterizer and the host bilateral filter, from
+     host rasterizer, the host bilateral filter and the PNG row filters, from
      the sources in this checkout, one compiler (nvcc, g++) per source, all
      started together
   3. each kernel against its plain PyTorch version on the card, at the
@@ -39,9 +40,9 @@ the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them.
   6. flagship inference through `posecnn_torch.entry` and
      `engine.test.make_inference_fn` + `postprocess_detections` on the first
      8 frozen frames of data/lov_syn_val_v4; per-frame latency, peak memory,
-     and the kernel launch counts of that run; then the same model and
-     frames through the port on the CPU, against which the card's labels,
-     valid slots, classes and rois are held at bf16 limits
+     and the kernel launch counts of that run; then the same model and the
+     first 4 frames through the port on the CPU, against which the card's
+     labels, valid slots, classes and rois are held at bf16 limits
   7. flagship training through `posecnn_torch.entry.train_entry`: 8 steps
      (2 warm-up) with step time, peak memory and the launch counts of every
      step; then the first step's model, batch and random draws through the
@@ -126,7 +127,18 @@ the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them.
      gradients of conv1_2, score_conv1 or fc9, fc6, fc7, fc8 and conv5_3
      non-zero and within 5e-3 of their largest magnitude); VGG16FULL's
      inference against the JAX golden
-  15. each phase's seconds and each CLI run's (where it ran, its set-up
+  15. the dataset loaders, the PNG reader and the synthesis mix
+     (`datasets_phase`), on trees written here with the port's PNG writer
+     and scipy (no cv2): a YCB-Video tree of 16 v4 frames with a data_syn
+     of 16 more read back bit-equal through get_imdb('lov_train') and
+     OfflineSynReader, the reader's host ms a 640x480 frame, the first two
+     host batches of lov_color_2d.yml held to the JAX golden;
+     `train_net --cfg lov_color_2d.yml --imdb lov_train` (20 steps, the
+     synthetic share, data wait, 4 + 2 launches a step) and `test_net
+     --imdb lov_keyframe` on its snapshot; a LINEMOD tree: `train_net
+     --cfg linemod_ape_pose.yml --imdb linemod_ape_train` (10 steps) and
+     `test_net --imdb linemod_ape_test` at ape's 0.1 x diameter
+  16. each phase's seconds and each CLI run's (where it ran, its set-up
      time), the kernels' JSON line, then {"ok": true, "device": {...}}
 
 The CLIs run in this process through their `main(argv)` (`run_cli`), but
@@ -159,6 +171,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES_DIR = os.path.join(ROOT, "data", "lov_syn_val_v4")
 N_FRAMES, N_WARMUP = 8, 2
+# phase 6: the frames of N_FRAMES that the CPU port runs too (~8 s a frame
+# on the card's host; 8 until the script neared its time limit)
+N_CPU_FRAMES = 4
 N_STEPS = 8
 # phase 10: the toy CLI's steps, the in-process feed comparison's, and the
 # steps left out of the medians
@@ -252,6 +267,11 @@ SLICE_J_CFGS = {"full": "lov_color_2d_full.yml", "adapt": "lov_color_sugar_box_a
 # sides must sample the same Hough rows first (valid rows and classes
 # equal, boxes within 1e-2 px)
 SLICE_J_LOSS_LIMIT, SLICE_J_GRAD_LIMIT = 1e-4, 5e-3
+# phase 15: lov_color_2d.yml's steps on the YCB-Video tree (DISPLAY, 20,
+# so the log shows the last step's losses) and LINEMOD's, the LINEMOD
+# tree's frames, the steps left out of the medians, and the frames left out
+# of each test_net's medians
+LOV_STEPS, LINEMOD_STEPS, LINEMOD_FRAMES, LOV_WARMUP, LINEMOD_WARMUP, EVAL_WARMUP = 20, 10, 8, 8, 5, 3
 SLICE_J_GRADS = {"full": ("trunk.conv1_2.weight", "score_conv1.weight", "fc6.weight", "fc7.weight",
                           "poses_pred_unnormalized.weight", "trunk.conv5_3.weight"),
                  "adapt": ("trunk.conv1_2.weight", "fc6.weight", "fc9.weight", "fc7.weight", "fc8.weight",
@@ -2043,6 +2063,175 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
     return launches
 
 
+def datasets_phase(work: str, dev) -> dict:
+    """Phase 15: the dataset loaders, the PNG reader and the synthesis mix,
+    on trees this phase writes under `work` with the port alone (its PNG
+    writer and scipy's savemat; no cv2 here), POSECNN_DATA pointed at them
+    for the phase and restored after. (a) A YCB-Video tree of v4 frames
+    0-15 with data_syn/ of frames 16-31 (`write_lov_tree`): every frame read
+    back through get_imdb("lov_train") and OfflineSynReader equal to its
+    npz frame; the reader's host ms a 640x480 frame (colour, label, depth,
+    meta); the first two host batches of lov_color_2d.yml on the tree held
+    to the JAX golden (`check_lov_batch_golden`). (b) `train_net --cfg`
+    <lov_color_2d.yml with SYNROOT at the tree's data_syn/ and SYNNUM 16>
+    `--imdb lov_train --iters LOV_STEPS` (B=2, 640x480, bf16, SYN_RATIO 5,
+    no backgrounds): finite losses, the share of synthetic batches, the
+    data wait and stream ms a step, 4 hough_vote and 2 conv3x3 launches a
+    step; `test_net --cfg lov_color_2d.yml --imdb lov_keyframe` on its
+    snapshot over the 16 frames (ADD-S AUC, ms a frame by stage, 2 + 1
+    launches a frame). (c) A LINEMOD tree for ape (`write_linemod_tree`:
+    labels from one v4 class, models/ape.ply binary, indexes/): `train_net
+    --cfg linemod_ape_pose.yml --imdb linemod_ape_train --iters
+    LINEMOD_STEPS` and `test_net --imdb linemod_ape_test` on its snapshot,
+    the evaluator at ape's 0.1 x diameter. Returns the launches of each
+    path."""
+    from posecnn_torch.data.factory import get_imdb
+    from posecnn_torch.data.linemod import LINEMOD_DIAMETERS
+    from posecnn_torch.data.lov import read_meta
+    from posecnn_torch.data.synthetic import OfflineSynReader
+    from posecnn_torch.utils.png import IMREAD_COLOR, IMREAD_UNCHANGED, imread
+    from tests.torch_parity import (
+        check_lov_batch_golden, goldens, load_npz, lov_batch_cfg, lov_index, port_lov_batches, v4_frame,
+        write_linemod_tree, write_lov_tree,
+    )
+
+    t_phase = time.perf_counter()
+    launches = {}
+    root = os.path.join(work, "datasets")
+    old_root = os.environ.get("POSECNN_DATA")
+    os.environ["POSECNN_DATA"] = root
+    try:
+        # (a) the tree, read back, timed, and the host batches vs the golden
+        t0 = time.perf_counter()
+        lov_root = write_lov_tree(root)
+        write_s = time.perf_counter() - t0
+        imdb = get_imdb("lov_train")
+        reader = OfflineSynReader(os.path.join(lov_root, "data_syn"), 16)
+        fields = ("color", "label", "depth", "cls_indexes", "poses", "center", "intrinsic_matrix")
+        for src, frames in ((imdb, range(16)), (reader, range(16, 32))):
+            for k, i in enumerate(frames):
+                got, ref = src.load_frame(k if src is reader else i), v4_frame(i)
+                bad = [f for f in fields if not np.array_equal(getattr(got, f), getattr(ref, f))]
+                check(not bad and got.factor_depth == ref.factor_depth, f"frame {i} read back: {bad} differ")
+        base = os.path.join(lov_root, "data", lov_index(0))
+        parts = {"color": lambda: imread(base + "-color.png", IMREAD_COLOR),
+                 "label": lambda: imread(base + "-label.png", IMREAD_UNCHANGED),
+                 "depth": lambda: imread(base + "-depth.png", IMREAD_UNCHANGED),
+                 "meta": lambda: read_meta(base + "-meta.mat")}
+        part_ms = {k: _host_ms(fn, 10) for k, fn in parts.items()}
+        frame_ms = _host_ms(lambda: imdb.load_frame(3), 10)
+        phase(15, f"YCB-Video tree of v4 frames 0-15 and data_syn/ of frames 16-31 written in {write_s:.2f} s "
+                  f"(the port's PNG writer, scipy savemat); all 32 frames read back through get_imdb('lov_train') "
+                  f"and OfflineSynReader equal to their npz frames; host ms a 640x480 frame: load_frame "
+                  f"{frame_ms:.3f} (colour {part_ms['color']:.3f}, label {part_ms['label']:.3f}, depth "
+                  f"{part_ms['depth']:.3f}, meta {part_ms['meta']:.3f}; medians of 10)")
+        g = load_npz(goldens().LOV_BATCH_GOLDEN)
+        held = check_lov_batch_golden(port_lov_batches(lov_root), g)
+        phase(15, f"the first 2 host batches of lov_color_2d.yml on the tree (train_net's layer on this host) equal "
+                  f"to the JAX golden: {held['arrays']} arrays, {held['digests']} of them image-sized by sha256")
+
+        # (b) lov_color_2d.yml trains on the tree and is scored
+        cfg = lov_batch_cfg(lov_root)
+        cfg_file = os.path.join(work, "lov_color_2d_tree.yml")
+        with open(os.path.join(ROOT, "experiments", "cfgs", "lov_color_2d.yml")) as f:
+            text = f.read()
+        with open(cfg_file, "w") as f:
+            f.write(text.replace("  SYNNUM: 80000\n", f"  SYNNUM: 16\n  SYNROOT: {cfg.TRAIN.SYNROOT}\n"))
+        out = os.path.join(work, "lov_color_2d")
+        rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg_file, "--imdb", "lov_train", "--iters",
+                           str(LOV_STEPS), "--output", out], os.path.join(work, "lov_color_2d.log"), 600)
+        check(rc == 0, f"train_net --cfg lov_color_2d.yml exited {rc}:\n{log[-3000:]}")
+        with open(os.path.join(out, "train_timing.json")) as fh:
+            timing = json.load(fh)
+        launches["lov_train_cli"] = timing["launches"]
+        want = {"hough_vote": 4 * LOV_STEPS, "conv3x3": 2 * LOV_STEPS, "nms": 0}
+        check(timing["launches"] == want, f"lov_color_2d: launches {timing['launches']}, want {want}")
+        losses = {it: _cli_losses(log, it, LOV_STEPS) for it in (1, LOV_STEPS)}
+        check(all(np.isfinite(v) for m in losses.values() for v in m.values()), f"lov_color_2d: losses {losses}")
+        src = timing["batches_by_source"]
+        check(src["syn"] > 0 and src["real"] > 0 and src["adapt"] == 0, f"lov_color_2d: batches by source {src}")
+        log_seconds(r"host batches made by source", log)
+        ms = {k: statistics.median(v[LOV_WARMUP:]) for k, v in timing["ms"].items()}
+        phase(15, f"train_net --cfg lov_color_2d.yml (SYNROOT the tree's data_syn/, SYNNUM 16) --imdb lov_train "
+                  f"--iters {LOV_STEPS} (B=2, 640x480, bf16, SYN_RATIO 5, no backgrounds): per step (median of "
+                  f"steps {LOV_WARMUP + 1}-{LOV_STEPS}) {ms['step_stream']:.3f} ms stream, {ms['step']:.3f} ms host, "
+                  f"data wait {ms['data_wait']:.3f} ms; host batches by source {src} (synthetic share "
+                  f"{src['syn'] / (src['syn'] + src['real']):.3f}, SYN_RATIO 5 gives 5/6); peak memory "
+                  f"{timing['peak_memory_mib']:.1f} MiB; losses "
+                  + "; ".join(f"step {it}: {m}" for it, m in losses.items())
+                  + f"; launches {timing['launches']} (a step: hough_vote "
+                  f"{timing['launches']['hough_vote'] / LOV_STEPS:g}, conv3x3 "
+                  f"{timing['launches']['conv3x3'] / LOV_STEPS:g})")
+        print("lov_color_2d train per-step ms " + json.dumps({k: [round(x, 3) for x in v]
+                                                               for k, v in timing["ms"].items()}), flush=True)
+        snap = os.path.join(out, f"{cfg.TRAIN.SNAPSHOT_PREFIX}_iter_{LOV_STEPS}.npz")
+        launches["lov_eval"] = _eval_cli(["--cfg", cfg_file, "--imdb", "lov_keyframe", "--model", snap],
+                                         os.path.join(work, "lov_eval"), 16, "lov_color_2d.yml --imdb lov_keyframe")
+
+        # (c) LINEMOD ape
+        write_linemod_tree(root, cls="ape", frames=range(LINEMOD_FRAMES))
+        lm_cfg = os.path.join("experiments", "cfgs", "linemod_ape_pose.yml")
+        out = os.path.join(work, "linemod")
+        rc, log = run_cli(["posecnn_torch.train_net", "--cfg", lm_cfg, "--imdb", "linemod_ape_train", "--iters",
+                           str(LINEMOD_STEPS), "--output", out], os.path.join(work, "linemod.log"), 600)
+        check(rc == 0, f"train_net --cfg linemod_ape_pose.yml exited {rc}:\n{log[-3000:]}")
+        with open(os.path.join(out, "train_timing.json")) as fh:
+            timing = json.load(fh)
+        launches["linemod_train_cli"] = timing["launches"]
+        want = {"hough_vote": 4 * LINEMOD_STEPS, "conv3x3": 2 * LINEMOD_STEPS, "nms": 0}
+        check(timing["launches"] == want, f"linemod: launches {timing['launches']}, want {want}")
+        losses = _cli_losses(log, 1, LINEMOD_STEPS)
+        check(all(np.isfinite(v) for v in losses.values()) and "loss_pose" in losses, f"linemod: losses {losses}")
+        ms = {k: statistics.median(v[LINEMOD_WARMUP:]) for k, v in timing["ms"].items()}
+        phase(15, f"train_net --cfg linemod_ape_pose.yml --imdb linemod_ape_train --iters {LINEMOD_STEPS} (2 classes, "
+                  f"B=2, 640x480, bf16; {LINEMOD_FRAMES} frames, models/ape.ply binary): per step (median of steps "
+                  f"{LINEMOD_WARMUP + 1}-{LINEMOD_STEPS}) {ms['step_stream']:.3f} ms stream, {ms['step']:.3f} ms host, "
+                  f"data wait {ms['data_wait']:.3f} ms; step 1 losses {losses}; launches {timing['launches']}")
+        snap = os.path.join(out, f"vgg16_fcn_color_linemod_ape_pose_iter_{LINEMOD_STEPS}.npz")
+        ev = os.path.join(work, "linemod_eval")
+        launches["linemod_eval"] = _eval_cli(["--cfg", lm_cfg, "--imdb", "linemod_ape_test", "--model", snap], ev,
+                                             LINEMOD_FRAMES, "linemod_ape_pose.yml --imdb linemod_ape_test")
+        with open(os.path.join(ev, "eval_timing.json")) as fh:
+            thr = json.load(fh)["thresholds"]
+        check(thr == {"ape": 0.1 * LINEMOD_DIAMETERS[0]}, f"linemod eval thresholds {thr}")
+        phase(15, f"LINEMOD ape's evaluator threshold {thr['ape']:.6f} m = 0.1 x its diameter "
+                  f"{LINEMOD_DIAMETERS[0] * 1000:.2f} mm; the whole phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        if old_root is None:
+            os.environ.pop("POSECNN_DATA", None)
+        else:
+            os.environ["POSECNN_DATA"] = old_root
+    return launches
+
+
+def _eval_cli(args: list, out: str, n: int, what: str) -> dict:
+    """`test_net` with `args` and --output `out` over n frames, its
+    detections finite, its summary in range and its launches 2 hough_vote
+    and 1 conv3x3 a frame; prints its line of phase 15. Returns the
+    launches."""
+    rc, log = run_cli(["posecnn_torch.test_net", *args, "--output", out], out + ".log", 600)
+    check(rc == 0, f"test_net --cfg {what} exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(out, "eval_summary.json")) as fh:
+        summary = json.load(fh)
+    with open(os.path.join(out, "eval_timing.json")) as fh:
+        timing = json.load(fh)
+    with np.load(os.path.join(out, "detections.npz")) as d:
+        dets = {k: d[k] for k in d.files}
+    want = {"hough_vote": 2 * n, "conv3x3": n, "nms": 0}
+    check(timing["frames"] == n and timing["launches"] == want,
+          f"{what}: {timing['frames']} frames, launches {timing['launches']}, want {want}")
+    check(all(np.isfinite(v).all() and v.shape[1:] == (7,) for v in dets.values()), f"{what}: detections")
+    check(0 <= summary["mean_iou"] <= 1 and 0 <= summary["adds_auc"] <= 1, f"{what}: summary {summary}")
+    ev_ms = {k: statistics.median(v[EVAL_WARMUP:]) for k, v in timing["ms"].items()}
+    phase(15, f"test_net --cfg {what} --model <the snapshot>: {n} frames, "
+              f"{sum(len(v) for k, v in dets.items() if k.endswith('_rois'))} detections, mean IoU "
+              f"{summary['mean_iou']:.4f}, ADD-S AUC {summary['adds_auc']:.4f} (a few steps from seed weights: shows "
+              f"the scorer runs); per frame (median of frames {EVAL_WARMUP + 1}-{n}) "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ev_ms.items())
+              + f"; peak {timing['peak_memory_mib']:.1f} MiB; launches {timing['launches']}")
+    return timing["launches"]
+
+
 def toy_phase3(kernels: dict, w_t, dev) -> None:
     """Phase 3 at the toy path's shapes (experiments/cfgs/toy_pose.yml):
     conv3x3 at conv1_2, B=2, 96x128, 64->64, in the path's mode below 128
@@ -2154,8 +2343,8 @@ def main() -> int:
     print(smi, flush=True)
 
     # phase 2: build every kernel of the path
-    phase(2, f"built and loaded the CUDA kernels, the host rasterizer and the bilateral filter in "
-             f"{_build.build_all():.2f} s")
+    phase(2, f"built and loaded the CUDA kernels, the host rasterizer, the bilateral filter and the PNG row "
+             f"filters in {_build.build_all():.2f} s")
 
     # phase 3: each kernel against its plain version at the main path's shapes
     # hough_vote, both passes: on synthetic inputs (uniform positions) and on
@@ -2408,7 +2597,7 @@ def main() -> int:
     infer_cpu = make_inference_fn(flagship_cfg(is_train=False), PIXEL_MEANS, "cpu")
     model_cpu = copy.deepcopy(model).cpu()
     t0, agree, box_err, vote_err = time.perf_counter(), [], 0.0, 0.0
-    for (color, meta), out in zip(frames, outs):
+    for (color, meta), out in list(zip(frames, outs))[:N_CPU_FRAMES]:
         ref = infer_cpu(model_cpu, torch.from_numpy(color), torch.from_numpy(meta), extents.cpu())
         agree.append(float((out["label_2d"] == ref["label_2d"]).double().mean()))
         check(torch.equal(out["rois_valid"], ref["rois_valid"]), "valid slots differ from the CPU port")
@@ -2418,7 +2607,7 @@ def main() -> int:
         vote_err = max(vote_err, (rois[:, 6] - ref_rois[:, 6]).abs().max().item())
     check(min(agree) >= 0.999 and box_err <= 4.0 and vote_err <= 2.0,
           f"card against CPU: label agreement {agree}, roi box max|err| {box_err} px, votes {vote_err}")
-    phase(6, f"card against the CPU port on the same {len(frames)} frames ({time.perf_counter() - t0:.1f} s): "
+    phase(6, f"card against the CPU port on the first {N_CPU_FRAMES} of the frames ({time.perf_counter() - t0:.1f} s): "
              f"label_2d agreement min {min(agree):.6f} (limit 0.999), valid slots and classes equal, roi box "
              f"max|err| {box_err:.3g} px (limit 4), votes max|err| {vote_err:.3g} (limit 2)")
 
@@ -2524,6 +2713,7 @@ def main() -> int:
         input_launches = input_modes_phase(work, dev)
         nms_record, det_launches = det_3d_phase(work, dev)
         slice_j_launches = full_adapt_gan_phase(work, dev)
+        dataset_launches = datasets_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2531,7 +2721,7 @@ def main() -> int:
     print(smi, flush=True)
     sources = {"hough_vote": ("posecnn_torch/csrc/hough_vote.cu", "posecnn_tpu/ops/pallas/voting.py:36"),
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
-    det_paths = {f"launches_{path}": n for path, n in {**det_launches, **slice_j_launches}.items()}
+    det_paths = {f"launches_{path}": n for path, n in {**det_launches, **slice_j_launches, **dataset_launches}.items()}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],

@@ -2,8 +2,9 @@
 
 Each CUDA kernel (`hough_vote.cu`, `conv3x3.cu`, `nms.cu`) is a `.cu` file
 under `posecnn_torch/csrc/` with a plain C entry point, compiled by `nvcc`;
-the host renderer (`csrc/rasterizer.cc`) and the host bilateral filter
-(`csrc/bilateral.cc`) are compiled by `g++`. Each becomes a shared library
+the host renderer (`csrc/rasterizer.cc`), the host bilateral filter
+(`csrc/bilateral.cc`) and the PNG reader's row filters (`csrc/png.cc`) are
+compiled by `g++`. Each becomes a shared library
 under `posecnn_torch/_build/` (listed in `.gitignore`); the file name
 carries a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is reused. Nothing
@@ -151,13 +152,23 @@ def rasterizer_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def png_lib() -> ctypes.CDLL:
+    """The loaded PNG row-filter library, with its entry point's C signature."""
+    lib = ctypes.CDLL(str(build_library("png")))
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.png_unfilter.argtypes = [u8p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.png_unfilter.restype = ctypes.c_int
+    return lib
+
+
 LIBRARIES = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib, "nms": nms_lib, "rasterizer": rasterizer_lib,
-             "bilateral": bilateral_lib}
+             "bilateral": bilateral_lib, "png": png_lib}
 
 
 def build_all() -> float:
     """Build every native library of the port (the CUDA kernels, the host
-    rasterizer and bilateral filter), one compiler per source, all started together, then load
+    rasterizer, bilateral filter and PNG row filters), one compiler per source, all started together, then load
     them; returns the seconds taken."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:

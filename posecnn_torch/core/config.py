@@ -561,10 +561,6 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
     if train:
         rules += [
             ("TRAIN.VOTING_THRESHOLD", T.VOTING_THRESHOLD, T.VOTING_THRESHOLD > 0),
-            ("TRAIN.SYNTHESIZE", T.SYNTHESIZE, T.SYNTHESIZE),
-            # the adaptation frames of ADAPT_ROOT are image files read by
-            # cv2 (tools/train_net.py:200-225): not in the repository
-            ("TRAIN.ADAPT_ROOT", T.ADAPT_ROOT, T.ADAPT and bool(T.ADAPT_ROOT)),
             # JAX's step reads a domain_score that vgg16_full never returns
             ("TRAIN.ADAPT", T.ADAPT, T.ADAPT and cfg.NETWORK == "VGG16FULL"),
             # JAX's step hands vgg16_full gt_centers, which it does not take
@@ -572,7 +568,6 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
             ("TPU.HOUGH_GT_MIX", P.HOUGH_GT_MIX, P.HOUGH_GT_MIX > 0 and cfg.NETWORK == "VGG16FULL"),
             ("TRAIN.MATCHING", T.MATCHING, T.MATCHING),
             ("TRAIN.VISUALIZE", T.VISUALIZE, T.VISUALIZE),
-            ("TRAIN.SCALES_BASE", T.SCALES_BASE, tuple(T.SCALES_BASE)[:1] != (1.0,)),
             ("TPU.DEVICE_TARGETS", P.DEVICE_TARGETS, not P.DEVICE_TARGETS),
             ("TPU.USE_CROP_POOL", P.USE_CROP_POOL,
              T.POSE_REG and T.VERTEX_REG_2D and not P.USE_CROP_POOL),
@@ -581,7 +576,6 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
         rules += [
             ("TEST.VOTING_THRESHOLD", S.VOTING_THRESHOLD, S.VOTING_THRESHOLD > 0),
             ("TEST.VISUALIZE", S.VISUALIZE, S.VISUALIZE),
-            ("TEST.SCALES_BASE", S.SCALES_BASE, tuple(S.SCALES_BASE)[:1] != (1.0,)),
             # the JAX package's test_net on PoseCNN without the vertex head
             # raises KeyError: postprocess_detections reads rois, which the
             # inference function returns only with it (engine/test.py:87);
@@ -759,7 +753,9 @@ def solver_settings(cfg: Config) -> Dict[str, Any]:
 
 def test_settings(cfg: Config) -> Dict[str, Any]:
     """The `engine.test.test_net` settings of a config: TEST.NMS,
-    TEST.POSE_REFINE, TPU.ICP_PLANE_WEIGHT and TEST.REFERENCE_NMS_BUG."""
+    TEST.POSE_REFINE, TPU.ICP_PLANE_WEIGHT, TEST.REFERENCE_NMS_BUG and the
+    first of TEST.SCALES_BASE (`im_scale`, tools/test_net.py:190)."""
     check_supported(cfg, train=False)
     return dict(nms_threshold=cfg.TEST.NMS, pose_refine=cfg.TEST.POSE_REFINE,
-                icp_plane_weight=cfg.TPU.ICP_PLANE_WEIGHT, reference_nms_bug=cfg.TEST.REFERENCE_NMS_BUG)
+                icp_plane_weight=cfg.TPU.ICP_PLANE_WEIGHT, reference_nms_bug=cfg.TEST.REFERENCE_NMS_BUG,
+                im_scale=float(cfg.TEST.SCALES_BASE[0]))

@@ -3,8 +3,8 @@ accuracy and AUC.
 
 The port's own copy of `posecnn_tpu/data/imdb.py`: the `imdb` base class
 (`roidb`, `num_images`, `append_flipped_images`), `fast_hist` and
-`PoseEvaluator` (numpy), with the YCB-Video class names and the classes
-scored with ADD-S (`posecnn_tpu/data/lov.py:21,39`).
+`PoseEvaluator` (numpy), with the YCB-Video classes scored with ADD-S
+(`posecnn_tpu/data/lov.py:39`; the class names are in `data/lov.py`).
 
 `append_flipped_images` appends a flipped copy of every roidb entry and
 doubles the image index, so a dataset of N frames then has 2N entries. The
@@ -22,17 +22,6 @@ import numpy as np
 from posecnn_torch.utils.pose_error import add, adi, re, reproj, te
 from posecnn_torch.utils.quaternion_np import quat2mat
 from posecnn_torch.utils.se3 import se3_mul
-
-YCB_CLASSES = (
-    "__background__",
-    "002_master_chef_can", "003_cracker_box", "004_sugar_box",
-    "005_tomato_soup_can", "006_mustard_bottle", "007_tuna_fish_can",
-    "008_pudding_box", "009_gelatin_box", "010_potted_meat_can",
-    "011_banana", "019_pitcher_base", "021_bleach_cleanser", "024_bowl",
-    "025_mug", "035_power_drill", "036_wood_block", "037_scissors",
-    "040_large_marker", "051_large_clamp", "052_extra_large_clamp",
-    "061_foam_brick",
-)
 
 # classes evaluated with ADD-S at test time (lov.py:484-487)
 YCB_SYMMETRIC_EVAL = ("024_bowl", "036_wood_block", "061_foam_brick")

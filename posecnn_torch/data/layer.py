@@ -1,13 +1,15 @@
 """Data layer: a shuffled stream of host minibatches, and a prefetch thread.
 
-The port's own copy of `posecnn_tpu/data/layer.py:25-196` for real frames:
-`IndexStream` (an endless shuffled index stream), `GtSynthesizeLayer`
-(`ims_per_batch` frames an iteration through `data.minibatch.get_minibatch`,
-honouring the flipped roidb entries of `imdb.append_flipped_images`),
+The port's own copy of `posecnn_tpu/data/layer.py:25-196`: `IndexStream`
+(an endless shuffled index stream), `GtSynthesizeLayer` (`ims_per_batch`
+frames an iteration through `data.minibatch.get_minibatch`, honouring the
+flipped roidb entries of `imdb.append_flipped_images`; with TRAIN.ADAPT a
+stream of adaptation frames, with TRAIN.SYNTHESIZE one of synthetic
+frames pasted over `backgrounds`), `build_background_paths`,
 `GtSingleDataLayer` and `prefetch`. One `RandomState(seed)` draws the
-index permutations and the chromatic deltas in the JAX package's order, so
-the batches are bit-equal to its. The adaptation stream (TRAIN.ADAPT with
-frames from `adapt_frames`) is ported; the synthetic stream is not.
+sources, the index permutations, the synthetic frames' picks, the
+backgrounds and the chromatic deltas in the JAX package's order, so the
+batches are bit-equal to its.
 
 `prefetch` runs the batch assembly (numpy work only) on a daemon thread and
 hands the batches over through a bounded queue; an exception in the thread
@@ -17,10 +19,12 @@ thread (`engine.train.Solver`).
 
 from __future__ import annotations
 
+import glob
+import os
 import queue
 import threading
 from dataclasses import replace
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -51,35 +55,83 @@ class IndexStream:
         return np.asarray(out)
 
 
-class GtSynthesizeLayer:
-    """Minibatches of real frames: `ims_per_batch` indices of the stream a
-    batch, each frame loaded from `dataset` and mirrored where its roidb
-    entry is flipped. With `adapt`, a batch is first drawn to be one of
-    adaptation frames with probability adapt_ratio / (adapt_ratio + 1)
-    (`rng.rand()`, `layer.py:107-113`); its `ims_per_batch` frames then
-    come from `adapt_frames(iteration, rng)`, marked `is_adaptation`."""
+def build_background_paths(data_root: str = "data", input_format: str = "COLOR") -> List[str]:
+    """The background bank of the synthetic frames, as file paths read when
+    drawn (`posecnn_tpu/data/layer.py:build_background_paths`, the
+    reference's `_build_background_images`): the images under SUN2012's
+    data/Images and ObjectNet3D's data for COLOR, RGBD and NORMAL, under
+    RGBD-Scenes for DEPTH (jpg, JPEG, jpeg and png, sorted). A root that is
+    not there adds nothing."""
+    if input_format in ("COLOR", "RGBD", "NORMAL"):
+        roots = [os.path.join(data_root, "SUN2012", "data", "Images"), os.path.join(data_root, "ObjectNet3D", "data")]
+    else:
+        roots = [os.path.join(data_root, "RGBD-Scenes")]
+    out: List[str] = []
+    for root in roots:
+        if not os.path.isdir(root):
+            continue
+        for ext in ("*.jpg", "*.JPEG", "*.jpeg", "*.png"):
+            out.extend(glob.glob(os.path.join(root, "**", ext), recursive=True))
+    return sorted(out)
 
-    def __init__(self, dataset, mcfg: MinibatchConfig, ims_per_batch: int = 2, adapt: bool = False,
-                 adapt_ratio: int = 1, adapt_frames: Optional[Callable[[int, np.random.RandomState], Frame]] = None,
-                 seed: int = 3):
+
+class GtSynthesizeLayer:
+    """Minibatches: `ims_per_batch` frames a batch from one source, drawn
+    in the JAX package's order (`layer.py:107-144`). With `adapt`, first
+    `rng.rand()` < adapt_ratio / (adapt_ratio + 1) makes a batch of
+    adaptation frames (`adapt_frames(iteration, rng)`, marked
+    `is_adaptation`); else, with `synthesize` and `syn_frames`,
+    `rng.rand()` < syn_ratio / (syn_ratio + 1) makes one of synthetic
+    frames (`syn_frames(iteration, rng)`, marked `is_synthetic`); else
+    the next indices of the stream give real frames of `dataset`, mirrored
+    where their roidb entry is flipped. Every batch's synthetic frames are
+    pasted over `backgrounds` (arrays or PNG paths), where there are any.
+    `sources` counts the batches made from each source."""
+
+    def __init__(self, dataset, mcfg: MinibatchConfig, ims_per_batch: int = 2, synthesize: bool = False,
+                 syn_ratio: int = 1, syn_frames: Optional[Callable[[int, np.random.RandomState], Frame]] = None,
+                 adapt: bool = False, adapt_ratio: int = 1,
+                 adapt_frames: Optional[Callable[[int, np.random.RandomState], Frame]] = None,
+                 backgrounds: Sequence = (), seed: int = 3):
         if adapt and adapt_frames is None:
             raise ValueError("the adaptation stream needs adapt_frames")
         self.dataset = dataset
         self.mcfg = mcfg
         self.ims_per_batch = ims_per_batch
+        self.synthesize = synthesize
+        self.syn_ratio = syn_ratio
+        self.syn_frames = syn_frames
         self.adapt = adapt
         self.adapt_ratio = adapt_ratio
         self.adapt_frames = adapt_frames
+        self.backgrounds = list(backgrounds)
         self.rng = np.random.RandomState(seed)
         self.stream = IndexStream(dataset.num_images, self.rng)
         self._iter = 0
+        self.sources = {"real": 0, "syn": 0, "adapt": 0}  # batches made from each
+
+    def _source(self) -> str:
+        if self.adapt and self.rng.rand() < self.adapt_ratio / (self.adapt_ratio + 1.0):
+            return "adapt"
+        if self.synthesize and self.syn_frames is not None and \
+                self.rng.rand() < self.syn_ratio / (self.syn_ratio + 1.0):
+            return "syn"
+        return "real"
+
+    def _batch(self, frames: List[Frame]) -> dict:
+        return get_minibatch(frames, self.mcfg, self.rng, extents=getattr(self.dataset, "_extents", None),
+                             backgrounds=self.backgrounds)
 
     def forward(self) -> dict:
-        adapt = self.adapt and self.rng.rand() < self.adapt_ratio / (self.adapt_ratio + 1.0)
+        source = self._source()
+        self.sources[source] += 1
         it, self._iter = self._iter, self._iter + 1
-        if adapt:
-            frames = [replace(self.adapt_frames(it, self.rng), is_adaptation=True) for _ in range(self.ims_per_batch)]
-            return get_minibatch(frames, self.mcfg, self.rng, extents=getattr(self.dataset, "_extents", None))
+        if source == "adapt":
+            return self._batch([replace(self.adapt_frames(it, self.rng), is_adaptation=True)
+                                for _ in range(self.ims_per_batch)])
+        if source == "syn":
+            return self._batch([replace(self.syn_frames(it, self.rng), is_synthetic=True)
+                                for _ in range(self.ims_per_batch)])
         frames: List[Frame] = []
         rdb = getattr(self.dataset, "_roidb", None)
         for i in self.stream.next(self.ims_per_batch):
@@ -92,7 +144,7 @@ class GtSynthesizeLayer:
                 raise ValueError(f"VERTEX_REG_3D training needs Frame.vertmap (per-pixel object coordinates): "
                                  f"frame {int(i)} of {getattr(self.dataset, 'name', 'the dataset')} has none")
             frames.append(fr)
-        return get_minibatch(frames, self.mcfg, self.rng, extents=getattr(self.dataset, "_extents", None))
+        return self._batch(frames)
 
     def __iter__(self):
         while True:

@@ -25,21 +25,28 @@ and the noise run here for the COLOR input too, and the batch carries the
 jittered image scaled to [-1, 1] (`data_gan`) and the generator's noise
 (`gan_z`). An adaptation frame (`is_adaptation`, the domain stream of
 `data.layer`) has the label -1 everywhere, no centre rows and no pose
-rows. The other branches of the JAX function raise NotImplementedError:
-dense host targets, synthetic frames, and input rescaling.
+rows. A synthetic frame (`is_synthetic`) is pasted over a background drawn
+from `backgrounds` (`composite_background`, after the padding), where there
+are any; TRAIN.SCALES_BASE rescales each frame first (`scale_frame`). The
+resizes are cv2's (`utils.resize`), and a background given as a path is
+read by `utils.png.imread`: a JPEG raises NotImplementedError naming it
+(the JAX package skips a background that cv2 cannot read).
+Dense host targets (TPU.DEVICE_TARGETS False) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from posecnn_torch.native import bilateral_filter
 from posecnn_torch.utils.blob import BLUR_SIZES, add_noise, chromatic_transform, motion_blur  # noqa: F401
 from posecnn_torch.utils.meta import build_meta_data
+from posecnn_torch.utils.png import IMREAD_COLOR, imread
 from posecnn_torch.utils.quaternion_np import mat2quat
+from posecnn_torch.utils.resize import INTER_LINEAR, INTER_NEAREST, resize
 
 
 @dataclass
@@ -166,15 +173,33 @@ def flip_frame(fr: Frame) -> Frame:
     )
 
 
-def _check_host_batch(mcfg: MinibatchConfig, frames: List[Frame]) -> None:
-    unported = {
-        "dense host vertex targets (device_targets False)": not mcfg.device_targets,
-        "input rescaling (scale != 1, cv2)": mcfg.scale != 1.0,
-        "synthetic frames over backgrounds": any(f.is_synthetic for f in frames),
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"get_minibatch: not ported yet: {', '.join(bad)}")
+def scale_frame(fr: Frame, s: float) -> Frame:
+    """The frame rescaled by `s` (TRAIN/TEST.SCALES_BASE,
+    `posecnn_tpu/data/minibatch.py:scale_frame`): colour bilinear; label
+    (as int32), depth, mask and vertmap nearest; centres times s. K is
+    scaled by `build_meta_data`; the 3D poses do not change."""
+    def rs(a, interp):
+        return resize(a, None, s, s, interp)
+
+    return replace(
+        fr,
+        color=rs(fr.color, INTER_LINEAR),
+        label=rs(fr.label.astype(np.int32), INTER_NEAREST),
+        depth=rs(fr.depth, INTER_NEAREST) if fr.depth is not None else None,
+        mask=rs(fr.mask, INTER_NEAREST) if fr.mask is not None else None,
+        vertmap=rs(fr.vertmap, INTER_NEAREST) if fr.vertmap is not None else None,
+        center=fr.center * s,
+    )
+
+
+def composite_background(color: np.ndarray, label: np.ndarray, background: np.ndarray) -> np.ndarray:
+    """The background resized bilinearly to the image, with the image's
+    labelled pixels (label > 0) pasted over it
+    (`posecnn_tpu/data/minibatch.py:composite_background`)."""
+    out = resize(background, (color.shape[1], color.shape[0]), interpolation=INTER_LINEAR)
+    I = np.where(label > 0)
+    out[I[0], I[1], :] = color[I[0], I[1], :3]
+    return out
 
 
 def scale_vertmap(vertmap: np.ndarray, index, extents: np.ndarray) -> np.ndarray:
@@ -277,7 +302,7 @@ def normal_input_image(depth: np.ndarray, factor_depth: float, K: np.ndarray) ->
 
 
 def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.RandomState,
-                  extents: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+                  extents: Optional[np.ndarray] = None, backgrounds: Sequence = ()) -> Dict[str, np.ndarray]:
     """The host batch of `frames` with fixed shapes (the device-targets
     branches of `posecnn_tpu/data/minibatch.py:get_minibatch`):
 
@@ -314,8 +339,14 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
     NORMAL builds the normal image (`normal_input_image`). With `gan`,
     `gan_z`'s draw comes after every image's (`minibatch.py:500-506`).
     An adaptation frame's label is -1 everywhere; it adds no centre rows
-    (zero targets with VERTEX_REG_3D) and no pose rows."""
-    _check_host_batch(mcfg, frames)
+    (zero targets with VERTEX_REG_3D) and no pose rows. Before all of
+    these, a frame is rescaled by `mcfg.scale` when it is not 1
+    (`scale_frame`), and a synthetic frame, where `backgrounds` (arrays or
+    paths) has any, is pasted over `backgrounds[rng.randint(len)]`
+    (`composite_background`) after the padding: the draw comes before the
+    frame's jitter draws."""
+    if not mcfg.device_targets:
+        raise NotImplementedError("get_minibatch: not ported yet: dense host vertex targets (device_targets False)")
     host_aug = mcfg.input_format != "COLOR" or mcfg.gan
     want_depth_input = mcfg.input_format in ("DEPTH", "RGBD")
     want_normal_input = mcfg.input_format == "NORMAL"
@@ -326,8 +357,15 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
     for i, fr in enumerate(frames):
         if fr.flipped:
             fr = flip_frame(fr)
+        if mcfg.scale != 1.0:
+            fr = scale_frame(fr, mcfg.scale)
         im = pad_im(fr.color, 16)
         label = pad_im(fr.label.astype(np.int32), 16)
+        if fr.is_synthetic and len(backgrounds):
+            bg = backgrounds[rng.randint(len(backgrounds))]
+            if isinstance(bg, str):  # a path of the bank: read as cv2.imread(bg, IMREAD_COLOR)
+                bg = imread(bg, IMREAD_COLOR)
+            im = composite_background(im, label, bg)
         if mcfg.chromatic:
             if host_aug:
                 im = chromatic_transform(im, rng=rng)

@@ -18,8 +18,10 @@ same seed renders the same frame in both packages:
     present, else convex hulls of the class's points (scipy), with a
     procedural surface pattern (`procedural_vertex_colors`).
 
-`SyntheticDataset` renders frame i from seed `seed0 + i`. The JAX module's
-offline `data_syn` reader and `freeze_dataset` are not ported.
+`SyntheticDataset` renders frame i from seed `seed0 + i`.
+`OfflineSynReader` reads the frames of a `data_syn` directory (TRAIN.SYNROOT,
+TRAIN.SYN_ONLINE False) as `data.lov` reads YCB-Video's. The JAX module's
+`freeze_dataset` is not ported.
 """
 
 from __future__ import annotations
@@ -428,3 +430,22 @@ class SyntheticDataset:
         if self._cache is not None:
             self._cache[i] = frame
         return frame
+
+
+class OfflineSynReader:
+    """The frames of a `data_syn` directory: {root}/NNNNNN-{color,depth,
+    label}.png and -meta.mat, `num` of them
+    (`posecnn_tpu/data/synthetic.py:OfflineSynReader`, the reference's
+    SYN_ONLINE False path), read through `data.lov.read_frame` and marked
+    synthetic."""
+
+    def __init__(self, root: str, num: int = 80000):
+        self.root = root
+        self.num = num
+
+    def load_frame(self, index: int) -> Frame:
+        from posecnn_torch.data.lov import read_frame
+
+        base = os.path.join(self.root, f"{index:06d}")
+        return read_frame(base + "-color.png", base + "-label.png", base + "-depth.png", base + "-meta.mat",
+                          is_synthetic=True)

@@ -25,10 +25,12 @@ import numpy as np
 import torch
 
 from posecnn_torch.config import PoseCNNConfig
+from posecnn_torch.data.minibatch import pad_im
 from posecnn_torch.engine.refine import icp_refine_detections
 from posecnn_torch.models.posecnn import posecnn_forward
 from posecnn_torch.ops.nms import nms_np
 from posecnn_torch.utils.meta import build_meta_data
+from posecnn_torch.utils.resize import INTER_LINEAR, INTER_NEAREST, resize
 
 
 def set_float32_precision() -> None:
@@ -252,8 +254,6 @@ def test_net(
     (CUDA events around it, on a card), `evaluator` and `frame` (the sum);
     with 3D vertex regression `ransac` (wall) and `ransac_device` (CUDA
     events, on a card) in place of `nms`."""
-    if im_scale != 1.0:
-        raise NotImplementedError("TEST.SCALES_BASE != 1 is not ported (the JAX package resizes with cv2)")
     if not model_cfg.vertex_reg:
         # the JAX package's postprocess_detections reads rois, which its
         # inference function returns only with the vertex head: a KeyError
@@ -270,8 +270,10 @@ def test_net(
         idxs = list(range(start, min(start + eval_batch, n)))
         frames = [dataset.load_frame(i) for i in idxs]
         t0 = time.perf_counter()
-        raw = torch.from_numpy(np.stack([f.color for f in frames])).to(dev)
-        meta = torch.from_numpy(np.stack([build_meta_data(f.intrinsic_matrix) for f in frames])).to(dev)
+        colors = [f.color if im_scale == 1.0 else pad_im(resize(f.color, None, im_scale, im_scale, INTER_LINEAR), 16)
+                  for f in frames]
+        raw = torch.from_numpy(np.stack(colors)).to(dev)
+        meta = torch.from_numpy(np.stack([build_meta_data(f.intrinsic_matrix, im_scale) for f in frames])).to(dev)
         out_dev = infer(model, raw, meta, extents)
         # the 3D object-coordinate map stays on the device for RANSAC
         out_all = {k: v.cpu().numpy() for k, v in out_dev.items() if k != "vertex_pred"}
@@ -279,15 +281,24 @@ def test_net(
         for b, (i, frame) in enumerate(zip(idxs, frames)):
             t1 = time.perf_counter()
             decode_dev = 0.0
+            H0, W0 = frame.color.shape[:2]
+            # the scaled frame's size, before its padding
+            hs, ws = int(np.rint(H0 * im_scale)), int(np.rint(W0 * im_scale))
             if model_cfg.vertex_reg_3d:
                 out = {"label_2d": out_all["label_2d"][b:b + 1]}
+                vertex_pred = out_dev["vertex_pred"][b:b + 1]
+                if im_scale != 1.0:
+                    out = {"label_2d": resize(out["label_2d"][0, :hs, :ws].astype(np.int32), (W0, H0),
+                                              interpolation=INTER_NEAREST)[None]}
+                    vp = resize(vertex_pred[0, :hs, :ws].float().cpu().numpy(), (W0, H0), interpolation=INTER_LINEAR)
+                    vertex_pred = torch.from_numpy(vp[None]).to(dev)
                 depth3d = (frame.depth.astype(np.float32) / float(frame.factor_depth) if frame.depth is not None
                            else np.zeros(frame.label.shape, np.float32))
                 if cuda:
                     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     e0.record()
                 rois, poses = decode_poses_3d(
-                    {"label_2d": out["label_2d"], "vertex_pred": out_dev["vertex_pred"][b:b + 1]}, depth3d,
+                    {"label_2d": out["label_2d"], "vertex_pred": vertex_pred}, depth3d,
                     build_meta_data(frame.intrinsic_matrix), extents, model_cfg.num_classes,
                     label_threshold=model_cfg.label_threshold, seed=i,
                 )
@@ -299,6 +310,14 @@ def test_net(
                 out = _slice_batch(out_all, b) if eval_batch > 1 else out_all
                 rois, poses = postprocess_detections(out, nms_threshold, reference_nms_bug)
             label_pred = out["label_2d"][0]
+            label_icp = out_dev["label_2d"][b]
+            if im_scale != 1.0:
+                if not model_cfg.vertex_reg_3d:
+                    label_pred = resize(label_pred[:hs, :ws].astype(np.int32), (W0, H0), interpolation=INTER_NEAREST)
+                    if rois.shape[0]:
+                        rois = rois.copy()
+                        rois[:, 2:6] /= im_scale
+                label_icp = label_pred
             t2 = time.perf_counter()
             poses_refined = poses_icp = None
             icp_dev = 0.0
@@ -308,7 +327,7 @@ def test_net(
                     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     e0.record()
                 poses_refined, poses_icp = refine_poses(
-                    rois, poses, depth_m, out_dev["label_2d"][b], points_all,
+                    rois, poses, depth_m, label_icp, points_all,
                     build_meta_data(frame.intrinsic_matrix), plane_weight=icp_plane_weight,
                 )
                 if cuda:

@@ -1,5 +1,6 @@
-"""ctypes bindings of the host rasterizer (`csrc/rasterizer.cc`) and the
-host bilateral filter (`csrc/bilateral.cc`).
+"""ctypes bindings of the host rasterizer (`csrc/rasterizer.cc`), the
+host bilateral filter (`csrc/bilateral.cc`) and the PNG row filters
+(`csrc/png.cc`).
 
 The port's copy of `posecnn_tpu/native/__init__.py`: `SceneBuffers`,
 `DEFAULT_LIGHT`, `rasterize_mesh` and `rasterize_depth`. The library is
@@ -8,6 +9,8 @@ raises: nothing falls back to NumPy. `_rasterize_numpy` is the plain
 version of `rasterize_mesh`, which only the tests call. `bilateral_filter`
 is cv2's `bilateralFilter` for uint8 BGR images; ctypes releases the GIL
 for the call, so the data thread filters while the trainer runs.
+`png_unfilter` undoes a PNG image's row filters (`utils/png.py` reads the
+rest of the file).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from posecnn_torch._build import bilateral_lib, rasterizer_lib
+from posecnn_torch._build import bilateral_lib, png_lib, rasterizer_lib
 
 
 class SceneBuffers:
@@ -105,6 +108,21 @@ def bilateral_filter(im: np.ndarray, d: int, sigma_color: float, sigma_space: fl
                                                float(sigma_space))
     if rc != 0:
         raise ValueError(f"bilateral_filter: empty image {im.shape}")
+    return out
+
+
+def png_unfilter(data: np.ndarray, height: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """The (height, rowbytes) uint8 bytes of `height` filtered PNG rows in
+    `data` (each a filter-type byte and `rowbytes` bytes; `bpp` the bytes
+    of a pixel, at least 1). A filter-type byte outside 0-4 raises
+    ValueError naming its row."""
+    src = np.ascontiguousarray(data, np.uint8).reshape(-1)
+    if src.size != height * (rowbytes + 1) or bpp < 1:
+        raise ValueError(f"png_unfilter: {src.size} bytes for {height} rows of 1 + {rowbytes} (bpp {bpp})")
+    out = np.empty((height, rowbytes), np.uint8)
+    bad = png_lib().png_unfilter(src, out, int(height), int(rowbytes), int(bpp))
+    if bad:
+        raise ValueError(f"png_unfilter: row {bad - 1} has filter type {src[(bad - 1) * (rowbytes + 1)]}")
     return out
 
 

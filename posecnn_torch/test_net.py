@@ -2,12 +2,15 @@
 
 With --cfg, the port of `tools/test_net.py` for the VGG16 PoseCNN: the
 model config comes from the config's TEST section
-(`core.config.test_model_cfg`), the dataset from `data.factory` (--imdb:
-toy_val, the default, or lov_syn_val_v4), and TEST.NMS, TEST.POSE_REFINE,
-TPU.ICP_PLANE_WEIGHT and TEST.REFERENCE_NMS_BUG from the config
-(`core.config.test_settings`). The evaluator scores the YCB symmetric
-classes with ADD-S where the dataset has YCB classes, and otherwise the
-dataset's own symmetric classes (the last cuboid of `toy`). Without
+(`core.config.test_model_cfg`), the dataset from `data.factory` (--imdb,
+any of its names; default toy_val), and TEST.NMS, TEST.POSE_REFINE,
+TPU.ICP_PLANE_WEIGHT, TEST.REFERENCE_NMS_BUG and TEST.SCALES_BASE from the
+config (`core.config.test_settings`). The evaluator scores the YCB
+symmetric classes with ADD-S where the dataset has YCB classes, and
+otherwise the dataset's own symmetric classes (the last cuboid of `toy`);
+a dataset with `diameters` (LINEMOD) is scored at 0.1 x its diameter, and
+eggbox and glue get the reprojection metric's z-flip
+(`tools/test_net.py:162-172`). Without
 --model, the weights are drawn from numpy seed RNG_SEED. The output
 directory is output/<EXP_DIR>/<imdb>/<network> unless --output.
 
@@ -45,8 +48,9 @@ Usage: python -m posecnn_torch.test_net [--cfg FILE.yml] [--imdb NAME] [--model 
 --model takes an npz snapshot of either package. Writes to the output
 directory: `detections.npz` (keys `<frame:06d>_<rois|poses|poses_refined|poses_icp>`)
 and `eval_summary.json`, as the JAX CLI does, and `eval_timing.json`: the
-device, per-frame milliseconds by stage, the kernels' launches and, on a
-card, the peak device memory.
+device, per-frame milliseconds by stage, the kernels' launches, the
+evaluator's ADD threshold of each class and, on a card, the peak device
+memory.
 """
 
 from __future__ import annotations
@@ -64,8 +68,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default=None, help="an npz snapshot (train state or params) of either package")
     ap.add_argument("--cfg", default=None, help="an experiments/cfgs/*.yml config (without it: the flagship eval)")
-    ap.add_argument("--imdb", default=None, choices=["toy_val", "lov_syn_val_v4"],
-                    help="dataset (default toy_val with --cfg, lov_syn_val_v4 without)")
+    ap.add_argument("--imdb", default=None, help="dataset (default toy_val with --cfg, lov_syn_val_v4 without)")
     ap.add_argument("--network", default="vgg16_convs")
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument("--eval_batch", type=int, default=1, help="frames per inference call")
@@ -129,7 +132,9 @@ def main(argv=None) -> int:
     sym = [c for c in dataset.classes if c in YCB_SYMMETRIC_EVAL] or [
         dataset.classes[i] for i in range(dataset.num_classes) if dataset._symmetry[i] > 0
     ]
-    evaluator = PoseEvaluator(dataset.classes, dataset._extents, dataset._points, sym)
+    evaluator = PoseEvaluator(dataset.classes, dataset._extents, dataset._points, sym,
+                              diameters=getattr(dataset, "diameters", None),
+                              flip_z_classes=[c for c in ("eggbox", "glue") if c in dataset.classes])
     os.makedirs(out_dir, exist_ok=True)
 
     timings = {}
@@ -149,8 +154,9 @@ def main(argv=None) -> int:
     device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
     with open(os.path.join(out_dir, "eval_timing.json"), "w") as f:
         json.dump({"device": device, "imdb": dataset.name, "frames": len(results), "eval_batch": args.eval_batch,
-                   "wall_s": wall, "launches": launches, "ms": timings, **test_cfg, **_peak(args.device)}, f,
-                  indent=1)
+                   "wall_s": wall, "launches": launches, "ms": timings, **test_cfg, **_peak(args.device),
+                   "thresholds": {dataset.classes[c]: evaluator._threshold(c) for c in range(1, dataset.num_classes)}},
+                  f, indent=1)
     print(json.dumps(summary, indent=2))
     print(f"{len(results)} frames in {wall:.3f} s on {device}; launches {launches}", flush=True)
     return 0

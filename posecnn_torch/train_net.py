@@ -30,9 +30,17 @@ whatever THRESHOLD_LABEL says; NETWORK VGG16GAN trains PoseCNN, as the JAX
 CLI does, on host batches that also carry the GAN blobs (TRAIN.GAN: the
 jitter and the noise on the host, `data_gan`, `gan_z`), which the step
 does not read. TRAIN.ADAPT adds the domain head and its loss; as in the
-JAX CLI, the adaptation frames come only from TRAIN.ADAPT_ROOT, so without
-it (the shipped cfgs) the data stream has none, and a non-empty
-ADAPT_ROOT is refused (its images need cv2). NETWORK FCN8VGG (or --network fcn8_vgg)
+JAX CLI, the adaptation frames come only from TRAIN.ADAPT_ROOT (its first
+ADAPT_NUM *.png and *.jpg files, sorted; PNG read by `utils.png`, and a
+JPEG among them raises NotImplementedError naming it before the first
+step), so without it (the shipped cfgs) the data stream has none.
+TRAIN.SYNTHESIZE mixes in synthetic batches (SYN_RATIO to 1): rendered by
+`data.synthetic.build_ycb_synthesizer` with SYN_ONLINE, else read from
+TRAIN.SYNROOT (`data.synthetic.OfflineSynReader`, frame (SYNITER +
+randint(SYNNUM)) % SYNNUM), each pasted over a background of
+`data.layer.build_background_paths` under $POSECNN_DATA (or data/) where
+there are any (a background that is not a PNG raises NotImplementedError
+before the first step). NETWORK FCN8VGG (or --network fcn8_vgg)
 trains FCN-8s on the segmentation loss alone (`seg_run`, the JAX CLI's
 `train_segmentation`), under output/<EXP_DIR>/<imdb>/fcn8_vgg. NETWORK
 VGG16DET trains the detection network (`det_run`, the JAX CLI's
@@ -80,9 +88,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def cfg_run(args, log):
     """(step, state, open_data, Solver arguments, output directory) of a
     --cfg run (`tools/train_net.py:main`). `open_data(start_iter)` returns
-    the data iterator and, with the bank refresh, a function that stops the
-    refresher and returns its record for `train_timing.json` (else None);
-    it is called after the resume, since the refresh's seeds start from the
+    the data iterator and a function (or None) that ends the data source
+    and returns its entries for `train_timing.json`: with the bank refresh
+    the refresher's record (`bank_refresh`), with host batches the count
+    made from each source (`batches_by_source`: real, syn, adapt). It is
+    called after the resume, since the refresh's seeds start from the
     resume iteration."""
     import numpy as np
     import torch
@@ -92,7 +102,7 @@ def cfg_run(args, log):
     from posecnn_torch.models.posecnn_full import CE_THRESHOLD, make_full_model
     from posecnn_torch.data.device_bank import bank_to_device, build_bank
     from posecnn_torch.data.factory import get_imdb
-    from posecnn_torch.data.layer import GtSynthesizeLayer, prefetch
+    from posecnn_torch.data.layer import prefetch
     from posecnn_torch.data.minibatch import rescale_points
     from posecnn_torch.engine import train as T
     from posecnn_torch.engine.test import set_float32_precision
@@ -156,12 +166,106 @@ def cfg_run(args, log):
             def open_data(start_iter):
                 return itertools.repeat(bank), None
     else:
-        layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
+        layer = host_layer(cfg, imdb, mcfg, log)
         step = T.make_train_step(model_cfg, hp, points, symmetry, extents, **step_kw)
 
         def open_data(start_iter):
-            return prefetch(iter(layer), depth=cfg.TPU.PREFETCH), None
+            return prefetch(iter(layer), depth=cfg.TPU.PREFETCH), lambda: {"batches_by_source": dict(layer.sources)}
     return step, state, open_data, C.solver_settings(cfg), output
+
+
+def host_layer(cfg, imdb, mcfg, log):
+    """The host minibatch source of a --cfg run (`tools/train_net.py:
+    167-248`): `GtSynthesizeLayer` over the dataset with the synthetic
+    stream (`synthetic_source`) and the adaptation stream
+    (`adaptation_source`) the config asks for, seeded with RNG_SEED."""
+    from posecnn_torch.data.layer import GtSynthesizeLayer
+
+    T_ = cfg.TRAIN
+    syn_frames, backgrounds = synthetic_source(cfg, imdb, log)
+    adapt_frames = adaptation_source(cfg) if T_.ADAPT and T_.ADAPT_ROOT else None
+    return GtSynthesizeLayer(imdb, mcfg, ims_per_batch=T_.IMS_PER_BATCH, synthesize=T_.SYNTHESIZE,
+                             syn_ratio=T_.SYN_RATIO, syn_frames=syn_frames, adapt=adapt_frames is not None,
+                             adapt_ratio=T_.ADAPT_RATIO, adapt_frames=adapt_frames, backgrounds=backgrounds,
+                             seed=cfg.RNG_SEED)
+
+
+def synthetic_source(cfg, imdb, log):
+    """(syn_frames, backgrounds) of TRAIN.SYNTHESIZE (`tools/train_net.py:
+    167-196,226-233`), or (None, []) without it. SYN_ONLINE: scenes rendered
+    by `build_ycb_synthesizer` over the dataset (at SYN_WIDTH x SYN_HEIGHT,
+    SYN_TNEAR to SYN_TFAR, with the `poses.txt` bank of the dataset's
+    directory under SYN_SAMPLE_POSE); else frame (SYNITER +
+    rng.randint(SYNNUM)) % SYNNUM of `OfflineSynReader(SYNROOT, SYNNUM)`.
+    The backgrounds are the PNG paths of `build_background_paths` under
+    $POSECNN_DATA (or data/); any other file there raises
+    NotImplementedError naming it."""
+    import numpy as np
+
+    from posecnn_torch.data.layer import build_background_paths
+    from posecnn_torch.data.synthetic import OfflineSynReader, build_ycb_synthesizer
+    from posecnn_torch.utils.png import is_png
+
+    T_ = cfg.TRAIN
+    if not T_.SYNTHESIZE:
+        return None, []
+    if T_.SYN_ONLINE:
+        pose_bank = None
+        bank_file = os.path.join(getattr(imdb, "_lov_path", ""), "poses.txt")
+        if T_.SYN_SAMPLE_POSE and os.path.exists(bank_file):
+            pose_bank = np.loadtxt(bank_file).reshape(-1, 4)
+        synth = build_ycb_synthesizer(imdb, width=T_.SYN_WIDTH, height=T_.SYN_HEIGHT, t_near=T_.SYN_TNEAR,
+                                      t_far=T_.SYN_TFAR, pose_bank=pose_bank)
+
+        def syn_frames(i, rng):
+            return synth.render_scene(rng)
+    else:
+        if not os.path.isdir(T_.SYNROOT):
+            raise FileNotFoundError(f"TRAIN.SYNROOT {T_.SYNROOT}: no such directory (the data_syn frames)")
+        reader = OfflineSynReader(T_.SYNROOT, num=T_.SYNNUM)
+
+        def syn_frames(i, rng):
+            return reader.load_frame((T_.SYNITER + rng.randint(reader.num)) % reader.num)
+    backgrounds = build_background_paths(os.environ.get("POSECNN_DATA", "data"), cfg.INPUT)
+    for path in backgrounds:
+        if not is_png(path):
+            raise NotImplementedError(f"background {path}: not a PNG file (JPEG and other formats are not read)")
+    if backgrounds:
+        log(f"{len(backgrounds)} background images")
+    return syn_frames, backgrounds
+
+
+def adaptation_source(cfg):
+    """The adaptation frames of TRAIN.ADAPT_ROOT (`tools/train_net.py:
+    198-225`): one of the first ADAPT_NUM of its sorted *.png and *.jpg
+    files drawn by `rng.randint` for each frame, read as cv2's IMREAD_COLOR
+    (`utils.png.imread`), unlabelled; None when the directory has none. A
+    JPEG among them raises NotImplementedError naming it (no JPEG decoder
+    here)."""
+    import glob
+
+    import numpy as np
+
+    from posecnn_torch.data.minibatch import Frame
+    from posecnn_torch.utils.png import IMREAD_COLOR, imread
+
+    root, num = cfg.TRAIN.ADAPT_ROOT, cfg.TRAIN.ADAPT_NUM
+    paths = sorted(glob.glob(os.path.join(root, "*.png")) + glob.glob(os.path.join(root, "*.jpg")))[:num]
+    jpeg = [p for p in paths if p.endswith(".jpg")]
+    if jpeg:
+        raise NotImplementedError(f"TRAIN.ADAPT_ROOT: {jpeg[0]} is a JPEG ({len(jpeg)} of {len(paths)} files): "
+                                  "only PNG frames are read")
+    if not paths:
+        return None
+
+    def adapt_frames(i, rng):
+        im = imread(paths[rng.randint(len(paths))], IMREAD_COLOR)
+        h, w = im.shape[:2]
+        return Frame(color=im, label=np.zeros((h, w), np.int32), cls_indexes=np.zeros(0, np.float32),
+                     poses=np.zeros((3, 4, 0), np.float32), center=np.zeros((0, 2), np.float32),
+                     intrinsic_matrix=np.eye(3), is_adaptation=True)
+
+    return adapt_frames
 
 
 def seg_run(args, cfg, imdb, dev, log, init_fn, forward_fn):
@@ -261,9 +365,10 @@ def refreshing_data(imdb, bank, cfg, start_iter: int, output: str, log):
         r = refresher
         r.stop()
         r.join(timeout=30)
-        return {"seed_start": r.seed_start, "frames_rendered": r.frames_rendered,
-                "chunks_spliced": len(stats["splice_ms"]), "splice_ms": stats["splice_ms"],
-                "render_s": r.render_s, "frames_per_s": r.frames_rendered / r.render_s if r.render_s else None}
+        return {"bank_refresh": {
+            "seed_start": r.seed_start, "frames_rendered": r.frames_rendered,
+            "chunks_spliced": len(stats["splice_ms"]), "splice_ms": stats["splice_ms"],
+            "render_s": r.render_s, "frames_per_s": r.frames_rendered / r.render_s if r.render_s else None}}
 
     return refreshing_bank_iter(bank, refresher, log=log, stats=stats), finish
 
@@ -315,28 +420,29 @@ def main(argv=None) -> int:
     start = 0
     if args.resume:  # det_run refuses --resume
         state, start = solver.resume(state, log=log)
-    data_iter, finish_refresh = open_data(start)
+    data_iter, finish_data = open_data(start)
     timings = {}
     voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
-    refresh = None
+    data_record = {}
     try:
         solver.train(data_iter, state, args.iters, log=log, start_iter=start, timings=timings)
     finally:
         close = getattr(data_iter, "close", None)
         if close is not None:
             close()
-        if finish_refresh is not None:
-            refresh = finish_refresh()
+        if finish_data is not None:
+            data_record = finish_data()
     launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
     device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
     os.makedirs(output, exist_ok=True)
     record = {"device": device, "start_step": start, "end_step": state.step, "launches": launches, "ms": timings}
     if args.device.startswith("cuda"):
         record["peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
-    if refresh is not None:
-        record["bank_refresh"] = refresh
+    record.update(data_record)
     with open(os.path.join(output, "train_timing.json"), "w") as f:
         json.dump(record, f, indent=1)
+    if "batches_by_source" in data_record:
+        log(f"host batches made by source (the prefetched ones too): {data_record['batches_by_source']}")
     log(f"done at iteration {state.step}; launches hough_vote {launches['hough_vote']} "
         f"conv3x3 {launches['conv3x3']} nms {launches['nms']}")
     return 0

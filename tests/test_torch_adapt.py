@@ -268,15 +268,27 @@ def test_restore_params_skips_the_domain_head(tmp_path):
 def test_adapt_root_is_refused_and_the_shipped_cfgs_build(tmp_path):
     """As shipped, the adaptation cfg sets no ADAPT_ROOT: JAX's CLI then has
     no adaptation frames and trains the domain head on real frames alone,
-    as the port does. A non-empty ADAPT_ROOT (image files that cv2 reads)
-    is refused; so is VGG16GAN for testing (TEST.VERTEX_REG_2D False)."""
+    as the port does. A non-empty ADAPT_ROOT builds: its PNG frames are
+    read (`utils.png`), and a JPEG among them is refused when the
+    adaptation source is built; VGG16GAN is refused for testing
+    (TEST.VERTEX_REG_2D False)."""
+    from posecnn_torch.train_net import adaptation_source
+    from posecnn_torch.utils.png import write_png
+
     cfg = C.cfg_from_file(ADAPT_CFG)
     assert cfg.TRAIN.ADAPT and not cfg.TRAIN.ADAPT_ROOT and C.unsupported(cfg) == []
     model_cfg, hp = C.train_model_cfg(cfg, 22), C.train_hparams(cfg)
     assert model_cfg.adaptation and model_cfg.adapt_lambda == 0.01 and hp.adapt_weight == cfg.TRAIN.ADAPT_WEIGHT
+    real = tmp_path / "real"
+    real.mkdir()
     p = tmp_path / "c.yml"
-    p.write_text(open(ADAPT_CFG).read().replace("  ADAPT: True\n", "  ADAPT: True\n  ADAPT_ROOT: data/real\n"))
-    assert C.unsupported(C.cfg_from_file(str(p))) == ["TRAIN.ADAPT_ROOT: 'data/real'"]
+    p.write_text(open(ADAPT_CFG).read().replace("  ADAPT: True\n", f"  ADAPT: True\n  ADAPT_ROOT: {real}\n"))
+    assert C.unsupported(C.cfg_from_file(str(p))) == []
+    write_png(str(real / "f.png"), np.zeros((8, 8, 3), np.uint8))
+    assert adaptation_source(C.cfg_from_file(str(p))) is not None
+    (real / "g.jpg").write_bytes(b"\xff\xd8\xff")
+    with pytest.raises(NotImplementedError, match="g.jpg"):
+        adaptation_source(C.cfg_from_file(str(p)))
     gan = C.cfg_from_file(GAN_CFG)
     assert C.minibatch_cfg(gan, 22).gan and not C.train_model_cfg(gan, 22).vertex_reg
     assert C.unsupported(gan) == [] and C.unsupported(gan, train=False) == ["TEST.VERTEX_REG_2D: False"]

@@ -155,7 +155,8 @@ def test_cfg_from_file_matches_jax(name):
         assert_model_cfg_equal(model_cfg, jax_test_model_cfg(ref, n))
         assert settings == dict(nms_threshold=ref.TEST.NMS, pose_refine=ref.TEST.POSE_REFINE,
                                 icp_plane_weight=ref.TPU.ICP_PLANE_WEIGHT,
-                                reference_nms_bug=ref.TEST.REFERENCE_NMS_BUG)
+                                reference_nms_bug=ref.TEST.REFERENCE_NMS_BUG,
+                                im_scale=float(ref.TEST.SCALES_BASE[0]))
 
 
 # the shipped training configs whose one unported setting was the host
@@ -178,11 +179,11 @@ def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
     shipped files with TPU.BANK_REFRESH, the 38 with host noise, the 16 of
     the depth inputs and FCN8VGG, the 28 of the detection network and the
     3D head, and VGG16FULL, the adaptation cfg and VGG16GAN build for
-    training; of the 105 shipped files 101 build for training, 87 for
-    testing and 83 for both; every other file names one of the unported
-    settings of `unsupported`: only TRAIN.SYNTHESIZE (4 files, which need
-    data/LOV) and TEST.VERTEX_REG_2D False on PoseCNN (18, where JAX's
-    test_net raises KeyError)."""
+    training; of the 105 shipped files all 105 build for training, 87 for
+    testing and 87 for both (TRAIN.SYNTHESIZE's 4 files build since the
+    synthesis mix is ported); every other file names the one unported
+    setting of `unsupported` left: TEST.VERTEX_REG_2D False on PoseCNN (18,
+    where JAX's test_net raises KeyError)."""
     toy = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml"))
     assert not C.unsupported(toy, train=True) and not C.unsupported(toy, train=False)
     cap = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml"))
@@ -197,7 +198,7 @@ def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
             assert C.unsupported(c) == [], name
         tr, te = not C.unsupported(c, train=True), not C.unsupported(c, train=False)
         train, test, both = train + tr, test + te, both + (tr and te)
-    assert len(CFG_FILES) == 105 and (train, test, both) == (101, 87, 83)
+    assert len(CFG_FILES) == 105 and (train, test, both) == (105, 87, 87)
     assert len(refresh) == 10
     for name in HOST_NOISE_CFGS:
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
@@ -212,8 +213,8 @@ def test_toy_pose_builds_and_the_refusals_cover_the_shipped_files():
     for name in SLICE_J_CFGS:
         c = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", name + ".yml"))
         assert C.unsupported(c) == [], name
-    assert refused == {"TRAIN.SYNTHESIZE", "TEST.VERTEX_REG_2D"}
-    assert not refused & {"INPUT", "TPU.BANK_REFRESH", "TRAIN.ADD_NOISE", "TEST.POSE_REG", "TRAIN.VERTEX_REG_3D",
+    assert refused == {"TEST.VERTEX_REG_2D"}
+    assert not refused & {"TRAIN.SYNTHESIZE", "INPUT", "TPU.BANK_REFRESH", "TRAIN.ADD_NOISE", "TEST.POSE_REG", "TRAIN.VERTEX_REG_3D",
                           "TEST.VERTEX_REG_3D", "NETWORK", "TRAIN.ADAPT", "TRAIN.GAN", "TEST.GAN"}
 
 
@@ -392,7 +393,7 @@ def test_flagship_settings_are_the_capstone_builders():
     assert model_cfg == C.train_model_cfg(cap, 22) and hp == C.train_hparams(cap)
     assert flagship_eval_cfg() == C.test_model_cfg(cap, 22)
     assert FLAGSHIP_SOLVER == C.solver_settings(cap)
-    assert {**FLAGSHIP_TEST, "reference_nms_bug": False} == C.test_settings(cap)
+    assert {**FLAGSHIP_TEST, "reference_nms_bug": False, "im_scale": 1.0} == C.test_settings(cap)
     assert FLAGSHIP_TRAIN_BATCH == dict(batch_size=cap.TRAIN.IMS_PER_BATCH, max_gt=cap.TPU.MAX_GT,
                                         chromatic=cap.TRAIN.CHROMATIC, add_noise=cap.TRAIN.ADD_NOISE)
     assert cap.TPU.DEVICE_BANK and cap.INPUT == "COLOR"

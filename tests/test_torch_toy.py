@@ -66,18 +66,24 @@ def test_toy_flipped_entries_bit_equal():
     assert np.array_equal(back.color, fb.color) and not back.flipped
 
 
-def test_factory_matches_jax():
+def test_factory_matches_jax(tmp_path, monkeypatch):
     """toy_train and toy_val as the JAX factory builds them: toy_val holds
-    toy_train's frames; unknown names raise KeyError listing the known."""
-    assert F.list_imdbs() == ["lov_syn_val_v4", "toy_train", "toy_val"]
-    assert set(F.list_imdbs()) <= set(JF.list_imdbs())
+    toy_train's frames; the port knows the JAX factory's names; an unknown
+    name raises KeyError listing the known, and lov_train, known now,
+    raises FileNotFoundError where no YCB-Video tree is under the data
+    root."""
+    assert F.list_imdbs() == JF.list_imdbs()
+    assert {"lov_syn_val_v4", "toy_train", "toy_val", "lov_train"} <= set(F.list_imdbs())
     for name in ("toy_train", "toy_val"):
         a, b = JF.get_imdb(name), F.get_imdb(name)
         assert type(b).__name__ == "toy" and a.name == b.name and a.seed == b.seed == 0
         assert_frames_equal(a.load_frame(3), b.load_frame(3), name)
     assert_frames_equal(F.get_imdb("toy_val").load_frame(3), F.get_imdb("toy_train").load_frame(3))
     assert F.get_imdb("lov_syn_val_v4").num_images == 256
-    with pytest.raises(KeyError, match="Known: \\['lov_syn_val_v4', 'toy_train', 'toy_val'\\]"):
+    with pytest.raises(KeyError, match="Known: \\['gmu_scene_train', "):
+        F.get_imdb("lov_nothing")
+    monkeypatch.setenv("POSECNN_DATA", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="points.xyz"):
         F.get_imdb("lov_train")
 
 
@@ -133,14 +139,16 @@ def test_index_stream_matches_jax():
 
 @pytest.mark.parametrize("over", [
     dict(device_targets=False), dict(input_format="RGBD", device_targets=False),
-    dict(input_format="DEPTH", vertex_reg_3d=True, scale=0.5), dict(gan=True, device_targets=False),
-    dict(vertex_reg_3d=True, gan=True, scale=0.5), dict(scale=0.5), dict(input_format="NORMAL", scale=2.0),
+    dict(input_format="DEPTH", vertex_reg_3d=True, scale=0.5, device_targets=False),
+    dict(gan=True, device_targets=False), dict(vertex_reg_3d=True, gan=True, scale=0.5, device_targets=False),
+    dict(scale=0.5, device_targets=False), dict(input_format="NORMAL", scale=2.0, device_targets=False),
 ])
 def test_get_minibatch_refuses_unported_branches(over):
-    """The branches still unported refuse, for the depth inputs, the 3D
-    targets and the GAN blobs too (their host paths:
-    tests/test_torch_input_modes.py, tests/test_torch_vertex3d.py,
-    tests/test_torch_adapt.py)."""
+    """The branch still unported, dense host targets (device_targets
+    False), refuses for the depth inputs, the 3D targets, the GAN blobs
+    and rescaled frames too (their host paths: tests/test_torch_input_modes.py,
+    tests/test_torch_vertex3d.py, tests/test_torch_adapt.py; the rescale,
+    ported since, tests/test_torch_synthesize.py)."""
     fr = Toy("train").load_frame(0)
     with pytest.raises(NotImplementedError):
         M.get_minibatch([fr], M.MinibatchConfig(**{"num_classes": 4, "device_targets": True, **over}),

@@ -9,7 +9,11 @@ limits of `check_bilateral`), the
 bf16 limit of the conv3x3 kernel (`bf16_ulp_excess`) and the GT pose rows
 put at a forward's detections (`gt_rows_at_detections`) are shared by the
 CPU tests, tests/test_torch_cuda.py and chip_smoke.py, so all hold the
-port to one limit. The module imports no JAX at module level.
+port to one limit. So are the dataset trees (`write_lov_tree`,
+`write_syn_tree`, `write_linemod_tree`, `write_scene_tree`): each dataset's
+on-disk layout, written with the port's PNG writer and scipy from the
+frozen frames of data/lov_syn_val_v4/, the same bytes on every host. The
+module imports no JAX at module level.
 """
 
 from __future__ import annotations
@@ -776,3 +780,229 @@ def ransac_scene() -> tuple:
     meta = np.zeros(48, np.float32)
     meta[0], meta[2], meta[4], meta[5] = K[0, 0], K[0, 2], K[1, 1], K[1, 2]
     return label, depth, vp, extents, meta
+
+
+# ------------------------------------------------------------ dataset trees
+
+V4_DIR = os.path.join(ROOT, "data", "lov_syn_val_v4")
+
+
+def v4_frame(i: int):
+    """Frozen frame i of data/lov_syn_val_v4/ (the port's `Frame`)."""
+    from posecnn_torch.data.minibatch import load_frozen_frame
+
+    return load_frozen_frame(os.path.join(V4_DIR, f"{i:06d}.npz"))
+
+
+def write_frame_files(base: str, fr, label=None, sel=None) -> None:
+    """`base`-color.png (BGR), -label.png (uint8), -depth.png (uint16) and
+    -meta.mat (cls_indexes, poses (3,4,N), center, intrinsic_matrix,
+    factor_depth) of frame `fr`; `label` in place of its label, and only
+    the objects `sel` in the meta file (a single object's poses are then
+    stored (3,4,1), which MATLAB's format reads back as (3,4))."""
+    import scipy.io
+
+    from posecnn_torch.utils.png import write_png
+
+    sel = np.arange(len(fr.cls_indexes)) if sel is None else np.asarray(sel)
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    write_png(base + "-color.png", fr.color)
+    write_png(base + "-label.png", np.asarray(fr.label if label is None else label).astype(np.uint8))
+    write_png(base + "-depth.png", fr.depth.astype(np.uint16))
+    scipy.io.savemat(base + "-meta.mat", {
+        "cls_indexes": np.asarray(fr.cls_indexes)[sel], "poses": fr.poses[:, :, sel], "center": fr.center[sel],
+        "intrinsic_matrix": fr.intrinsic_matrix, "factor_depth": np.float64(fr.factor_depth)})
+
+
+def lov_index(i: int) -> str:
+    """The tree's name of v4 frame i: sequence i // 8, frame i % 8 + 1."""
+    return f"{i // 8:04d}/{i % 8 + 1:06d}"
+
+
+def stand_in_models(num_classes: int = 22):
+    """(points list, extents (C,3)) of the trees: the stand-in points of
+    `data.lov_syn.object_models`, class c cut to 1024 - c points (so the
+    loader's cut to the smallest count shows), extents their spans."""
+    from posecnn_torch.data.lov_syn import object_models
+
+    pts, _, _ = object_models(num_classes)
+    points = [None] + [pts[c, :1024 - c].astype(np.float64) for c in range(1, num_classes)]
+    extents = np.array([np.ptp(p, axis=0) for p in points[1:]])
+    return points, extents
+
+
+def write_syn_tree(root: str, frames=range(16, 32)) -> str:
+    """A `data_syn` directory: v4 frame `frames[k]` as
+    {root}/{k:06d}-{color,label,depth}.png and -meta.mat. Returns root."""
+    for k, i in enumerate(frames):
+        write_frame_files(os.path.join(root, f"{k:06d}"), v4_frame(i))
+    return root
+
+
+def write_lov_tree(root: str, frames=range(16), syn_frames=range(16, 32)) -> str:
+    """A YCB-Video tree under {root}/LOV: data/<seq>/<frame>-* of the v4
+    `frames` (`lov_index`), models/<class>/points.xyz and extents.txt
+    (`stand_in_models`), train.txt and keyframe.txt (all the frames), and
+    data_syn/ of `syn_frames` (`write_syn_tree`). Returns {root}/LOV."""
+    from posecnn_torch.data.lov import YCB_CLASSES
+
+    lov = os.path.join(root, "LOV")
+    for i in frames:
+        write_frame_files(os.path.join(lov, "data", lov_index(i)), v4_frame(i))
+    points, extents = stand_in_models(len(YCB_CLASSES))
+    for c in range(1, len(YCB_CLASSES)):
+        os.makedirs(os.path.join(lov, "models", YCB_CLASSES[c]), exist_ok=True)
+        np.savetxt(os.path.join(lov, "models", YCB_CLASSES[c], "points.xyz"), points[c])
+    np.savetxt(os.path.join(lov, "extents.txt"), extents)
+    for split in ("train", "keyframe"):
+        with open(os.path.join(lov, split + ".txt"), "w") as f:
+            f.writelines(lov_index(i) + "\n" for i in frames)
+    write_syn_tree(os.path.join(lov, "data_syn"), syn_frames)
+    return lov
+
+
+def write_ply(path: str, points: np.ndarray, binary: bool) -> None:
+    """A PLY of vertices x, y, z (float) and a uchar property after them,
+    ASCII or binary little-endian."""
+    head = ("ply\nformat " + ("binary_little_endian" if binary else "ascii") + " 1.0\n"
+            f"element vertex {len(points)}\nproperty float x\nproperty float y\nproperty float z\n"
+            "property uchar red\nelement face 0\nproperty list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(head.encode("ascii"))
+        if binary:
+            rows = np.zeros(len(points), np.dtype([("xyz", "<f4", 3), ("red", "u1")]))
+            rows["xyz"], rows["red"] = points, 7
+            f.write(rows.tobytes())
+        else:
+            f.write("".join(f"{x:.9g} {y:.9g} {z:.9g} 7\n" for x, y, z in points).encode("ascii"))
+
+
+def write_linemod_tree(root: str, cls: str = "ape", frames=range(8), model: str = "ply_binary",
+                       layout: str = "indexes") -> str:
+    """A LINEMOD tree under {root}/LINEMOD for `cls`: the v4 `frames` as
+    data/{i:06d}-*, each frame's first object relabelled as `cls` (its
+    label pixels `cls`'s index, the rest 0; the meta file that object
+    alone); the model as models/{cls}.xyz, or .ply ASCII or binary
+    (`model` "xyz", "ply_ascii", "ply_binary": the stand-in points of class
+    1); extents.txt (15 rows); the train and test lists of all the frames
+    as indexes/{cls}_{split}.txt or, with `layout` "class_dir",
+    {cls}/{split}.txt. Returns {root}/LINEMOD."""
+    from posecnn_torch.data.linemod import LINEMOD_CLASSES
+
+    lm = os.path.join(root, "LINEMOD")
+    ci = LINEMOD_CLASSES.index(cls)
+    for i in frames:
+        fr = v4_frame(i)
+        k = int(fr.cls_indexes[0])
+        label = np.where(fr.label == k, ci, 0)
+        fr = dataclasses.replace(fr, cls_indexes=np.full(len(fr.cls_indexes), ci, np.float32))
+        write_frame_files(os.path.join(lm, "data", f"{i:06d}"), fr, label=label, sel=[0])
+    points, extents = stand_in_models(16)
+    os.makedirs(os.path.join(lm, "models"), exist_ok=True)
+    if model == "xyz":
+        np.savetxt(os.path.join(lm, "models", cls + ".xyz"), points[1])
+    else:
+        write_ply(os.path.join(lm, "models", cls + ".ply"), points[1].astype(np.float32), model == "ply_binary")
+    np.savetxt(os.path.join(lm, "extents.txt"), extents)
+    for split in ("train", "test"):
+        path = (os.path.join(lm, "indexes", f"{cls}_{split}.txt") if layout == "indexes"
+                else os.path.join(lm, cls, f"{split}.txt"))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.writelines(f"{i:06d}\n" for i in frames)
+    return lm
+
+
+def write_scene_tree(root: str, dirname: str, num_classes: int, frames=range(4),
+                     splits=("train", "val", "trainval")) -> str:
+    """A scene dataset's tree under {root}/{dirname} (`data.variants`'
+    generic scenes): the v4 `frames` as data/{i:06d}-*, their classes
+    folded into 1..num_classes-1 (labels and meta alike), and the split
+    lists of all the frames. Returns the tree's root."""
+    tree = os.path.join(root, dirname)
+    for i in frames:
+        fr = v4_frame(i)
+
+        def fold(c):
+            return np.where(c > 0, (np.asarray(c, np.int64) - 1) % (num_classes - 1) + 1, 0)
+
+        fr = dataclasses.replace(fr, cls_indexes=fold(fr.cls_indexes).astype(np.float32))
+        write_frame_files(os.path.join(tree, "data", f"{i:06d}"), fr, label=fold(fr.label))
+    for split in splits:
+        with open(os.path.join(tree, split + ".txt"), "w") as f:
+            f.writelines(f"{i:06d}\n" for i in frames)
+    return tree
+
+
+# the host batches of lov_color_2d.yml on write_lov_tree's tree (no
+# backgrounds): tools/make_torch_goldens.py writes JAX's, chip_smoke.py
+# holds the card host's to them
+LOV_BATCH_CFG = os.path.join(ROOT, "experiments", "cfgs", "lov_color_2d.yml")
+LOV_BATCH_IMDB = "lov_train"
+LOV_BATCHES = 2
+# the crop kept beside the digest of each image-sized array
+LOV_BATCH_CROP = (slice(None), slice(232, 248), slice(312, 328))
+
+
+def lov_batch_cfg(lov_root: str):
+    """lov_color_2d.yml with SYNROOT at the tree's data_syn/ and SYNNUM 16
+    (the port's config object)."""
+    from posecnn_torch.core import config as C
+
+    return C.cfg_replace(C.cfg_from_file(LOV_BATCH_CFG),
+                         TRAIN={"SYNROOT": os.path.join(lov_root, "data_syn"), "SYNNUM": 16})
+
+
+def port_lov_batches(lov_root: str, n: int = LOV_BATCHES) -> list:
+    """The first `n` host batches of `lov_batch_cfg` on lov_train, from the
+    layer the port's train_net builds (POSECNN_DATA must hold the tree)."""
+    from posecnn_torch.core import config as C
+    from posecnn_torch.data.factory import get_imdb
+    from posecnn_torch.train_net import host_layer
+
+    cfg = lov_batch_cfg(lov_root)
+    imdb = get_imdb(LOV_BATCH_IMDB)
+    layer = host_layer(cfg, imdb, C.minibatch_cfg(cfg, imdb.num_classes), log=lambda m: None)
+    return [layer.forward() for _ in range(n)]
+
+
+def lov_batch_record(batches: list) -> dict:
+    """Batches as a golden: each array's dtype and shape; arrays of more
+    than 4096 values as their sha256 and the crop LOV_BATCH_CROP, the rest
+    whole."""
+    import hashlib
+
+    g = {}
+    for i, b in enumerate(batches):
+        for k, v in b.items():
+            key = f"b{i}/{k}"
+            g[key + "/dtype"], g[key + "/shape"] = np.array(str(v.dtype)), np.array(v.shape)
+            if v.size > 4096:
+                g[key + "/sha256"] = np.array(hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest())
+                g[key + "/crop"] = np.ascontiguousarray(v[LOV_BATCH_CROP])
+            else:
+                g[key] = v
+    return g
+
+
+def check_lov_batch_golden(batches: list, g: dict) -> dict:
+    """Hold batches to the golden of `lov_batch_record`: the same keys,
+    dtypes, shapes, whole arrays and digests. A digest that differs raises
+    with the crop's differences, so a mismatch can be read. Returns the
+    count of arrays and of digests compared."""
+    got = lov_batch_record(batches)
+    if sorted(got) != sorted(g):
+        raise AssertionError(f"host batch keys {sorted(set(got) ^ set(g))} differ from the golden's")
+    n_digest = 0
+    for k, v in g.items():
+        if k.endswith("/crop"):
+            continue
+        if k.endswith("/sha256") and str(got[k]) != str(v):
+            crop = k[:-len("sha256")] + "crop"
+            diff = got[crop].astype(np.float64) - g[crop].astype(np.float64)
+            raise AssertionError(f"{k[:-7]}: digest differs; in the crop {int((diff != 0).sum())} of {diff.size} "
+                                 f"values differ, by up to {np.abs(diff).max()}")
+        if not k.endswith("/sha256") and not np.array_equal(got[k], v):
+            raise AssertionError(f"{k}: {got[k]!r} differs from the golden's {v!r}")
+        n_digest += k.endswith("/sha256")
+    return {"arrays": sum(k.endswith("/dtype") for k in g), "digests": n_digest}

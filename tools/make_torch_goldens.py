@@ -69,6 +69,13 @@ Runs the JAX package (on the CPU) and writes nine files:
       frames v4/000000 and 000001 at 64x80 with the port's seeded weights
       (`init_posecnn_full_params_numpy(FULL_SEED)`, not stored)
       (`full_golden`).
+  tests/golden/torch_port_lov_batch.npz
+      the JAX package's first two host batches of
+      experiments/cfgs/lov_color_2d.yml (SYNROOT at the tree's data_syn/,
+      SYNNUM 16: real and synthetic frames, B=2 at 640x480, device chroma
+      and noise rows) on lov_train over the YCB-Video tree of
+      `tests/torch_parity.py:write_lov_tree` (`lov_batch_golden`): each
+      array whole, or its SHA-256 and a 16x16 crop where it is image-sized.
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -405,7 +412,8 @@ def eval_detections():
     GT but the last, which is missed, a duplicate of the first, one of a
     class with no GT, refined and ICP poses (none on the last frame) and K
     for the reprojection error."""
-    from posecnn_torch.data.imdb import YCB_CLASSES, YCB_SYMMETRIC_EVAL
+    from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL
+    from posecnn_torch.data.lov import YCB_CLASSES
     from posecnn_torch.data.lov_syn import object_models
     from posecnn_torch.utils.quaternion_np import mat2quat
 
@@ -809,12 +817,55 @@ def full_golden() -> dict:
     return g
 
 
+LOV_BATCH_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_lov_batch.npz")
+
+
+def lov_batch_golden() -> dict:
+    """The JAX package's first host batches of lov_color_2d.yml (SYNROOT at
+    the tree's data_syn/, SYNNUM 16) on lov_train over the fixture tree of
+    `tests/torch_parity.py:write_lov_tree`, built as tools/train_net.py
+    builds its layer (OfflineSynReader, no backgrounds), recorded by
+    `lov_batch_record`."""
+    import dataclasses
+    import tempfile
+
+    from posecnn_tpu.data import factory as JF
+    from posecnn_tpu.data import minibatch as JM
+    from posecnn_tpu.data.layer import GtSynthesizeLayer, build_background_paths
+    from posecnn_tpu.data.synthetic import OfflineSynReader
+    from posecnn_torch.core import config as C
+    from tests import torch_parity as TP
+
+    with tempfile.TemporaryDirectory() as root:
+        lov_root = TP.write_lov_tree(root)
+        old = os.environ.get("POSECNN_DATA")
+        os.environ["POSECNN_DATA"] = root
+        try:
+            cfg = TP.lov_batch_cfg(lov_root)
+            imdb = JF.get_imdb(TP.LOV_BATCH_IMDB)
+            mcfg = C.minibatch_cfg(cfg, imdb.num_classes)
+            jmcfg = JM.MinibatchConfig(**{f.name: getattr(mcfg, f.name) for f in dataclasses.fields(mcfg)})
+            T_ = cfg.TRAIN
+            reader = OfflineSynReader(T_.SYNROOT, num=T_.SYNNUM)
+            assert not build_background_paths(root, cfg.INPUT)
+            layer = GtSynthesizeLayer(
+                imdb, jmcfg, ims_per_batch=T_.IMS_PER_BATCH, synthesize=T_.SYNTHESIZE, syn_ratio=T_.SYN_RATIO,
+                syn_frames=lambda i, rng: reader.load_frame((T_.SYNITER + rng.randint(reader.num)) % reader.num),
+                seed=cfg.RNG_SEED)
+            return TP.lov_batch_record([layer.forward() for _ in range(TP.LOV_BATCHES)])
+        finally:
+            if old is None:
+                del os.environ["POSECNN_DATA"]
+            else:
+                os.environ["POSECNN_DATA"] = old
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
                        (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden),
                        (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden),
-                       (DET_GOLDEN, det_golden), (FULL_GOLDEN, full_golden)):
+                       (DET_GOLDEN, det_golden), (FULL_GOLDEN, full_golden), (LOV_BATCH_GOLDEN, lov_batch_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 
