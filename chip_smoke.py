@@ -138,12 +138,24 @@ YCB-Video and LINEMOD loaders with the synthesis mix (TRAIN.SYNTHESIZE).
      --imdb lov_keyframe` on its snapshot; a LINEMOD tree: `train_net
      --cfg linemod_ape_pose.yml --imdb linemod_ape_train` (10 steps) and
      `test_net --imdb linemod_ape_test` at ape's 0.1 x diameter
-  16. each phase's seconds and each CLI run's (where it ran, its set-up
+  16. more than one rank (`mesh_phase`): NCCL at world size 1 (an
+     all-reduce and an all-gather held to their values, a 134M-float
+     all-reduce timed); `train_net --cfg lov_color_2d.yml --imdb lov_train`
+     as two ranks on the one card over gloo (NCCL refuses two ranks on one
+     GPU), mesh (2,1), one image a rank: each rank's launches (2 hough_vote,
+     2 conv3x3 a step), stream ms and peak memory; one f32 step at (2,1)
+     and one at (1,2) (fc6, fc7 split at full width) as two ranks
+     (`python3 chip_smoke.py mesh-rank <dir>`) on the cfg's first global
+     batch with its GT rows at the detections and its draws replayed, held
+     to the one-process step on the card (loss terms, fc6, fc7, conv5_3,
+     conv1_2); the gradients' all-reduce over gloo timed; and
+     `entry.dryrun_multichip(2)` on the card
+  17. each phase's seconds and each CLI run's (where it ran, its set-up
      time), the kernels' JSON line, then {"ok": true, "device": {...}}
 
 The CLIs run in this process through their `main(argv)` (`run_cli`), but
-for phase 8's SIGTERM and --resume runs and phase 11's SIGTERM run, which
-have processes of their own. Their scratch directory is made under the
+for phase 8's SIGTERM and --resume runs, phase 11's SIGTERM run and phase
+16's ranks, which have processes of their own. Their scratch directory is made under the
 checkout's git-ignored output/ and removed at the end. Any failure raises
 and the process exits nonzero; nothing falls back to the CPU. It imports
 no JAX. Usage: python3 chip_smoke.py
@@ -272,6 +284,25 @@ SLICE_J_LOSS_LIMIT, SLICE_J_GRAD_LIMIT = 1e-4, 5e-3
 # tree's frames, the steps left out of the medians, and the frames left out
 # of each test_net's medians
 LOV_STEPS, LINEMOD_STEPS, LINEMOD_FRAMES, LOV_WARMUP, LINEMOD_WARMUP, EVAL_WARMUP = 20, 10, 8, 8, 5, 3
+# phase 16: train_net's steps at two ranks on the one card (over gloo: NCCL
+# refuses two ranks on one GPU); the limits of the f32 mesh steps against
+# the one-process step on the card: loss terms relative, and each updated
+# parameter's largest |error| over its largest magnitude. Sums in another
+# order part them by ~1e-6; fc6's limit is wider, since its GEMM at another
+# shape (72 rows a rank at (2,1), 2048 columns at (1,2)) rounds a
+# pre-activation that sits at zero to the other side of its ReLU: that
+# moves one output row of fc6's update whole. Measured before the limit was
+# set (H100, PERF.md section 6): the one-process step equal across
+# processes and in one process; both meshes 1.75e-4 on fc6 (one row of
+# 4096 over 1e-5), conv5_3 1.07e-5, conv1_2 9.0e-6, fc7 6.8e-7, the loss
+# terms 1.7e-7. The all-reduce timed through NCCL at world size 1 has the
+# flagship's gradients' size (134M floats)
+MESH_STEPS, MESH_LOSS_LIMIT = 6, 1e-4
+MESH_PARAMS = {"fc6.weight": 1e-3, "fc7.weight": 1e-4, "trunk.conv5_3.weight": 1e-4, "trunk.conv1_2.weight": 1e-4}
+# fc6's output rows whose update may part by more than 1e-5 of its largest
+# magnitude (a ReLU crossing each); 1 measured
+MESH_FC6_ROWS = 4
+NCCL_FLOATS = 134_000_000
 SLICE_J_GRADS = {"full": ("trunk.conv1_2.weight", "score_conv1.weight", "fc6.weight", "fc7.weight",
                           "poses_pred_unnormalized.weight", "trunk.conv5_3.weight"),
                  "adapt": ("trunk.conv1_2.weight", "fc6.weight", "fc9.weight", "fc7.weight", "fc8.weight",
@@ -2204,6 +2235,317 @@ def datasets_phase(work: str, dev) -> dict:
     return launches
 
 
+def mesh_inputs(work: str, dev) -> dict:
+    """The f32 mesh steps' inputs, written to <work>/mesh/: lov_color_2d.yml
+    on the phase-15 tree (B=2, 640x480, 22 classes, float32, TF32 off), its
+    first global host batch with its GT pose rows put at the detections of a
+    training forward on the card (`gt_rows_at_detections`, as phase 14 (b)),
+    and that forward's draws, recorded to be replayed. Returns the config
+    file, the output directory and the one-process step on the card: its
+    loss terms, the updated MESH_PARAMS and its launches; the step's own
+    spread (run again from the seed weights) and the f32 trunk's conv5_3 at
+    B=2 against one image at a time, which place the meshes' differences."""
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.data.factory import get_imdb
+    from posecnn_torch.data.minibatch import rescale_points
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.models.posecnn import posecnn_forward
+    from posecnn_torch.ops import conv3x3, voting
+    from tests.torch_parity import gt_rows_at_detections, lov_batch_cfg, port_lov_batches
+
+    lov_root = os.path.join(work, "datasets", "LOV")
+    cfg = lov_batch_cfg(lov_root)
+    imdb = get_imdb("lov_train")
+    model_cfg = dataclasses.replace(C.train_model_cfg(cfg, imdb.num_classes), compute_dtype=torch.float32)
+    hp = C.train_hparams(cfg)
+    weights = init_params_numpy(cfg.RNG_SEED, model_cfg)
+    ext, sym = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
+    points = rescale_points(np.asarray(imdb._points_all, np.float32), ext, sym,
+                            C.minibatch_cfg(cfg, imdb.num_classes).is_symmetric)
+    consts = [torch.from_numpy(a).to(dev) for a in (points, sym, ext)]
+    batch = port_lov_batches(lov_root, 1)[0]
+    outs = []
+
+    def forward(*a, **k):
+        out = posecnn_forward(*a, **k)
+        outs.append({n: out[n].detach().cpu() for n in ("rois", "rois_valid", "poses_init")})
+        return out
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.RNG_SEED)
+    draws = T.Draws(gen, record=True)
+    with torch.no_grad():
+        T.compute_losses(make_model(model_cfg, weights, dev), model_cfg, hp, T.to_device(batch, dev), *consts, draws,
+                         forward)
+    batch["poses"] = gt_rows_at_detections(outs.pop(), batch["poses"])
+    recorded = {k: v.cpu() for k, v in draws.recorded.items()}
+    d = os.path.join(work, "mesh")
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, "batch.npz"), **batch)
+    np.savez(os.path.join(d, "consts.npz"), points=points, symmetry=sym, extents=ext)
+    torch.save(recorded, os.path.join(d, "draws.pt"))
+    with open(os.path.join(d, "cfg.json"), "w") as f:
+        json.dump({"model_cfg": {k: v for k, v in dataclasses.asdict(model_cfg).items() if k != "compute_dtype"},
+                   "hp": dataclasses.asdict(hp), "seed": cfg.RNG_SEED}, f)
+    step = T.make_train_step(model_cfg, hp, *consts)
+    runs = []
+    for _ in range(2):  # twice: the one-process step's own spread
+        state = T.create_train_state(make_model(model_cfg, weights, dev), hp)
+        voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+        got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), T.Draws(replay=recorded)).items()}
+        runs.append({k: p.detach().cpu() for k, p in state.model.named_parameters() if k in MESH_PARAMS})
+    params = runs[0]
+    spread = {k: float((runs[1][k] - v).abs().max()) / float(v.abs().max()) for k, v in params.items()}
+    # cuDNN's f32 trunk on the batch's two images at once and one at a time
+    with torch.no_grad():
+        x = T.to_device(batch, dev)["data"].float() - torch.tensor(hp.pixel_means, device=dev).reshape(1, 1, 1, 3)
+        both = state.model.trunk(x, compute_dtype=torch.float32)["conv5_3"]
+        one_at_a_time = torch.cat([state.model.trunk(x[i:i + 1], compute_dtype=torch.float32)["conv5_3"]
+                                   for i in range(x.shape[0])])
+        trunk_gap = float((both - one_at_a_time).abs().max() / both.abs().max())
+    return {"losses": got, "params": params, "n_gt": int((batch["poses"][:, 1] > 0).sum()), "dir": d,
+            "launches": {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES},
+            "spread": spread, "trunk_gap": trunk_gap}
+
+
+def mesh_rank(d: str) -> int:
+    """One of the two ranks of phase 16 (b)'s f32 steps (`python3
+    chip_smoke.py mesh-rank <dir>`, started by `parallel.launch.run_ranks`
+    with gloo): the step at mesh (2,1) and then at (1,2) (fc6 and fc7 split
+    at their full width) on the inputs `mesh_inputs` wrote, the recorded
+    draws replayed (each rank takes its rows of them). Rank 0 writes the
+    gathered MESH_PARAMS and the loss terms of each; every rank prints one
+    line 'mesh-rank {json}': its launches, stream ms and peak MiB of each
+    step, and the ms of one all-reduce of every gradient over the data
+    group (the (2,1) step's collective)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from posecnn_torch.config import PoseCNNConfig
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.engine.test import set_float32_precision
+    from posecnn_torch.ops import conv3x3, voting
+    from posecnn_torch.parallel import launch
+    from posecnn_torch.parallel import mesh as M
+
+    dev = torch.device("cuda", 0)
+    world = launch.initialize(device=dev)
+    try:
+        set_float32_precision()
+        with open(os.path.join(d, "cfg.json")) as f:
+            spec = json.load(f)
+        model_cfg = PoseCNNConfig(compute_dtype=torch.float32, **spec["model_cfg"])
+        hp = T.TrainHParams(**{k: tuple(v) if isinstance(v, list) else v for k, v in spec["hp"].items()})
+        weights = init_params_numpy(spec["seed"], model_cfg)
+        with np.load(os.path.join(d, "batch.npz")) as z:
+            batch = {k: z[k] for k in z.files}
+        with np.load(os.path.join(d, "consts.npz")) as z:
+            consts = [torch.from_numpy(z[k]).to(dev) for k in ("points", "symmetry", "extents")]
+        recorded = torch.load(os.path.join(d, "draws.pt"))
+        rank = torch.distributed.get_rank()
+        record = {"rank": rank, "backend": torch.distributed.get_backend()}
+        for data, model in ((2, 1), (1, 2)):
+            mesh = M.make_mesh(M.MeshSpec(data=data, model=model), world)
+            state = T.create_train_state(M.shard_model(make_model(model_cfg, weights, dev), mesh), hp)
+            step = T.make_train_step(model_cfg, hp, *consts, mesh=mesh)
+            local = T.to_device(M.shard_batch(mesh, batch), dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            got = {k: float(v) for k, v in step(state, local, T.Draws(replay=recorded)).items()}
+            e1.record()
+            e1.synchronize()
+            key = f"{data}x{model}"
+            record[key] = {"launches": {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES},
+                           "stream_ms": e0.elapsed_time(e1), "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                           "split": [n for n, p in state.model.named_parameters() if M.tp_mesh(p) is not None]}
+            whole = {k: M.gather_rows(p).cpu() for k, p in state.model.named_parameters() if k in MESH_PARAMS}
+            if data > 1:
+                # the step's collective alone: every gradient, flattened, summed
+                flat = torch.cat([p.grad.reshape(-1) for p in state.model.parameters()])
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    mesh.data_sum(flat)
+                    torch.cuda.synchronize()
+                    record[key]["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+                record[key]["allreduce_mib"] = flat.numel() * 4 / 2**20
+                del flat
+            if rank == 0:
+                torch.save({"losses": got, "params": whole}, os.path.join(d, f"mesh_{key}.pt"))
+            del state, step, local
+            torch.cuda.empty_cache()
+        print("mesh-rank " + json.dumps(record), flush=True)
+        return 0
+    finally:
+        launch.shutdown()
+
+
+def mesh_phase(work: str, dev, smi: str) -> dict:
+    """Phase 16: more than one rank on the one card. (a) NCCL at world size
+    1 in this process: an all-reduce and an all-gather held to their
+    values, and the all-reduce of NCCL_FLOATS timed. (b) `train_net --cfg
+    lov_color_2d.yml --imdb lov_train` on phase 15's YCB-Video tree as two
+    ranks on cuda:0 over gloo (`parallel.launch.run_ranks`,
+    POSECNN_BACKEND=gloo): MESH_STEPS steps at mesh (2,1), one image a rank,
+    4 hough_vote and 2 conv3x3 launches a step on each rank, every rank at
+    the same end step, finite losses; then the f32 steps of `mesh_rank` at
+    (2,1) and (1,2) against the one-process step on the card on the same
+    batch and draws (`mesh_inputs`): loss terms within MESH_LOSS_LIMIT
+    relative, MESH_PARAMS within their limits of their largest magnitude
+    (no more than MESH_FC6_ROWS of fc6's rows past 1e-5), loss_pose > 0. (c) `entry.dryrun_multichip(2)` on the card.
+    Returns the launches of each path (rank 0's; each rank's is checked)."""
+    import torch
+    import torch.distributed as dist
+
+    from posecnn_torch.entry import dryrun_multichip
+    from posecnn_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a) NCCL at world size 1
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{launch.free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        x = torch.arange(1024, dtype=torch.float32, device=dev)
+        y = x.clone()
+        dist.all_reduce(y)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        torch.cuda.synchronize()
+        check(torch.equal(y, x) and torch.equal(parts[0], x), "NCCL at world size 1: all-reduce or all-gather wrong")
+        big = torch.ones(NCCL_FLOATS, device=dev)
+        dist.all_reduce(big)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(5):
+            dist.all_reduce(big)
+        e1.record()
+        e1.synchronize()
+        nccl_ms = e0.elapsed_time(e1) / 5
+        check(bool((big == 1).all()), "NCCL at world size 1: the all-reduce changed its tensor")
+        del big
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    phase(16, f"NCCL at world size 1 ({torch.cuda.nccl.version()}): all-reduce and all-gather of 1024 floats "
+              f"equal to their inputs; all-reduce of {NCCL_FLOATS} floats ({NCCL_FLOATS * 4 / 2**20:.0f} MiB) "
+              f"{nccl_ms:.3f} ms (events, mean of 5) [{smi}]")
+
+    # (b) lov_color_2d.yml at two ranks on the one card
+    root = os.path.join(work, "datasets")
+    cfg_file = os.path.join(work, "lov_color_2d_tree.yml")
+    out = os.path.join(work, "mesh_train")
+    logs = [os.path.join(work, f"mesh_train_rank{r}.log") for r in range(2)]
+    t0 = time.perf_counter()
+    rcs = launch.run_ranks(["-m", "posecnn_torch.train_net", "--cfg", cfg_file, "--imdb", "lov_train", "--iters",
+                            str(MESH_STEPS), "--output", out, "--device", "cuda:0"], 2, backend="gloo",
+                           env={**os.environ, "POSECNN_DATA": root}, logs=logs, timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    texts = [open(p).read() for p in logs]
+    check(rcs == [0, 0], f"train_net at two ranks exited {rcs}:\n" + "\n".join(t[-3000:] for t in texts))
+    CLI_RUNS.append({"args": f"posecnn_torch.train_net --cfg lov_color_2d_tree.yml (2 ranks, gloo)",
+                     "where": "two processes", "wall_s": wall, "first_step_s": None})
+    with open(os.path.join(out, "train_timing.json")) as fh:
+        timing = json.load(fh)
+    # a rank's step: one image, so 2 hough_vote (coarse, refine) and 2 conv3x3
+    # (conv1_2's forward and dx): 4 and 4 a step over the two ranks
+    want = {"hough_vote": 2 * MESH_STEPS, "conv3x3": 2 * MESH_STEPS, "nms": 0}
+    ranks = timing["by_rank"]
+    check(timing["world_size"] == 2 and timing["mesh"] == {"data": 2, "model": 1}
+          and all(r["launches"] == want and r["end_step"] == MESH_STEPS for r in ranks),
+          f"train_net at two ranks: {[(r['end_step'], r['launches']) for r in ranks]}, want {want} a rank")
+    launches["mesh_train_cli"] = ranks[0]["launches"]
+    losses = _cli_losses(texts[0], 1, MESH_STEPS)
+    snap = os.path.join(out, f"vgg16_fcn_color_single_frame_2d_pose_add_iter_{MESH_STEPS}.npz")
+    with np.load(snap) as z:
+        finite = all(np.isfinite(z[k]).all() for k in z.files)
+    check(all(np.isfinite(v) for v in losses.values()) and finite and texts[1].count("iter ") == 0,
+          f"two ranks: step-1 losses {losses}, snapshot finite {finite}, rank 1 logged {texts[1].count('iter ')} "
+          f"step lines (rank 0 alone logs)")
+    stream = [statistics.median(r["ms"]["step_stream"][1:]) for r in ranks]
+    host = [statistics.median(r["ms"]["step"][1:]) for r in ranks]
+    # each rank makes the whole global batch and keeps its image: the host
+    # work of 2 batches a step on this host
+    wait = [statistics.median(r["ms"]["data_wait"][1:]) for r in ranks]
+    phase(16, f"train_net --cfg lov_color_2d.yml --imdb lov_train --iters {MESH_STEPS} as 2 ranks on cuda:0 over "
+              f"gloo, mesh (2,1), one 640x480 image a rank, bf16 ({wall:.1f} s with the ranks' start): per step "
+              f"(median of steps 2-{MESH_STEPS}) stream ms by rank {[round(v, 3) for v in stream]}, host ms "
+              f"{[round(v, 3) for v in host]}, data wait ms {[round(v, 3) for v in wait]} (each rank makes the "
+              f"global batch); peak MiB by rank {[round(r['peak_memory_mib'], 1) for r in ranks]}; "
+              f"launches by rank {[r['launches'] for r in ranks]} (a rank's step: 2 hough_vote, 2 conv3x3); step 1 "
+              f"losses {losses}; the step-{MESH_STEPS} snapshot (rank 0's, gathered) finite [{smi}]")
+
+    # the f32 steps at (2,1) and (1,2) against the one-process step
+    t0 = time.perf_counter()
+    old_root = os.environ.get("POSECNN_DATA")
+    os.environ["POSECNN_DATA"] = root
+    try:
+        one = mesh_inputs(work, dev)
+    finally:
+        if old_root is None:
+            os.environ.pop("POSECNN_DATA", None)
+        else:
+            os.environ["POSECNN_DATA"] = old_root
+    torch.cuda.empty_cache()
+    logs = [os.path.join(work, f"mesh_rank{r}.log") for r in range(2)]
+    rcs = launch.run_ranks([os.path.join(ROOT, "chip_smoke.py"), "mesh-rank", one["dir"]], 2, backend="gloo",
+                           logs=logs, timeout=300, cwd=ROOT)
+    texts = [open(p).read() for p in logs]
+    check(rcs == [0, 0], f"the f32 mesh steps exited {rcs}:\n" + "\n".join(t[-3000:] for t in texts))
+    recs = [json.loads(next(ln for ln in t.splitlines() if ln.startswith("mesh-rank "))[len("mesh-rank "):])
+            for t in texts]
+    for key, label in (("2x1", "(2,1)"), ("1x2", "(1,2)")):
+        got = torch.load(os.path.join(one["dir"], f"mesh_{key}.pt"))
+        ref = one["losses"]
+        rel = {k: _rel(got["losses"][k], ref[k]) for k in ref if k.startswith("loss") or k == "grad_norm"}
+        diff = {k: (got["params"][k] - one["params"][k]).abs() / one["params"][k].abs().max() for k in MESH_PARAMS}
+        perr = {k: float(v.max()) for k, v in diff.items()}
+        fc6_rows = int((diff["fc6.weight"] > 1e-5).any(dim=1).sum())
+        per_rank = [r[key]["launches"] for r in recs]
+        check(all(v <= MESH_LOSS_LIMIT for v in rel.values()) and all(perr[k] <= lim for k, lim in MESH_PARAMS.items())
+              and fc6_rows <= MESH_FC6_ROWS and got["losses"]["loss_pose"] > 0 and ref["loss_pose"] > 0,
+              f"f32 step at {label} against one process: relative {rel} (limit {MESH_LOSS_LIMIT}), parameters "
+              f"{perr} (limits {MESH_PARAMS}), fc6 rows over 1e-5 {fc6_rows} (limit {MESH_FC6_ROWS}); loss_pose "
+              f"{got['losses']['loss_pose']} vs {ref['loss_pose']}")
+        check(all(p == {"hough_vote": 4 // (2 if key == "2x1" else 1), "conv3x3": 0} for p in per_rank),
+              f"f32 step at {label}: launches by rank {per_rank}")
+        launches[f"mesh_f32_{key}"] = {**per_rank[0], "nms": 0}
+        extra = (f"; the gradients' all-reduce ({recs[0][key]['allreduce_mib']:.0f} MiB over gloo, CUDA tensors) "
+                 f"ms by rank {[round(r[key]['allreduce_ms'], 3) for r in recs]}" if key == "2x1" else
+                 f"; split {recs[0][key]['split']}")
+        phase(16, f"f32 step at {label} as 2 ranks over gloo on cuda:0 (lov_color_2d.yml's first global batch, B=2 "
+                  f"640x480, {one['n_gt']} GT rows at the detections, the draws replayed) against the one-process "
+                  f"step on the card: " + "; ".join(f"{k} {got['losses'][k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g}"
+                                                     for k in rel)
+                  + " (limit " + f"{MESH_LOSS_LIMIT}); " + "; ".join(f"{k} {v:.3g} of its largest magnitude (limit "
+                                                                    f"{MESH_PARAMS[k]})" for k, v in perr.items())
+                  + f"; fc6 rows over 1e-5: {fc6_rows} of {diff['fc6.weight'].shape[0]} (limit {MESH_FC6_ROWS}); "
+                  f"stream ms by rank "
+                  f"{[round(r[key]['stream_ms'], 3) for r in recs]} (the one-step call, first use); peak MiB by rank "
+                  f"{[round(r[key]['peak_mib'], 1) for r in recs]}; launches by rank {per_rank}{extra} [{smi}]")
+    phase(16, f"the f32 mesh steps took {time.perf_counter() - t0:.1f} s (the inputs, the one-process step and the "
+              f"ranks' start included); the one-process step's launches {one['launches']}; run twice, its "
+              f"parameters part by " + ", ".join(f"{k} {v:.3g}" for k, v in one["spread"].items())
+              + f" of their largest magnitude; cuDNN's f32 trunk (the step's weights, the batch's images) gives "
+              f"conv5_3 {one['trunk_gap']:.3g} of its largest magnitude apart at B=2 and at B=1 + 1 [{smi}]")
+
+    # (c) the multichip dry run on the card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device="cuda")
+    check(dry["metrics"]["loss_pose"] > 0 and dry["mesh"] == {"data": 1, "model": 2}, f"dryrun_multichip(2): {dry}")
+    phase(16, f"dryrun_multichip(2) on the card ({dry['backend']}, {dry['device']}; {time.perf_counter() - t0:.1f} "
+              f"s): mesh {dry['mesh']}, split {dry['split']}, metrics {dry['metrics']}; the whole phase "
+              f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
+
+
 def _eval_cli(args: list, out: str, n: int, what: str) -> dict:
     """`test_net` with `args` and --output `out` over n frames, its
     detections finite, its summary in range and its launches 2 hough_vote
@@ -2714,6 +3056,7 @@ def main() -> int:
         nms_record, det_launches = det_3d_phase(work, dev)
         slice_j_launches = full_adapt_gan_phase(work, dev)
         dataset_launches = datasets_phase(work, dev)
+        mesh_launches = mesh_phase(work, dev, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2721,7 +3064,8 @@ def main() -> int:
     print(smi, flush=True)
     sources = {"hough_vote": ("posecnn_torch/csrc/hough_vote.cu", "posecnn_tpu/ops/pallas/voting.py:36"),
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
-    det_paths = {f"launches_{path}": n for path, n in {**det_launches, **slice_j_launches, **dataset_launches}.items()}
+    det_paths = {f"launches_{path}": n for path, n in {**det_launches, **slice_j_launches, **dataset_launches,
+                                                        **mesh_launches}.items()}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],
@@ -2742,4 +3086,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2]))
     sys.exit(main())

@@ -18,6 +18,11 @@ A light snapshot (`include_opt_state=False`) has no opt_state; restoring
 it keeps the target's trace (zero in a fresh state). The write is atomic:
 the file is written as `<name>.tmp` and renamed. Orbax snapshots and TF1
 `.ckpt` files are not read or written here.
+
+Over a mesh of ranks (`parallel/mesh.py`), a parameter split over the model
+axis, and its trace, are gathered whole and rank 0 writes the file in the
+same layout (as JAX's npz writes its gathered global arrays), so a snapshot
+loads in both packages at any mesh; on restore each rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -42,13 +47,17 @@ def _flatten(prefix: str, nested: Dict[str, Dict[str, np.ndarray]]) -> Dict[str,
 
 
 def _state_arrays(state, include_opt_state: bool) -> Dict[str, np.ndarray]:
-    """A `engine.train.TrainState` -> {JAX key path: array} on the host."""
+    """A `engine.train.TrainState` -> {JAX key path: array} on the host,
+    split parameters and their traces gathered whole (`mesh.gather_rows`:
+    a collective over each one's model group)."""
+    from posecnn_torch.parallel.mesh import gather_rows
+
     model, opt = state.model, state.optimizer
-    arrays = _flatten("['params']", params_to_numpy(model.state_dict()))
+    arrays = _flatten("['params']", params_to_numpy({n: gather_rows(p) for n, p in model.named_parameters()}))
     arrays["['step']"] = np.asarray(state.step, np.int32)
     if include_opt_state:
         names = {id(p): n for n, p in model.named_parameters()}
-        trace = params_to_numpy({names[id(p)]: t for p, t in zip(opt.params, opt.trace)})
+        trace = params_to_numpy({names[id(p)]: gather_rows(p, t) for p, t in zip(opt.params, opt.trace)})
         for layer, leaves in trace.items():
             if layer.startswith("upscore"):  # fixed filters: never updated, zero trace
                 leaves["weights"] = np.zeros_like(leaves["weights"])
@@ -64,19 +73,25 @@ def save_checkpoint(
     max_to_keep: int = 12,
     include_opt_state: bool = True,
     fmt: str = "npz",
+    mesh=None,
 ) -> str:
     """Write `<prefix>_iter_<step>.npz` in `directory` and prune to the
-    newest `max_to_keep`. Returns the path."""
+    newest `max_to_keep`. Returns the path. Over a `mesh`, every rank calls
+    it: all take part in the gather, rank 0 writes, and none returns before
+    the file is in place."""
     if fmt != "npz":
         raise NotImplementedError(f"snapshot format {fmt!r} is not ported (npz only)")
-    os.makedirs(directory, exist_ok=True)
     path = os.path.join(os.path.abspath(directory), f"{prefix}_iter_{step}.npz")
-    tmp = path + ".tmp"
     arrays = _state_arrays(state, include_opt_state)
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)  # atomic: readers never see a partial file
-    _prune_old(directory, prefix, max_to_keep)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)  # atomic: readers never see a partial file
+        _prune_old(directory, prefix, max_to_keep)
+    if mesh is not None:
+        mesh.barrier(next(state.model.parameters()).device)
     return path
 
 
@@ -126,13 +141,19 @@ def latest_checkpoint(directory: str, prefix: str = "posecnn") -> Optional[str]:
 def restore_checkpoint(path: str, state):
     """Load a snapshot of either package into `state` (a
     `engine.train.TrainState`) in place: every parameter, the step counter
-    and, where the file has one, the momentum trace. Returns `state`."""
+    and, where the file has one, the momentum trace; a parameter split over
+    a model axis (`parallel.mesh.shard_model`) takes its rows of the whole
+    one. Returns `state`."""
+    from posecnn_torch.parallel.mesh import local_rows
+
     if not path.endswith(".npz"):
         raise NotImplementedError(f"{path}: only npz snapshots are read (orbax is not ported)")
     model, opt = state.model, state.optimizer
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
-    model.load_state_dict(params_from_numpy({k: v for k, v in arrays.items() if k.startswith("['params']")}))
+    sd = params_from_numpy({k: v for k, v in arrays.items() if k.startswith("['params']")})
+    params = dict(model.named_parameters())
+    model.load_state_dict({k: local_rows(params[k], v) if k in params else v for k, v in sd.items()})
     state.step = int(arrays["['step']"])
     prefix = _trace_prefix(opt.clip > 0)
     if any(k.startswith(prefix) for k in arrays):
@@ -141,7 +162,7 @@ def restore_checkpoint(path: str, state):
         trace = params_from_numpy({k[len(prefix):]: v for k, v in arrays.items()
                                    if k.startswith(prefix) and not k.startswith(prefix + "['upscore")})
         for p, t in zip(opt.params, opt.trace):
-            t.copy_(trace[names[id(p)]])
+            t.copy_(local_rows(p, trace[names[id(p)]]))
     return state
 
 

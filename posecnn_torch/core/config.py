@@ -159,6 +159,8 @@ class TestConfig:
 
 @dataclass
 class TPUConfig:
+    # read by nothing, as in the JAX package (whose CLIs build make_mesh(),
+    # every device on the data axis): a multi-rank train_net runs at (N, 1)
     MESH_DATA: int = 0
     MESH_MODEL: int = 1
     COMPUTE_DTYPE: str = "bfloat16"
@@ -553,7 +555,6 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
     T, S, P = cfg.TRAIN, cfg.TEST, cfg.TPU
     rules = [
         ("NETWORK", cfg.NETWORK, cfg.NETWORK not in NETWORKS),
-        ("TPU.MESH_MODEL", P.MESH_MODEL, P.MESH_MODEL != 1),
         ("TPU.CHECKPOINT_FORMAT", P.CHECKPOINT_FORMAT, P.CHECKPOINT_FORMAT != "npz"),
         ("TPU.DEBUG_NANS", P.DEBUG_NANS, P.DEBUG_NANS),
         ("TPU.HOUGH_SAMPLER", P.HOUGH_SAMPLER, P.HOUGH_SAMPLER not in ("approx", "exact")),

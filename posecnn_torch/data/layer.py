@@ -160,7 +160,9 @@ def prefetch(source: Iterator[dict], depth: int = 4) -> Iterator[dict]:
     """Items of `source`, made ahead on a daemon thread (at most `depth`
     waiting). An exception in the thread is raised to the consumer; when
     the consumer stops (closes the generator), the thread ends after the
-    item it is making."""
+    item it is making, and the close waits for it (a thread still making
+    an item at the interpreter's exit can abort a process whose
+    `torch.distributed` group it holds)."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
@@ -198,3 +200,5 @@ def prefetch(source: Iterator[dict], depth: int = 4) -> Iterator[dict]:
             yield item
     finally:
         stop.set()
+        if t is not threading.current_thread():
+            t.join()

@@ -24,7 +24,15 @@ of `Solver`) and the segmentation step (`make_seg_train_step`, FCN-8s):
     through a `Draws` object that a test or a check can record and replay;
   * `Solver` snapshots the state in the JAX npz layout
     (`core/checkpoint.py`), resumes from the latest snapshot, and snapshots
-    on SIGTERM or SIGINT before it returns.
+    on SIGTERM or SIGINT before it returns;
+  * over a mesh of ranks (`parallel/mesh.py`), the step computes the
+    one-process step's function on the global batch, as JAX's sharded jit
+    does: every normalizer that spans the batch is the global batch's (the
+    local sum over the count all-reduced over the data group), the L2 term
+    is counted once, the gradients are summed over the data group, the
+    clipping norm counts a sharded gradient's rows over the model group,
+    and the draws with a batch axis are drawn at the global batch's shape
+    and sliced. The Solver's rank 0 alone logs and writes.
 """
 
 from __future__ import annotations
@@ -79,19 +87,36 @@ def lr_schedule(hp: TrainHParams) -> Callable[[int], float]:
     return sched
 
 
+# the draws with a batch axis (images, or Hough's rows, which go image by
+# image): over a data mesh each rank draws them at the global batch's shape
+# and keeps its rows
+BATCH_DRAWS = ("dropout/", "hough_gt_mix", "noise/field")
+
+
 class Draws:
     """The random numbers of one training step, by name.
 
     Drawn from `generator` on the step's device, and kept when `record`;
     with `replay`, the recorded tensors are handed back instead (moved to
     the asking device), so one step can be run again elsewhere with the same
-    randomness."""
+    randomness. `sharded(n, i)` gives rank i of n data ranks its view."""
 
     def __init__(self, generator: Optional[torch.Generator] = None, replay: Optional[Dict[str, torch.Tensor]] = None,
                  record: bool = False):
         self.generator = generator
         self.replay = replay
         self.recorded: Optional[Dict[str, torch.Tensor]] = {} if record else None
+        self.shard: Optional[Tuple[int, int]] = None
+
+    def sharded(self, n: int, i: int) -> "Draws":
+        """The same draws (generator, replay and record shared) as rank i of
+        n data ranks: a draw of `BATCH_DRAWS` is made (or replayed, or
+        recorded) at n times its leading size and its i-th block of rows is
+        handed back, so the draws of ranks whose generators share one seed
+        are the one-process step's."""
+        out = Draws(self.generator, self.replay)
+        out.recorded, out.shard = self.recorded, (n, i)
+        return out
 
     def _get(self, name: str, device, make) -> torch.Tensor:
         if self.replay is not None:
@@ -101,11 +126,21 @@ class Draws:
             self.recorded[name] = x
         return x
 
+    def _batched(self, name: str, shape, device, make) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.shard is None or self.shard[0] == 1 or not name.startswith(BATCH_DRAWS):
+            return self._get(name, device, lambda: make(shape))
+        n, i = self.shard
+        x = self._get(name, device, lambda: make((n * shape[0],) + shape[1:]))
+        return x[i * shape[0]:(i + 1) * shape[0]]
+
     def uniform(self, name: str, shape, device) -> torch.Tensor:
-        return self._get(name, device, lambda: torch.rand(tuple(shape), generator=self.generator, device=device))
+        return self._batched(name, shape, device,
+                             lambda s: torch.rand(s, generator=self.generator, device=device))
 
     def normal(self, name: str, shape, device) -> torch.Tensor:
-        return self._get(name, device, lambda: torch.randn(tuple(shape), generator=self.generator, device=device))
+        return self._batched(name, shape, device,
+                             lambda s: torch.randn(s, generator=self.generator, device=device))
 
     def randint(self, name: str, high: int, shape, device) -> torch.Tensor:
         return self._get(
@@ -143,7 +178,23 @@ class MomentumSGD:
         self.trace = [torch.zeros_like(p) for p in self.params]
 
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+        """The global norm of the gradients of the whole parameters: the
+        squares of a parameter split over a model axis (`tp_mesh`) are summed
+        over its model group, a replicated one's counted once."""
+        from posecnn_torch.parallel.mesh import tp_mesh
+
+        whole, split, mesh = [], [], None
+        for p, g in zip(self.params, grads):
+            sq = (g.float() * g.float()).sum()
+            if tp_mesh(p) is None:
+                whole.append(sq)
+            else:
+                split.append(sq)
+                mesh = tp_mesh(p)
+        total = sum(whole)
+        if split:
+            total = total + mesh.model_sum(sum(split))
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def step(self, lr: float) -> torch.Tensor:
@@ -186,6 +237,26 @@ def regularization_loss(model: PoseCNN, scale: float) -> torch.Tensor:
     return scale * 0.5 * total
 
 
+def mesh_regularization_loss(model: PoseCNN, scale: float, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The L2 term over a mesh: (the term this rank differentiates, its
+    share of the reported value). The first is this rank's
+    `regularization_loss` (its rows of a split parameter, every replicated
+    one) on the data axis's rank 0, and zero elsewhere, so the gradients'
+    sum over the data group holds it once. The second, detached, is the
+    whole term (a split parameter's squares summed over the model group) on
+    data rank 0 and zero elsewhere, so its sum over the data group is the
+    one-process value."""
+    from posecnn_torch.parallel.mesh import tp_mesh
+
+    whole = sum((p * p).sum() for p in model.parameters() if tp_mesh(p) is None)
+    split = [(p * p).sum() for p in model.parameters() if tp_mesh(p) is not None]
+    local = scale * 0.5 * (whole + sum(split)) if split else scale * 0.5 * whole
+    reported = scale * 0.5 * (whole.detach() + mesh.model_sum(sum(split))) if split else local.detach()
+    if mesh.d == 0:
+        return local, reported
+    return local * 0.0, torch.zeros_like(reported)
+
+
 def preprocess(data: torch.Tensor, hp: TrainHParams, batch: Dict[str, torch.Tensor], draws: Optional[Draws]) -> torch.Tensor:
     """uint8 BGR -> mean-subtracted float, with the HLS jitter and the noise
     field when the batch asks for them (`train.py:173-194`)."""
@@ -212,6 +283,7 @@ def compute_losses(
     draws: Optional[Draws] = None,
     forward_fn: Optional[Callable] = None,
     ce_threshold: Optional[float] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The flagship loss (`train.py:compute_losses`): returns (loss, the
     named loss terms). `forward_fn` is the network (default
@@ -220,8 +292,19 @@ def compute_losses(
     cross entropy in place of `threshold_label` (VGG16FULL: 0.7). A uint8
     `data_p` (the RGBD input's depth image) has the pixel means subtracted
     and nothing else. Without `draws`, random numbers come from torch's
-    default generator."""
+    default generator.
+
+    With a `mesh` (`parallel/mesh.py`) of several data ranks, `batch` is
+    this rank's part of the global batch (`mesh.shard_batch`) and each term
+    is this rank's share of the global batch's: its local sum over the
+    global count (the hard-label gate's, the vertex weights', the valid
+    Hough rows'; all-reduced over the data group), and its mean over the
+    global rows (ADD's, the domain loss's R). The shares sum to the
+    one-process terms over the data group; the L2 term is
+    `mesh_regularization_loss`'s."""
     draws = draws if draws is not None else Draws()
+    n_data = 1 if mesh is None else mesh.data
+    total = None if n_data == 1 else mesh.data_sum
     forward = posecnn_forward if forward_fn is None else forward_fn
     thr = model_cfg.threshold_label if ce_threshold is None else ce_threshold
     if hp.matching_w > 0:
@@ -236,9 +319,12 @@ def compute_losses(
         gt_label_2d=batch["gt_label_2d"], gt_centers=batch.get("gt_centers"), draws=draws, data_p=data_p,
     )
     losses: Dict[str, torch.Tensor] = {}
-    loss = regularization_loss(model, hp.weight_reg)
-    losses["loss_regu"] = loss
-    loss_cls = loss_cross_entropy_hard_label_sparse(out["score"], batch["gt_label_2d"], thr)
+    if mesh is None:
+        loss = regularization_loss(model, hp.weight_reg)
+        losses["loss_regu"] = loss
+    else:
+        loss, losses["loss_regu"] = mesh_regularization_loss(model, hp.weight_reg, mesh)
+    loss_cls = loss_cross_entropy_hard_label_sparse(out["score"], batch["gt_label_2d"], thr, total)
     losses["loss_cls"] = loss_cls
     loss = loss + loss_cls
     if model_cfg.vertex_reg:
@@ -246,22 +332,25 @@ def compute_losses(
             # VERTEX_REG_3D: the compact scaled object coordinates (train.py:225-232)
             loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse3d(
                 out["vertex_pred"], batch["gt_label_2d"], batch["vertex_targets3"], batch["vertex_weights3"],
-                model_cfg.num_classes,
+                model_cfg.num_classes, total=total,
             )
         else:
             loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse(
                 out["vertex_pred"], batch["gt_label_2d"], batch["gt_centers"], model_cfg.num_classes,
-                hp.vertex_w_inside, z_obj_norm=hp.vertex_z_obj_norm,
+                hp.vertex_w_inside, z_obj_norm=hp.vertex_z_obj_norm, total=total,
             )
         losses["loss_vertex"] = loss_vertex
         loss = loss + loss_vertex
         if model_cfg.pose_reg:
             poses_pred = out["poses_pred"]
-            n_rows = poses_pred.shape[0]
-            n_valid = torch.clamp(out["rois_valid"].float().sum(), min=1.0)
+            n_rows = poses_pred.shape[0] * n_data  # the global batch's rows
+            valid = out["rois_valid"].float().sum()
+            n_valid = torch.clamp(valid if total is None else total(valid), min=1.0)
             loss_pose = average_distance_loss(
                 poses_pred, out["poses_target"], out["poses_weight"], points, symmetry, hp.margin
             )
+            if n_data > 1:
+                loss_pose = loss_pose / n_data  # the mean over the global rows
             if hp.pose_norm_valid:
                 loss_pose = loss_pose * (n_rows / n_valid)
             loss_pose = hp.pose_w * loss_pose
@@ -269,9 +358,9 @@ def compute_losses(
             loss = loss + loss_pose
             if hp.quat_w > 0:
                 Cq = poses_pred.shape[1] // 4
-                qp = poses_pred.reshape(n_rows, Cq, 4)
-                qt = out["poses_target"].reshape(n_rows, Cq, 4)
-                wq = out["poses_weight"].reshape(n_rows, Cq, 4)[..., 0]
+                qp = poses_pred.reshape(-1, Cq, 4)
+                qt = out["poses_target"].reshape(-1, Cq, 4)
+                wq = out["poses_weight"].reshape(-1, Cq, 4)[..., 0]
                 nonsym = (symmetry[:Cq] <= 0).float()[None, :]
                 per_roi = torch.minimum(((qp - qt) ** 2).sum(dim=-1), ((qp + qt) ** 2).sum(dim=-1)) * wq * nonsym
                 loss_quat = hp.quat_w * per_roi.sum() / n_valid
@@ -281,9 +370,14 @@ def compute_losses(
                 # the mean over all R rows, invalid ones (domain 0) included
                 # (train.py:311-316)
                 loss_domain = hp.adapt_weight * sparse_softmax_cross_entropy(out["domain_score"], out["label_domain"])
+                if n_data > 1:
+                    loss_domain = loss_domain / n_data
                 losses["loss_domain"] = loss_domain
                 loss = loss + loss_domain
-    losses["loss"] = loss
+    if mesh is None:
+        losses["loss"] = loss
+    else:
+        losses["loss"] = sum(v.detach() for v in losses.values())
     return loss, losses
 
 
@@ -332,12 +426,20 @@ def sample_batch(bank: Dict[str, torch.Tensor], batch_size: int, max_gt: int, ch
     return batch
 
 
-def train_update(state: TrainState, loss: torch.Tensor, lr: float) -> torch.Tensor:
+def train_update(state: TrainState, loss: torch.Tensor, lr: float, mesh=None) -> torch.Tensor:
     """Backward and one optimizer update at `lr`; returns the gradient's
-    global norm before clipping."""
-    for p in state.optimizer.params:
+    global norm before clipping. With a `mesh`, the gradients are summed
+    over its data group first (one all-reduce of them all, flattened)."""
+    params = state.optimizer.params
+    for p in params:
         p.grad = None
     loss.backward()
+    if mesh is not None and mesh.data > 1:
+        with torch.no_grad():
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            flat = mesh.data_sum(torch.cat([g.reshape(-1) for g in grads]))
+            for p, g in zip(params, torch.split(flat, [g.numel() for g in grads])):
+                p.grad = g.view_as(p)
     g_norm = state.optimizer.step(lr)
     state.step += 1
     return g_norm
@@ -375,21 +477,39 @@ def make_train_step(
     extents: torch.Tensor,
     forward_fn: Optional[Callable] = None,
     ce_threshold: Optional[float] = None,
+    mesh=None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
-    """Train step over a batch on the device (`train.py:make_train_step`,
-    one device): step(state, batch, draws) computes the losses and their
-    gradients and updates the state in place at lr_schedule(hp)(state.step).
-    `batch` is a host minibatch (`data.minibatch.get_minibatch`) moved to
-    the device (`to_device`). `forward_fn` and `ce_threshold` as in
-    `compute_losses` (VGG16FULL: `posecnn_full_forward`, 0.7). Returns the
-    loss terms (detached), the lr and the gradient norm."""
+    """Train step over a batch on the device (`train.py:make_train_step`):
+    step(state, batch, draws) computes the losses and their gradients and
+    updates the state in place at lr_schedule(hp)(state.step). `batch` is a
+    host minibatch (`data.minibatch.get_minibatch`) moved to the device
+    (`to_device`). `forward_fn` and `ce_threshold` as in `compute_losses`
+    (VGG16FULL: `posecnn_full_forward`, 0.7). Returns the loss terms
+    (detached), the lr and the gradient norm.
+
+    `mesh` None is the one-process step. With a mesh (`parallel/mesh.py`),
+    `batch` is this rank's part of the global batch (`mesh.shard_batch`),
+    the model has been split (`mesh.shard_model`) before its state was
+    made, and every rank's generator has the same seed: the step then
+    computes the one-process step's function on the global batch, up to
+    the order of its sums (`compute_losses`, `train_update`), and returns
+    the global batch's loss terms on every rank."""
     sched = lr_schedule(hp)
+    if mesh is not None and forward_fn is not None:
+        raise NotImplementedError("a data- or tensor-parallel step of VGG16FULL is not ported")
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
+        if mesh is not None:
+            draws = draws.sharded(mesh.data, mesh.d)
         loss, losses = compute_losses(state.model, model_cfg, hp, batch, points, symmetry, extents, draws,
-                                      forward_fn, ce_threshold)
+                                      forward_fn, ce_threshold, mesh)
         lr = sched(state.step)
-        g_norm = train_update(state, loss, lr)
+        g_norm = train_update(state, loss, lr, mesh)
+        if mesh is not None and mesh.data > 1:
+            # the global batch's terms: the ranks' shares summed
+            names = list(losses)
+            summed = mesh.data_sum(torch.stack([losses[k].detach().float() for k in names]))
+            losses = dict(zip(names, summed.unbind()))
         out = {k: v.detach() for k, v in losses.items()}
         out["lr"] = torch.tensor(lr, dtype=torch.float64)
         out["grad_norm"] = g_norm
@@ -470,13 +590,21 @@ class Solver:
     (`core/metrics.py`). With an `output_dir`, a snapshot every
     `snapshot_iters` steps and at the end (`snapshot_final`), named
     `<snapshot_prefix>_iter_<step>.npz`, with the momentum trace when
-    `snapshot_opt_state`; `resume` restores the latest."""
+    `snapshot_opt_state`; `resume` restores the latest.
+
+    Over a `mesh` of ranks, every rank runs the loop (and resumes from the
+    same snapshot) and takes part in each snapshot's gather, rank 0 alone
+    logs, writes `train_metrics.csv` and writes the snapshots, and a signal
+    seen by any rank stops every rank after the same step (the stop flag is
+    all-reduced each step)."""
 
     def __init__(self, step_fn, output_dir: Optional[str] = None, snapshot_iters: int = 10000,
                  snapshot_prefix: str = "posecnn", display: int = 20, snapshot_opt_state: bool = True,
-                 snapshot_final: bool = True):
+                 snapshot_final: bool = True, mesh=None):
         from posecnn_torch.core.metrics import MetricsLogger
 
+        self.mesh = mesh
+        self.rank0 = mesh is None or mesh.rank == 0
         self.step_fn = step_fn
         self.output_dir = output_dir
         self.snapshot_iters = snapshot_iters
@@ -484,7 +612,7 @@ class Solver:
         self.display = display
         self.snapshot_opt_state = snapshot_opt_state
         self.snapshot_final = snapshot_final
-        self.metrics_logger = MetricsLogger(output_dir) if output_dir else None
+        self.metrics_logger = MetricsLogger(output_dir) if output_dir and self.rank0 else None
 
     def resume(self, state: TrainState, log: Optional[Callable[[str], None]] = print) -> Tuple[TrainState, int]:
         """Restore the latest snapshot of `output_dir` into `state`, if there
@@ -498,7 +626,7 @@ class Solver:
             return state, 0
         t0 = time.perf_counter()
         restore_checkpoint(path, state)
-        if log:
+        if log and self.rank0:
             log(f"resumed from {path} at iteration {state.step} ({time.perf_counter() - t0:.3f}s)")
         return state, state.step
 
@@ -517,6 +645,8 @@ class Solver:
         `data_wait` (the host blocked on `data_iter` for the next item),
         `step` (wall, the step's host work) and, on a card, `step_stream`
         (CUDA events around the step: its span on the device's stream)."""
+        if not self.rank0:
+            log = None
         if log is not None:
             raw_log = log
 
@@ -543,6 +673,7 @@ class Solver:
 
         dev = next(state.model.parameters()).device
         cuda = dev.type == "cuda"
+        many = self.mesh is not None and self.mesh.world > 1
         gen = torch.Generator(device=dev)
         gen.manual_seed(resume_seed(RNG_SEED, start_iter))
         pending: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
@@ -593,6 +724,8 @@ class Solver:
                 if self.output_dir and (it + 1) % self.snapshot_iters == 0:
                     self.snapshot(state, it + 1, log)
                     last_snap = it + 1
+                if many:
+                    stop["flag"] = self.mesh.any(stop["flag"], dev)
                 if stop["flag"]:
                     if log:
                         log(f"signal received: snapshotting at iteration {it + 1}")
@@ -616,8 +749,8 @@ class Solver:
 
         t0 = time.perf_counter()
         path = save_checkpoint(self.output_dir, state, step=it, prefix=self.snapshot_prefix,
-                               include_opt_state=self.snapshot_opt_state)
-        if log:
+                               include_opt_state=self.snapshot_opt_state, mesh=self.mesh)
+        if log and self.rank0:
             log(f"snapshot {path} ({os.path.getsize(path) / 2**20:.1f} MiB, {time.perf_counter() - t0:.3f}s)")
         return path
 

@@ -73,3 +73,41 @@ def train_entry(device="cuda"):
     bank = bank_to_device(build_bank(LovSynVal(), FLAGSHIP_TRAIN_BATCH["max_gt"]), device)
     step = make_bank_train_step(cfg, hp, points, symmetry, extents, **FLAGSHIP_TRAIN_BATCH)
     return step, state, bank
+
+
+def dryrun_multichip(n_devices: int, device: str = "cuda", timeout: float = 600.0) -> dict:
+    """The multichip dry run (`__graft_entry__.py:dryrun_multichip`): n
+    ranks (`parallel/dryrun.py`, started by `parallel.launch.run_ranks`)
+    run one full training step at tiny shapes over a (n/2, 2) mesh when n
+    is even and above 1, else (n, 1), and assert loss_pose > 0. On the CPU
+    the ranks meet over gloo; on CUDA over NCCL when the host has a GPU for
+    each rank, else over gloo, every rank on cuda:0 (NCCL refuses two ranks
+    on one GPU). Returns rank 0's record (the step's terms, the mesh, the
+    split parameters, the backend); a failed rank raises."""
+    import json
+    import os
+    import tempfile
+
+    from posecnn_torch.parallel.launch import run_ranks
+
+    dev = device
+    backend = "gloo"
+    if device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("dryrun_multichip on CUDA: no CUDA device")
+        if torch.cuda.device_count() >= n_devices:
+            backend, dev = "nccl", "cuda"
+        else:
+            dev = "cuda:0"
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(n_devices)]
+        rcs = run_ranks(["-m", "posecnn_torch.parallel.dryrun", dev], n_devices, backend=backend, logs=logs,
+                        timeout=timeout)
+        texts = [open(p).read() for p in logs]
+    if any(rcs):
+        bad = next(r for r, rc in enumerate(rcs) if rc)
+        raise RuntimeError(f"dryrun_multichip: rank {bad} exited {rcs[bad]}:\n{texts[bad][-3000:]}")
+    line = next(ln for ln in texts[0].splitlines() if ln.startswith("dryrun_multichip ok: "))
+    out = json.loads(line[len("dryrun_multichip ok: "):])
+    print("dryrun_multichip ok:", out["metrics"])
+    return out

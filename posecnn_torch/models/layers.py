@@ -9,6 +9,12 @@ fully connected (out, in).
 Compute dtype policy (as in JAX): `conv2d`, `conv1x1_upsample` and `fc` cast
 inputs and weights to `compute_dtype`, and the result to float32 before the
 float32 bias; parameters stay float32.
+
+Tensor parallelism: a weight that `parallel.mesh.shard_model` split over
+the model axis (its output channels; tagged `tp_mesh`) runs between
+`parallel/tp.py`'s f, on the input, and g, which gathers the channels
+before the whole bias is added (a bias sliced before g would leave each
+rank's bias gradient holding its own slice alone).
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from posecnn_torch.ops.conv3x3 import conv3x3_raw, conv3x3_vjp, oihw_to_hwio
+from posecnn_torch.parallel.mesh import tp_mesh
+from posecnn_torch.parallel.tp import copy_to_model, gather_from_model
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -41,10 +49,15 @@ def conv2d(
 ) -> torch.Tensor:
     """Stride-1 SAME convolution (odd kernel), NHWC in, float32 NHWC out
     (`layers.py:conv2d`)."""
+    mesh = tp_mesh(weight)
+    if mesh is not None:
+        x = copy_to_model(x, mesh)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         weight = weight.to(compute_dtype)
     y = _nhwc(F.conv2d(_nchw(x), weight, padding=weight.shape[-1] // 2)).float()
+    if mesh is not None:
+        y = gather_from_model(y, mesh, -1)
     if bias is not None:
         y = y + bias
     if relu:
@@ -97,11 +110,19 @@ class _Conv3x3F32Bias(torch.autograd.Function):
         return dx, dw, db
 
 
+def _refuse_split(weight: torch.Tensor) -> None:
+    # the conv3x3 kernel takes 64 or 128 output channels; a split conv1_2
+    # (36,864 elements, below any threshold a shipped run sets) is not run
+    if tp_mesh(weight) is not None:
+        raise NotImplementedError("a conv3x3-kernel layer split over the model axis is not ported")
+
+
 def conv3x3_bf16_conv2d(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """`conv2d(..., relu=True, compute_dtype=bf16)` of a 64 -> 64 3x3 layer
     with the convolution and its dgrad on the conv3x3 kernel (float32 NHWC
     out, as conv2d): the trunk's conv1_2 below 128 rows, where the JAX trunk
     runs the plain conv2d (`backbone.py:69-76`)."""
+    _refuse_split(weight)
     return _Conv3x3F32Bias.apply(x.to(torch.bfloat16).contiguous(), weight, bias)
 
 
@@ -111,6 +132,7 @@ def conv3x3_bf16_bias_relu(weight: torch.Tensor, bias: torch.Tensor, x: torch.Te
     bf16. The convolution and its dgrad run on the conv3x3 kernel. The cast
     to bf16 sits outside the autograd function, as in JAX, so dx comes back
     in the caller's dtype."""
+    _refuse_split(weight)
     return _Conv3x3MB.apply(x.to(torch.bfloat16).contiguous(), weight, bias)
 
 
@@ -211,10 +233,16 @@ def fc(
     """Dense layer; a 4-D input is flattened in NHWC order (`layers.py:fc`)."""
     if x.dim() == 4:
         x = x.reshape(x.shape[0], -1)
+    mesh = tp_mesh(weight)
+    if mesh is not None:
+        x = copy_to_model(x, mesh)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         weight = weight.to(compute_dtype)
-    y = F.linear(x, weight).float() + bias
+    y = F.linear(x, weight).float()
+    if mesh is not None:
+        y = gather_from_model(y, mesh, -1)
+    y = y + bias
     if relu:
         y = torch.relu(y)
     return y

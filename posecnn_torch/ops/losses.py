@@ -21,11 +21,13 @@ def loss_cross_entropy_single_frame(scores: torch.Tensor, labels: torch.Tensor) 
     return cross_entropy.sum() / (labels.sum() + 1e-10)
 
 
-def loss_cross_entropy_hard_label_sparse(score: torch.Tensor, gt: torch.Tensor, threshold: float) -> torch.Tensor:
+def loss_cross_entropy_hard_label_sparse(score: torch.Tensor, gt: torch.Tensor, threshold: float,
+                                         total=None) -> torch.Tensor:
     """score (B,H,W,C) post-ReLU logits; gt (B,H,W) int. Equals the cross
     entropy of log_softmax(score) against hard_label(softmax(score), gt,
     threshold). The gate is detached, as JAX's stop_gradient and the
-    reference op's zero gradient."""
+    reference op's zero gradient. `total` maps the local gate count to the
+    global batch's (a data-parallel step: the sum over the data group)."""
     C = score.shape[-1]
     gt_safe = gt.long().clamp(0, C - 1)
     score_gt = torch.gather(score, -1, gt_safe[..., None])[..., 0]
@@ -35,7 +37,8 @@ def loss_cross_entropy_hard_label_sparse(score: torch.Tensor, gt: torch.Tensor, 
     prob_gt = torch.exp(logp_gt)
     select = (gt != -1) & ((gt > 0) | (prob_gt < threshold))
     gate = select.to(score.dtype).detach()
-    return -(gate * logp_gt).sum() / (gate.sum() + 1e-10)
+    count = gate.sum() if total is None else total(gate.sum())
+    return -(gate * logp_gt).sum() / (count + 1e-10)
 
 
 def smooth_l1_loss(bbox_pred: torch.Tensor, bbox_targets: torch.Tensor, bbox_inside_weights: torch.Tensor,

@@ -69,6 +69,7 @@ def smooth_l1_loss_vertex_sparse(
     weight_value: float = 10.0,
     sigma: float = 1.0,
     z_obj_norm: bool = False,
+    total=None,
 ) -> torch.Tensor:
     """Fused target generation + smooth-L1 (`vertex_targets.py:52`): only
     the 3 channels of each pixel's class enter, and the (B,H,W,3C) target
@@ -80,7 +81,12 @@ def smooth_l1_loss_vertex_sparse(
     the batch's (image, class) instances over its own instance's count,
     clipped to [0.2, 5], so every instance weighs about the same in the
     depth channel; the loss is then normalised by the sum of the three
-    channels' weights."""
+    channels' weights.
+
+    `total` maps a local count to the global batch's (a data-parallel
+    step: the sum over the data group); the mean instance count and the
+    normalizer are then the global batch's."""
+    total = (lambda x: x) if total is None else total
     B, H, W = label.shape
     C = num_classes
     sigma_2 = sigma ** 2
@@ -93,8 +99,8 @@ def smooth_l1_loss_vertex_sparse(
     if z_obj_norm:
         onehot = torch.nn.functional.one_hot(lab_safe, C).float() * fg[..., None]
         cnt = onehot.sum(dim=(1, 2))  # (B,C) foreground pixels of each instance
-        n_inst = (cnt > 0).sum().float()
-        mean_cnt = cnt.sum() / torch.clamp(n_inst, min=1.0)
+        n_inst = total((cnt > 0).sum().float())
+        mean_cnt = total(cnt.sum()) / torch.clamp(n_inst, min=1.0)
         cnt_pix = torch.gather(cnt, 1, lab_safe.reshape(B, H * W)).reshape(B, H, W)
         factor = torch.clamp(mean_cnt / torch.clamp(cnt_pix, min=1.0), 0.2, 5.0)
         wv = torch.stack([w, w, w * factor], dim=-1)
@@ -105,8 +111,8 @@ def smooth_l1_loss_vertex_sparse(
     sign = (abs_diff < 1.0 / sigma_2).to(diff.dtype).detach()
     in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
     if z_obj_norm:
-        return in_loss.sum() / (wv.sum() + 1e-10)
-    return in_loss.sum() / (3.0 * w.sum() + 1e-10)
+        return in_loss.sum() / (total(wv.sum()) + 1e-10)
+    return in_loss.sum() / (3.0 * total(w.sum()) + 1e-10)
 
 
 def smooth_l1_loss_vertex_sparse3d(
@@ -116,13 +122,14 @@ def smooth_l1_loss_vertex_sparse3d(
     weights3: torch.Tensor,
     num_classes: int,
     sigma: float = 1.0,
+    total=None,
 ) -> torch.Tensor:
     """The VERTEX_REG_3D loss on compact host targets
     (`vertex_targets.py:smooth_l1_loss_vertex_sparse3d` :158): targets3
     (B,H,W,3) holds each pixel's extent-normalized object coordinates,
     weights3 (B,H,W) its weight; the prediction's 3 channels of the pixel's
     class (label clipped to [0, C-1]) enter the smooth L1, normalised by
-    3 * sum(weights3)."""
+    3 * sum(weights3) (of the global batch with `total`, as above)."""
     B, H, W = label.shape
     C = num_classes
     sigma_2 = sigma ** 2
@@ -134,4 +141,5 @@ def smooth_l1_loss_vertex_sparse3d(
     abs_diff = diff.abs()
     sign = (abs_diff < 1.0 / sigma_2).to(diff.dtype).detach()
     in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
-    return in_loss.sum() / (3.0 * w.sum() + 1e-10)
+    count = w.sum() if total is None else total(w.sum())
+    return in_loss.sum() / (3.0 * count + 1e-10)

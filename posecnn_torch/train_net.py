@@ -68,6 +68,20 @@ with the bank refresh its record (`bank_refresh`: the first seed, frames
 rendered, chunks spliced, each splice's ms, the render seconds and frames
 a second of the thread).
 
+Several processes (ranks; `parallel/launch.py`): started with
+POSECNN_COORDINATOR, POSECNN_NUM_PROCESSES and POSECNN_PROCESS_ID set (one
+process a rank, as JAX's CLI), each rank joins the process group first
+(`launch.initialize`; NCCL on cuda:<local rank>, gloo on the CPU or where
+POSECNN_BACKEND asks for it) and the --cfg run trains data-parallel over a
+mesh of (N, 1), as JAX's Solver builds `make_mesh()`: every rank builds the
+global host batch from the same RNG_SEED stream and keeps its images
+(`mesh.shard_batch`), and the step computes the one-process step's function
+on the global batch. Rank 0 alone logs and writes the metrics, the snapshots
+and `train_timing.json`, which then holds every rank's milliseconds,
+launches and peak memory under `by_rank`, with the world size and the mesh.
+TPU.DEVICE_BANK, the run without --cfg (a device bank), VGG16FULL, FCN8VGG
+and VGG16DET are refused at more than one rank.
+
 Usage: python -m posecnn_torch.train_net [--cfg FILE.yml] [--imdb NAME] [--iters N]
            [--output DIR] [--resume] [--rand] [--device cuda]
 """
@@ -85,7 +99,21 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def cfg_run(args, log):
+def refuse_at_world(cfg, network: str, world: int) -> None:
+    """What a run of more than one rank does not train: TPU.DEVICE_BANK
+    (JAX's bank step is single-device by design, `engine/train.py:439-440`:
+    each process would train alone and all would write to one output
+    directory), and the networks whose step has no mesh here."""
+    if world <= 1:
+        return
+    if cfg.TPU.DEVICE_BANK:
+        raise ValueError(f"TPU.DEVICE_BANK trains on one device (the JAX bank step ignores the mesh): "
+                         f"not at {world} ranks")
+    if network in ("vgg16_full", "fcn8_vgg", "vgg16_det"):
+        raise NotImplementedError(f"{network} at {world} ranks: its data-parallel step is not ported")
+
+
+def cfg_run(args, log, mesh=None):
     """(step, state, open_data, Solver arguments, output directory) of a
     --cfg run (`tools/train_net.py:main`). `open_data(start_iter)` returns
     the data iterator and a function (or None) that ends the data source
@@ -93,7 +121,8 @@ def cfg_run(args, log):
     the refresher's record (`bank_refresh`), with host batches the count
     made from each source (`batches_by_source`: real, syn, adapt). It is
     called after the resume, since the refresh's seeds start from the
-    resume iteration."""
+    resume iteration. `mesh` (more than one rank): the host batches are
+    this rank's part of each global batch and the step is the mesh's."""
     import numpy as np
     import torch
 
@@ -107,6 +136,7 @@ def cfg_run(args, log):
     from posecnn_torch.engine import train as T
     from posecnn_torch.engine.test import set_float32_precision
     from posecnn_torch.models.factory import get_network
+    from posecnn_torch.parallel.mesh import shard_batch
 
     for flag, what in (("weights", "vgg16.npy"), ("ckpt", "TF1 checkpoint")):
         if getattr(args, flag):
@@ -118,6 +148,7 @@ def cfg_run(args, log):
     name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det", "VGG16FULL": "vgg16_full"}.get(cfg.NETWORK,
                                                                                           args.network)
     init_fn, forward_fn = get_network(name)
+    refuse_at_world(cfg, name, 1 if mesh is None else mesh.world)
     if not args.rand:
         np.random.seed(cfg.RNG_SEED)
     log("Using config:\n" + pprint.pformat(cfg))
@@ -167,10 +198,16 @@ def cfg_run(args, log):
                 return itertools.repeat(bank), None
     else:
         layer = host_layer(cfg, imdb, mcfg, log)
-        step = T.make_train_step(model_cfg, hp, points, symmetry, extents, **step_kw)
+        step = T.make_train_step(model_cfg, hp, points, symmetry, extents, mesh=mesh, **step_kw)
+
+        def batches():
+            if mesh is None:
+                return iter(layer)
+            # every rank draws the global batch from one seed; each keeps its images
+            return (shard_batch(mesh, b) for b in layer)
 
         def open_data(start_iter):
-            return prefetch(iter(layer), depth=cfg.TPU.PREFETCH), lambda: {"batches_by_source": dict(layer.sources)}
+            return prefetch(batches(), depth=cfg.TPU.PREFETCH), lambda: {"batches_by_source": dict(layer.sources)}
     return step, state, open_data, C.solver_settings(cfg), output
 
 
@@ -390,20 +427,43 @@ def main(argv=None) -> int:
 
     import torch
 
-    from posecnn_torch.engine.train import Solver
-    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.parallel import launch
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("train_net: no CUDA device (pass --device cpu to train on the CPU)", file=sys.stderr)
         return 2
+    args.device = launch.rank_device(args.device)
+    world = launch.initialize(device=args.device)
+    try:
+        return _train(args, ap, t_start, world)
+    finally:
+        launch.shutdown()
+
+
+def _train(args, ap, t_start: float, world: int) -> int:
+    import torch
+
+    from posecnn_torch.engine.train import Solver
+    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.parallel.mesh import MeshSpec, make_mesh
+
+    # the mesh of JAX's Solver, make_mesh(): every rank on the data axis
+    mesh = make_mesh(MeshSpec(), world) if world > 1 else None
+    rank0 = mesh is None or mesh.rank == 0
 
     def log(msg: str) -> None:
-        print(f"[{time.perf_counter() - t_start:.3f}s] {msg}", flush=True)
+        if rank0:
+            print(f"[{time.perf_counter() - t_start:.3f}s] {msg}", flush=True)
 
+    if mesh is not None:
+        log(f"{world} ranks, mesh {mesh.shape}, backend {torch.distributed.get_backend()}")
     if args.cfg:
         args.imdb = args.imdb or "toy_train"
-        step, state, open_data, solver_kw, output = cfg_run(args, log)
+        step, state, open_data, solver_kw, output = cfg_run(args, log, mesh)
     else:
+        if mesh is not None:
+            raise ValueError("the run without --cfg trains from a device bank, on one device: not at "
+                             f"{world} ranks")
         from posecnn_torch.config import EXP_DIR, FLAGSHIP_SOLVER
         from posecnn_torch.entry import train_entry
 
@@ -416,7 +476,7 @@ def main(argv=None) -> int:
 
         def open_data(start_iter):
             return itertools.repeat(bank), None
-    solver = Solver(step, output_dir=output, **solver_kw)
+    solver = Solver(step, output_dir=output, mesh=mesh, **solver_kw)
     start = 0
     if args.resume:  # det_run refuses --resume
         state, start = solver.resume(state, log=log)
@@ -433,14 +493,21 @@ def main(argv=None) -> int:
         if finish_data is not None:
             data_record = finish_data()
     launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
-    device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
-    os.makedirs(output, exist_ok=True)
+    cuda = args.device.startswith("cuda")
+    device = torch.cuda.get_device_name(torch.device(args.device)) if cuda else "cpu"
     record = {"device": device, "start_step": start, "end_step": state.step, "launches": launches, "ms": timings}
-    if args.device.startswith("cuda"):
+    if cuda:
         record["peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    if mesh is not None:
+        # each rank's own record; rank 0's stays at the top level
+        ranks = mesh.gather_objects({k: record.get(k) for k in ("device", "end_step", "launches", "ms",
+                                                               "peak_memory_mib")})
+        record.update(world_size=mesh.world, mesh=mesh.shape, by_rank=ranks)
     record.update(data_record)
-    with open(os.path.join(output, "train_timing.json"), "w") as f:
-        json.dump(record, f, indent=1)
+    if rank0:
+        os.makedirs(output, exist_ok=True)
+        with open(os.path.join(output, "train_timing.json"), "w") as f:
+            json.dump(record, f, indent=1)
     if "batches_by_source" in data_record:
         log(f"host batches made by source (the prefetched ones too): {data_record['batches_by_source']}")
     log(f"done at iteration {state.step}; launches hough_vote {launches['hough_vote']} "

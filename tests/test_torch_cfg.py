@@ -397,3 +397,21 @@ def test_flagship_settings_are_the_capstone_builders():
     assert FLAGSHIP_TRAIN_BATCH == dict(batch_size=cap.TRAIN.IMS_PER_BATCH, max_gt=cap.TPU.MAX_GT,
                                         chromatic=cap.TRAIN.CHROMATIC, add_noise=cap.TRAIN.ADD_NOISE)
     assert cap.TPU.DEVICE_BANK and cap.INPUT == "COLOR"
+
+
+def test_mesh_model_builds_as_in_jax(tmp_path):
+    """TPU.MESH_MODEL: 2 (and MESH_DATA: 1) builds for training and testing,
+    as in the JAX package, whose CLIs read neither: the configs built are
+    toy_pose.yml's, and JAX's reader takes the file too."""
+    toy = os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml")
+    path = tmp_path / "toy_mesh_model.yml"
+    path.write_text(open(toy).read() + "TPU:\n  MESH_DATA: 1\n  MESH_MODEL: 2\n")
+    got, base = C.cfg_from_file(str(path)), C.cfg_from_file(toy)
+    assert (got.TPU.MESH_DATA, got.TPU.MESH_MODEL) == (1, 2)
+    assert C.unsupported(got, train=True) == [] and C.unsupported(got, train=False) == []
+    assert C.train_model_cfg(got, 4) == C.train_model_cfg(base, 4)
+    assert C.test_model_cfg(got, 4) == C.test_model_cfg(base, 4)
+    assert C.train_hparams(got) == C.train_hparams(base) and C.solver_settings(got) == C.solver_settings(base)
+    ref = JC.cfg_fresh()
+    JC.cfg_from_file(str(path), ref)
+    _same_tree(got, ref)

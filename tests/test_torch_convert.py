@@ -102,7 +102,8 @@ def test_port_imports_no_jax():
     """Every module of posecnn_torch (the whole package, walked) imports
     without jax, posecnn_tpu, yaml or cv2 (the card's machine has neither
     PyYAML nor cv2: the port reads its .yml configs and makes its host
-    images itself), the cfg-driven modules among them."""
+    images itself), the cfg-driven modules and `posecnn_torch.parallel`
+    among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import posecnn_torch\n"
@@ -119,4 +120,6 @@ def test_port_imports_no_jax():
     assert len(mods) >= 15
     assert {"posecnn_torch.core.config", "posecnn_torch.data.toy", "posecnn_torch.data.factory",
             "posecnn_torch.data.layer", "posecnn_torch.train_net", "posecnn_torch.test_net",
-            "posecnn_torch.utils.blob", "posecnn_torch.models.fcn8", "posecnn_torch.models.factory"} <= mods
+            "posecnn_torch.utils.blob", "posecnn_torch.models.fcn8", "posecnn_torch.models.factory",
+            "posecnn_torch.parallel.mesh", "posecnn_torch.parallel.launch", "posecnn_torch.parallel.tp",
+            "posecnn_torch.parallel.dryrun", "posecnn_torch.utils.gate_batch"} <= mods
