@@ -303,6 +303,17 @@ MESH_PARAMS = {"fc6.weight": 1e-3, "fc7.weight": 1e-4, "trunk.conv5_3.weight": 1
 # magnitude (a ReLU crossing each); 1 measured
 MESH_FC6_ROWS = 4
 NCCL_FLOATS = 134_000_000
+# phase 17: ResNet-50's train_net steps (DISPLAY 20: the log shows steps 1
+# and 20) and the steps left out of its medians (the warm-up, then the
+# prefetch queue's batches made meanwhile), its test_net frames and those
+# left out of the medians; the frames of test_net --vis and of diag_rot;
+# isolate_pose's steps, evaluation period and frames; the supervised toy
+# run's steps, its stall threshold (toy_pose.yml's DISPLAY is 2: a row
+# every 2 steps), and the metrics row after which its child is paused
+R50_STEPS, R50_WARMUP, R50_EVAL_FRAMES, R50_EVAL_WARMUP = 20, 8, 8, 3
+VIS_FRAMES, DIAG_FRAMES, VIS_TRAIN_STEPS, ROI_REPS = 4, 4, 10, 20
+ISO_STEPS, ISO_REPORT, ISO_FRAMES = 20, 10, 4
+SUP_STEPS, SUP_STALL_S, SUP_PAUSE_AT = 30, 15, 10
 SLICE_J_GRADS = {"full": ("trunk.conv1_2.weight", "score_conv1.weight", "fc6.weight", "fc7.weight",
                           "poses_pred_unnormalized.weight", "trunk.conv5_3.weight"),
                  "adapt": ("trunk.conv1_2.weight", "fc6.weight", "fc9.weight", "fc7.weight", "fc8.weight",
@@ -635,8 +646,9 @@ def log_seconds(pattern: str, log: str) -> re.Match:
 
 
 def launches_of(log: str) -> dict:
-    m = log_seconds(r"done at iteration (\d+); launches hough_vote (\d+) conv3x3 (\d+)", log)
-    return {"step": int(m.group(2)), "hough_vote": int(m.group(3)), "conv3x3": int(m.group(4))}
+    m = log_seconds(r"done at iteration (\d+); launches hough_vote (\d+) conv3x3 (\d+) nms (\d+)", log)
+    return {"step": int(m.group(2)), "hough_vote": int(m.group(3)), "conv3x3": int(m.group(4)),
+            "nms": int(m.group(5))}
 
 
 def snapshot_phase(state, model0: dict, work: str, dev) -> tuple:
@@ -720,7 +732,7 @@ def snapshot_phase(state, model0: dict, work: str, dev) -> tuple:
           and all(np.array_equal(v, arrays[k]) for k, v in back.items()), "the snapshot does not load back bit-equal")
     del fresh
     l1 = launches_of(log1)
-    check(l1 == {"step": n, "hough_vote": 4 * n, "conv3x3": 2 * n}, f"first run's launches {l1}")
+    check(l1 == {"step": n, "hough_vote": 4 * n, "conv3x3": 2 * n, "nms": 0}, f"first run's launches {l1}")
     t_first1 = float(log_seconds(r"iter 1/30 ", log1).group(1))
 
     # --resume: from the signal snapshot to the final snapshot at 30
@@ -733,14 +745,15 @@ def snapshot_phase(state, model0: dict, work: str, dev) -> tuple:
     with np.load(final) as d:
         check(int(d["['step']"]) == 30, "the final snapshot's step")
     l2 = launches_of(log2)
-    check(l2 == {"step": 30, "hough_vote": 4 * (30 - n), "conv3x3": 2 * (30 - n)}, f"resumed run's launches {l2}")
+    check(l2 == {"step": 30, "hough_vote": 4 * (30 - n), "conv3x3": 2 * (30 - n), "nms": 0},
+          f"resumed run's launches {l2}")
     snaps = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
     phase(8, f"train_net --iters 30: SIGTERM after the step-20 row, snapshot at step {n} ({snap.group(3)} MiB light, "
              f"written in {snap.group(4)} s; first step {t_first1:.3f} s after the start), loaded back bit-equal; "
              f"--resume restored it in {res.group(4)} s ({res.group(1)} s after the start), first step done "
              f"{float(first.group(1)) - float(res.group(1)):.3f} s after the restore ({first.group(1)} s after the "
              f"start), ended with the final snapshot at 30; snapshots {snaps}; launches {l1} then {l2}")
-    return final, seed0, {k: l1[k] + l2[k] for k in ("hough_vote", "conv3x3")}
+    return final, seed0, {k: l1[k] + l2[k] for k in ("hough_vote", "conv3x3", "nms")}
 
 
 def run_test_net(ckpt: str, out: str, log_path: str) -> tuple:
@@ -2328,7 +2341,7 @@ def mesh_rank(d: str) -> int:
     from posecnn_torch.core.convert import init_params_numpy, make_model
     from posecnn_torch.engine import train as T
     from posecnn_torch.engine.test import set_float32_precision
-    from posecnn_torch.ops import conv3x3, voting
+    from posecnn_torch.ops import conv3x3, nms, voting
     from posecnn_torch.parallel import launch
     from posecnn_torch.parallel import mesh as M
 
@@ -2355,14 +2368,15 @@ def mesh_rank(d: str) -> int:
             local = T.to_device(M.shard_batch(mesh, batch), dev)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
+            voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             got = {k: float(v) for k, v in step(state, local, T.Draws(replay=recorded)).items()}
             e1.record()
             e1.synchronize()
             key = f"{data}x{model}"
-            record[key] = {"launches": {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES},
+            record[key] = {"launches": {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES,
+                                        "nms": nms.NMS_LAUNCHES},
                            "stream_ms": e0.elapsed_time(e1), "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                            "split": [n for n, p in state.model.named_parameters() if M.tp_mesh(p) is not None]}
             whole = {k: M.gather_rows(p).cpu() for k, p in state.model.named_parameters() if k in MESH_PARAMS}
@@ -2514,9 +2528,9 @@ def mesh_phase(work: str, dev, smi: str) -> dict:
               f"f32 step at {label} against one process: relative {rel} (limit {MESH_LOSS_LIMIT}), parameters "
               f"{perr} (limits {MESH_PARAMS}), fc6 rows over 1e-5 {fc6_rows} (limit {MESH_FC6_ROWS}); loss_pose "
               f"{got['losses']['loss_pose']} vs {ref['loss_pose']}")
-        check(all(p == {"hough_vote": 4 // (2 if key == "2x1" else 1), "conv3x3": 0} for p in per_rank),
+        check(all(p == {"hough_vote": 4 // (2 if key == "2x1" else 1), "conv3x3": 0, "nms": 0} for p in per_rank),
               f"f32 step at {label}: launches by rank {per_rank}")
-        launches[f"mesh_f32_{key}"] = {**per_rank[0], "nms": 0}
+        launches[f"mesh_f32_{key}"] = per_rank[0]
         extra = (f"; the gradients' all-reduce ({recs[0][key]['allreduce_mib']:.0f} MiB over gloo, CUDA tensors) "
                  f"ms by rank {[round(r[key]['allreduce_ms'], 3) for r in recs]}" if key == "2x1" else
                  f"; split {recs[0][key]['split']}")
@@ -2651,6 +2665,418 @@ def toy_phase3(kernels: dict, w_t, dev) -> None:
                  f"cases {[round(x * 1e3, 2) for x in r['ms']]}), {mean['single'] * 1e3:.2f} single; plain "
                  f"{mean['plain'] * 1e3:.1f} us; bound {b_ms * 1e3:.3f} us ({b_by})")
     del ins
+
+
+def _start_time(pid: int):
+    """The start time of process `pid` (from /proc; None when it is gone):
+    with the pid, it names one process even if the pid is reused later."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return int(f.read().rsplit(")", 1)[1].split()[19])
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def _children(pid: int) -> list:
+    """The pids whose parent is `pid` (from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        out.append(int(d))
+            except (OSError, ValueError, IndexError):
+                pass
+    return out
+
+
+def _supervised_run(work: str) -> dict:
+    """Phase 17 (e): `python -m posecnn_torch.tools.supervise_train` around
+    `train_net --cfg toy_pose.yml --iters SUP_STEPS` (its own process, the
+    child its own session). Once the metrics file has its step-SUP_PAUSE_AT
+    row the child is stopped (SIGSTOP); the supervisor's stall check
+    (--stall-sec SUP_STALL_S, polled every 10 s) sends SIGTERM, which the
+    child takes once it is continued (SIGCONT on the supervisor's stall
+    line): it snapshots the step reached and exits, and the supervisor
+    relaunches it with --resume to the end. Returns the record."""
+    import threading
+
+    from posecnn_torch.core import config as C
+
+    cfg = os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml")
+    prefix = C.cfg_from_file(cfg).TRAIN.SNAPSHOT_PREFIX
+    out, child_log = os.path.join(work, "supervised"), os.path.join(work, "supervised_child.log")
+    csv_path = os.path.join(out, "train_metrics.csv")
+    cmd = [sys.executable, "-m", "posecnn_torch.tools.supervise_train", "--cfg", cfg, "--imdb", "toy_train",
+           "--iters", str(SUP_STEPS), "--output", out, "--stall-sec", str(SUP_STALL_S), "--warmup-sec", "300",
+           "--grace-sec", "120", "--settle-sec", "5", "--log", child_log]
+    lines, t0 = [], time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")), daemon=True)
+    reader.start()
+    child = child_start = t_stop = t_term = None
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < 400:
+            if t_stop is None:
+                try:
+                    with open(csv_path) as f:
+                        rows = [ln.split(",")[0] for ln in f.read().splitlines()[1:]]
+                except OSError:
+                    rows = []
+                if any(r.isdigit() and int(r) >= SUP_PAUSE_AT for r in rows):
+                    kids = _children(proc.pid)
+                    check(len(kids) == 1, f"supervise_train: children {kids}")
+                    child = kids[0]
+                    child_start = _start_time(child)
+                    os.kill(child, signal.SIGSTOP)
+                    t_stop = time.perf_counter()
+            elif t_term is None and any("stall at iter" in ln for ln in lines):
+                t_term = time.perf_counter()
+                os.kill(child, signal.SIGCONT)
+            time.sleep(0.05)
+        rc = proc.wait(timeout=30)
+    finally:
+        # cut short: end the supervisor's children (each its own session),
+        # the one paused here too if it is still that process, then it
+        kids = _children(proc.pid) if proc.poll() is None else []
+        if child is not None and _start_time(child) == child_start:
+            kids.append(child)
+        for pid in kids:
+            for sig in (signal.SIGCONT, signal.SIGKILL):
+                try:
+                    os.killpg(pid, sig)
+                except (ProcessLookupError, PermissionError):
+                    pass
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    wall = time.perf_counter() - t0
+    text = "".join(lines)
+    with open(child_log) as f:
+        clog = f.read()
+    check(rc == 0 and t_stop is not None and t_term is not None,
+          f"supervise_train exited {rc} (paused: {t_stop is not None}, stall seen: {t_term is not None}):\n"
+          f"{text[-3000:]}\n{clog[-3000:]}")
+    check(text.count("stall at iter") == 1 and text.count(": SIGTERM") == 1 and "complete at iter" in text
+          and re.search(r"stall handled: (clean|snapshot-kill)", text) is not None,
+          f"supervise_train's record:\n{text[-3000:]}")
+    signalled = re.findall(r"signal received: snapshotting at iteration (\d+)", clog)
+    resumed = re.findall(r"resumed from \S+_iter_(\d+)\.npz at iteration (\d+)", clog)
+    check(len(signalled) == 1 and len(resumed) == 1 and resumed[0][0] == signalled[0]
+          and os.path.exists(os.path.join(out, f"{prefix}_iter_{SUP_STEPS}.npz")),
+          f"the child's snapshots and resume: signalled {signalled}, resumed {resumed}\n{clog[-3000:]}")
+    runs = re.findall(r"done at iteration (\d+); launches hough_vote (\d+) conv3x3 (\d+) nms (\d+)", clog)
+    check(len(runs) == 2 and int(runs[1][0]) == SUP_STEPS, f"the child's runs {runs}")
+    return {"wall_s": wall, "stall_s": t_term - t_stop, "signalled_at": int(signalled[0]),
+            "launches": {k: sum(int(r[i]) for r in runs) for i, k in enumerate(("hough_vote", "conv3x3", "nms"), 1)},
+            "lines": [ln.strip() for ln in lines if ln.startswith("[supervisor]")]}
+
+
+def _vis_train_run(work: str) -> dict:
+    """Phase 17 (f): `train_net --cfg toy_pose.yml --imdb toy_train --iters
+    VIS_TRAIN_STEPS --vis`. The Solver's hook is called once a step with
+    the host batch (recorded here); it draws the first 8 batches, one PNG
+    an image, named iter<step>_im<i>.png. Each PNG decodes to the batch's
+    image size and equals the visualizer run again on the recorded batch.
+    Returns the run's launches."""
+    import copy
+
+    from posecnn_torch.engine import visualize as VIS
+    from posecnn_torch.utils.png import IMREAD_UNCHANGED, imread
+
+    records, hook_ms = [], []
+    orig = VIS.MinibatchVisualizer.__call__
+
+    def recording(self, iteration, batch):
+        records.append((copy.copy(self), iteration, {k: np.array(batch[k]) for k in
+                                                     ("data", "gt_label_2d", "meta_data", "poses", "gt_centers")
+                                                     if k in batch}))
+        t0 = time.perf_counter()
+        orig(self, iteration, batch)
+        hook_ms.append((time.perf_counter() - t0) * 1e3)
+
+    cfg = os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml")
+    out = os.path.join(work, "vis_train")
+    VIS.MinibatchVisualizer.__call__ = recording
+    try:
+        rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg, "--imdb", "toy_train", "--iters",
+                           str(VIS_TRAIN_STEPS), "--vis", "--output", out], os.path.join(work, "vis_train.log"), 600)
+    finally:
+        VIS.MinibatchVisualizer.__call__ = orig
+    check(rc == 0, f"train_net --vis exited {rc}:\n{log[-3000:]}")
+    n = launches_of(log)
+    check(n == {"step": VIS_TRAIN_STEPS, "hough_vote": 4 * VIS_TRAIN_STEPS, "conv3x3": 2 * VIS_TRAIN_STEPS, "nms": 0},
+          f"train_net --vis launches {n}")
+    check([it for _, it, _ in records] == list(range(1, VIS_TRAIN_STEPS + 1)), f"vis hook calls {len(records)}")
+    drawn = records[:records[0][0].max_batches]
+    B = drawn[0][2]["data"].shape[0]
+    names = sorted(os.listdir(os.path.join(out, "vis_minibatch")))
+    check(len(drawn) == 8 and names == sorted(f"iter{it:06d}_im{i}.png" for _, it, _ in drawn for i in range(B)),
+          f"vis_minibatch holds {names}")
+    host = os.path.join(work, "vis_train_host")
+    for vis, it, batch in drawn:
+        again = copy.copy(vis)
+        again.out_dir, again._seen = os.path.join(host, "vis_minibatch"), 0
+        os.makedirs(again.out_dir, exist_ok=True)
+        orig(again, it, batch)
+        for i in range(B):
+            name = f"iter{it:06d}_im{i}.png"
+            png = imread(os.path.join(out, "vis_minibatch", name), IMREAD_UNCHANGED)
+            check(png.shape == batch["data"].shape[1:3] + (3,) and png.dtype == np.uint8, f"{name}: {png.shape}")
+            check(np.array_equal(png, imread(os.path.join(again.out_dir, name), IMREAD_UNCHANGED)),
+                  f"{name} differs from the host redraw")
+    phase(17, f"(f) train_net --cfg toy_pose.yml --imdb toy_train --iters {VIS_TRAIN_STEPS} --vis: {len(names)} PNGs "
+              f"of {B} images x {len(drawn)} batches ({png.shape[1]}x{png.shape[0]}), each equal to the visualizer run "
+              f"again on its recorded host batch; the hook takes {statistics.median(hook_ms[:len(drawn)]):.3f} ms a "
+              f"drawn batch (median), {statistics.median(hook_ms[len(drawn):]):.4f} ms after; launches {n}")
+    return {k: n[k] for k in ("hough_vote", "conv3x3", "nms")}
+
+
+def _roi_pool_timing(dev) -> None:
+    """Phase 17 (g): phase 6's flagship inference (`entry`'s seed-0 model,
+    `make_inference_fn`, phase 6's first frame) with its two
+    `roi_pool_batched` calls recorded (conv5_3 and conv4_3 with the frame's
+    rois); on those inputs the doubling-table
+    forward and the masked max it replaced (`tests/torch_parity.py:
+    roi_pool_masked_max`) are held equal and timed in turn (new, old, old,
+    new; ROI_REPS back-to-back calls each, CUDA events, inference mode)."""
+    import torch
+
+    from posecnn_torch.config import PIXEL_MEANS, flagship_cfg
+    from posecnn_torch.engine.test import make_inference_fn
+    from posecnn_torch.entry import entry
+    from posecnn_torch.models import posecnn as PM
+    from posecnn_torch.ops.roi_pool import roi_pool_batched
+    from posecnn_torch.utils.meta import build_meta_data
+    from tests.torch_parity import roi_pool_masked_max
+
+    _, (model, _, _, extents) = entry(dev)
+    infer = make_inference_fn(flagship_cfg(is_train=False), PIXEL_MEANS, dev)
+    with np.load(os.path.join(FRAMES_DIR, sorted(os.listdir(FRAMES_DIR))[0])) as f:
+        color = torch.from_numpy(np.ascontiguousarray(f["color"][None])).to(dev)
+        meta = torch.from_numpy(build_meta_data(f["intrinsic_matrix"])[None]).to(dev)
+    calls = []
+
+    def recording(feat, rois, pooled, scale):
+        calls.append((feat.clone(), rois.clone(), pooled, scale))
+        return roi_pool_batched(feat, rois, pooled, scale)
+
+    PM.roi_pool_batched = recording
+    try:
+        infer(model, color, meta, extents)
+    finally:
+        PM.roi_pool_batched = roi_pool_batched
+    del model
+    check(len(calls) == 2, f"roi_pool_batched called {len(calls)} times by the flagship inference")
+
+    def timed(f, args):
+        with torch.inference_mode():
+            for _ in range(3):
+                f(*args)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(ROI_REPS):
+                f(*args)
+            e1.record()
+            e1.synchronize()
+        return e0.elapsed_time(e1) / ROI_REPS
+
+    parts = []
+    for args in calls:
+        with torch.inference_mode():
+            check(torch.equal(roi_pool_batched(*args), roi_pool_masked_max(*args)),
+                  "the doubling-table forward differs from the masked max")
+        t = {"new": [], "old": []}
+        for which in ("new", "old", "old", "new"):
+            t[which].append(timed(roi_pool_batched if which == "new" else roi_pool_masked_max, args))
+        feat = args[0]
+        parts.append(f"{tuple(feat.shape)} {str(feat.dtype)[6:]} at 1/{round(1 / args[3])}: doubling table "
+                     f"{t['new'][0]:.4f} / {t['new'][1]:.4f} ms, masked max {t['old'][0]:.4f} / {t['old'][1]:.4f} ms")
+    phase(17, f"(g) roi_pool_batched's forward on the flagship inference's inputs ({calls[0][1].shape[1]} rois), "
+              f"equal to the masked max; a call, back to back: " + "; ".join(parts))
+
+
+def cli_surface_phase(work: str, dev, seed0: str) -> dict:
+    """Phase 17: the rest of the JAX CLIs' surface. (a) ResNet-50 at full
+    width: `train_net --cfg rgbd_scene_single_color_fcn8.yml --network
+    resnet50 --imdb lov_syn_val_v4 --iters R50_STEPS` (an FCN8VGG cfg:
+    --network resnet50 takes over, as in the JAX CLI; B=2, 640x480, bf16;
+    stream ms a step, data wait, peak memory, losses at steps 1 and 20, no
+    kernel launched: ResNet-50 runs cuDNN throughout), `test_net` with the
+    same flags on its snapshot (ms a frame, mean IoU), and the float32
+    forward (TF32 off) against the JAX golden (`check_resnet50_golden`:
+    score within 1e-4 of its largest magnitude, labels equal outside
+    ties). (b) `test_net --model <seed-0 snapshot> --max_frames VIS_FRAMES
+    --vis`: one 480x640x3 PNG a frame, each equal to the port's visualizer
+    called again on the host on the outputs it was given (recorded in this
+    process), the ms a frame it adds. (c) `tools.diag_rot` on that snapshot
+    (DIAG_FRAMES frames of lov_syn_val_v4, both arms): the report, each
+    arm's vote launches (2 a frame), the wall seconds. (d)
+    `tools.isolate_pose --iters ISO_STEPS --report_every ISO_REPORT
+    --frames ISO_FRAMES` on the YCB-Video tree of phase 15 (POSECNN_DATA at
+    it for this part): the step ms, the evaluations, finite losses. (e)
+    `tools.supervise_train` around the toy run, one stall, one SIGTERM,
+    one snapshot and one --resume to the end (`_supervised_run`). (f)
+    `train_net --vis` on the toy cfg (`_vis_train_run`). (g) the RoI
+    pool's forward, the doubling table against the masked max it
+    replaced, on the flagship inference's inputs (`_roi_pool_timing`).
+    Returns each path's launches."""
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.engine import visualize as VIS
+    from posecnn_torch.utils.png import IMREAD_UNCHANGED, imread
+    from tests.torch_parity import check_resnet50_golden, resnet50_on_golden, write_lov_tree
+
+    launches = {}
+    # (a) ResNet-50
+    cfg = os.path.join(ROOT, "experiments", "cfgs", "rgbd_scene_single_color_fcn8.yml")
+    out = os.path.join(work, "resnet50")
+    rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg, "--network", "resnet50", "--imdb", "lov_syn_val_v4",
+                       "--iters", str(R50_STEPS), "--output", out], os.path.join(work, "resnet50_train.log"), 900)
+    check(rc == 0, f"train_net --network resnet50 exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(out, "train_timing.json")) as f:
+        timing = json.load(f)
+    first, last = _cli_losses(log, 1, R50_STEPS), _cli_losses(log, R50_STEPS, R50_STEPS)
+    n = launches_of(log)
+    check(all(np.isfinite(v) for v in (*first.values(), *last.values())) and "loss_cls" in last,
+          f"resnet50 losses {first} {last}")
+    check(n == {"step": R50_STEPS, "hough_vote": 0, "conv3x3": 0, "nms": 0}, f"resnet50 train launches {n}")
+    launches["resnet50_train_cli"] = {k: n[k] for k in ("hough_vote", "conv3x3", "nms")}
+    snap = os.path.join(out, f"fcn8_color_single_iter_{R50_STEPS}.npz")
+    with np.load(snap) as d:
+        check("['params']['bn5c_branch2c']['variance']" in d.files, "the snapshot is not ResNet-50's")
+    ms = {k: statistics.median(timing["ms"][k][R50_WARMUP:]) for k in ("step_stream", "step", "data_wait")}
+    phase(17, f"(a) train_net --cfg rgbd_scene_single_color_fcn8.yml --network resnet50 --imdb lov_syn_val_v4 "
+              f"(B=2, 640x480, bf16): {ms['step_stream']:.3f} ms stream a step, {ms['step']:.3f} ms host, data wait "
+              f"{ms['data_wait']:.3f} ms (medians of steps {R50_WARMUP + 1}-{R50_STEPS}), peak memory "
+              f"{timing['peak_memory_mib']:.1f} MiB; loss step 1 {first}, step {R50_STEPS} {last}; launches "
+              f"{n} (cuDNN throughout)")
+    print("resnet50 stream ms " + json.dumps([round(x, 3) for x in timing["ms"]["step_stream"]]), flush=True)
+    ev = os.path.join(work, "resnet50_eval")
+    rc, log = run_cli(["posecnn_torch.test_net", "--cfg", cfg, "--network", "resnet50", "--imdb", "lov_syn_val_v4",
+                       "--model", snap, "--max_frames", str(R50_EVAL_FRAMES), "--output", ev],
+                      os.path.join(work, "resnet50_eval.log"), 600)
+    check(rc == 0, f"test_net --network resnet50 exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(ev, "eval_timing.json")) as f:
+        et = json.load(f)
+    with open(os.path.join(ev, "eval_summary.json")) as f:
+        miou = json.load(f)["mean_iou"]
+    check(et["network"] == "resnet50" and et["frames"] == R50_EVAL_FRAMES and 0 <= miou <= 1,
+          f"resnet50 eval {et.get('network')} {et['frames']} {miou}")
+    infer_ms = statistics.median(et["ms"]["infer"][R50_EVAL_WARMUP:])
+    r50_mem = et["peak_memory_mib"]
+    out_g, g = resnet50_on_golden(dev)
+    e = check_resnet50_golden(out_g, g)
+    del out_g
+    phase(17, f"(a) test_net --network resnet50 on the iter-{R50_STEPS} snapshot, {R50_EVAL_FRAMES} frames: "
+              f"{infer_ms:.3f} ms a frame to the label map on the host (median of frames {R50_EVAL_WARMUP + 1}-"
+              f"{R50_EVAL_FRAMES}), peak memory {r50_mem:.1f} MiB, mean IoU {miou:.4f}; the float32 forward (TF32 "
+              f"off) against the JAX golden: score max|err| {e['score']:.3g} of {e['score_max']:.3g} (limit 1e-4 x), "
+              f"labels {e['label_agreement']:.6f} equal ({e['ties']} pixels within ties)")
+
+    # (b) test_net --vis, each overlay drawn again on the host from its inputs
+    records = []
+    orig = VIS.PredictionVisualizer.__call__
+
+    def recording(self, index, frame, out_, rois, poses):
+        records.append((index, frame, {"label_2d": np.array(out_["label_2d"])}, np.array(rois),
+                        None if poses is None else np.array(poses)))
+        return orig(self, index, frame, out_, rois, poses)
+
+    ev = os.path.join(work, "vis_eval")
+    VIS.PredictionVisualizer.__call__ = recording
+    try:
+        rc, log = run_cli(["posecnn_torch.test_net", "--model", seed0, "--max_frames", str(VIS_FRAMES), "--vis",
+                           "--output", ev], os.path.join(work, "vis_eval.log"), 600)
+    finally:
+        VIS.PredictionVisualizer.__call__ = orig
+    check(rc == 0, f"test_net --vis exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(ev, "eval_timing.json")) as f:
+        et = json.load(f)
+    ds = LovSynVal()
+    vis = VIS.PredictionVisualizer(os.path.join(work, "vis_host"), ds.classes, ds._extents)
+    check(len(records) == VIS_FRAMES and sorted(os.listdir(os.path.join(ev, "vis"))) == [
+        f"{i:06d}-vis.png" for i in range(VIS_FRAMES)], f"vis: {len(records)} calls, {os.listdir(ev)}")
+    drawn = 0
+    for index, frame, o, rois, poses in records:
+        png = imread(os.path.join(ev, "vis", f"{index:06d}-vis.png"), IMREAD_UNCHANGED)
+        check(png.shape == (480, 640, 3) and png.dtype == np.uint8, f"vis png {png.shape} {png.dtype}")
+        check(np.array_equal(png, vis.render(frame, o, rois, poses)), f"vis frame {index}: the PNG differs")
+        drawn += int((png != frame.color).any(-1).sum())
+    check(et["launches"] == {"hough_vote": 2 * VIS_FRAMES, "conv3x3": VIS_FRAMES, "nms": 0},
+          f"test_net --vis launches {et['launches']}")
+    launches["vis_eval"] = et["launches"]
+    vis_ms = statistics.median(et["ms"]["vis"])
+    phase(17, f"(b) test_net --model <seed-0> --max_frames {VIS_FRAMES} --vis: {VIS_FRAMES} PNGs of 480x640x3, each "
+              f"equal to the visualizer run again on the host on its recorded inputs ({drawn} pixels drawn over the "
+              f"frames); the visualizer adds {vis_ms:.3f} ms a frame (median; frame "
+              f"{statistics.median(et['ms']['frame']):.3f} ms); launches {et['launches']}")
+
+    # (c) diag_rot
+    dr = os.path.join(work, "diag_rot.json")
+    rc, log = run_cli(["posecnn_torch.tools.diag_rot", "--model", seed0, "--frames", str(DIAG_FRAMES), "--imdb",
+                       "lov_syn_val_v4", "--out", dr], os.path.join(work, "diag_rot.log"), 600)
+    check(rc == 0, f"diag_rot exited {rc}:\n{log[-3000:]}")
+    with open(dr) as f:
+        report = json.load(f)
+    m = re.search(r"^launches (\{.*\}); seconds", log, re.M)
+    check(m is not None and sorted(report) == ["frames", "gt_hough", "imdb", "model", "pred_hough"]
+          and report["frames"] == DIAG_FRAMES and report["gt_hough"]["n_rot"] > 0, f"diag_rot:\n{log[-2000:]}")
+    arms = json.loads(m.group(1))
+    per_arm = {"hough_vote": 2 * DIAG_FRAMES, "conv3x3": DIAG_FRAMES, "nms": 0}
+    check(arms == {"gt_hough": per_arm, "pred_hough": per_arm}, f"diag_rot launches {arms}")
+    launches["diag_rot"] = {k: sum(a[k] for a in arms.values()) for k in per_arm}
+    phase(17, f"(c) diag_rot --model <seed-0> --frames {DIAG_FRAMES} --imdb lov_syn_val_v4: {CLI_RUNS[-1]['wall_s']:.1f} s; "
+              f"launches by arm {arms}; report {json.dumps({k: report[k] for k in ('gt_hough', 'pred_hough')})}")
+
+    # (d) isolate_pose on the YCB-Video tree
+    root = os.path.join(work, "datasets")
+    if not os.path.isdir(os.path.join(root, "LOV")):
+        write_lov_tree(root)
+    old_root = os.environ.get("POSECNN_DATA")
+    os.environ["POSECNN_DATA"] = root
+    iso = os.path.join(work, "isolate_pose")
+    try:
+        rc, log = run_cli(["posecnn_torch.tools.isolate_pose", "--iters", str(ISO_STEPS), "--report_every",
+                           str(ISO_REPORT), "--frames", str(ISO_FRAMES), "--out", iso],
+                          os.path.join(work, "isolate_pose.log"), 600)
+    finally:
+        if old_root is None:
+            os.environ.pop("POSECNN_DATA", None)
+        else:
+            os.environ["POSECNN_DATA"] = old_root
+    check(rc == 0, f"isolate_pose exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(iso, "report.json")) as f:
+        rep = json.load(f)
+    traj = rep["trajectory"]
+    m = re.search(r"launches hough_vote (\d+) conv3x3 (\d+) nms (\d+)", log)
+    check([t["iter"] for t in traj] == list(range(0, ISO_STEPS + 1, ISO_REPORT)) and m is not None
+          and all(np.isfinite(t["loss_pose"]) for t in traj[1:]) and int(m.group(1)) > 0,
+          f"isolate_pose:\n{log[-2000:]}")
+    launches["isolate_pose"] = {k: int(m.group(i)) for i, k in enumerate(("hough_vote", "conv3x3", "nms"), 1)}
+    step_ms = rep["timing"]["step_ms"]
+    phase(17, f"(d) isolate_pose --iters {ISO_STEPS} --report_every {ISO_REPORT} --frames {ISO_FRAMES} (B=2, "
+              f"640x480, bf16, roi pooling): {statistics.median(step_ms[2:]):.3f} ms stream a step (median of steps "
+              f"3-{ISO_STEPS}; first {step_ms[0]:.1f} ms); launches {launches['isolate_pose']}; evaluations "
+              + "; ".join(json.dumps({k: (round(v, 4) if isinstance(v, float) else v) for k, v in t.items()})
+                          for t in traj))
+
+    # (e) the supervisor
+    sup = _supervised_run(work)
+    launches["supervised_toy"] = sup["launches"]
+    phase(17, f"(e) supervise_train around train_net --cfg toy_pose.yml --iters {SUP_STEPS}: child paused after its "
+              f"step-{SUP_PAUSE_AT} row, the stall seen {sup['stall_s']:.1f} s later (--stall-sec {SUP_STALL_S}), "
+              f"SIGTERM, snapshot at {sup['signalled_at']}, --resume to {SUP_STEPS}; {sup['wall_s']:.1f} s in all; "
+              f"launches {sup['launches']}")
+    for ln in sup["lines"]:
+        print(ln, flush=True)
+
+    # (f) train_net --vis: the host minibatches drawn, each PNG against the host redraw
+    launches["vis_train_cli"] = _vis_train_run(work)
+    # (g) the RoI pool's forward at the flagship inference's shapes: the doubling table against the masked max
+    _roi_pool_timing(dev)
+    return launches
 
 
 def main() -> int:
@@ -3057,6 +3483,7 @@ def main() -> int:
         slice_j_launches = full_adapt_gan_phase(work, dev)
         dataset_launches = datasets_phase(work, dev)
         mesh_launches = mesh_phase(work, dev, smi)
+        surface_launches = cli_surface_phase(work, dev, seed0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3065,7 +3492,7 @@ def main() -> int:
     sources = {"hough_vote": ("posecnn_torch/csrc/hough_vote.cu", "posecnn_tpu/ops/pallas/voting.py:36"),
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
     det_paths = {f"launches_{path}": n for path, n in {**det_launches, **slice_j_launches, **dataset_launches,
-                                                        **mesh_launches}.items()}
+                                                        **mesh_launches, **surface_launches}.items()}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],

@@ -542,11 +542,30 @@ def get_output_dir(config: Config, imdb_name: str, net_name: Optional[str] = Non
 # -------------------------------------------------------------- the builders
 
 
-# the networks the port runs: PoseCNN, its all-scale variant, FCN-8s and
-# the detection network (`models/factory.py`); VGG16GAN has no branch in the
-# JAX CLIs, which train and score it as PoseCNN (`models/gan.py` is reached
-# through the factory alone)
-NETWORKS = ("VGG16", "VGG16FULL", "VGG16GAN", "FCN8VGG", "VGG16DET")
+# the networks the port runs: PoseCNN, its all-scale variant, FCN-8s,
+# ResNet-50 and the detection network (`models/factory.py`); VGG16GAN has
+# no branch in the JAX CLIs, which train and score it as PoseCNN
+# (`models/gan.py` is reached through the factory alone). The JAX config
+# has no RESNET50 value either: `--network resnet50` is its route there
+NETWORKS = ("VGG16", "VGG16FULL", "VGG16GAN", "FCN8VGG", "RESNET50", "VGG16DET")
+
+
+def pick_network(network: Optional[str], flag: str) -> str:
+    """The factory name of the network a CLI builds from the config's
+    NETWORK (None without a config) and its --network flag, with the JAX
+    CLIs' precedence (`tools/train_net.py:83-96`, `tools/test_net.py:
+    61-109`): VGG16DET by either first, then ResNet-50 by either (under an
+    FCN8VGG config too), then FCN-8s, then VGG16FULL; otherwise the flag
+    (VGG16 and VGG16GAN build PoseCNN, `vgg16_convs`)."""
+    if network == "VGG16DET" or flag == "vgg16_det":
+        return "vgg16_det"
+    if network == "RESNET50" or flag == "resnet50":
+        return "resnet50"
+    if network == "FCN8VGG" or flag == "fcn8_vgg":
+        return "fcn8_vgg"
+    if network == "VGG16FULL" or flag == "vgg16_full":
+        return "vgg16_full"
+    return flag
 
 
 def unsupported(cfg: Config, train: bool = True) -> List[str]:
@@ -568,15 +587,11 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
             ("TPU.HOUGH_FROM_GT", P.HOUGH_FROM_GT, P.HOUGH_FROM_GT and cfg.NETWORK == "VGG16FULL"),
             ("TPU.HOUGH_GT_MIX", P.HOUGH_GT_MIX, P.HOUGH_GT_MIX > 0 and cfg.NETWORK == "VGG16FULL"),
             ("TRAIN.MATCHING", T.MATCHING, T.MATCHING),
-            ("TRAIN.VISUALIZE", T.VISUALIZE, T.VISUALIZE),
             ("TPU.DEVICE_TARGETS", P.DEVICE_TARGETS, not P.DEVICE_TARGETS),
-            ("TPU.USE_CROP_POOL", P.USE_CROP_POOL,
-             T.POSE_REG and T.VERTEX_REG_2D and not P.USE_CROP_POOL),
         ]
     else:
         rules += [
             ("TEST.VOTING_THRESHOLD", S.VOTING_THRESHOLD, S.VOTING_THRESHOLD > 0),
-            ("TEST.VISUALIZE", S.VISUALIZE, S.VISUALIZE),
             # the JAX package's test_net on PoseCNN without the vertex head
             # raises KeyError: postprocess_detections reads rois, which the
             # inference function returns only with it (engine/test.py:87);

@@ -20,8 +20,11 @@ A weight's rank tells the two apart, so the same functions serve PoseCNN
 (with its domain head, `fc9` and `domain_score`), VGG16FULL
 (`models/posecnn_full.py`: `score_conv1`..`score_conv5` and their
 `_vertex` twins), the detection network (`fc6` a fully connected layer,
-`models/detection.py`) and FCN-8s (`fc6` a 7x7 convolution,
-`models/fcn8.py`).
+`models/detection.py`), FCN-8s (`fc6` a 7x7 convolution,
+`models/fcn8.py`) and ResNet-50 (`models/resnet50.py`: convolutions
+without biases but for `conv1` and `score`, and the batch norms' `mean`
+and `variance` leaves, which go across as they are; its `upscore` is the
+32x32 filter at the score's width).
 """
 
 from __future__ import annotations
@@ -59,6 +62,11 @@ _UPSCORES = {
 # VGG16FULL's x2 filters between its five scales, at num_units
 _FULL_UPSCORES = tuple((f"upscore_conv{lvl}", 4) for lvl in "5432")
 _KEY = re.compile(r"\['([^']*)'\]")
+# ResNet-50's layers (`models/resnet50.py`; `score` is in _HEADS)
+_RESNET = re.compile(r"conv1|bn_conv1|(res|bn)[2-5][a-f]_branch(1|2[abc])")
+# a JAX leaf -> the port's parameter name, and back
+_LEAVES = {"weights": "weight", "biases": "bias", "mean": "mean", "variance": "variance"}
+_LEAVES_BACK = {v: k for k, v in _LEAVES.items()}
 
 
 def _trunc_normal(rng: np.random.Generator, shape, stddev: float) -> np.ndarray:
@@ -155,7 +163,7 @@ def _module_key(name: str) -> str:
         return f"trunk.{name}"
     if name.endswith("_p") and name[:-2] in _TRUNK:
         return f"trunk_p.{name[:-2]}"
-    if name in _HEADS:
+    if name in _HEADS or _RESNET.fullmatch(name):
         return name
     raise ValueError(f"parameter {name!r} belongs to a part of the network the port does not run")
 
@@ -168,22 +176,25 @@ def _layer_name(path: str) -> str:
 
 
 def params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX-layout parameters (nested `{layer: {'weights', 'biases'}}` or flat
-    npz key paths) -> a state_dict for `models.posecnn.PoseCNN` or
-    `models.fcn8.FCN8`."""
+    """JAX-layout parameters (nested `{layer: {'weights', 'biases'}}`, or
+    `{'mean', 'variance'}` for a batch norm, or flat npz key paths) -> a
+    state_dict for `models.posecnn.PoseCNN`, `models.fcn8.FCN8` or
+    `models.resnet50.ResNet50`."""
     nested = params if all(isinstance(v, Mapping) for v in params.values()) else _nest(params)
     sd: Dict[str, torch.Tensor] = {}
     for name, leaves in nested.items():
-        w = np.asarray(leaves["weights"], dtype=np.float32)
         if name.startswith("upscore"):
+            w = np.asarray(leaves["weights"], dtype=np.float32)
             k, c = w.shape[0], w.shape[2]
             if w.shape != (k, k, c, c) or not np.array_equal(w, make_deconv_filter(k, c)):
                 raise ValueError(f"{name}: not the fixed bilinear filter the port rebuilds")
             continue
         key = _module_key(name)
-        w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
-        sd[key + ".weight"] = torch.tensor(np.ascontiguousarray(w))
-        sd[key + ".bias"] = torch.tensor(np.asarray(leaves["biases"], dtype=np.float32))
+        for leaf, a in leaves.items():
+            a = np.asarray(a, dtype=np.float32)
+            if leaf == "weights":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            sd[f"{key}.{_LEAVES[leaf]}"] = torch.tensor(np.ascontiguousarray(a))
     return sd
 
 
@@ -194,14 +205,18 @@ def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np
     fc (out, in) -> (in, out); the `upscore*` filters, which the JAX package
     keeps as parameters, are written from the bilinear formula at the widths
     of the score layers that feed them (VGG16FULL's, recognised by its
-    `score_conv1`, between its five scales)."""
+    `score_conv1`, between its five scales; ResNet-50's, recognised by its
+    `bn_conv1`, the 32x32 `upscore`)."""
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for key, v in named.items():
         path, leaf = key.rsplit(".", 1)
         a = v.detach().float().cpu().numpy()
         if leaf == "weight":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
-        out.setdefault(_layer_name(path), {})["weights" if leaf == "weight" else "biases"] = np.ascontiguousarray(a)
+        out.setdefault(_layer_name(path), {})[_LEAVES_BACK[leaf]] = np.ascontiguousarray(a)
+    if "bn_conv1" in out:  # ResNet-50: x16 from the score's classes
+        out["upscore"] = {"weights": make_deconv_filter(32, out["score"]["weights"].shape[3])}
+        return out
     if "score_conv1" in out:
         ups = {s: tuple((name + s[len("score_conv5"):], k) for name, k in _FULL_UPSCORES)
                for s in ("score_conv5", "score_conv5_vertex")}
@@ -235,7 +250,7 @@ def param_shapes(cfg, network: str = "vgg16_convs") -> Dict[str, Dict[str, tuple
         s = tuple(v.shape)
         if leaf == "weight":
             s = (s[2], s[3], s[1], s[0]) if len(s) == 4 else s[::-1]
-        out.setdefault(_layer_name(path), {})["weights" if leaf == "weight" else "biases"] = s
+        out.setdefault(_layer_name(path), {})[_LEAVES_BACK[leaf]] = s
     return out
 
 

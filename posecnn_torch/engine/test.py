@@ -234,6 +234,7 @@ def test_net(
     icp_plane_weight: float = 0.0,
     timings: Optional[Dict[str, List[float]]] = None,
     forward_fn=None,
+    visualizer=None,
 ) -> List[Dict[str, Optional[np.ndarray]]]:
     """The evaluation loop (`engine/test.py:test_net`, PoseCNN with 2D vertex
     regression, with or without the pose head: without it a detection's
@@ -253,7 +254,12 @@ def test_net(
     frames), `nms`, `icp` (wall, to its result on the host), `icp_device`
     (CUDA events around it, on a card), `evaluator` and `frame` (the sum);
     with 3D vertex regression `ransac` (wall) and `ransac_device` (CUDA
-    events, on a card) in place of `nms`."""
+    events, on a card) in place of `nms`; with a `visualizer`, `vis`.
+
+    `visualizer` (TEST.VISUALIZE: `engine.visualize.PredictionVisualizer`)
+    is called after each frame's evaluation with (frame index, frame, the
+    inference output's label map as {"label_2d": (1, H, W)}, rois, the ICP
+    poses when there are any, else the poses), as the JAX loop calls it."""
     if not model_cfg.vertex_reg:
         # the JAX package's postprocess_detections reads rois, which its
         # inference function returns only with the vertex head: a KeyError
@@ -343,13 +349,19 @@ def test_net(
                     intrinsic_matrix=np.asarray(frame.intrinsic_matrix, np.float64),
                 )
             t4 = time.perf_counter()
+            if visualizer is not None:
+                visualizer(i, frame, {"label_2d": out_all["label_2d"][b:b + 1]}, rois,
+                           poses_icp if poses_icp is not None else poses)
+            t5 = time.perf_counter()
             if timings is not None:
                 decode = "ransac" if model_cfg.vertex_reg_3d else "nms"
                 ms = {"infer": t_infer, decode: (t2 - t1) * 1e3, "icp": (t3 - t2) * 1e3, "icp_device": icp_dev,
                       "evaluator": (t4 - t3) * 1e3}
                 if model_cfg.vertex_reg_3d:
                     ms["ransac_device"] = decode_dev
-                ms["frame"] = ms["infer"] / len(idxs) + ms[decode] + ms["icp"] + ms["evaluator"]
+                if visualizer is not None:
+                    ms["vis"] = (t5 - t4) * 1e3
+                ms["frame"] = ms["infer"] / len(idxs) + ms[decode] + ms["icp"] + ms["evaluator"] + ms.get("vis", 0.0)
                 for key, v in ms.items():
                     timings.setdefault(key, []).append(v)
             if log and (i + 1) % 50 == 0:

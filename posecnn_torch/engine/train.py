@@ -522,9 +522,11 @@ def make_seg_train_step(
     apply_fn: Callable, hp: TrainHParams, num_classes: int
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
     """Train step of the segmentation networks (`train.py:make_seg_train_step`,
-    FCN8VGG): the cross entropy of the log-softmax `prob` against the
-    one-hot labels of the pixels with a label >= 0, plus the L2 term over
-    every parameter (the bilinear upscore filters are none). The step reads
+    FCN8VGG and RESNET50): the cross entropy of the log-softmax `prob`
+    against the one-hot labels of the pixels with a label >= 0, plus the L2
+    term over every parameter but ResNet-50's batch-norm `mean` and
+    `variance` (which the update moves all the same, as in JAX; the
+    bilinear upscore filters are not parameters). The step reads
     only `data` and `gt_label_2d`: uint8 data has the pixel means subtracted
     and nothing else, so a batch's `chroma_dhls` and `noise_sigma` are not
     applied, as in the JAX step. `apply_fn(model, data, draws)` returns the
@@ -543,7 +545,9 @@ def make_seg_train_step(
         onehot = torch.nn.functional.one_hot(gt.clamp(0, num_classes - 1), num_classes).to(logp.dtype)
         onehot = onehot * (gt >= 0).to(logp.dtype)[..., None]
         loss_cls = loss_cross_entropy_single_frame(logp, onehot)
-        loss = loss_cls + regularization_loss(state.model, hp.weight_reg)
+        # the L2 term leaves out ResNet-50's batch-norm statistics (bn*)
+        reg = sum((p * p).sum() for k, p in state.model.named_parameters() if not k.startswith("bn"))
+        loss = loss_cls + hp.weight_reg * 0.5 * reg
         lr = sched(state.step)
         g_norm = train_update(state, loss, lr)
         return {"loss": loss.detach(), "loss_cls": loss_cls.detach(),
@@ -592,6 +596,11 @@ class Solver:
     `<snapshot_prefix>_iter_<step>.npz`, with the momentum trace when
     `snapshot_opt_state`; `resume` restores the latest.
 
+    `vis_hook` (TRAIN.VISUALIZE: `engine.visualize.MinibatchVisualizer`) is
+    called before each step with (step + 1, the item as the data iterator
+    gave it, before its copy to the device), as JAX's solver calls its
+    hook; its time is in no step's timings.
+
     Over a `mesh` of ranks, every rank runs the loop (and resumes from the
     same snapshot) and takes part in each snapshot's gather, rank 0 alone
     logs, writes `train_metrics.csv` and writes the snapshots, and a signal
@@ -600,7 +609,7 @@ class Solver:
 
     def __init__(self, step_fn, output_dir: Optional[str] = None, snapshot_iters: int = 10000,
                  snapshot_prefix: str = "posecnn", display: int = 20, snapshot_opt_state: bool = True,
-                 snapshot_final: bool = True, mesh=None):
+                 snapshot_final: bool = True, mesh=None, vis_hook=None):
         from posecnn_torch.core.metrics import MetricsLogger
 
         self.mesh = mesh
@@ -612,6 +621,7 @@ class Solver:
         self.display = display
         self.snapshot_opt_state = snapshot_opt_state
         self.snapshot_final = snapshot_final
+        self.vis_hook = vis_hook
         self.metrics_logger = MetricsLogger(output_dir) if output_dir and self.rank0 else None
 
     def resume(self, state: TrainState, log: Optional[Callable[[str], None]] = print) -> Tuple[TrainState, int]:
@@ -683,7 +693,7 @@ class Solver:
             item = next(data_iter)
             if timings is not None:
                 timings.setdefault("data_wait", []).append((time.perf_counter() - t) * 1e3)
-            return to_device(item, dev)
+            return item, to_device(item, dev)
 
         def flush_events():
             for e0, e1 in pending:
@@ -697,9 +707,11 @@ class Solver:
         try:
             batch_next = fetch() if start_iter < max_iters else None
             for it in range(start_iter, max_iters):
-                batch = batch_next
+                host, batch = batch_next
                 if it + 1 < max_iters:
                     batch_next = fetch()
+                if self.vis_hook is not None:
+                    self.vis_hook(it + 1, host)
                 t_step = time.perf_counter()
                 if timings is not None and cuda:
                     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -7,7 +7,9 @@ Port of `posecnn_tpu/models/factory.py` for the networks the port runs:
 `posecnn_full_forward`), `fcn8_vgg` (FCN-8s:
 `models.fcn8.init_fcn8_params_numpy`, `fcn8_forward`) and `vgg16_det`
 (the detection network: `models.detection.init_vgg16_det_params_numpy`,
-`vgg16_det_forward`). The JAX package's
+`vgg16_det_forward`) and `resnet50` (the segmentation network:
+`models.resnet50.init_resnet50_params_numpy`, `resnet50_forward`). The
+JAX package's
 other names raise NotImplementedError naming the network; a name it does
 not know raises KeyError, as there.
 """
@@ -39,7 +41,11 @@ def get_network(name: str) -> Tuple[Callable, Callable]:
         from posecnn_torch.models.detection import init_vgg16_det_params_numpy, vgg16_det_forward
 
         return init_vgg16_det_params_numpy, vgg16_det_forward
+    if name == "resnet50":
+        from posecnn_torch.models.resnet50 import init_resnet50_params_numpy, resnet50_forward
+
+        return init_resnet50_params_numpy, resnet50_forward
     if name in JAX_NETWORKS:
-        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, vgg16_convs, vgg16_det, "
-                                  "vgg16_full)")
+        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, resnet50, vgg16_convs, "
+                                  "vgg16_det, vgg16_full)")
     raise KeyError(f"Unknown network: {name}. Known: {sorted(JAX_NETWORKS)}")

@@ -55,8 +55,6 @@ class Linear(nn.Module):
 def _check_supported(cfg: PoseCNNConfig) -> None:
     unported = {
         "vote_threshold > 0": cfg.vote_threshold > 0,
-        # the exact roi_pool_batched backward (roi_pool.py:182-269) is not ported
-        "is_train without use_crop_pool": cfg.is_train and cfg.pose_reg and not cfg.use_crop_pool,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

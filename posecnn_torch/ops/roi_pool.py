@@ -1,12 +1,12 @@
 """RoI max pooling (Fast R-CNN), batch-aligned.
 
-Port of the semantics of `posecnn_tpu/ops/roi_pool.py:roi_pool_batched`: the
-bin geometry of `_bin_edges` (the reference CUDA op's floor/ceil fractional
-bins over `round(coord * scale)`, clipped to the map; empty bins give 0) and
-an exact max over each bin. The TPU doubling table is a workaround for
-batched gathers on the TPU and is not carried over: this plain version is a
-separable masked max (over W per output column, then over H per output row).
-JAX computes it in XLA, not in a Pallas kernel. `crop_pool_batched`, the
+Port of `posecnn_tpu/ops/roi_pool.py:roi_pool_batched`: the bin geometry
+of `_bin_edges` (the reference CUDA op's floor/ceil fractional bins over
+`round(coord * scale)`, clipped to the map; empty bins give 0) and an exact
+max over each bin, separable: over W per output column by the doubling
+table of `_range_colmax` (whose custom backward the port carries over, so
+the training gradient splits ties as JAX's does), then a masked max over H
+per output row. JAX computes it in XLA, not in a Pallas kernel. `crop_pool_batched`, the
 flagship training pool (`USE_CROP_POOL`), is at the end.
 """
 
@@ -46,6 +46,87 @@ def bin_edges(rois: torch.Tensor, pooled: int, spatial_scale: float, H: int, W: 
     return wstart, wend, hstart, hend
 
 
+def _build_levels(x: torch.Tensor):
+    """Doubling-max levels along axis 1 of (B, W, M): level k holds the max
+    over [i, i + 2^k) (`roi_pool.py:_build_levels`)."""
+    W = x.shape[1]
+    levels = [x]
+    k = 1
+    while 2 * k <= W:
+        prev = levels[-1]
+        pad = torch.full((x.shape[0], min(k, W)) + tuple(x.shape[2:]), NEG, dtype=x.dtype, device=x.device)
+        levels.append(torch.maximum(prev, torch.cat([prev[:, k:], pad], dim=1)))
+        k *= 2
+    return levels
+
+
+def _query_indices(wstart: torch.Tensor, wend: torch.Tensor, L: int, W: int):
+    """(B, Q) bin starts and ends -> each query's two taps into the (L, W)
+    table (`roi_pool.py:_query_indices`)."""
+    length = torch.clamp(wend - wstart, min=1)
+    kq = torch.zeros_like(length)
+    for j in range(1, L):
+        kq = kq + (length >= (1 << j)).to(kq.dtype)
+    p2 = torch.ones_like(kq) << kq
+    return (kq * W + wstart).long(), (kq * W + torch.clamp(wend - p2, min=0)).long()
+
+
+class _RangeColMax(torch.autograd.Function):
+    """The W stage of `roi_pool_batched` (`roi_pool.py:_range_colmax`, a
+    custom_vjp): feat_t (B, W, M), wstart and wend (B, Q) -> (B, Q, M), each
+    query's max over [wstart, wend) as the larger of two taps of the
+    doubling table. Its backward is JAX's: each tap's share of the
+    cotangent (a tie of the two taps splits it in halves), rounded to the
+    features' dtype, summed into the table in float32, then walked down the
+    levels (each level's tie between a position and its shifted partner
+    splits in halves), so the gradient of a bin reaches the features that
+    JAX's reaches, in JAX's shares."""
+
+    @staticmethod
+    def forward(ctx, feat_t, wstart, wend):
+        B, W, M = feat_t.shape
+        levels = _build_levels(feat_t)
+        L = len(levels)
+        flat = torch.stack(levels, dim=1).reshape(B, L * W, M)
+        idx1, idx2 = _query_indices(wstart, wend, L, W)
+        Q = idx1.shape[1]
+        t1 = torch.gather(flat, 1, idx1[..., None].expand(B, Q, M))
+        t2 = torch.gather(flat, 1, idx2[..., None].expand(B, Q, M))
+        if ctx.needs_input_grad[0]:  # the table, the taps and their values, for the backward
+            ctx.save_for_backward(flat, idx1, idx2, t1, t2)
+            ctx.levels = L
+        return torch.maximum(t1, t2)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, idx1, idx2, t1, t2 = ctx.saved_tensors
+        L = ctx.levels
+        B, LW, M = flat.shape
+        W, Q = LW // L, idx1.shape[1]
+        levels = flat.view(B, L, W, M)
+        eq = (t1 == t2).to(g.dtype)
+        d1 = g * ((t1 > t2).to(g.dtype) + 0.5 * eq)
+        d2 = g * ((t1 < t2).to(g.dtype) + 0.5 * eq)
+        # the taps' cotangents in the features' dtype, summed in float32
+        dq = torch.cat([d1, d2], dim=1).to(flat.dtype).float()
+        idx = torch.cat([idx1, idx2], dim=1)
+        dtable = torch.zeros((B, L * W, M), dtype=torch.float32, device=flat.device)
+        dtable.scatter_add_(1, idx[..., None].expand(B, 2 * Q, M), dq)
+        dtable = dtable.reshape(B, L, W, M)
+        dcur = dtable[:, L - 1]
+        for j in range(L - 1, 0, -1):
+            k = 1 << (j - 1)
+            prev = levels[:, j - 1]
+            pad = torch.full((B, min(k, W), M), NEG, dtype=prev.dtype, device=prev.device)
+            shifted = torch.cat([prev[:, k:], pad], dim=1)
+            eqj = (prev == shifted).to(dcur.dtype)
+            da = dcur * ((prev > shifted).to(dcur.dtype) + 0.5 * eqj)
+            db = dcur * ((prev < shifted).to(dcur.dtype) + 0.5 * eqj)
+            db_up = torch.cat([torch.zeros_like(db[:, :k]), db[:, :W - k]], dim=1)  # db[i] is prev[i + k]'s
+            dcur = da + db_up + dtable[:, j - 1]
+        return dcur.to(flat.dtype), None, None
+
+
 def roi_pool_batched(
     feat: torch.Tensor,
     rois: torch.Tensor,
@@ -53,25 +134,24 @@ def roi_pool_batched(
     spatial_scale: float = 1.0 / 16.0,
 ) -> torch.Tensor:
     """feat (B,H,W,C), rois (B,D,7), where row (b, d) pools image b (its own
-    batch column is ignored) -> (B, D, pooled, pooled, C) in feat's dtype."""
+    batch column is ignored) -> (B, D, pooled, pooled, C) in feat's dtype.
+    The W stage is `_RangeColMax` (JAX's doubling table and its backward);
+    the H stage a masked max, whose gradient splits among equal values as
+    jnp.max's does."""
     B, H, W, C = feat.shape
     D = rois.shape[1]
     wstart, wend, hstart, hend = bin_edges(rois.reshape(B * D, 7), pooled, spatial_scale, H, W)
-    wstart, wend = wstart.reshape(B, D, pooled), wend.reshape(B, D, pooled)
+    feat_t = feat.permute(0, 2, 1, 3).reshape(B, W, H * C)
+    colmax = _RangeColMax.apply(feat_t, wstart.reshape(B, D * pooled), wend.reshape(B, D * pooled))
+    colmax = colmax.reshape(B, D, pooled, H, C)  # (b, d, pw, h, c)
     hstart, hend = hstart.reshape(B, D, pooled), hend.reshape(B, D, pooled)
-    ws = torch.arange(W, device=feat.device)
+    wstart, wend = wstart.reshape(B, D, pooled), wend.reshape(B, D, pooled)
     hs = torch.arange(H, device=feat.device)
     neg = torch.tensor(NEG, dtype=feat.dtype, device=feat.device)
     out = []
-    for b in range(B):
-        f = feat[b]  # (H, W, C)
-        cols = []
-        for pw in range(pooled):  # W stage, one output column at a time
-            wmask = (ws[None, :] >= wstart[b, :, pw, None]) & (ws[None, :] < wend[b, :, pw, None])  # (D, W)
-            cols.append(torch.where(wmask[:, None, :, None], f[None], neg).amax(dim=2))  # (D, H, C)
-        colmax = torch.stack(cols, dim=1)  # (D, pw, H, C)
-        hmask = (hs[None, None, :] >= hstart[b, :, :, None]) & (hs[None, None, :] < hend[b, :, :, None])  # (D, ph, H)
-        o = torch.where(hmask[:, :, None, :, None], colmax[:, None], neg).amax(dim=3)  # (D, ph, pw, C)
+    for b in range(B):  # the H stage image by image: (D, ph, pw, H, C) at a time
+        hmask = (hs[None, None, :] >= hstart[b, :, :, None]) & (hs[None, None, :] < hend[b, :, :, None])
+        o = torch.where(hmask[:, :, None, :, None], colmax[b][:, None], neg).amax(dim=3)  # (D, ph, pw, C)
         empty = (hend[b] <= hstart[b])[:, :, None] | (wend[b] <= wstart[b])[:, None, :]
         out.append(torch.where(empty[..., None], torch.zeros((), dtype=feat.dtype, device=feat.device), o))
     return torch.stack(out)

@@ -53,10 +53,13 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
     """Join the process group; returns the world size (1: nothing done).
 
     The arguments default to POSECNN_COORDINATOR, POSECNN_NUM_PROCESSES,
-    POSECNN_PROCESS_ID and POSECNN_BACKEND. `device` is this rank's device
-    (`rank_device`): NCCL on CUDA, gloo on the CPU, unless `backend` says
-    otherwise. Raises ValueError on a partial or malformed setting, and
-    whatever `init_process_group` raises when the ranks cannot meet."""
+    POSECNN_PROCESS_ID and POSECNN_BACKEND. `device` is this rank's device:
+    by default its card (`rank_device("cuda")`), the CPU only when asked for
+    ("cpu"); NCCL on CUDA, gloo on the CPU, unless `backend` says
+    otherwise. Raises ValueError on a partial or malformed setting,
+    RuntimeError when the default card is asked for where CUDA is absent
+    (nothing falls back to the CPU), and whatever `init_process_group`
+    raises when the ranks cannot meet."""
     import torch
     import torch.distributed as dist
 
@@ -76,7 +79,12 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
     if not 0 <= process_id < num_processes:
         raise ValueError(f"POSECNN_PROCESS_ID {process_id} is not in [0, {num_processes})")
     host, port = _parse_address(coordinator_address)
-    dev = torch.device(device if device is not None else "cpu")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("initialize(): no CUDA device for this rank; pass device='cpu' to join over gloo "
+                               "on the CPU")
+        device = rank_device("cuda")
+    dev = torch.device(device)
     backend = backend or env.get("POSECNN_BACKEND") or ("nccl" if dev.type == "cuda" else "gloo")
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend {backend!r}: nccl or gloo")

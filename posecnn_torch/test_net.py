@@ -24,7 +24,9 @@ reads only the keys of the model it restores into.
 
 With --cfg of NETWORK FCN8VGG (or --network fcn8_vgg), the segmentation
 evaluation (`segmentation`): the colour frames through FCN-8s, scored by
-the label IoU; `eval_summary.json`, `eval_timing.json` and the mean IoU
+the label IoU; with --network resnet50 (or NETWORK RESNET50), under any
+config but VGG16DET's, as the JAX CLI picks it, the same through
+ResNet-50; `eval_summary.json`, `eval_timing.json` and the mean IoU
 printed. With --cfg of NETWORK VGG16DET, the detection evaluation
 (`detection`): VOC AP@0.5 per class and its mean (`mAP@0.5`) in
 `eval_summary.json`. With TEST.VERTEX_REG_3D, the 3D head's object
@@ -42,8 +44,15 @@ the 3 symmetric YCB classes; without --model, the seed-0 weights of
 `entry`. Its object models are stand-ins (`data/lov_syn.py`), so its ADD-S
 numbers are not comparable with the paper's.
 
+With --vis, or TEST.VISUALIZE, the PoseCNN evaluations (VGG16FULL's too)
+write each frame's overlay as <output>/vis/<frame:06d>-vis.png
+(`engine.visualize.PredictionVisualizer`: the label map, each detection's
+box and class name, its pose's projected 3D box, the ICP poses when ICP
+ran); the segmentation and detection evaluations draw none, as in the JAX
+CLI.
+
 Usage: python -m posecnn_torch.test_net [--cfg FILE.yml] [--imdb NAME] [--model SNAPSHOT.npz]
-           [--max_frames N] [--eval_batch B] [--icp_plane_weight W] [--output DIR] [--device cuda]
+           [--max_frames N] [--eval_batch B] [--icp_plane_weight W] [--output DIR] [--vis] [--device cuda]
 
 --model takes an npz snapshot of either package. Writes to the output
 directory: `detections.npz` (keys `<frame:06d>_<rois|poses|poses_refined|poses_icp>`)
@@ -74,6 +83,8 @@ def main(argv=None) -> int:
     ap.add_argument("--eval_batch", type=int, default=1, help="frames per inference call")
     ap.add_argument("--icp_plane_weight", type=float, default=None, help="override TPU.ICP_PLANE_WEIGHT")
     ap.add_argument("--output", default=None, help="output directory")
+    ap.add_argument("--vis", action="store_true",
+                    help="write prediction overlays (TEST.VISUALIZE) under <output>/vis")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -96,18 +107,17 @@ def main(argv=None) -> int:
     from posecnn_torch.models.factory import get_network
 
     config = C.cfg_from_file(args.cfg) if args.cfg else None
-    # NETWORK FCN8VGG, VGG16DET and VGG16FULL take over --network
+    # NETWORK and --network with the JAX CLI's precedence
     # (tools/test_net.py:61-109); VGG16GAN is scored as PoseCNN; a network
     # the port does not run raises here
-    name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det", "VGG16FULL": "vgg16_full"}.get(
-        getattr(config, "NETWORK", None), args.network)
+    name = C.pick_network(getattr(config, "NETWORK", None), args.network)
     init_fn, forward_fn = get_network(name)
     if args.cfg:
         from posecnn_torch.data.factory import get_imdb
 
         dataset = get_imdb(args.imdb or "toy_val")
-        if name == "fcn8_vgg":
-            return segmentation(args, config, dataset, init_fn, forward_fn)
+        if name in ("fcn8_vgg", "resnet50"):
+            return segmentation(args, config, dataset, name, init_fn, forward_fn)
         if name == "vgg16_det":
             return detection(args, config, dataset, init_fn)
         cfg = C.test_model_cfg(config, dataset.num_classes)
@@ -136,13 +146,18 @@ def main(argv=None) -> int:
                               diameters=getattr(dataset, "diameters", None),
                               flip_z_classes=[c for c in ("eggbox", "glue") if c in dataset.classes])
     os.makedirs(out_dir, exist_ok=True)
+    visualizer = None
+    if args.vis or (config is not None and config.TEST.VISUALIZE):
+        from posecnn_torch.engine.visualize import PredictionVisualizer
+
+        visualizer = PredictionVisualizer(os.path.join(out_dir, "vis"), dataset.classes, dataset._extents)
 
     timings = {}
     _reset_launches()
     t0 = time.perf_counter()
     results = engine.test_net(model, cfg, dataset, PIXEL_MEANS, evaluator=evaluator, max_frames=args.max_frames,
                               log=lambda m: print(m, flush=True), eval_batch=args.eval_batch, timings=timings,
-                              forward_fn=forward_fn, **test_cfg)
+                              forward_fn=forward_fn, visualizer=visualizer, **test_cfg)
     wall = time.perf_counter() - t0
     launches = _launches()
 
@@ -226,12 +241,15 @@ def detection(args, config, dataset, init_fn) -> int:
     return 0
 
 
-def segmentation(args, config, dataset, init_fn, forward) -> int:
-    """NETWORK FCN8VGG (`tools/test_net.py:99-127`): FCN-8s (the factory's
-    `init_fn`, `forward`) from numpy seed RNG_SEED, or the parameters of --model read as the JAX package's
-    `load_params_npz` reads them; `engine.test.test_net_segmentation` on the
-    dataset's colour frames; the IoU summary in `eval_summary.json` and the
-    mean IoU printed. The output directory ends in fcn8_vgg."""
+def segmentation(args, config, dataset, name, init_fn, forward) -> int:
+    """The segmentation networks (`tools/test_net.py:99-127`): network
+    `name` (fcn8_vgg or resnet50; the factory's `init_fn`, `forward`) from
+    numpy seed RNG_SEED, or the parameters of --model read as the JAX
+    package's `load_params_npz` reads them, at the network's shapes (JAX's
+    CLI hands `restore_checkpoint` a params dict there, and fails);
+    `engine.test.test_net_segmentation` on the dataset's colour frames; the
+    IoU summary in `eval_summary.json` and the mean IoU printed. The output
+    directory ends in the network's name."""
     import torch
 
     from posecnn_torch.core import config as C
@@ -239,14 +257,15 @@ def segmentation(args, config, dataset, init_fn, forward) -> int:
     from posecnn_torch.data.imdb import PoseEvaluator
     from posecnn_torch.engine import test as engine
     from posecnn_torch.models.fcn8 import make_fcn8
+    from posecnn_torch.models.resnet50 import make_resnet50
 
     n = dataset.num_classes
     params = init_fn(config.RNG_SEED, n)
     if args.model:
         params = load_params_npz(args.model, params, log=lambda m: print(m, flush=True))
-    model = make_fcn8(n, params, args.device)
+    model = (make_fcn8 if name == "fcn8_vgg" else make_resnet50)(n, params, args.device)
     evaluator = PoseEvaluator(dataset.classes, dataset._extents, dataset._points, [])
-    out_dir = args.output or C.get_output_dir(config, dataset.name, "fcn8_vgg")
+    out_dir = args.output or C.get_output_dir(config, dataset.name, name)
     os.makedirs(out_dir, exist_ok=True)
     timings = {}
     _reset_launches()
@@ -261,8 +280,8 @@ def segmentation(args, config, dataset, init_fn, forward) -> int:
     device = torch.cuda.get_device_name(0) if args.device.startswith("cuda") else "cpu"
     launches = _launches()
     with open(os.path.join(out_dir, "eval_timing.json"), "w") as f:
-        json.dump({"device": device, "imdb": dataset.name, "frames": len(timings.get("infer", [])), "wall_s": wall,
-                   "launches": launches, "ms": timings, **_peak(args.device)}, f, indent=1)
+        json.dump({"device": device, "imdb": dataset.name, "network": name, "frames": len(timings.get("infer", [])),
+                   "wall_s": wall, "launches": launches, "ms": timings, **_peak(args.device)}, f, indent=1)
     print(json.dumps({"mean_iou": summary["mean_iou"]}, indent=2))
     print(f"{len(timings.get('infer', []))} frames in {wall:.3f} s on {device}; launches {launches}", flush=True)
     return 0

@@ -42,7 +42,9 @@ randint(SYNNUM)) % SYNNUM), each pasted over a background of
 there are any (a background that is not a PNG raises NotImplementedError
 before the first step). NETWORK FCN8VGG (or --network fcn8_vgg)
 trains FCN-8s on the segmentation loss alone (`seg_run`, the JAX CLI's
-`train_segmentation`), under output/<EXP_DIR>/<imdb>/fcn8_vgg. NETWORK
+`train_segmentation`), under output/<EXP_DIR>/<imdb>/fcn8_vgg; NETWORK
+RESNET50 or --network resnet50 (under any config but VGG16DET's, as in the
+JAX CLI) ResNet-50 the same way, under .../resnet50. NETWORK
 VGG16DET trains the detection network (`det_run`, the JAX CLI's
 `train_det`: one raw frame a step, no resume), under
 output/<EXP_DIR>/<imdb>/vgg16_det. A config with a setting the port
@@ -82,8 +84,16 @@ launches and peak memory under `by_rank`, with the world size and the mesh.
 TPU.DEVICE_BANK, the run without --cfg (a device bank), VGG16FULL, FCN8VGG
 and VGG16DET are refused at more than one rank.
 
+With --vis, or TRAIN.VISUALIZE, a --cfg run of PoseCNN (or VGG16FULL) on
+host minibatches writes the first 8 of them as
+<output>/vis_minibatch/iter<step:06d>_im<i>.png
+(`engine.visualize.MinibatchVisualizer`: the image, the label overlay,
+the GT poses' projected 3D boxes, the GT centres), drawn from the host
+batch before its copy to the card; the segmentation and detection runs
+draw none, as in the JAX CLI, and a device-bank run refuses it.
+
 Usage: python -m posecnn_torch.train_net [--cfg FILE.yml] [--imdb NAME] [--iters N]
-           [--output DIR] [--resume] [--rand] [--device cuda]
+           [--output DIR] [--resume] [--rand] [--vis] [--device cuda]
 """
 
 from __future__ import annotations
@@ -109,8 +119,19 @@ def refuse_at_world(cfg, network: str, world: int) -> None:
     if cfg.TPU.DEVICE_BANK:
         raise ValueError(f"TPU.DEVICE_BANK trains on one device (the JAX bank step ignores the mesh): "
                          f"not at {world} ranks")
-    if network in ("vgg16_full", "fcn8_vgg", "vgg16_det"):
+    if network in ("vgg16_full", "fcn8_vgg", "resnet50", "vgg16_det"):
         raise NotImplementedError(f"{network} at {world} ranks: its data-parallel step is not ported")
+
+
+def run_dir_name(cfg, network: str) -> str:
+    """The last part of a --cfg run's default output directory
+    (output/<EXP_DIR>/<imdb>/<this>): the segmentation and detection runs
+    name their network; PoseCNN's runs (VGG16FULL's too) the --network
+    flag, as the JAX CLI does."""
+    from posecnn_torch.core import config as C
+
+    name = C.pick_network(cfg.NETWORK, network)
+    return name if name in ("fcn8_vgg", "resnet50", "vgg16_det") else network
 
 
 def cfg_run(args, log, mesh=None):
@@ -142,11 +163,10 @@ def cfg_run(args, log, mesh=None):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: reading a {what} needs a file from outside the repository")
     cfg = C.cfg_from_file(args.cfg)
-    # NETWORK FCN8VGG, VGG16DET and VGG16FULL take over --network
+    # NETWORK and --network with the JAX CLI's precedence
     # (tools/train_net.py:83-105); VGG16GAN trains PoseCNN; a network the
     # port does not run raises here
-    name = {"FCN8VGG": "fcn8_vgg", "VGG16DET": "vgg16_det", "VGG16FULL": "vgg16_full"}.get(cfg.NETWORK,
-                                                                                          args.network)
+    name = C.pick_network(cfg.NETWORK, args.network)
     init_fn, forward_fn = get_network(name)
     refuse_at_world(cfg, name, 1 if mesh is None else mesh.world)
     if not args.rand:
@@ -160,18 +180,21 @@ def cfg_run(args, log, mesh=None):
         except NotImplementedError:
             log("dataset has no roidb; USE_FLIPPED ignored")
     log(f"Loaded dataset `{imdb.name}`: {imdb.num_images} images")
+    output = args.output or C.get_output_dir(cfg, imdb.name, run_dir_name(cfg, args.network))
+    log(f"Output will be saved to {output}")
     dev = torch.device(args.device)
     set_float32_precision()
-    if name == "fcn8_vgg":
-        return seg_run(args, cfg, imdb, dev, log, init_fn, forward_fn)
+    if (args.vis or cfg.TRAIN.VISUALIZE) and name in ("fcn8_vgg", "resnet50", "vgg16_det"):
+        log(f"TRAIN.VISUALIZE: no minibatches are drawn for {name} (the JAX CLI has no hook there)")
+    if name in ("fcn8_vgg", "resnet50"):
+        return seg_run(cfg, imdb, dev, output, name, init_fn, forward_fn)
     if name == "vgg16_det":
-        return det_run(args, cfg, imdb, dev, log, init_fn)
+        return det_run(args, cfg, imdb, dev, output, init_fn)
 
     model_cfg = C.train_model_cfg(cfg, imdb.num_classes)
     hp = C.train_hparams(cfg)
     mcfg = C.minibatch_cfg(cfg, imdb.num_classes)
-    output = args.output or C.get_output_dir(cfg, imdb.name, args.network)
-    log(f"Output will be saved to {output}")
+    vis = None
     points_raw = np.asarray(imdb._points_all, np.float32)
     extents, symmetry = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
     points = rescale_points(points_raw, extents, symmetry, mcfg.is_symmetric)
@@ -186,6 +209,9 @@ def cfg_run(args, log, mesh=None):
         # the bank holds raw COLOR frames at scale 1 (tools/train_net.py:331-336)
         if T_.USE_FLIPPED or tuple(T_.SCALES_BASE) != (1.0,) or cfg.INPUT != "COLOR" or T_.ADAPT or full:
             raise ValueError("TPU.DEVICE_BANK supports the fixed single-frame COLOR flagship path")
+        if args.vis or T_.VISUALIZE:
+            raise ValueError("TRAIN.VISUALIZE draws host minibatches, and TPU.DEVICE_BANK has none (the JAX "
+                             "Solver's hook reads the bank's 'gt_label_2d', which it lacks: KeyError)")
         bank = bank_to_device(build_bank(imdb, mcfg.max_gt), dev)
         log(f"device bank: {bank['data'].shape[0]} frames on {dev}")
         step = T.make_bank_train_step(model_cfg, hp, points, symmetry, extents, batch_size=T_.IMS_PER_BATCH,
@@ -199,6 +225,11 @@ def cfg_run(args, log, mesh=None):
     else:
         layer = host_layer(cfg, imdb, mcfg, log)
         step = T.make_train_step(model_cfg, hp, points, symmetry, extents, mesh=mesh, **step_kw)
+        if (args.vis or cfg.TRAIN.VISUALIZE) and (mesh is None or mesh.rank == 0):  # rank 0 draws its images
+            from posecnn_torch.engine.visualize import MinibatchVisualizer
+
+            vis = MinibatchVisualizer(output, num_classes=cfg.TRAIN.NUM_CLASSES, extents=np.asarray(imdb._extents),
+                                      pixel_means=mcfg.pixel_means)
 
         def batches():
             if mesh is None:
@@ -208,7 +239,7 @@ def cfg_run(args, log, mesh=None):
 
         def open_data(start_iter):
             return prefetch(batches(), depth=cfg.TPU.PREFETCH), lambda: {"batches_by_source": dict(layer.sources)}
-    return step, state, open_data, C.solver_settings(cfg), output
+    return step, state, open_data, {**C.solver_settings(cfg), "vis_hook": vis}, output
 
 
 def host_layer(cfg, imdb, mcfg, log):
@@ -305,26 +336,32 @@ def adaptation_source(cfg):
     return adapt_frames
 
 
-def seg_run(args, cfg, imdb, dev, log, init_fn, forward_fn):
-    """What `cfg_run` returns for FCN8VGG (`tools/train_net.py:385-442`,
-    `train_segmentation`): FCN-8s (the factory's `init_fn`, `forward_fn`)
-    with dropout at keep 0.5 from numpy seed RNG_SEED, `engine.train.make_seg_train_step` on host minibatches of the
-    config's INPUT without vertex targets; the output directory ends in
-    fcn8_vgg, and the solver snapshots at the end of the run whatever
-    SNAPSHOT_FINAL says, as the JAX loop does."""
+def seg_run(cfg, imdb, dev, output, name, init_fn, forward_fn):
+    """What `cfg_run` returns for the segmentation networks
+    (`tools/train_net.py:385-442`, `train_segmentation`): network `name`
+    (fcn8_vgg, or resnet50; the factory's `init_fn`, `forward_fn`) from
+    numpy seed RNG_SEED, FCN-8s with dropout at keep 0.5 and ResNet-50
+    without any, `engine.train.make_seg_train_step` on host minibatches of
+    the config's INPUT without vertex targets, into `output`; the solver
+    snapshots at the end of the run whatever SNAPSHOT_FINAL says, as the
+    JAX loop does."""
     from posecnn_torch.core import config as C
     from posecnn_torch.data.layer import GtSynthesizeLayer, prefetch
     from posecnn_torch.engine import train as T
     from posecnn_torch.models.fcn8 import make_fcn8
+    from posecnn_torch.models.resnet50 import make_resnet50
 
     n = imdb.num_classes
     hp, mcfg = C.seg_settings(cfg, n)
-    output = args.output or C.get_output_dir(cfg, imdb.name, "fcn8_vgg")
-    log(f"Output will be saved to {output}")
-    state = T.create_train_state(make_fcn8(n, init_fn(cfg.RNG_SEED, n), dev), hp)
+    make = make_fcn8 if name == "fcn8_vgg" else make_resnet50
+    state = T.create_train_state(make(n, init_fn(cfg.RNG_SEED, n), dev), hp)
 
-    def apply_fn(model, data, draws):
-        return forward_fn(model, data, n, keep_prob=0.5, draws=draws)
+    if name == "fcn8_vgg":
+        def apply_fn(model, data, draws):
+            return forward_fn(model, data, n, keep_prob=0.5, draws=draws)
+    else:
+        def apply_fn(model, data, draws):
+            return forward_fn(model, data, n)
 
     step = T.make_seg_train_step(apply_fn, hp, n)
     layer = GtSynthesizeLayer(imdb, mcfg, ims_per_batch=cfg.TRAIN.IMS_PER_BATCH, seed=cfg.RNG_SEED)
@@ -335,7 +372,7 @@ def seg_run(args, cfg, imdb, dev, log, init_fn, forward_fn):
     return step, state, open_data, {**C.solver_settings(cfg), "snapshot_final": True}, output
 
 
-def det_run(args, cfg, imdb, dev, log, init_fn):
+def det_run(args, cfg, imdb, dev, output, init_fn):
     """What `cfg_run` returns for VGG16DET (`tools/train_net.py:445-498`,
     `train_det`): the detection network (`core.config.det_model_cfg`: the
     DetConfig defaults, not TRAIN.RPN_*) from numpy seed RNG_SEED, one
@@ -344,8 +381,7 @@ def det_run(args, cfg, imdb, dev, log, init_fn):
     (`engine.train.det_batch_from_frame`), the frames in the order of
     `RandomState(RNG_SEED).permutation`, momentum SGD without clipping, a
     snapshot at the last step whatever SNAPSHOT_FINAL says (the JAX loop
-    writes one there). No --resume, as in the JAX loop. The output
-    directory ends in vgg16_det."""
+    writes one there). No --resume, as in the JAX loop."""
     import numpy as np
     import torch
 
@@ -359,8 +395,6 @@ def det_run(args, cfg, imdb, dev, log, init_fn):
         raise NotImplementedError("--resume: the detection trainer has no resume, as in the JAX CLI")
     det_cfg = C.det_model_cfg(cfg, imdb.num_classes, train=True)
     hp = C.det_hparams(cfg)
-    output = args.output or C.get_output_dir(cfg, imdb.name, "vgg16_det")
-    log(f"Output will be saved to {output}")
     symmetry = np.asarray(imdb._symmetry, np.float32)
     points = rescale_points(np.asarray(imdb._points_all, np.float32), np.asarray(imdb._extents), symmetry)
     points, symmetry = torch.from_numpy(points).to(dev), torch.from_numpy(symmetry).to(dev)
@@ -422,6 +456,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt", default=None, help="TF1 checkpoint (not ported)")
     ap.add_argument("--output", default=None, help="snapshot and metrics directory")
     ap.add_argument("--resume", action="store_true", help="resume from the latest snapshot in the output directory")
+    ap.add_argument("--vis", action="store_true",
+                    help="render host minibatches (TRAIN.VISUALIZE) under <output>/vis_minibatch")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -469,6 +505,8 @@ def _train(args, ap, t_start: float, world: int) -> int:
 
         if args.imdb not in (None, "lov_syn_val_v4"):
             ap.error("without --cfg the flagship run trains on lov_syn_val_v4")
+        if args.vis:
+            ap.error("--vis draws host minibatches; the flagship run trains from a device bank")
         output = args.output or os.path.join(ROOT, "output", EXP_DIR, "lov_syn_val_v4", "vgg16_convs")
         step, state, bank = train_entry(args.device)
         log(f"bank: {bank['data'].shape[0]} frames on {args.device}; output {output}")

@@ -324,7 +324,10 @@ def test_factory_names():
     assert factory.get_network("vgg16_convs") == (init_params_numpy, posecnn_forward)
     assert factory.get_network("vgg16_det") == (init_vgg16_det_params_numpy, vgg16_det_forward)
     assert factory.get_network("vgg16_full") == (init_posecnn_full_params_numpy, posecnn_full_forward)
-    for name in ("vgg16_3d", "vgg16_gan", "resnet50", "dcgan"):
+    from posecnn_torch.models.resnet50 import init_resnet50_params_numpy, resnet50_forward
+
+    assert factory.get_network("resnet50") == (init_resnet50_params_numpy, resnet50_forward)
+    for name in ("vgg16_3d", "vgg16_gan", "dcgan"):
         with pytest.raises(NotImplementedError, match=name):
             factory.get_network(name)
     with pytest.raises(KeyError):

@@ -457,3 +457,32 @@ def test_initialize(env, error, monkeypatch):
     else:
         with pytest.raises(ValueError, match=error):
             launch.initialize()
+
+
+@pytest.mark.parametrize("cuda", [False, True])
+def test_initialize_default_device(cuda, monkeypatch):
+    """initialize() with the variables set and no `device` takes the rank's
+    card: with no CUDA it raises rather than joining over gloo on the CPU;
+    with CUDA it joins over NCCL on cuda:<local rank> (the join is recorded
+    here, not made)."""
+    for k in (*launch.ENV_VARS, "POSECNN_BACKEND", "POSECNN_LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("POSECNN_COORDINATOR", "localhost:29999")
+    monkeypatch.setenv("POSECNN_NUM_PROCESSES", "2")
+    monkeypatch.setenv("POSECNN_PROCESS_ID", "1")
+    joined = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: joined.append(("set_device", str(d))))
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: joined.append((backend, kw["rank"], kw["world_size"])))
+    if not cuda:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch.initialize()
+        assert joined == [] and not torch.distributed.is_initialized()
+    else:
+        assert launch.initialize() == 2
+        assert joined == [("set_device", "cuda:1"), ("nccl", 1, 2)]
+    # the CPU when asked for: gloo
+    joined.clear()
+    assert launch.initialize(device="cpu") == 2
+    assert joined == [("gloo", 1, 2)]

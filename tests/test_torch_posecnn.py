@@ -135,17 +135,18 @@ def test_small_slice_bf16_label_agreement(golden):
 
 
 @pytest.mark.parametrize(
-    "over", [dict(is_train=True), dict(adaptation=True, is_train=True), dict(vote_threshold=0.5),
-             dict(vertex_reg_3d=True, vote_threshold=0.5)]
+    "over", [dict(is_train=True, vote_threshold=0.5), dict(adaptation=True, is_train=True, vote_threshold=0.5),
+             dict(vote_threshold=0.5), dict(vertex_reg_3d=True, vote_threshold=0.5)]
 )
 def test_unported_configs_raise(over):
-    """Options the port does not run yet raise, with the 3D head and the
-    domain head too; training with the exact roi_pool (no crop pool) waits
-    for its backward. (hough_from_gt is ported:
+    """Options the port does not run yet raise (VOTE_THRESHOLD > 0, Hough's
+    multi-instance voting), in training and at inference, with the 3D head
+    and the domain head too. (hough_from_gt is ported:
     tests/test_torch_toy_train.py; the RGBD dual tower:
     tests/test_torch_input_modes.py; the 3D head:
     tests/test_torch_vertex3d.py; the domain head:
-    tests/test_torch_adapt.py.)"""
+    tests/test_torch_adapt.py; training with the exact roi_pool, no crop
+    pool: tests/test_torch_train.py::test_small_step_matches_jax[roi_pool_gt_mix1].)"""
     cfg = PoseCNNConfig(**{**dict(num_classes=4, is_train=False, trunk_scale=0.125, fc_dim=64), **over})
     with pytest.raises(NotImplementedError):
         PoseCNN(cfg)

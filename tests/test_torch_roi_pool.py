@@ -1,7 +1,9 @@
-"""RoI max pooling of the port against `roi_pool_batched` and the loop oracle
-`tests/ref_ops.py:roi_pool_ref`. A max is exact in any order, so pooled
-values must be equal, in float32 and in bf16."""
+"""RoI max pooling of the port against `roi_pool_batched`, the loop oracle
+`tests/ref_ops.py:roi_pool_ref` and the masked max the port's forward
+replaced (`tests/torch_parity.py:roi_pool_masked_max`). A max is exact in
+any order, so pooled values must be equal, in float32 and in bf16."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +12,7 @@ import torch
 from posecnn_tpu.ops.roi_pool import roi_pool_batched as jax_roi_pool_batched
 from posecnn_torch.ops.roi_pool import roi_pool_batched
 from tests.ref_ops import roi_pool_ref
-from tests.torch_parity import t
+from tests.torch_parity import roi_pool_masked_max, t
 
 torch.set_num_threads(1)
 
@@ -47,6 +49,8 @@ def test_roi_pool_matches_jax_and_oracle(scale, dtype):
     got = roi_pool_batched(t(feat).to(tdt), t(rois), 7, scale)
     assert got.dtype == tdt and got.shape == (B, D, 7, 7, C)
     np.testing.assert_array_equal(got.float().numpy(), ref)
+    # the masked max the doubling table replaced, kept to time the two on the card
+    assert torch.equal(roi_pool_masked_max(t(feat).to(tdt), t(rois), 7, scale), got)
     if dtype == "f32":
         oracle = roi_pool_ref(feat, rois.reshape(B * D, 7), 7, scale).reshape(B, D, 7, 7, C)
         np.testing.assert_array_equal(got.numpy(), oracle)
@@ -80,3 +84,32 @@ def test_last_bin_edge_follows_reference_op():
     for g_, r_ in zip(got, ref):
         np.testing.assert_array_equal(g_, r_)
     assert got[1][0, -1] == 3 and got[3][0, -1] == 3
+
+
+@pytest.mark.parametrize("dtype", ["f32"])
+@pytest.mark.parametrize("scale", [1.0 / 16.0, 1.0 / 8.0], ids=["conv5", "conv4"])
+def test_roi_pool_gradient_matches_jax(scale, dtype):
+    """The training gradient (JAX's custom backward of the doubling table,
+    then jnp.max's even split over H) bit-equal to JAX's vjp, on features
+    with ties: ReLU zeros and a constant band, where both split the
+    cotangent alike. The forward's values stay equal too. Float32 only:
+    the trunk's maps that the pose branch pools are float32 in both
+    packages; on bf16 maps each stage is bit-equal alone, but the sum of
+    the H stage's cotangents over the output rows rounds otherwise (17 of
+    1920 elements here)."""
+    rng = np.random.RandomState(1)
+    feat = np.maximum(rng.randn(B, H, W, C), 0).astype(np.float32)
+    feat[0, :, :5] = 0.5
+    rois = _rois(scale)
+    ct = rng.randn(B, D, 7, 7, C).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    ref, vjp = jax.vjp(lambda x: jax_roi_pool_batched(x, jnp.asarray(rois), 7, scale),
+                       jnp.asarray(feat).astype(jdt))
+    (ref_grad,) = vjp(jnp.asarray(ct).astype(jdt))
+    x = t(feat).to(tdt).requires_grad_(True)
+    got = roi_pool_batched(x, t(rois), 7, scale)
+    got.backward(t(ct).to(tdt))
+    np.testing.assert_array_equal(got.detach().float().numpy(), np.asarray(ref.astype(jnp.float32)))
+    np.testing.assert_array_equal(x.grad.float().numpy(), np.asarray(ref_grad.astype(jnp.float32)))
+    assert x.grad.dtype == tdt and float(x.grad.abs().max()) > 0
+

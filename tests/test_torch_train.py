@@ -4,7 +4,8 @@ package's (`posecnn_tpu/engine/train.py`), the training golden, the lr rule
 
 The small step: trunk_scale 0.125, C=22, 64x80 frames (v4/000000 and 000001
 resampled), P=64 ADD points, float32, keep_prob 1, hough_gt_mix 0 or 1,
-chroma deltas given, no noise: every random choice is fixed, so both
+the crop pool or RoI max pooling (JAX unjitted there), chroma deltas
+given, no noise: every random choice is fixed, so both
 packages see the same step. The port's own draws are tested by distribution
 and by replay (hazard 9).
 
@@ -40,6 +41,10 @@ CASES = {
     "gt_mix1_fc64": (dict(hough_gt_mix=1.0, fc_dim=64), {}),
     # Hough on the network's own labels, wider fc
     "gt_mix0_fc256": (dict(hough_gt_mix=0.0, fc_dim=256), {}),
+    # RoI max pooling in place of the crop pool (TPU.USE_CROP_POOL False):
+    # the doubling table's backward; JAX unjitted (its jitted roi pool moves
+    # the last bin's edge, ROADMAP Queue 3 item 11)
+    "roi_pool_gt_mix1": (dict(hough_gt_mix=1.0, fc_dim=64, use_crop_pool=False), {}),
 }
 _JAX = {}
 
@@ -53,7 +58,8 @@ def _case(name):
     params = init_params_numpy(G.TRAIN_SEED, PoseCNNConfig(**cfg_kw))
     batch, points, symmetry, extents = G.train_inputs()
     if name not in _JAX:
-        _JAX[name] = G.jax_train_steps(cfg_kw, hp_kw, params, batch, points, symmetry, extents, n_steps=2)
+        with jax.disable_jit(not cfg_kw["use_crop_pool"]):
+            _JAX[name] = G.jax_train_steps(cfg_kw, hp_kw, params, batch, points, symmetry, extents, n_steps=2)
     return cfg_kw, hp_kw, params, batch, points, symmetry, extents, _JAX[name]
 
 

@@ -320,6 +320,74 @@ def check_full_golden(out, g) -> dict:
     return err
 
 
+def resnet50_on_golden(device="cpu"):
+    """(port outputs, golden): `resnet50_forward` at float32 on the
+    ResNet-50 golden's frames and seeded weights (its score biases), on
+    `device` (TF32 off)."""
+    from posecnn_torch.config import PIXEL_MEANS
+    from posecnn_torch.engine.test import set_float32_precision
+    from posecnn_torch.models.resnet50 import make_resnet50, resnet50_forward
+
+    G = goldens()
+    g = load_npz(G.RESNET50_GOLDEN)
+    n = int(g["num_classes"])
+    model = make_resnet50(n, G.resnet50_golden_params(int(g["seed"]), n, g["score_bias"]), device)
+    set_float32_precision()
+    data = t(g["raw"]).to(device).float() - torch.tensor(PIXEL_MEANS, device=device).reshape(1, 1, 1, 3)
+    with torch.no_grad():
+        out = resnet50_forward(model, data, n, compute_dtype=torch.float32)
+    return out, g
+
+
+def check_resnet50_golden(out, g, limit: float = 1e-4) -> dict:
+    """Holds ResNet-50's float32 forward to the JAX golden: score within
+    `limit` of its largest magnitude; label_2d equal wherever the golden's
+    two best scores are more than 2 x that limit apart (elsewhere a
+    rounding may swap them). Returns score's max |err| and the labels'
+    agreement."""
+    score, ref = out["score"].cpu().numpy(), g["out/score"]
+    tol = limit * np.abs(ref).max()
+    np.testing.assert_allclose(score, ref, atol=tol, rtol=0, err_msg="score")
+    top = np.sort(ref, axis=-1)
+    clear = top[..., -1] - top[..., -2] > 2 * tol
+    lab, ref_lab = out["label_2d"].cpu().numpy(), g["out/label_2d"]
+    np.testing.assert_array_equal(lab[clear], ref_lab[clear], err_msg="label_2d")
+    return {"score": float(np.abs(score - ref).max()), "score_max": float(np.abs(ref).max()),
+            "label_agreement": float((lab == ref_lab).mean()), "ties": int((~clear).sum())}
+
+
+def roi_pool_masked_max(feat: torch.Tensor, rois: torch.Tensor, pooled: int = 7,
+                        spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """The port's `roi_pool_batched` forward before it carried JAX's
+    doubling table: the same bins (`ops/roi_pool.py:bin_edges`) and a
+    separable masked max, over W per output column, then over H per output
+    row, image by image. A max is exact in any order, so its values equal
+    the table's; kept to hold the two forwards equal and to time them."""
+    from posecnn_torch.ops.roi_pool import NEG, bin_edges
+
+    B, H, W, C = feat.shape
+    D = rois.shape[1]
+    wstart, wend, hstart, hend = bin_edges(rois.reshape(B * D, 7), pooled, spatial_scale, H, W)
+    wstart, wend = wstart.reshape(B, D, pooled), wend.reshape(B, D, pooled)
+    hstart, hend = hstart.reshape(B, D, pooled), hend.reshape(B, D, pooled)
+    ws = torch.arange(W, device=feat.device)
+    hs = torch.arange(H, device=feat.device)
+    neg = torch.tensor(NEG, dtype=feat.dtype, device=feat.device)
+    out = []
+    for b in range(B):
+        f = feat[b]  # (H, W, C)
+        cols = []
+        for pw in range(pooled):  # W stage, one output column at a time
+            wmask = (ws[None, :] >= wstart[b, :, pw, None]) & (ws[None, :] < wend[b, :, pw, None])  # (D, W)
+            cols.append(torch.where(wmask[:, None, :, None], f[None], neg).amax(dim=2))  # (D, H, C)
+        colmax = torch.stack(cols, dim=1)  # (D, pw, H, C)
+        hmask = (hs[None, None, :] >= hstart[b, :, :, None]) & (hs[None, None, :] < hend[b, :, :, None])
+        o = torch.where(hmask[:, :, None, :, None], colmax[:, None], neg).amax(dim=3)  # (D, ph, pw, C)
+        empty = (hend[b] <= hstart[b])[:, :, None] | (wend[b] <= wstart[b])[:, None, :]
+        out.append(torch.where(empty[..., None], torch.zeros((), dtype=feat.dtype, device=feat.device), o))
+    return torch.stack(out)
+
+
 def gt_rows_at_detections(out: dict, poses: np.ndarray, seed: int = 0) -> np.ndarray:
     """A batch's GT pose rows (max_gt, 13) put at a training forward's own
     detections: for each valid detection (the first of its 9 jittered

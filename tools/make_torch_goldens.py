@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes nine files:
+Runs the JAX package (on the CPU) and writes eleven files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -76,6 +76,13 @@ Runs the JAX package (on the CPU) and writes nine files:
       and noise rows) on lov_train over the YCB-Video tree of
       `tests/torch_parity.py:write_lov_tree` (`lov_batch_golden`): each
       array whole, or its SHA-256 and a 16x16 crop where it is image-sized.
+
+  tests/golden/torch_port_resnet50.npz
+      ResNet-50's forward (`resnet50_forward`, float32) at 5 classes on
+      frames v4/000000 and 000001 at 64x80 (`train_frames`) with the
+      port's seeded weights, its batch norms moved off the identity
+      (`resnet50_golden_params`, not stored; the score layer's 5 biases
+      stored): score and label_2d (`resnet50_golden`).
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -860,12 +867,62 @@ def lov_batch_golden() -> dict:
                 os.environ["POSECNN_DATA"] = old
 
 
+RESNET50_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_resnet50.npz")
+RESNET50_SEED, RESNET50_CLASSES = 7, 5
+
+
+def resnet50_golden_params(seed: int = RESNET50_SEED, num_classes: int = RESNET50_CLASSES,
+                           score_bias=None) -> dict:
+    """`init_resnet50_params_numpy(seed)` with every batch norm moved off
+    the identity (mean ~ 0.1 N(0, 1), variance ~ U(0.5, 1.5)), so the
+    golden exercises the normalisation, and `score_bias` (the golden's
+    `score_bias`, or zero) as the score layer's biases."""
+    from posecnn_torch.models.resnet50 import init_resnet50_params_numpy
+
+    p = init_resnet50_params_numpy(seed, num_classes)
+    rng = np.random.default_rng(seed + 1)
+    for leaves in p.values():
+        if "mean" in leaves:
+            c = leaves["mean"].shape[0]
+            leaves["mean"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+            leaves["variance"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    if score_bias is not None:
+        p["score"]["biases"] = np.asarray(score_bias, np.float32)
+    return p
+
+
+def resnet50_golden() -> dict:
+    """JAX's `resnet50_forward` (float32) on frames v4/000000 and 000001 at
+    64x80 with `resnet50_golden_params()`, the score layer's biases set to
+    minus each class's mean score at zero bias (`score_bias`), so the label
+    map is not one class: from random weights the trunk's features share a
+    large mean, whose product with the score weights picks one class for
+    every pixel."""
+    import jax
+    import jax.numpy as jnp
+
+    from posecnn_tpu.models.resnet50 import resnet50_forward
+
+    raw = np.stack([f.color for f in train_frames()])
+    data = jnp.asarray(raw.astype(np.float32) - np.asarray(PIXEL_MEANS, np.float32).reshape(1, 1, 1, 3))
+
+    def forward(bias):
+        params = jax.tree_util.tree_map(jnp.asarray, resnet50_golden_params(score_bias=bias))
+        return resnet50_forward(params, data, RESNET50_CLASSES, compute_dtype=jnp.float32)
+
+    bias = -np.asarray(forward(None)["score"]).mean(axis=(0, 1, 2)).astype(np.float32)
+    out = forward(bias)
+    return {"raw": raw, "seed": np.asarray(RESNET50_SEED), "num_classes": np.asarray(RESNET50_CLASSES),
+            "score_bias": bias, "out/score": np.asarray(out["score"]), "out/label_2d": np.asarray(out["label_2d"])}
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
                        (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden),
                        (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden),
-                       (DET_GOLDEN, det_golden), (FULL_GOLDEN, full_golden), (LOV_BATCH_GOLDEN, lov_batch_golden)):
+                       (DET_GOLDEN, det_golden), (FULL_GOLDEN, full_golden), (LOV_BATCH_GOLDEN, lov_batch_golden),
+                       (RESNET50_GOLDEN, resnet50_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 

@@ -26,7 +26,13 @@ and `--adapt --train`, the host-fed step of
 `lov_color_sugar_box_adapt.yml` (PoseCNN with the domain head) on
 `lov_syn_val_v4` (B=2 at 640x480, bf16, RNG_SEED weights, batches of
 `GtSynthesizeLayer` moved to the card beforehand), after `--warm` steps
-that train the weights before the profiled ones. Runs under torch.profiler and
+that train the weights before the profiled ones. With `--resnet50`,
+ResNet-50 (`--network resnet50` under
+`experiments/cfgs/rgbd_scene_single_color_fcn8.yml`, 640x480, bf16,
+RNG_SEED weights, 10 classes): `--resnet50` `test_net_segmentation`'s
+frames on `lov_syn_val_v4`, `--resnet50 --train` its segmentation step
+(B=2, batches of `GtSynthesizeLayer` moved to the card beforehand). Runs
+under torch.profiler and
 prints the device's busy share of the profiled wall window, host and device
 time per stage, and the device time by kernel (the `--top` largest).
 
@@ -43,9 +49,11 @@ targets, the proposals (decode, top-k, NMS), the proposal targets, the crop
 pool, the fc layers (fc6 to the output heads), and for evaluation the host
 postprocess (per-class NMS) and the evaluator, for training the loss
 functions and the update. For the 3D head: the trunk, the RANSAC decode and
-the evaluator. Needs one NVIDIA GPU.
+the evaluator. For ResNet-50: its convolutions (cuDNN, each with its cast
+and padding), its batch norms (with their ReLUs), the upscore, and for
+training the loss and the update. Needs one NVIDIA GPU.
 
-Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy | --det | --3d | --full | --adapt]
+Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy | --det | --3d | --full | --adapt | --resnet50]
            [--lr LR] [--warm 2] [--frames 6] [--top 25]
 """
 
@@ -100,6 +108,7 @@ def main() -> int:
                     help="with --det --train: the learning rate (lov_det.yml's 0.001 diverges from the init rules)")
     ap.add_argument("--full", action="store_true", help="with --train: the VGG16FULL step")
     ap.add_argument("--adapt", action="store_true", help="with --train: the step with the domain head")
+    ap.add_argument("--resnet50", action="store_true", help="ResNet-50's eval frames (--train: its step)")
     ap.add_argument("--warm", type=int, default=2, help="with --full or --adapt: the steps before the profiled ones")
     ap.add_argument("--frames", type=int, default=6, help="frames (or training steps) to profile")
     ap.add_argument("--top", type=int, default=25)
@@ -111,8 +120,8 @@ def main() -> int:
 
     if args.toy and not (args.train or args.eval):
         ap.error("--toy goes with --train or --eval")
-    if args.toy + args.det + args.three_d + args.full + args.adapt > 1 or (args.three_d and args.train):
-        ap.error("one of --toy, --det, --3d, --full and --adapt; --3d profiles evaluation")
+    if args.toy + args.det + args.three_d + args.full + args.adapt + args.resnet50 > 1 or (args.three_d and args.train):
+        ap.error("one of --toy, --det, --3d, --full, --adapt and --resnet50; --3d profiles evaluation")
     if (args.full or args.adapt) and not args.train:
         ap.error("--full and --adapt profile the training step: add --train")
     if args.toy:
@@ -207,6 +216,46 @@ def main() -> int:
         warmup, runs = [(2,)], [(args.frames,)]
         rest = "heads and the rest"
         unit = "frame"
+    elif args.resnet50:
+        from posecnn_torch.core import config as C
+        from posecnn_torch.data.layer import GtSynthesizeLayer
+        from posecnn_torch.data.lov_syn import LovSynVal
+        from posecnn_torch.models import resnet50 as r50
+
+        cfg_file = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "rgbd_scene_single_color_fcn8.yml"))
+        stages = {"stage:convs": [(r50, "_conv")], "stage:batch_norm": [(r50, "_bn")],
+                  "stage:upscore": [(layers, "deconv")]}
+        if args.train:
+            stages.update({"stage:losses": [(trainer, "loss_cross_entropy_single_frame")],
+                           "stage:update": [(trainer.MomentumSGD, "step")]})
+        _spans(stages, record_function)
+        data = LovSynVal()
+        n_cls = data.num_classes
+        engine.set_float32_precision()
+        model = r50.make_resnet50(n_cls, r50.init_resnet50_params_numpy(cfg_file.RNG_SEED, n_cls), dev)
+        if args.train:
+            hp, mcfg = C.seg_settings(cfg_file, n_cls)
+            state = trainer.create_train_state(model, hp)
+            step = trainer.make_seg_train_step(lambda m, d, dr: r50.resnet50_forward(m, d, n_cls), hp, n_cls)
+            layer = GtSynthesizeLayer(data, mcfg, ims_per_batch=cfg_file.TRAIN.IMS_PER_BATCH, seed=cfg_file.RNG_SEED)
+            runs = [(trainer.to_device(layer.forward(), dev),) for _ in range(args.frames + 2)]
+
+            def run(batch):
+                with record_function("stage:frame"):
+                    step(state, batch, trainer.Draws())
+
+            warmup, runs = runs[:2], runs[2:]
+            rest = "backward and the rest"
+            unit = "step"
+        else:
+            def run(n_frames):
+                with record_function("stage:frame"):
+                    engine.test_net_segmentation(model, lambda m, d: r50.resnet50_forward(m, d, n_cls), data,
+                                                 cfg_file.pixel_means(), max_frames=n_frames, log=None)
+
+            warmup, runs = [(2,)], [(args.frames,)]
+            rest = "heads and the rest"
+            unit = "frame"
     elif args.full or args.adapt:
         from posecnn_torch.core import config as C
         from posecnn_torch.core.convert import init_params_numpy, make_model
