@@ -10,7 +10,10 @@ scenes into the bank), the depth inputs (DEPTH, NORMAL, the RGBD dual
 tower) and FCN-8s through the cfg-driven CLIs, the detection network
 (VGG16DET) and the 3D head (VERTEX_REG_3D) through them, VGG16FULL,
 the domain head (TRAIN.ADAPT) and the VGG16GAN cfg through them, and the
-YCB-Video and LINEMOD loaders with the synthesis mix (TRAIN.SYNTHESIZE).
+YCB-Video and LINEMOD loaders with the synthesis mix (TRAIN.SYNTHESIZE), more
+than one rank, the rest of the CLIs' surface, dense host targets
+(TPU.DEVICE_TARGETS False), TPU.DEBUG_NANS, the video models and
+KinectFusion.
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
   2. build: every CUDA kernel of the path (hough_vote, conv3x3, nms), the
@@ -41,7 +44,7 @@ YCB-Video and LINEMOD loaders with the synthesis mix (TRAIN.SYNTHESIZE).
      `engine.test.make_inference_fn` + `postprocess_detections` on the first
      8 frozen frames of data/lov_syn_val_v4; per-frame latency, peak memory,
      and the kernel launch counts of that run; then the same model and the
-     first 4 frames through the port on the CPU, against which the card's
+     first 2 frames through the port on the CPU, against which the card's
      labels, valid slots, classes and rois are held at bf16 limits
   7. flagship training through `posecnn_torch.entry.train_entry`: 8 steps
      (2 warm-up) with step time, peak memory and the launch counts of every
@@ -64,7 +67,7 @@ YCB-Video and LINEMOD loaders with the synthesis mix (TRAIN.SYNTHESIZE).
      eval_summary.json, eval_timing.json (per-frame ms by stage, the
      launches: hough_vote 2 and conv3x3 1 a frame); the eval golden (ICP
      and the evaluator) on the card; the ICP at the flagship shapes on the
-     card against the CPU port; 4 of the seed-0 run's frames through the
+     card against the CPU port; 2 of the seed-0 run's frames through the
      port on the CPU, against which the card's labels, classes and rois are
      held as in phase 6 (a box further off only on equal votes: a plateau
      of the vote map) and poses_icp where the boxes match
@@ -150,7 +153,18 @@ YCB-Video and LINEMOD loaders with the synthesis mix (TRAIN.SYNTHESIZE).
      to the one-process step on the card (loss terms, fc6, fc7, conv5_3,
      conv1_2); the gradients' all-reduce over gloo timed; and
      `entry.dryrun_multichip(2)` on the card
-  17. each phase's seconds and each CLI run's (where it ran, its set-up
+  17. the rest of the CLIs' surface (`cli_surface_phase`): ResNet-50
+     trained and scored through the CLIs and held to its JAX golden,
+     `test_net --vis` and `train_net --vis` against the host redraw,
+     diag_rot, isolate_pose, supervise_train through a stall, the RoI
+     pool's forward against the masked max it replaced
+  18. dense host targets, DEBUG_NANS, the video models and KinectFusion
+     (`video_phase`): the video golden on the card against JAX and the CPU
+     port; at full width on phase 15's tree the video train step, test_net_video
+     with KinectFusion at grid 128 and video3d at grid 32; lov_color_2d.yml
+     with TPU.DEVICE_TARGETS False; toy_pose.yml under TPU.DEBUG_NANS; the
+     KinectFusion tool on depth PNGs of an analytic scene
+  then each phase's seconds and each CLI run's (where it ran, its set-up
      time), the kernels' JSON line, then {"ok": true, "device": {...}}
 
 The CLIs run in this process through their `main(argv)` (`run_cli`), but
@@ -183,9 +197,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES_DIR = os.path.join(ROOT, "data", "lov_syn_val_v4")
 N_FRAMES, N_WARMUP = 8, 2
-# phase 6: the frames of N_FRAMES that the CPU port runs too (~8 s a frame
-# on the card's host; 8 until the script neared its time limit)
-N_CPU_FRAMES = 4
+# phase 6: the frames of N_FRAMES that the CPU port runs too (~4 s a frame
+# on the card's host; 8 until the script neared its time limit, 4 until
+# phase 18 took it past ~1000 s, then 2); phase 9's frames on the CPU port
+# (~13 s a frame, ICP included; 4 until then; 2 holds one detection whose
+# box matches, which its ICP check needs)
+N_CPU_FRAMES, N_EVAL_CPU_FRAMES = 1, 2
 N_STEPS = 8
 # phase 10: the toy CLI's steps, the in-process feed comparison's, and the
 # steps left out of the medians
@@ -314,6 +331,13 @@ R50_STEPS, R50_WARMUP, R50_EVAL_FRAMES, R50_EVAL_WARMUP = 20, 8, 8, 3
 VIS_FRAMES, DIAG_FRAMES, VIS_TRAIN_STEPS, ROI_REPS = 4, 4, 10, 20
 ISO_STEPS, ISO_REPORT, ISO_FRAMES = 20, 10, 4
 SUP_STEPS, SUP_STALL_S, SUP_PAUSE_AT = 30, 15, 10
+# phase 18: the video model's train steps (T=5, B=1) and those left out of
+# the medians; the frames test_net_video scores (one video of the tree) and
+# those left out; the dense-targets trainer's steps (its DISPLAY) and
+# warm-up; the DEBUG_NANS toy trainer's steps and warm-up; the frames of the
+# KinectFusion tool's analytic scene
+VIDEO_STEPS, VIDEO_WARMUP, VIDEO_EVAL_WARMUP, DENSE_STEPS, DENSE_WARMUP = 10, 3, 2, 10, 5
+NANS_STEPS, NANS_WARMUP, KF_TOOL_FRAMES = 10, 3, 4
 SLICE_J_GRADS = {"full": ("trunk.conv1_2.weight", "score_conv1.weight", "fc6.weight", "fc7.weight",
                           "poses_pred_unnormalized.weight", "trunk.conv5_3.weight"),
                  "adapt": ("trunk.conv1_2.weight", "fc6.weight", "fc9.weight", "fc7.weight", "fc8.weight",
@@ -787,8 +811,8 @@ def eval_phase(final: str, seed0: str, work: str, dev) -> dict:
     and on the seed-0 weights (32 frames, ICP on; 30 steps from random
     weights label every pixel background, so only the seed-0 weights give
     the ICP detections), the eval golden on the card, the ICP on the card
-    against the CPU at the flagship shapes, and 4 of the frames against the
-    CPU port. Returns the seed-0 run's launches."""
+    against the CPU at the flagship shapes, and N_EVAL_CPU_FRAMES of the
+    frames against the CPU port. Returns the seed-0 run's launches."""
     import torch
 
     from posecnn_torch.config import FLAGSHIP_TEST, PIXEL_MEANS, flagship_eval_cfg
@@ -822,14 +846,14 @@ def eval_phase(final: str, seed0: str, work: str, dev) -> dict:
              f"{ev_err:.3g} relative (limit 1e-6); ICP at "
              f"640x480 (6 cubes, 13 detections in 32 rows) on the card against the CPU port: {e2}")
 
-    # 4 of the frames through the port on the CPU, the same snapshot
+    # N_EVAL_CPU_FRAMES of the frames through the port on the CPU, the same snapshot
     t0 = time.perf_counter()
     cfg = flagship_eval_cfg()
     with np.load(seed0) as d:
         weights = {k: d[k] for k in d.files if not k.startswith("['opt_state']")}
     data = LovSynVal()
     model_cpu = make_model(cfg, weights, "cpu")
-    cpu = PT.test_net(model_cpu, cfg, data, PIXEL_MEANS, max_frames=4, log=None, **FLAGSHIP_TEST)
+    cpu = PT.test_net(model_cpu, cfg, data, PIXEL_MEANS, max_frames=N_EVAL_CPU_FRAMES, log=None, **FLAGSHIP_TEST)
     model = make_model(cfg, weights, dev)
     infer, infer_cpu = PT.make_inference_fn(cfg, PIXEL_MEANS, dev), PT.make_inference_fn(cfg, PIXEL_MEANS, "cpu")
     agree, box_err, vote_err, icp_t, icp_q, matched, plateau = [], 0.0, 0.0, 0.0, 0.0, 0, []
@@ -865,7 +889,8 @@ def eval_phase(final: str, seed0: str, work: str, dev) -> dict:
     check(matched > 0 and icp_t <= EVAL_ICP_T and icp_q <= EVAL_ICP_Q,
           f"card against CPU: {matched} matched detections, poses_icp translation max|err| {icp_t} m (limit "
           f"{EVAL_ICP_T}), 1 - |cos| of the quaternions {icp_q} (limit {EVAL_ICP_Q})")
-    phase(9, f"4 frames of the seed-0 snapshot on the CPU port ({time.perf_counter() - t0:.1f} s): label_2d "
+    phase(9, f"{N_EVAL_CPU_FRAMES} frames of the seed-0 snapshot on the CPU port ({time.perf_counter() - t0:.1f} s): "
+             f"label_2d "
              f"agreement min {min(agree):.6f} (limit 0.999), classes equal, roi box max|err| {box_err:.3g} px (limit 4; "
              f"boxes moved {plateau} px on equal votes), votes max|err| {vote_err:.3g} (limit 2); poses_icp of the "
              f"{matched} detections whose boxes match: "
@@ -2107,6 +2132,20 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
     return launches
 
 
+def _lov_tree_cfg(work: str, lov_root: str) -> tuple:
+    """(config, file) of lov_color_2d.yml with SYNROOT at the tree's
+    data_syn/ and SYNNUM 16, written as <work>/lov_color_2d_tree.yml."""
+    from tests.torch_parity import lov_batch_cfg
+
+    cfg = lov_batch_cfg(lov_root)
+    cfg_file = os.path.join(work, "lov_color_2d_tree.yml")
+    with open(os.path.join(ROOT, "experiments", "cfgs", "lov_color_2d.yml")) as f:
+        text = f.read()
+    with open(cfg_file, "w") as f:
+        f.write(text.replace("  SYNNUM: 80000\n", f"  SYNNUM: 16\n  SYNROOT: {cfg.TRAIN.SYNROOT}\n"))
+    return cfg, cfg_file
+
+
 def datasets_phase(work: str, dev) -> dict:
     """Phase 15: the dataset loaders, the PNG reader and the synthesis mix,
     on trees this phase writes under `work` with the port alone (its PNG
@@ -2135,7 +2174,7 @@ def datasets_phase(work: str, dev) -> dict:
     from posecnn_torch.data.synthetic import OfflineSynReader
     from posecnn_torch.utils.png import IMREAD_COLOR, IMREAD_UNCHANGED, imread
     from tests.torch_parity import (
-        check_lov_batch_golden, goldens, load_npz, lov_batch_cfg, lov_index, port_lov_batches, v4_frame,
+        check_lov_batch_golden, goldens, load_npz, lov_index, port_lov_batches, v4_frame,
         write_linemod_tree, write_lov_tree,
     )
 
@@ -2175,12 +2214,7 @@ def datasets_phase(work: str, dev) -> dict:
                   f"to the JAX golden: {held['arrays']} arrays, {held['digests']} of them image-sized by sha256")
 
         # (b) lov_color_2d.yml trains on the tree and is scored
-        cfg = lov_batch_cfg(lov_root)
-        cfg_file = os.path.join(work, "lov_color_2d_tree.yml")
-        with open(os.path.join(ROOT, "experiments", "cfgs", "lov_color_2d.yml")) as f:
-            text = f.read()
-        with open(cfg_file, "w") as f:
-            f.write(text.replace("  SYNNUM: 80000\n", f"  SYNNUM: 16\n  SYNROOT: {cfg.TRAIN.SYNROOT}\n"))
+        cfg, cfg_file = _lov_tree_cfg(work, lov_root)
         out = os.path.join(work, "lov_color_2d")
         rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg_file, "--imdb", "lov_train", "--iters",
                            str(LOV_STEPS), "--output", out], os.path.join(work, "lov_color_2d.log"), 600)
@@ -3079,6 +3113,303 @@ def cli_surface_phase(work: str, dev, seed0: str) -> dict:
     return launches
 
 
+def _rel_to_max(got: np.ndarray, ref: np.ndarray) -> float:
+    """max |got - ref| over max |ref|, NaN where both hold one left out."""
+    got, ref = np.nan_to_num(np.asarray(got, np.float64)), np.nan_to_num(np.asarray(ref, np.float64))
+    return float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+
+
+def video_phase(work: str, dev) -> dict:
+    """Phase 18: dense host targets (TPU.DEVICE_TARGETS False), TPU.DEBUG_NANS,
+    the video models and KinectFusion. (a) The video golden on the card at
+    float32 (TF32 off): video_forward, video3d_forward (grid 6), one
+    make_video_train_step and the KinectFusion track on the analytic scene
+    against JAX (`check_video_golden`'s limits) and against the CPU port on
+    the same inputs. On phase 15's YCB-Video tree (POSECNN_DATA pointed at
+    it for the phase; its videos are 8 unrelated v4 frames each, no camera
+    motion), at full width (VideoConfig: 22 classes, 64 units, 640x480,
+    bf16, seed weights): (b) make_video_train_step for VIDEO_STEPS steps on
+    GtDataLayer windows (T=5, B=1) through the prefetch thread: stream ms a
+    step, data wait, peak memory, finite losses, conv3x3 2 launches a frame
+    (forward, dx); (c) test_net_video over video 0000 (8 frames) with
+    KinectFusion at grid 128: ms a frame (reading, network step, fusion),
+    peak memory, the surface, conv3x3 1 a frame; (d) video3d_forward
+    (Video3DConfig, grid 32) over one window, its grid fitted by Voxelizer
+    to the first frame's points: ms a frame, observed voxels, conv3x3 1 a
+    frame; (e) `train_net --cfg <lov_color_2d.yml with phase 15's
+    SYNROOT, DISPLAY 10 and TPU.DEVICE_TARGETS False>` for DENSE_STEPS
+    steps: the dense batches' host time (data wait), stream ms, peak
+    memory, finite losses, 4 hough_vote and 2 conv3x3 launches a step;
+    (f) `train_net --cfg <toy_pose.yml with TPU.DEBUG_NANS True>` for
+    NANS_STEPS steps against phase 10's toy run (the debug mode's cost);
+    (g) `python -m posecnn_torch.tools.test_kinect_fusion` on 640x480 depth
+    PNGs of the analytic scene written here. Returns each path's
+    launches."""
+    import torch
+
+    from posecnn_torch.config import PIXEL_MEANS, RNG_SEED
+    from posecnn_torch.data.factory import get_imdb
+    from posecnn_torch.data.imdb import PoseEvaluator
+    from posecnn_torch.data.layer import prefetch
+    from posecnn_torch.data.minibatch import MinibatchConfig
+    from posecnn_torch.data.video_layer import GtDataLayer
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.engine.test import test_net_video
+    from posecnn_torch.models import video as V
+    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.tools.test_kinect_fusion import K_DEMO
+    from posecnn_torch.utils.debug_nans import debug_nans
+    from posecnn_torch.utils.png import write_png
+    from posecnn_torch.utils.voxelizer import Voxelizer
+    from tests.torch_parity import (
+        VIDEO_REL, check_video_golden, goldens, kfusion_on_golden, load_npz, video_on_golden, video_step_on_golden,
+    )
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def reset():
+        voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated() / 2**20
+
+    # (a) the small golden, and the card against the CPU port on its inputs
+    t0 = time.perf_counter()
+    G = goldens()
+    card = (video_on_golden(dev), video_on_golden(dev, three_d=True), video_step_on_golden(dev), kfusion_on_golden(dev))
+    err = check_video_golden(*card, load_npz(G.VIDEO_GOLDEN))
+    cpu = (video_on_golden("cpu"), video_on_golden("cpu", three_d=True))
+    vs_cpu = {"video/score": _rel_to_max(card[0][0]["score"], cpu[0][0]["score"]),
+              "video/state0": _rel_to_max(card[0][1][0], cpu[0][1][0]),
+              "video3d/score": _rel_to_max(card[1][0]["score"], cpu[1][0]["score"]),
+              "video3d/state": _rel_to_max(card[1][1][0], cpu[1][1][0])}
+    check(all(v <= VIDEO_REL for v in vs_cpu.values())
+          and np.array_equal(card[1][0]["flag_3d"], cpu[1][0]["flag_3d"]),
+          f"video golden inputs: card against the CPU port {vs_cpu} (limit {VIDEO_REL}), or flag_3d differs")
+    worst = sorted(err, key=err.get, reverse=True)[:4]
+    phase(18, f"(a) the video golden on the card (float32, TF32 off, the full trunk on 3 frames of 32x32) against "
+              f"JAX, within check_video_golden's limits ({time.perf_counter() - t0:.1f} s): largest "
+              + ", ".join(f"{k} {err[k]:.3g}" for k in worst)
+              + f"; the KinectFusion track {err['kfusion/track']:.3g}, surface {err['kfusion/surface']:.3g} m; "
+              f"against the CPU port: " + ", ".join(f"{k} {v:.3g}" for k, v in vs_cpu.items())
+              + f" of their largest magnitude (limit {VIDEO_REL}), flag_3d equal")
+
+    root = os.path.join(work, "datasets")  # phase 15's trees
+    old_root = os.environ.get("POSECNN_DATA")
+    os.environ["POSECNN_DATA"] = root
+    try:
+        imdb = get_imdb("lov_train")
+        mcfg = MinibatchConfig(num_classes=imdb.num_classes)
+
+        # (b) the video train step at full width
+        cfg = V.VideoConfig(num_classes=imdb.num_classes)
+        hp = T.TrainHParams()
+        state = T.create_train_state(V.make_video_model(cfg, V.init_video_params_numpy(RNG_SEED, cfg), dev), hp)
+        step = T.make_video_train_step(cfg, hp)
+        layer = GtDataLayer(imdb, mcfg, num_steps=cfg.num_steps, ims_per_batch=1, seed=RNG_SEED)
+        data = prefetch(iter(layer), depth=4)
+        reset()
+        stream, wait, out = [], [], []
+        try:
+            for _ in range(VIDEO_STEPS):
+                t0 = time.perf_counter()
+                batch = T.to_device(next(data), dev)
+                wait.append((time.perf_counter() - t0) * 1e3)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                m = step(state, batch)
+                e1.record()
+                e1.synchronize()
+                stream.append(e0.elapsed_time(e1))
+                out.append({k: float(v) for k, v in m.items()})
+        finally:
+            data.close()
+        launches["video_train"] = counts()
+        peak = peak_mib()
+        want = {"hough_vote": 0, "conv3x3": 2 * cfg.num_steps * VIDEO_STEPS, "nms": 0}
+        check(launches["video_train"] == want, f"video train: launches {launches['video_train']}, want {want}")
+        check(all(np.isfinite(v) for m in out for v in m.values()) and state.step == VIDEO_STEPS,
+              f"video train: metrics {out}")
+        phase(18, f"(b) make_video_train_step at full width (22 classes, 64 units, T=5, B=1, 640x480, bf16) on "
+                  f"GtDataLayer windows of the tree, {VIDEO_STEPS} steps: per step (median of steps "
+                  f"{VIDEO_WARMUP + 1}-{VIDEO_STEPS}) {statistics.median(stream[VIDEO_WARMUP:]):.3f} ms stream "
+                  f"(first {stream[0]:.1f}), data wait {statistics.median(wait[VIDEO_WARMUP:]):.3f} ms (the prefetch "
+                  f"thread reading 5 frames a step, and the copy); peak memory {peak:.1f} MiB; loss step 1 "
+                  f"{out[0]['loss']:.6g}, step {VIDEO_STEPS} {out[-1]['loss']:.6g}, lr {out[-1]['lr']:g}; launches "
+                  f"{launches['video_train']} ({2 * cfg.num_steps} conv3x3 a step: conv1_2 forward and dx a frame)")
+        print("video train per-step ms " + json.dumps({"stream": [round(x, 3) for x in stream],
+                                                       "data_wait": [round(x, 3) for x in wait]}), flush=True)
+
+        # (c) test_net_video over one video with KinectFusion at grid 128
+        model = state.model
+        del state
+        torch.cuda.empty_cache()
+        ev = PoseEvaluator(imdb.classes, imdb._extents, imdb._points, [])
+        timings = {}
+        reset()
+        test_net_video(model, cfg, imdb, PIXEL_MEANS, evaluator=ev, max_videos=1, kfusion=True, kfusion_grid=128,
+                       log=None, timings=timings)
+        launches["video_eval"] = counts()
+        peak = peak_mib()
+        n = len(timings["video_step"])
+        check(n == 8 and launches["video_eval"] == {"hough_vote": 0, "conv3x3": n, "nms": 0},
+              f"test_net_video: {n} frames, launches {launches['video_eval']}")
+        pts, labels = ev.surfaces[0]
+        check(pts.ndim == 2 and pts.shape[1] == 3 and np.isfinite(pts).all() and len(labels) == len(pts),
+              f"test_net_video: surface {pts.shape}")
+        med = {k: statistics.median(v[VIDEO_EVAL_WARMUP:]) for k, v in timings.items()}
+        phase(18, f"(c) test_net_video over video 0000 of the tree ({n} frames, 640x480, bf16) with KinectFusion at "
+                  f"grid 128: per frame (median of frames {VIDEO_EVAL_WARMUP + 1}-{n}) video_step "
+                  f"{med['video_step']:.3f} ms, kfusion {med['kfusion']:.3f} ms (feed_data, solve_pose, feed_label, "
+                  f"fuse_depth; the card synchronized after each), reading {med['load']:.3f} ms; peak memory "
+                  f"{peak:.1f} MiB; surface {pts.shape[0]} points; mean IoU {ev.summary()['mean_iou']:.4f} (seed "
+                  f"weights); launches {launches['video_eval']}")
+        del model
+        torch.cuda.empty_cache()
+
+        # (d) video3d_forward at grid 32 over one window, the grid fitted by Voxelizer
+        cfg3 = V.Video3DConfig(num_classes=imdb.num_classes)
+        model3 = V.make_video_model(cfg3, V.init_video3d_params_numpy(RNG_SEED, cfg3), dev)
+        item = GtDataLayer(imdb, mcfg, num_steps=cfg3.num_steps, seed=RNG_SEED).forward()
+        K0 = item["meta_data"][0, 0, 0:9].reshape(3, 3)
+        vox = Voxelizer(grid_size=cfg3.grid_size, margin=0.05)
+        pts0 = Voxelizer.backproject_camera(item["depth"][0, 0], K0).T
+        vox.voxelize(pts0[pts0[:, 2] > 0])
+        item["meta_data"][..., 42:48] = vox.meta_fields()
+        batch = T.to_device(item, dev)
+        reset()
+        calls_ms = []
+        with torch.no_grad():
+            for _ in range(2):  # the first call builds cuDNN's plans
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                o3, s3 = V.video3d_forward(model3, cfg3, batch["data"], batch["depth"], batch["meta_data"])
+                e1.record()
+                e1.synchronize()
+                calls_ms.append(e0.elapsed_time(e1))
+        launches["video3d"] = counts()
+        peak = peak_mib()
+        flags = o3["flag_3d"].mean(dim=(1, 2, 3, 4, 5)).tolist()
+        check(launches["video3d"] == {"hough_vote": 0, "conv3x3": 2 * cfg3.num_steps, "nms": 0},
+              f"video3d: launches {launches['video3d']}")
+        check(flags[0] > 0 and bool(torch.isfinite(s3).all())
+              and tuple(o3["label_2d"].shape) == tuple(batch["depth"].shape),
+              f"video3d: observed voxel shares {flags}, or the state or labels amiss")
+        phase(18, f"(d) video3d_forward over a window of {cfg3.num_steps} frames (grid {cfg3.grid_size}, fitted by "
+                  f"Voxelizer to frame 1's points: step {np.round(vox.meta_fields()[:3], 4).tolist()} m), twice: "
+                  f"{calls_ms[1] / cfg3.num_steps:.3f} ms stream a frame (the second call; the first "
+                  f"{calls_ms[0] / cfg3.num_steps:.1f}); observed voxels a frame {np.round(flags, 4).tolist()} (frame "
+                  f"1 the grid's own; the others other scenes); peak memory {peak:.1f} MiB; launches "
+                  f"{launches['video3d']} (two calls)")
+        del model3, batch, o3, s3
+        torch.cuda.empty_cache()
+
+        # (e) lov_color_2d.yml with dense host targets
+        with open(os.path.join(work, "lov_color_2d_tree.yml")) as f:  # phase 15's cfg
+            text = f.read()
+        cfg_file = os.path.join(work, "lov_color_2d_dense.yml")
+        with open(cfg_file, "w") as f:
+            f.write(text.replace("TRAIN:\n", f"TRAIN:\n  DISPLAY: {DENSE_STEPS}\n", 1)
+                    + "TPU:\n  DEVICE_TARGETS: False\n")
+        out = os.path.join(work, "lov_dense")
+        rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg_file, "--imdb", "lov_train", "--iters",
+                           str(DENSE_STEPS), "--output", out], os.path.join(work, "lov_dense.log"), 600)
+        check(rc == 0, f"train_net (dense targets) exited {rc}:\n{log[-3000:]}")
+        with open(os.path.join(out, "train_timing.json")) as fh:
+            timing = json.load(fh)
+        launches["dense_train_cli"] = timing["launches"]
+        want = {"hough_vote": 4 * DENSE_STEPS, "conv3x3": 2 * DENSE_STEPS, "nms": 0}
+        check(timing["launches"] == want, f"dense targets: launches {timing['launches']}, want {want}")
+        losses = {it: _cli_losses(log, it, DENSE_STEPS) for it in (1, DENSE_STEPS)}
+        check(all(np.isfinite(v) for m in losses.values() for v in m.values())
+              and all("loss_vertex" in m for m in losses.values()), f"dense targets: losses {losses}")
+        ms = {k: statistics.median(v[DENSE_WARMUP:]) for k, v in timing["ms"].items()}
+        phase(18, f"(e) train_net --cfg lov_color_2d.yml + TPU.DEVICE_TARGETS False --imdb lov_train --iters "
+                  f"{DENSE_STEPS} (B=2, 640x480, bf16; dense (2,480,640,66) f32 targets and weights, 2 x 162 MB a "
+                  f"batch): per step (median of steps {DENSE_WARMUP + 1}-{DENSE_STEPS}) {ms['step_stream']:.3f} ms "
+                  f"stream, {ms['step']:.3f} ms host, data wait {ms['data_wait']:.3f} ms; peak memory "
+                  f"{timing['peak_memory_mib']:.1f} MiB; losses "
+                  + "; ".join(f"step {it}: {m}" for it, m in losses.items())
+                  + f"; launches {timing['launches']}")
+        print("dense-targets train per-step ms " + json.dumps({k: [round(x, 3) for x in v]
+                                                                for k, v in timing["ms"].items()}), flush=True)
+    finally:
+        if old_root is None:
+            os.environ.pop("POSECNN_DATA", None)
+        else:
+            os.environ["POSECNN_DATA"] = old_root
+
+    # (f) the toy trainer under TPU.DEBUG_NANS, against phase 10's run
+    cfg_file = os.path.join(work, "toy_debug_nans.yml")
+    with open(os.path.join(ROOT, "experiments", "cfgs", "toy_pose.yml")) as f:
+        text = f.read()
+    with open(cfg_file, "w") as f:
+        f.write(text + "TPU:\n  DEBUG_NANS: True\n")
+    out = os.path.join(work, "toy_nans")
+    rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg_file, "--imdb", "toy_train", "--iters",
+                       str(NANS_STEPS), "--output", out], os.path.join(work, "toy_nans.log"), 600)
+    check(rc == 0, f"train_net (DEBUG_NANS) exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(out, "train_timing.json")) as fh:
+        timing = json.load(fh)
+    with open(os.path.join(work, "toy", "train_timing.json")) as fh:
+        toy = json.load(fh)
+    launches["debug_nans_cli"] = timing["launches"]
+    check(timing["launches"] == {"hough_vote": 4 * NANS_STEPS, "conv3x3": 2 * NANS_STEPS, "nms": 0},
+          f"DEBUG_NANS: launches {timing['launches']}")
+    check(timing["debug_nans_checked_outputs"] > 0, "DEBUG_NANS: no output checked")
+    ms = {k: statistics.median(v[NANS_WARMUP:]) for k, v in timing["ms"].items()}
+    base = {k: statistics.median(v[TOY_WARMUP:]) for k, v in toy["ms"].items()}
+    # the backward on the card runs on the autograd engine's device thread:
+    # the mode must reach it (sqrt'(0) * 0 is a NaN)
+    x = torch.zeros(2, device=dev, requires_grad=True)
+    try:
+        with debug_nans():
+            (torch.sqrt(x) * 0.0).sum().backward()
+        raised = False
+    except FloatingPointError:
+        raised = True
+    check(raised, "DEBUG_NANS: a NaN made in a backward on the card raised nothing")
+    phase(18, f"(f) train_net --cfg toy_pose.yml + TPU.DEBUG_NANS True --iters {NANS_STEPS}: no FloatingPointError; "
+              f"{timing['debug_nans_checked_outputs']} floating outputs checked "
+              f"({timing['debug_nans_checked_outputs'] / NANS_STEPS:.0f} a step); per step (median of steps "
+              f"{NANS_WARMUP + 1}-{NANS_STEPS}) {ms['step_stream']:.3f} ms stream, {ms['step']:.3f} ms host, "
+              f"against phase 10's run without it {base['step_stream']:.3f} / {base['step']:.3f} ms "
+              f"({ms['step_stream'] / base['step_stream']:.2f}x stream); launches {timing['launches']}; a NaN made in "
+              f"a backward on the card raised FloatingPointError")
+
+    # (g) the KinectFusion tool on depth PNGs of the analytic scene
+    images = os.path.join(work, "kfusion_images")
+    os.makedirs(images, exist_ok=True)
+    depths, truth = G.kfusion_scene(hw=(480, 640), K=K_DEMO, frames=KF_TOOL_FRAMES)
+    for j, d in enumerate(depths):
+        write_png(os.path.join(images, f"{j:06d}-depth.png"), np.round(d * 10000).astype(np.uint16))
+    out = os.path.join(work, "kfusion_tool")
+    reset()
+    t0 = time.perf_counter()
+    rc, log = run_cli(["posecnn_torch.tools.test_kinect_fusion", "--images", images, "--grid", "128", "--output", out],
+                      os.path.join(work, "kfusion_tool.log"), 300)
+    wall = time.perf_counter() - t0
+    launches["kfusion_tool"] = counts()
+    check(rc == 0 and os.path.exists(os.path.join(out, "raycast.png")), f"test_kinect_fusion exited {rc}:\n{log[-3000:]}")
+    surf = re.search(r"surface points: (\d+)", log)
+    hit = re.search(r"raycast hit fraction: ([\d.]+)", log)
+    track = re.findall(r"frame (\d+): pose t = \[(.*)\]", log)
+    check(surf is not None and int(surf.group(1)) > 0 and hit is not None and len(track) == KF_TOOL_FRAMES - 1,
+          f"test_kinect_fusion output:\n{log[-2000:]}")
+    phase(18, f"(g) python -m posecnn_torch.tools.test_kinect_fusion --images <{KF_TOOL_FRAMES} depth PNGs of the "
+              f"analytic scene, 640x480, the camera moving (1, 0.5, 0) cm a frame> --grid 128: {wall:.2f} s; tracked "
+              f"t (world2cam) {[t for _, t in track]} (truth {[np.round(p[:, 3], 4).tolist() for p in truth[1:]]}); "
+              f"surface {surf.group(1)} points; raycast hit fraction {hit.group(1)}; launches "
+              f"{launches['kfusion_tool']}; the whole phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -3213,8 +3544,8 @@ def main() -> int:
     # conv3x3 at conv1_2, 480x640, 64->64, at B=1 (inference) and B=2
     # (training): the trunk's mode (the sum rounded to bf16, the bias added
     # in bf16, ReLU), the Pallas module's (f32 bias + ReLU), zero bias with
-    # no ReLU, and dx at B=2 (flipped, transposed weights folded into the
-    # weight image). Within 1 bf16 ulp of the plain version: the same f32
+    # no ReLU, and dx at B=1 (the video step) and B=2 (flipped, transposed
+    # weights folded into the weight image). Within 1 bf16 ulp of the plain version: the same f32
     # sums in another order, each rounded to bf16 once (in the trunk's mode
     # the sum, and the epilogue exactly). Timed three ways,
     # the kernel (its weight image made beforehand) and cuDNN's bf16
@@ -3231,7 +3562,8 @@ def main() -> int:
         (1, "trunk mode (bf16 bias + ReLU)", True, True, b_t), (1, "bias + ReLU", True, False, b_t),
         (1, "zero bias, no ReLU", False, False, zeros),
         (2, "trunk mode (bf16 bias + ReLU)", True, True, b_t), (2, "bias + ReLU", True, False, b_t),
-        (2, "zero bias, no ReLU", False, False, zeros), (2, "dx", False, False, None),
+        (2, "zero bias, no ReLU", False, False, zeros), (1, "dx", False, False, None),
+        (2, "dx", False, False, None),
     ):
         dx = b_c is None
         xs = [torch.from_numpy(rng.randn(B, 480, 640, 64).astype(np.float32)).to(dev)]
@@ -3484,6 +3816,7 @@ def main() -> int:
         dataset_launches = datasets_phase(work, dev)
         mesh_launches = mesh_phase(work, dev, smi)
         surface_launches = cli_surface_phase(work, dev, seed0)
+        video_launches = video_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3492,7 +3825,8 @@ def main() -> int:
     sources = {"hough_vote": ("posecnn_torch/csrc/hough_vote.cu", "posecnn_tpu/ops/pallas/voting.py:36"),
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
     det_paths = {f"launches_{path}": n for path, n in {**det_launches, **slice_j_launches, **dataset_launches,
-                                                        **mesh_launches, **surface_launches}.items()}
+                                                        **mesh_launches, **surface_launches,
+                                                        **video_launches}.items()}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],

@@ -24,7 +24,11 @@ A weight's rank tells the two apart, so the same functions serve PoseCNN
 `models/fcn8.py`) and ResNet-50 (`models/resnet50.py`: convolutions
 without biases but for `conv1` and `score`, and the batch norms' `mean`
 and `variance` leaves, which go across as they are; its `upscore` is the
-32x32 filter at the score's width).
+32x32 filter at the score's width). The video models' recurrent cells
+(`models/video.py`, `models/gru.py`) nest one level deeper:
+`['gru2d']['Gates']['weights']` is `gru2d.Gates.weight` (OIHW), GRU3D's
+`['gru3d']['Gates']['weights']` (in, out) is `gru3d.Gates.weight` (out,
+in).
 """
 
 from __future__ import annotations
@@ -67,6 +71,8 @@ _RESNET = re.compile(r"conv1|bn_conv1|(res|bn)[2-5][a-f]_branch(1|2[abc])")
 # a JAX leaf -> the port's parameter name, and back
 _LEAVES = {"weights": "weight", "biases": "bias", "mean": "mean", "variance": "variance"}
 _LEAVES_BACK = {v: k for k, v in _LEAVES.items()}
+# the video models' recurrent cells: {cell: {sub-layer: {leaf: array}}}
+_CELLS = {"gru2d", "gru3d"}
 
 
 def _trunc_normal(rng: np.random.Generator, shape, stddev: float) -> np.ndarray:
@@ -151,6 +157,9 @@ def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Dict[str, np.ndarray]]:
             path = path[1:]
         elif path[:1] in (["opt_state"], ["step"]):
             continue
+        if len(path) == 3 and path[0] in _CELLS:
+            out.setdefault(path[0], {}).setdefault(path[1], {})[path[2]] = np.asarray(flat[k])
+            continue
         if len(path) != 2:
             raise ValueError(f"unexpected parameter key {k!r}")
         out.setdefault(path[0], {})[path[1]] = np.asarray(flat[k])
@@ -163,13 +172,15 @@ def _module_key(name: str) -> str:
         return f"trunk.{name}"
     if name.endswith("_p") and name[:-2] in _TRUNK:
         return f"trunk_p.{name[:-2]}"
-    if name in _HEADS or _RESNET.fullmatch(name):
+    if name in _HEADS or name in _CELLS or _RESNET.fullmatch(name):
         return name
     raise ValueError(f"parameter {name!r} belongs to a part of the network the port does not run")
 
 
 def _layer_name(path: str) -> str:
-    """The inverse of `_module_key`."""
+    """The inverse of `_module_key` (a cell's sub-layer: the cell's name)."""
+    if path.split(".")[0] in _CELLS:
+        return path.split(".")[0]
     if path.startswith("trunk_p."):
         return path[len("trunk_p."):] + "_p"
     return path.split(".")[-1]
@@ -190,12 +201,24 @@ def params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{name}: not the fixed bilinear filter the port rebuilds")
             continue
         key = _module_key(name)
-        for leaf, a in leaves.items():
-            a = np.asarray(a, dtype=np.float32)
-            if leaf == "weights":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-            sd[f"{key}.{_LEAVES[leaf]}"] = torch.tensor(np.ascontiguousarray(a))
+        layers = leaves.items() if name in _CELLS else [(None, leaves)]
+        for sub, sub_leaves in layers:
+            prefix = key if sub is None else f"{key}.{sub}"
+            for leaf, a in sub_leaves.items():
+                a = np.asarray(a, dtype=np.float32)
+                if leaf == "weights":
+                    a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                sd[f"{prefix}.{_LEAVES[leaf]}"] = torch.tensor(np.ascontiguousarray(a))
     return sd
+
+
+def _put(out: Dict, path: str, leaf: str, a) -> None:
+    """out[layer][leaf] = a, or out[cell][sub-layer][leaf] for a cell's."""
+    parts = path.split(".")
+    node = out.setdefault(_layer_name(path), {})
+    if parts[0] in _CELLS:
+        node = node.setdefault(parts[1], {})
+    node[_LEAVES_BACK[leaf]] = a
 
 
 def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
@@ -213,7 +236,7 @@ def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np
         a = v.detach().float().cpu().numpy()
         if leaf == "weight":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
-        out.setdefault(_layer_name(path), {})[_LEAVES_BACK[leaf]] = np.ascontiguousarray(a)
+        _put(out, path, leaf, np.ascontiguousarray(a))
     if "bn_conv1" in out:  # ResNet-50: x16 from the score's classes
         out["upscore"] = {"weights": make_deconv_filter(32, out["score"]["weights"].shape[3])}
         return out
@@ -232,16 +255,20 @@ def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np
 
 def param_shapes(cfg, network: str = "vgg16_convs") -> Dict[str, Dict[str, tuple]]:
     """The JAX-layout shape of every parameter of `PoseCNN(cfg)`, of
-    `PoseCNNFull(cfg)` for network "vgg16_full", or of `VGG16Det(cfg)` for
-    a `models.detection.DetConfig` (the `upscore*` filters, which the port
-    rebuilds, left out), read from a model on the meta device: no weights
-    are drawn."""
+    `PoseCNNFull(cfg)` for network "vgg16_full", of `VGG16Det(cfg)` for
+    a `models.detection.DetConfig`, or of the video models for a
+    `VideoConfig` ("vgg16") or `Video3DConfig` ("vgg16_3d") (the `upscore*`
+    filters, which the port rebuilds, left out), read from a model on the
+    meta device: no weights are drawn."""
     from posecnn_torch.models.detection import DetConfig, VGG16Det
     from posecnn_torch.models.posecnn import PoseCNN
     from posecnn_torch.models.posecnn_full import PoseCNNFull
+    from posecnn_torch.models.video import Video3DConfig, Video3DNet, VideoConfig, VideoNet
 
     if isinstance(cfg, DetConfig):
         model = VGG16Det(cfg, device="meta")
+    elif isinstance(cfg, (VideoConfig, Video3DConfig)):
+        model = (Video3DNet if isinstance(cfg, Video3DConfig) else VideoNet)(cfg, device="meta")
     else:
         model = (PoseCNNFull if network == "vgg16_full" else PoseCNN)(cfg, device="meta")
     out: Dict[str, Dict[str, tuple]] = {}
@@ -250,7 +277,7 @@ def param_shapes(cfg, network: str = "vgg16_convs") -> Dict[str, Dict[str, tuple
         s = tuple(v.shape)
         if leaf == "weight":
             s = (s[2], s[3], s[1], s[0]) if len(s) == 4 else s[::-1]
-        out.setdefault(_layer_name(path), {})[_LEAVES_BACK[leaf]] = s
+        _put(out, path, leaf, s)
     return out
 
 

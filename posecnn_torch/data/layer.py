@@ -119,8 +119,10 @@ class GtSynthesizeLayer:
         return "real"
 
     def _batch(self, frames: List[Frame]) -> dict:
-        return get_minibatch(frames, self.mcfg, self.rng, extents=getattr(self.dataset, "_extents", None),
-                             backgrounds=self.backgrounds)
+        d = self.dataset
+        return get_minibatch(frames, self.mcfg, self.rng, extents=getattr(d, "_extents", None),
+                             backgrounds=self.backgrounds, points=getattr(d, "_points_all", None),
+                             symmetry=getattr(d, "_symmetry", None))
 
     def forward(self) -> dict:
         source = self._source()

@@ -31,13 +31,24 @@ are any; TRAIN.SCALES_BASE rescales each frame first (`scale_frame`). The
 resizes are cv2's (`utils.resize`), and a background given as a path is
 read by `utils.png.imread`: a JPEG raises NotImplementedError naming it
 (the JAX package skips a background that cv2 cannot read).
-Dense host targets (TPU.DEVICE_TARGETS False) raise NotImplementedError.
+
+Dense host targets (TPU.DEVICE_TARGETS False, `minibatch.py:108-181`,
+:356-360, :439-447, :517-528): the images are float32 with the pixel means
+subtracted here, after the jitter and the noise, which then run here for
+every input; each image carries its (H,W,3C) vertex targets and weights
+(`generate_vertex_targets`: the 2D unit direction to the instance's
+projected centre and log z, each pixel routed by the instance mask where a
+class has several instances, else to the class's first instance); the
+batch carries the ADD loss's rescaled points, the symmetry and the
+extents.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence
+
+import math
 
 import numpy as np
 
@@ -228,34 +239,67 @@ def unscale_vertmap(scaled: np.ndarray, cls_index: int, extents: np.ndarray) -> 
     return out
 
 
-def vertex_targets_3d(im_label: np.ndarray, cls_indexes: np.ndarray, num_classes: int, weight: float,
-                      vertmap: np.ndarray, extents: np.ndarray, mask: Optional[np.ndarray] = None):
-    """The 3D branches of `minibatch.py:generate_vertex_targets` (:119-181):
-    each labelled pixel gets its scaled object coordinates (`scale_vertmap`
-    by its class's extent) and `weight` on the 3 channels of its class,
-    (H,W,3C) each. Several instances of one class with a `mask` (pixel
-    value = instance slot + 1): each pixel by its own instance; otherwise
-    per class, where the frame has an instance of it."""
+def _write_targets_2d(targets, weights, y, x, cx, cy, z, cls, w_inside):
+    """The 2D targets of the pixels (y, x) of one instance of class `cls`
+    (`minibatch.py:108-117`): the unit vector from the pixel to the centre
+    (cx, cy), then log z, on the class's 3 channels, weight `w_inside`."""
+    c = np.array([[cx], [cy]], dtype=np.float32)
+    R = np.tile(c, (1, len(x))) - np.vstack((x, y))
+    N = np.linalg.norm(R, axis=0) + 1e-10
+    R = R / np.tile(N, (2, 1))
+    targets[y, x, 3 * cls + 0] = R[0, :]
+    targets[y, x, 3 * cls + 1] = R[1, :]
+    targets[y, x, 3 * cls + 2] = math.log(z)
+    weights[y, x, 3 * cls:3 * cls + 3] = w_inside
+
+
+def generate_vertex_targets(im_label: np.ndarray, cls_indexes: np.ndarray, centers: np.ndarray, poses: np.ndarray,
+                            num_classes: int, vertex_weights_value: float = 10.0, mask: Optional[np.ndarray] = None,
+                            vertmap: Optional[np.ndarray] = None, extents: Optional[np.ndarray] = None,
+                            vertex_reg_3d: bool = False):
+    """Per-pixel vertex targets and weights, (H,W,3C) float32 each
+    (`minibatch.py:generate_vertex_targets` :120-181). 2D: the unit
+    direction to the instance's projected centre and log of its z
+    (`_write_targets_2d`); 3D: the object coordinates scaled by the class's
+    extent (`scale_vertmap`). Several instances of one class with a `mask`
+    (pixel value = instance slot + 1): each pixel by its own instance;
+    otherwise per class, by the first instance of it the frame has (the
+    device path's rule, the nearest centre, differs)."""
     height, width = im_label.shape
     targets = np.zeros((height, width, 3 * num_classes), dtype=np.float32)
     weights = np.zeros((height, width, 3 * num_classes), dtype=np.float32)
+
+    def write(y, x, cls, j):
+        if vertex_reg_3d:
+            targets[y, x, 3 * cls:3 * cls + 3] = scale_vertmap(vertmap, (y, x), extents[cls, :])
+            weights[y, x, 3 * cls:3 * cls + 3] = vertex_weights_value
+        else:
+            _write_targets_2d(targets, weights, y, x, centers[j, 0], centers[j, 1], poses[2, 3, j], cls,
+                              vertex_weights_value)
+
     if mask is not None and len(np.unique(cls_indexes)) < len(cls_indexes):
         for j in range(len(cls_indexes)):
             cls = int(cls_indexes[j])
             if cls <= 0 or cls >= num_classes:
                 continue
             y, x = np.where((mask == j + 1) & (im_label == cls))
-            if len(x) == 0:
-                continue
-            targets[y, x, 3 * cls:3 * cls + 3] = scale_vertmap(vertmap, (y, x), extents[cls, :])
-            weights[y, x, 3 * cls:3 * cls + 3] = weight
+            if len(x) > 0:
+                write(y, x, cls, j)
     else:
         for i in range(1, num_classes):
             y, x = np.where(im_label == i)
-            if len(x) > 0 and len(np.where(cls_indexes == i)[0]) > 0:
-                targets[y, x, 3 * i:3 * i + 3] = scale_vertmap(vertmap, (y, x), extents[i, :])
-                weights[y, x, 3 * i:3 * i + 3] = weight
+            ind = np.where(cls_indexes == i)[0]
+            if len(x) > 0 and len(ind) > 0:
+                write(y, x, i, ind[0])
     return targets, weights
+
+
+def vertex_targets_3d(im_label: np.ndarray, cls_indexes: np.ndarray, num_classes: int, weight: float,
+                      vertmap: np.ndarray, extents: np.ndarray, mask: Optional[np.ndarray] = None):
+    """The 3D branches of `generate_vertex_targets`: each labelled pixel's
+    scaled object coordinates and `weight` on its class's 3 channels."""
+    return generate_vertex_targets(im_label, cls_indexes, None, None, num_classes, weight, mask=mask,
+                                   vertmap=vertmap, extents=extents, vertex_reg_3d=True)
 
 
 def depth_input_image(depth: np.ndarray) -> np.ndarray:
@@ -302,9 +346,10 @@ def normal_input_image(depth: np.ndarray, factor_depth: float, K: np.ndarray) ->
 
 
 def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.RandomState,
-                  extents: Optional[np.ndarray] = None, backgrounds: Sequence = ()) -> Dict[str, np.ndarray]:
-    """The host batch of `frames` with fixed shapes (the device-targets
-    branches of `posecnn_tpu/data/minibatch.py:get_minibatch`):
+                  extents: Optional[np.ndarray] = None, backgrounds: Sequence = (),
+                  points: Optional[np.ndarray] = None, symmetry: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+    """The host batch of `frames` with fixed shapes
+    (`posecnn_tpu/data/minibatch.py:get_minibatch`). With device targets:
 
       data         (B,H,W,3)      uint8   BGR, padded to a multiple of 16; the
                                           depth or normal image for DEPTH and
@@ -344,14 +389,33 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
     (`scale_frame`), and a synthetic frame, where `backgrounds` (arrays or
     paths) has any, is pasted over `backgrounds[rng.randint(len)]`
     (`composite_background`) after the padding: the draw comes before the
-    frame's jitter draws."""
-    if not mcfg.device_targets:
-        raise NotImplementedError("get_minibatch: not ported yet: dense host vertex targets (device_targets False)")
-    host_aug = mcfg.input_format != "COLOR" or mcfg.gan
+    frame's jitter draws.
+
+    Dense host targets (`mcfg.device_targets` False): `data` and `data_p`
+    are float32 with the pixel means subtracted, the jitter and the noise
+    run here for every input (COLOR too: no chroma_dhls, no noise_sigma),
+    and the batch carries, in place of gt_centers or the compact 3D blobs:
+
+      vertex_targets (B,H,W,3C)  float32 `generate_vertex_targets`, zeros for
+                                         an adaptation frame (vertex_reg)
+      vertex_weights (B,H,W,3C)  float32
+      points         (C,P,3)     float32 `rescale_points(points, extents,
+                                         symmetry, is_symmetric)`
+      symmetry       (C,)                 zeros unless is_symmetric
+      extents        (C,3)"""
+    dense = not mcfg.device_targets
+    if dense and (points is None or symmetry is None or extents is None):
+        raise ValueError("dense host targets (device_targets False) carry the points, symmetry and extents: "
+                         "pass all three")
+    host_aug = mcfg.input_format != "COLOR" or mcfg.gan or dense
+
+    def finish(im):
+        return _mean_subtracted(im, mcfg.pixel_means) if dense else _to_u8(im)
+
     want_depth_input = mcfg.input_format in ("DEPTH", "RGBD")
     want_normal_input = mcfg.input_format == "NORMAL"
     ims, ims_p, labels, metas, center_rows, chroma_rows, noise_sigmas = [], [], [], [], [], [], []
-    vt3, vw3, gan_ims = [], [], []
+    vt3, vw3, gan_ims, vtargets, vweights = [], [], [], [], []
     C = mcfg.num_classes
     pose_blob = np.zeros((0, 13), dtype=np.float32)
     for i, fr in enumerate(frames):
@@ -392,26 +456,37 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
                 if mcfg.input_format == "DEPTH":
                     im = im_d
                 else:
-                    ims_p.append(_to_u8(im_d))
+                    ims_p.append(finish(im_d))
             else:
                 im = normal_input_image(depth_raw, fr.factor_depth, fr.intrinsic_matrix)
         if mcfg.gan:
             gan_ims.append(im[..., :3].astype(np.float32) / 127.5 - 1.0)
-        ims.append(_to_u8(im))
+        ims.append(finish(im))
         metas.append(build_meta_data(fr.intrinsic_matrix, mcfg.scale))
         if fr.is_adaptation:
             # no labels: the domain head alone reads the frame (minibatch.py:436-445)
             labels.append(-1 * np.ones_like(label))
             center_rows.append(np.zeros((0, 4), np.float32))
-            if mcfg.vertex_reg_3d:
+            if dense:
+                vtargets.append(np.zeros(label.shape + (3 * C,), dtype=np.float32))
+                vweights.append(np.zeros(label.shape + (3 * C,), dtype=np.float32))
+            elif mcfg.vertex_reg_3d:
                 vt3.append(np.zeros(label.shape + (3,), dtype=np.float32))
                 vw3.append(np.zeros(label.shape, dtype=np.float32))
             continue
         labels.append(label)
-        if mcfg.vertex_reg and mcfg.vertex_reg_3d:
-            if fr.vertmap is None:
-                raise ValueError("VERTEX_REG_3D training needs Frame.vertmap (per-pixel object coordinates), "
-                                 "and a frame of the batch has none")
+        if mcfg.vertex_reg and mcfg.vertex_reg_3d and fr.vertmap is None:
+            raise ValueError("VERTEX_REG_3D training needs Frame.vertmap (per-pixel object coordinates), "
+                             "and a frame of the batch has none")
+        if mcfg.vertex_reg and dense:
+            mask = pad_im(fr.mask, 16) if fr.mask is not None else None
+            vertmap = pad_im(fr.vertmap, 16) if fr.vertmap is not None else None
+            t, w = generate_vertex_targets(label, fr.cls_indexes, fr.center, fr.poses, C, mcfg.vertex_w_inside,
+                                           mask=mask, vertmap=vertmap, extents=extents,
+                                           vertex_reg_3d=mcfg.vertex_reg_3d)
+            vtargets.append(t)
+            vweights.append(w)
+        elif mcfg.vertex_reg and mcfg.vertex_reg_3d:
             mask = pad_im(fr.mask, 16) if fr.mask is not None else None
             t, w = vertex_targets_3d(label, fr.cls_indexes, C, mcfg.vertex_w_inside, pad_im(fr.vertmap, 16),
                                      np.asarray(extents), mask)
@@ -447,7 +522,10 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
     if gan_ims:
         batch["data_gan"] = np.stack(gan_ims)
         batch["gan_z"] = rng.uniform(-1, 1, (len(gan_ims), 100)).astype(np.float32)
-    if mcfg.vertex_reg and mcfg.vertex_reg_3d:
+    if mcfg.vertex_reg and dense:
+        batch["vertex_targets"] = np.stack(vtargets)
+        batch["vertex_weights"] = np.stack(vweights)
+    elif mcfg.vertex_reg and mcfg.vertex_reg_3d:
         batch["vertex_targets3"] = np.stack(vt3)
         batch["vertex_weights3"] = np.stack(vw3)
     elif mcfg.vertex_reg:
@@ -456,6 +534,11 @@ def get_minibatch(frames: List[Frame], mcfg: MinibatchConfig, rng: np.random.Ran
             k = min(len(rows), mcfg.max_gt)
             gc[i, :k] = rows[:k]
         batch["gt_centers"] = gc
+    if dense:
+        # the static blobs ride in every dense batch (minibatch.py:524-528)
+        batch["points"] = rescale_points(points, extents, symmetry, mcfg.is_symmetric)
+        batch["symmetry"] = symmetry if mcfg.is_symmetric else np.zeros_like(symmetry)
+        batch["extents"] = extents
     return batch
 
 
@@ -463,3 +546,10 @@ def _to_u8(im: np.ndarray) -> np.ndarray:
     """An image of the batch on the device-targets path: rounded and clipped
     to uint8, its first 3 channels."""
     return np.ascontiguousarray(np.clip(np.round(im[..., :3]), 0, 255)).astype(np.uint8)
+
+
+def _mean_subtracted(im: np.ndarray, pixel_means: np.ndarray) -> np.ndarray:
+    """An image of a dense-targets batch: its first 3 channels as float32
+    less the pixel means, in the means' precision, then float32
+    (`minibatch.py:356-360`, :508)."""
+    return (im[..., :3].astype(np.float32) - pixel_means).astype(np.float32)

@@ -92,10 +92,12 @@ def icp_refine(
     damping: float = 1e-6,
     target_normals: Optional[torch.Tensor] = None,
     plane_weight: float = 0.0,
+    model_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Refine R poses at once: quat (R,4) wxyz, trans (R,3), model_points
     (R,P,3), target_points (R,T,3) and target_valid (R,T) in the camera
-    frame. Returns the refined (quat (R,4), trans (R,3)).
+    frame. Returns the refined (quat (R,4), trans (R,3)). model_valid (R,P)
+    takes padded or invalid model points out of the solve.
 
     target_normals (R,T,3) with plane_weight > 0 add the point-to-plane
     energy n . (src - tgt), Huber-weighted and gated like the point term
@@ -111,6 +113,8 @@ def icp_refine(
         r = torch.sqrt(torch.clamp(d2, min=1e-12))
         w = torch.where(r <= huber_delta, torch.ones_like(r), huber_delta / r)  # Huber IRLS
         w = torch.where(torch.isfinite(d2), w, torch.zeros_like(w))
+        if model_valid is not None:
+            w = w * model_valid.to(w.dtype)
         # point-to-point Gauss-Newton on xi = (omega, v): J = [-[src]x | I]
         e = src - tgt
         sx, sy, sz = src[..., 0], src[..., 1], src[..., 2]

@@ -3,7 +3,8 @@ the evaluation loop.
 
 Port of `posecnn_tpu/engine/test.py:make_inference_fn`,
 `postprocess_detections`, `refine_poses`, `decode_poses_3d`, `test_net`,
-`test_net_segmentation` and the detection network's evaluation
+`test_net_segmentation`, the video model's `test_net_video` (with the
+KinectFusion hooks) and the detection network's evaluation
 (`gt_boxes_from_poses`, `DetectionEvaluator`, `make_det_inference_fn`,
 `postprocess_det`, `test_net_detection`). The device part
 (mean subtraction, network, Hough voting, pose head) runs in one call with
@@ -29,6 +30,7 @@ from posecnn_torch.data.minibatch import pad_im
 from posecnn_torch.engine.refine import icp_refine_detections
 from posecnn_torch.models.posecnn import posecnn_forward
 from posecnn_torch.ops.nms import nms_np
+from posecnn_torch.utils.debug_nans import jitted
 from posecnn_torch.utils.meta import build_meta_data
 from posecnn_torch.utils.resize import INTER_LINEAR, INTER_NEAREST, resize
 
@@ -71,7 +73,7 @@ def make_inference_fn(model_cfg: PoseCNNConfig, pixel_means: Tuple[float, float,
                 keep["poses_tanh"] = out["poses_tanh"]
         return keep
 
-    return infer
+    return jitted(infer, "the inference function")
 
 
 def _np(x) -> np.ndarray:
@@ -148,6 +150,10 @@ def refine_poses(rois: np.ndarray, poses: np.ndarray, depth_m, label, points_all
     return poses_new, poses_icp
 
 
+# JAX jits the ICP (`test.py:_refine_jit`): checked at its outputs under DEBUG_NANS
+refine_poses = jitted(refine_poses, "the ICP")
+
+
 def decode_poses_3d(
     out: Dict,
     depth_m: np.ndarray,
@@ -198,6 +204,10 @@ def decode_poses_3d(
     if not rois:
         return np.zeros((0, 7), np.float32), np.zeros((0, 7), np.float32)
     return np.asarray(rois, np.float32), np.asarray(poses, np.float32)
+
+
+# JAX jits RANSAC (`test.py:_ransac3d_jit`)
+decode_poses_3d = jitted(decode_poses_3d, "RANSAC")
 
 
 def _slice_batch(out: Dict[str, np.ndarray], b: int) -> Dict[str, np.ndarray]:
@@ -392,12 +402,13 @@ def test_net_segmentation(
     means = torch.tensor(np.asarray(pixel_means, np.float32).reshape(-1)[:3], device=dev).reshape(1, 1, 1, 3)
     set_float32_precision()
     n = dataset.num_images if max_frames is None else min(max_frames, dataset.num_images)
+    forward = jitted(apply_fn, "the segmentation forward")
     for i in range(n):
         frame = dataset.load_frame(i)
         t0 = time.perf_counter()
         with torch.inference_mode():
             data = torch.from_numpy(frame.color[None]).to(dev).to(torch.float32) - means
-            label_pred = apply_fn(model, data)["label_2d"].cpu().numpy()[0]
+            label_pred = forward(model, data)["label_2d"].cpu().numpy()[0]
         t1 = time.perf_counter()
         if evaluator is not None:
             evaluator.add_frame(label_pred, frame.label)
@@ -411,6 +422,84 @@ def test_net_segmentation(
 
 
 # --------------------------------------------------------------- detection path
+
+
+def test_net_video(model, video_cfg, dataset, pixel_means, num_steps: int = 5, evaluator=None,
+                   max_videos: Optional[int] = None, kfusion: bool = False, kfusion_grid: int = 128, log=print,
+                   timings: Optional[Dict[str, List[float]]] = None):
+    """The video model's evaluation (`test.py:test_net_video` :428-505): per
+    video of `dataset` ('<seq>/<frame>' indices, `data.video_layer.
+    group_by_video`, sorted, the first `max_videos`), the recurrent state
+    starts afresh and the frames go through `video_step` one at a time
+    (raw BGR less the pixel means, depth in metres, K in meta_data, no
+    camera motion) on the model's device; the evaluator scores each label
+    map. With `kfusion` each video also runs the TSDF pipeline at grid
+    `kfusion_grid` (`engine.kfusion.KinectFusion` with the model's classes:
+    feed_data, solve_pose from the second frame, feed_label of the class
+    probabilities exp(prob), fuse_depth) and `evaluator.surfaces` gets each
+    video's extract_surface (points, labels). `num_steps` is not read, as
+    in JAX. `timings`, when given, gets each frame's milliseconds of its
+    reading (`load`), the network step (`video_step`) and the fusion
+    (`kfusion`), the card synchronized after the last two. Returns the
+    evaluator."""
+    from posecnn_torch.data.video_layer import group_by_video
+    from posecnn_torch.engine.kfusion import KinectFusion
+    from posecnn_torch.models.video import init_video_state, video_step
+
+    dev = next(model.parameters()).device
+    means = np.asarray(pixel_means, np.float32).reshape(1, 1, 1, 3)
+    step = jitted(video_step, "the video step")  # JAX jits it (test.py:453)
+    videos = group_by_video(dataset.image_index)
+    names = sorted(videos)[:max_videos] if max_videos is not None else sorted(videos)
+
+    def sync_ms(t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    surfaces = []
+    with torch.no_grad():
+        for vi, name in enumerate(names):
+            state = None
+            kf = None
+            if kfusion:
+                kf = KinectFusion(grid_size=kfusion_grid, num_classes=video_cfg.num_classes, device=dev)
+            for j, idx in enumerate(videos[name]):
+                t0 = time.perf_counter()
+                frame = dataset.load_frame(idx)
+                data = torch.from_numpy(frame.color[None].astype(np.float32) - means).to(dev)
+                if state is None:
+                    state = init_video_state(1, data.shape[1], data.shape[2], video_cfg.num_units, device=dev)
+                depth_np = (frame.depth.astype(np.float32) / frame.factor_depth if frame.depth is not None
+                            else np.zeros(frame.label.shape, np.float32))
+                if timings is not None:
+                    timings.setdefault("load", []).append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                out, state = step(model, video_cfg, data, torch.from_numpy(depth_np[None]).to(dev),
+                                        torch.from_numpy(build_meta_data(frame.intrinsic_matrix)[None]).to(dev), state)
+                label_pred = out["label_2d"][0].cpu().numpy()
+                if timings is not None:
+                    timings.setdefault("video_step", []).append(sync_ms(t0))
+                if kf is not None:
+                    t0 = time.perf_counter()
+                    kf.feed_data(depth_np, frame.intrinsic_matrix)
+                    if j > 0:
+                        kf.solve_pose()
+                    kf.feed_label(torch.exp(out["prob"][0]))  # log-softmax -> class probabilities
+                    kf.fuse_depth()
+                    if timings is not None:
+                        timings.setdefault("kfusion", []).append(sync_ms(t0))
+                if evaluator is not None:
+                    evaluator.add_frame(label_pred, frame.label)
+            if kf is not None:
+                surfaces.append(kf.extract_surface())
+            if log:
+                log(f"video {vi + 1}/{len(names)} ({name}): {len(videos[name])} frames")
+    if evaluator is not None:
+        evaluator.surfaces = surfaces
+        if log:
+            log(str(evaluator.summary()))
+    return evaluator
 
 
 def project_box_corners(extent: np.ndarray, quat: np.ndarray, trans: np.ndarray, K: np.ndarray) -> np.ndarray:
@@ -546,7 +635,7 @@ def make_det_inference_fn(det_cfg, pixel_means, device):
         out = vgg16_det_forward(model, cfg, raw_bgr.to(torch.float32) - means)
         return {k: out[k] for k in ("rois", "cls_prob", "bbox_pred", "poses_tanh")}
 
-    return infer
+    return jitted(infer, "the detection inference function")
 
 
 def postprocess_det(out, num_classes: int, im_shape, nms_threshold: float = 0.3, score_threshold: float = 0.05,

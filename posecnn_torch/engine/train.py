@@ -25,6 +25,7 @@ of `Solver`) and the segmentation step (`make_seg_train_step`, FCN-8s):
   * `Solver` snapshots the state in the JAX npz layout
     (`core/checkpoint.py`), resumes from the latest snapshot, and snapshots
     on SIGTERM or SIGINT before it returns;
+  * the video model's step (`make_video_train_step`) on one process;
   * over a mesh of ranks (`parallel/mesh.py`), the step computes the
     one-process step's function on the global batch, as JAX's sharded jit
     does: every normalizer that spans the batch is the global batch's (the
@@ -51,8 +52,9 @@ from posecnn_torch.models.posecnn import PoseCNN, posecnn_forward
 from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.chromatic import add_noise_field, chromatic_device
 from posecnn_torch.ops.losses import (loss_cross_entropy_hard_label_sparse, loss_cross_entropy_single_frame,
-                                      sparse_softmax_cross_entropy)
+                                      smooth_l1_loss_vertex, sparse_softmax_cross_entropy)
 from posecnn_torch.ops.vertex_targets import smooth_l1_loss_vertex_sparse, smooth_l1_loss_vertex_sparse3d
+from posecnn_torch.utils.debug_nans import jitted
 
 
 @dataclass(frozen=True)
@@ -334,6 +336,10 @@ def compute_losses(
                 out["vertex_pred"], batch["gt_label_2d"], batch["vertex_targets3"], batch["vertex_weights3"],
                 model_cfg.num_classes, total=total,
             )
+        elif "vertex_targets" in batch:
+            # dense host targets, TPU.DEVICE_TARGETS False (train.py:234-238)
+            loss_vertex = hp.vertex_w * smooth_l1_loss_vertex(
+                out["vertex_pred"], batch["vertex_targets"], batch["vertex_weights"], total=total)
         else:
             loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse(
                 out["vertex_pred"], batch["gt_label_2d"], batch["gt_centers"], model_cfg.num_classes,
@@ -556,6 +562,46 @@ def make_seg_train_step(
     return step_fn
 
 
+def make_video_train_step(video_cfg, hp: TrainHParams) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Train step of the video model (`train.py:make_video_train_step`
+    :739-790, one process): the mean over the T frames of each frame's
+    cross entropy (`loss_cross_entropy_single_frame`, one-hot labels; a
+    label outside [0, C) weighs nothing), plus the L2 term over every
+    parameter (the `upscore*` filters are not parameters); momentum SGD at
+    unit rate (with the global-norm clip of `hp`) scaled by
+    lr_schedule(hp)(state.step). step(state, batch, draws=None) takes the
+    (T,B,...) batch of `data.video_layer.GtDataLayer` on the device (data,
+    gt_label_2d, depth, meta_data), updates the state in place and returns
+    the loss terms (detached), the lr and the gradient norm."""
+    from posecnn_torch.models.video import video_forward
+
+    sched = lr_schedule(hp)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[Draws] = None):
+        outs, _ = video_forward(state.model, video_cfg, batch["data"], batch["depth"], batch["meta_data"])
+        prob = outs["prob"]
+        classes = torch.arange(prob.shape[-1], device=prob.device)
+        loss_cls = 0.0
+        for t in range(prob.shape[0]):
+            onehot = (batch["gt_label_2d"][t].long()[..., None] == classes).to(prob.dtype)
+            loss_cls = loss_cls + loss_cross_entropy_single_frame(prob[t], onehot)
+        loss_cls = loss_cls / prob.shape[0]
+        reg = regularization_loss(state.model, hp.weight_reg)
+        loss = loss_cls + reg
+        lr = sched(state.step)
+        g_norm = train_update(state, loss, lr)
+        return {"loss": loss.detach(), "loss_cls": loss_cls.detach(), "loss_regu": reg.detach(),
+                "lr": torch.tensor(lr, dtype=torch.float64), "grad_norm": g_norm}
+
+    # JAX jits the step: under DEBUG_NANS its outputs and the parameters
+    # are checked, not the NaN points of the state it starts from
+    return jitted(step_fn, "the video train step", extra=_step_parameters)
+
+
+def _step_parameters(state: TrainState, *args) -> List[torch.Tensor]:
+    return list(state.model.parameters())
+
+
 def to_device(item: Dict, device) -> Dict[str, torch.Tensor]:
     """A batch on `device`: numpy arrays are copied there (through pinned
     memory and without blocking the host, on a card), tensors moved (a bank
@@ -614,7 +660,8 @@ class Solver:
 
         self.mesh = mesh
         self.rank0 = mesh is None or mesh.rank == 0
-        self.step_fn = step_fn
+        # JAX jits the step: under DEBUG_NANS it is checked at its outputs
+        self.step_fn = jitted(step_fn, "the train step", extra=_step_parameters)
         self.output_dir = output_dir
         self.snapshot_iters = snapshot_iters
         self.snapshot_prefix = snapshot_prefix

@@ -7,11 +7,13 @@ Port of `posecnn_tpu/models/factory.py` for the networks the port runs:
 `posecnn_full_forward`), `fcn8_vgg` (FCN-8s:
 `models.fcn8.init_fcn8_params_numpy`, `fcn8_forward`) and `vgg16_det`
 (the detection network: `models.detection.init_vgg16_det_params_numpy`,
-`vgg16_det_forward`) and `resnet50` (the segmentation network:
-`models.resnet50.init_resnet50_params_numpy`, `resnet50_forward`). The
-JAX package's
-other names raise NotImplementedError naming the network; a name it does
-not know raises KeyError, as there.
+`vgg16_det_forward`), `resnet50` (the segmentation network:
+`models.resnet50.init_resnet50_params_numpy`, `resnet50_forward`), and
+the video models `vgg16` (`models.video.init_video_params_numpy`,
+`video_forward`) and `vgg16_3d` (`init_video3d_params_numpy`,
+`video3d_forward`). The JAX package's other names (`dcgan`, `vgg16_gan`)
+raise NotImplementedError naming the network; a name it does not know
+raises KeyError, as there.
 """
 
 from __future__ import annotations
@@ -45,7 +47,15 @@ def get_network(name: str) -> Tuple[Callable, Callable]:
         from posecnn_torch.models.resnet50 import init_resnet50_params_numpy, resnet50_forward
 
         return init_resnet50_params_numpy, resnet50_forward
+    if name == "vgg16":
+        from posecnn_torch.models.video import init_video_params_numpy, video_forward
+
+        return init_video_params_numpy, video_forward
+    if name == "vgg16_3d":
+        from posecnn_torch.models.video import init_video3d_params_numpy, video3d_forward
+
+        return init_video3d_params_numpy, video3d_forward
     if name in JAX_NETWORKS:
-        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, resnet50, vgg16_convs, "
-                                  "vgg16_det, vgg16_full)")
+        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, resnet50, vgg16, vgg16_3d, "
+                                  "vgg16_convs, vgg16_det, vgg16_full)")
     raise KeyError(f"Unknown network: {name}. Known: {sorted(JAX_NETWORKS)}")

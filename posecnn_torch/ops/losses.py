@@ -6,7 +6,8 @@ weights, and `loss_cross_entropy_hard_label_sparse` (lines 24-47): the
 hard-label gate and the cross entropy fused on raw logits, never
 materialising the dense one-hot, softmax or log-softmax; and the
 detection network's `smooth_l1_loss` (:75) and
-`sparse_softmax_cross_entropy` (:98).
+`sparse_softmax_cross_entropy` (:98); and the dense vertex loss of the
+host targets, `smooth_l1_loss_vertex` (:61).
 """
 
 from __future__ import annotations
@@ -39,6 +40,21 @@ def loss_cross_entropy_hard_label_sparse(score: torch.Tensor, gt: torch.Tensor, 
     gate = select.to(score.dtype).detach()
     count = gate.sum() if total is None else total(gate.sum())
     return -(gate * logp_gt).sum() / (count + 1e-10)
+
+
+def smooth_l1_loss_vertex(vertex_pred: torch.Tensor, vertex_targets: torch.Tensor, vertex_weights: torch.Tensor,
+                          sigma: float = 1.0, total=None) -> torch.Tensor:
+    """The dense vertex loss (B,H,W,3C): the smooth L1 of the weighted
+    difference (quadratic below 1/sigma^2, its switch detached), summed over
+    the weights' sum (+1e-10). `total` maps the local weight sum to the
+    global batch's (a data-parallel step)."""
+    sigma_2 = sigma ** 2
+    diff = vertex_weights * (vertex_pred - vertex_targets)
+    abs_diff = diff.abs()
+    sign = (abs_diff < 1.0 / sigma_2).to(diff.dtype).detach()
+    in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
+    count = vertex_weights.sum() if total is None else total(vertex_weights.sum())
+    return in_loss.sum() / (count + 1e-10)
 
 
 def smooth_l1_loss(bbox_pred: torch.Tensor, bbox_targets: torch.Tensor, bbox_inside_weights: torch.Tensor,

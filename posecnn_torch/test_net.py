@@ -44,6 +44,9 @@ the 3 symmetric YCB classes; without --model, the seed-0 weights of
 `entry`. Its object models are stand-ins (`data/lov_syn.py`), so its ADD-S
 numbers are not comparable with the paper's.
 
+With TPU.DEBUG_NANS the evaluation runs under `utils.debug_nans`
+(FloatingPointError at the first operation with a NaN output).
+
 With --vis, or TEST.VISUALIZE, the PoseCNN evaluations (VGG16FULL's too)
 write each frame's overlay as <output>/vis/<frame:06d>-vis.png
 (`engine.visualize.PredictionVisualizer`: the label map, each detection's
@@ -88,15 +91,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
-
-    from posecnn_torch.config import PIXEL_MEANS
-    from posecnn_torch.core.checkpoint import restore_params
-    from posecnn_torch.core.convert import make_model, param_shapes
-    from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL, PoseEvaluator
-    from posecnn_torch.models.posecnn_full import make_full_model
-    from posecnn_torch.engine import test as engine
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("test_net: no CUDA device (pass --device cpu to evaluate on the CPU)", file=sys.stderr)
@@ -104,9 +99,28 @@ def main(argv=None) -> int:
     if args.model and not args.model.endswith(".npz"):
         raise NotImplementedError(f"{args.model}: only npz snapshots are read (TF1 .ckpt needs tensorflow)")
     from posecnn_torch.core import config as C
-    from posecnn_torch.models.factory import get_network
+    from posecnn_torch.utils.debug_nans import debug_nans
 
     config = C.cfg_from_file(args.cfg) if args.cfg else None
+    # TPU.DEBUG_NANS: the whole evaluation under the NaN check
+    with debug_nans(config is not None and config.TPU.DEBUG_NANS):
+        return _evaluate(args, ap, config)
+
+
+def _evaluate(args, ap, config) -> int:
+    """The evaluation of `main` once the config is read."""
+    import numpy as np
+    import torch
+
+    from posecnn_torch.config import PIXEL_MEANS
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.checkpoint import restore_params
+    from posecnn_torch.core.convert import make_model, param_shapes
+    from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL, PoseEvaluator
+    from posecnn_torch.engine import test as engine
+    from posecnn_torch.models.factory import get_network
+    from posecnn_torch.models.posecnn_full import make_full_model
+
     # NETWORK and --network with the JAX CLI's precedence
     # (tools/test_net.py:61-109); VGG16GAN is scored as PoseCNN; a network
     # the port does not run raises here

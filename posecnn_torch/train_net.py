@@ -49,7 +49,16 @@ VGG16DET trains the detection network (`det_run`, the JAX CLI's
 `train_det`: one raw frame a step, no resume), under
 output/<EXP_DIR>/<imdb>/vgg16_det. A config with a setting the port
 does not run raises NotImplementedError naming it; so do --weights and
---ckpt, which read weights from outside the repository.
+--ckpt, which read weights from outside the repository. With
+TPU.DEVICE_TARGETS False the host thread builds dense batches (float
+images with the jitter and the noise applied, the (B,H,W,3C) vertex
+targets and weights; `data.minibatch.get_minibatch`) and the vertex loss
+is the dense smooth L1 (`ops.losses.smooth_l1_loss_vertex`); a config that
+also asks Hough for the GT centres (HOUGH_FROM_GT, HOUGH_GT_MIX) is
+refused, as JAX's step raises KeyError there. With TPU.DEBUG_NANS the
+steps run under `utils.debug_nans` (FloatingPointError at the first
+operation with a NaN output, forward or backward; `train_timing.json`
+counts the outputs checked).
 
 Without --cfg, the flagship run: `engine.train.Solver` over the step of
 `entry.train_entry` (a device bank of `data/lov_syn_val_v4/`), with the
@@ -163,6 +172,7 @@ def cfg_run(args, log, mesh=None):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: reading a {what} needs a file from outside the repository")
     cfg = C.cfg_from_file(args.cfg)
+    args.debug_nans = cfg.TPU.DEBUG_NANS
     # NETWORK and --network with the JAX CLI's precedence
     # (tools/train_net.py:83-105); VGG16GAN trains PoseCNN; a network the
     # port does not run raises here
@@ -482,6 +492,7 @@ def _train(args, ap, t_start: float, world: int) -> int:
     from posecnn_torch.engine.train import Solver
     from posecnn_torch.ops import conv3x3, nms, voting
     from posecnn_torch.parallel.mesh import MeshSpec, make_mesh
+    from posecnn_torch.utils.debug_nans import debug_nans
 
     # the mesh of JAX's Solver, make_mesh(): every rank on the data axis
     mesh = make_mesh(MeshSpec(), world) if world > 1 else None
@@ -523,7 +534,9 @@ def _train(args, ap, t_start: float, world: int) -> int:
     voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
     data_record = {}
     try:
-        solver.train(data_iter, state, args.iters, log=log, start_iter=start, timings=timings)
+        # TPU.DEBUG_NANS: every step's forward and backward under the NaN check
+        with debug_nans(getattr(args, "debug_nans", False)) as nan_mode:
+            solver.train(data_iter, state, args.iters, log=log, start_iter=start, timings=timings)
     finally:
         close = getattr(data_iter, "close", None)
         if close is not None:
@@ -536,6 +549,8 @@ def _train(args, ap, t_start: float, world: int) -> int:
     record = {"device": device, "start_step": start, "end_step": state.step, "launches": launches, "ms": timings}
     if cuda:
         record["peak_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    if nan_mode is not None:
+        record["debug_nans_checked_outputs"] = nan_mode.checked
     if mesh is not None:
         # each rank's own record; rank 0's stays at the top level
         ranks = mesh.gather_objects({k: record.get(k) for k in ("device", "end_step", "launches", "ms",

@@ -1,5 +1,5 @@
-"""Rigid transforms in numpy: the port's copy of
-`posecnn_tpu/utils/se3.py:se3_mul`."""
+"""Rigid transforms in numpy: the port's copies of
+`posecnn_tpu/utils/se3.py:se3_mul` and `se3_inverse`."""
 
 from __future__ import annotations
 
@@ -11,3 +11,11 @@ def se3_mul(RT1: np.ndarray, RT2: np.ndarray) -> np.ndarray:
     R1, T1 = RT1[..., 0:3, 0:3], RT1[..., 0:3, 3:4]
     R2, T2 = RT2[..., 0:3, 0:3], RT2[..., 0:3, 3:4]
     return np.concatenate([np.matmul(R1, R2), np.matmul(R1, T2) + T1], axis=-1)
+
+
+def se3_inverse(RT: np.ndarray) -> np.ndarray:
+    """Inverse of a rigid transform [R|t] (3x4): [R^T | -R^T t]."""
+    R = RT[..., 0:3, 0:3]
+    T = RT[..., 0:3, 3:4]
+    Rt = np.swapaxes(R, -1, -2)
+    return np.concatenate([Rt, -np.matmul(Rt, T)], axis=-1)

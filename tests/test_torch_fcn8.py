@@ -327,7 +327,12 @@ def test_factory_names():
     from posecnn_torch.models.resnet50 import init_resnet50_params_numpy, resnet50_forward
 
     assert factory.get_network("resnet50") == (init_resnet50_params_numpy, resnet50_forward)
-    for name in ("vgg16_3d", "vgg16_gan", "dcgan"):
+    from posecnn_torch.models.video import (init_video3d_params_numpy, init_video_params_numpy, video3d_forward,
+                                            video_forward)
+
+    assert factory.get_network("vgg16") == (init_video_params_numpy, video_forward)
+    assert factory.get_network("vgg16_3d") == (init_video3d_params_numpy, video3d_forward)
+    for name in ("vgg16_gan", "dcgan"):
         with pytest.raises(NotImplementedError, match=name):
             factory.get_network(name)
     with pytest.raises(KeyError):

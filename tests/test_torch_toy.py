@@ -144,15 +144,30 @@ def test_index_stream_matches_jax():
     dict(scale=0.5, device_targets=False), dict(input_format="NORMAL", scale=2.0, device_targets=False),
 ])
 def test_get_minibatch_refuses_unported_branches(over):
-    """The branch still unported, dense host targets (device_targets
-    False), refuses for the depth inputs, the 3D targets, the GAN blobs
-    and rescaled frames too (their host paths: tests/test_torch_input_modes.py,
-    tests/test_torch_vertex3d.py, tests/test_torch_adapt.py; the rescale,
-    ported since, tests/test_torch_synthesize.py)."""
-    fr = Toy("train").load_frame(0)
-    with pytest.raises(NotImplementedError):
-        M.get_minibatch([fr], M.MinibatchConfig(**{"num_classes": 4, "device_targets": True, **over}),
-                        np.random.RandomState(0))
+    """The dense host targets (device_targets False), once refused here, now
+    give JAX's batch bit for bit for the depth inputs, the 3D targets, the
+    GAN blobs and rescaled frames too, the RandomState left in step (more
+    cases: tests/test_torch_dense_targets.py). A 3D frame gets a seeded
+    vertmap (the toy frames have none); a dense batch without the points,
+    symmetry and extents it carries raises ValueError."""
+    ja, pb = JaxToy("train"), Toy("train")
+    kw = {"num_classes": 4, "add_noise": True, **over}
+    vm = np.random.RandomState(1).uniform(-0.05, 0.05, (96, 128, 3)).astype(np.float32)
+    fa = [ja.load_frame(i) for i in (0, 3)]
+    fb = [pb.load_frame(i) for i in (0, 3)]
+    if kw.get("vertex_reg_3d"):
+        for f in fa + fb:
+            f.vertmap = vm
+    ra, rb = np.random.RandomState(0), np.random.RandomState(0)
+    x = JM.get_minibatch(fa, JM.MinibatchConfig(**kw), ja._extents, ja._points_all, ja._symmetry, rng=ra)
+    y = M.get_minibatch(fb, M.MinibatchConfig(**kw), rb, extents=pb._extents, points=pb._points_all,
+                        symmetry=pb._symmetry)
+    assert sorted(x) == sorted(y) and {"vertex_targets", "points"} <= set(y)
+    for k in x:
+        assert x[k].dtype == y[k].dtype and x[k].shape == y[k].shape and np.array_equal(x[k], y[k]), k
+    assert y["data"].dtype == np.float32 and ra.rand() == rb.rand()
+    with pytest.raises(ValueError, match="points"):
+        M.get_minibatch(fb, M.MinibatchConfig(**kw), np.random.RandomState(0), extents=pb._extents)
 
 
 def test_get_minibatch_matches_jax_without_chromatic():

@@ -1074,3 +1074,141 @@ def check_lov_batch_golden(batches: list, g: dict) -> dict:
             raise AssertionError(f"{k}: {got[k]!r} differs from the golden's {v!r}")
         n_digest += k.endswith("/sha256")
     return {"arrays": sum(k.endswith("/dtype") for k in g), "digests": n_digest}
+
+
+def video_on_golden(device="cpu", three_d: bool = False) -> tuple:
+    """The port's `video_forward` (or `video3d_forward`) at float32 on the
+    video golden's inputs and weights (`make_torch_goldens.video_params`,
+    `video_inputs`): (outputs, final state as a list), numpy."""
+    from posecnn_torch.models import video as V
+
+    G = goldens()
+    cfg = (V.Video3DConfig(compute_dtype=torch.float32, **G.VIDEO3D_CFG) if three_d
+           else V.VideoConfig(compute_dtype=torch.float32, **G.VIDEO_CFG))
+    model = V.make_video_model(cfg, G.video_params(three_d=three_d), device)
+    x = {k: torch.from_numpy(v).to(device) for k, v in G.video_inputs(three_d=three_d).items()}
+    fwd = V.video3d_forward if three_d else V.video_forward
+    with torch.no_grad():
+        outs, state = fwd(model, cfg, x["data"], x["depth"], x["meta_data"])
+    state = [state] if three_d else list(state)
+    return {k: v.cpu().numpy() for k, v in outs.items()}, [s.cpu().numpy() for s in state]
+
+
+def video_step_on_golden(device="cpu") -> tuple:
+    """One `make_video_train_step` of the port at float32 on the video
+    golden's inputs: (metrics, parameters after it in the JAX layout)."""
+    from posecnn_torch.core.convert import params_to_numpy
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.models import video as V
+
+    G = goldens()
+    cfg = V.VideoConfig(compute_dtype=torch.float32, **G.VIDEO_CFG)
+    hp = T.TrainHParams(**G.VIDEO_HP)
+    state = T.create_train_state(V.make_video_model(cfg, G.video_params(), device), hp)
+    x = {k: torch.from_numpy(v).to(device) for k, v in G.video_inputs().items()}
+    m = T.make_video_train_step(cfg, hp)(state, x)
+    return {k: float(v) for k, v in m.items()}, params_to_numpy(state.model.state_dict())
+
+
+def kfusion_on_golden(device="cpu") -> dict:
+    """The port's KinectFusion on the golden's analytic scene
+    (`make_torch_goldens.kfusion_scene`): the world2cam track, the final
+    surface and the last camera's raycast depth, numpy."""
+    from posecnn_torch.engine.kfusion import KinectFusion
+
+    G = goldens()
+    depths, _ = G.kfusion_scene()
+    kf = KinectFusion(grid_size=G.KF_GRID, origin=G.KF_ORIGIN, voxel_size=G.KF_VOXEL, device=device)
+    track = []
+    for j, d in enumerate(depths):
+        kf.feed_data(d, G.KF_K)
+        if j > 0:
+            kf.solve_pose()
+        track.append(kf.world2cam.cpu().numpy())
+        kf.fuse_depth()
+    pts, labels = kf.extract_surface(max_points=4096)
+    return {"track": np.stack(track), "surface": pts, "labels": labels, "raycast": kf.render(*G.KF_HW)[0]}
+
+
+def _label_agreement(got: np.ndarray, ref: np.ndarray, score: np.ndarray, margin: float) -> float:
+    """The share of labels equal, after leaving out the pixels whose two
+    best scores lie within `margin` of each other (a tie either way)."""
+    top2 = np.sort(score, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > margin
+    return float((got == ref)[clear].mean()) if clear.any() else 1.0
+
+
+# limits of the port against the video golden: each float output, state and
+# updated parameter within VIDEO_REL of its largest magnitude (float32 sums
+# in another order; the CPU reads ~1e-5 at most); labels equal where the two
+# best scores are VIDEO_MARGIN apart; the step's loss terms within 1e-5
+# relative; the KinectFusion track within KF_TRACK (metres and rotation
+# entries), the surface points equal in count and within KF_SURFACE m
+VIDEO_REL, VIDEO_MARGIN, KF_TRACK, KF_SURFACE = 1e-4, 1e-4, 1e-4, 1e-5
+# the video step's parameters: each update within VIDEO_STEP of its largest move
+VIDEO_STEP = 1e-3
+
+
+def check_video_golden(video: tuple, video3d: tuple, step: tuple, kf: dict, g: dict) -> dict:
+    """Hold the port's video paths (`video_on_golden` twice,
+    `video_step_on_golden`, `kfusion_on_golden`) to the JAX golden; raises
+    AssertionError past a limit. Returns each comparison's error."""
+    err = {}
+
+    def rel(name, got, ref):
+        e = float(np.abs(got.astype(np.float64) - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+        err[name] = e
+        if not e <= VIDEO_REL:
+            raise AssertionError(f"{name}: {e:.3g} of its largest magnitude (limit {VIDEO_REL})")
+
+    for prefix, (outs, state) in (("video", video), ("video3d", video3d)):
+        for k, v in outs.items():
+            ref = g[f"{prefix}/{k}"]
+            if k == "label_2d":
+                a = _label_agreement(v, ref, g[f"{prefix}/score"], VIDEO_MARGIN)
+                err[f"{prefix}/label_2d"] = 1.0 - a
+                if a < 1.0:
+                    raise AssertionError(f"{prefix}/label_2d: {a:.6f} equal away from ties")
+            elif k == "flag_3d":
+                if not np.array_equal(v, ref):
+                    raise AssertionError("video3d/flag_3d differs")
+            else:
+                rel(f"{prefix}/{k}", v, ref)
+        names = ["state"] if prefix == "video3d" else [f"state{i}" for i in range(3)]
+        for name, v in zip(names, state):
+            ref = g[f"{prefix}/{name}"]
+            if not np.array_equal(np.isnan(v), np.isnan(ref)):
+                raise AssertionError(f"{prefix}/{name}: NaN where the golden has none, or the other way")
+            rel(f"{prefix}/{name}", np.nan_to_num(v), np.nan_to_num(ref))
+    metrics, params = step
+    for k in ("loss", "loss_cls", "loss_regu", "lr"):
+        e = abs(metrics[k] - float(g[f"step/{k}"])) / max(abs(float(g[f"step/{k}"])), 1e-30)
+        err[f"step/{k}"] = e
+        if not e <= 1e-5:
+            raise AssertionError(f"step/{k}: {metrics[k]} against {float(g['step/' + k])}")
+    p0 = goldens().video_params()
+    for key in (k for k in g if k.startswith("step/") and k.count("/") >= 2):
+        path = key.split("/")[1:]
+        v, w0 = params[path[0]], p0[path[0]]
+        for p in path[1:]:
+            v, w0 = v[p], w0[p]
+        ref = g[key]
+        # the update against the golden's: within VIDEO_STEP of its largest move
+        move = float(np.abs(ref - w0[..., :ref.shape[-1]]).max())
+        e = float(np.abs(v[..., :ref.shape[-1]] - ref).max()) / max(move, 1e-30)
+        err[key] = e
+        if not (move > 0 and e <= VIDEO_STEP):
+            raise AssertionError(f"{key}: the update {e:.3g} of its largest move {move:.3g} (limit {VIDEO_STEP})")
+    e = float(np.abs(kf["track"] - g["kfusion/track"]).max())
+    err["kfusion/track"] = e
+    if not e <= KF_TRACK:
+        raise AssertionError(f"kfusion/track: {e:.3g} (limit {KF_TRACK})")
+    if kf["surface"].shape != g["kfusion/surface"].shape:
+        raise AssertionError(f"kfusion/surface: {kf['surface'].shape} points, the golden {g['kfusion/surface'].shape}")
+    err["kfusion/surface"] = float(np.abs(kf["surface"] - g["kfusion/surface"]).max())
+    if not err["kfusion/surface"] <= KF_SURFACE:
+        raise AssertionError(f"kfusion/surface: {err['kfusion/surface']:.3g} m (limit {KF_SURFACE})")
+    err["kfusion/raycast"] = float(np.abs(kf["raycast"] - g["kfusion/raycast"]).max())
+    if not err["kfusion/raycast"] <= 1e-4:
+        raise AssertionError(f"kfusion/raycast: {err['kfusion/raycast']:.3g} m")
+    return err

@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes eleven files:
+Runs the JAX package (on the CPU) and writes twelve files:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -83,6 +83,16 @@ Runs the JAX package (on the CPU) and writes eleven files:
       port's seeded weights, its batch norms moved off the identity
       (`resnet50_golden_params`, not stored; the score layer's 5 biases
       stored): score and label_2d (`resnet50_golden`).
+
+  tests/golden/torch_port_video.npz
+      the video models (`video_golden`): JAX's `video_forward` (VIDEO_CFG:
+      5 classes, 8 units) and `video3d_forward` (VIDEO3D_CFG: grid 6) at
+      the full trunk width on 3 frames of 32x32 with camera motion and a
+      hole in the depth, float32, from the port's seeded weights with
+      random gates (`video_params`, not stored): their outputs and final
+      states; one `make_video_train_step` (its metrics, parameter slices
+      after it); and KinectFusion's pose track, raycast and surface on an
+      analytic scene under a known camera motion (`kfusion_scene`).
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -916,13 +926,172 @@ def resnet50_golden() -> dict:
             "score_bias": bias, "out/score": np.asarray(out["score"]), "out/label_2d": np.asarray(out["label_2d"])}
 
 
+VIDEO_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_video.npz")
+# the video models at the full trunk width on small frames (the JAX video
+# model has no narrow trunk), float32: T frames of 32x32, B=1
+VIDEO_CFG = dict(num_classes=5, num_units=8, num_steps=3)
+VIDEO3D_CFG = dict(num_classes=4, num_units=8, num_steps=3, grid_size=6, backproject_threshold=0.1)
+VIDEO_SEED, VIDEO_HW = 11, (32, 32)
+VIDEO_HP = dict(learning_rate=0.01, momentum=0.9, gamma=0.1, stepsize=1, weight_reg=0.0001, clip_grad_norm=10.0)
+# the parameters of the video step kept whole, and the rows kept of the rest
+VIDEO_STEP_WHOLE = ("gru2d", "score", "score_conv4", "score_conv5")
+VIDEO_STEP_ROWS = {"conv1_1": 3, "conv1_2": 2, "conv5_3": 1}
+# KinectFusion on an analytic scene: a plane and a sphere seen by a camera
+# moving KF_STEP a frame (`kfusion_scene`)
+KF_HW, KF_GRID, KF_FRAMES = (48, 64), 32, 4
+KF_ORIGIN, KF_VOXEL = (-0.8, -0.6, 0.5), 0.05
+KF_STEP = (0.01, 0.005, 0.0)
+KF_K = np.array([[60.0, 0.0, 32.0], [0.0, 60.0, 24.0], [0.0, 0.0, 1.0]], np.float32)
+
+
+def video_params(seed: int = VIDEO_SEED, three_d: bool = False) -> dict:
+    """The port's seeded video weights (`init_video_params_numpy` or
+    `init_video3d_params_numpy`) with the zero-initialised GRU gates, and
+    `score`, drawn from N(0, 0.3) / N(0, 0.05) so the cells and the label
+    maps vary (not stored in the golden)."""
+    from posecnn_torch.models import video as V
+
+    if three_d:
+        p = V.init_video3d_params_numpy(seed, V.Video3DConfig(**VIDEO3D_CFG))
+    else:
+        p = V.init_video_params_numpy(seed, V.VideoConfig(**VIDEO_CFG))
+    rng = np.random.RandomState(seed)
+    gates = p["gru3d" if three_d else "gru2d"]["Gates"]
+    gates["weights"] = (0.3 * rng.randn(*gates["weights"].shape)).astype(np.float32)
+    gates["biases"] = (0.1 * rng.randn(*gates["biases"].shape)).astype(np.float32)
+    p["score"]["weights"] = (0.05 * rng.randn(*p["score"]["weights"].shape)).astype(np.float32)
+    return p
+
+
+def video_meta(T: int, B: int, K: np.ndarray, motion: bool = True, grid=None) -> np.ndarray:
+    """(T,B,48) meta_data: K, K^-1 and, with `motion`, each frame's camera
+    rotated 1 degree about y and moved 1 cm along x from the last
+    (world2live [18:30], live2world [30:42]); `grid` (step, origin) in
+    [42:48]."""
+    meta = np.zeros((T, B, 48), np.float32)
+    meta[..., 0:9] = K.ravel()
+    meta[..., 9:18] = np.linalg.inv(K).ravel()
+    for t in range(T):
+        a = np.deg2rad(1.0 * t) if motion else 0.0
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        c = np.array([0.01 * t if motion else 0.0, 0.0, 0.0])
+        l2w = np.hstack([R, c[:, None]])
+        w2l = np.hstack([R.T, (-R.T @ c)[:, None]])
+        meta[t, :, 18:30] = w2l.ravel()
+        meta[t, :, 30:42] = l2w.ravel()
+    if grid is not None:
+        meta[..., 42:45], meta[..., 45:48] = grid
+    return meta
+
+
+def video_inputs(three_d: bool = False, seed: int = VIDEO_SEED) -> dict:
+    """(T,B,...) numpy inputs of the video golden: mean-subtracted data
+    ~ 50 N(0, 1), depth U(0.8, 1.2) m with a 6x6 hole of no depth, labels,
+    meta_data with camera motion (`video_meta`; the 3D model's voxel grid
+    of 0.25 m steps from (-0.6, -0.6, 0.4))."""
+    T, (H, W) = VIDEO_CFG["num_steps"], VIDEO_HW
+    C = (VIDEO3D_CFG if three_d else VIDEO_CFG)["num_classes"]
+    rng = np.random.RandomState(seed + (1 if three_d else 0))
+    K = np.array([[30.0, 0.0, W / 2], [0.0, 30.0, H / 2], [0.0, 0.0, 1.0]])
+    depth = rng.uniform(0.8, 1.2, (T, 1, H, W)).astype(np.float32)
+    depth[:, :, 4:10, 20:26] = 0.0
+    grid = (np.full(3, 0.25, np.float32), np.array([-0.6, -0.6, 0.4], np.float32)) if three_d else None
+    return {"data": (50.0 * rng.randn(T, 1, H, W, 3)).astype(np.float32), "depth": depth,
+            "gt_label_2d": rng.randint(0, C, (T, 1, H, W)).astype(np.int32),
+            "meta_data": video_meta(T, 1, K, grid=grid)}
+
+
+def kfusion_scene(hw=KF_HW, K=KF_K, frames: int = KF_FRAMES) -> tuple:
+    """Depth maps (N,H,W) float32 of a plane at z = 1.2 m and a sphere of
+    radius 0.2 m at (0, 0, 0.9) m, seen by a camera that moves KF_STEP a
+    frame from the identity (no rotation); and the true world2cam poses
+    (N,3,4)."""
+    H, W = hw
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    rays = np.stack([u, v, np.ones_like(u)], -1) @ np.linalg.inv(np.asarray(K, np.float64)).T  # z = 1
+    out, poses = [], []
+    for i in range(frames):
+        R = np.eye(3)
+        c = i * np.asarray(KF_STEP, np.float64)
+        d = rays @ R.T  # world directions, their camera z 1
+        t_plane = (1.2 - c[2]) / d[..., 2]
+        oc = c - np.array([0.0, 0.0, 0.9])
+        b = (d * oc).sum(-1)
+        q = (d * d).sum(-1)
+        disc = b * b - q * ((oc * oc).sum() - 0.2 ** 2)
+        t_sph = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / q, np.inf)
+        out.append(np.minimum(t_plane, np.where(t_sph > 0, t_sph, np.inf)).astype(np.float32))
+        poses.append(np.hstack([R.T, (-R.T @ c)[:, None]]).astype(np.float32))
+    return np.stack(out), np.stack(poses)
+
+
+def video_golden() -> dict:
+    """JAX's `video_forward` and `video3d_forward` (float32, `video_params`,
+    `video_inputs`): every output and the final state; one
+    `make_video_train_step` on the video inputs (`VIDEO_HP`): its metrics
+    and the parameters after it (`VIDEO_STEP_WHOLE` whole, the first rows
+    of `VIDEO_STEP_ROWS`' weights' output channels); and KinectFusion on
+    `kfusion_scene` (grid KF_GRID of KF_VOXEL m from KF_ORIGIN): each
+    frame's tracked world2cam, the raycast depth of the last camera and the
+    final surface."""
+    import jax
+    import jax.numpy as jnp
+
+    from posecnn_tpu.engine.kfusion import KinectFusion
+    from posecnn_tpu.engine.train import TrainHParams, make_optimizer, make_video_train_step
+    from posecnn_tpu.models import video as JV
+    from posecnn_tpu.parallel.mesh import MeshSpec, make_mesh
+
+    g = {}
+    tree = lambda p: jax.tree_util.tree_map(jnp.asarray, p)  # noqa: E731
+    cfg = JV.VideoConfig(compute_dtype=jnp.float32, **VIDEO_CFG)
+    x = video_inputs()
+    outs, state = JV.video_forward(tree(video_params()), cfg, jnp.asarray(x["data"]), jnp.asarray(x["depth"]),
+                                   jnp.asarray(x["meta_data"]))
+    g.update({f"video/{k}": np.asarray(v) for k, v in outs.items()})
+    g.update({f"video/state{i}": np.asarray(v) for i, v in enumerate(state)})
+    cfg3 = JV.Video3DConfig(compute_dtype=jnp.float32, **VIDEO3D_CFG)
+    x3 = video_inputs(three_d=True)
+    outs, state = JV.video3d_forward(tree(video_params(three_d=True)), cfg3, jnp.asarray(x3["data"]),
+                                     jnp.asarray(x3["depth"]), jnp.asarray(x3["meta_data"]))
+    g.update({f"video3d/{k}": np.asarray(v) for k, v in outs.items()})
+    g["video3d/state"] = np.asarray(state)
+
+    hp = TrainHParams(**VIDEO_HP)
+    step = make_video_train_step(cfg, hp, make_mesh(MeshSpec(data=1, model=1)))
+    params = tree(video_params())
+    (params, _, _), m = step((params, make_optimizer(hp).init(params), jnp.asarray(0, jnp.int32)),
+                             {k: jnp.asarray(v) for k, v in x.items()})
+    g.update({f"step/{k}": np.asarray(v) for k, v in m.items()})
+    for name in VIDEO_STEP_WHOLE:
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params[name])[0]:
+            g[f"step/{name}/" + "/".join(p.key for p in path)] = np.asarray(leaf)
+    for name, n in VIDEO_STEP_ROWS.items():
+        g[f"step/{name}/weights"] = np.asarray(params[name]["weights"])[..., :n]
+
+    depths, _ = kfusion_scene()
+    kf = KinectFusion(grid_size=KF_GRID, origin=KF_ORIGIN, voxel_size=KF_VOXEL)
+    track = []
+    for j, d in enumerate(depths):
+        kf.feed_data(d, KF_K)
+        if j > 0:
+            kf.solve_pose()
+        track.append(np.asarray(kf.world2cam))
+        kf.fuse_depth()
+    pts, labels = kf.extract_surface(max_points=4096)
+    g["kfusion/track"] = np.stack(track)
+    g["kfusion/surface"], g["kfusion/labels"] = pts, labels
+    g["kfusion/raycast"] = kf.render(*KF_HW)[0]
+    return g
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
                        (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden),
                        (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden),
                        (DET_GOLDEN, det_golden), (FULL_GOLDEN, full_golden), (LOV_BATCH_GOLDEN, lov_batch_golden),
-                       (RESNET50_GOLDEN, resnet50_golden)):
+                       (RESNET50_GOLDEN, resnet50_golden), (VIDEO_GOLDEN, video_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
 

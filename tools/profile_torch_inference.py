@@ -31,7 +31,12 @@ ResNet-50 (`--network resnet50` under
 `experiments/cfgs/rgbd_scene_single_color_fcn8.yml`, 640x480, bf16,
 RNG_SEED weights, 10 classes): `--resnet50` `test_net_segmentation`'s
 frames on `lov_syn_val_v4`, `--resnet50 --train` its segmentation step
-(B=2, batches of `GtSynthesizeLayer` moved to the card beforehand). Runs
+(B=2, batches of `GtSynthesizeLayer` moved to the card beforehand). With
+`--video`, the video model (`VideoConfig`: 22 classes, 64 units, 640x480,
+bf16, RNG_SEED weights): `--video` `test_net_video` over the first frozen
+frames of `lov_syn_val_v4` as one video with KinectFusion at grid 128,
+`--video --train` its step (T=5, B=1, `GtDataLayer` windows of those
+frames moved to the card beforehand). Runs
 under torch.profiler and
 prints the device's busy share of the profiled wall window, host and device
 time per stage, and the device time by kernel (the `--top` largest).
@@ -51,10 +56,14 @@ postprocess (per-class NMS) and the evaluator, for training the loss
 functions and the update. For the 3D head: the trunk, the RANSAC decode and
 the evaluator. For ResNet-50: its convolutions (cuDNN, each with its cast
 and padding), its batch norms (with their ReLUs), the upscore, and for
-training the loss and the update. Needs one NVIDIA GPU.
+training the loss and the update. For the video model: the trunk, the flow
+warp's forward, the GRU, and for training the losses and the update (the
+backward, the flow's scatter among it, is the rest), for evaluation
+KinectFusion's bilateral filter, tracking, fusion and surface. Needs one
+NVIDIA GPU.
 
-Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy | --det | --3d | --full | --adapt | --resnet50]
-           [--lr LR] [--warm 2] [--frames 6] [--top 25]
+Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy | --det | --3d | --full | --adapt | --resnet50
+           | --video] [--lr LR] [--warm 2] [--frames 6] [--top 25]
 """
 
 from __future__ import annotations
@@ -109,6 +118,8 @@ def main() -> int:
     ap.add_argument("--full", action="store_true", help="with --train: the VGG16FULL step")
     ap.add_argument("--adapt", action="store_true", help="with --train: the step with the domain head")
     ap.add_argument("--resnet50", action="store_true", help="ResNet-50's eval frames (--train: its step)")
+    ap.add_argument("--video", action="store_true",
+                    help="test_net_video's frames with KinectFusion (--train: the video model's step)")
     ap.add_argument("--warm", type=int, default=2, help="with --full or --adapt: the steps before the profiled ones")
     ap.add_argument("--frames", type=int, default=6, help="frames (or training steps) to profile")
     ap.add_argument("--top", type=int, default=25)
@@ -120,8 +131,9 @@ def main() -> int:
 
     if args.toy and not (args.train or args.eval):
         ap.error("--toy goes with --train or --eval")
-    if args.toy + args.det + args.three_d + args.full + args.adapt + args.resnet50 > 1 or (args.three_d and args.train):
-        ap.error("one of --toy, --det, --3d, --full, --adapt and --resnet50; --3d profiles evaluation")
+    if args.toy + args.det + args.three_d + args.full + args.adapt + args.resnet50 + args.video > 1 or (
+            args.three_d and args.train):
+        ap.error("one of --toy, --det, --3d, --full, --adapt, --resnet50 and --video; --3d profiles evaluation")
     if (args.full or args.adapt) and not args.train:
         ap.error("--full and --adapt profile the training step: add --train")
     if args.toy:
@@ -216,6 +228,62 @@ def main() -> int:
         warmup, runs = [(2,)], [(args.frames,)]
         rest = "heads and the rest"
         unit = "frame"
+    elif args.video:
+        from posecnn_torch.data.lov_syn import LovSynVal
+        from posecnn_torch.data.minibatch import MinibatchConfig
+        from posecnn_torch.data.video_layer import GtDataLayer
+        from posecnn_torch.engine import kfusion
+        from posecnn_torch.models import video as video_mod
+
+        data = LovSynVal()
+        engine.set_float32_precision()
+        cfg = video_mod.VideoConfig(num_classes=data.num_classes)
+        model = video_mod.make_video_model(cfg, video_mod.init_video_params_numpy(RNG_SEED, cfg), dev)
+        stages = {"stage:trunk": [(backbone.VGGTrunk, "forward")], "stage:flow": [(video_mod, "compute_flow")],
+                  "stage:gru": [(video_mod, "gru2d")]}
+
+        class Video:
+            """The first n frozen frames as one video."""
+
+            def __init__(self, n):
+                self.image_index = [f"v4/{i:06d}" for i in range(n)]
+
+            def load_frame(self, i):
+                return data.load_frame(i)
+
+        if args.train:
+            stages.update({"stage:losses": [(trainer, "loss_cross_entropy_single_frame"),
+                                            (trainer, "regularization_loss")],
+                           "stage:update": [(trainer.MomentumSGD, "step")]})
+            _spans(stages, record_function)
+            state = trainer.create_train_state(model, trainer.TrainHParams())
+            step = trainer.make_video_train_step(cfg, trainer.TrainHParams())
+            layer = GtDataLayer(Video(16), MinibatchConfig(num_classes=data.num_classes), num_steps=cfg.num_steps,
+                                seed=RNG_SEED)
+            runs = [(trainer.to_device(layer.forward(), dev),) for _ in range(args.frames + 2)]
+
+            def run(batch):
+                with record_function("stage:frame"):
+                    step(state, batch)
+
+            warmup, runs = runs[:2], runs[2:]
+            rest = "backward and the rest"
+            unit = "step"
+        else:
+            stages.update({"stage:kfusion_filter": [(kfusion, "bilateral_filter")],
+                           "stage:kfusion_track": [(kfusion, "solve_pose")],
+                           "stage:kfusion_fuse": [(kfusion, "fuse_depth")],
+                           "stage:kfusion_surface": [(kfusion, "extract_surface")]})
+            _spans(stages, record_function)
+
+            def run(n_frames):
+                with record_function("stage:frame"):
+                    engine.test_net_video(model, cfg, Video(n_frames), PIXEL_MEANS, kfusion=True,
+                                          kfusion_grid=128, log=None)
+
+            warmup, runs = [(2,)], [(args.frames,)]
+            rest = "heads, the label map and the rest"
+            unit = "frame"
     elif args.resnet50:
         from posecnn_torch.core import config as C
         from posecnn_torch.data.layer import GtSynthesizeLayer
