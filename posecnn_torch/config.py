@@ -137,10 +137,11 @@ RNG_SEED = 3
 
 # the capstone's solver settings (lov_syn_capstone.yml over the defaults of
 # posecnn_tpu/core/config.py:105-112,214-217): TRAIN.SNAPSHOT_ITERS,
-# SNAPSHOT_PREFIX, TPU.CHECKPOINT_OPT_STATE, TRAIN.SNAPSHOT_FINAL, DISPLAY
+# SNAPSHOT_PREFIX, TPU.CHECKPOINT_OPT_STATE, TRAIN.SNAPSHOT_FINAL, DISPLAY,
+# TPU.CHECKPOINT_FORMAT
 FLAGSHIP_SOLVER = dict(
     snapshot_iters=5000, snapshot_prefix="vgg16_fcn_color_lov_syn_capstone", snapshot_opt_state=False,
-    snapshot_final=True, display=20,
+    snapshot_final=True, display=20, snapshot_format="npz",
 )
 # the capstone's EXP_DIR (the default output directory is output/<EXP_DIR>/<imdb>)
 EXP_DIR = "lov_syn_capstone"

@@ -16,8 +16,24 @@ in both packages:
 
 A light snapshot (`include_opt_state=False`) has no opt_state; restoring
 it keeps the target's trace (zero in a fresh state). The write is atomic:
-the file is written as `<name>.tmp` and renamed. Orbax snapshots and TF1
-`.ckpt` files are not read or written here.
+the file is written as `<name>.tmp` and renamed.
+
+fmt="orbax" (TPU.CHECKPOINT_FORMAT orbax) writes and reads the directory
+`<prefix>_iter_<step>` that `orbax.checkpoint.StandardCheckpointer` writes
+(`posecnn_tpu/core/checkpoint.py:67-72`, `:147-160`), through `tensorstore`
+(imported at first use; orbax itself imports JAX): `_METADATA` (the tree:
+each leaf's key path, dict keys and sequence indices, and the optimizer's
+empty states as None leaves), `_CHECKPOINT_METADATA`, and one zarr array a
+leaf, named by its key path joined with dots (`params.conv1_1.weights`,
+`opt_state.1.0.trace.conv1_1.weights`, `step`), in an OCDBT key-value store
+at the directory. It is written as `<name>.orbax-checkpoint-tmp` and
+renamed. Without tensorstore, fmt="orbax" raises ImportError naming it.
+
+The legacy weight readers (`load_vgg16_npy`, `load_tf1_checkpoint`,
+`restore_partial`; `posecnn_tpu/core/checkpoint.py:195-271`) work on the
+JAX-layout numpy dict {scope: {'weights', 'biases'}} (HWIO, fc (in, out))
+that `core/convert.py` turns into the port's modules. The TF1 reader needs
+no TensorFlow (`core/tf1_bundle.py`).
 
 Over a mesh of ranks (`parallel/mesh.py`), a parameter split over the model
 axis, and its trace, are gathered whole and rank 0 writes the file in the
@@ -27,7 +43,12 @@ loads in both packages at any mesh; on restore each rank keeps its rows.
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
+import re
+import shutil
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -78,17 +99,23 @@ def save_checkpoint(
     """Write `<prefix>_iter_<step>.npz` in `directory` and prune to the
     newest `max_to_keep`. Returns the path. Over a `mesh`, every rank calls
     it: all take part in the gather, rank 0 writes, and none returns before
-    the file is in place."""
-    if fmt != "npz":
-        raise NotImplementedError(f"snapshot format {fmt!r} is not ported (npz only)")
-    path = os.path.join(os.path.abspath(directory), f"{prefix}_iter_{step}.npz")
+    the file is in place. fmt "npz" or "orbax" (a directory)."""
+    if fmt not in ("npz", "orbax"):
+        raise ValueError(f"snapshot format {fmt!r}: npz or orbax")
+    if fmt == "orbax":
+        tensorstore()
+    name = f"{prefix}_iter_{step}" + (".npz" if fmt == "npz" else "")
+    path = os.path.join(os.path.abspath(directory), name)
     arrays = _state_arrays(state, include_opt_state)
     if mesh is None or mesh.rank == 0:
         os.makedirs(directory, exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            np.savez(f, **arrays)
-        os.replace(tmp, path)  # atomic: readers never see a partial file
+        if fmt == "npz":
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+            os.replace(tmp, path)  # atomic: readers never see a partial file
+        else:
+            write_orbax(path, arrays, clipped=state.optimizer.clip > 0)
         _prune_old(directory, prefix, max_to_keep)
     if mesh is not None:
         mesh.barrier(next(state.model.parameters()).device)
@@ -98,6 +125,9 @@ def save_checkpoint(
 def _prune_old(directory: str, prefix: str, max_to_keep: int) -> None:
     entries = []
     for name in os.listdir(directory):
+        if name.endswith(".orbax-checkpoint-tmp"):  # an interrupted orbax write
+            shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
+            continue
         if name.endswith(".npz.tmp"):  # a write that was interrupted
             try:
                 os.remove(os.path.join(directory, name))
@@ -111,8 +141,12 @@ def _prune_old(directory: str, prefix: str, max_to_keep: int) -> None:
                 continue
     entries.sort()
     for _, name in entries[:-max_to_keep]:
+        full = os.path.join(directory, name)
+        if os.path.isdir(full):
+            shutil.rmtree(full, ignore_errors=True)
+            continue
         try:
-            os.remove(os.path.join(directory, name))
+            os.remove(full)
         except OSError:
             pass
 
@@ -139,19 +173,18 @@ def latest_checkpoint(directory: str, prefix: str = "posecnn") -> Optional[str]:
 
 @torch.no_grad()
 def restore_checkpoint(path: str, state):
-    """Load a snapshot of either package into `state` (a
+    """Load a snapshot of either package, npz or orbax, into `state` (a
     `engine.train.TrainState`) in place: every parameter, the step counter
     and, where the file has one, the momentum trace; a parameter split over
     a model axis (`parallel.mesh.shard_model`) takes its rows of the whole
     one. Returns `state`."""
     from posecnn_torch.parallel.mesh import local_rows
 
-    if not path.endswith(".npz"):
-        raise NotImplementedError(f"{path}: only npz snapshots are read (orbax is not ported)")
     model, opt = state.model, state.optimizer
-    with np.load(path) as data:
-        arrays = {k: data[k] for k in data.files}
-    sd = params_from_numpy({k: v for k, v in arrays.items() if k.startswith("['params']")})
+    with read_arrays(path) as data:
+        arrays = {k: data[k] for k in data}
+    dev = next(model.parameters()).device
+    sd = params_from_numpy({k: v for k, v in arrays.items() if k.startswith("['params']")}, dev)
     params = dict(model.named_parameters())
     model.load_state_dict({k: local_rows(params[k], v) if k in params else v for k, v in sd.items()})
     state.step = int(arrays["['step']"])
@@ -160,18 +193,26 @@ def restore_checkpoint(path: str, state):
         names = {id(p): n for n, p in model.named_parameters()}
         # the upscore filters' trace is zero and has no parameter in the port
         trace = params_from_numpy({k[len(prefix):]: v for k, v in arrays.items()
-                                   if k.startswith(prefix) and not k.startswith(prefix + "['upscore")})
+                                   if k.startswith(prefix) and not k.startswith(prefix + "['upscore")}, dev)
         for p, t in zip(opt.params, opt.trace):
             t.copy_(local_rows(p, trace[names[id(p)]]))
     return state
 
 
+def read_arrays(path: str):
+    """The {JAX key path: array} mapping of a snapshot, as a context
+    manager: an npz file read lazily, or an orbax directory read whole."""
+    if os.path.isdir(path):
+        return contextlib.nullcontext(read_orbax(path))
+    return np.load(path)
+
+
 def _leaf(data, layer: str, leaf: str):
-    """(the key, the array or None) of a parameter leaf in an open npz, read
-    under `['params']<key>` (a train-state snapshot) or `<key>` (a
-    params-only export)."""
+    """(the key, the array or None) of a parameter leaf in a snapshot's
+    arrays, read under `['params']<key>` (a train-state snapshot) or `<key>`
+    (a params-only export)."""
     key = f"['{layer}']['{leaf}']"
-    found = [k for k in ("['params']" + key, key) if k in data.files]
+    found = [k for k in ("['params']" + key, key) if k in data]
     return key, (data[found[0]] if found else None)
 
 
@@ -183,7 +224,7 @@ def load_params_npz(path: str, params: Dict[str, Dict[str, np.ndarray]], log=Non
     beyond `params` are not read."""
     out: Dict[str, Dict[str, np.ndarray]] = {}
     n = 0
-    with np.load(path) as data:
+    with read_arrays(path) as data:
         for layer, leaves in params.items():
             for leaf, a in leaves.items():
                 key, arr = _leaf(data, layer, leaf)
@@ -208,7 +249,7 @@ def restore_params(path: str, shapes: Dict[str, Dict[str, tuple]]) -> Dict[str, 
     fails in the forward."""
     out: Dict[str, Dict[str, np.ndarray]] = {}
     missing = []
-    with np.load(path) as data:
+    with read_arrays(path) as data:
         for layer, leaves in shapes.items():
             for leaf, shape in leaves.items():
                 key, arr = _leaf(data, layer, leaf)
@@ -223,3 +264,187 @@ def restore_params(path: str, shapes: Dict[str, Dict[str, tuple]]) -> Dict[str, 
         n = sum(len(v) for v in shapes.values())
         raise ValueError(f"{path} lacks {len(missing)} of the model's {n} parameter tensors: {', '.join(missing)}")
     return out
+
+
+# ------------------------------------------------------------------ orbax
+
+_PATH_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
+
+
+def tensorstore():
+    """The tensorstore module, which fmt="orbax" reads and writes through;
+    ImportError naming it where it is not installed."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError("TPU.CHECKPOINT_FORMAT orbax needs the tensorstore package, which is not installed "
+                          "(npz snapshots need nothing)") from e
+    return ts
+
+
+def _key_parts(key: str):
+    """A JAX key path (`['opt_state'][1][0].trace['conv1_1']['weights']`)
+    -> orbax's key metadata: (name, key_type), 1 a sequence index, 2 a
+    dict key or a named-tuple field."""
+    return [(i, 1) if i else (a or d, 2) for d, i, a in _PATH_PART.findall(key)]
+
+
+def _orbax_spec(ts, directory: str, name: str) -> dict:
+    return {"driver": "zarr", "kvstore": {"driver": "ocdbt", "base": f"file://{directory}/", "path": name + "/"}}
+
+
+def write_orbax(path: str, arrays: Dict[str, np.ndarray], clipped: bool) -> None:
+    """The train-state `arrays` ({JAX key path: array}) as the directory
+    orbax's StandardCheckpointer writes. With an optimizer state, the
+    optax chain's empty states are None leaves of the tree: the clip's and
+    the sgd chain's second link with clipping, the second link without."""
+    ts = tensorstore()
+    tmp = path + ".orbax-checkpoint-tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    tree = {}
+    writes = []
+    for key, a in arrays.items():
+        parts = _key_parts(key)
+        names = tuple(n for n, _ in parts)
+        a = np.asarray(a, order="C")  # (ascontiguousarray makes a scalar 1-d)
+        tree[str(names)] = {"key_metadata": [{"key": n, "key_type": t} for n, t in parts],
+                            "value_metadata": {"value_type": "jax.Array", "skip_deserialize": False,
+                                               "write_shape": list(a.shape)}}
+        spec = {**_orbax_spec(ts, tmp, ".".join(names)),
+                "metadata": {"shape": list(a.shape), "chunks": list(a.shape), "dtype": a.dtype.str,
+                             "compressor": {"id": "zstd", "level": 1}}}
+        writes.append(ts.open(spec, create=True).result().write(a))
+    for w in writes:
+        w.result()
+    if any(k.startswith("['opt_state']") for k in arrays):
+        empty = [("0",), ("1", "1")] if clipped else [("1",)]
+        for idx in empty:
+            tree[str(("opt_state",) + idx)] = {
+                "key_metadata": [{"key": "opt_state", "key_type": 2}] + [{"key": i, "key_type": 1} for i in idx],
+                "value_metadata": {"value_type": "None", "skip_deserialize": True}}
+    # in tree order: orbax rebuilds each sequence by appending its indices
+    order = sorted(tree, key=lambda k: [(m["key_type"], int(m["key"]) if m["key_type"] == 1 else m["key"])
+                                        for m in tree[k]["key_metadata"]])
+    with open(os.path.join(tmp, "_METADATA"), "w") as f:
+        json.dump({"tree_metadata": {k: tree[k] for k in order}, "use_ocdbt": True, "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True, "custom_metadata": None}, f)
+    now = time.time_ns()
+    with open(os.path.join(tmp, "_CHECKPOINT_METADATA"), "w") as f:
+        json.dump({"item_handlers": "orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                   "StandardCheckpointHandler", "metrics": {}, "performance_metrics": {},
+                   "init_timestamp_nsecs": now, "commit_timestamp_nsecs": now, "custom_metadata": {}}, f)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def read_orbax(path: str) -> Dict[str, np.ndarray]:
+    """{JAX key path: array} of an orbax StandardCheckpointer directory (the
+    JAX package's, or `write_orbax`'s)."""
+    ts = tensorstore()
+    with open(os.path.join(path, "_METADATA")) as f:
+        tree = json.load(f)["tree_metadata"]
+    out, reads = {}, {}
+    for entry in tree.values():
+        if entry["value_metadata"].get("skip_deserialize"):
+            continue
+        parts = [(m["key"], m["key_type"]) for m in entry["key_metadata"]]
+        key = "".join(f"[{n}]" if t == 1 else (f".{n}" if n == "trace" and i and parts[i - 1][1] == 1
+                                                else f"['{n}']") for i, (n, t) in enumerate(parts))
+        reads[key] = ts.open(_orbax_spec(ts, os.path.abspath(path), ".".join(n for n, _ in parts)),
+                             open=True).result().read()
+    for key, r in reads.items():
+        out[key] = np.asarray(r.result())
+    return out
+
+
+# ------------------------------------------------------- legacy weight files
+
+def load_vgg16_npy(path: str, params: Dict[str, Dict[str, np.ndarray]], dual_suffixes=("_p", "_d"),
+                   log=None) -> Dict[str, Dict[str, np.ndarray]]:
+    """A Caffe-exported vgg16.npy ({op: {'weights', 'biases'}}, pickled)
+    merged into `params`: each op's leaves also into its `<op>_p` / `<op>_d`
+    scopes where `params` has them (the reference's Network.load); a leaf of
+    another shape is skipped (`posecnn_tpu/core/checkpoint.py:195-220`)."""
+    data = np.load(path, allow_pickle=True, encoding="latin1").item()
+    out = dict(params)
+    for op_name, values in data.items():
+        for scope in (op_name,) + tuple(op_name + s for s in dual_suffixes):
+            if scope not in out:
+                continue
+            tgt = dict(out[scope])
+            for param_name, value in values.items():
+                if param_name not in tgt:
+                    continue
+                if tuple(tgt[param_name].shape) != tuple(value.shape):
+                    if log:
+                        log(f"skip {scope}/{param_name}: shape {value.shape} vs {tgt[param_name].shape}")
+                    continue
+                tgt[param_name] = np.asarray(value, np.float32)
+                if log:
+                    log(f"{scope}/{param_name} assigned")
+            out[scope] = tgt
+    return out
+
+
+def load_tf1_checkpoint(path: str, params: Dict[str, Dict[str, np.ndarray]],
+                        log=None) -> Dict[str, Dict[str, np.ndarray]]:
+    """A TF1 checkpoint (the released PoseCNN model) merged into `params`,
+    read without TensorFlow (`core/tf1_bundle.py`): `scope/leaf` variables
+    by name and shape, skipping `global_step`, the bare `Variable` and the
+    Momentum slots, as the reference's SolverWrapper.restore does
+    (`posecnn_tpu/core/checkpoint.py:223-257`)."""
+    from posecnn_torch.core.tf1_bundle import TF1Checkpoint
+
+    reader = TF1Checkpoint(path)
+    out = {k: dict(v) for k, v in params.items()}
+    n = 0
+    for var_name, shape in sorted(reader.shapes().items()):
+        if var_name in ("global_step", "Variable") or "Momentum" in var_name:
+            continue
+        parts = var_name.split("/")
+        if len(parts) != 2:
+            continue
+        scope, pname = parts
+        if scope not in out or pname not in out[scope]:
+            if log:
+                log(f"skip {var_name}: not in target")
+            continue
+        if tuple(out[scope][pname].shape) != tuple(shape):
+            if log:
+                log(f"skip {var_name}: shape {tuple(shape)} vs {out[scope][pname].shape}")
+            continue
+        out[scope][pname] = reader.get_tensor(var_name).astype(np.float32)
+        n += 1
+        if log:
+            log(f"{var_name} restored")
+    if log:
+        log(f"restored {n} tensors from {path}")
+    return out
+
+
+def restore_partial(source: Dict, target: Dict, log=None) -> Dict:
+    """Name+shape-matched merge of one JAX-layout param dict into another
+    (`posecnn_tpu/core/checkpoint.py:260-271`)."""
+    out = {k: dict(v) for k, v in target.items()}
+    for scope, values in source.items():
+        if scope not in out:
+            continue
+        for pname, value in values.items():
+            if pname in out[scope] and tuple(out[scope][pname].shape) == tuple(value.shape):
+                out[scope][pname] = value
+                if log:
+                    log(f"{scope}/{pname} restored")
+    return out
+
+
+def load_weights(path: str, params: Dict[str, Dict[str, np.ndarray]], log=None) -> Dict[str, Dict[str, np.ndarray]]:
+    """`params` with the weights of `path` merged in, by its kind as the JAX
+    CLIs tell them apart (`tools/test_net.py:146-159`, `tools/online.py:
+    69-81`): a vgg16.npy, an npz snapshot or params export (`load_params_npz`),
+    an orbax directory, else a TF1 checkpoint prefix."""
+    if path.endswith(".npy"):
+        return load_vgg16_npy(path, params, log=log)
+    if path.endswith(".npz") or os.path.isfile(os.path.join(path, "_METADATA")):
+        return load_params_npz(path, params, log=log)
+    return load_tf1_checkpoint(path, params, log=log)

@@ -555,8 +555,11 @@ def pick_network(network: Optional[str], flag: str) -> str:
     NETWORK (None without a config) and its --network flag, with the JAX
     CLIs' precedence (`tools/train_net.py:83-96`, `tools/test_net.py:
     61-109`): VGG16DET by either first, then ResNet-50 by either (under an
-    FCN8VGG config too), then FCN-8s, then VGG16FULL; otherwise the flag
-    (VGG16 and VGG16GAN build PoseCNN, `vgg16_convs`)."""
+    FCN8VGG config too), then FCN-8s, then VGG16FULL; otherwise PoseCNN,
+    `vgg16_convs`, whatever the flag names (`vgg16`, `vgg16_3d`,
+    `vgg16_gan` and `dcgan` too: the JAX CLIs branch on those four names
+    alone). The run directory keeps the flag's name (`train_net.
+    run_dir_name`), as JAX's `get_output_dir(imdb, net_name)` does."""
     if network == "VGG16DET" or flag == "vgg16_det":
         return "vgg16_det"
     if network == "RESNET50" or flag == "resnet50":
@@ -565,7 +568,7 @@ def pick_network(network: Optional[str], flag: str) -> str:
         return "fcn8_vgg"
     if network == "VGG16FULL" or flag == "vgg16_full":
         return "vgg16_full"
-    return flag
+    return "vgg16_convs"
 
 
 def unsupported(cfg: Config, train: bool = True) -> List[str]:
@@ -574,12 +577,11 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
     T, S, P = cfg.TRAIN, cfg.TEST, cfg.TPU
     rules = [
         ("NETWORK", cfg.NETWORK, cfg.NETWORK not in NETWORKS),
-        ("TPU.CHECKPOINT_FORMAT", P.CHECKPOINT_FORMAT, P.CHECKPOINT_FORMAT != "npz"),
+        ("TPU.CHECKPOINT_FORMAT", P.CHECKPOINT_FORMAT, P.CHECKPOINT_FORMAT not in ("npz", "orbax")),
         ("TPU.HOUGH_SAMPLER", P.HOUGH_SAMPLER, P.HOUGH_SAMPLER not in ("approx", "exact")),
     ]
     if train:
         rules += [
-            ("TRAIN.VOTING_THRESHOLD", T.VOTING_THRESHOLD, T.VOTING_THRESHOLD > 0),
             # JAX's step reads a domain_score that vgg16_full never returns
             ("TRAIN.ADAPT", T.ADAPT, T.ADAPT and cfg.NETWORK == "VGG16FULL"),
             # JAX's step hands vgg16_full gt_centers, which it does not take
@@ -594,7 +596,6 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
         ]
     else:
         rules += [
-            ("TEST.VOTING_THRESHOLD", S.VOTING_THRESHOLD, S.VOTING_THRESHOLD > 0),
             # the JAX package's test_net on PoseCNN without the vertex head
             # raises KeyError: postprocess_detections reads rois, which the
             # inference function returns only with it (engine/test.py:87);
@@ -607,9 +608,16 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
 
 
 def check_supported(cfg: Config, train: bool = True) -> None:
+    """NotImplementedError naming the settings the port does not run; for
+    training with TPU.CHECKPOINT_FORMAT orbax, ImportError naming
+    tensorstore where it is not installed."""
     bad = unsupported(cfg, train)
     if bad:
         raise NotImplementedError(f"not ported yet: {bad[0]}" + (f" (and {', '.join(bad[1:])})" if bad[1:] else ""))
+    if train and cfg.TPU.CHECKPOINT_FORMAT == "orbax":
+        from posecnn_torch.core.checkpoint import tensorstore
+
+        tensorstore()
 
 
 def train_model_cfg(cfg: Config, num_classes: int):
@@ -669,6 +677,46 @@ def test_model_cfg(cfg: Config, num_classes: int):
         skip_pixels=P.HOUGH_SKIP_PIXELS,
         use_crop_pool=P.USE_CROP_POOL,
     )
+
+
+def online_model_cfg(cfg: Config):
+    """The `PoseCNNConfig` of the serving tool (`tools/online.py:55-68`): the
+    vertex and pose heads whatever TEST says, TRAIN.NUM_CLASSES and
+    NUM_UNITS, TEST.VOTING_THRESHOLD (the multi-instance mode above 0) and
+    the TPU section's Hough settings, as test_net's."""
+    from posecnn_torch.config import PoseCNNConfig
+
+    bad = [b for b in unsupported(cfg, train=False) if not b.startswith("TEST.VERTEX_REG_2D")]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    P = cfg.TPU
+    return PoseCNNConfig(
+        num_classes=cfg.TRAIN.NUM_CLASSES,
+        num_units=cfg.TRAIN.NUM_UNITS,
+        vertex_reg=True,
+        pose_reg=True,
+        is_train=False,
+        vote_threshold=cfg.TEST.VOTING_THRESHOLD,
+        hough_class_slots=P.HOUGH_CLASS_SLOTS,
+        hough_max_samples=P.HOUGH_MAX_SAMPLES,
+        hough_center_stride=P.HOUGH_CENTER_STRIDE,
+        hough_sampler=P.HOUGH_SAMPLER,
+        hough_pixel_stride=P.HOUGH_PIXEL_STRIDE,
+        skip_pixels=P.HOUGH_SKIP_PIXELS,
+        use_crop_pool=P.USE_CROP_POOL,
+    )
+
+
+def demo_model_cfg(cfg: Config):
+    """The demo's `PoseCNNConfig` (`tools/demo.py:58-62`): 22 classes, 64
+    units, the vertex and pose heads, the TPU section's class slots,
+    samples and centre stride; every other setting at its default."""
+    from posecnn_torch.config import PoseCNNConfig
+
+    P = cfg.TPU
+    return PoseCNNConfig(num_classes=22, num_units=64, vertex_reg=True, pose_reg=True, is_train=False,
+                         hough_class_slots=P.HOUGH_CLASS_SLOTS, hough_max_samples=P.HOUGH_MAX_SAMPLES,
+                         hough_center_stride=P.HOUGH_CENTER_STRIDE)
 
 
 def det_model_cfg(cfg: Config, num_classes: int, train: bool = True):
@@ -767,7 +815,8 @@ def solver_settings(cfg: Config) -> Dict[str, Any]:
     """The Solver arguments of `tools/train_net.py:271-290`."""
     T = cfg.TRAIN
     return dict(snapshot_iters=T.SNAPSHOT_ITERS, snapshot_prefix=T.SNAPSHOT_PREFIX,
-                snapshot_opt_state=cfg.TPU.CHECKPOINT_OPT_STATE, snapshot_final=T.SNAPSHOT_FINAL, display=T.DISPLAY)
+                snapshot_opt_state=cfg.TPU.CHECKPOINT_OPT_STATE, snapshot_final=T.SNAPSHOT_FINAL, display=T.DISPLAY,
+                snapshot_format=cfg.TPU.CHECKPOINT_FORMAT)
 
 
 def test_settings(cfg: Config) -> Dict[str, Any]:

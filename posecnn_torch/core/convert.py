@@ -79,11 +79,14 @@ def _trunc_normal(rng: np.random.Generator, shape, stddev: float) -> np.ndarray:
     """stddev * N(0, 1) resampled outside [-2, 2] (the JAX package's
     truncated-normal init; the draws differ, the distribution does not)."""
     z = rng.standard_normal(shape, dtype=np.float32)
-    bad = np.abs(z) > 2.0
-    while bad.any():
-        z[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
-        bad = np.abs(z) > 2.0
-    return (z * np.float32(stddev)).astype(np.float32)
+    flat = z.reshape(-1)
+    bad = np.flatnonzero(np.abs(flat) > 2.0)  # row-major, the order a mask assigns in
+    while bad.size:
+        draws = rng.standard_normal(bad.size, dtype=np.float32)
+        flat[bad] = draws
+        bad = bad[np.abs(draws) > 2.0]  # only redrawn values can still be out
+    z *= np.float32(stddev)
+    return z
 
 
 def init_conv(rng: np.random.Generator, k: int, ci: int, co: int, stddev=None) -> Dict[str, np.ndarray]:
@@ -186,11 +189,13 @@ def _layer_name(path: str) -> str:
     return path.split(".")[-1]
 
 
-def params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
+def params_from_numpy(params: Mapping, device=None) -> Dict[str, torch.Tensor]:
     """JAX-layout parameters (nested `{layer: {'weights', 'biases'}}`, or
     `{'mean', 'variance'}` for a batch norm, or flat npz key paths) -> a
     state_dict for `models.posecnn.PoseCNN`, `models.fcn8.FCN8` or
-    `models.resnet50.ResNet50`."""
+    `models.resnet50.ResNet50`, on the CPU, or on `device` (a card: each
+    array is copied there as it is and transposed there)."""
+    on_card = device is not None and torch.device(device).type != "cpu"
     nested = params if all(isinstance(v, Mapping) for v in params.values()) else _nest(params)
     sd: Dict[str, torch.Tensor] = {}
     for name, leaves in nested.items():
@@ -206,6 +211,12 @@ def params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
             prefix = key if sub is None else f"{key}.{sub}"
             for leaf, a in sub_leaves.items():
                 a = np.asarray(a, dtype=np.float32)
+                if on_card:
+                    t = torch.as_tensor(a).to(device)
+                    if leaf == "weights":
+                        t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
+                    sd[f"{prefix}.{_LEAVES[leaf]}"] = t.contiguous()
+                    continue
                 if leaf == "weights":
                     a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
                 sd[f"{prefix}.{_LEAVES[leaf]}"] = torch.tensor(np.ascontiguousarray(a))
@@ -233,10 +244,10 @@ def params_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for key, v in named.items():
         path, leaf = key.rsplit(".", 1)
-        a = v.detach().float().cpu().numpy()
-        if leaf == "weight":
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
-        _put(out, path, leaf, np.ascontiguousarray(a))
+        v = v.detach().float()
+        if leaf == "weight":  # transposed where the tensor is (on a card: there)
+            v = v.permute(2, 3, 1, 0) if v.dim() == 4 else v.t()
+        _put(out, path, leaf, v.contiguous().cpu().numpy())
     if "bn_conv1" in out:  # ResNet-50: x16 from the score's classes
         out["upscore"] = {"weights": make_deconv_filter(32, out["score"]["weights"].shape[3])}
         return out
@@ -292,5 +303,5 @@ def make_model(cfg: PoseCNNConfig, params: Mapping, device) -> "torch.nn.Module"
     from posecnn_torch.models.posecnn import PoseCNN
 
     model = PoseCNN(cfg, device=device)
-    model.load_state_dict(params_from_numpy(params), strict=True)
+    model.load_state_dict(params_from_numpy(params, device), strict=True)
     return model.eval()

@@ -639,8 +639,10 @@ class Solver:
     losses and lr, and with an `output_dir` a row of `train_metrics.csv`
     (`core/metrics.py`). With an `output_dir`, a snapshot every
     `snapshot_iters` steps and at the end (`snapshot_final`), named
-    `<snapshot_prefix>_iter_<step>.npz`, with the momentum trace when
-    `snapshot_opt_state`; `resume` restores the latest.
+    `<snapshot_prefix>_iter_<step>.npz` (or the orbax directory
+    `<snapshot_prefix>_iter_<step>` with `snapshot_format` "orbax"), with
+    the momentum trace when `snapshot_opt_state`; `resume` restores the
+    latest.
 
     `vis_hook` (TRAIN.VISUALIZE: `engine.visualize.MinibatchVisualizer`) is
     called before each step with (step + 1, the item as the data iterator
@@ -655,7 +657,7 @@ class Solver:
 
     def __init__(self, step_fn, output_dir: Optional[str] = None, snapshot_iters: int = 10000,
                  snapshot_prefix: str = "posecnn", display: int = 20, snapshot_opt_state: bool = True,
-                 snapshot_final: bool = True, mesh=None, vis_hook=None):
+                 snapshot_final: bool = True, mesh=None, vis_hook=None, snapshot_format: str = "npz"):
         from posecnn_torch.core.metrics import MetricsLogger
 
         self.mesh = mesh
@@ -668,6 +670,7 @@ class Solver:
         self.display = display
         self.snapshot_opt_state = snapshot_opt_state
         self.snapshot_final = snapshot_final
+        self.snapshot_format = snapshot_format
         self.vis_hook = vis_hook
         self.metrics_logger = MetricsLogger(output_dir) if output_dir and self.rank0 else None
 
@@ -808,9 +811,11 @@ class Solver:
 
         t0 = time.perf_counter()
         path = save_checkpoint(self.output_dir, state, step=it, prefix=self.snapshot_prefix,
-                               include_opt_state=self.snapshot_opt_state, mesh=self.mesh)
+                               include_opt_state=self.snapshot_opt_state, fmt=self.snapshot_format, mesh=self.mesh)
         if log and self.rank0:
-            log(f"snapshot {path} ({os.path.getsize(path) / 2**20:.1f} MiB, {time.perf_counter() - t0:.3f}s)")
+            size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs) \
+                if os.path.isdir(path) else os.path.getsize(path)
+            log(f"snapshot {path} ({size / 2**20:.1f} MiB, {time.perf_counter() - t0:.3f}s)")
         return path
 
 

@@ -114,7 +114,7 @@ def make_det_model(cfg: DetConfig, params, device) -> VGG16Det:
     from posecnn_torch.core.convert import params_from_numpy
 
     model = VGG16Det(cfg, device=device)
-    model.load_state_dict(params_from_numpy(params), strict=True)
+    model.load_state_dict(params_from_numpy(params, device), strict=True)
     return model.eval()
 
 

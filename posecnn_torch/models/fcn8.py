@@ -73,7 +73,7 @@ def make_fcn8(num_classes: int, params, device, trunk_scale: float = 1.0, fc_dim
     from posecnn_torch.core.convert import params_from_numpy
 
     model = FCN8(num_classes, trunk_scale, fc_dim, device=device)
-    model.load_state_dict(params_from_numpy(params), strict=True)
+    model.load_state_dict(params_from_numpy(params, device), strict=True)
     return model.eval()
 
 

@@ -38,7 +38,7 @@ from posecnn_torch.models import layers as L
 from posecnn_torch.models.backbone import Conv, VGGTrunk, scaled_width
 from posecnn_torch.ops.gradient_reversal import gradient_reversal
 from posecnn_torch.ops.hard_label import hard_label
-from posecnn_torch.ops.hough_voting import hough_voting
+from posecnn_torch.ops.hough_voting import hough_voting, hough_voting_multi
 from posecnn_torch.ops.roi_pool import crop_pool_batched, roi_pool_batched
 from posecnn_torch.ops.vertex_targets import vertex_targets_device
 
@@ -50,15 +50,6 @@ class Linear(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty((c_o, c_i), device=device))
         self.bias = nn.Parameter(torch.empty((c_o,), device=device))
-
-
-def _check_supported(cfg: PoseCNNConfig) -> None:
-    unported = {
-        "vote_threshold > 0": cfg.vote_threshold > 0,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
 class PoseCNN(nn.Module):
@@ -73,7 +64,6 @@ class PoseCNN(nn.Module):
 
     def __init__(self, cfg: PoseCNNConfig, device=None):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         C, U = cfg.num_classes, cfg.num_units
         c5 = scaled_width(512, cfg.trunk_scale)
@@ -123,7 +113,6 @@ def posecnn_forward(
     and gt_centers (B,G,4) (training); `draws` the step's random numbers
     (training with keep_prob < 1 or hough_gt_mix > 0). Returns the named
     endpoints."""
-    _check_supported(cfg)
     C = cfg.num_classes
     dt = cfg.compute_dtype
     train = cfg.is_train
@@ -193,23 +182,19 @@ def posecnn_forward(
             pick_gt = draws.uniform("hough_gt_mix", (gt_label_2d.shape[0],), data.device) < cfg.hough_gt_mix
             hough_label = torch.where(pick_gt[:, None, None], gt_label_2d.to(label_2d.dtype), label_2d)
             hough_vert = torch.where(pick_gt[:, None, None, None], gt_vt, hough_vert)
-        hough = hough_voting(
-            hough_label,
-            hough_vert,
-            extents,
-            meta_data,
-            gt_poses,
-            num_classes=C,
-            is_train=train,
-            skip_pixels=cfg.skip_pixels,
-            label_threshold=cfg.label_threshold,
-            class_slots=cfg.hough_class_slots,
-            max_samples=cfg.hough_max_samples,
-            center_stride=cfg.hough_center_stride,
-            refine_window=cfg.hough_refine_window,
-            pixel_grid_stride=cfg.hough_pixel_stride,
-            sampler=cfg.hough_sampler,
-        )
+        common = dict(num_classes=C, is_train=train, skip_pixels=cfg.skip_pixels,
+                      label_threshold=cfg.label_threshold, class_slots=cfg.hough_class_slots,
+                      max_samples=cfg.hough_max_samples, pixel_grid_stride=cfg.hough_pixel_stride,
+                      sampler=cfg.hough_sampler)
+        if cfg.vote_threshold > 0:
+            # the multi-instance local-max mode (posecnn.py:243-263)
+            hough = hough_voting_multi(hough_label, hough_vert, extents, meta_data, gt_poses,
+                                       voting_threshold=cfg.vote_threshold, per_threshold=cfg.vote_percentage,
+                                       **common)
+        else:
+            hough = hough_voting(hough_label, hough_vert, extents, meta_data, gt_poses,
+                                 center_stride=cfg.hough_center_stride, refine_window=cfg.hough_refine_window,
+                                 **common)
     out["rois"] = hough.rois
     out["poses_init"] = hough.poses_init
     out["poses_target"] = hough.poses_target

@@ -122,7 +122,7 @@ def make_full_model(cfg: PoseCNNConfig, params, device) -> PoseCNNFull:
     from posecnn_torch.core.convert import params_from_numpy
 
     model = PoseCNNFull(cfg, device=device)
-    model.load_state_dict(params_from_numpy(params), strict=True)
+    model.load_state_dict(params_from_numpy(params, device), strict=True)
     return model.eval()
 
 

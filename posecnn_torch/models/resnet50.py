@@ -119,7 +119,7 @@ def make_resnet50(num_classes: int, params, device) -> ResNet50:
     from posecnn_torch.core.convert import params_from_numpy
 
     model = ResNet50(num_classes, device=device)
-    model.load_state_dict(params_from_numpy(params), strict=True)
+    model.load_state_dict(params_from_numpy(params, device), strict=True)
     return model.eval()
 
 

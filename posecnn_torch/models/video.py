@@ -133,7 +133,7 @@ def make_video_model(cfg, params: Mapping, device) -> nn.Module:
     from posecnn_torch.core.convert import params_from_numpy
 
     model = (Video3DNet if isinstance(cfg, Video3DConfig) else VideoNet)(cfg, device=device)
-    model.load_state_dict(params_from_numpy(params), strict=True)
+    model.load_state_dict(params_from_numpy(params, device), strict=True)
     return model
 
 

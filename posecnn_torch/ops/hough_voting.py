@@ -12,6 +12,12 @@ detections matched to a GT row by projected-box IoU > 0.2, and expands each
 detection into 9 rows: the box and 8 copies jittered by 5% of its size, in
 the reference order. Nothing here reads a value back to the host, and no
 gradient flows through the outputs.
+
+`hough_voting_multi` (`hough_voting.py:hough_voting_multi`, the
+multi-instance mode of VOTING_THRESHOLD > 0) votes on the full-resolution
+grid instead (one `accumulate_votes` call, H*W centres shared by the
+slots) and emits up to `max_detections_per_image` local maxima of the vote
+map; it reads one count back (`_candidate_boxes`).
 """
 
 from __future__ import annotations
@@ -19,8 +25,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
-from posecnn_torch.ops.voting import accumulate_votes
+from posecnn_torch.ops.voting import _PLAIN_ELEMS, accumulate_votes
 from posecnn_torch.utils.quaternion import quat2mat
 
 # cosine between the predicted direction and the direction to a centre
@@ -193,8 +200,8 @@ def hough_voting(
     order. sampler "approx" takes the first `max_samples` class pixels in
     row-major order and ignores `skip_pixels`: that is what the JAX
     package's `approx_max_k` returns on the CPU, made deterministic here.
-    The multi-instance mode (`voting_threshold > 0`, `hough_voting_multi`)
-    is not ported yet.
+    The multi-instance mode (`voting_threshold > 0`) is
+    `hough_voting_multi`.
     """
     if sampler not in ("exact", "approx"):
         raise ValueError(f"unknown sampler {sampler!r}")
@@ -206,9 +213,7 @@ def hough_voting(
 
     label_flat = label.reshape(B, H * W)
     vert_flat = vertex_pred.reshape(B, H * W, 3 * C)
-    gt_cls = gt_poses[:, 1]
-    gt_batch = gt_poses[:, 0]
-    gt_any = torch.any(gt_cls > 0)
+    gt_any = torch.any(gt_poses[:, 1] > 0)
 
     gxs, gys, coarse = coarse_centers(H, W, center_stride, dev)
     gw = gxs.shape[0]
@@ -279,35 +284,52 @@ def hough_voting(
         one, zero = torch.ones_like(dist), torch.zeros_like(dist)
         pose = torch.stack([one, zero, zero, zero, rx * dist, ry * dist, dist], dim=1)
 
-        # GT quaternion targets by projected-box IoU > 0.2, first match wins
-        # (hough_voting.py:439-464); with no GT rows they are all zero
-        gext = extents[torch.clamp(gt_cls.to(torch.int64), 0, C - 1)]
-        pc = _corners(gext) @ quat2mat(gt_poses[:, 6:10]).transpose(-1, -2) + gt_poses[:, None, 10:13]
-        gx_ = fx * pc[..., 0] / pc[..., 2] + px_
-        gy_ = fy * pc[..., 1] / pc[..., 2] + py_
-        boxes_gt = torch.stack([gx_.amin(-1), gy_.amin(-1), gx_.amax(-1), gy_.amax(-1)], dim=1)  # (G,4)
-        ious = _iou(box[:, None, :], boxes_gt[None, :, :])  # (S, G)
-        match = (
-            (gt_cls.to(torch.int64)[None, :] == cls[:, None])
-            & (gt_batch.to(torch.int64)[None, :] == b)
-            & (gt_cls[None, :] > 0)
-            & (ious > 0.2)
-        )
-        found = match.any(dim=1)
-        first = torch.argmax(match.to(torch.uint8), dim=1)
-        quat = gt_poses[first, 6:10] * found[:, None]
-        cols4 = 4 * cls[:, None] + torch.arange(4, device=dev)
-        targets = torch.zeros((S, 4 * C), device=dev).scatter(1, cols4, quat)
-        weights = torch.zeros((S, 4 * C), device=dev).scatter(
-            1, cols4, (found & slot_valid).float()[:, None].expand(S, 4)
-        )
-        targets = torch.where(slot_valid[:, None], targets, 0.0)
+        targets, weights = gt_targets(box, cls, slot_valid, gt_poses, extents, meta, b, C)
         domain = torch.where(gt_any, 0, 1).to(torch.int32).expand(S)
         per_image.append((cls, slot_valid, box, vbest, pose, targets, weights, domain))
+    return emit_rows(per_image, is_train)
 
+
+def gt_targets(box, cls, ok, gt_poses, extents, meta, b: int, C: int):
+    """GT quaternion targets and weights (N, 4C) of N detections of image
+    `b` (boxes (N, 4), classes (N,), validity `ok` (N,)): the first GT row
+    of the detection's class and image whose projected extent box has IoU >
+    0.2 with the detection's (`hough_voting.py:439-464`, `:677-697`); zero
+    where none matches or the detection is not valid."""
+    dev = box.device
+    N = box.shape[0]
+    fx, px_, fy, py_ = meta[0], meta[2], meta[4], meta[5]
+    gt_cls = gt_poses[:, 1]
+    gext = extents[torch.clamp(gt_cls.to(torch.int64), 0, C - 1)]
+    pc = _corners(gext) @ quat2mat(gt_poses[:, 6:10]).transpose(-1, -2) + gt_poses[:, None, 10:13]
+    gx_ = fx * pc[..., 0] / pc[..., 2] + px_
+    gy_ = fy * pc[..., 1] / pc[..., 2] + py_
+    boxes_gt = torch.stack([gx_.amin(-1), gy_.amin(-1), gx_.amax(-1), gy_.amax(-1)], dim=1)  # (G,4)
+    ious = _iou(box[:, None, :], boxes_gt[None, :, :])  # (N, G)
+    match = (
+        (gt_cls.to(torch.int64)[None, :] == cls[:, None])
+        & (gt_poses[:, 0].to(torch.int64)[None, :] == b)
+        & (gt_cls[None, :] > 0)
+        & (ious > 0.2)
+    )
+    found = match.any(dim=1)
+    first = torch.argmax(match.to(torch.uint8), dim=1)
+    quat = gt_poses[first, 6:10] * found[:, None]
+    cols4 = 4 * cls[:, None] + torch.arange(4, device=dev)
+    targets = torch.zeros((N, 4 * C), device=dev).scatter(1, cols4, quat)
+    weights = torch.zeros((N, 4 * C), device=dev).scatter(1, cols4, (found & ok).float()[:, None].expand(N, 4))
+    return torch.where(ok[:, None], targets, 0.0), weights
+
+
+def emit_rows(per_image, is_train: bool) -> HoughOutputs:
+    """The output rows from each image's (classes, validity, boxes, scores,
+    poses, targets, weights, domains) of its N detections: N rows an image,
+    or 9 a detection with `is_train` (the box and its 8 jittered copies)."""
     slot_cls, slot_valid, box, score, pose, targets, weights, domain = [
         torch.stack(t) for t in zip(*per_image)
     ]  # leading (B, S)
+    dev = box.device
+    B, S = slot_cls.shape
     if is_train:
         # 9 rows per detection (hough_voting.py:473-486)
         J = len(_JITTER)
@@ -351,3 +373,131 @@ def _iou(box_a, box_b):
     sa = (box_a[..., 2] - box_a[..., 0] + 1) * (box_a[..., 3] - box_a[..., 1] + 1)
     sb = (box_b[..., 2] - box_b[..., 0] + 1) * (box_b[..., 3] - box_b[..., 1] + 1)
     return inter / (sa + sb - inter)
+
+
+def _candidate_boxes(packed, cand, thr_c, W: int):
+    """Half the inlier box (max |dx|, max |dy| over the inlier samples whose
+    offset lies inside the centre's box threshold; -1 where there is none)
+    at the centres `cand` (S, H*W) bool, from each slot's samples `packed`
+    (S, 8, P) and the threshold map `thr_c` (S, H*W). -1 at every other
+    centre: the multi mode selects only among `cand`, so the box of no
+    other centre reaches an output. The maxima are exact, so they do not
+    depend on the chunking (`hough_voting.py:600-627` reduces chunks of
+    `sample_chunk` samples over the whole grid). One read back: the
+    number of candidates."""
+    S, _, P = packed.shape
+    bw = torch.full(thr_c.shape, -1.0, device=packed.device)
+    bh = torch.full_like(bw, -1.0)
+    idx = torch.nonzero(cand)  # (n, 2): slot, centre
+    chunk = max(1, _PLAIN_ELEMS // P)
+    t2 = INLIER_THRESHOLD * INLIER_THRESHOLD
+    for c0 in range(0, idx.shape[0], chunk):
+        s, c = idx[c0:c0 + chunk, 0], idx[c0:c0 + chunk, 1]
+        smp = packed[s]  # (n, 8, P)
+        x, y, u, v, valid = smp[:, 0], smp[:, 1], smp[:, 2], smp[:, 3], smp[:, 7] > 0
+        thr = thr_c[s, c][:, None]
+        dx = (c % W).float()[:, None] - x
+        dy = torch.div(c, W, rounding_mode="floor").float()[:, None] - y
+        dot = u * dx + v * dy
+        n2sq = dx * dx + dy * dy
+        inl = (dot > 0.0) & (dot * dot > (t2 * (u * u + v * v)) * n2sq) & valid
+        okb = inl & (dx.abs() < thr) & (dy.abs() < thr)
+        bw[s, c] = torch.where(okb, dx.abs(), -1.0).amax(dim=1)
+        bh[s, c] = torch.where(okb, dy.abs(), -1.0).amax(dim=1)
+    return bw, bh
+
+
+def hough_voting_multi(
+    label: torch.Tensor,
+    vertex_pred: torch.Tensor,
+    extents: torch.Tensor,
+    meta_data: torch.Tensor,
+    gt_poses: torch.Tensor,
+    *,
+    num_classes: int,
+    is_train: bool,
+    voting_threshold: float,
+    per_threshold: float = 0.02,
+    skip_pixels: int = 10,
+    label_threshold: int = 500,
+    class_slots: int = 8,
+    max_samples: int = 1024,
+    max_detections_per_image: int = 16,
+    pixel_grid_stride: int = 1,
+    sampler: str = "exact",
+) -> HoughOutputs:
+    """The multi-instance mode (`voting_threshold > 0`): local maxima of the
+    full-resolution vote map instead of one argmax a class
+    (`hough_voting.py:hough_voting_multi`, after the reference's
+    compute_max_indexes_kernel). A centre of a valid slot is a detection
+    when its votes exceed `voting_threshold`, it is a maximum of its 7x7
+    window, its inlier box at the mean voted depth is not empty and votes /
+    (box width * height) >= `per_threshold`; the `max_detections_per_image`
+    of highest votes are kept, equal votes in the order of (slot, row,
+    column), as `lax.top_k` orders them. Rows as `hough_voting`'s, D a
+    detection slot instead of S.
+
+    The vote map is one `accumulate_votes` call on the H*W centres (the
+    CUDA kernel on the card). The inlier box is measured at the centres
+    that can be selected only (`_candidate_boxes`); the rest is plain
+    torch. Arguments as `hough_voting`'s; the sampler is the same."""
+    if sampler not in ("exact", "approx"):
+        raise ValueError(f"unknown sampler {sampler!r}")
+    dev = label.device
+    B, H, W = label.shape
+    C, S, P, D = num_classes, class_slots, max_samples, max_detections_per_image
+    skip = 1 if sampler == "approx" else skip_pixels
+
+    label_flat = label.reshape(B, H * W)
+    vert_flat = vertex_pred.reshape(B, H * W, 3 * C)
+    gt_any = torch.any(gt_poses[:, 1] > 0)
+    _, _, grid = coarse_centers(H, W, 1, dev)  # every pixel, row-major
+    cand_index = candidate_pixels(H, W, pixel_grid_stride, dev)
+    per_image = []
+    for b in range(B):
+        meta = meta_data[b]
+        fx, px_, fy, py_ = meta[0], meta[2], meta[4], meta[5]
+        cls, slot_valid, ext, packed = slot_samples(
+            label_flat[b], vert_flat[b], meta, extents, cand_index, W, num_classes=C, class_slots=S,
+            label_threshold=label_threshold, skip=skip, max_samples=P,
+        )
+        votes, dsum = accumulate_votes(packed, grid, grid_w=W)  # (S, H*W)
+        dist = torch.where(votes > 0, dsum / torch.clamp(votes, min=1.0), 0.0)
+        thr_c = project_box_threshold(ext, fx, fy, px_, py_, dist)  # (S, H*W)
+
+        # a 7x7 local maximum (the reference's kernel_size 3), -inf beyond
+        # the border as reduce_window pads
+        winmax = F.max_pool2d(votes.reshape(1, S, H, W), 7, stride=1, padding=3).reshape(S, H * W)
+        cand = (votes > voting_threshold) & (votes >= winmax) & slot_valid[:, None]
+        bw, bh = _candidate_boxes(packed, cand, thr_c, W)
+        bb_w = torch.where(votes > 0, 2.0 * bw, 0.0)
+        bb_h = torch.where(votes > 0, 2.0 * bh, 0.0)
+        selected = cand & (bb_h > 0) & (bb_w > 0) & (votes / torch.clamp(bb_h * bb_w, min=1e-9) >= per_threshold)
+        score_flat = torch.where(selected, votes, -1.0).reshape(-1)
+        # lax.top_k: the largest first, equal values in index order
+        order = torch.sort(score_flat, descending=True, stable=True).indices[:D]
+        score = score_flat[order]
+        det_valid = score > 0
+        s_idx = torch.div(order, H * W, rounding_mode="floor")
+        pix = order % (H * W)
+        cy = torch.div(pix, W, rounding_mode="floor").float()
+        cx = (pix % W).float()
+        cls_det = cls[s_idx]
+        d_det = dist[s_idx, pix]
+        bw_det = bb_w[s_idx, pix]
+        bh_det = bb_h[s_idx, pix]
+
+        scale = 0.05
+        rx = (cx - px_) / fx
+        ry = (cy - py_) / fy
+        box = torch.stack(
+            [cx - bw_det * (0.5 + scale), cy - bh_det * (0.5 + scale),
+             cx + bw_det * (0.5 + scale), cy + bh_det * (0.5 + scale)],
+            dim=1,
+        )
+        one, zero = torch.ones_like(d_det), torch.zeros_like(d_det)
+        pose = torch.stack([one, zero, zero, zero, rx * d_det, ry * d_det, d_det], dim=1)
+        targets, weights = gt_targets(box, cls_det, det_valid, gt_poses, extents, meta, b, C)
+        domain = torch.where(gt_any, 0, 1).to(torch.int32).expand(D)
+        per_image.append((cls_det, det_valid, box, score, pose, targets, weights, domain))
+    return emit_rows(per_image, is_train)

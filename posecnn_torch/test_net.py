@@ -45,7 +45,8 @@ the 3 symmetric YCB classes; without --model, the seed-0 weights of
 numbers are not comparable with the paper's.
 
 With TPU.DEBUG_NANS the evaluation runs under `utils.debug_nans`
-(FloatingPointError at the first operation with a NaN output).
+(FloatingPointError at the first operation with a NaN output; with
+TPU.DEBUG_DISABLE_JIT too, inside the inference calls as well).
 
 With --vis, or TEST.VISUALIZE, the PoseCNN evaluations (VGG16FULL's too)
 write each frame's overlay as <output>/vis/<frame:06d>-vis.png
@@ -57,7 +58,10 @@ CLI.
 Usage: python -m posecnn_torch.test_net [--cfg FILE.yml] [--imdb NAME] [--model SNAPSHOT.npz]
            [--max_frames N] [--eval_batch B] [--icp_plane_weight W] [--output DIR] [--vis] [--device cuda]
 
---model takes an npz snapshot of either package. Writes to the output
+--model takes an npz snapshot or an orbax directory of either package
+(every parameter of the model), a vgg16.npy or a TF1 checkpoint prefix
+(read without TensorFlow), whose weights replace the seed weights they
+name, as in the JAX CLI. Writes to the output
 directory: `detections.npz` (keys `<frame:06d>_<rois|poses|poses_refined|poses_icp>`)
 and `eval_summary.json`, as the JAX CLI does, and `eval_timing.json`: the
 device, per-frame milliseconds by stage, the kernels' launches, the
@@ -78,7 +82,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default=None, help="an npz snapshot (train state or params) of either package")
+    ap.add_argument("--model", default=None, help="an npz snapshot (train state or params) or orbax directory of "
+                    "either package, a vgg16.npy or a TF1 checkpoint prefix")
     ap.add_argument("--cfg", default=None, help="an experiments/cfgs/*.yml config (without it: the flagship eval)")
     ap.add_argument("--imdb", default=None, help="dataset (default toy_val with --cfg, lov_syn_val_v4 without)")
     ap.add_argument("--network", default="vgg16_convs")
@@ -96,14 +101,13 @@ def main(argv=None) -> int:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("test_net: no CUDA device (pass --device cpu to evaluate on the CPU)", file=sys.stderr)
         return 2
-    if args.model and not args.model.endswith(".npz"):
-        raise NotImplementedError(f"{args.model}: only npz snapshots are read (TF1 .ckpt needs tensorflow)")
     from posecnn_torch.core import config as C
     from posecnn_torch.utils.debug_nans import debug_nans
 
     config = C.cfg_from_file(args.cfg) if args.cfg else None
     # TPU.DEBUG_NANS: the whole evaluation under the NaN check
-    with debug_nans(config is not None and config.TPU.DEBUG_NANS):
+    with debug_nans(config is not None and config.TPU.DEBUG_NANS,
+                    disable_jit=config is not None and config.TPU.DEBUG_DISABLE_JIT):
         return _evaluate(args, ap, config)
 
 
@@ -114,7 +118,7 @@ def _evaluate(args, ap, config) -> int:
 
     from posecnn_torch.config import PIXEL_MEANS
     from posecnn_torch.core import config as C
-    from posecnn_torch.core.checkpoint import restore_params
+    from posecnn_torch.core.checkpoint import load_weights, restore_params
     from posecnn_torch.core.convert import make_model, param_shapes
     from posecnn_torch.data.imdb import YCB_SYMMETRIC_EVAL, PoseEvaluator
     from posecnn_torch.engine import test as engine
@@ -151,7 +155,12 @@ def _evaluate(args, ap, config) -> int:
     if args.icp_plane_weight is not None:
         test_cfg["icp_plane_weight"] = args.icp_plane_weight
     full = name == "vgg16_full"
-    weights = restore_params(args.model, param_shapes(cfg, name)) if args.model else init_fn(seed, cfg)
+    if args.model and (args.model.endswith(".npz") or os.path.isdir(args.model)):
+        weights = restore_params(args.model, param_shapes(cfg, name))
+    else:
+        # a vgg16.npy or a TF1 checkpoint over the seed weights
+        # (tools/test_net.py:146-152)
+        weights = load_weights(args.model, init_fn(seed, cfg)) if args.model else init_fn(seed, cfg)
     model = (make_full_model if full else make_model)(cfg, weights, args.device)
     sym = [c for c in dataset.classes if c in YCB_SYMMETRIC_EVAL] or [
         dataset.classes[i] for i in range(dataset.num_classes) if dataset._symmetry[i] > 0

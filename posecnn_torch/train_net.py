@@ -48,8 +48,12 @@ JAX CLI) ResNet-50 the same way, under .../resnet50. NETWORK
 VGG16DET trains the detection network (`det_run`, the JAX CLI's
 `train_det`: one raw frame a step, no resume), under
 output/<EXP_DIR>/<imdb>/vgg16_det. A config with a setting the port
-does not run raises NotImplementedError naming it; so do --weights and
---ckpt, which read weights from outside the repository. With
+does not run raises NotImplementedError naming it. --weights (a Caffe
+vgg16.npy: each op's weights into its scope and its `_p`/`_d` dual-tower
+copies) and --ckpt (a TF1 checkpoint, read without TensorFlow: every
+`scope/leaf` variable of the model's shape, the optimizer's slots and the
+step skipped) set the initial weights of PoseCNN and VGG16FULL, as in the
+JAX CLI, which reads neither for FCN-8s, ResNet-50 or VGG16DET. With
 TPU.DEVICE_TARGETS False the host thread builds dense batches (float
 images with the jitter and the noise applied, the (B,H,W,3C) vertex
 targets and weights; `data.minibatch.get_minibatch`) and the vertex loss
@@ -58,7 +62,9 @@ also asks Hough for the GT centres (HOUGH_FROM_GT, HOUGH_GT_MIX) is
 refused, as JAX's step raises KeyError there. With TPU.DEBUG_NANS the
 steps run under `utils.debug_nans` (FloatingPointError at the first
 operation with a NaN output, forward or backward; `train_timing.json`
-counts the outputs checked).
+counts the outputs checked); with TPU.DEBUG_DISABLE_JIT too, every
+operation of a step is checked as it runs, as under JAX's
+`jax_disable_jit`.
 
 Without --cfg, the flagship run: `engine.train.Solver` over the step of
 `entry.train_entry` (a device bank of `data/lov_syn_val_v4/`), with the
@@ -102,7 +108,7 @@ batch before its copy to the card; the segmentation and detection runs
 draw none, as in the JAX CLI, and a device-bank run refuses it.
 
 Usage: python -m posecnn_torch.train_net [--cfg FILE.yml] [--imdb NAME] [--iters N]
-           [--output DIR] [--resume] [--rand] [--vis] [--device cuda]
+           [--weights vgg16.npy] [--ckpt TF1_PREFIX] [--output DIR] [--resume] [--rand] [--vis] [--device cuda]
 """
 
 from __future__ import annotations
@@ -157,6 +163,7 @@ def cfg_run(args, log, mesh=None):
     import torch
 
     from posecnn_torch.core import config as C
+    from posecnn_torch.core.checkpoint import load_tf1_checkpoint, load_vgg16_npy
     from posecnn_torch.core.convert import make_model
     from posecnn_torch.models.posecnn_full import CE_THRESHOLD, make_full_model
     from posecnn_torch.data.device_bank import bank_to_device, build_bank
@@ -168,11 +175,8 @@ def cfg_run(args, log, mesh=None):
     from posecnn_torch.models.factory import get_network
     from posecnn_torch.parallel.mesh import shard_batch
 
-    for flag, what in (("weights", "vgg16.npy"), ("ckpt", "TF1 checkpoint")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: reading a {what} needs a file from outside the repository")
     cfg = C.cfg_from_file(args.cfg)
-    args.debug_nans = cfg.TPU.DEBUG_NANS
+    args.debug_nans = (cfg.TPU.DEBUG_NANS, cfg.TPU.DEBUG_DISABLE_JIT)
     # NETWORK and --network with the JAX CLI's precedence
     # (tools/train_net.py:83-105); VGG16GAN trains PoseCNN; a network the
     # port does not run raises here
@@ -196,6 +200,8 @@ def cfg_run(args, log, mesh=None):
     set_float32_precision()
     if (args.vis or cfg.TRAIN.VISUALIZE) and name in ("fcn8_vgg", "resnet50", "vgg16_det"):
         log(f"TRAIN.VISUALIZE: no minibatches are drawn for {name} (the JAX CLI has no hook there)")
+    if (args.weights or args.ckpt) and name in ("fcn8_vgg", "resnet50", "vgg16_det"):
+        log(f"--weights/--ckpt: not read for {name} (the JAX CLI reads them for PoseCNN alone)")
     if name in ("fcn8_vgg", "resnet50"):
         return seg_run(cfg, imdb, dev, output, name, init_fn, forward_fn)
     if name == "vgg16_det":
@@ -210,7 +216,13 @@ def cfg_run(args, log, mesh=None):
     points = rescale_points(points_raw, extents, symmetry, mcfg.is_symmetric)
     points, symmetry, extents = (torch.from_numpy(a).to(dev) for a in (points, symmetry, extents))
     full = name == "vgg16_full"
-    model = (make_full_model if full else make_model)(model_cfg, init_fn(cfg.RNG_SEED, model_cfg), dev)
+    params = init_fn(cfg.RNG_SEED, model_cfg)
+    # the initial weights of --weights, then --ckpt (tools/train_net.py:300-309)
+    if args.weights:
+        params = load_vgg16_npy(args.weights, params, log=log)
+    if args.ckpt:
+        params = load_tf1_checkpoint(args.ckpt, params, log=log)
+    model = (make_full_model if full else make_model)(model_cfg, params, dev)
     state = T.create_train_state(model, hp)
     # vgg16_full: its own forward and the 0.7 gate (tools/train_net.py:94-105)
     step_kw = dict(forward_fn=forward_fn, ce_threshold=CE_THRESHOLD) if full else {}
@@ -462,8 +474,8 @@ def main(argv=None) -> int:
     ap.add_argument("--imdb", default=None, help="dataset (with --cfg; default toy_train)")
     ap.add_argument("--network", default="vgg16_convs")
     ap.add_argument("--rand", action="store_true", help="do not seed numpy's global generator with RNG_SEED")
-    ap.add_argument("--weights", default=None, help="vgg16.npy initial weights (not ported)")
-    ap.add_argument("--ckpt", default=None, help="TF1 checkpoint (not ported)")
+    ap.add_argument("--weights", default=None, help="vgg16.npy initial weights (with --cfg)")
+    ap.add_argument("--ckpt", default=None, help="TF1 checkpoint of initial weights (with --cfg; no TF needed)")
     ap.add_argument("--output", default=None, help="snapshot and metrics directory")
     ap.add_argument("--resume", action="store_true", help="resume from the latest snapshot in the output directory")
     ap.add_argument("--vis", action="store_true",
@@ -518,6 +530,8 @@ def _train(args, ap, t_start: float, world: int) -> int:
             ap.error("without --cfg the flagship run trains on lov_syn_val_v4")
         if args.vis:
             ap.error("--vis draws host minibatches; the flagship run trains from a device bank")
+        if args.weights or args.ckpt:
+            ap.error("--weights and --ckpt are read by the --cfg runs")
         output = args.output or os.path.join(ROOT, "output", EXP_DIR, "lov_syn_val_v4", "vgg16_convs")
         step, state, bank = train_entry(args.device)
         log(f"bank: {bank['data'].shape[0]} frames on {args.device}; output {output}")
@@ -535,7 +549,7 @@ def _train(args, ap, t_start: float, world: int) -> int:
     data_record = {}
     try:
         # TPU.DEBUG_NANS: every step's forward and backward under the NaN check
-        with debug_nans(getattr(args, "debug_nans", False)) as nan_mode:
+        with debug_nans(*getattr(args, "debug_nans", (False,))) as nan_mode:
             solver.train(data_iter, state, args.iters, log=log, start_iter=start, timings=timings)
     finally:
         close = getattr(data_iter, "close", None)

@@ -23,10 +23,18 @@ region's first operation whose output held one. The allocations that hold
 no values yet (`empty` and its kin) and tensors on the meta device are not
 checked.
 
+With TPU.DEBUG_DISABLE_JIT as well, JAX sets `jax_disable_jit` too
+(`posecnn_tpu/core/config.py:385-391`): the jitted functions then run
+primitive by primitive, each checked as it runs, so a 0/0 that a select
+drops raises there as well. `debug_nans(disable_jit=True)` does the same:
+a region checks each operation's outputs as it runs (a read back for each,
+as outside a region) instead of the call's outputs at its end.
+DEBUG_DISABLE_JIT without DEBUG_NANS changes nothing here: torch runs
+eagerly, and no result depends on jit.
+
 The cost: two small kernels (isnan, any) for every floating output, and a
 read back to the host at each operation outside a region and at each
 region's end, where the card waits for the work queued before it.
-`TPU.DEBUG_DISABLE_JIT` has nothing to do here: eager torch runs no jit.
 """
 
 from __future__ import annotations
@@ -67,12 +75,14 @@ def _any_nan(leaves) -> bool:
 
 class DebugNans(TorchDispatchMode):
     """Raises FloatingPointError at the first aten operation with a NaN in a
-    floating output (in a region, at its end, where its outputs hold one);
-    counts the outputs it checked (`checked`)."""
+    floating output (in a region, at its end, where its outputs hold one;
+    with `disable_jit`, in a region too at the operation itself); counts
+    the outputs it checked (`checked`)."""
 
-    def __init__(self):
+    def __init__(self, disable_jit: bool = False):
         super().__init__()
         self.checked = 0
+        self.disable_jit = disable_jit
         self._flags: Optional[List[Tuple[object, torch.Tensor]]] = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -94,7 +104,11 @@ class DebugNans(TorchDispatchMode):
         """A call checked at its outputs: yields `check(*outputs)`, which
         raises naming the region's first NaN operation where an output
         (tensors, arrays, floats, nested in dicts, lists or tuples) holds a
-        NaN."""
+        NaN. With `disable_jit` every operation of the region was checked
+        as it ran, and `check` has nothing left to do."""
+        if self.disable_jit:
+            yield lambda *outputs: None
+            return
         outer, self._flags = self._flags, []
         flags = self._flags
 
@@ -114,13 +128,14 @@ class DebugNans(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def debug_nans(enabled: bool = True):
-    """The DEBUG_NANS scope (a no-op when not `enabled`); yields the mode
+def debug_nans(enabled: bool = True, disable_jit: bool = False):
+    """The DEBUG_NANS scope (a no-op when not `enabled`; `disable_jit`:
+    TPU.DEBUG_DISABLE_JIT, every region checked op by op); yields the mode
     (None when off)."""
     if not enabled:
         yield None
         return
-    with DebugNans() as mode:
+    with DebugNans(disable_jit) as mode:
         yield mode
 
 

@@ -27,7 +27,8 @@ the inflation (stdlib `zlib`) are read here; the row filters are undone by
 `native.png_unfilter` (`csrc/png.cc`, g++, no fallback: a failed build
 raises). `unfilter_plain` is its row-by-row NumPy version, for the tests.
 `write_png(path, array)` writes 8- or 16-bit grey, BGR or BGRA (filter 0
-on every row).
+on every row). `imdecode(bytes, flags)` reads PNG bytes in memory, as
+`cv2.imdecode` does (the online server's base64 requests).
 """
 
 from __future__ import annotations
@@ -58,7 +59,11 @@ def is_png(path: str) -> bool:
 def read_chunks(path: str) -> list:
     """[(type, data)] of the file's chunks, each CRC checked, up to IEND."""
     with open(path, "rb") as f:
-        raw = f.read()
+        return _chunks(f.read(), path)
+
+
+def _chunks(raw: bytes, path: str) -> list:
+    """[(type, data)] of a PNG's bytes (`path` names it in errors)."""
     if raw[:8] != SIGNATURE:
         raise NotImplementedError(f"{path}: not a PNG file (no PNG signature; JPEG and other formats are not read)")
     chunks, pos = [], 8
@@ -170,6 +175,19 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
         chunks = read_chunks(path)
     except FileNotFoundError:
         raise FileNotFoundError(f"imread: no file {path}") from None
+    return _image(chunks, path, flags)
+
+
+def imdecode(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """`cv2.imdecode` of PNG bytes in memory (as `imread` reads a file);
+    other formats, JPEG among them, raise NotImplementedError."""
+    if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED):
+        raise ValueError(f"imdecode: flags {flags}: only IMREAD_COLOR (1) and IMREAD_UNCHANGED (-1)")
+    return _image(_chunks(bytes(data), "<image bytes>"), "<image bytes>", flags)
+
+
+def _image(chunks: list, path: str, flags: int) -> np.ndarray:
+    """The image of a PNG's chunks, as cv2 reads it under `flags`."""
     if chunks[0][0] != "IHDR":
         raise ValueError(f"{path}: the first chunk is {chunks[0][0]}, not IHDR")
     kinds = {k for k, _ in chunks}

@@ -131,8 +131,9 @@ def test_prune_and_stale_tmp_match_jax(tmp_path):
     for step in (1, 2, 3):
         C.save_checkpoint(str(tmp_path / "real"), state, step=step, prefix="s", max_to_keep=2)
     assert sorted(os.listdir(tmp_path / "real")) == ["s_iter_2.npz", "s_iter_3.npz"]
-    with pytest.raises(NotImplementedError):
-        C.save_checkpoint(str(tmp_path), state, step=1, fmt="orbax")
+    # npz and orbax are the formats (orbax: tests/test_torch_legacy_ckpt.py)
+    with pytest.raises(ValueError, match="npz or orbax"):
+        C.save_checkpoint(str(tmp_path), state, step=1, fmt="zip")
 
 
 def _toy_step(record: list, sleep: float = 0.0):
@@ -246,5 +247,6 @@ def test_flagship_solver_settings_match_the_capstone():
     assert FLAGSHIP_SOLVER == dict(
         snapshot_iters=c.TRAIN.SNAPSHOT_ITERS, snapshot_prefix=c.TRAIN.SNAPSHOT_PREFIX,
         snapshot_opt_state=c.TPU.CHECKPOINT_OPT_STATE, snapshot_final=c.TRAIN.SNAPSHOT_FINAL, display=c.TRAIN.DISPLAY,
+        snapshot_format=c.TPU.CHECKPOINT_FORMAT,
     )
     assert EXP_DIR == c.EXP_DIR and RNG_SEED == c.RNG_SEED and c.TPU.CHECKPOINT_FORMAT == "npz"

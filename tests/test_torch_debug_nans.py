@@ -156,3 +156,45 @@ def test_train_net_and_test_net_with_debug_nans(tmp_path, monkeypatch):
     assert test_net.main(["--cfg", str(cfg), "--imdb", "toy_val", "--max_frames", "1", "--device", "cpu",
                           "--model", str(out / "caffenet_fast_rcnn_iter_2.npz"), "--output", str(ev)]) == 0
     assert (ev / "eval_summary.json").exists()
+
+
+def _dropped_zero_over_zero_jax(x):
+    return jnp.where(x > 0, x / x, 1.0)
+
+
+def _dropped_zero_over_zero_port(x):
+    return torch.where(x > 0, x / x, 1.0)
+
+
+@pytest.mark.parametrize("disable_jit", [False, True])
+def test_debug_disable_jit_checks_each_operation_as_jax(tmp_path, disable_jit):
+    """TPU.DEBUG_DISABLE_JIT beside DEBUG_NANS: a step whose graph holds a
+    0/0 that a `where` drops raises FloatingPointError in both packages
+    under both flags (JAX runs the jitted step primitive by primitive), and
+    in neither under DEBUG_NANS alone (checked at the step's outputs)."""
+    from posecnn_tpu.core import config as JC
+    from posecnn_torch.utils.debug_nans import jitted
+
+    cfg = tmp_path / "flags.yml"
+    cfg.write_text(f"TPU:\n  DEBUG_NANS: True\n  DEBUG_DISABLE_JIT: {disable_jit}\n")
+    jcfg = JC.cfg_fresh(str(cfg))
+    JC.apply_debug_flags(jcfg)
+    try:
+        jax_raised = False
+        try:
+            jax.jit(_dropped_zero_over_zero_jax)(jnp.zeros(2))
+        except FloatingPointError:
+            jax_raised = True
+    finally:
+        jax.config.update("jax_debug_nans", False)
+        jax.config.update("jax_disable_jit", False)
+    pcfg = C.cfg_from_file(str(cfg))
+    port_raised = False
+    try:
+        with debug_nans(pcfg.TPU.DEBUG_NANS, disable_jit=pcfg.TPU.DEBUG_DISABLE_JIT):
+            out = jitted(_dropped_zero_over_zero_port, "step")(torch.zeros(2))
+        assert torch.equal(out, torch.ones(2))
+    except FloatingPointError as e:
+        port_raised = True
+        assert "aten.div" in str(e)
+    assert jax_raised == port_raised == disable_jit

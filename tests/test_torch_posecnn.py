@@ -139,14 +139,17 @@ def test_small_slice_bf16_label_agreement(golden):
              dict(vote_threshold=0.5), dict(vertex_reg_3d=True, vote_threshold=0.5)]
 )
 def test_unported_configs_raise(over):
-    """Options the port does not run yet raise (VOTE_THRESHOLD > 0, Hough's
-    multi-instance voting), in training and at inference, with the 3D head
-    and the domain head too. (hough_from_gt is ported:
+    """VOTE_THRESHOLD > 0 (Hough's multi-instance voting) was refused until
+    it was ported (tests/test_torch_hough_multi.py): the model now builds
+    in training and at inference, with the 3D head and the domain head too,
+    with the parameters of the same config at vote_threshold -1 (the mode
+    adds none), where it raised NotImplementedError. (hough_from_gt:
     tests/test_torch_toy_train.py; the RGBD dual tower:
     tests/test_torch_input_modes.py; the 3D head:
     tests/test_torch_vertex3d.py; the domain head:
     tests/test_torch_adapt.py; training with the exact roi_pool, no crop
     pool: tests/test_torch_train.py::test_small_step_matches_jax[roi_pool_gt_mix1].)"""
-    cfg = PoseCNNConfig(**{**dict(num_classes=4, is_train=False, trunk_scale=0.125, fc_dim=64), **over})
-    with pytest.raises(NotImplementedError):
-        PoseCNN(cfg)
+    base = {**dict(num_classes=4, is_train=False, trunk_scale=0.125, fc_dim=64), **over}
+    shapes = {k: tuple(p.shape) for k, p in PoseCNN(PoseCNNConfig(**base)).named_parameters()}
+    single = PoseCNN(PoseCNNConfig(**{**base, "vote_threshold": -1.0}))
+    assert shapes == {k: tuple(p.shape) for k, p in single.named_parameters()}

@@ -260,6 +260,10 @@ PICKS = [
     ("VGG16FULL", "fcn8_vgg", "fcn8_vgg"), ("VGG16FULL", "vgg16_convs", "vgg16_full"),
     ("VGG16", "vgg16_full", "vgg16_full"), ("VGG16", "vgg16_convs", "vgg16_convs"),
     ("VGG16GAN", "vgg16_convs", "vgg16_convs"), (None, "resnet50", "resnet50"),
+    # any other flag builds PoseCNN (the factory's video models and GAN are
+    # reached from Python alone)
+    ("VGG16", "vgg16", "vgg16_convs"), ("VGG16", "vgg16_3d", "vgg16_convs"),
+    ("VGG16GAN", "vgg16_gan", "vgg16_convs"), ("VGG16", "dcgan", "vgg16_convs"), (None, "vgg16", "vgg16_convs"),
 ]
 
 
@@ -267,7 +271,7 @@ PICKS = [
 def test_pick_network_has_the_jax_clis_precedence(network, flag, want):
     """VGG16DET by either first, then ResNet-50 by either (an FCN8VGG cfg
     with --network resnet50 builds ResNet-50), then FCN-8s, then VGG16FULL,
-    else the flag."""
+    else PoseCNN."""
     assert C.pick_network(network, flag) == want
 
 

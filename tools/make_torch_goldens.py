@@ -1,6 +1,6 @@
 """Write the JAX goldens that the PyTorch port is checked against.
 
-Runs the JAX package (on the CPU) and writes twelve files:
+Runs the JAX package (on the CPU) and writes fourteen goldens:
 
   tests/golden/torch_port_hough_v4_000000.npz
       `hough_voting` at the flagship settings on the ground-truth label map
@@ -93,6 +93,19 @@ Runs the JAX package (on the CPU) and writes twelve files:
       states; one `make_video_train_step` (its metrics, parameter slices
       after it); and KinectFusion's pose track, raycast and surface on an
       analytic scene under a known camera motion (`kfusion_scene`).
+
+  tests/golden/torch_port_hough_multi.npz
+      the multi-instance Hough mode (`hough_voting_multi`, unjitted, at
+      `MULTI_SETTINGS`: 8 slots, 1024 samples, VOTING_THRESHOLD 100) on the
+      ground-truth label maps and vertex fields of frames v4/000000 and
+      000001 (extents 0.1 m): each frame's rois, poses_init and valid rows
+      (`hough_multi_golden`).
+  tests/golden/torch_port_tf1.ckpt.index, .data-00000-of-00001, and
+  tests/golden/torch_port_tf1.npz
+      a TF1 Saver checkpoint written by TensorFlow (`write_tf1_golden`): the
+      flagship's smaller variables at their full shapes (`TF1_VARS`), a
+      Momentum slot, `global_step` and `Variable`; and its twin, each
+      variable's values under its name.
 
 `chip_smoke.py` and the tests read them with numpy alone; the tests also
 regenerate them here and compare, so a golden cannot go stale unnoticed.
@@ -1085,15 +1098,88 @@ def video_golden() -> dict:
     return g
 
 
+MULTI_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_hough_multi.npz")
+MULTI_FRAMES = ("data/lov_syn_val_v4/000000.npz", "data/lov_syn_val_v4/000001.npz")
+# hough_voting_multi's arguments: the dense grid at 640x480 is S=8 slots,
+# 307,200 centres, 1024 samples
+MULTI_SETTINGS = dict(num_classes=22, voting_threshold=100.0, per_threshold=0.02, skip_pixels=10,
+                      label_threshold=500, class_slots=8, max_samples=1024, max_detections_per_image=16,
+                      pixel_grid_stride=1, sampler="exact")
+
+
+def hough_multi_golden() -> dict:
+    """JAX's hough_voting_multi, unjitted, on each MULTI_FRAMES frame's
+    ground truth (`hough_inputs`), at inference."""
+    import jax.numpy as jnp
+
+    from posecnn_tpu.ops.hough_voting import hough_voting_multi
+
+    out = {f"settings/{k}": np.asarray(v) for k, v in MULTI_SETTINGS.items()}
+    for i, path in enumerate(MULTI_FRAMES):
+        label, vert, extents, meta = hough_inputs(path)
+        r = hough_voting_multi(jnp.asarray(label[None]), jnp.asarray(vert[None]), jnp.asarray(extents),
+                               jnp.asarray(meta[None]), jnp.zeros((1, 13), jnp.float32), is_train=False,
+                               **MULTI_SETTINGS)
+        for k in ("rois", "poses_init", "valid"):
+            out[f"{i}/{k}"] = np.asarray(getattr(r, k))
+    return out
+
+
+TF1_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_tf1.ckpt")
+TF1_TWIN = os.path.join(GOLDEN_DIR, "torch_port_tf1.npz")
+# variables of the flagship PoseCNN (22 classes, 64 units) at their shapes
+TF1_VARS = {"conv1_1/weights": (3, 3, 3, 64), "conv1_1/biases": (64,), "conv1_2/weights": (3, 3, 64, 64),
+            "conv1_2/biases": (64,), "score/weights": (1, 1, 64, 22), "score/biases": (22,),
+            "vertex_pred/weights": (1, 1, 128, 66), "vertex_pred/biases": (66,), "fc8/weights": (4096, 88),
+            "fc8/biases": (88,)}
+TF1_SEED = 7
+
+
+def write_tf1_golden() -> None:
+    """The TF1 checkpoint TF1_GOLDEN (TensorFlow's Saver) and its twin: 0.01
+    N(0,1) values of TF1_VARS from RandomState(TF1_SEED) in sorted order, a
+    Momentum slot of conv1_1's weights, global_step and Variable."""
+    import shutil
+    import tempfile
+
+    import tensorflow as _tf
+
+    tf = _tf.compat.v1
+    tf.disable_eager_execution()
+    rng = np.random.RandomState(TF1_SEED)
+    values = {k: (rng.randn(*shape) * 0.01).astype(np.float32) for k, shape in sorted(TF1_VARS.items())}
+    graph = tf.Graph()
+    with graph.as_default():
+        for name, v in values.items():
+            scope, leaf = name.split("/")
+            with tf.variable_scope(scope):
+                tf.get_variable(leaf, initializer=v)
+        with tf.variable_scope("conv1_1", reuse=tf.AUTO_REUSE):
+            tf.get_variable("weights/Momentum", initializer=np.ones(TF1_VARS["conv1_1/weights"], np.float32))
+        tf.get_variable("global_step", initializer=np.int64(160000))
+        tf.get_variable("Variable", initializer=np.float32(0.0))
+        with tf.Session() as sess:
+            sess.run(tf.global_variables_initializer())
+            tmp = tempfile.mkdtemp()
+            prefix = tf.train.Saver().save(sess, os.path.join(tmp, "model.ckpt"), write_meta_graph=False)
+    for suffix in (".index", ".data-00000-of-00001"):
+        shutil.copyfile(prefix + suffix, TF1_GOLDEN + suffix)
+    shutil.rmtree(tmp)
+    np.savez_compressed(TF1_TWIN, **values)
+
+
 def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for path, make in ((HOUGH_GOLDEN, hough_golden), (SLICE_GOLDEN, small_slice_golden), (TRAIN_GOLDEN, train_golden),
                        (EVAL_GOLDEN, eval_golden), (TOY_TRAIN_GOLDEN, toy_train_golden),
                        (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden),
                        (DET_GOLDEN, det_golden), (FULL_GOLDEN, full_golden), (LOV_BATCH_GOLDEN, lov_batch_golden),
-                       (RESNET50_GOLDEN, resnet50_golden), (VIDEO_GOLDEN, video_golden)):
+                       (RESNET50_GOLDEN, resnet50_golden), (VIDEO_GOLDEN, video_golden),
+                       (MULTI_GOLDEN, hough_multi_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
+    write_tf1_golden()
+    print(f"wrote {os.path.relpath(TF1_GOLDEN, ROOT)}.* and {os.path.relpath(TF1_TWIN, ROOT)}")
 
 
 if __name__ == "__main__":

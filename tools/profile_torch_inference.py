@@ -36,7 +36,11 @@ frames on `lov_syn_val_v4`, `--resnet50 --train` its segmentation step
 bf16, RNG_SEED weights): `--video` `test_net_video` over the first frozen
 frames of `lov_syn_val_v4` as one video with KinectFusion at grid 128,
 `--video --train` its step (T=5, B=1, `GtDataLayer` windows of those
-frames moved to the card beforehand). Runs
+frames moved to the card beforehand). With `--multi`, Hough's
+multi-instance mode (`ops/hough_voting.py:hough_voting_multi`) on the
+ground truth of the frames of its golden (`tools/make_torch_goldens.py:
+MULTI_FRAMES`, `MULTI_SETTINGS`: 8 slots, 1024 samples, 640x480), a call a
+"frame". Runs
 under torch.profiler and
 prints the device's busy share of the profiled wall window, host and device
 time per stage, and the device time by kernel (the `--top` largest).
@@ -59,11 +63,13 @@ and padding), its batch norms (with their ReLUs), the upscore, and for
 training the loss and the update. For the video model: the trunk, the flow
 warp's forward, the GRU, and for training the losses and the update (the
 backward, the flow's scatter among it, is the rest), for evaluation
-KinectFusion's bilateral filter, tracking, fusion and surface. Needs one
-NVIDIA GPU.
+KinectFusion's bilateral filter, tracking, fusion and surface. For the
+multi mode: the slots' samples, the vote kernel, the box-threshold map, the
+7x7 max pool, the sort of the scores, the candidate maxima's inlier boxes
+(one read back), the GT targets and the output rows. Needs one NVIDIA GPU.
 
 Usage: python tools/profile_torch_inference.py [--train | --eval] [--toy | --det | --3d | --full | --adapt | --resnet50
-           | --video] [--lr LR] [--warm 2] [--frames 6] [--top 25]
+           | --video | --multi] [--lr LR] [--warm 2] [--frames 6] [--top 25]
 """
 
 from __future__ import annotations
@@ -120,6 +126,7 @@ def main() -> int:
     ap.add_argument("--resnet50", action="store_true", help="ResNet-50's eval frames (--train: its step)")
     ap.add_argument("--video", action="store_true",
                     help="test_net_video's frames with KinectFusion (--train: the video model's step)")
+    ap.add_argument("--multi", action="store_true", help="Hough's multi-instance mode on its golden's frames")
     ap.add_argument("--warm", type=int, default=2, help="with --full or --adapt: the steps before the profiled ones")
     ap.add_argument("--frames", type=int, default=6, help="frames (or training steps) to profile")
     ap.add_argument("--top", type=int, default=25)
@@ -131,9 +138,10 @@ def main() -> int:
 
     if args.toy and not (args.train or args.eval):
         ap.error("--toy goes with --train or --eval")
-    if args.toy + args.det + args.three_d + args.full + args.adapt + args.resnet50 + args.video > 1 or (
-            args.three_d and args.train):
-        ap.error("one of --toy, --det, --3d, --full, --adapt, --resnet50 and --video; --3d profiles evaluation")
+    if args.toy + args.det + args.three_d + args.full + args.adapt + args.resnet50 + args.video + args.multi > 1 or (
+            (args.three_d or args.multi) and args.train):
+        ap.error("one of --toy, --det, --3d, --full, --adapt, --resnet50, --video and --multi; --3d profiles "
+                 "evaluation, --multi inference")
     if (args.full or args.adapt) and not args.train:
         ap.error("--full and --adapt profile the training step: add --train")
     if args.toy:
@@ -489,6 +497,39 @@ def main() -> int:
         warmup, runs = [(2,)], [(args.frames,)]  # a warm-up call of 2 frames, then the profiled one
         rest = "heads and the rest"
         unit = "frame"
+    elif args.multi:
+        import torch.nn.functional as F
+
+        from posecnn_torch.ops import hough_voting as H
+        from tests.torch_parity import goldens
+
+        stages = {
+            "stage:samples": [(H, "slot_samples")],
+            "stage:votes": [(H, "accumulate_votes")],
+            "stage:box_threshold": [(H, "project_box_threshold")],
+            "stage:max_pool": [(F, "max_pool2d")],
+            "stage:sort": [(torch, "sort")],
+            "stage:candidate_boxes": [(H, "_candidate_boxes")],
+            "stage:gt_targets": [(H, "gt_targets")],
+            "stage:rows": [(H, "emit_rows")],
+        }
+        _spans(stages, record_function)
+        G = goldens()
+        inputs = []
+        for path in G.MULTI_FRAMES:
+            label, vert, extents, meta = G.hough_inputs(path)
+            inputs.append([torch.from_numpy(a).to(dev) for a in (label[None], vert[None], extents, meta[None])])
+        runs = [inputs[i % len(inputs)] for i in range(args.frames)]
+
+        def run(*a):
+            with record_function("stage:frame"):
+                return H.hough_voting_multi(*a, torch.zeros((1, 13), device=dev), is_train=False,
+                                            **G.MULTI_SETTINGS)
+
+        runs = [tuple(r) for r in runs]
+        warmup = runs[:2]
+        rest = "the rest"
+        unit = "call"
     else:
         stages = {
             "stage:trunk": [(backbone.VGGTrunk, "forward")],
