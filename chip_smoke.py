@@ -14,7 +14,8 @@ YCB-Video and LINEMOD loaders with the synthesis mix (TRAIN.SYNTHESIZE), more
 than one rank, the rest of the CLIs' surface, dense host targets
 (TPU.DEVICE_TARGETS False), TPU.DEBUG_NANS, the video models and
 KinectFusion, Hough's multi-instance mode, the legacy weight readers and the
-serving tools.
+serving tools, and the last modules: TRAIN.MATCHING, VGG16FULL and the
+video step across ranks, and the GAN models.
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
   2. build: every CUDA kernel of the path (hough_vote, conv3x3, nms), the
@@ -175,12 +176,23 @@ serving tools.
      committed TF1 checkpoint read without TensorFlow and through test_net
      --model; `tools.online --serve` in its own process (file, base64 and
      JPEG requests), `--watch --once` and `tools.demo --visualize`
+  20. the last modules (`slice_p_phase`): `train_net --cfg` on
+     lov_syn_capstone.yml with TRAIN.MATCHING (the render-and-compare loss;
+     stream ms a step, peak memory, 4 + 2 launches a step, loss_matching >
+     0), the matching loss alone at the step's shapes (ms, memory), one f32
+     bank step with it against the CPU port and the matching golden;
+     `train_net --cfg lov_color_2d_full.yml` as two gloo ranks on the card
+     and VGG16FULL's f32 steps at (2,1) and (1,2), and the video model's
+     f32 step at (2,1) (T=5, one image a rank), against the one-process
+     steps (`python3 chip_smoke.py mesh-rank <dir>`), the video's bf16
+     mesh step timed; vgg16_gan_forward at 640x480 (bf16, 1 conv3x3 launch)
+     against the CPU port, DCGAN at 128 in train and eval mode against it
   then the CPU-port checks' record, each phase's seconds and each CLI
      run's (where it ran, its set-up time), the kernels' JSON line, then
      {"ok": true, "device": {...}}
 
 The CPU port's side of the card-against-CPU checks of phases 7, 9, 10,
-12, 13, 14 and 19 runs on a thread of its own (`defer`, CPU_THREADS of the
+12, 13, 14, 19 and 20 runs on a thread of its own (`defer`, CPU_THREADS of the
 host's cores) beside the card phases that follow, each printing its line
 when it ends; the script waits for them before its summary (`drain`), and a
 failed check there fails the script as anywhere else. The host-bound
@@ -188,7 +200,7 @@ times of the card phases that run beside them share the host's cores.
 
 The CLIs run in this process through their `main(argv)` (`run_cli`), but
 for phase 8's SIGTERM and --resume runs, phase 11's SIGTERM run and phase
-16's ranks, which have processes of their own. Their scratch directory is made under the
+16's and 20's ranks, which have processes of their own. Their scratch directory is made under the
 checkout's git-ignored output/ and removed at the end. Any failure raises
 and the process exits nonzero; nothing falls back to the CPU. It imports
 no JAX. Usage: python3 chip_smoke.py
@@ -360,6 +372,38 @@ NANS_STEPS, NANS_WARMUP, KF_TOOL_FRAMES = 10, 3, 4
 # phase 19: the frames of test_net in the multi-instance mode, of the online
 # server (each sent by file and as base64) and its watch loop, and of the demo
 MULTI_EVAL_FRAMES, SERVE_FRAMES, DEMO_FRAMES = 4, 4, 5
+# phase 20: the steps of train_net with TRAIN.MATCHING (lov_syn_capstone.yml's
+# DISPLAY, 20: the log shows steps 1 and 20) and those left out of its
+# medians; the calls of the matching loss timed alone; the steps of
+# VGG16FULL's trainer as two ranks; the video mesh step's frames and images
+# (one a rank); DCGAN's side and batch
+MATCH_STEPS, MATCH_WARMUP, MATCH_TIME_REPS, FULL_MESH_STEPS = 20, 5, 10, 4
+VIDEO_MESH_T, VIDEO_MESH_B = 5, 2
+DCGAN_SIZE, DCGAN_B = 128, 2
+# the f32 mesh steps of VGG16FULL and of the video model against the
+# one-process step on the card: the loss terms within MESH_LOSS_LIMIT
+# relative, these updated parameters within their limits of their largest
+# magnitude (phase 16's, for VGG16FULL's heads and pose branch; the video
+# model's trunk, fusion and cell)
+FULL_MESH_PARAMS = {"fc6.weight": 1e-3, "fc7.weight": 1e-4, "poses_pred_unnormalized.weight": 1e-4,
+                    "score_conv1.weight": 1e-4, "trunk.conv5_3.weight": 1e-4, "trunk.conv1_2.weight": 1e-4}
+VIDEO_MESH_PARAMS = {"trunk.conv1_2.weight": 1e-4, "trunk.conv5_3.weight": 1e-4, "score.weight": 1e-4,
+                     "gru2d.Gates.weight": 1e-4}
+# the f32 mesh steps of phases 16 and 20: a parameter's output row parts
+# from the one-process step's update when it differs by more than this share
+# of how far that step moved the parameter (a gradient summed over the
+# wrong group, or not at all, parts every row by about half the move or
+# more); every row of the kept parameters is held to it, fc6 but
+# MESH_FC6_ROWS rows (a ReLU crossing moves a row whole). Measured before
+# the limit was set (H100, PERF.md section 6): every row within it but
+# phase 16's one fc6 crossing; the steps moved their leaves by 6.2e-4 to
+# 1.22 of their largest magnitude
+MESH_MOVE_SHARE = 1e-2
+# DCGAN (f32, TF32 off) card against the CPU port: each output and running
+# statistic within this share of its largest magnitude (cuDNN's and the
+# CPU's f32 sums in other orders; train-mode batch norm over the 2 x 4 x 4
+# values of the deepest level widens them)
+DCGAN_LIMIT = 1e-4
 SLICE_J_GRADS = {"full": ("trunk.conv1_2.weight", "score_conv1.weight", "fc6.weight", "fc7.weight",
                           "poses_pred_unnormalized.weight", "trunk.conv5_3.weight"),
                  "adapt": ("trunk.conv1_2.weight", "fc6.weight", "fc9.weight", "fc7.weight", "fc8.weight",
@@ -2455,42 +2499,51 @@ def datasets_phase(work: str, dev) -> dict:
     return launches
 
 
-def mesh_inputs(work: str, dev) -> dict:
-    """The f32 mesh steps' inputs, written to <work>/mesh/: lov_color_2d.yml
-    on the phase-15 tree (B=2, 640x480, 22 classes, float32, TF32 off), its
-    first global host batch with its GT pose rows put at the detections of a
-    training forward on the card (`gt_rows_at_detections`, as phase 14 (b)),
-    and that forward's draws, recorded to be replayed. Returns the config
-    file, the output directory and the one-process step on the card: its
-    loss terms, the updated MESH_PARAMS and its launches; the step's own
-    spread (run again from the seed weights) and the f32 trunk's conv5_3 at
-    B=2 against one image at a time, which place the meshes' differences."""
+def _mesh_net(full: bool) -> tuple:
+    """The f32 mesh steps' network: PoseCNN's, or VGG16FULL's where `full`,
+    as (init_params_numpy, make_model, forward, ce_threshold)."""
+    if full:
+        from posecnn_torch.models import posecnn_full as PF
+
+        return PF.init_posecnn_full_params_numpy, PF.make_full_model, PF.posecnn_full_forward, PF.CE_THRESHOLD
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.models.posecnn import posecnn_forward
+
+    return init_params_numpy, make_model, posecnn_forward, None
+
+
+def mesh_inputs(d: str, dev, cfg, imdb, batch: dict, keep, full: bool = False) -> dict:
+    """The f32 mesh steps' inputs, written to `d`: `batch` (a host batch of
+    `cfg` on `imdb`, B=2, float32, TF32 off) with its GT pose rows put at
+    the detections of a training forward on the card
+    (`gt_rows_at_detections`, as phase 14 (b)), that forward's draws,
+    recorded to be replayed, and the network (PoseCNN, or VGG16FULL where
+    `full`, `_mesh_net`) with the `keep` parameters that `mesh_rank`
+    gathers. Returns the directory and the one-process step on the card:
+    its loss terms, the `keep` parameters after it, how far it moved each
+    (max |after - before|), its launches; the step's own spread (run again
+    from the seed weights) and the f32 trunk's conv5_3 at B=2 against one
+    image at a time, which place the meshes' differences."""
     import torch
 
     from posecnn_torch.core import config as C
-    from posecnn_torch.core.convert import init_params_numpy, make_model
-    from posecnn_torch.data.factory import get_imdb
     from posecnn_torch.data.minibatch import rescale_points
     from posecnn_torch.engine import train as T
-    from posecnn_torch.models.posecnn import posecnn_forward
     from posecnn_torch.ops import conv3x3, voting
-    from tests.torch_parity import gt_rows_at_detections, lov_batch_cfg, port_lov_batches
+    from tests.torch_parity import gt_rows_at_detections
 
-    lov_root = os.path.join(work, "datasets", "LOV")
-    cfg = lov_batch_cfg(lov_root)
-    imdb = get_imdb("lov_train")
+    init, make, forward_fn, ce_threshold = _mesh_net(full)
     model_cfg = dataclasses.replace(C.train_model_cfg(cfg, imdb.num_classes), compute_dtype=torch.float32)
     hp = C.train_hparams(cfg)
-    weights = init_params_numpy(cfg.RNG_SEED, model_cfg)
+    weights = init(cfg.RNG_SEED, model_cfg)
     ext, sym = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
     points = rescale_points(np.asarray(imdb._points_all, np.float32), ext, sym,
                             C.minibatch_cfg(cfg, imdb.num_classes).is_symmetric)
     consts = [torch.from_numpy(a).to(dev) for a in (points, sym, ext)]
-    batch = port_lov_batches(lov_root, 1)[0]
     outs = []
 
     def forward(*a, **k):
-        out = posecnn_forward(*a, **k)
+        out = forward_fn(*a, **k)
         outs.append({n: out[n].detach().cpu() for n in ("rois", "rois_valid", "poses_init")})
         return out
 
@@ -2498,26 +2551,27 @@ def mesh_inputs(work: str, dev) -> dict:
     gen.manual_seed(cfg.RNG_SEED)
     draws = T.Draws(gen, record=True)
     with torch.no_grad():
-        T.compute_losses(make_model(model_cfg, weights, dev), model_cfg, hp, T.to_device(batch, dev), *consts, draws,
-                         forward)
+        T.compute_losses(make(model_cfg, weights, dev), model_cfg, hp, T.to_device(batch, dev), *consts, draws,
+                         forward, ce_threshold)
     batch["poses"] = gt_rows_at_detections(outs.pop(), batch["poses"])
     recorded = {k: v.cpu() for k, v in draws.recorded.items()}
-    d = os.path.join(work, "mesh")
     os.makedirs(d, exist_ok=True)
     np.savez(os.path.join(d, "batch.npz"), **batch)
     np.savez(os.path.join(d, "consts.npz"), points=points, symmetry=sym, extents=ext)
     torch.save(recorded, os.path.join(d, "draws.pt"))
     with open(os.path.join(d, "cfg.json"), "w") as f:
         json.dump({"model_cfg": {k: v for k, v in dataclasses.asdict(model_cfg).items() if k != "compute_dtype"},
-                   "hp": dataclasses.asdict(hp), "seed": cfg.RNG_SEED}, f)
-    step = T.make_train_step(model_cfg, hp, *consts)
+                   "hp": dataclasses.asdict(hp), "seed": cfg.RNG_SEED, "full": full, "keep": sorted(keep)}, f)
+    step = T.make_train_step(model_cfg, hp, *consts, forward_fn=forward_fn, ce_threshold=ce_threshold)
     runs = []
     for _ in range(2):  # twice: the one-process step's own spread
-        state = T.create_train_state(make_model(model_cfg, weights, dev), hp)
+        state = T.create_train_state(make(model_cfg, weights, dev), hp)
+        before = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters() if k in keep}
         voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = 0
         got = {k: float(v) for k, v in step(state, T.to_device(batch, dev), T.Draws(replay=recorded)).items()}
-        runs.append({k: p.detach().cpu() for k, p in state.model.named_parameters() if k in MESH_PARAMS})
+        runs.append({k: p.detach().cpu() for k, p in state.model.named_parameters() if k in keep})
     params = runs[0]
+    move = {k: float((v - before[k]).abs().max()) for k, v in params.items()}
     spread = {k: float((runs[1][k] - v).abs().max()) / float(v.abs().max()) for k, v in params.items()}
     # cuDNN's f32 trunk on the batch's two images at once and one at a time
     with torch.no_grad():
@@ -2526,28 +2580,45 @@ def mesh_inputs(work: str, dev) -> dict:
         one_at_a_time = torch.cat([state.model.trunk(x[i:i + 1], compute_dtype=torch.float32)["conv5_3"]
                                    for i in range(x.shape[0])])
         trunk_gap = float((both - one_at_a_time).abs().max() / both.abs().max())
-    return {"losses": got, "params": params, "n_gt": int((batch["poses"][:, 1] > 0).sum()), "dir": d,
+    del state, step, x, both, one_at_a_time
+    torch.cuda.empty_cache()
+    return {"losses": got, "params": params, "move": move, "n_gt": int((batch["poses"][:, 1] > 0).sum()), "dir": d,
             "launches": {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES},
             "spread": spread, "trunk_gap": trunk_gap}
 
 
+def _video_weights(cfg) -> dict:
+    """The video mesh step's seed weights, the GRU's gates drawn (0.05 N(0,
+    1) from RNG_SEED: the seed's gates are zero)."""
+    from posecnn_torch.config import RNG_SEED
+    from posecnn_torch.models import video as V
+
+    weights = V.init_video_params_numpy(RNG_SEED, cfg)
+    gates = weights["gru2d"]["Gates"]
+    gates["weights"] = (0.05 * np.random.RandomState(RNG_SEED).randn(*gates["weights"].shape)).astype(np.float32)
+    return weights
+
+
 def mesh_rank(d: str) -> int:
-    """One of the two ranks of phase 16 (b)'s f32 steps (`python3
-    chip_smoke.py mesh-rank <dir>`, started by `parallel.launch.run_ranks`
-    with gloo): the step at mesh (2,1) and then at (1,2) (fc6 and fc7 split
-    at their full width) on the inputs `mesh_inputs` wrote, the recorded
-    draws replayed (each rank takes its rows of them). Rank 0 writes the
-    gathered MESH_PARAMS and the loss terms of each; every rank prints one
-    line 'mesh-rank {json}': its launches, stream ms and peak MiB of each
-    step, and the ms of one all-reduce of every gradient over the data
-    group (the (2,1) step's collective)."""
+    """One of the two ranks of the f32 mesh steps (`python3 chip_smoke.py
+    mesh-rank <dir>`, started by `parallel.launch.run_ranks` with gloo on
+    cuda:0): the step of the network `mesh_inputs` wrote to <dir> at mesh
+    (2,1) and then at (1,2) (fc6 and fc7 split at their full width) on its
+    batch, the recorded draws replayed (each rank takes its rows of them);
+    where <dir> holds a video batch (`_video_inputs`), then the video
+    model's f32 step at (2,1) (one image a rank) and its bf16 step at (2,1),
+    timed. Rank 0 writes the gathered kept parameters and the loss terms of
+    each f32 step; every rank prints one line 'mesh-rank {json}': its
+    launches, stream ms and peak MiB of each step, and the ms of one
+    all-reduce of every gradient over the data group (the (2,1) step's
+    collective)."""
     import torch
 
     sys.path.insert(0, ROOT)
     from posecnn_torch.config import PoseCNNConfig
-    from posecnn_torch.core.convert import init_params_numpy, make_model
     from posecnn_torch.engine import train as T
     from posecnn_torch.engine.test import set_float32_precision
+    from posecnn_torch.models import video as V
     from posecnn_torch.ops import conv3x3, nms, voting
     from posecnn_torch.parallel import launch
     from posecnn_torch.parallel import mesh as M
@@ -2556,37 +2627,45 @@ def mesh_rank(d: str) -> int:
     world = launch.initialize(device=dev)
     try:
         set_float32_precision()
-        with open(os.path.join(d, "cfg.json")) as f:
-            spec = json.load(f)
-        model_cfg = PoseCNNConfig(compute_dtype=torch.float32, **spec["model_cfg"])
-        hp = T.TrainHParams(**{k: tuple(v) if isinstance(v, list) else v for k, v in spec["hp"].items()})
-        weights = init_params_numpy(spec["seed"], model_cfg)
-        with np.load(os.path.join(d, "batch.npz")) as z:
-            batch = {k: z[k] for k in z.files}
-        with np.load(os.path.join(d, "consts.npz")) as z:
-            consts = [torch.from_numpy(z[k]).to(dev) for k in ("points", "symmetry", "extents")]
-        recorded = torch.load(os.path.join(d, "draws.pt"))
         rank = torch.distributed.get_rank()
         record = {"rank": rank, "backend": torch.distributed.get_backend()}
-        for data, model in ((2, 1), (1, 2)):
-            mesh = M.make_mesh(M.MeshSpec(data=data, model=model), world)
-            state = T.create_train_state(M.shard_model(make_model(model_cfg, weights, dev), mesh), hp)
-            step = T.make_train_step(model_cfg, hp, *consts, mesh=mesh)
-            local = T.to_device(M.shard_batch(mesh, batch), dev)
+
+        def run(key, mesh, state, step, batch, draws, keep):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            got = {k: float(v) for k, v in step(state, local, T.Draws(replay=recorded)).items()}
+            got = {k: float(v) for k, v in step(state, batch, draws).items()}
             e1.record()
             e1.synchronize()
-            key = f"{data}x{model}"
             record[key] = {"launches": {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES,
                                         "nms": nms.NMS_LAUNCHES},
                            "stream_ms": e0.elapsed_time(e1), "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                            "split": [n for n, p in state.model.named_parameters() if M.tp_mesh(p) is not None]}
-            whole = {k: M.gather_rows(p).cpu() for k, p in state.model.named_parameters() if k in MESH_PARAMS}
+            whole = {k: M.gather_rows(p).cpu() for k, p in state.model.named_parameters() if k in keep}
+            if rank == 0 and keep:
+                torch.save({"losses": got, "params": whole}, os.path.join(d, f"mesh_{key}.pt"))
+
+        with open(os.path.join(d, "cfg.json")) as f:
+            spec = json.load(f)
+        init, make, forward_fn, ce_threshold = _mesh_net(spec["full"])
+        model_cfg = PoseCNNConfig(compute_dtype=torch.float32, **spec["model_cfg"])
+        hp = T.TrainHParams(**{k: tuple(v) if isinstance(v, list) else v for k, v in spec["hp"].items()})
+        weights = init(spec["seed"], model_cfg)
+        with np.load(os.path.join(d, "batch.npz")) as z:
+            batch = {k: z[k] for k in z.files}
+        with np.load(os.path.join(d, "consts.npz")) as z:
+            consts = [torch.from_numpy(z[k]).to(dev) for k in ("points", "symmetry", "extents")]
+        recorded = torch.load(os.path.join(d, "draws.pt"))
+        for data, model in ((2, 1), (1, 2)):
+            key = f"{data}x{model}"
+            mesh = M.make_mesh(M.MeshSpec(data=data, model=model), world)
+            state = T.create_train_state(M.shard_model(make(model_cfg, weights, dev), mesh), hp)
+            step = T.make_train_step(model_cfg, hp, *consts, forward_fn=forward_fn, ce_threshold=ce_threshold,
+                                     mesh=mesh)
+            run(key, mesh, state, step, T.to_device(M.shard_batch(mesh, batch), dev), T.Draws(replay=recorded),
+                set(spec["keep"]))
             if data > 1:
                 # the step's collective alone: every gradient, flattened, summed
                 flat = torch.cat([p.grad.reshape(-1) for p in state.model.parameters()])
@@ -2598,14 +2677,35 @@ def mesh_rank(d: str) -> int:
                     record[key]["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
                 record[key]["allreduce_mib"] = flat.numel() * 4 / 2**20
                 del flat
-            if rank == 0:
-                torch.save({"losses": got, "params": whole}, os.path.join(d, f"mesh_{key}.pt"))
-            del state, step, local
+            del state, step
             torch.cuda.empty_cache()
+
+        video = os.path.join(d, "video_batch.npz")
+        if os.path.exists(video):
+            cfg = V.VideoConfig(num_classes=22, num_steps=VIDEO_MESH_T, compute_dtype=torch.float32)
+            vweights = _video_weights(cfg)
+            with np.load(video) as z:
+                vbatch = {k: z[k] for k in z.files}
+            mesh = M.make_mesh(M.MeshSpec(data=2, model=1), world)
+            local = T.to_device(M.shard_video_batch(mesh, vbatch), dev)
+            for key, vcfg, keep in (("video_2x1", cfg, VIDEO_MESH_PARAMS),
+                                    ("video_bf16_2x1", dataclasses.replace(cfg, compute_dtype=torch.bfloat16), {})):
+                state = T.create_train_state(V.make_video_model(vcfg, vweights, dev), T.TrainHParams())
+                run(key, mesh, state, T.make_video_train_step(vcfg, T.TrainHParams(), mesh), local, None, keep)
+                del state
+                torch.cuda.empty_cache()
         print("mesh-rank " + json.dumps(record), flush=True)
         return 0
     finally:
         launch.shutdown()
+
+
+def _move_rows(got: dict, ref: dict, move: dict) -> dict:
+    """Each kept parameter's output rows (its first axis) on which a mesh
+    step's update parts from the one-process step's by more than
+    MESH_MOVE_SHARE of how far that step moved the parameter."""
+    return {k: int(((got[k] - v).abs().reshape(v.shape[0], -1).amax(1) > MESH_MOVE_SHARE * move[k]).sum())
+            for k, v in ref.items()}
 
 
 def mesh_phase(work: str, dev, smi: str) -> dict:
@@ -2620,7 +2720,10 @@ def mesh_phase(work: str, dev, smi: str) -> dict:
     (2,1) and (1,2) against the one-process step on the card on the same
     batch and draws (`mesh_inputs`): loss terms within MESH_LOSS_LIMIT
     relative, MESH_PARAMS within their limits of their largest magnitude
-    (no more than MESH_FC6_ROWS of fc6's rows past 1e-5), loss_pose > 0. (c) `entry.dryrun_multichip(2)` on the card.
+    (no more than MESH_FC6_ROWS of fc6's rows past 1e-5), every row within
+    MESH_MOVE_SHARE of the one-process step's move but MESH_FC6_ROWS of
+    fc6's (`_move_rows`), loss_pose > 0. (c) `entry.dryrun_multichip(2)` on
+    the card.
     Returns the launches of each path (rank 0's; each rank's is checked)."""
     import torch
     import torch.distributed as dist
@@ -2708,7 +2811,12 @@ def mesh_phase(work: str, dev, smi: str) -> dict:
     old_root = os.environ.get("POSECNN_DATA")
     os.environ["POSECNN_DATA"] = root
     try:
-        one = mesh_inputs(work, dev)
+        from posecnn_torch.data.factory import get_imdb
+        from tests.torch_parity import lov_batch_cfg, port_lov_batches
+
+        lov_root = os.path.join(root, "LOV")
+        one = mesh_inputs(os.path.join(work, "mesh"), dev, lov_batch_cfg(lov_root), get_imdb("lov_train"),
+                          port_lov_batches(lov_root, 1)[0], MESH_PARAMS)
     finally:
         if old_root is None:
             os.environ.pop("POSECNN_DATA", None)
@@ -2729,12 +2837,17 @@ def mesh_phase(work: str, dev, smi: str) -> dict:
         diff = {k: (got["params"][k] - one["params"][k]).abs() / one["params"][k].abs().max() for k in MESH_PARAMS}
         perr = {k: float(v.max()) for k, v in diff.items()}
         fc6_rows = int((diff["fc6.weight"] > 1e-5).any(dim=1).sum())
+        move_rows = _move_rows(got["params"], one["params"], one["move"])
+        row_limits = {k: MESH_FC6_ROWS if k == "fc6.weight" else 0 for k in move_rows}
         per_rank = [r[key]["launches"] for r in recs]
         check(all(v <= MESH_LOSS_LIMIT for v in rel.values()) and all(perr[k] <= lim for k, lim in MESH_PARAMS.items())
-              and fc6_rows <= MESH_FC6_ROWS and got["losses"]["loss_pose"] > 0 and ref["loss_pose"] > 0,
+              and fc6_rows <= MESH_FC6_ROWS and all(move_rows[k] <= n for k, n in row_limits.items())
+              and all(v > 0 for v in one["move"].values())
+              and got["losses"]["loss_pose"] > 0 and ref["loss_pose"] > 0,
               f"f32 step at {label} against one process: relative {rel} (limit {MESH_LOSS_LIMIT}), parameters "
-              f"{perr} (limits {MESH_PARAMS}), fc6 rows over 1e-5 {fc6_rows} (limit {MESH_FC6_ROWS}); loss_pose "
-              f"{got['losses']['loss_pose']} vs {ref['loss_pose']}")
+              f"{perr} (limits {MESH_PARAMS}), fc6 rows over 1e-5 {fc6_rows} (limit {MESH_FC6_ROWS}); the "
+              f"one-process step's move {one['move']}, rows parting by more than {MESH_MOVE_SHARE} of it {move_rows} "
+              f"(limits {row_limits}); loss_pose {got['losses']['loss_pose']} vs {ref['loss_pose']}")
         check(all(p == {"hough_vote": 4 // (2 if key == "2x1" else 1), "conv3x3": 0, "nms": 0} for p in per_rank),
               f"f32 step at {label}: launches by rank {per_rank}")
         launches[f"mesh_f32_{key}"] = per_rank[0]
@@ -2748,12 +2861,16 @@ def mesh_phase(work: str, dev, smi: str) -> dict:
                   + " (limit " + f"{MESH_LOSS_LIMIT}); " + "; ".join(f"{k} {v:.3g} of its largest magnitude (limit "
                                                                     f"{MESH_PARAMS[k]})" for k, v in perr.items())
                   + f"; fc6 rows over 1e-5: {fc6_rows} of {diff['fc6.weight'].shape[0]} (limit {MESH_FC6_ROWS}); "
+                  f"rows parting by more than {MESH_MOVE_SHARE} of the one-process step's move {move_rows} (limits "
+                  f"{row_limits}); "
                   f"stream ms by rank "
                   f"{[round(r[key]['stream_ms'], 3) for r in recs]} (the one-step call, first use); peak MiB by rank "
                   f"{[round(r[key]['peak_mib'], 1) for r in recs]}; launches by rank {per_rank}{extra} [{smi}]")
     phase(16, f"the f32 mesh steps took {time.perf_counter() - t0:.1f} s (the inputs, the one-process step and the "
               f"ranks' start included); the one-process step's launches {one['launches']}; run twice, its "
               f"parameters part by " + ", ".join(f"{k} {v:.3g}" for k, v in one["spread"].items())
+              + f" of their largest magnitude; it moved them by " + ", ".join(
+                  f"{k} {v / float(one['params'][k].abs().max()):.3g}" for k, v in one["move"].items())
               + f" of their largest magnitude; cuDNN's f32 trunk (the step's weights, the batch's images) gives "
               f"conv5_3 {one['trunk_gap']:.3g} of its largest magnitude apart at B=2 and at B=1 + 1 [{smi}]")
 
@@ -3983,6 +4100,423 @@ def serving_phase(work: str, dev, seed0: str, kernels: dict) -> dict:
     return launches
 
 
+def _matching_cfg(work: str) -> str:
+    """lov_syn_capstone.yml with TRAIN.MATCHING True (the rest as shipped),
+    written as <work>/lov_syn_capstone_matching.yml."""
+    with open(os.path.join(ROOT, "experiments", "cfgs", "lov_syn_capstone.yml")) as f:
+        text = f.read()
+    check("TRAIN:\n" in text and "MATCHING" not in text, "lov_syn_capstone.yml: no TRAIN section, or MATCHING set")
+    path = os.path.join(work, "lov_syn_capstone_matching.yml")
+    with open(path, "w") as f:
+        f.write(text.replace("TRAIN:\n", "TRAIN:\n  MATCHING: True\n", 1))
+    return path
+
+
+def _matching_step_on_cpu(model_cfg, weights, hp, bank, consts, raw, recorded, got, kw, launches) -> None:
+    """Phase 20 (a)'s CPU side: the f32 bank step with TRAIN.MATCHING on the
+    CPU port, on the card step's bank, weights and draws, held to the
+    card's terms."""
+    from posecnn_torch.core.convert import make_model
+    from posecnn_torch.engine import train as T
+
+    t0 = time.perf_counter()
+    state = T.create_train_state(make_model(model_cfg, weights, "cpu"), hp)
+    step = T.make_bank_train_step(model_cfg, hp, *consts, points_raw=raw, **kw)
+    ref = {k: float(v) for k, v in step(state, bank, T.Draws(replay=recorded)).items()}
+    del state
+    rel = {k: _rel(got[k], ref[k]) for k in ref if k.startswith("loss") or k == "grad_norm"}
+    limits = {k: SLICE_J_GRAD_LIMIT if k == "grad_norm" else SLICE_J_LOSS_LIMIT for k in rel}
+    check(ref["loss_matching"] > 0 and got["loss_matching"] > 0 and all(rel[k] <= limits[k] for k in rel),
+          f"TRAIN.MATCHING f32 step, card against CPU: relative {rel}, limits {limits}; loss_matching "
+          f"{got['loss_matching']} (card) vs {ref['loss_matching']} (CPU)")
+    phase(20, f"(a) the f32 bank step with TRAIN.MATCHING (lov_syn_capstone.yml's settings: B=2, 640x480, 22 "
+              f"classes, TF32 off, seed weights, a bank of frames v4/000000-000001, Hough on the GT for both "
+              f"images), card against the CPU port ({time.perf_counter() - t0:.1f} s on the CPU thread): "
+              + "; ".join(f"{k} {got[k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g} (limit {limits[k]})" for k in rel)
+              + f"; launches {launches}")
+
+
+def _video_inputs(d: str) -> tuple:
+    """Phase 20 (c)'s video model and batch, written to <d>/video_batch.npz
+    (the config, seed weights with the GRU's gates drawn, T frames of B
+    640x480 images: data ~ 50 N(0, 1), depth U(0.8, 1.2) m, labels, the
+    video golden's camera motion at the frozen frames' intrinsics). Returns
+    (VideoConfig at float32, weights, batch)."""
+    import torch
+
+    from posecnn_torch.config import RNG_SEED
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.models import video as V
+    from tests.torch_parity import goldens
+
+    cfg = V.VideoConfig(num_classes=22, num_steps=VIDEO_MESH_T, compute_dtype=torch.float32)
+    weights = _video_weights(cfg)
+    rng = np.random.RandomState(RNG_SEED)
+    rng.randn(*weights["gru2d"]["Gates"]["weights"].shape)  # the gates' draw (`_video_weights`)
+    T_, B, H, W = VIDEO_MESH_T, VIDEO_MESH_B, 480, 640
+    batch = {"data": (50.0 * rng.randn(T_, B, H, W, 3)).astype(np.float32),
+             "depth": rng.uniform(0.8, 1.2, (T_, B, H, W)).astype(np.float32),
+             "gt_label_2d": rng.randint(0, cfg.num_classes, (T_, B, H, W)).astype(np.int32),
+             "meta_data": goldens().video_meta(T_, B, np.asarray(LovSynVal().K, np.float64))}
+    np.savez(os.path.join(d, "video_batch.npz"), **batch)
+    return cfg, weights, batch
+
+
+def _gan_on_cpu(params, data, vt, card) -> None:
+    """Phase 20 (d)'s CPU side: vgg16_gan_forward at 640x480 on the CPU port
+    in bf16 and in f32 (the CPU's own bf16 gap), held to the card's."""
+    import torch
+
+    from posecnn_torch.models import gan as G
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        m = G.make_vgg16_gan(22, params, "cpu")
+        cpu = G.vgg16_gan_forward(m, data, 22, vertex_targets=vt)
+        cpu32 = G.vgg16_gan_forward(m, data, 22, vertex_targets=vt, compute_dtype=torch.float32)
+    agree = float((card["label_2d"] == cpu["label_2d"]).double().mean())
+    agree_gap = float((cpu32["label_2d"] == cpu["label_2d"]).double().mean())
+    err = [float((card["outputs_d"][i] - cpu["outputs_d"][i]).abs().max()) for i in range(2)]
+    gap = [float((cpu32["outputs_d"][i] - cpu["outputs_d"][i]).abs().max()) for i in range(2)]
+    vert = float((card["vertex_pred"] - cpu["vertex_pred"]).abs().mean())
+    vgap = float((cpu32["vertex_pred"] - cpu["vertex_pred"]).abs().mean())
+    check(1 - agree <= 1 - agree_gap and all(e <= 2 * g for e, g in zip(err, gap)) and vert <= 2 * vgap,
+          f"vgg16_gan card against CPU: label agreement {agree} (the CPU's bf16 against f32 {agree_gap}); per-patch "
+          f"log-prob max|err| {err} (limit 2x the CPU's bf16-f32 gap {gap}); vertex_pred mean|err| {vert} (2x "
+          f"{vgap})")
+    phase(20, f"(d) vgg16_gan_forward (bf16, 640x480, 22 classes, 64 units, seed weights, frame v4/000000 and its "
+              f"GT vertex field as the real pass's targets), card against the CPU port ({time.perf_counter() - t0:.1f}"
+              f" s on the CPU thread): label_2d agreement {agree:.6f} (limit: the CPU's bf16 against f32, "
+              f"{agree_gap:.6f}); the [fake, real] discriminators' 15x20 per-patch log-probabilities max|err| "
+              + ", ".join(f"{e:.3g}" for e in err) + " (limit: twice the CPU's bf16-f32 gap, "
+              + ", ".join(f"{2 * g:.3g}" for g in gap) + f"); vertex_pred mean|err| {vert:.3g} (limit {2 * vgap:.3g})")
+
+
+def slice_p_phase(work: str, dev, smi: str) -> dict:
+    """Phase 20: the last modules. (a) `train_net --cfg` on
+    lov_syn_capstone.yml with TRAIN.MATCHING (`_matching_cfg`) --imdb
+    lov_syn_val_v4 for MATCH_STEPS steps (B=2, 640x480, bf16, device bank):
+    stream ms a step, peak memory, 4 hough_vote and 2 conv3x3 launches a
+    step, loss_matching finite, > 0; the matching loss alone (forward and
+    backward at the step's shapes: 144 rows, 1024 points, 32x32 rasters)
+    timed and its memory; one f32 bank step with TRAIN.MATCHING on the card
+    against the CPU port (on the CPU thread); the matching golden
+    (`check_matching_golden`). (b) `train_net --cfg lov_color_2d_full.yml`
+    as two gloo ranks on cuda:0, mesh (2,1), one image a rank (2
+    hough_vote, 2 conv3x3 a rank a step); VGG16FULL's f32 steps at (2,1) and
+    (1,2) against the one-process step on the card (`mesh_inputs`,
+    `mesh_rank`). (c) The video model's f32 step at (2,1) (T=5, B=2,
+    640x480) against the one-process step on the card (in the same ranks);
+    in (b) and (c) each kept parameter's rows also within MESH_MOVE_SHARE
+    of the one-process step's move (`_move_rows`); and its bf16 step at
+    (2,1) timed (10
+    conv3x3 launches a rank). (d) vgg16_gan_forward at 640x480 (bf16, 1
+    conv3x3 launch) against the CPU port (on the CPU thread); DCGAN at
+    DCGAN_SIZE, B=DCGAN_B, in train and eval mode with merge_bn_stats,
+    against the CPU port within DCGAN_LIMIT. Returns the launches of each
+    path."""
+    import torch
+
+    from posecnn_torch.core import config as C
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.data.device_bank import bank_to_device, pack_frames
+    from posecnn_torch.data.layer import GtSynthesizeLayer
+    from posecnn_torch.data.lov_syn import LovSynVal
+    from posecnn_torch.data.minibatch import rescale_points
+    from posecnn_torch.engine import train as T
+    from posecnn_torch.models import gan as G
+    from posecnn_torch.models import video as V
+    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.ops.matching_loss import render_compare_batched
+    from posecnn_torch.parallel import launch
+    from posecnn_torch.utils.frames import gt_vertex_field
+    from tests.torch_parity import check_matching_golden, matching_on_golden
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def reset():
+        voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
+
+    # (a) TRAIN.MATCHING through train_net
+    cfg_file = _matching_cfg(work)
+    cfg = C.cfg_from_file(cfg_file)
+    out = os.path.join(work, "matching")
+    rc, log = run_cli(["posecnn_torch.train_net", "--cfg", cfg_file, "--imdb", "lov_syn_val_v4", "--iters",
+                       str(MATCH_STEPS), "--output", out], os.path.join(work, "matching.log"), 600)
+    check(rc == 0, f"train_net --cfg lov_syn_capstone.yml + TRAIN.MATCHING exited {rc}:\n{log[-3000:]}")
+    with open(os.path.join(out, "train_timing.json")) as fh:
+        timing = json.load(fh)
+    launches["matching_train_cli"] = timing["launches"]
+    want = {"hough_vote": 4 * MATCH_STEPS, "conv3x3": 2 * MATCH_STEPS, "nms": 0}
+    check(timing["launches"] == want, f"TRAIN.MATCHING run: launches {timing['launches']}, want {want}")
+    losses = {it: _cli_losses(log, it, MATCH_STEPS) for it in (1, MATCH_STEPS)}
+    match = [m.get("loss_matching", float("nan")) for m in losses.values()]
+    check(all(np.isfinite(v) for m in losses.values() for v in m.values()) and all(v >= 0 for v in match)
+          and max(match) > 0, f"TRAIN.MATCHING run: losses {losses}")
+    ms = {k: statistics.median(v[MATCH_WARMUP:]) for k, v in timing["ms"].items()}
+    phase(20, f"(a) train_net --cfg lov_syn_capstone.yml + TRAIN.MATCHING --imdb lov_syn_val_v4 --iters "
+              f"{MATCH_STEPS} (B=2, 640x480, bf16, the device bank and its refresh as shipped): per step (median of "
+              f"steps {MATCH_WARMUP + 1}-{MATCH_STEPS}) {ms['step_stream']:.3f} ms stream, {ms['step']:.3f} ms "
+              f"host; peak memory {timing['peak_memory_mib']:.1f} MiB; losses " + "; ".join(
+                  f"step {it}: {m}" for it, m in losses.items()) + f"; launches {timing['launches']} [{smi}]")
+    print("matching train per-step ms " + json.dumps({k: [round(x, 3) for x in v] for k, v in timing["ms"].items()}),
+          flush=True)
+
+    # the matching loss alone at the step's shapes: R = B x 8 slots x 9
+    # rows, 1024 metre-scale points a class, 32x32 rasters (the rows with a
+    # class: two images' GT objects, 9 jittered rows each)
+    imdb = LovSynVal()
+    n_cls = imdb.num_classes
+    raw_np = np.asarray(imdb._points_all, np.float32)
+    R = 2 * cfg.TPU.HOUGH_CLASS_SLOTS * 9
+    rng = np.random.RandomState(0)
+    pw = np.zeros((R, 4 * n_cls), np.float32)
+    for r in range(R // 4):
+        pw[r, 4 * (1 + r % 9):4 * (2 + r % 9)] = 1.0
+    pp = rng.randn(R, 4 * n_cls).astype(np.float32) * pw
+    pt = rng.randn(R, 4 * n_cls).astype(np.float32) * pw
+    pinit = np.zeros((R, 7), np.float32)
+    pinit[:, 4:7] = [0.0, 0.0, 0.8]
+    rois = np.zeros((R, 7), np.float32)
+    rois[:, 2:6] = [260, 180, 380, 300]
+    meta = np.zeros(48, np.float32)
+    meta[:9] = np.asarray(imdb.K, np.float32).ravel()
+    args = [torch.from_numpy(a).to(dev) for a in (pt, pw, pinit, rois, raw_np, meta)]
+    x = torch.from_numpy(pp).to(dev).requires_grad_()
+    times = []
+    for i in range(MATCH_TIME_REPS + 2):
+        if i == 1:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss = render_compare_batched(x, *args, n_cls)
+        loss.backward()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+        x.grad = None
+    render_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    render_ms = statistics.median(times[2:])
+    check(np.isfinite(float(loss)) and float(loss) > 0, f"the matching loss alone: {float(loss)}")
+    del x, args, loss
+    phase(20, f"(a) render_compare_batched alone, forward and backward, at the step's shapes ({R} rows, {R // 4} with "
+              f"a class, {raw_np.shape[1]} points, 32x32 rasters: a (rows, 32, 32, {raw_np.shape[1]}) splat), f32: "
+              f"{render_ms:.3f} ms stream (median of {MATCH_TIME_REPS} calls after 2; all {[round(t, 3) for t in times]}),"
+              f" {100 * render_ms / ms['step_stream']:.1f}% of the run's step; {render_mib:.1f} MiB of card memory "
+              f"beyond its inputs at its peak [{smi}]")
+
+    # one f32 bank step with TRAIN.MATCHING, card against the CPU port
+    model_cfg = dataclasses.replace(C.train_model_cfg(cfg, n_cls), compute_dtype=torch.float32)
+    hp, mcfg = C.train_hparams(cfg), C.minibatch_cfg(cfg, n_cls)
+    check(hp.matching_w == 1.0, f"TRAIN.MATCHING: matching_w {hp.matching_w}")
+    weights = init_params_numpy(cfg.RNG_SEED, model_cfg)
+    ext, sym = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
+    consts = [torch.from_numpy(a) for a in (rescale_points(raw_np, ext, sym, mcfg.is_symmetric), sym, ext)]
+    raw = torch.from_numpy(raw_np)
+    bank = pack_frames([imdb.load_frame(i) for i in range(2)], cfg.TPU.MAX_GT)
+    kw = dict(batch_size=cfg.TRAIN.IMS_PER_BATCH, max_gt=cfg.TPU.MAX_GT, chromatic=cfg.TRAIN.CHROMATIC,
+              add_noise=cfg.TRAIN.ADD_NOISE)
+    dev_bank = bank_to_device(bank, dev)
+    dev_consts = [c.to(dev) for c in consts]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.RNG_SEED)
+    draws = T.Draws(gen, record=True)
+    model = make_model(model_cfg, weights, dev)
+    with torch.no_grad():  # the step's draws, recorded
+        T.compute_losses(model, model_cfg, hp, T.sample_batch(dev_bank, draws=draws, **kw), *dev_consts, draws,
+                         points_raw=raw.to(dev))
+    del model
+    recorded = {k: v.cpu() for k, v in draws.recorded.items()}
+    recorded["hough_gt_mix"] = torch.zeros_like(recorded["hough_gt_mix"])  # Hough on the GT: rows with a class
+    state = T.create_train_state(make_model(model_cfg, weights, dev), hp)
+    step = T.make_bank_train_step(model_cfg, hp, *dev_consts, points_raw=raw.to(dev), **kw)
+    reset()
+    got = {k: float(v) for k, v in step(state, dev_bank, T.Draws(replay=recorded)).items()}
+    launches["matching_f32_step"] = counts()
+    check(launches["matching_f32_step"] == {"hough_vote": 4, "conv3x3": 0, "nms": 0} and got["loss_matching"] > 0,
+          f"TRAIN.MATCHING f32 step: launches {launches['matching_f32_step']}, loss_matching {got['loss_matching']}")
+    del state, step, dev_bank
+    torch.cuda.empty_cache()
+    defer(20, "the TRAIN.MATCHING f32 step on the CPU port", functools.partial(
+        _matching_step_on_cpu, model_cfg, weights, hp, bank_to_device(bank, "cpu"), consts, raw, recorded, got, kw,
+        launches["matching_f32_step"]))
+    err = check_matching_golden(*matching_on_golden(dev))
+    phase(20, "(a) the matching golden (JAX's compute_losses with TRAIN.MATCHING on the training golden's batch, f32) on "
+              "the card: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+              + " (limits: loss terms and the gradient norm 1e-5 relative, fc7 and fc8's gradients 5e-5 of their "
+              "largest magnitude)")
+
+    # (b) VGG16FULL at two ranks through train_net
+    out = os.path.join(work, "full_mesh")
+    logs = [os.path.join(work, f"full_mesh_rank{r}.log") for r in range(2)]
+    t0 = time.perf_counter()
+    rcs = launch.run_ranks(["-m", "posecnn_torch.train_net", "--cfg",
+                            os.path.join("experiments", "cfgs", SLICE_J_CFGS["full"]), "--imdb", "lov_syn_val_v4",
+                            "--iters", str(FULL_MESH_STEPS), "--output", out, "--device", "cuda:0"], 2,
+                           backend="gloo", logs=logs, timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    texts = [open(p).read() for p in logs]
+    check(rcs == [0, 0], f"VGG16FULL at two ranks exited {rcs}:\n" + "\n".join(t[-3000:] for t in texts))
+    CLI_RUNS.append({"args": f"posecnn_torch.train_net --cfg {SLICE_J_CFGS['full']} (2 ranks, gloo)",
+                     "where": "two processes", "wall_s": wall, "first_step_s": None})
+    with open(os.path.join(out, "train_timing.json")) as fh:
+        timing = json.load(fh)
+    ranks = timing["by_rank"]
+    want = {"hough_vote": 2 * FULL_MESH_STEPS, "conv3x3": 2 * FULL_MESH_STEPS, "nms": 0}
+    check(timing["world_size"] == 2 and timing["mesh"] == {"data": 2, "model": 1}
+          and all(r["launches"] == want and r["end_step"] == FULL_MESH_STEPS for r in ranks),
+          f"VGG16FULL at two ranks: {[(r['end_step'], r['launches']) for r in ranks]}, want {want} a rank")
+    launches["full_mesh_train_cli"] = ranks[0]["launches"]
+    first = _cli_losses(texts[0], 1, FULL_MESH_STEPS)
+    check(all(np.isfinite(v) for v in first.values()), f"VGG16FULL at two ranks: step-1 losses {first}")
+    stream = [statistics.median(r["ms"]["step_stream"][1:]) for r in ranks]
+    phase(20, f"(b) train_net --cfg {SLICE_J_CFGS['full']} --imdb lov_syn_val_v4 --iters {FULL_MESH_STEPS} as 2 ranks "
+              f"on cuda:0 over gloo, mesh (2,1), one 640x480 image a rank, bf16 ({wall:.1f} s with the ranks' start):"
+              f" stream ms a step by rank (median of steps 2-{FULL_MESH_STEPS}) {[round(v, 3) for v in stream]}; "
+              f"peak MiB by rank {[round(r['peak_memory_mib'], 1) for r in ranks]}; launches by rank "
+              f"{[r['launches'] for r in ranks]}; step 1 losses {first} [{smi}]")
+
+    # (b, c) the f32 mesh steps of VGG16FULL and the video model, and the
+    # video's bf16 mesh step, against the one-process steps on the card
+    t0 = time.perf_counter()
+    full_cfg = C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", SLICE_J_CFGS["full"]))
+    fbatch = GtSynthesizeLayer(imdb, C.minibatch_cfg(full_cfg, n_cls), ims_per_batch=full_cfg.TRAIN.IMS_PER_BATCH,
+                               seed=full_cfg.RNG_SEED).forward()
+    one = mesh_inputs(os.path.join(work, "full_mesh_f32"), dev, full_cfg, imdb, fbatch, FULL_MESH_PARAMS, full=True)
+    vcfg, vweights, vbatch = _video_inputs(one["dir"])
+    vstate = T.create_train_state(V.make_video_model(vcfg, vweights, dev), T.TrainHParams())
+    vbefore = {k: p.detach().cpu().clone() for k, p in vstate.model.named_parameters() if k in VIDEO_MESH_PARAMS}
+    reset()
+    vref = {k: float(v) for k, v in T.make_video_train_step(vcfg, T.TrainHParams())(vstate, T.to_device(vbatch, dev)
+                                                                                   ).items()}
+    vone_peak = torch.cuda.max_memory_allocated() / 2**20
+    vparams = {k: p.detach().cpu() for k, p in vstate.model.named_parameters() if k in VIDEO_MESH_PARAMS}
+    vmove = {k: float((v - vbefore[k]).abs().max()) for k, v in vparams.items()}
+    del vstate, vbatch
+    torch.cuda.empty_cache()
+    logs = [os.path.join(work, f"full_mesh_f32_rank{r}.log") for r in range(2)]
+    rcs = launch.run_ranks([os.path.join(ROOT, "chip_smoke.py"), "mesh-rank", one["dir"]], 2, backend="gloo",
+                           logs=logs, timeout=400, cwd=ROOT)
+    texts = [open(p).read() for p in logs]
+    check(rcs == [0, 0], f"the phase-20 mesh steps exited {rcs}:\n" + "\n".join(t[-3000:] for t in texts))
+    recs = [json.loads(next(ln for ln in t.splitlines() if ln.startswith("mesh-rank "))[len("mesh-rank "):])
+            for t in texts]
+    cases = (("2x1", "full_2x1_f32", "(b) VGG16FULL at (2,1)", one["losses"], one["params"], one["move"],
+              FULL_MESH_PARAMS, {"hough_vote": 2, "conv3x3": 0, "nms": 0}),
+             ("1x2", "full_1x2_f32", "(b) VGG16FULL at (1,2)", one["losses"], one["params"], one["move"],
+              FULL_MESH_PARAMS, {"hough_vote": 4, "conv3x3": 0, "nms": 0}),
+             ("video_2x1", "video_2x1_f32", "(c) the video step at (2,1)", vref, vparams, vmove, VIDEO_MESH_PARAMS,
+              {"hough_vote": 0, "conv3x3": 0, "nms": 0}))
+    for key, path, label, ref, ref_params, move, limits, want in cases:
+        got = torch.load(os.path.join(one["dir"], f"mesh_{key}.pt"))
+        rel = {k: _rel(got["losses"][k], ref[k]) for k in ref if k.startswith("loss") or k == "grad_norm"}
+        perr = {k: float((got["params"][k] - v).abs().max()) / float(v.abs().max()) for k, v in ref_params.items()}
+        moved = {k: v / float(ref_params[k].abs().max()) for k, v in move.items()}
+        rows = _move_rows(got["params"], ref_params, move)
+        row_limits = {k: MESH_FC6_ROWS if k == "fc6.weight" else 0 for k in rows}
+        per_rank = [r[key]["launches"] for r in recs]
+        check(all(v <= MESH_LOSS_LIMIT for v in rel.values()) and all(perr[k] <= lim for k, lim in limits.items())
+              and all(rows[k] <= row_limits[k] for k in rows) and all(v > 0 for v in move.values())
+              and all(p == want for p in per_rank) and (key.startswith("video") or ref["loss_pose"] > 0),
+              f"{label} f32 against one process: relative {rel} (limit {MESH_LOSS_LIMIT}), parameters {perr} "
+              f"(limits {limits}), the one-process step's move {move}, rows parting by more than {MESH_MOVE_SHARE} "
+              f"of it {rows} (limits {row_limits}), launches by rank {per_rank} (want {want})")
+        launches[path] = per_rank[0]
+        phase(20, f"{label} f32 as 2 ranks over gloo on cuda:0, against the one-process step on the card: "
+                  + "; ".join(f"{k} {got['losses'][k]:.6g} vs {ref[k]:.6g}, rel {rel[k]:.3g}" for k in rel)
+                  + f" (limit {MESH_LOSS_LIMIT}); " + "; ".join(f"{k} {v:.3g} (limit {limits[k]})"
+                                                               for k, v in perr.items())
+                  + " of their largest magnitude; the one-process step moved them by " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in moved.items())
+                  + f" of their largest magnitude; output rows parting by more than {MESH_MOVE_SHARE} of the move "
+                  + ", ".join(f"{k} {n} of {ref_params[k].shape[0]} (limit {row_limits[k]})" for k, n in rows.items())
+                  + f"; stream ms by rank {[round(r[key]['stream_ms'], 3) for r in recs]} (one step, first use); "
+                  f"peak MiB by rank {[round(r[key]['peak_mib'], 1) for r in recs]}; launches by rank {per_rank}"
+                  + (f"; split {recs[0][key]['split']}" if recs[0][key]["split"] else "") + f" [{smi}]")
+    bf = [r["video_bf16_2x1"] for r in recs]
+    want = {"hough_vote": 0, "conv3x3": 2 * VIDEO_MESH_T, "nms": 0}
+    check(all(r["launches"] == want for r in bf), f"(c) the video bf16 step at (2,1): launches {bf}, want {want}")
+    launches["video_bf16_2x1"] = bf[0]["launches"]
+    phase(20, f"(c) the video step at (2,1), bf16 (T={VIDEO_MESH_T}, one 640x480 image a rank, 22 classes, 64 units): "
+              f"stream ms by rank {[round(r['stream_ms'], 3) for r in bf]} (one step after the f32 one), peak MiB by "
+              f"rank {[round(r['peak_mib'], 1) for r in bf]}, launches by rank {[r['launches'] for r in bf]}; the f32 "
+              f"one-process step (B={VIDEO_MESH_B}) peaked at {vone_peak:.1f} MiB; (b) and (c) took "
+              f"{time.perf_counter() - t0:.1f} s (the inputs, the one-process steps and the ranks' start included); the"
+              f" one-process FULL step's launches {one['launches']}, run twice its parameters part by "
+              + ", ".join(f"{k} {v:.3g}" for k, v in one["spread"].items()) + f" of their largest magnitude [{smi}]")
+
+    # (d) the GAN models: vgg16_gan at 640x480 (bf16) and DCGAN (f32)
+    from posecnn_torch.config import PIXEL_MEANS, RNG_SEED
+
+    f0 = imdb.load_frame(0)
+    data = torch.from_numpy(f0.color[None].astype(np.float32)) - torch.tensor(PIXEL_MEANS).reshape(1, 1, 1, 3)
+    vt = torch.from_numpy(gt_vertex_field(f0.label, f0.cls_indexes, f0.center, f0.poses, n_cls)[None])
+    gparams = G.init_vgg16_gan_params_numpy(RNG_SEED, n_cls)
+    reset()
+    with torch.inference_mode():
+        m = G.make_vgg16_gan(n_cls, gparams, dev)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        o = G.vgg16_gan_forward(m, data.to(dev), n_cls, vertex_targets=vt.to(dev))
+        e1.record()
+        e1.synchronize()
+        card = {"label_2d": o["label_2d"].cpu(), "vertex_pred": o["vertex_pred"].cpu(),
+                "outputs_d": [d_.cpu() for d_ in o["outputs_d"]]}
+    launches["vgg16_gan_forward"] = counts()
+    gan_ms, gan_mib = e0.elapsed_time(e1), torch.cuda.max_memory_allocated() / 2**20
+    check(launches["vgg16_gan_forward"] == {"hough_vote": 0, "conv3x3": 1, "nms": 0}
+          and all(tuple(d_.shape) == (1, 15, 20, 2) and bool(torch.isfinite(d_).all()) for d_ in card["outputs_d"]),
+          f"vgg16_gan_forward: launches {launches['vgg16_gan_forward']}, outputs_d "
+          f"{[tuple(d_.shape) for d_ in card['outputs_d']]}")
+    del m, o
+    torch.cuda.empty_cache()
+    defer(20, "vgg16_gan_forward on the CPU port", functools.partial(_gan_on_cpu, gparams, data, vt, card))
+    dc = G.init_dcgan_params_numpy(RNG_SEED, DCGAN_SIZE)
+    grng = np.random.RandomState(RNG_SEED)
+    z = torch.from_numpy(grng.uniform(-1, 1, (DCGAN_B, 100)).astype(np.float32))
+    img = torch.from_numpy(grng.uniform(-1, 1, (DCGAN_B, DCGAN_SIZE, DCGAN_SIZE, 3)).astype(np.float32))
+    pair = torch.from_numpy(grng.uniform(-1, 1, (DCGAN_B, DCGAN_SIZE, DCGAN_SIZE, 6)).astype(np.float32))
+
+    def dcgan_outputs(device):
+        with torch.no_grad():
+            m = G.make_dcgan(dc, device)
+            gen_out, gstats = G.dcgan_generator(m, z.to(device), img.to(device), train=True, return_stats=True)
+            disc_out, dstats = G.dcgan_discriminator(m, pair.to(device), train=True, return_stats=True)
+            G.merge_bn_stats(G.merge_bn_stats(m, gstats), dstats)
+            res = {"train/gen": gen_out, "train/disc": disc_out,
+                   "eval/gen": G.dcgan_generator(m, z.to(device), img.to(device), train=False),
+                   "eval/disc": G.dcgan_discriminator(m, pair.to(device), train=False)}
+            res.update({f"stats/{n}/{leaf}": v for n, s in {**gstats, **dstats}.items() for leaf, v in s.items()})
+        return {k: v.float().cpu() for k, v in res.items()}
+
+    t0 = time.perf_counter()
+    reset()
+    dcard = dcgan_outputs(dev)
+    launches["dcgan"] = counts()
+    dcpu = dcgan_outputs("cpu")
+    derr = {k: float((dcard[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30) for k, v in dcpu.items()}
+    worst = max(derr, key=derr.get)
+    check(derr[worst] <= DCGAN_LIMIT and tuple(dcard["eval/gen"].shape) == (DCGAN_B, DCGAN_SIZE, DCGAN_SIZE, 3)
+          and launches["dcgan"] == {"hough_vote": 0, "conv3x3": 0, "nms": 0},
+          f"DCGAN card against CPU: {worst} {derr[worst]} (limit {DCGAN_LIMIT}); launches {launches['dcgan']}")
+    phase(20, f"(d) vgg16_gan_forward on the card: {gan_ms:.3f} ms stream (one call, first use), peak {gan_mib:.1f} MiB, "
+              f"launches {launches['vgg16_gan_forward']}; DCGAN (size {DCGAN_SIZE}, B={DCGAN_B}, f32, TF32 off, seed "
+              f"weights) generator and discriminator in train mode, their running statistics, and both in eval "
+              f"mode after merge_bn_stats, card against the CPU port ({time.perf_counter() - t0:.1f} s): worst "
+              f"{worst} {derr[worst]:.3g} of its largest magnitude (limit {DCGAN_LIMIT}); outputs "
+              + ", ".join(f"{k} {derr[k]:.3g}" for k in ("train/gen", "train/disc", "eval/gen", "eval/disc"))
+              + f"; launches {launches['dcgan']} (DCGAN runs no ported kernel); phase 20's card work took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
+
+
 def _write_params(path: str, params: dict) -> None:
     """JAX-layout parameters as a train-state npz (`['params'][scope][leaf]`)."""
     np.savez(path, **{f"['params']['{s}']['{k}']": v for s, leaves in params.items() for k, v in leaves.items()},
@@ -4408,6 +4942,7 @@ def main() -> int:
         surface_launches = cli_surface_phase(work, dev, seed0)
         video_launches = video_phase(work, dev)
         serving_launches = serving_phase(work, dev, seed0, kernels)
+        slice_p_launches = slice_p_phase(work, dev, smi)
         drain()
     finally:
         _stop_children()
@@ -4419,7 +4954,8 @@ def main() -> int:
                "conv3x3": ("posecnn_torch/csrc/conv3x3.cu", "posecnn_tpu/ops/pallas/conv3x3.py:72")}
     det_paths = {f"launches_{path}": n for path, n in {**det_launches, **slice_j_launches, **dataset_launches,
                                                         **mesh_launches, **surface_launches,
-                                                        **video_launches, **serving_launches}.items()}
+                                                        **video_launches, **serving_launches,
+                                                        **slice_p_launches}.items()}
     line = [{"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
              "launches": train_launches[k], "launches_inference": infer_launches[k], "launches_eval": eval_launches[k],
              "launches_train_cli": train_launches_cli[k], "launches_toy_train_cli": toy_launches["train"][k],

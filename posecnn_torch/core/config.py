@@ -533,6 +533,22 @@ def cfg_replace(target: Config, **kwargs) -> Config:
     return out
 
 
+def cfg_fresh(filename: Optional[str] = None) -> Config:
+    """An isolated Config, with `filename`'s settings merged in
+    (`config.py:cfg_fresh`)."""
+    c = Config()
+    if filename is not None:
+        cfg_from_file(filename, target=c)
+    return c
+
+
+def ensure_dir(path: str) -> str:
+    import os
+
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
 def get_output_dir(config: Config, imdb_name: str, net_name: Optional[str] = None) -> str:
     """Artifact directory: <ROOT_DIR>/output/<EXP_DIR>/<imdb>[/<net>]."""
     path = osp.abspath(osp.join(config.ROOT_DIR, "output", config.EXP_DIR, imdb_name))
@@ -587,7 +603,6 @@ def unsupported(cfg: Config, train: bool = True) -> List[str]:
             # JAX's step hands vgg16_full gt_centers, which it does not take
             ("TPU.HOUGH_FROM_GT", P.HOUGH_FROM_GT, P.HOUGH_FROM_GT and cfg.NETWORK == "VGG16FULL"),
             ("TPU.HOUGH_GT_MIX", P.HOUGH_GT_MIX, P.HOUGH_GT_MIX > 0 and cfg.NETWORK == "VGG16FULL"),
-            ("TRAIN.MATCHING", T.MATCHING, T.MATCHING),
             # a dense host batch has no gt_centers, which JAX's step reads
             # for Hough from the GT (KeyError)
             ("TPU.DEVICE_TARGETS", P.DEVICE_TARGETS,

@@ -28,7 +28,11 @@ and `variance` leaves, which go across as they are; its `upscore` is the
 (`models/video.py`, `models/gru.py`) nest one level deeper:
 `['gru2d']['Gates']['weights']` is `gru2d.Gates.weight` (OIHW), GRU3D's
 `['gru3d']['Gates']['weights']` (in, out) is `gru3d.Gates.weight` (out,
-in).
+in). The GAN models (`models/gan.py`) go through the same rules: a
+transposed convolution's (k, k, c_o, c_i) kernel becomes (c_i, c_o, k, k),
+PyTorch's `conv_transpose2d` layout; a batch norm's `scale`, `offset`,
+`mean` and `variance` leaves go across as they are; DCGAN's int `size`
+leaf is not a parameter (`gan.make_dcgan` reads it).
 """
 
 from __future__ import annotations
@@ -68,8 +72,13 @@ _FULL_UPSCORES = tuple((f"upscore_conv{lvl}", 4) for lvl in "5432")
 _KEY = re.compile(r"\['([^']*)'\]")
 # ResNet-50's layers (`models/resnet50.py`; `score` is in _HEADS)
 _RESNET = re.compile(r"conv1|bn_conv1|(res|bn)[2-5][a-f]_branch(1|2[abc])")
+# the GAN models' layers (`models/gan.py`): DCGAN's generator and
+# discriminator, the feature discriminator, vgg16_gan's patch discriminator
+_GAN = re.compile(r"fc_z|conv[1-5]|bn[1-5]|deconv_[1-5]|bn[1-5]_deconv|conv_output|conv[1-5]_d|bn[2-5]_d|fc_d"
+                  r"|conv[12]_g|fc_g|conv[1-5]_[1-3]_d|embed_d|score_d")
 # a JAX leaf -> the port's parameter name, and back
-_LEAVES = {"weights": "weight", "biases": "bias", "mean": "mean", "variance": "variance"}
+_LEAVES = {"weights": "weight", "biases": "bias", "mean": "mean", "variance": "variance", "scale": "scale",
+           "offset": "offset"}
 _LEAVES_BACK = {v: k for k, v in _LEAVES.items()}
 # the video models' recurrent cells: {cell: {sub-layer: {leaf: array}}}
 _CELLS = {"gru2d", "gru3d"}
@@ -160,6 +169,8 @@ def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Dict[str, np.ndarray]]:
             path = path[1:]
         elif path[:1] in (["opt_state"], ["step"]):
             continue
+        if path == ["size"]:
+            continue  # DCGAN's image side: an attribute of the model
         if len(path) == 3 and path[0] in _CELLS:
             out.setdefault(path[0], {}).setdefault(path[1], {})[path[2]] = np.asarray(flat[k])
             continue
@@ -175,7 +186,7 @@ def _module_key(name: str) -> str:
         return f"trunk.{name}"
     if name.endswith("_p") and name[:-2] in _TRUNK:
         return f"trunk_p.{name[:-2]}"
-    if name in _HEADS or name in _CELLS or _RESNET.fullmatch(name):
+    if name in _HEADS or name in _CELLS or _RESNET.fullmatch(name) or _GAN.fullmatch(name):
         return name
     raise ValueError(f"parameter {name!r} belongs to a part of the network the port does not run")
 
@@ -192,11 +203,20 @@ def _layer_name(path: str) -> str:
 def params_from_numpy(params: Mapping, device=None) -> Dict[str, torch.Tensor]:
     """JAX-layout parameters (nested `{layer: {'weights', 'biases'}}`, or
     `{'mean', 'variance'}` for a batch norm, or flat npz key paths) -> a
-    state_dict for `models.posecnn.PoseCNN`, `models.fcn8.FCN8` or
-    `models.resnet50.ResNet50`, on the CPU, or on `device` (a card: each
-    array is copied there as it is and transposed there)."""
+    state_dict for `models.posecnn.PoseCNN`, `models.fcn8.FCN8`,
+    `models.resnet50.ResNet50` or a `models.gan` model, on the CPU, or on
+    `device` (a card: each array is copied there as it is and transposed
+    there). DCGAN's int `size`, the one top-level leaf that is not a
+    layer, is left out; any other top-level leaf of a nested tree raises
+    ValueError."""
     on_card = device is not None and torch.device(device).type != "cpu"
-    nested = params if all(isinstance(v, Mapping) for v in params.values()) else _nest(params)
+    if any(isinstance(v, Mapping) for v in params.values()):
+        stray = [k for k, v in params.items() if not isinstance(v, Mapping) and k != "size"]
+        if stray:
+            raise ValueError(f"top-level leaves {stray} are not layers")
+        nested = {k: v for k, v in params.items() if k != "size"}
+    else:
+        nested = _nest(params)
     sd: Dict[str, torch.Tensor] = {}
     for name, leaves in nested.items():
         if name.startswith("upscore"):

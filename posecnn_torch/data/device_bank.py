@@ -57,3 +57,8 @@ def build_bank(dataset, max_gt: int = 24) -> Dict[str, np.ndarray]:
 
 def bank_to_device(bank: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device) for k, v in bank.items()}
+
+
+def bank_nbytes(bank: Dict) -> int:
+    """The bytes a bank's arrays (or tensors) hold (`device_bank.py:bank_nbytes`)."""
+    return sum(int(v.nbytes) for v in bank.values())

@@ -112,6 +112,11 @@ def _registry() -> Dict[str, Callable]:
 _DATASETS: Dict[str, Callable] = _registry()
 
 
+def register(name: str, ctor: Callable) -> None:
+    """Add (or replace) dataset `name`, made by `ctor()` (`factory.py:register`)."""
+    _DATASETS[name] = ctor
+
+
 def get_imdb(name: str):
     if name not in _DATASETS:
         raise KeyError(f"Unknown dataset: {name}. Known: {sorted(_DATASETS)}")

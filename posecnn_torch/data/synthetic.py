@@ -20,8 +20,10 @@ same seed renders the same frame in both packages:
 
 `SyntheticDataset` renders frame i from seed `seed0 + i`.
 `OfflineSynReader` reads the frames of a `data_syn` directory (TRAIN.SYNROOT,
-TRAIN.SYN_ONLINE False) as `data.lov` reads YCB-Video's. The JAX module's
-`freeze_dataset` is not ported.
+TRAIN.SYN_ONLINE False) as `data.lov` reads YCB-Video's.
+`freeze_dataset` writes every frame of a synthetic dataset to disk with a
+manifest of their digests, byte for byte the JAX package's manifest
+(`data.lov_syn.LovSynVal` reads such a directory back).
 """
 
 from __future__ import annotations
@@ -449,3 +451,40 @@ class OfflineSynReader:
         base = os.path.join(self.root, f"{index:06d}")
         return read_frame(base + "-color.png", base + "-label.png", base + "-depth.png", base + "-meta.mat",
                           is_synthetic=True)
+
+
+def freeze_dataset(imdb, out_dir: str) -> dict:
+    """Write every frame of a synthetic imdb to `out_dir` as <i:06d>.npz
+    (compressed: colour, label, depth, classes, poses, centres, intrinsics,
+    depth factor) and `manifest.json`: the name, the frame count, the
+    renderer's settings (`render_params`, where the imdb has a synthesizer)
+    and each frame's digest (`lov_syn.frame_digest`, JAX's `_frame_digest`),
+    in the JAX package's layout and bytes (`synthetic.py:freeze_dataset`).
+    Returns the manifest."""
+    import json
+
+    from posecnn_torch.data.lov_syn import frame_digest
+
+    os.makedirs(out_dir, exist_ok=True)
+    manifest = {"name": imdb.name, "num_images": imdb.num_images, "frames": []}
+    synth = getattr(imdb, "synth", None)
+    if synth is not None:
+        manifest["render_params"] = {
+            "width": synth.width, "height": synth.height,
+            "min_objects": synth.min_objects, "max_objects": synth.max_objects,
+            "min_visible": synth.min_visible,
+            "t_near": synth.t_near, "t_far": synth.t_far,
+        }
+    for i in range(imdb.num_images):
+        f = imdb.load_frame(i)
+        np.savez_compressed(
+            os.path.join(out_dir, f"{i:06d}.npz"),
+            color=f.color, label=f.label, depth=f.depth,
+            cls_indexes=f.cls_indexes, poses=f.poses, center=f.center,
+            intrinsic_matrix=np.asarray(f.intrinsic_matrix),
+            factor_depth=np.float64(f.factor_depth),
+        )
+        manifest["frames"].append(frame_digest(f))
+    with open(os.path.join(out_dir, "manifest.json"), "w") as fh:
+        json.dump(manifest, fh, indent=1)
+    return manifest

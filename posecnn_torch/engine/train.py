@@ -10,8 +10,10 @@ of `Solver`) and the segmentation step (`make_seg_train_step`, FCN-8s):
     (`upscore*` carry none, and the port holds no parameters for them),
     the fused hard-label cross entropy, the fused vertex smooth-L1, the
     ADD/ADD-S loss (normalized by the valid Hough rows with
-    `pose_norm_valid`), the quaternion auxiliary loss and, with the domain
-    head (`adaptation`), the domain cross entropy at `adapt_weight`;
+    `pose_norm_valid`), the quaternion auxiliary loss, the render-and-compare
+    matching loss at `matching_w` (TRAIN.MATCHING, `ops/matching_loss.py`,
+    on the raw metre-scale clouds) and, with the domain head
+    (`adaptation`), the domain cross entropy at `adapt_weight`;
   * the optimizer is momentum SGD at unit learning rate after global-norm
     clipping; the step scales the update by `lr_schedule(hp)(step)`, where
     `step` is the solver's counter. No learning rate lives in any state
@@ -25,7 +27,7 @@ of `Solver`) and the segmentation step (`make_seg_train_step`, FCN-8s):
   * `Solver` snapshots the state in the JAX npz layout
     (`core/checkpoint.py`), resumes from the latest snapshot, and snapshots
     on SIGTERM or SIGINT before it returns;
-  * the video model's step (`make_video_train_step`) on one process;
+  * the video model's step (`make_video_train_step`);
   * over a mesh of ranks (`parallel/mesh.py`), the step computes the
     one-process step's function on the global batch, as JAX's sharded jit
     does: every normalizer that spans the batch is the global batch's (the
@@ -53,6 +55,7 @@ from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.chromatic import add_noise_field, chromatic_device
 from posecnn_torch.ops.losses import (loss_cross_entropy_hard_label_sparse, loss_cross_entropy_single_frame,
                                       smooth_l1_loss_vertex, sparse_softmax_cross_entropy)
+from posecnn_torch.ops.matching_loss import render_compare_batched
 from posecnn_torch.ops.vertex_targets import smooth_l1_loss_vertex_sparse, smooth_l1_loss_vertex_sparse3d
 from posecnn_torch.utils.debug_nans import jitted
 
@@ -286,12 +289,15 @@ def compute_losses(
     forward_fn: Optional[Callable] = None,
     ce_threshold: Optional[float] = None,
     mesh=None,
+    points_raw: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The flagship loss (`train.py:compute_losses`): returns (loss, the
     named loss terms). `forward_fn` is the network (default
     `posecnn_forward`; `posecnn_full.posecnn_full_forward` for VGG16FULL,
     which reads no `data_p`) and `ce_threshold` the hard-label gate of the
-    cross entropy in place of `threshold_label` (VGG16FULL: 0.7). A uint8
+    cross entropy in place of `threshold_label` (VGG16FULL: 0.7).
+    `points_raw` (C,P,3) are the metre-scale clouds the matching loss
+    renders (`points` where None, as in JAX). A uint8
     `data_p` (the RGBD input's depth image) has the pixel means subtracted
     and nothing else. Without `draws`, random numbers come from torch's
     default generator.
@@ -303,14 +309,14 @@ def compute_losses(
     Hough rows'; all-reduced over the data group), and its mean over the
     global rows (ADD's, the domain loss's R). The shares sum to the
     one-process terms over the data group; the L2 term is
-    `mesh_regularization_loss`'s."""
+    `mesh_regularization_loss`'s. The matching loss reads the intrinsics
+    of the global batch's first image on every rank (JAX's
+    `meta_data[0]`, ROADMAP Queue 3 item 55)."""
     draws = draws if draws is not None else Draws()
     n_data = 1 if mesh is None else mesh.data
     total = None if n_data == 1 else mesh.data_sum
     forward = posecnn_forward if forward_fn is None else forward_fn
     thr = model_cfg.threshold_label if ce_threshold is None else ce_threshold
-    if hp.matching_w > 0:
-        raise NotImplementedError("the matching loss is not ported yet")
     data = preprocess(batch["data"], hp, batch, draws)
     data_p = batch.get("data_p") if forward is posecnn_forward else None
     if data_p is not None and data_p.dtype == torch.uint8:
@@ -372,6 +378,18 @@ def compute_losses(
                 loss_quat = hp.quat_w * per_roi.sum() / n_valid
                 losses["loss_quat"] = loss_quat
                 loss = loss + loss_quat
+            if hp.matching_w > 0:
+                # render and compare (train.py:288-308): the first image's
+                # intrinsics for every row; over a mesh the global batch's
+                # first image, data rank 0's
+                meta0 = batch["meta_data"][0]
+                if n_data > 1:
+                    meta0 = total(meta0 if mesh.d == 0 else torch.zeros_like(meta0))
+                loss_match = hp.matching_w * render_compare_batched(
+                    poses_pred, out["poses_target"], out["poses_weight"], out["poses_init"], out["rois"],
+                    points if points_raw is None else points_raw, meta0, model_cfg.num_classes, total=total)
+                losses["loss_matching"] = loss_match
+                loss = loss + loss_match
             if model_cfg.adaptation:
                 # the mean over all R rows, invalid ones (domain 0) included
                 # (train.py:311-316)
@@ -461,13 +479,14 @@ def make_bank_train_step(
     max_gt: int = 24,
     chromatic: bool = False,
     add_noise: bool = False,
+    points_raw: Optional[torch.Tensor] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
     """Train step over a device bank (`train.py:make_bank_train_step`):
     step(state, bank, draws) samples the batch, computes the losses and
     their gradients, and updates the state in place at
-    lr_schedule(hp)(state.step). Returns the loss terms (detached), the lr
-    and the gradient norm."""
-    host_step = make_train_step(model_cfg, hp, points, symmetry, extents)
+    lr_schedule(hp)(state.step). `points_raw` as in `compute_losses`.
+    Returns the loss terms (detached), the lr and the gradient norm."""
+    host_step = make_train_step(model_cfg, hp, points, symmetry, extents, points_raw=points_raw)
 
     def step_fn(state: TrainState, bank: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
         return host_step(state, sample_batch(bank, batch_size, max_gt, chromatic, add_noise, draws), draws)
@@ -484,13 +503,14 @@ def make_train_step(
     forward_fn: Optional[Callable] = None,
     ce_threshold: Optional[float] = None,
     mesh=None,
+    points_raw: Optional[torch.Tensor] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], Draws], Dict[str, torch.Tensor]]:
     """Train step over a batch on the device (`train.py:make_train_step`):
     step(state, batch, draws) computes the losses and their gradients and
     updates the state in place at lr_schedule(hp)(state.step). `batch` is a
     host minibatch (`data.minibatch.get_minibatch`) moved to the device
-    (`to_device`). `forward_fn` and `ce_threshold` as in `compute_losses`
-    (VGG16FULL: `posecnn_full_forward`, 0.7). Returns the loss terms
+    (`to_device`). `forward_fn`, `ce_threshold` and `points_raw` as in
+    `compute_losses` (VGG16FULL: `posecnn_full_forward`, 0.7). Returns the loss terms
     (detached), the lr and the gradient norm.
 
     `mesh` None is the one-process step. With a mesh (`parallel/mesh.py`),
@@ -501,14 +521,12 @@ def make_train_step(
     the order of its sums (`compute_losses`, `train_update`), and returns
     the global batch's loss terms on every rank."""
     sched = lr_schedule(hp)
-    if mesh is not None and forward_fn is not None:
-        raise NotImplementedError("a data- or tensor-parallel step of VGG16FULL is not ported")
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
         if mesh is not None:
             draws = draws.sharded(mesh.data, mesh.d)
         loss, losses = compute_losses(state.model, model_cfg, hp, batch, points, symmetry, extents, draws,
-                                      forward_fn, ce_threshold, mesh)
+                                      forward_fn, ce_threshold, mesh, points_raw)
         lr = sched(state.step)
         g_norm = train_update(state, loss, lr, mesh)
         if mesh is not None and mesh.data > 1:
@@ -562,20 +580,33 @@ def make_seg_train_step(
     return step_fn
 
 
-def make_video_train_step(video_cfg, hp: TrainHParams) -> Callable[..., Dict[str, torch.Tensor]]:
+def make_video_train_step(video_cfg, hp: TrainHParams, mesh=None) -> Callable[..., Dict[str, torch.Tensor]]:
     """Train step of the video model (`train.py:make_video_train_step`
-    :739-790, one process): the mean over the T frames of each frame's
-    cross entropy (`loss_cross_entropy_single_frame`, one-hot labels; a
-    label outside [0, C) weighs nothing), plus the L2 term over every
-    parameter (the `upscore*` filters are not parameters); momentum SGD at
-    unit rate (with the global-norm clip of `hp`) scaled by
-    lr_schedule(hp)(state.step). step(state, batch, draws=None) takes the
-    (T,B,...) batch of `data.video_layer.GtDataLayer` on the device (data,
-    gt_label_2d, depth, meta_data), updates the state in place and returns
-    the loss terms (detached), the lr and the gradient norm."""
+    :739-790): the mean over the T frames of each frame's cross entropy
+    (`loss_cross_entropy_single_frame`, one-hot labels; a label outside
+    [0, C) weighs nothing), plus the L2 term over every parameter (the
+    `upscore*` filters are not parameters); momentum SGD at unit rate (with
+    the global-norm clip of `hp`) scaled by lr_schedule(hp)(state.step).
+    step(state, batch, draws=None) takes the (T,B,...) batch of
+    `data.video_layer.GtDataLayer` on the device (data, gt_label_2d, depth,
+    meta_data), updates the state in place and returns the loss terms
+    (detached), the lr and the gradient norm.
+
+    With a `mesh` of data ranks, as JAX's sharded step (the batch split over
+    its second axis, `P(None, DATA_AXIS)`; the parameters replicated, no
+    model axis): `batch` is this rank's images of the global batch
+    (`mesh.shard_video_batch`), whose GRU state the rank carries; each
+    frame's cross entropy is normalized by the one-hot label sum over the
+    data group, the L2 term is counted once, the gradients are summed over
+    the data group, and the global batch's terms are returned on every
+    rank."""
     from posecnn_torch.models.video import video_forward
 
+    if mesh is not None and mesh.model > 1:
+        raise ValueError(f"the video step replicates its parameters (no model axis): mesh {mesh.shape}")
     sched = lr_schedule(hp)
+    n_data = 1 if mesh is None else mesh.data
+    total = None if n_data == 1 else mesh.data_sum
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[Draws] = None):
         outs, _ = video_forward(state.model, video_cfg, batch["data"], batch["depth"], batch["meta_data"])
@@ -584,14 +615,20 @@ def make_video_train_step(video_cfg, hp: TrainHParams) -> Callable[..., Dict[str
         loss_cls = 0.0
         for t in range(prob.shape[0]):
             onehot = (batch["gt_label_2d"][t].long()[..., None] == classes).to(prob.dtype)
-            loss_cls = loss_cls + loss_cross_entropy_single_frame(prob[t], onehot)
+            loss_cls = loss_cls + loss_cross_entropy_single_frame(prob[t], onehot, total)
         loss_cls = loss_cls / prob.shape[0]
-        reg = regularization_loss(state.model, hp.weight_reg)
-        loss = loss_cls + reg
+        if mesh is None:
+            reg = reported = regularization_loss(state.model, hp.weight_reg)
+        else:
+            reg, reported = mesh_regularization_loss(state.model, hp.weight_reg, mesh)
         lr = sched(state.step)
-        g_norm = train_update(state, loss, lr)
-        return {"loss": loss.detach(), "loss_cls": loss_cls.detach(), "loss_regu": reg.detach(),
-                "lr": torch.tensor(lr, dtype=torch.float64), "grad_norm": g_norm}
+        g_norm = train_update(state, loss_cls + reg, lr, mesh)
+        losses = {"loss_cls": loss_cls.detach(), "loss_regu": reported.detach()}
+        losses["loss"] = losses["loss_cls"] + losses["loss_regu"]
+        if n_data > 1:
+            names = list(losses)
+            losses = dict(zip(names, mesh.data_sum(torch.stack([losses[k].float() for k in names])).unbind()))
+        return {**losses, "lr": torch.tensor(lr, dtype=torch.float64), "grad_norm": g_norm}
 
     # JAX jits the step: under DEBUG_NANS its outputs and the parameters
     # are checked, not the NaN points of the state it starts from
@@ -885,6 +922,15 @@ def det_losses(model, det_cfg, hp: TrainHParams, batch: Dict[str, torch.Tensor],
                                    "loss_regu"))
     losses["loss"] = loss
     return loss, losses
+
+
+def create_det_train_state(det_cfg, hp: TrainHParams, seed: int, device="cpu") -> TrainState:
+    """The detection network's train state from numpy seed `seed`
+    (`train.py:create_det_train_state`: its init, a zero momentum trace,
+    step 0)."""
+    from posecnn_torch.models.detection import init_vgg16_det_params_numpy, make_det_model
+
+    return create_train_state(make_det_model(det_cfg, init_vgg16_det_params_numpy(seed, det_cfg), device), hp)
 
 
 def make_det_train_step(

@@ -11,18 +11,37 @@ Port of `posecnn_tpu/models/factory.py` for the networks the port runs:
 `models.resnet50.init_resnet50_params_numpy`, `resnet50_forward`), and
 the video models `vgg16` (`models.video.init_video_params_numpy`,
 `video_forward`) and `vgg16_3d` (`init_video3d_params_numpy`,
-`video3d_forward`). The JAX package's other names (`dcgan`, `vgg16_gan`)
-raise NotImplementedError naming the network; a name it does not know
-raises KeyError, as there.
+`video3d_forward`), and the GAN models `dcgan`
+(`models.gan.init_dcgan_params_numpy`, `dcgan_generator`) and `vgg16_gan`
+(`init_vgg16_gan_params_numpy`, `vgg16_gan_forward`): every name of the
+JAX package's registry. A name it does not know raises KeyError, as
+there. (The CLIs train and score PoseCNN for the flags `dcgan` and
+`vgg16_gan`, as JAX's do: `core/config.py:pick_network`.)
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, List, Tuple
 
 # every name of the JAX package's registry
 JAX_NETWORKS = ("dcgan", "fcn8_vgg", "resnet50", "vgg16", "vgg16_3d", "vgg16_convs", "vgg16_det", "vgg16_full",
                 "vgg16_gan")
+
+
+# networks added with `register`, looked up after the built-in names
+_REGISTERED: Dict[str, Tuple[Callable, Callable]] = {}
+
+
+def register(name: str, init_fn: Callable, forward_fn: Callable) -> None:
+    """Add network `name` (`factory.py:register`). A built-in name raises
+    ValueError: it has one lookup, below."""
+    if name in JAX_NETWORKS:
+        raise ValueError(f"network {name!r} is built in")
+    _REGISTERED[name] = (init_fn, forward_fn)
+
+
+def list_networks() -> List[str]:
+    return sorted(set(JAX_NETWORKS) | set(_REGISTERED))
 
 
 def get_network(name: str) -> Tuple[Callable, Callable]:
@@ -55,7 +74,14 @@ def get_network(name: str) -> Tuple[Callable, Callable]:
         from posecnn_torch.models.video import init_video3d_params_numpy, video3d_forward
 
         return init_video3d_params_numpy, video3d_forward
-    if name in JAX_NETWORKS:
-        raise NotImplementedError(f"network {name!r} is not ported yet (ported: fcn8_vgg, resnet50, vgg16, vgg16_3d, "
-                                  "vgg16_convs, vgg16_det, vgg16_full)")
-    raise KeyError(f"Unknown network: {name}. Known: {sorted(JAX_NETWORKS)}")
+    if name == "dcgan":
+        from posecnn_torch.models.gan import dcgan_generator, init_dcgan_params_numpy
+
+        return init_dcgan_params_numpy, dcgan_generator
+    if name == "vgg16_gan":
+        from posecnn_torch.models.gan import init_vgg16_gan_params_numpy, vgg16_gan_forward
+
+        return init_vgg16_gan_params_numpy, vgg16_gan_forward
+    if name in _REGISTERED:
+        return _REGISTERED[name]
+    raise KeyError(f"Unknown network: {name}. Known: {list_networks()}")

@@ -65,6 +65,66 @@ def conv2d(
     return y
 
 
+def same_pads(n: int, k: int, s: int):
+    """TensorFlow SAME padding of one axis of size n under a k-wide window at
+    stride s: (before, after), the odd pixel after."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_strided(
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    x: torch.Tensor,
+    stride: int,
+    relu: bool = True,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """`layers.py:conv2d` at any stride with TF SAME padding (`same_pads`:
+    a 4x4/2 convolution of an even side pads 1 and 1, a 3x3/2 one 0 and
+    1), NHWC in, float32 NHWC out."""
+    k = weight.shape[-1]
+    (t, b), (lft, r) = same_pads(x.shape[1], k, stride), same_pads(x.shape[2], k, stride)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        weight = weight.to(compute_dtype)
+    y = F.conv2d(F.pad(_nchw(x), (lft, r, t, b)), weight, stride=stride)
+    y = _nhwc(y).float()
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def conv_transpose(weight: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """A learned transposed convolution with TF SAME semantics
+    (`jax.lax.conv_transpose(..., "SAME", transpose_kernel=True)`, as
+    tf.nn.conv2d_transpose): output side n * stride. `weight` is the JAX
+    (k, k, c_o, c_i) kernel in the port's layout (c_i, c_o, k, k). The full
+    transposed convolution is cut to JAX's window: JAX pads the dilated
+    input by pad_a = k - 1 when stride > k - 1, else ceil((k + stride -
+    2) / 2), before it, so the first k - 1 - pad_a outputs are dropped."""
+    k = weight.shape[-1]
+    pad_len = k + stride - 2
+    pad_a = k - 1 if stride > k - 1 else -(-pad_len // 2)
+    cut = k - 1 - pad_a
+    B, H, W, _ = x.shape
+    y = F.conv_transpose2d(_nchw(x.float()), weight.float(), stride=stride)
+    return _nhwc(y[:, :, cut:cut + H * stride, cut:cut + W * stride])
+
+
+def deconv_weights(weight: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """`layers.py:deconv` on a stored kernel (the port's (c_i, c_o, k, k)):
+    where c_o == c_i and k <= 2 * stride, JAX takes its bilinear path and
+    reads only the kernel's size, not its values (ROADMAP Queue 3 item 54),
+    and so does this (`deconv`); elsewhere the learned `conv_transpose`."""
+    c_i, c_o, k = weight.shape[0], weight.shape[1], weight.shape[-1]
+    if c_o == c_i and k <= 2 * stride:
+        return deconv(x, k, stride)
+    return conv_transpose(weight, x, stride)
+
+
 class _Conv3x3MB(torch.autograd.Function):
     """`layers.py:_conv3x3_mb` (custom_vjp): the bf16 conv body rounded to
     bf16, the bias added in bf16, then ReLU, all in one conv3x3 kernel launch
@@ -142,6 +202,17 @@ def max_pool(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
     if k != stride:
         raise NotImplementedError("max_pool supports k == stride only")
     return _nhwc(F.max_pool2d(_nchw(x), k, stride, ceil_mode=True))
+
+
+def avg_pool(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """SAME average pool (`layers.py:avg_pool`): each window's mean over its
+    pixels inside the map (`same_pads`' padding is not counted)."""
+    (t, b), (lft, r) = same_pads(x.shape[1], k, stride), same_pads(x.shape[2], k, stride)
+    pad = (lft, r, t, b)
+    total = F.avg_pool2d(F.pad(_nchw(x), pad), k, stride, divisor_override=1)
+    ones = torch.ones((1, 1) + tuple(x.shape[1:3]), dtype=x.dtype, device=x.device)
+    count = F.avg_pool2d(F.pad(ones, pad), k, stride, divisor_override=1)
+    return _nhwc(total / count)
 
 
 def make_deconv_filter(k: int, channels: int) -> np.ndarray:

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from posecnn_torch.models import layers as L
-from posecnn_torch.models.layers import make_deconv_filter
+from posecnn_torch.models.layers import make_deconv_filter, same_pads
 
 # (stage, blocks, mid_channels, out_channels, stride)
 STAGES = [
@@ -123,17 +123,11 @@ def make_resnet50(num_classes: int, params, device) -> ResNet50:
     return model.eval()
 
 
-def _same_pads(n: int, k: int, s: int):
-    """TensorFlow SAME padding of one axis: (before, after)."""
-    total = max((-(-n // s) - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
-
-
 def _conv(c: ConvW, x: torch.Tensor, stride: int, dt) -> torch.Tensor:
     """`layers.conv2d` of the JAX package with relu=False on an NCHW view:
     the operands in `dt`, the result in float32, then the bias."""
     k = c.weight.shape[-1]
-    (t, b), (lft, r) = _same_pads(x.shape[2], k, stride), _same_pads(x.shape[3], k, stride)
+    (t, b), (lft, r) = same_pads(x.shape[2], k, stride), same_pads(x.shape[3], k, stride)
     if dt is not None:
         x = x.to(dt)
     if t or b or lft or r:

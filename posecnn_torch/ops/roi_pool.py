@@ -7,7 +7,9 @@ max over each bin, separable: over W per output column by the doubling
 table of `_range_colmax` (whose custom backward the port carries over, so
 the training gradient splits ties as JAX's does), then a masked max over H
 per output row. JAX computes it in XLA, not in a Pallas kernel. `crop_pool_batched`, the
-flagship training pool (`USE_CROP_POOL`), is at the end.
+flagship training pool (`USE_CROP_POOL`), is at the end, and after it the
+one-image forms `roi_pool` (:126) and `crop_pool` (:317), which take rois
+(R, 7) whose column 0 names the image, as wrappers over the batched ones.
 """
 
 from __future__ import annotations
@@ -209,3 +211,42 @@ def crop_pool_batched(
     crops = top * (1 - ay) + bot * ay  # (B,D,n,n,C) f32
     pooled = F.max_pool2d(crops.reshape(B * D, n, n, C).permute(0, 3, 1, 2), 2, 2)
     return pooled.permute(0, 2, 3, 1).reshape(B, D, pool_size, pool_size, C)
+
+
+def _by_image(feat: torch.Tensor, rois: torch.Tensor, pool) -> torch.Tensor:
+    """`pool(feat[b:b+1], rois[None])[0]` for every image b, each roi taking
+    its image's (column 0; a roi naming no image of the batch takes image
+    0's, as JAX's selection does)."""
+    roi_batch = rois[:, 0].long()
+    out = None
+    for b in range(feat.shape[0]):
+        ob = pool(feat[b:b + 1], rois[None])[0]
+        if out is None:
+            out = ob
+        else:
+            out = torch.where((roi_batch == b).reshape(-1, *([1] * (ob.dim() - 1))), ob, out)
+    return out
+
+
+def roi_pool(feat: torch.Tensor, rois: torch.Tensor, pooled_height: int = 7, pooled_width: int = 7,
+             spatial_scale: float = 1.0 / 16.0, pool_channel: bool = False) -> torch.Tensor:
+    """RoI max pooling of (B,H,W,C) maps over rois (R,7) [batch, class, x1,
+    y1, x2, y2, score] -> (R, p, p, C), or (R, p, p, 1) with `pool_channel`
+    (the channel of each roi's class) (`roi_pool.py:roi_pool`). The bins
+    are `bin_edges`' (ROADMAP Queue 3 item 12's division)."""
+    if pooled_height != pooled_width:
+        raise ValueError("square pooling only")
+    out = _by_image(feat, rois, lambda f, r: roi_pool_batched(f, r, pooled_height, spatial_scale))
+    if pool_channel:
+        cls = rois[:, 1].long()
+        out = torch.gather(out, -1, cls[:, None, None, None].expand(*out.shape[:3], 1))
+    return out
+
+
+def crop_pool(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float = 1.0 / 16.0,
+              pool_size: int = 7) -> torch.Tensor:
+    """The bilinear crop of each roi to (2p)^2 samples, then a 2x2 max pool
+    (`roi_pool.py:crop_pool`): feat (B,H,W,C), rois (R,7) -> (R, p, p, C),
+    in float32 (JAX's one-image form multiplies in feat's dtype: equal on
+    float32 maps)."""
+    return _by_image(feat, rois, lambda f, r: crop_pool_batched(f, r, spatial_scale, pool_size))

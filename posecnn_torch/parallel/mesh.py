@@ -268,3 +268,20 @@ def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
             b = n // mesh.data
             out[k] = batch[k][mesh.d * b:(mesh.d + 1) * b]
     return local_batch(mesh, out)
+
+
+def shard_video_batch(mesh: Mesh, batch: Dict) -> Dict:
+    """This rank's part of a global (T, B, ...) video batch, as JAX's video
+    step shards it (`P(None, DATA_AXIS)`, `engine/train.py:774`): every
+    blob split over its second axis, images d*b .. (d+1)*b for b = B /
+    data. Works on numpy arrays and tensors alike."""
+    if mesh.data == 1:
+        return dict(batch)
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[1]
+        if n % mesh.data:
+            raise ValueError(f"video blob {k!r}: {n} images do not split over {mesh.data} data ranks")
+        b = n // mesh.data
+        out[k] = v[:, mesh.d * b:(mesh.d + 1) * b]
+    return out

@@ -96,8 +96,9 @@ global host batch from the same RNG_SEED stream and keeps its images
 on the global batch. Rank 0 alone logs and writes the metrics, the snapshots
 and `train_timing.json`, which then holds every rank's milliseconds,
 launches and peak memory under `by_rank`, with the world size and the mesh.
-TPU.DEVICE_BANK, the run without --cfg (a device bank), VGG16FULL, FCN8VGG
-and VGG16DET are refused at more than one rank.
+TPU.DEVICE_BANK, the run without --cfg (a device bank), FCN8VGG, RESNET50
+and VGG16DET are refused at more than one rank; VGG16FULL trains over the
+mesh as PoseCNN does.
 
 With --vis, or TRAIN.VISUALIZE, a --cfg run of PoseCNN (or VGG16FULL) on
 host minibatches writes the first 8 of them as
@@ -134,7 +135,7 @@ def refuse_at_world(cfg, network: str, world: int) -> None:
     if cfg.TPU.DEVICE_BANK:
         raise ValueError(f"TPU.DEVICE_BANK trains on one device (the JAX bank step ignores the mesh): "
                          f"not at {world} ranks")
-    if network in ("vgg16_full", "fcn8_vgg", "resnet50", "vgg16_det"):
+    if network in ("fcn8_vgg", "resnet50", "vgg16_det"):
         raise NotImplementedError(f"{network} at {world} ranks: its data-parallel step is not ported")
 
 
@@ -214,7 +215,8 @@ def cfg_run(args, log, mesh=None):
     points_raw = np.asarray(imdb._points_all, np.float32)
     extents, symmetry = np.asarray(imdb._extents, np.float32), np.asarray(imdb._symmetry, np.float32)
     points = rescale_points(points_raw, extents, symmetry, mcfg.is_symmetric)
-    points, symmetry, extents = (torch.from_numpy(a).to(dev) for a in (points, symmetry, extents))
+    points, symmetry, extents, points_raw = (torch.from_numpy(a).to(dev)
+                                             for a in (points, symmetry, extents, points_raw))
     full = name == "vgg16_full"
     params = init_fn(cfg.RNG_SEED, model_cfg)
     # the initial weights of --weights, then --ckpt (tools/train_net.py:300-309)
@@ -237,7 +239,8 @@ def cfg_run(args, log, mesh=None):
         bank = bank_to_device(build_bank(imdb, mcfg.max_gt), dev)
         log(f"device bank: {bank['data'].shape[0]} frames on {dev}")
         step = T.make_bank_train_step(model_cfg, hp, points, symmetry, extents, batch_size=T_.IMS_PER_BATCH,
-                                      max_gt=cfg.TPU.MAX_GT, chromatic=T_.CHROMATIC, add_noise=T_.ADD_NOISE)
+                                      max_gt=cfg.TPU.MAX_GT, chromatic=T_.CHROMATIC, add_noise=T_.ADD_NOISE,
+                                      points_raw=points_raw if T_.MATCHING else None)
         if cfg.TPU.BANK_REFRESH:
             def open_data(start_iter):
                 return refreshing_data(imdb, bank, cfg, start_iter, output, log)
@@ -246,7 +249,9 @@ def cfg_run(args, log, mesh=None):
                 return itertools.repeat(bank), None
     else:
         layer = host_layer(cfg, imdb, mcfg, log)
-        step = T.make_train_step(model_cfg, hp, points, symmetry, extents, mesh=mesh, **step_kw)
+        # the raw metre-scale clouds for the matching loss (tools/train_net.py:275-277)
+        step = T.make_train_step(model_cfg, hp, points, symmetry, extents, mesh=mesh, points_raw=points_raw,
+                                 **step_kw)
         if (args.vis or cfg.TRAIN.VISUALIZE) and (mesh is None or mesh.rank == 0):  # rank 0 draws its images
             from posecnn_torch.engine.visualize import MinibatchVisualizer
 

@@ -14,6 +14,12 @@ to cv2 on every input (2^24 BGR colours, 180 x 256 x 256 HLS triples). The
 HLS hue of cv2's vector code is one fused multiply-add, which `_fma` computes
 exactly in float64. `chromatic_transform` reads both through tables of every
 input, built at first use (48 and 35 MB).
+
+Besides, the blob helpers of `blob.py:17-57` that no path of either
+package calls: `im_list_to_blob`, `prep_im_for_blob` (cv2's float32
+INTER_LINEAR resize through `utils/resize.py`; a float32 image has the
+means subtracted in place, as `astype(copy=False)` does there: ROADMAP
+Queue 3 item 56) and `unpad_im`.
 """
 
 from __future__ import annotations
@@ -186,3 +192,38 @@ def add_noise(image: np.ndarray, rng: Optional[np.random.RandomState] = None,
         gauss = gen.standard_normal((row, col), dtype=np.float32) * np.float32(sigma)
         return np.clip(image.astype(np.float32) + gauss[:, :, None], 0, 255)
     return motion_blur(image, rng)
+
+
+def im_list_to_blob(ims, num_channels: int) -> np.ndarray:
+    """Prepared images (means subtracted, BGR) stacked into an NHWC float32
+    blob at the largest height and width, zero-padded after."""
+    max_shape = np.array([im.shape for im in ims]).max(axis=0)
+    blob = np.zeros((len(ims), max_shape[0], max_shape[1], num_channels), dtype=np.float32)
+    for i, im in enumerate(ims):
+        blob[i, : im.shape[0], : im.shape[1], :] = im[:, :, np.newaxis] if num_channels == 1 else im
+    return blob
+
+
+def prep_im_for_blob(im: np.ndarray, pixel_means, target_size, max_size):
+    """Subtract the means, then scale so the short side is `target_size`
+    (the long one at most `max_size`), bilinear. Returns (image, scale). A
+    float32 `im` is itself mean-subtracted (ROADMAP Queue 3 item 56)."""
+    from posecnn_torch.utils.resize import INTER_LINEAR, resize
+
+    im = im.astype(np.float32, copy=False)
+    im -= pixel_means
+    im_size_min = np.min(im.shape[0:2])
+    im_size_max = np.max(im.shape[0:2])
+    im_scale = float(target_size) / float(im_size_min)
+    if np.round(im_scale * im_size_max) > max_size:
+        im_scale = float(max_size) / float(im_size_max)
+    return resize(im, None, fx=im_scale, fy=im_scale, interpolation=INTER_LINEAR), im_scale
+
+
+def unpad_im(im: np.ndarray, factor: int) -> np.ndarray:
+    """The image before `pad_im` padded it to a multiple of `factor`: the
+    padding a side of its size would get is cut off."""
+    height, width = im.shape[0], im.shape[1]
+    pad_height = int(np.ceil(height / float(factor)) * factor - height)
+    pad_width = int(np.ceil(width / float(factor)) * factor - width)
+    return im[0:height - pad_height, 0:width - pad_width]

@@ -1,6 +1,7 @@
 """Quaternion math (w, x, y, z convention) on tensors.
 
-Port of `posecnn_tpu/utils/quaternion.py:quat2mat` and `mat2quat`.
+Port of `posecnn_tpu/utils/quaternion.py`: `quat2mat`, `mat2quat`, and the
+Hamilton product `qmult`, `qconj`, `rotate_points` and `quat_angle`.
 """
 
 from __future__ import annotations
@@ -51,3 +52,30 @@ def mat2quat(m: torch.Tensor) -> torch.Tensor:
     q = torch.take_along_dim(cands, best[..., None, None], dim=-2)[..., 0, :]
     q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def qmult(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (..., 4) wxyz quaternions."""
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def qconj(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def rotate_points(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """(..., P, 3) points rotated by (..., 4) quaternions."""
+    return torch.einsum("...ij,...pj->...pi", quat2mat(q), pts)
+
+
+def quat_angle(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """The rotation angle between two unit quaternions, in radians."""
+    d = (q1 * q2).sum(dim=-1).abs()
+    return 2.0 * torch.arccos(torch.clamp(d, -1.0, 1.0))

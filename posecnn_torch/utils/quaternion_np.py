@@ -1,7 +1,8 @@
 """NumPy quaternion (wxyz) <-> rotation matrix.
 
-Copy of `posecnn_tpu/utils/quaternion_np.py:quat2mat` and `mat2quat` (the
-transforms3d convention: Bar-Itzhack's method, w >= 0).
+Copy of `posecnn_tpu/utils/quaternion_np.py`: `quat2mat` and `mat2quat`
+(the transforms3d convention: Bar-Itzhack's method, w >= 0), `qmult` and
+`qinverse`.
 """
 
 from __future__ import annotations
@@ -46,3 +47,21 @@ def mat2quat(M) -> np.ndarray:
     if q[0] < 0:
         q = -q
     return q
+
+
+def qmult(q1, q2) -> np.ndarray:
+    """Hamilton product of two wxyz quaternions."""
+    w1, x1, y1, z1 = q1
+    w2, x2, y2, z2 = q2
+    return np.array([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ])
+
+
+def qinverse(q) -> np.ndarray:
+    """The inverse quaternion (float64): the conjugate over the squared norm."""
+    q = np.asarray(q, dtype=np.float64)
+    return np.array([q[0], -q[1], -q[2], -q[3]]) / np.dot(q, q)

@@ -1,5 +1,5 @@
-"""Rigid transforms in numpy: the port's copies of
-`posecnn_tpu/utils/se3.py:se3_mul` and `se3_inverse`."""
+"""Rigid transforms: the port's copies of `posecnn_tpu/utils/se3.py:se3_mul`
+and `se3_inverse` (numpy) and `transform_points` (numpy or torch)."""
 
 from __future__ import annotations
 
@@ -19,3 +19,11 @@ def se3_inverse(RT: np.ndarray) -> np.ndarray:
     T = RT[..., 0:3, 3:4]
     Rt = np.swapaxes(R, -1, -2)
     return np.concatenate([Rt, -np.matmul(Rt, T)], axis=-1)
+
+
+def transform_points(RT, pts):
+    """Apply (..., 3, 4) transforms to (..., P, 3) points -> (..., P, 3);
+    numpy arrays or torch tensors."""
+    R, T = RT[..., 0:3, 0:3], RT[..., 0:3, 3]
+    Rt = R.transpose(-1, -2) if not isinstance(RT, np.ndarray) else np.swapaxes(R, -1, -2)
+    return pts @ Rt + T[..., None, :]

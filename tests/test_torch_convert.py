@@ -68,9 +68,10 @@ def test_converter_rejects(bad):
     if bad == "filter":
         params["upscore"] = {"weights": params["upscore"]["weights"] * 1.5}
     else:
-        # the GAN discriminator's fc_d: a part of a network the port does not
-        # run (fc9, used here before, is now the domain head's)
-        params["fc_d"] = {"weights": np.zeros((4, 2), np.float32), "biases": np.zeros(2, np.float32)}
+        # a layer no network of either package has (fc9, used here before,
+        # is now the domain head's; fc_d, after it, the DCGAN
+        # discriminator's)
+        params["fc10"] = {"weights": np.zeros((4, 2), np.float32), "biases": np.zeros(2, np.float32)}
     with pytest.raises(ValueError):
         params_from_numpy(params)
 

@@ -311,8 +311,8 @@ def test_seg_settings_are_the_jax_clis(name):
 
 
 def test_factory_names():
-    """The ported names give (init, forward); the JAX package's other names
-    raise NotImplementedError naming them; unknown names KeyError."""
+    """Every name of the JAX package's registry gives the port's (init,
+    forward), `dcgan` and `vgg16_gan` too; unknown names KeyError."""
     init, fwd = factory.get_network("fcn8_vgg")
     assert init is F.init_fcn8_params_numpy and fwd is F.fcn8_forward
     from posecnn_torch.core.convert import init_params_numpy
@@ -332,9 +332,12 @@ def test_factory_names():
 
     assert factory.get_network("vgg16") == (init_video_params_numpy, video_forward)
     assert factory.get_network("vgg16_3d") == (init_video3d_params_numpy, video3d_forward)
-    for name in ("vgg16_gan", "dcgan"):
-        with pytest.raises(NotImplementedError, match=name):
-            factory.get_network(name)
+    from posecnn_torch.models.gan import (dcgan_generator, init_dcgan_params_numpy, init_vgg16_gan_params_numpy,
+                                          vgg16_gan_forward)
+
+    assert factory.get_network("dcgan") == (init_dcgan_params_numpy, dcgan_generator)
+    assert factory.get_network("vgg16_gan") == (init_vgg16_gan_params_numpy, vgg16_gan_forward)
+    assert all(factory.get_network(n) for n in factory.JAX_NETWORKS)
     with pytest.raises(KeyError):
         factory.get_network("alexnet")
 

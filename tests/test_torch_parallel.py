@@ -82,13 +82,11 @@ def world_runs(tmp_path_factory):
 
 
 def _result(world_runs, name):
+    """(the first step's terms, the parameters after the steps as
+    {'layer/leaf': array}) of a case's mesh run."""
     with np.load(os.path.join(world_runs[W.CASES[name][0]], f"{name}.npz")) as d:
         losses = {k[5:]: float(d[k]) for k in d.files if k.startswith("loss/")}
-        params = {}
-        for k in d.files:
-            if k.startswith("param/"):
-                _, layer, leaf = k.split("/")
-                params.setdefault(layer, {})[leaf] = d[k]
+        params = {k[len("param/"):]: d[k] for k in d.files if k.startswith("param/")}
     return losses, params
 
 
@@ -99,13 +97,12 @@ def _one_process(name):
     """The port's one-process step on the case's global batch."""
     if name not in _ONE:
         losses, _, params, _ = W.run_steps(name)
-        _ONE[name] = (losses, params)
+        _ONE[name] = (losses, W.flat_params(params))
     return _ONE[name]
 
 
 def _param_errors(got, ref):
-    return {f"{layer}/{leaf}": float(np.abs(got[layer][leaf] - a).max()) / max(float(np.abs(a).max()), 1e-30)
-            for layer, leaves in ref.items() for leaf, a in leaves.items()}
+    return {k: float(np.abs(got[k] - a).max()) / max(float(np.abs(a).max()), 1e-30) for k, a in ref.items()}
 
 
 def _check_against_one_process(name, world_runs):
@@ -121,19 +118,29 @@ def _check_against_one_process(name, world_runs):
     return losses
 
 
-@pytest.mark.parametrize("name", ["dp", "tp", "mesh22", "dp_draws", "dp_cut", "dp_gtany"])
+@pytest.mark.parametrize("name", ["dp", "tp", "mesh22", "dp_draws", "dp_cut", "dp_gtany", "full_dp", "full_tp",
+                                  "full_draws", "full_mesh22", "match_dp", "video_dp"])
 def test_mesh_step_equals_one_process_step(name, world_runs):
     """The step at (2,1), at (1,2) with clipping, at
     (2,2) with clipping, with dropout and the noise field drawn at the
     global shape, with the global max_gt cut dropping image 3's GT row
     (rank 1 keeps image 2's row at local index 0), and with GT rows on rank
     0's images only (the adaptation head: Hough's batch-wide domains stay
-    0 on rank 1), equals the one-process step on the global batch."""
+    0 on rank 1), equals the one-process step on the global batch. So do
+    VGG16FULL's step at (2,1), (1,2) and (2,2) and with its dropout draws
+    split by image, the step with TRAIN.MATCHING over images of four
+    intrinsics (every rank renders with the global batch's first image's),
+    and the video step at (2,1) (the batch split over its second axis)."""
     losses = _check_against_one_process(name, world_runs)
-    assert losses["loss_pose"] > 0
+    if name == "video_dp":
+        assert losses["loss_cls"] > 0 and "loss_pose" not in losses
+    elif name != "full_draws":  # dropout moves FULL's detections off the GT rows placed at them
+        assert losses["loss_pose"] > 0
     if name == "dp_gtany":
         assert losses["loss_domain"] > 0
-    if name in ("tp", "mesh22"):
+    if name == "match_dp":
+        assert losses["loss_matching"] > 0
+    if name in ("tp", "mesh22", "full_tp", "full_mesh22"):
         assert losses["grad_norm"] > W.HP.get("clip_grad_norm", 10.0)  # clipping was active
 
 
@@ -150,49 +157,97 @@ def test_mutant_gather_backward_fails_parity(world_runs):
     assert err["fc8/weights"] > PARAM_TOL and err["fc6/weights"] > PARAM_TOL
 
 
+def test_matching_case_tells_the_first_images_apart():
+    """The matching case's batch makes ROADMAP Queue 3 item 55 visible:
+    the one-process loss_matching with rank 1's first image's intrinsics
+    (image 2's) read for every row is more than 1e-3 apart from the one
+    with the global first image's. So the mesh run, within 1e-5 of the
+    one-process step (`test_mesh_step_equals_one_process_step[match_dp]`),
+    read the global first image's on rank 1 too."""
+    from posecnn_torch.config import PoseCNNConfig
+    from posecnn_torch.engine import train as T
+
+    cfg_kw, hp_kw, batch, points, symmetry, extents, params = W.case_inputs("match_dp")
+    cfg, hp = PoseCNNConfig(compute_dtype=torch.float32, **cfg_kw), T.TrainHParams(**hp_kw)
+    consts = [torch.from_numpy(a) for a in (points, symmetry, extents)]
+    got = []
+    for first in (0, 2):
+        b = dict(batch, meta_data=batch["meta_data"].copy())
+        b["meta_data"][0] = batch["meta_data"][first]
+        model, _ = W._case_model("match_dp", cfg_kw, params, None)
+        with torch.no_grad():
+            _, terms = T.compute_losses(model, cfg, hp, T.to_device(b, "cpu"), *consts,
+                                        T.Draws(torch.Generator().manual_seed(W.SEED)),
+                                        points_raw=torch.from_numpy(W.case_points_raw("match_dp")))
+        got.append(float(terms["loss_matching"]))
+    assert got[0] > 0 and abs(got[0] - got[1]) > 1e-3 * got[0], got
+
+
 def _jax_sharded(name):
-    """JAX's make_train_step over MeshSpec(case's mesh) on the 8 CPU devices:
-    the first step's terms and the params after STEPS steps."""
+    """JAX's make_train_step (VGG16FULL: with its forward and 0.7 gate; the
+    video model: make_video_train_step) over MeshSpec(case's mesh) on the 8
+    CPU devices: the first step's terms and the params after STEPS steps.
+    With TRAIN.MATCHING, JAX's quaternion norm's gradient at zero is taken
+    as 0 (`make_torch_goldens._quat2mat_zero_safe`; JAX's own is NaN on
+    the rows without a class, ROADMAP Queue 3 item 57)."""
+    import posecnn_tpu.ops.matching_loss as JML
     from posecnn_tpu.engine import train as JT
     from posecnn_tpu.models.posecnn import PoseCNNConfig as JCfg
+    from posecnn_tpu.models.posecnn_full import posecnn_full_forward
+    from posecnn_tpu.models.video import VideoConfig as JVCfg
     from posecnn_tpu.parallel import mesh as JM
+    from tests.torch_parity import goldens
 
-    _, (data, model), *_ = W.CASES[name]
+    _, (data, model), _, _, variant = W.CASES[name]
     cfg_kw, hp_kw, batch, points, symmetry, extents, params = W.case_inputs(name)
+    raw = W.case_points_raw(name)
     JM.set_tp_min_size(W.TP_MIN)
+    saved = JML.quat2mat
+    JML.quat2mat = goldens()._quat2mat_zero_safe
     try:
         mesh = JM.make_mesh(JM.MeshSpec(data=data, model=model))
         hp = JT.TrainHParams(**hp_kw)
         p = jax.tree_util.tree_map(jnp.asarray, params)
         state = (p, JT.make_optimizer(hp).init(p), jnp.asarray(0, jnp.int32))
-        step = JT.make_train_step(JCfg(compute_dtype=jnp.float32, **cfg_kw), hp, mesh, jnp.asarray(points),
-                                  jnp.asarray(symmetry), jnp.asarray(extents), donate=False)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        if variant == "video":
+            vstep = JT.make_video_train_step(JVCfg(compute_dtype=jnp.float32, **cfg_kw), hp, mesh)
+
+            def step(st, b, _rng):
+                return vstep(st, b)
+        else:
+            kw = dict(forward_fn=posecnn_full_forward, ce_threshold=0.7) if variant == "full" else {}
+            step = JT.make_train_step(JCfg(compute_dtype=jnp.float32, **cfg_kw), hp, mesh, jnp.asarray(points),
+                                      jnp.asarray(symmetry), jnp.asarray(extents), donate=False,
+                                      points_raw=None if raw is None else jnp.asarray(raw), **kw)
         first = None
         for _ in range(W.STEPS):
             state, metrics = step(state, jb, jax.random.PRNGKey(0))
             if first is None:
                 first = {k: float(v) for k, v in metrics.items()}
-        return first, jax.tree_util.tree_map(np.asarray, state[0]), params
+        return first, W.flat_params(jax.tree_util.tree_map(np.asarray, state[0])), W.flat_params(params)
     finally:
+        JML.quat2mat = saved
         JM.set_tp_min_size(1 << 22)
 
 
-@pytest.mark.parametrize("name", ["dp", "tp", "mesh22"])
+@pytest.mark.parametrize("name", ["dp", "tp", "mesh22", "full_dp", "full_tp", "full_mesh22", "match_dp",
+                                  "video_dp"])
 def test_mesh_step_equals_jax_sharded_step(name, world_runs):
     """The port at (2,1), (1,2) and (2,2) against JAX's sharded
-    step on the same MeshSpec, weights, batch and TP threshold."""
+    step on the same MeshSpec, weights, batch and TP threshold: PoseCNN,
+    VGG16FULL, PoseCNN with TRAIN.MATCHING, and the video model at (2,1)."""
     losses, params = _result(world_runs, name)
     jlosses, jparams, init = _jax_sharded(name)
+    assert all(np.isfinite(v) for v in jlosses.values()), jlosses
     rel = {k: abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in jlosses.items()}
     assert max(rel.values()) <= 1e-5, rel
-    for layer, leaves in params.items():
-        for leaf, a in leaves.items():
-            ref, p0 = jparams[layer][leaf], init[layer][leaf]
-            move = float(np.abs(ref - p0).max())
-            ulp = 2 * float(np.abs(np.spacing(ref)).max())
-            err = float(np.abs(a - ref).max())
-            assert err <= 2e-5 * move + ulp, f"{name} {layer}/{leaf}: {err:.3g} (move {move:.3g})"
+    for k, a in params.items():
+        ref, p0 = jparams[k], init[k]
+        move = float(np.abs(ref - p0).max())
+        ulp = 2 * float(np.abs(np.spacing(ref)).max())
+        err = float(np.abs(a - ref).max())
+        assert err <= 2e-5 * move + ulp, f"{name} {k}: {err:.3g} (move {move:.3g})"
 
 
 def test_world2_snapshot_loads_in_jax_and_at_every_mesh(world_runs, tmp_path):
@@ -217,8 +272,7 @@ def test_world2_snapshot_loads_in_jax_and_at_every_mesh(world_runs, tmp_path):
     with np.load(path) as z:
         files = {k: z[k] for k in z.files}
     _, ref = _one_process("tp")
-    err = _param_errors({lay: {lf: files[f"['params']['{lay}']['{lf}']"] for lf in lv} for lay, lv in ref.items()},
-                        ref)
+    err = _param_errors({k: files["['params']" + "".join(f"['{p}']" for p in k.split("/"))] for k in ref}, ref)
     assert max(err.values()) <= PARAM_TOL, err
     # JAX reads it
     jstate = JT.create_train_state(JCfg(compute_dtype=jnp.float32, **cfg_kw), JT.TrainHParams(**hp_kw),
@@ -254,14 +308,16 @@ def test_live_pose_batch_equals_jax():
             assert got[k].dtype == np.asarray(v).dtype and np.array_equal(got[k], np.asarray(v)), k
 
 
-def _jax_split_layers(port_cfg, threshold):
+def _jax_split_layers(port_cfg, threshold, full=False):
     from posecnn_tpu.models.posecnn import PoseCNNConfig as JCfg
     from posecnn_tpu.models.posecnn import init_posecnn_params
+    from posecnn_tpu.models.posecnn_full import init_posecnn_full_params
     from posecnn_tpu.parallel import mesh as JM
 
     kw = {f.name: getattr(port_cfg, f.name) for f in dataclasses.fields(port_cfg)}
     kw["compute_dtype"] = jnp.float32
-    shapes = jax.eval_shape(lambda: init_posecnn_params(jax.random.PRNGKey(0), JCfg(**kw)))
+    init = init_posecnn_full_params if full else init_posecnn_params
+    shapes = jax.eval_shape(lambda: init(jax.random.PRNGKey(0), JCfg(**kw)))
     JM.set_tp_min_size(threshold)
     try:
         mesh = JM.make_mesh(JM.MeshSpec(data=4, model=2))
@@ -275,29 +331,35 @@ def _jax_split_layers(port_cfg, threshold):
     return split
 
 
-@pytest.mark.parametrize("which", ["flagship", "dryrun"])
+@pytest.mark.parametrize("which", ["flagship", "dryrun", "full"])
 def test_param_sharding_picks_jax_set(which):
     """At a model axis of 2, the port splits the layers JAX splits:
     the flagship training config at 1 << 22 {fc6, fc7}; the dry run's
-    (trunk_scale 0.125, fc 256) at 1 << 14 conv4_1-conv5_3, fc6, fc7."""
+    (trunk_scale 0.125, fc 256) at 1 << 14 conv4_1-conv5_3, fc6, fc7;
+    VGG16FULL's (lov_color_2d_full.yml) at 1 << 22 {fc6, fc7}."""
     from posecnn_torch.config import flagship_train_cfg
+    from posecnn_torch.core import config as C
     from posecnn_torch.core.convert import _layer_name
     from posecnn_torch.models.posecnn import PoseCNN
+    from posecnn_torch.models.posecnn_full import PoseCNNFull
     from posecnn_torch.parallel.dryrun import dryrun_config
 
+    full_cfg = C.train_model_cfg(C.cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "lov_color_2d_full.yml")),
+                                 22)
     cfg, threshold, want = {
         "flagship": (flagship_train_cfg()[0], 1 << 22, {"fc6", "fc7"}),
         "dryrun": (dryrun_config()[0], 1 << 14,
                    {"conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2", "conv5_3", "fc6", "fc7"}),
+        "full": (full_cfg, 1 << 22, {"fc6", "fc7"}),
     }[which]
     M.set_tp_min_size(threshold)
     try:
-        names = M.sharded_names(PoseCNN(cfg, device="meta"), M.Mesh(1, 2))
+        names = M.sharded_names((PoseCNNFull if which == "full" else PoseCNN)(cfg, device="meta"), M.Mesh(1, 2))
     finally:
         M.set_tp_min_size(1 << 22)
     port = {_layer_name(n.rsplit(".", 1)[0]) for n in names}
     assert all(n.endswith(".weight") for n in names)
-    assert port == want == _jax_split_layers(cfg, threshold)
+    assert port == want == _jax_split_layers(cfg, threshold, full=which == "full")
 
 
 def test_data_sharded_keys_are_the_steps_list():
@@ -421,7 +483,8 @@ def test_dryrun_multichip_four_ranks(monkeypatch):
 
 def test_device_bank_refused_at_two_ranks():
     """TPU.DEVICE_BANK at world size 2 raises, naming it;
-    so do the networks whose step has no mesh; at one rank nothing does."""
+    so do the networks whose step has no mesh (FCN-8s), not VGG16FULL;
+    at one rank nothing does."""
     from posecnn_torch import train_net
     from posecnn_torch.core import config as C
 
@@ -432,8 +495,9 @@ def test_device_bank_refused_at_two_ranks():
     with pytest.raises(ValueError, match="TPU.DEVICE_BANK"):
         train_net.refuse_at_world(cfg, "vgg16_convs", 2)
     cfg.TPU.DEVICE_BANK = False
-    with pytest.raises(NotImplementedError, match="vgg16_full"):
-        train_net.refuse_at_world(cfg, "vgg16_full", 2)
+    train_net.refuse_at_world(cfg, "vgg16_full", 2)  # VGG16FULL's step takes the mesh
+    with pytest.raises(NotImplementedError, match="fcn8_vgg"):
+        train_net.refuse_at_world(cfg, "fcn8_vgg", 2)
 
 
 @pytest.mark.parametrize("env,error", [

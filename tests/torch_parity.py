@@ -448,6 +448,112 @@ def small_train_on_golden(device="cpu", g=None):
     return {k: float(v.detach()) for k, v in losses.items()}, grads, after, lr, float(g_norm), before, g
 
 
+def matching_on_golden(device="cpu", g=None):
+    """The port's compute_losses with TRAIN.MATCHING (f32) on the matching
+    golden's weights (`init_params_numpy(seed)`), batch, points and raw
+    clouds, on `device`, and its backward. Returns (losses, grads by
+    state_dict name, the gradient's global norm, golden)."""
+    from posecnn_torch.config import PoseCNNConfig
+    from posecnn_torch.core.convert import init_params_numpy, make_model
+    from posecnn_torch.engine.train import TrainHParams, compute_losses, create_train_state
+
+    g = load_npz(goldens().MATCHING_GOLDEN) if g is None else g
+    cfg = PoseCNNConfig(compute_dtype=torch.float32, **{k[4:]: g[k].item() for k in g if k.startswith("cfg/")})
+    hp = TrainHParams(**{k[3:]: g[k].item() for k in g if k.startswith("hp/")})
+    model = make_model(cfg, init_params_numpy(int(g["seed"]), cfg), device)
+    state = create_train_state(model, hp)
+    batch = {k[len("batch/"):]: t(g[k]).to(device) for k in g if k.startswith("batch/")}
+    consts = [t(g[k]).to(device) for k in ("points", "symmetry", "extents")]
+    loss, losses = compute_losses(model, cfg, hp, batch, *consts, points_raw=t(g["points_raw"]).to(device))
+    loss.backward()
+    grads = {k: p.grad.detach() for k, p in model.named_parameters()}
+    g_norm = float(state.optimizer.global_norm([p.grad for p in state.optimizer.params]))
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, g_norm, g
+
+
+# the matching step against JAX: each loss term within 1e-5 relative (of
+# 1e-3 at least), the gradient's global norm within 1e-5 relative, each
+# kept gradient within 5e-5 of its largest magnitude (f32 sums in other
+# orders, as the training golden's)
+MATCHING_LOSS_RTOL, MATCHING_GRAD_TOL = 1e-5, 5e-5
+
+
+def check_matching_golden(losses, grads, g_norm, g) -> dict:
+    """Holds the matching step to the JAX golden at MATCHING_LOSS_RTOL and
+    MATCHING_GRAD_TOL. Returns the errors (relative)."""
+    from posecnn_torch.core.convert import params_from_numpy
+
+    err = {}
+    for k in (k[len("loss/"):] for k in g if k.startswith("loss/")):
+        ref = float(g[f"loss/{k}"])
+        err[k] = abs(losses[k] - ref) / max(abs(ref), 1e-3)
+        assert err[k] <= MATCHING_LOSS_RTOL, (k, losses[k], ref)
+    assert losses["loss_matching"] > 0
+    err["grad_norm"] = abs(g_norm - float(g["grad_norm"])) / float(g["grad_norm"])
+    assert err["grad_norm"] <= MATCHING_LOSS_RTOL, (g_norm, float(g["grad_norm"]))
+    for k, ref in params_from_numpy({k[len("grads/"):]: g[k] for k in g if k.startswith("grads/")}).items():
+        err[k] = float((grads[k].cpu() - ref).abs().max()) / float(ref.abs().max())
+        assert err[k] <= MATCHING_GRAD_TOL, (k, err[k])
+    return err
+
+
+def gan_on_golden(device="cpu") -> dict:
+    """The port's GAN models (float32) on the GAN golden's inputs and
+    weights (`make_torch_goldens.gan_inputs`, `gan_params`), on `device`,
+    in the golden's layout (its keys)."""
+    from posecnn_torch.models import gan
+
+    G = goldens()
+    x = {k: t(v).to(device) for k, v in G.gan_inputs().items()}
+    dc, vg, fd = G.gan_params()
+    g = {}
+    with torch.no_grad():
+        m = gan.make_dcgan(dc, device)
+        out, gstats = gan.dcgan_generator(m, x["z"], x["image"], train=True, return_stats=True)
+        logit, dstats = gan.dcgan_discriminator(m, x["pair"], train=True, return_stats=True)
+        g["dcgan/train/gen"], g["dcgan/train/disc"] = out, logit
+        for name, st in {**gstats, **dstats}.items():
+            for leaf, v in st.items():
+                g[f"dcgan/stats/{name}/{leaf}"] = v
+        gan.merge_bn_stats(gan.merge_bn_stats(m, gstats), dstats)
+        g["dcgan/eval/gen"] = gan.dcgan_generator(m, x["z"], x["image"], train=False)
+        g["dcgan/eval/disc"] = gan.dcgan_discriminator(m, x["pair"], train=False)
+        v = gan.make_vgg16_gan(G.GAN_CLASSES, vg, device)
+        o = gan.vgg16_gan_forward(v, x["data"], G.GAN_CLASSES, vertex_targets=x["vertex_targets"],
+                                  compute_dtype=torch.float32)
+        for k in ("score", "label_2d", "vertex_pred"):
+            g[f"vgg16_gan/{k}"] = o[k]
+        g["vgg16_gan/d_fake"], g["vgg16_gan/d_real"] = o["outputs_d"]
+        g["feature_d"] = gan.feature_discriminator(gan.make_feature_discriminator(fd, device), x["feat"])
+        g["gan_losses"] = torch.stack(gan.gan_losses(o["outputs_d"][1][..., 1].mean(), o["outputs_d"][0][..., 1].mean()))
+    return {k: v.cpu().numpy() for k, v in g.items()}
+
+
+# the GAN models against JAX in float32: each output within GAN_TOL of its
+# largest magnitude (f32 convolutions summed in other orders), the label map
+# exact; DCGAN's train mode and vgg16_gan's label score within
+# GAN_LOOSE_TOL: train-mode batch norm at 32x32 normalizes the B=2 values of
+# the 1x1 deepest level, where 1e-7 apart before it is 1e-5 apart after
+# (measured 4.6e-5 on the generator's output); the score's largest
+# magnitude is 0.013, and its 2.4e-7 is the f32 trunk's (1.8e-5 of it)
+GAN_TOL, GAN_LOOSE_TOL = 1e-5, 1e-4
+GAN_LOOSE = ("dcgan/train/gen", "dcgan/train/disc", "vgg16_gan/score")
+
+
+def check_gan_golden(got: dict, g: dict) -> dict:
+    """Holds the port's GAN outputs (`gan_on_golden`) to the golden. Returns
+    the errors (relative to each output's largest magnitude)."""
+    assert sorted(got) == sorted(g), sorted(set(got) ^ set(g))
+    err = {}
+    for k, ref in g.items():
+        if ref.dtype.kind != "f":
+            assert np.array_equal(got[k], ref), k
+            continue
+        err[k] = float(np.abs(got[k] - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+        assert err[k] <= (GAN_LOOSE_TOL if k in GAN_LOOSE else GAN_TOL), (k, err[k])
+    return err
+
+
 def rgbd_train_on_golden(device="cpu"):
     """`small_train_on_golden` on the input-modes golden's RGBD step."""
     g = load_npz(goldens().INPUT_MODES_GOLDEN)

@@ -298,9 +298,16 @@ def train_inputs(num_classes: int = TRAIN_CFG["num_classes"]):
     }
     extents = np.full((num_classes, 3), 0.1, np.float32)
     symmetry = np.asarray(YCB_SYMMETRY[:num_classes], np.float32)
+    pts = raw_points(num_classes)
+    return batch, rescale_points(pts, extents, symmetry).astype(np.float32), symmetry, extents
+
+
+def raw_points(num_classes: int = TRAIN_CFG["num_classes"]) -> np.ndarray:
+    """The small step's metre-scale clouds (C, TRAIN_POINTS, 3): uniform in
+    0.1 m boxes, class 0 (the background) at the origin."""
     pts = np.random.RandomState(0).uniform(-0.05, 0.05, (num_classes, TRAIN_POINTS, 3)).astype(np.float32)
     pts[0] = 0.0
-    return batch, rescale_points(pts, extents, symmetry).astype(np.float32), symmetry, extents
+    return pts
 
 
 def jax_train_steps(cfg_kw: dict, hp_kw: dict, params: dict, batch: dict, points, symmetry, extents, n_steps: int = 1):
@@ -1125,6 +1132,166 @@ def hough_multi_golden() -> dict:
     return out
 
 
+MATCHING_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_matching.npz")
+# TRAIN.MATCHING alone on the pose branch: the ADD and quaternion terms off,
+# so fc6-fc8's gradients are the matching loss's (and the L2 term's)
+MATCHING_HP = dict(TRAIN_HP, matching_w=1.0, pose_w=0.0, quat_w=0.0)
+# the gradients kept in the golden (its size); the tests compare them all
+MATCHING_GRADS = ("fc7", "fc8")
+
+
+def _quat2mat_zero_safe(q, normalize: bool = False):
+    """JAX's quat2mat with the quaternion norm's gradient at a zero
+    quaternion taken as 0: the same values, and the same gradient wherever
+    JAX's is finite. JAX's own is NaN there (0/0), and the matching loss
+    normalizes the zero quaternions of the Hough rows without a class, so
+    its gradient is NaN on every step (ROADMAP Queue 3 item 57)."""
+    import jax.numpy as jnp
+
+    from posecnn_tpu.utils.quaternion import quat2mat
+
+    if normalize:
+        ss = jnp.sum(q * q, axis=-1, keepdims=True)
+        norm = jnp.where(ss > 0, jnp.sqrt(jnp.where(ss > 0, ss, 1.0)), 0.0)
+        q = q / (norm + 1e-12)
+    return quat2mat(q)
+
+
+def jax_matching_losses(cfg_kw: dict, hp_kw: dict, params: dict, batch: dict, points, symmetry, extents,
+                        points_raw) -> tuple:
+    """JAX's compute_losses with its value_and_grad (jitted) on the raw
+    clouds `points_raw` for the matching loss, its quaternion norm's
+    gradient at zero taken as 0 (`_quat2mat_zero_safe`): (losses, grads
+    (JAX layout), the gradient's global norm), numpy."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    import posecnn_tpu.ops.matching_loss as JM
+    from posecnn_tpu.engine.train import TrainHParams, compute_losses
+    from posecnn_tpu.models.posecnn import PoseCNNConfig
+
+    cfg = PoseCNNConfig(compute_dtype=jnp.float32, **cfg_kw)
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    args = [jnp.asarray(a) for a in (points, symmetry, extents)]
+    grad_fn = jax.jit(jax.value_and_grad(compute_losses, has_aux=True), static_argnums=(1, 2, 8, 9))
+    saved, JM.quat2mat = JM.quat2mat, _quat2mat_zero_safe
+    try:
+        (_, losses), grads = grad_fn(p, cfg, TrainHParams(**hp_kw), jb, *args, jax.random.PRNGKey(0), None, None,
+                                     jnp.asarray(points_raw))
+    finally:
+        JM.quat2mat = saved
+    return ({k: float(v) for k, v in losses.items()}, jax.tree_util.tree_map(np.asarray, grads),
+            float(optax.global_norm(grads)))
+
+
+def matching_golden() -> dict:
+    """One JAX compute_losses at the training golden's config and batch with
+    MATCHING_HP (`jax_matching_losses`; the raw clouds `raw_points`):
+    the inputs, the loss terms, the gradient's global norm and the
+    MATCHING_GRADS layers' gradients. The weights are not stored."""
+    from posecnn_torch.config import PoseCNNConfig as TorchCfg
+    from posecnn_torch.core.convert import init_params_numpy
+
+    params = init_params_numpy(TRAIN_SEED, TorchCfg(**TRAIN_CFG))
+    batch, points, symmetry, extents = train_inputs()
+    raw = raw_points()
+    losses, grads, g_norm = jax_matching_losses(TRAIN_CFG, MATCHING_HP, params, batch, points, symmetry, extents,
+                                                raw)
+    g = {f"cfg/{k}": np.asarray(v) for k, v in TRAIN_CFG.items()}
+    g.update({f"hp/{k}": np.asarray(v) for k, v in MATCHING_HP.items()})
+    g.update({f"batch/{k}": v for k, v in batch.items()})
+    g.update(points=points, points_raw=raw, symmetry=symmetry, extents=extents, seed=np.asarray(TRAIN_SEED),
+             grad_norm=np.asarray(g_norm))
+    g.update({f"loss/{k}": np.asarray(v, np.float32) for k, v in losses.items()})
+    for layer in MATCHING_GRADS:
+        for leaf, v in grads[layer].items():
+            g[f"grads/['{layer}']['{leaf}']"] = v
+    return g
+
+
+GAN_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_gan.npz")
+GAN_SEED, GAN_SIZE, GAN_B = 5, 32, 2
+# vgg16_gan at a small head: 3 classes, 4 units, the full trunk, 32x32
+GAN_CLASSES, GAN_UNITS, GAN_HW = 3, 4, (32, 32)
+GAN_FEAT = (2, 9, 12, 16)  # feature_discriminator's input (B, H, W, channels)
+
+
+def gan_inputs() -> dict:
+    """The GAN golden's inputs, numpy: DCGAN's z ~ U(-1, 1) and images in
+    [-1, 1); vgg16_gan's mean-subtracted data ~ 50 N(0, 1) and vertex
+    targets ~ 0.1 N(0, 1); the feature discriminator's features ~ N(0, 1)."""
+    rng = np.random.RandomState(GAN_SEED)
+    H, W = GAN_HW
+    return {
+        "z": rng.uniform(-1, 1, (GAN_B, 100)).astype(np.float32),
+        "image": rng.uniform(-1, 1, (GAN_B, GAN_SIZE, GAN_SIZE, 3)).astype(np.float32),
+        "pair": rng.uniform(-1, 1, (GAN_B, GAN_SIZE, GAN_SIZE, 6)).astype(np.float32),
+        "data": (50.0 * rng.randn(1, H, W, 3)).astype(np.float32),
+        "vertex_targets": (0.1 * rng.randn(1, H, W, 3 * GAN_CLASSES)).astype(np.float32),
+        "feat": rng.randn(*GAN_FEAT).astype(np.float32),
+    }
+
+
+def gan_params() -> tuple:
+    """(DCGAN, vgg16_gan, feature discriminator) weights, JAX layout: the
+    port's seeded inits (`models/gan.py`), DCGAN's batch norms moved off
+    the identity (scale, offset, running mean and variance drawn) so that
+    eval mode differs from train mode."""
+    from posecnn_torch.models import gan
+
+    dc = gan.init_dcgan_params_numpy(GAN_SEED, GAN_SIZE)
+    rng = np.random.RandomState(GAN_SEED + 1)
+    for name, leaves in dc.items():
+        if isinstance(leaves, dict) and "scale" in leaves:
+            c = leaves["scale"].shape[0]
+            leaves["scale"] = (1.0 + 0.2 * rng.randn(c)).astype(np.float32)
+            leaves["offset"] = (0.1 * rng.randn(c)).astype(np.float32)
+            leaves["mean"] = (0.1 * rng.randn(c)).astype(np.float32)
+            leaves["variance"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    vg = gan.init_vgg16_gan_params_numpy(GAN_SEED, GAN_CLASSES, GAN_UNITS)
+    fd = gan.init_feature_discriminator_numpy(GAN_SEED, GAN_FEAT[3])
+    return dc, vg, fd
+
+
+def gan_golden() -> dict:
+    """JAX's GAN models (`posecnn_tpu/models/gan.py`, float32) on
+    `gan_inputs` with `gan_params` (neither stored): DCGAN's generator and
+    discriminator in train mode (outputs and new running statistics) and in
+    eval mode after `merge_bn_stats`; `vgg16_gan_forward` (keep_prob 1) with
+    vertex targets; `feature_discriminator`; `gan_losses` of the two
+    discriminator passes' mean log-probabilities."""
+    import jax
+    import jax.numpy as jnp
+
+    from posecnn_tpu.models import gan as JG
+
+    x = gan_inputs()
+    dc, vg, fd = (jax.tree_util.tree_map(jnp.asarray, p) for p in gan_params())
+    dc["size"] = GAN_SIZE
+    g = {}
+    out, gstats = JG.dcgan_generator(dc, jnp.asarray(x["z"]), jnp.asarray(x["image"]), train=True, return_stats=True)
+    logit, dstats = JG.dcgan_discriminator(dc, jnp.asarray(x["pair"]), train=True, return_stats=True)
+    g["dcgan/train/gen"], g["dcgan/train/disc"] = np.asarray(out), np.asarray(logit)
+    for name, st in {**gstats, **dstats}.items():
+        for leaf, v in st.items():
+            g[f"dcgan/stats/{name}/{leaf}"] = np.asarray(v)
+    merged = JG.merge_bn_stats(JG.merge_bn_stats(dc, gstats), dstats)
+    g["dcgan/eval/gen"] = np.asarray(JG.dcgan_generator(merged, jnp.asarray(x["z"]), jnp.asarray(x["image"]),
+                                                        train=False))
+    g["dcgan/eval/disc"] = np.asarray(JG.dcgan_discriminator(merged, jnp.asarray(x["pair"]), train=False))
+    o = JG.vgg16_gan_forward(vg, jnp.asarray(x["data"]), GAN_CLASSES, vertex_targets=jnp.asarray(x["vertex_targets"]),
+                             compute_dtype=jnp.float32)
+    for k in ("score", "label_2d", "vertex_pred"):
+        g[f"vgg16_gan/{k}"] = np.asarray(o[k])
+    g["vgg16_gan/d_fake"], g["vgg16_gan/d_real"] = (np.asarray(d) for d in o["outputs_d"])
+    g["feature_d"] = np.asarray(JG.feature_discriminator(fd, jnp.asarray(x["feat"])))
+    d_loss, g_loss = JG.gan_losses(o["outputs_d"][1][..., 1].mean(), o["outputs_d"][0][..., 1].mean())
+    g["gan_losses"] = np.asarray([d_loss, g_loss], np.float32)
+    return g
+
+
 TF1_GOLDEN = os.path.join(GOLDEN_DIR, "torch_port_tf1.ckpt")
 TF1_TWIN = os.path.join(GOLDEN_DIR, "torch_port_tf1.npz")
 # variables of the flagship PoseCNN (22 classes, 64 units) at their shapes
@@ -1175,7 +1342,8 @@ def main() -> None:
                        (RENDER_GOLDEN, render_golden), (INPUT_MODES_GOLDEN, input_modes_golden),
                        (DET_GOLDEN, det_golden), (FULL_GOLDEN, full_golden), (LOV_BATCH_GOLDEN, lov_batch_golden),
                        (RESNET50_GOLDEN, resnet50_golden), (VIDEO_GOLDEN, video_golden),
-                       (MULTI_GOLDEN, hough_multi_golden)):
+                       (MULTI_GOLDEN, hough_multi_golden), (MATCHING_GOLDEN, matching_golden),
+                       (GAN_GOLDEN, gan_golden)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} bytes)")
     write_tf1_golden()
