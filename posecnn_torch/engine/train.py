@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from posecnn_torch.config import PIXEL_MEANS, RNG_SEED, PoseCNNConfig
+from posecnn_torch.core.profiler import LAYERS, Recorder, recording, span
 from posecnn_torch.models.posecnn import PoseCNN, posecnn_forward
 from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.chromatic import add_noise_field, chromatic_device
@@ -205,15 +206,16 @@ class MomentumSGD:
     def step(self, lr: float) -> torch.Tensor:
         """Apply one update from the parameters' .grad; returns the global
         gradient norm before clipping."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        g_norm = self.global_norm(grads)
-        if self.clip > 0:
-            keep = g_norm < self.clip
-            grads = [torch.where(keep, g, (g / g_norm) * self.clip) for g in grads]
-        for p, g, t in zip(self.params, grads, self.trace):
-            t.mul_(self.momentum).add_(g)
-            p.add_(t, alpha=-lr)
-        return g_norm
+        with span("optimizer"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+            g_norm = self.global_norm(grads)
+            if self.clip > 0:
+                keep = g_norm < self.clip
+                grads = [torch.where(keep, g, (g / g_norm) * self.clip) for g in grads]
+            for p, g, t in zip(self.params, grads, self.trace):
+                t.mul_(self.momentum).add_(g)
+                p.add_(t, alpha=-lr)
+            return g_norm
 
     def state_dict(self) -> Dict[str, List[torch.Tensor]]:
         return {"trace": self.trace}
@@ -317,91 +319,94 @@ def compute_losses(
     total = None if n_data == 1 else mesh.data_sum
     forward = posecnn_forward if forward_fn is None else forward_fn
     thr = model_cfg.threshold_label if ce_threshold is None else ce_threshold
-    data = preprocess(batch["data"], hp, batch, draws)
-    data_p = batch.get("data_p") if forward is posecnn_forward else None
-    if data_p is not None and data_p.dtype == torch.uint8:
-        # the RGBD depth image: the pixel means only (train.py:205-208)
-        data_p = data_p.to(torch.float32) - torch.tensor(hp.pixel_means, device=data_p.device).reshape(1, 1, 1, 3)
+    with span("sample"):
+        data = preprocess(batch["data"], hp, batch, draws)
+        data_p = batch.get("data_p") if forward is posecnn_forward else None
+        if data_p is not None and data_p.dtype == torch.uint8:
+            # the RGBD depth image: the pixel means only (train.py:205-208)
+            data_p = data_p.to(torch.float32) - torch.tensor(hp.pixel_means, device=data_p.device).reshape(1, 1, 1, 3)
     out = forward(
         model, model_cfg, data, extents, batch["meta_data"], gt_poses=batch.get("poses"),
         gt_label_2d=batch["gt_label_2d"], gt_centers=batch.get("gt_centers"), draws=draws, data_p=data_p,
     )
-    losses: Dict[str, torch.Tensor] = {}
-    if mesh is None:
-        loss = regularization_loss(model, hp.weight_reg)
-        losses["loss_regu"] = loss
-    else:
-        loss, losses["loss_regu"] = mesh_regularization_loss(model, hp.weight_reg, mesh)
-    loss_cls = loss_cross_entropy_hard_label_sparse(out["score"], batch["gt_label_2d"], thr, total)
-    losses["loss_cls"] = loss_cls
-    loss = loss + loss_cls
-    if model_cfg.vertex_reg:
-        if "vertex_targets3" in batch:
-            # VERTEX_REG_3D: the compact scaled object coordinates (train.py:225-232)
-            loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse3d(
-                out["vertex_pred"], batch["gt_label_2d"], batch["vertex_targets3"], batch["vertex_weights3"],
-                model_cfg.num_classes, total=total,
-            )
-        elif "vertex_targets" in batch:
-            # dense host targets, TPU.DEVICE_TARGETS False (train.py:234-238)
-            loss_vertex = hp.vertex_w * smooth_l1_loss_vertex(
-                out["vertex_pred"], batch["vertex_targets"], batch["vertex_weights"], total=total)
+    with span("losses"):
+        losses: Dict[str, torch.Tensor] = {}
+        if mesh is None:
+            loss = regularization_loss(model, hp.weight_reg)
+            losses["loss_regu"] = loss
         else:
-            loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse(
-                out["vertex_pred"], batch["gt_label_2d"], batch["gt_centers"], model_cfg.num_classes,
-                hp.vertex_w_inside, z_obj_norm=hp.vertex_z_obj_norm, total=total,
-            )
-        losses["loss_vertex"] = loss_vertex
-        loss = loss + loss_vertex
-        if model_cfg.pose_reg:
-            poses_pred = out["poses_pred"]
-            n_rows = poses_pred.shape[0] * n_data  # the global batch's rows
-            valid = out["rois_valid"].float().sum()
-            n_valid = torch.clamp(valid if total is None else total(valid), min=1.0)
-            loss_pose = average_distance_loss(
-                poses_pred, out["poses_target"], out["poses_weight"], points, symmetry, hp.margin
-            )
-            if n_data > 1:
-                loss_pose = loss_pose / n_data  # the mean over the global rows
-            if hp.pose_norm_valid:
-                loss_pose = loss_pose * (n_rows / n_valid)
-            loss_pose = hp.pose_w * loss_pose
-            losses["loss_pose"] = loss_pose
-            loss = loss + loss_pose
-            if hp.quat_w > 0:
-                Cq = poses_pred.shape[1] // 4
-                qp = poses_pred.reshape(-1, Cq, 4)
-                qt = out["poses_target"].reshape(-1, Cq, 4)
-                wq = out["poses_weight"].reshape(-1, Cq, 4)[..., 0]
-                nonsym = (symmetry[:Cq] <= 0).float()[None, :]
-                per_roi = torch.minimum(((qp - qt) ** 2).sum(dim=-1), ((qp + qt) ** 2).sum(dim=-1)) * wq * nonsym
-                loss_quat = hp.quat_w * per_roi.sum() / n_valid
-                losses["loss_quat"] = loss_quat
-                loss = loss + loss_quat
-            if hp.matching_w > 0:
-                # render and compare (train.py:288-308): the first image's
-                # intrinsics for every row; over a mesh the global batch's
-                # first image, data rank 0's
-                meta0 = batch["meta_data"][0]
+            loss, losses["loss_regu"] = mesh_regularization_loss(model, hp.weight_reg, mesh)
+        loss_cls = loss_cross_entropy_hard_label_sparse(out["score"], batch["gt_label_2d"], thr, total)
+        losses["loss_cls"] = loss_cls
+        loss = loss + loss_cls
+        if model_cfg.vertex_reg:
+            if "vertex_targets3" in batch:
+                # VERTEX_REG_3D: the compact scaled object coordinates (train.py:225-232)
+                loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse3d(
+                    out["vertex_pred"], batch["gt_label_2d"], batch["vertex_targets3"], batch["vertex_weights3"],
+                    model_cfg.num_classes, total=total,
+                )
+            elif "vertex_targets" in batch:
+                # dense host targets, TPU.DEVICE_TARGETS False (train.py:234-238)
+                loss_vertex = hp.vertex_w * smooth_l1_loss_vertex(
+                    out["vertex_pred"], batch["vertex_targets"], batch["vertex_weights"], total=total)
+            else:
+                loss_vertex = hp.vertex_w * smooth_l1_loss_vertex_sparse(
+                    out["vertex_pred"], batch["gt_label_2d"], batch["gt_centers"], model_cfg.num_classes,
+                    hp.vertex_w_inside, z_obj_norm=hp.vertex_z_obj_norm, total=total,
+                )
+            losses["loss_vertex"] = loss_vertex
+            loss = loss + loss_vertex
+            if model_cfg.pose_reg:
+                poses_pred = out["poses_pred"]
+                n_rows = poses_pred.shape[0] * n_data  # the global batch's rows
+                valid = out["rois_valid"].float().sum()
+                n_valid = torch.clamp(valid if total is None else total(valid), min=1.0)
+                loss_pose = average_distance_loss(
+                    poses_pred, out["poses_target"], out["poses_weight"], points, symmetry, hp.margin
+                )
                 if n_data > 1:
-                    meta0 = total(meta0 if mesh.d == 0 else torch.zeros_like(meta0))
-                loss_match = hp.matching_w * render_compare_batched(
-                    poses_pred, out["poses_target"], out["poses_weight"], out["poses_init"], out["rois"],
-                    points if points_raw is None else points_raw, meta0, model_cfg.num_classes, total=total)
-                losses["loss_matching"] = loss_match
-                loss = loss + loss_match
-            if model_cfg.adaptation:
-                # the mean over all R rows, invalid ones (domain 0) included
-                # (train.py:311-316)
-                loss_domain = hp.adapt_weight * sparse_softmax_cross_entropy(out["domain_score"], out["label_domain"])
-                if n_data > 1:
-                    loss_domain = loss_domain / n_data
-                losses["loss_domain"] = loss_domain
-                loss = loss + loss_domain
-    if mesh is None:
-        losses["loss"] = loss
-    else:
-        losses["loss"] = sum(v.detach() for v in losses.values())
+                    loss_pose = loss_pose / n_data  # the mean over the global rows
+                if hp.pose_norm_valid:
+                    loss_pose = loss_pose * (n_rows / n_valid)
+                loss_pose = hp.pose_w * loss_pose
+                losses["loss_pose"] = loss_pose
+                loss = loss + loss_pose
+                if hp.quat_w > 0:
+                    Cq = poses_pred.shape[1] // 4
+                    qp = poses_pred.reshape(-1, Cq, 4)
+                    qt = out["poses_target"].reshape(-1, Cq, 4)
+                    wq = out["poses_weight"].reshape(-1, Cq, 4)[..., 0]
+                    nonsym = (symmetry[:Cq] <= 0).float()[None, :]
+                    per_roi = torch.minimum(((qp - qt) ** 2).sum(dim=-1), ((qp + qt) ** 2).sum(dim=-1)) * wq * nonsym
+                    loss_quat = hp.quat_w * per_roi.sum() / n_valid
+                    losses["loss_quat"] = loss_quat
+                    loss = loss + loss_quat
+                if hp.matching_w > 0:
+                    # render and compare (train.py:288-308): the first image's
+                    # intrinsics for every row; over a mesh the global batch's
+                    # first image, data rank 0's
+                    meta0 = batch["meta_data"][0]
+                    if n_data > 1:
+                        meta0 = total(meta0 if mesh.d == 0 else torch.zeros_like(meta0))
+                    loss_match = hp.matching_w * render_compare_batched(
+                        poses_pred, out["poses_target"], out["poses_weight"], out["poses_init"], out["rois"],
+                        points if points_raw is None else points_raw, meta0, model_cfg.num_classes, total=total)
+                    losses["loss_matching"] = loss_match
+                    loss = loss + loss_match
+                if model_cfg.adaptation:
+                    # the mean over all R rows, invalid ones (domain 0) included
+                    # (train.py:311-316)
+                    loss_domain = hp.adapt_weight * sparse_softmax_cross_entropy(out["domain_score"],
+                                                                                 out["label_domain"])
+                    if n_data > 1:
+                        loss_domain = loss_domain / n_data
+                    losses["loss_domain"] = loss_domain
+                    loss = loss + loss_domain
+        if mesh is None:
+            losses["loss"] = loss
+        else:
+            losses["loss"] = sum(v.detach() for v in losses.values())
     return loss, losses
 
 
@@ -457,7 +462,8 @@ def train_update(state: TrainState, loss: torch.Tensor, lr: float, mesh=None) ->
     params = state.optimizer.params
     for p in params:
         p.grad = None
-    loss.backward()
+    with span("backward"):
+        loss.backward()
     if mesh is not None and mesh.data > 1:
         with torch.no_grad():
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
@@ -489,7 +495,9 @@ def make_bank_train_step(
     host_step = make_train_step(model_cfg, hp, points, symmetry, extents, points_raw=points_raw)
 
     def step_fn(state: TrainState, bank: Dict[str, torch.Tensor], draws: Draws) -> Dict[str, torch.Tensor]:
-        return host_step(state, sample_batch(bank, batch_size, max_gt, chromatic, add_noise, draws), draws)
+        with span("sample"):
+            batch = sample_batch(bank, batch_size, max_gt, chromatic, add_noise, draws)
+        return host_step(state, batch, draws)
 
     return step_fn
 
@@ -611,16 +619,17 @@ def make_video_train_step(video_cfg, hp: TrainHParams, mesh=None) -> Callable[..
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[Draws] = None):
         outs, _ = video_forward(state.model, video_cfg, batch["data"], batch["depth"], batch["meta_data"])
         prob = outs["prob"]
-        classes = torch.arange(prob.shape[-1], device=prob.device)
-        loss_cls = 0.0
-        for t in range(prob.shape[0]):
-            onehot = (batch["gt_label_2d"][t].long()[..., None] == classes).to(prob.dtype)
-            loss_cls = loss_cls + loss_cross_entropy_single_frame(prob[t], onehot, total)
-        loss_cls = loss_cls / prob.shape[0]
-        if mesh is None:
-            reg = reported = regularization_loss(state.model, hp.weight_reg)
-        else:
-            reg, reported = mesh_regularization_loss(state.model, hp.weight_reg, mesh)
+        with span("losses"):
+            classes = torch.arange(prob.shape[-1], device=prob.device)
+            loss_cls = 0.0
+            for t in range(prob.shape[0]):
+                onehot = (batch["gt_label_2d"][t].long()[..., None] == classes).to(prob.dtype)
+                loss_cls = loss_cls + loss_cross_entropy_single_frame(prob[t], onehot, total)
+            loss_cls = loss_cls / prob.shape[0]
+            if mesh is None:
+                reg = reported = regularization_loss(state.model, hp.weight_reg)
+            else:
+                reg, reported = mesh_regularization_loss(state.model, hp.weight_reg, mesh)
         lr = sched(state.step)
         g_norm = train_update(state, loss_cls + reg, lr, mesh)
         losses = {"loss_cls": loss_cls.detach(), "loss_regu": reported.detach()}
@@ -740,8 +749,17 @@ class Solver:
 
         `timings`, when given, gets per-step lists of milliseconds:
         `data_wait` (the host blocked on `data_iter` for the next item),
-        `step` (wall, the step's host work) and, on a card, `step_stream`
-        (CUDA events around the step: its span on the device's stream)."""
+        `step` (wall, the step's host work), `host/<layer>` for each name of
+        `core.profiler.LAYERS` (the host time of the step's spans of that
+        layer, 0.0 where it did not run) and, on a card, `step_stream`
+        (CUDA events around the step: its span on the device's stream), and
+        the count `cuda_malloc` (the caching allocator's new segments, each
+        a cudaMalloc, since the step before: one read of its counters, no
+        sync). The lists line up index for index. With `timings` the loop
+        records spans (`core.profiler.recording`): `step` around each step,
+        `fetch` around each fetch, `solver` around its own bookkeeping (the
+        log's reads, the stream events' flush, the metrics CSV, snapshots),
+        and the step's layer spans inside `step`."""
         if not self.rank0:
             log = None
         if log is not None:
@@ -776,11 +794,12 @@ class Solver:
         pending: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
 
         def fetch():
-            t = time.perf_counter()
-            item = next(data_iter)
-            if timings is not None:
-                timings.setdefault("data_wait", []).append((time.perf_counter() - t) * 1e3)
-            return item, to_device(item, dev)
+            with span("fetch"):
+                t = time.perf_counter()
+                item = next(data_iter)
+                if timings is not None:
+                    timings.setdefault("data_wait", []).append((time.perf_counter() - t) * 1e3)
+                return item, to_device(item, dev)
 
         def flush_events():
             for e0, e1 in pending:
@@ -788,52 +807,69 @@ class Solver:
                 timings.setdefault("step_stream", []).append(e0.elapsed_time(e1))
             pending.clear()
 
+        def segments() -> int:
+            return torch.cuda.memory_stats_as_nested_dict(dev)["segment"]["all"]["allocated"]
+
+        recorder = Recorder() if timings is not None else None
         metrics: Dict[str, torch.Tensor] = {}
         last_snap = -1
         t0, n0 = time.perf_counter(), start_iter
         try:
-            batch_next = fetch() if start_iter < max_iters else None
-            for it in range(start_iter, max_iters):
-                host, batch = batch_next
-                if it + 1 < max_iters:
-                    batch_next = fetch()
-                if self.vis_hook is not None:
-                    self.vis_hook(it + 1, host)
-                t_step = time.perf_counter()
-                if timings is not None and cuda:
-                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                    e0.record()
-                metrics = self.step_fn(state, batch, Draws(gen))
-                if timings is not None:
-                    if cuda:
-                        e1.record()
-                        pending.append((e0, e1))
-                    timings.setdefault("step", []).append((time.perf_counter() - t_step) * 1e3)
-                display = (it + 1) % self.display == 0
-                if timings is not None and display:
-                    flush_events()
-                if log is not None and (display or it == start_iter):
-                    m = {k: float(v) for k, v in metrics.items()}
-                    dt = (time.perf_counter() - t0) / (it + 1 - n0)
-                    log(f"iter {it + 1}/{max_iters} " + " ".join(f"{k}: {v:.6g}" for k, v in sorted(m.items()))
-                        + f" ({dt:.3f}s/it)")
-                    if display and self.metrics_logger is not None:
-                        self.metrics_logger.log(it + 1, {**m, "sec_per_iter": dt})
-                    t0, n0 = time.perf_counter(), it + 1
-                if self.output_dir and (it + 1) % self.snapshot_iters == 0:
-                    self.snapshot(state, it + 1, log)
-                    last_snap = it + 1
-                if many:
-                    stop["flag"] = self.mesh.any(stop["flag"], dev)
-                if stop["flag"]:
-                    if log:
-                        log(f"signal received: snapshotting at iteration {it + 1}")
-                    if self.output_dir and last_snap != it + 1:
-                        self.snapshot(state, it + 1, log)
-                    break
-            else:
-                if self.output_dir and self.snapshot_final and last_snap != max_iters:
-                    self.snapshot(state, max_iters, log)
+            with recording(recorder):
+                batch_next = fetch() if start_iter < max_iters else None
+                mallocs = segments() if recorder is not None and cuda else 0
+                for it in range(start_iter, max_iters):
+                    host, batch = batch_next
+                    if it + 1 < max_iters:
+                        batch_next = fetch()
+                    if self.vis_hook is not None:
+                        with span("solver"):
+                            self.vis_hook(it + 1, host)
+                    with span("step"):
+                        t_step = time.perf_counter()
+                        if timings is not None and cuda:
+                            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                            e0.record()
+                        metrics = self.step_fn(state, batch, Draws(gen))
+                        if timings is not None:
+                            if cuda:
+                                e1.record()
+                                pending.append((e0, e1))
+                            timings.setdefault("step", []).append((time.perf_counter() - t_step) * 1e3)
+                    if recorder is not None:
+                        host_ms = recorder.take()
+                        for name in LAYERS:
+                            timings.setdefault("host/" + name, []).append(host_ms.get(name, 0.0))
+                        if cuda:
+                            mallocs, before = segments(), mallocs
+                            timings.setdefault("cuda_malloc", []).append(float(mallocs - before))
+                    with span("solver"):
+                        display = (it + 1) % self.display == 0
+                        if timings is not None and display:
+                            flush_events()
+                        if log is not None and (display or it == start_iter):
+                            m = {k: float(v) for k, v in metrics.items()}
+                            dt = (time.perf_counter() - t0) / (it + 1 - n0)
+                            log(f"iter {it + 1}/{max_iters} "
+                                + " ".join(f"{k}: {v:.6g}" for k, v in sorted(m.items())) + f" ({dt:.3f}s/it)")
+                            if display and self.metrics_logger is not None:
+                                self.metrics_logger.log(it + 1, {**m, "sec_per_iter": dt})
+                            t0, n0 = time.perf_counter(), it + 1
+                        if self.output_dir and (it + 1) % self.snapshot_iters == 0:
+                            self.snapshot(state, it + 1, log)
+                            last_snap = it + 1
+                        if many:
+                            stop["flag"] = self.mesh.any(stop["flag"], dev)
+                        if stop["flag"]:
+                            if log:
+                                log(f"signal received: snapshotting at iteration {it + 1}")
+                            if self.output_dir and last_snap != it + 1:
+                                self.snapshot(state, it + 1, log)
+                            break
+                else:
+                    if self.output_dir and self.snapshot_final and last_snap != max_iters:
+                        with span("solver"):
+                            self.snapshot(state, max_iters, log)
         finally:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from posecnn_torch.config import PoseCNNConfig
+from posecnn_torch.core.profiler import span
 from posecnn_torch.models import layers as L
 from posecnn_torch.models.backbone import Conv, VGGTrunk, scaled_width
 from posecnn_torch.ops.gradient_reversal import gradient_reversal
@@ -119,7 +120,8 @@ def posecnn_forward(
     keep = cfg.keep_prob if train else 1.0
     m = model
 
-    net = m.trunk(data, compute_dtype=dt)
+    with span("trunk"):
+        net = m.trunk(data, compute_dtype=dt)
     conv5, conv4 = net["conv5_3"], net["conv4_3"]
     out: Dict[str, torch.Tensor] = {"conv4_3": conv4, "conv5_3": conv5}
     if cfg.input_format == "RGBD":
@@ -127,74 +129,77 @@ def posecnn_forward(
         # trunks; the vertex head and the RoI pools read the colour trunk
         if data_p is None:
             raise ValueError("the RGBD input needs data_p, the depth image")
-        net_p = m.trunk_p(data_p, compute_dtype=dt)
+        with span("trunk"):
+            net_p = m.trunk_p(data_p, compute_dtype=dt)
         label5 = torch.cat([conv5, net_p["conv5_3"]], dim=-1)
         label4 = torch.cat([conv4, net_p["conv4_3"]], dim=-1)
     else:
         label5, label4 = conv5, conv4
 
-    # semantic labeling branch (posecnn.py:175-192)
-    score_conv5 = L.conv2d(m.score_conv5.weight, m.score_conv5.bias, label5, relu=True, compute_dtype=dt)
-    upscore_conv5 = L.deconv(score_conv5, 4, 2)
-    score_conv4 = L.conv2d(m.score_conv4.weight, m.score_conv4.bias, label4, relu=True, compute_dtype=dt)
-    add_score = _dropout(score_conv4 + upscore_conv5, keep, draws, "dropout/add_score")
-    score = L.conv1x1_upsample(m.score.weight, m.score.bias, add_score, 16, 8, relu=True, compute_dtype=dt)
-    out["score"] = score
-    out["prob"] = L.log_softmax_hd(score)
-    prob_normalized = L.softmax_hd(score)
-    out["prob_normalized"] = prob_normalized
-    label_2d = L.argmax_2d(prob_normalized)
-    out["label_2d"] = label_2d
-    if gt_label_2d is not None:
-        out["gt_label_weight"] = hard_label(prob_normalized, gt_label_2d, cfg.threshold_label)
-    if not cfg.vertex_reg:
-        return out
+    with span("heads"):
+        # semantic labeling branch (posecnn.py:175-192)
+        score_conv5 = L.conv2d(m.score_conv5.weight, m.score_conv5.bias, label5, relu=True, compute_dtype=dt)
+        upscore_conv5 = L.deconv(score_conv5, 4, 2)
+        score_conv4 = L.conv2d(m.score_conv4.weight, m.score_conv4.bias, label4, relu=True, compute_dtype=dt)
+        add_score = _dropout(score_conv4 + upscore_conv5, keep, draws, "dropout/add_score")
+        score = L.conv1x1_upsample(m.score.weight, m.score.bias, add_score, 16, 8, relu=True, compute_dtype=dt)
+        out["score"] = score
+        out["prob"] = L.log_softmax_hd(score)
+        prob_normalized = L.softmax_hd(score)
+        out["prob_normalized"] = prob_normalized
+        label_2d = L.argmax_2d(prob_normalized)
+        out["label_2d"] = label_2d
+        if gt_label_2d is not None:
+            out["gt_label_weight"] = hard_label(prob_normalized, gt_label_2d, cfg.threshold_label)
+        if not cfg.vertex_reg:
+            return out
 
-    # vertex branch (posecnn.py:200-210)
-    sc5v = L.conv2d(m.score_conv5_vertex.weight, m.score_conv5_vertex.bias, conv5, relu=False, compute_dtype=dt)
-    up5v = L.deconv(sc5v, 4, 2)
-    sc4v = L.conv2d(m.score_conv4_vertex.weight, m.score_conv4_vertex.bias, conv4, relu=False, compute_dtype=dt)
-    addv = _dropout(sc4v + up5v, keep, draws, "dropout/addv")
-    vertex_pred = L.conv1x1_upsample(
-        m.vertex_pred.weight, m.vertex_pred.bias, addv, 16, 8, relu=False, compute_dtype=dt
-    )
-    out["vertex_pred"] = vertex_pred
-    if cfg.vertex_reg_3d:
-        # 3D object coordinates: no Hough voting and no pose head
-        # (posecnn.py:212-214); the poses come from RANSAC (engine/ransac.py)
-        return out
+        # vertex branch (posecnn.py:200-210)
+        sc5v = L.conv2d(m.score_conv5_vertex.weight, m.score_conv5_vertex.bias, conv5, relu=False, compute_dtype=dt)
+        up5v = L.deconv(sc5v, 4, 2)
+        sc4v = L.conv2d(m.score_conv4_vertex.weight, m.score_conv4_vertex.bias, conv4, relu=False, compute_dtype=dt)
+        addv = _dropout(sc4v + up5v, keep, draws, "dropout/addv")
+        vertex_pred = L.conv1x1_upsample(
+            m.vertex_pred.weight, m.vertex_pred.bias, addv, 16, 8, relu=False, compute_dtype=dt
+        )
+        out["vertex_pred"] = vertex_pred
+        if cfg.vertex_reg_3d:
+            # 3D object coordinates: no Hough voting and no pose head
+            # (posecnn.py:212-214); the poses come from RANSAC (engine/ransac.py)
+            return out
 
     # Hough voting, no gradient (posecnn.py:216-283); with no GT rows, one
     # zero row, JAX's default
-    if gt_poses is None:
-        gt_poses = torch.zeros((1, 13), dtype=torch.float32, device=data.device)
-    with torch.no_grad():
-        hough_label, hough_vert = label_2d, vertex_pred.float()
-        if cfg.hough_from_gt:
-            if gt_label_2d is None or gt_centers is None:
-                raise ValueError("hough_from_gt needs gt_label_2d and gt_centers")
-            hough_vert, _ = vertex_targets_device(gt_label_2d, gt_centers, C)
-            hough_label = gt_label_2d.to(label_2d.dtype)
-        elif train and cfg.hough_gt_mix > 0.0:
-            if gt_label_2d is None or gt_centers is None:
-                raise ValueError("hough_gt_mix needs gt_label_2d and gt_centers")
-            gt_vt, _ = vertex_targets_device(gt_label_2d, gt_centers, C)
-            pick_gt = draws.uniform("hough_gt_mix", (gt_label_2d.shape[0],), data.device) < cfg.hough_gt_mix
-            hough_label = torch.where(pick_gt[:, None, None], gt_label_2d.to(label_2d.dtype), label_2d)
-            hough_vert = torch.where(pick_gt[:, None, None, None], gt_vt, hough_vert)
-        common = dict(num_classes=C, is_train=train, skip_pixels=cfg.skip_pixels,
-                      label_threshold=cfg.label_threshold, class_slots=cfg.hough_class_slots,
-                      max_samples=cfg.hough_max_samples, pixel_grid_stride=cfg.hough_pixel_stride,
-                      sampler=cfg.hough_sampler)
-        if cfg.vote_threshold > 0:
-            # the multi-instance local-max mode (posecnn.py:243-263)
-            hough = hough_voting_multi(hough_label, hough_vert, extents, meta_data, gt_poses,
-                                       voting_threshold=cfg.vote_threshold, per_threshold=cfg.vote_percentage,
-                                       **common)
-        else:
-            hough = hough_voting(hough_label, hough_vert, extents, meta_data, gt_poses,
-                                 center_stride=cfg.hough_center_stride, refine_window=cfg.hough_refine_window,
-                                 **common)
+    with span("hough"):
+        if gt_poses is None:
+            gt_poses = torch.zeros((1, 13), dtype=torch.float32, device=data.device)
+        with torch.no_grad():
+            hough_label, hough_vert = label_2d, vertex_pred.float()
+            if cfg.hough_from_gt:
+                if gt_label_2d is None or gt_centers is None:
+                    raise ValueError("hough_from_gt needs gt_label_2d and gt_centers")
+                hough_vert, _ = vertex_targets_device(gt_label_2d, gt_centers, C)
+                hough_label = gt_label_2d.to(label_2d.dtype)
+            elif train and cfg.hough_gt_mix > 0.0:
+                if gt_label_2d is None or gt_centers is None:
+                    raise ValueError("hough_gt_mix needs gt_label_2d and gt_centers")
+                gt_vt, _ = vertex_targets_device(gt_label_2d, gt_centers, C)
+                pick_gt = draws.uniform("hough_gt_mix", (gt_label_2d.shape[0],), data.device) < cfg.hough_gt_mix
+                hough_label = torch.where(pick_gt[:, None, None], gt_label_2d.to(label_2d.dtype), label_2d)
+                hough_vert = torch.where(pick_gt[:, None, None, None], gt_vt, hough_vert)
+            common = dict(num_classes=C, is_train=train, skip_pixels=cfg.skip_pixels,
+                          label_threshold=cfg.label_threshold, class_slots=cfg.hough_class_slots,
+                          max_samples=cfg.hough_max_samples, pixel_grid_stride=cfg.hough_pixel_stride,
+                          sampler=cfg.hough_sampler)
+            if cfg.vote_threshold > 0:
+                # the multi-instance local-max mode (posecnn.py:243-263)
+                hough = hough_voting_multi(hough_label, hough_vert, extents, meta_data, gt_poses,
+                                           voting_threshold=cfg.vote_threshold, per_threshold=cfg.vote_percentage,
+                                           **common)
+            else:
+                hough = hough_voting(hough_label, hough_vert, extents, meta_data, gt_poses,
+                                     center_stride=cfg.hough_center_stride, refine_window=cfg.hough_refine_window,
+                                     **common)
     out["rois"] = hough.rois
     out["poses_init"] = hough.poses_init
     out["poses_target"] = hough.poses_target
@@ -207,37 +212,38 @@ def posecnn_forward(
         return out
 
     # quaternion branch (posecnn.py:296-330): pool in the compute dtype
-    B = data.shape[0]
-    R = hough.rois.shape[0]
-    rois_b = hough.rois.reshape(B, R // B, 7)
-    c5, c4 = conv5.to(dt), conv4.to(dt)
-    if cfg.use_crop_pool:
-        pool5 = crop_pool_batched(c5, rois_b, 1.0 / 16.0, 7)
-        pool4 = crop_pool_batched(c4, rois_b, 1.0 / 8.0, 7)
-    else:
-        pool5 = roi_pool_batched(c5, rois_b, 7, 1.0 / 16.0)
-        pool4 = roi_pool_batched(c4, rois_b, 7, 1.0 / 8.0)
-    pool_score = (pool5 + pool4).reshape(R, 7, 7, -1)
-    fc6 = L.fc(m.fc6.weight, m.fc6.bias, pool_score, relu=True, compute_dtype=dt)
-    fc6 = _dropout(fc6, keep, draws, "dropout/fc6")
-    fc7 = L.fc(m.fc7.weight, m.fc7.bias, fc6, relu=True, compute_dtype=dt)
-    fc7 = _dropout(fc7, keep, draws, "dropout/fc7")
-    fc8 = L.fc(m.fc8.weight, m.fc8.bias, fc7, relu=False, compute_dtype=dt)
-    poses_tanh = torch.tanh(fc8)
-    poses_mul = poses_tanh * hough.poses_weight
-    # tf.nn.l2_normalize(dim=1) over the whole 4C row (posecnn.py:325-327)
-    out["poses_tanh"] = poses_tanh
-    out["poses_mul"] = poses_mul
-    out["poses_pred"] = L.l2_normalize(poses_mul, dim=1)
-    if cfg.adaptation:
-        # the domain classifier (posecnn.py:332-343): reversed gradient,
-        # fc9, and 2-way logits without ReLU (the JAX package's departure
-        # from the reference, whose ReLU'd logits could zero the gradient)
-        fc9 = L.fc(m.fc9.weight, m.fc9.bias, gradient_reversal(pool_score, cfg.adapt_lambda), relu=True,
-                   compute_dtype=dt)
-        fc9 = _dropout(fc9, keep, draws, "dropout/fc9")
-        domain_score = L.fc(m.domain_score.weight, m.domain_score.bias, fc9, relu=False)
-        out["domain_score"] = domain_score
-        out["domain_prob"] = L.softmax_hd(domain_score)
-        out["domain_label"] = torch.argmax(domain_score, dim=-1).to(torch.int32)
+    with span("pose_head"):
+        B = data.shape[0]
+        R = hough.rois.shape[0]
+        rois_b = hough.rois.reshape(B, R // B, 7)
+        c5, c4 = conv5.to(dt), conv4.to(dt)
+        if cfg.use_crop_pool:
+            pool5 = crop_pool_batched(c5, rois_b, 1.0 / 16.0, 7)
+            pool4 = crop_pool_batched(c4, rois_b, 1.0 / 8.0, 7)
+        else:
+            pool5 = roi_pool_batched(c5, rois_b, 7, 1.0 / 16.0)
+            pool4 = roi_pool_batched(c4, rois_b, 7, 1.0 / 8.0)
+        pool_score = (pool5 + pool4).reshape(R, 7, 7, -1)
+        fc6 = L.fc(m.fc6.weight, m.fc6.bias, pool_score, relu=True, compute_dtype=dt)
+        fc6 = _dropout(fc6, keep, draws, "dropout/fc6")
+        fc7 = L.fc(m.fc7.weight, m.fc7.bias, fc6, relu=True, compute_dtype=dt)
+        fc7 = _dropout(fc7, keep, draws, "dropout/fc7")
+        fc8 = L.fc(m.fc8.weight, m.fc8.bias, fc7, relu=False, compute_dtype=dt)
+        poses_tanh = torch.tanh(fc8)
+        poses_mul = poses_tanh * hough.poses_weight
+        # tf.nn.l2_normalize(dim=1) over the whole 4C row (posecnn.py:325-327)
+        out["poses_tanh"] = poses_tanh
+        out["poses_mul"] = poses_mul
+        out["poses_pred"] = L.l2_normalize(poses_mul, dim=1)
+        if cfg.adaptation:
+            # the domain classifier (posecnn.py:332-343): reversed gradient,
+            # fc9, and 2-way logits without ReLU (the JAX package's departure
+            # from the reference, whose ReLU'd logits could zero the gradient)
+            fc9 = L.fc(m.fc9.weight, m.fc9.bias, gradient_reversal(pool_score, cfg.adapt_lambda), relu=True,
+                       compute_dtype=dt)
+            fc9 = _dropout(fc9, keep, draws, "dropout/fc9")
+            domain_score = L.fc(m.domain_score.weight, m.domain_score.bias, fc9, relu=False)
+            out["domain_score"] = domain_score
+            out["domain_prob"] = L.softmax_hd(domain_score)
+            out["domain_label"] = torch.argmax(domain_score, dim=-1).to(torch.int32)
     return out

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from posecnn_torch.core.profiler import span
 from posecnn_torch.models import layers as L
 from posecnn_torch.models.backbone import Conv, VGGTrunk, trunk_shapes
 from posecnn_torch.models.gru import GRU2D, GRU3D, gru2d, gru3d, init_gru2d_numpy, init_gru3d_numpy
@@ -151,7 +152,8 @@ def init_video3d_state(batch: int, grid_size: int, num_classes: int, device=None
 
 
 def _upscore(model: _FCN, data: torch.Tensor, dt) -> torch.Tensor:
-    net = model.trunk(data, compute_dtype=dt)
+    with span("trunk"):
+        net = model.trunk(data, compute_dtype=dt)
     c5, c4 = model.score_conv5, model.score_conv4
     sc5 = L.conv2d(c5.weight, c5.bias, net["conv5_3"], relu=True, compute_dtype=dt)
     sc4 = L.conv2d(c4.weight, c4.bias, net["conv4_3"], relu=True, compute_dtype=dt)
@@ -166,9 +168,10 @@ def video_step(model: VideoNet, cfg: VideoConfig, data: torch.Tensor, depth: tor
     dt = cfg.compute_dtype
     h_state, h_weights, h_points = state
     upscore = _upscore(model, data, dt)
-    warped_state, warped_weights, points = compute_flow(
-        h_state, h_weights, h_points, depth, meta_data, kernel_size=cfg.flow_kernel,
-        threshold=cfg.flow_threshold, max_weight=cfg.flow_max_weight)
+    with span("flow_warp"):
+        warped_state, warped_weights, points = compute_flow(
+            h_state, h_weights, h_points, depth, meta_data, kernel_size=cfg.flow_kernel,
+            threshold=cfg.flow_threshold, max_weight=cfg.flow_max_weight)
     fused, new_state, new_weights = gru2d(model.gru2d, upscore, warped_state, warped_weights)
     s = model.score
     score = L.conv2d(s.weight, s.bias, fused, relu=True, compute_dtype=dt)

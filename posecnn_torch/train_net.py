@@ -79,7 +79,12 @@ directory. Each log line starts with the seconds since the program started.
 At the end, `train_timing.json` in the output directory holds per-step
 milliseconds (`data_wait`: the main thread waiting for the next batch, a
 bank refresh's splices included; `step`: the step's host time;
-`step_stream`: CUDA events around the step), the kernels' launches, the
+`host/<layer>`: the host time of the step's spans of each layer of
+`core.profiler.LAYERS` (sample, trunk, heads, hough, pose_head, losses,
+backward, optimizer, flow_warp; 0.0 where a step does not run it), its
+launches and any wait for the card inside them; `step_stream`: CUDA events
+around the step) and, on a card, `cuda_malloc` (the caching allocator's
+cudaMallocs since the step before), the kernels' launches, the
 peak device memory of the process (`peak_memory_mib`, on a card), and
 with the bank refresh its record (`bank_refresh`: the first seed, frames
 rendered, chunks spliced, each splice's ms, the render seconds and frames

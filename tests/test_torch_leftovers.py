@@ -4,8 +4,9 @@ the losses of `ops/losses.py` (`loss_cross_entropy_steps`,
 `loss_quaternion`, `triplet_loss_embedding`, `lifted_structured_loss`),
 the one-image `roi_pool` and `crop_pool`, the quaternion helpers (tensor
 and numpy), the blob helpers, `se3.transform_points`, the batched pose
-errors, `core/profiler.py`, `utils/timer.py`, and `freeze_dataset` (with
-the port's `tools/freeze_dataset.py`) on a stand-in synthetic set.
+errors, `core/profiler.py` (`trace`, `span`), `utils/timer.py`, and
+`freeze_dataset` (with the port's `tools/freeze_dataset.py`) on a stand-in
+synthetic set.
 
 Tolerances: values within 1e-6 of their largest magnitude (1e-5 where a
 float32 sum of hundreds of terms is taken in another order), gradients
@@ -194,26 +195,31 @@ def test_transform_points_and_pose_errors_match_jax():
 
 
 def test_profiler_trace_timer_and_annotate(tmp_path):
-    """trace() writes a Chrome trace that holds an annotated call's name;
-    device_timer adds the block's seconds to `results` (and prints
-    without); annotate keeps the function's result and name."""
+    """trace() writes a Chrome trace that holds a span's `posecnn:` range
+    (`span` took the place of `annotate`, which named calls in the trace,
+    and of `device_timer`, which synchronised to time a block: a recorder
+    times the block on the host without a sync); the span keeps the
+    block's result, and records nothing outside a trace or a recorder."""
     from posecnn_torch.core import profiler
 
-    @profiler.annotate("posecnn_matmul")
     def work(x):
-        return x @ x
+        with profiler.span("matmul"):
+            return x @ x
 
+    assert not hasattr(profiler, "device_timer") and not hasattr(profiler, "annotate")
     x = torch.randn(64, 64)
     with profiler.trace(str(tmp_path)):
         y = work(x)
-    assert torch.equal(y, x @ x) and work.__name__ == "work"
+    assert torch.equal(y, x @ x)
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "posecnn_matmul" for e in events)
-    results = {}
-    for _ in range(2):
-        with profiler.device_timer("block", results):
+    assert any(e.get("name") == "posecnn:matmul" for e in events)
+    rec = profiler.Recorder()
+    with profiler.recording(rec):
+        for _ in range(2):
             work(x)
-    assert results["block"] > 0 and set(results) == {"block"}
+    ms = rec.take()
+    assert set(ms) == {"matmul"} and ms["matmul"] > 0 and len(rec.spans) == 0
+    assert profiler.span("matmul") is profiler._NULL
 
 
 def test_timer_and_rate_meter_match_jax(monkeypatch):
