@@ -18,7 +18,8 @@ serving tools, and the last modules: TRAIN.MATCHING, VGG16FULL and the
 video step across ranks, and the GAN models.
 
   1. device: CUDA present; the card's name and power limit (nvidia-smi)
-  2. build: every CUDA kernel of the path (hough_vote, conv3x3, nms), the
+  2. build: every CUDA kernel of the path (hough_vote, conv3x3, nms,
+     flow_warp), the
      host rasterizer, the host bilateral filter and the PNG row filters, from
      the sources in this checkout, one compiler (nvcc, g++) per source, all
      started together
@@ -187,6 +188,13 @@ video step across ranks, and the GAN models.
      steps (`python3 chip_smoke.py mesh-rank <dir>`), the video's bf16
      mesh step timed; vgg16_gan_forward at 640x480 (bf16, 1 conv3x3 launch)
      against the CPU port, DCGAN at 128 in train and eval mode against it
+  21. the flow warp's kernels (`flow_warp_phase`) alone at the DA-RNN
+     cell's shape on the cell's unrelated depths, the all-match worst case
+     and a rigid camera motion, against the plain version (bit-equal
+     forward, mask and divisor; gradients within 1e-5 of its norm), timed
+     back to back, cold L2 and single beside their bytes' bound and the
+     plain version (`python3 chip_smoke.py flow-warp` runs phases 1, 2 and
+     21 alone)
   then the CPU-port checks' record, each phase's seconds and each CLI
      run's (where it ran, its set-up time), the kernels' JSON line, then
      {"ok": true, "device": {...}}
@@ -796,9 +804,10 @@ def log_seconds(pattern: str, log: str) -> re.Match:
 
 
 def launches_of(log: str) -> dict:
-    m = log_seconds(r"done at iteration (\d+); launches hough_vote (\d+) conv3x3 (\d+) nms (\d+)", log)
+    m = log_seconds(r"done at iteration (\d+); launches hough_vote (\d+) conv3x3 (\d+) nms (\d+) flow_warp (\d+)",
+                    log)
     return {"step": int(m.group(2)), "hough_vote": int(m.group(3)), "conv3x3": int(m.group(4)),
-            "nms": int(m.group(5))}
+            "nms": int(m.group(5)), "flow_warp": int(m.group(6))}
 
 
 def snapshot_phase(state, model0: dict, work: str, dev) -> tuple:
@@ -882,7 +891,7 @@ def snapshot_phase(state, model0: dict, work: str, dev) -> tuple:
           and all(np.array_equal(v, arrays[k]) for k, v in back.items()), "the snapshot does not load back bit-equal")
     del fresh
     l1 = launches_of(log1)
-    check(l1 == {"step": n, "hough_vote": 4 * n, "conv3x3": 2 * n, "nms": 0}, f"first run's launches {l1}")
+    check(l1 == {"step": n, "hough_vote": 4 * n, "conv3x3": 2 * n, "nms": 0, "flow_warp": 0}, f"first run's launches {l1}")
     t_first1 = float(log_seconds(r"iter 1/30 ", log1).group(1))
 
     # --resume: from the signal snapshot to the final snapshot at 30
@@ -895,7 +904,7 @@ def snapshot_phase(state, model0: dict, work: str, dev) -> tuple:
     with np.load(final) as d:
         check(int(d["['step']"]) == 30, "the final snapshot's step")
     l2 = launches_of(log2)
-    check(l2 == {"step": 30, "hough_vote": 4 * (30 - n), "conv3x3": 2 * (30 - n), "nms": 0},
+    check(l2 == {"step": 30, "hough_vote": 4 * (30 - n), "conv3x3": 2 * (30 - n), "nms": 0, "flow_warp": 0},
           f"resumed run's launches {l2}")
     snaps = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
     phase(8, f"train_net --iters 30: SIGTERM after the step-20 row, snapshot at step {n} ({snap.group(3)} MiB light, "
@@ -920,7 +929,7 @@ def run_test_net(ckpt: str, out: str, log_path: str) -> tuple:
         timing = json.load(f)
     with np.load(os.path.join(out, "detections.npz")) as d:
         dets = {k: d[k] for k in d.files}
-    check(timing["frames"] == 32 and timing["launches"] == {"hough_vote": 64, "conv3x3": 32, "nms": 0},
+    check(timing["frames"] == 32 and timing["launches"] == {"hough_vote": 64, "conv3x3": 32, "nms": 0, "flow_warp": 0},
           f"test_net: {timing['frames']} frames, launches {timing['launches']}")
     check(all(np.isfinite(v).all() and v.ndim == 2 and v.shape[1] == 7 for v in dets.values()), "detections")
     check(0 <= summary["mean_iou"] <= 1 and 0 <= summary["adds_auc"] <= 1, f"summary {sorted(summary)}")
@@ -1073,7 +1082,7 @@ def toy_phase(work: str, dev) -> dict:
     with open(os.path.join(out, "train_timing.json")) as f:
         timing = json.load(f)
     launches = {"train": timing["launches"]}
-    check(timing["launches"] == {"hough_vote": 4 * TOY_STEPS, "conv3x3": 2 * TOY_STEPS, "nms": 0},
+    check(timing["launches"] == {"hough_vote": 4 * TOY_STEPS, "conv3x3": 2 * TOY_STEPS, "nms": 0, "flow_warp": 0},
           f"train_net --cfg launches {timing['launches']}")
     ms = {k: statistics.median(v[TOY_WARMUP:]) for k, v in timing["ms"].items()}
     with open(os.path.join(out, "train_metrics.csv")) as f:
@@ -1190,7 +1199,7 @@ def toy_phase(work: str, dev) -> dict:
     with np.load(os.path.join(ev, "detections.npz")) as d:
         dets = {k: d[k] for k in d.files}
     n = timing["frames"]
-    check(n == 64 and timing["launches"] == {"hough_vote": 2 * n, "conv3x3": n, "nms": 0},
+    check(n == 64 and timing["launches"] == {"hough_vote": 2 * n, "conv3x3": n, "nms": 0, "flow_warp": 0},
           f"test_net --cfg: {n} frames, launches {timing['launches']}")
     check(all(np.isfinite(v).all() and v.ndim == 2 and v.shape[1] == 7 for v in dets.values()), "toy detections")
     check(0 <= summary["mean_iou"] <= 1 and 0 <= summary["adds_auc"] <= 1 and not timing["pose_refine"],
@@ -1565,7 +1574,7 @@ def input_modes_phase(work: str, dev) -> dict:
         check(rc == 0, f"train_net --cfg {cfg_name} exited {rc}:\n{log[-3000:]}")
         with open(os.path.join(out, "train_timing.json")) as fh:
             timing = json.load(fh)
-        check(timing["launches"] == {"nms": 0, **{k: v * iters for k, v in want.items()}},
+        check(timing["launches"] == {"nms": 0, "flow_warp": 0, **{k: v * iters for k, v in want.items()}},
               f"{cfg_name}: launches {timing['launches']}, want {want} a step")
         first = _first_losses(log, iters)
         check(first and all(np.isfinite(v) for v in first.values()), f"{cfg_name}: first losses {first}")
@@ -1583,7 +1592,7 @@ def input_modes_phase(work: str, dev) -> dict:
         with open(os.path.join(ev, "eval_timing.json")) as fh:
             timing = json.load(fh)
         nf = timing["frames"]
-        check(nf == INPUT_EVAL_FRAMES and timing["launches"] == {"nms": 0, **{k: v * nf for k, v in want.items()}},
+        check(nf == INPUT_EVAL_FRAMES and timing["launches"] == {"nms": 0, "flow_warp": 0, **{k: v * nf for k, v in want.items()}},
               f"test_net --cfg {cfg_name}: {nf} frames, launches {timing['launches']}, want {want} a frame")
         check(0 <= summary["mean_iou"] <= 1, f"{cfg_name}: mean IoU {summary['mean_iou']}")
         return summary, timing, {k: statistics.median(v[INPUT_EVAL_WARMUP:]) for k, v in timing["ms"].items()}
@@ -1877,7 +1886,7 @@ def det_3d_phase(work: str, dev) -> tuple:
         check(os.path.exists(snap), f"no snapshot {snap}")
         with open(os.path.join(out_dir, "train_timing.json")) as fh:
             timing = json.load(fh)
-        want = {"hough_vote": 0, "conv3x3": 2 * iters, "nms": iters}
+        want = {"hough_vote": 0, "conv3x3": 2 * iters, "nms": iters, "flow_warp": 0}
         check(timing["launches"] == want, f"{name}: launches {timing['launches']}, want {want}")
         display = det_file.TRAIN.DISPLAY  # the trainer logs the first step and every DISPLAY steps
         check(iters % display == 0, f"{name}: {iters} steps, not a multiple of DISPLAY {display}")
@@ -1922,7 +1931,7 @@ def det_3d_phase(work: str, dev) -> tuple:
     with open(os.path.join(ev, "eval_timing.json")) as fh:
         ev_timing = json.load(fh)
     launches["det_eval"] = ev_timing["launches"]
-    want = {"hough_vote": 0, "conv3x3": DET_EVAL_FRAMES, "nms": DET_EVAL_FRAMES}
+    want = {"hough_vote": 0, "conv3x3": DET_EVAL_FRAMES, "nms": DET_EVAL_FRAMES, "flow_warp": 0}
     check(ev_timing["launches"] == want and 0 <= summary["mAP@0.5"] <= 1,
           f"det eval launches {ev_timing['launches']} (want {want}), mAP {summary['mAP@0.5']}")
     ev_ms = {k: statistics.median(v[DET_EVAL_WARMUP:]) for k, v in ev_timing["ms"].items()}
@@ -2032,7 +2041,7 @@ def det_3d_phase(work: str, dev) -> tuple:
     with open(os.path.join(ev3, "eval_timing.json")) as fh:
         t3 = json.load(fh)
     launches["eval_3d"] = t3["launches"]
-    check(t3["launches"] == {"hough_vote": 0, "conv3x3": DET_EVAL_FRAMES, "nms": 0}, f"3D eval {t3['launches']}")
+    check(t3["launches"] == {"hough_vote": 0, "conv3x3": DET_EVAL_FRAMES, "nms": 0, "flow_warp": 0}, f"3D eval {t3['launches']}")
     with np.load(os.path.join(ev3, "detections.npz")) as d:
         poses3 = [d[k] for k in d.files if k.endswith("_poses")]
     check(all(np.isfinite(p).all() and p.shape[1] == 7 for p in poses3), "3D eval: poses not finite")
@@ -2245,7 +2254,7 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
             timing = json.load(fh)
         launches[f"{key}_train_cli"] = timing["launches"]
         per_step = 0 if key == "gan" else 4  # the GAN cfg trains the label head alone: no Hough
-        want = {"hough_vote": per_step * iters, "conv3x3": 2 * iters, "nms": 0}
+        want = {"hough_vote": per_step * iters, "conv3x3": 2 * iters, "nms": 0, "flow_warp": 0}
         check(timing["launches"] == want, f"{key}: launches {timing['launches']}, want {want}")
         lines = (1, *range(cfg.TRAIN.DISPLAY, iters + 1, cfg.TRAIN.DISPLAY))
         losses = {it: _cli_losses(log, it, iters) for it in lines}
@@ -2275,7 +2284,7 @@ def full_adapt_gan_phase(work: str, dev) -> dict:
             dets = {k: d[k] for k in d.files}
         launches[f"{key}_eval"] = ev_timing["launches"]
         n = SLICE_J_EVAL_FRAMES
-        want = {"hough_vote": 2 * n, "conv3x3": n, "nms": 0}
+        want = {"hough_vote": 2 * n, "conv3x3": n, "nms": 0, "flow_warp": 0}
         check(ev_timing["frames"] == n and ev_timing["launches"] == want,
               f"{key} eval: {ev_timing['frames']} frames, launches {ev_timing['launches']}, want {want}")
         check(all(np.isfinite(v).all() and v.shape[1:] == (7,) for v in dets.values()), f"{key} eval: detections")
@@ -2439,7 +2448,7 @@ def datasets_phase(work: str, dev) -> dict:
         with open(os.path.join(out, "train_timing.json")) as fh:
             timing = json.load(fh)
         launches["lov_train_cli"] = timing["launches"]
-        want = {"hough_vote": 4 * LOV_STEPS, "conv3x3": 2 * LOV_STEPS, "nms": 0}
+        want = {"hough_vote": 4 * LOV_STEPS, "conv3x3": 2 * LOV_STEPS, "nms": 0, "flow_warp": 0}
         check(timing["launches"] == want, f"lov_color_2d: launches {timing['launches']}, want {want}")
         losses = {it: _cli_losses(log, it, LOV_STEPS) for it in (1, LOV_STEPS)}
         check(all(np.isfinite(v) for m in losses.values() for v in m.values()), f"lov_color_2d: losses {losses}")
@@ -2473,7 +2482,7 @@ def datasets_phase(work: str, dev) -> dict:
         with open(os.path.join(out, "train_timing.json")) as fh:
             timing = json.load(fh)
         launches["linemod_train_cli"] = timing["launches"]
-        want = {"hough_vote": 4 * LINEMOD_STEPS, "conv3x3": 2 * LINEMOD_STEPS, "nms": 0}
+        want = {"hough_vote": 4 * LINEMOD_STEPS, "conv3x3": 2 * LINEMOD_STEPS, "nms": 0, "flow_warp": 0}
         check(timing["launches"] == want, f"linemod: launches {timing['launches']}, want {want}")
         losses = _cli_losses(log, 1, LINEMOD_STEPS)
         check(all(np.isfinite(v) for v in losses.values()) and "loss_pose" in losses, f"linemod: losses {losses}")
@@ -2619,7 +2628,7 @@ def mesh_rank(d: str) -> int:
     from posecnn_torch.engine import train as T
     from posecnn_torch.engine.test import set_float32_precision
     from posecnn_torch.models import video as V
-    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.ops import compute_flow, conv3x3, nms, voting
     from posecnn_torch.parallel import launch
     from posecnn_torch.parallel import mesh as M
 
@@ -2633,14 +2642,14 @@ def mesh_rank(d: str) -> int:
         def run(key, mesh, state, step, batch, draws, keep):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+            voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = compute_flow.FLOW_WARP_LAUNCHES = 0
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             got = {k: float(v) for k, v in step(state, batch, draws).items()}
             e1.record()
             e1.synchronize()
             record[key] = {"launches": {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES,
-                                        "nms": nms.NMS_LAUNCHES},
+                                        "nms": nms.NMS_LAUNCHES, "flow_warp": compute_flow.FLOW_WARP_LAUNCHES},
                            "stream_ms": e0.elapsed_time(e1), "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                            "split": [n for n, p in state.model.named_parameters() if M.tp_mesh(p) is not None]}
             whole = {k: M.gather_rows(p).cpu() for k, p in state.model.named_parameters() if k in keep}
@@ -2780,7 +2789,7 @@ def mesh_phase(work: str, dev, smi: str) -> dict:
         timing = json.load(fh)
     # a rank's step: one image, so 2 hough_vote (coarse, refine) and 2 conv3x3
     # (conv1_2's forward and dx): 4 and 4 a step over the two ranks
-    want = {"hough_vote": 2 * MESH_STEPS, "conv3x3": 2 * MESH_STEPS, "nms": 0}
+    want = {"hough_vote": 2 * MESH_STEPS, "conv3x3": 2 * MESH_STEPS, "nms": 0, "flow_warp": 0}
     ranks = timing["by_rank"]
     check(timing["world_size"] == 2 and timing["mesh"] == {"data": 2, "model": 1}
           and all(r["launches"] == want and r["end_step"] == MESH_STEPS for r in ranks),
@@ -2848,7 +2857,8 @@ def mesh_phase(work: str, dev, smi: str) -> dict:
               f"{perr} (limits {MESH_PARAMS}), fc6 rows over 1e-5 {fc6_rows} (limit {MESH_FC6_ROWS}); the "
               f"one-process step's move {one['move']}, rows parting by more than {MESH_MOVE_SHARE} of it {move_rows} "
               f"(limits {row_limits}); loss_pose {got['losses']['loss_pose']} vs {ref['loss_pose']}")
-        check(all(p == {"hough_vote": 4 // (2 if key == "2x1" else 1), "conv3x3": 0, "nms": 0} for p in per_rank),
+        check(all(p == {"hough_vote": 4 // (2 if key == "2x1" else 1), "conv3x3": 0, "nms": 0, "flow_warp": 0}
+                  for p in per_rank),
               f"f32 step at {label}: launches by rank {per_rank}")
         launches[f"mesh_f32_{key}"] = per_rank[0]
         extra = (f"; the gradients' all-reduce ({recs[0][key]['allreduce_mib']:.0f} MiB over gloo, CUDA tensors) "
@@ -2897,7 +2907,7 @@ def _eval_cli(args: list, out: str, n: int, what: str) -> dict:
         timing = json.load(fh)
     with np.load(os.path.join(out, "detections.npz")) as d:
         dets = {k: d[k] for k in d.files}
-    want = {"hough_vote": 2 * n, "conv3x3": n, "nms": 0}
+    want = {"hough_vote": 2 * n, "conv3x3": n, "nms": 0, "flow_warp": 0}
     check(timing["frames"] == n and timing["launches"] == want,
           f"{what}: {timing['frames']} frames, launches {timing['launches']}, want {want}")
     check(all(np.isfinite(v).all() and v.shape[1:] == (7,) for v in dets.values()), f"{what}: detections")
@@ -3131,7 +3141,8 @@ def _vis_train_run(work: str) -> dict:
         VIS.MinibatchVisualizer.__call__ = orig
     check(rc == 0, f"train_net --vis exited {rc}:\n{log[-3000:]}")
     n = launches_of(log)
-    check(n == {"step": VIS_TRAIN_STEPS, "hough_vote": 4 * VIS_TRAIN_STEPS, "conv3x3": 2 * VIS_TRAIN_STEPS, "nms": 0},
+    check(n == {"step": VIS_TRAIN_STEPS, "hough_vote": 4 * VIS_TRAIN_STEPS, "conv3x3": 2 * VIS_TRAIN_STEPS, "nms": 0,
+                "flow_warp": 0},
           f"train_net --vis launches {n}")
     check([it for _, it, _ in records] == list(range(1, VIS_TRAIN_STEPS + 1)), f"vis hook calls {len(records)}")
     drawn = records[:records[0][0].max_batches]
@@ -3265,7 +3276,7 @@ def cli_surface_phase(work: str, dev, seed0: str) -> dict:
     n = launches_of(log)
     check(all(np.isfinite(v) for v in (*first.values(), *last.values())) and "loss_cls" in last,
           f"resnet50 losses {first} {last}")
-    check(n == {"step": R50_STEPS, "hough_vote": 0, "conv3x3": 0, "nms": 0}, f"resnet50 train launches {n}")
+    check(n == {"step": R50_STEPS, "hough_vote": 0, "conv3x3": 0, "nms": 0, "flow_warp": 0}, f"resnet50 train launches {n}")
     launches["resnet50_train_cli"] = {k: n[k] for k in ("hough_vote", "conv3x3", "nms")}
     snap = os.path.join(out, f"fcn8_color_single_iter_{R50_STEPS}.npz")
     with np.load(snap) as d:
@@ -3328,7 +3339,7 @@ def cli_surface_phase(work: str, dev, seed0: str) -> dict:
         check(png.shape == (480, 640, 3) and png.dtype == np.uint8, f"vis png {png.shape} {png.dtype}")
         check(np.array_equal(png, vis.render(frame, o, rois, poses)), f"vis frame {index}: the PNG differs")
         drawn += int((png != frame.color).any(-1).sum())
-    check(et["launches"] == {"hough_vote": 2 * VIS_FRAMES, "conv3x3": VIS_FRAMES, "nms": 0},
+    check(et["launches"] == {"hough_vote": 2 * VIS_FRAMES, "conv3x3": VIS_FRAMES, "nms": 0, "flow_warp": 0},
           f"test_net --vis launches {et['launches']}")
     launches["vis_eval"] = et["launches"]
     vis_ms = statistics.median(et["ms"]["vis"])
@@ -3446,7 +3457,7 @@ def video_phase(work: str, dev) -> dict:
     from posecnn_torch.engine import train as T
     from posecnn_torch.engine.test import test_net_video
     from posecnn_torch.models import video as V
-    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.ops import compute_flow, conv3x3, nms, voting
     from posecnn_torch.tools.test_kinect_fusion import K_DEMO
     from posecnn_torch.utils.debug_nans import debug_nans
     from posecnn_torch.utils.png import write_png
@@ -3459,12 +3470,13 @@ def video_phase(work: str, dev) -> dict:
     launches = {}
 
     def reset():
-        voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+        voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = compute_flow.FLOW_WARP_LAUNCHES = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
     def counts():
-        return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
+        return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES,
+                "flow_warp": compute_flow.FLOW_WARP_LAUNCHES}
 
     def peak_mib():
         return torch.cuda.max_memory_allocated() / 2**20
@@ -3522,7 +3534,10 @@ def video_phase(work: str, dev) -> dict:
             data.close()
         launches["video_train"] = counts()
         peak = peak_mib()
-        want = {"hough_vote": 0, "conv3x3": 2 * cfg.num_steps * VIDEO_STEPS, "nms": 0}
+        # the flow warp: its forward a frame, its backward a frame but the
+        # first (whose warp reads the fresh state: no gradient to take back)
+        want = {"hough_vote": 0, "conv3x3": 2 * cfg.num_steps * VIDEO_STEPS, "nms": 0,
+                "flow_warp": (2 * cfg.num_steps - 1) * VIDEO_STEPS}
         check(launches["video_train"] == want, f"video train: launches {launches['video_train']}, want {want}")
         check(all(np.isfinite(v) for m in out for v in m.values()) and state.step == VIDEO_STEPS,
               f"video train: metrics {out}")
@@ -3532,7 +3547,8 @@ def video_phase(work: str, dev) -> dict:
                   f"(first {stream[0]:.1f}), data wait {statistics.median(wait[VIDEO_WARMUP:]):.3f} ms (the prefetch "
                   f"thread reading 5 frames a step, and the copy); peak memory {peak:.1f} MiB; loss step 1 "
                   f"{out[0]['loss']:.6g}, step {VIDEO_STEPS} {out[-1]['loss']:.6g}, lr {out[-1]['lr']:g}; launches "
-                  f"{launches['video_train']} ({2 * cfg.num_steps} conv3x3 a step: conv1_2 forward and dx a frame)")
+                  f"{launches['video_train']} ({2 * cfg.num_steps} conv3x3 a step: conv1_2 forward and dx a frame; "
+                  f"{2 * cfg.num_steps - 1} flow_warp: its forward a frame, its backward a frame but the first)")
         print("video train per-step ms " + json.dumps({"stream": [round(x, 3) for x in stream],
                                                        "data_wait": [round(x, 3) for x in wait]}), flush=True)
 
@@ -3548,7 +3564,7 @@ def video_phase(work: str, dev) -> dict:
         launches["video_eval"] = counts()
         peak = peak_mib()
         n = len(timings["video_step"])
-        check(n == 8 and launches["video_eval"] == {"hough_vote": 0, "conv3x3": n, "nms": 0},
+        check(n == 8 and launches["video_eval"] == {"hough_vote": 0, "conv3x3": n, "nms": 0, "flow_warp": n},
               f"test_net_video: {n} frames, launches {launches['video_eval']}")
         pts, labels = ev.surfaces[0]
         check(pts.ndim == 2 and pts.shape[1] == 3 and np.isfinite(pts).all() and len(labels) == len(pts),
@@ -3586,7 +3602,7 @@ def video_phase(work: str, dev) -> dict:
         launches["video3d"] = counts()
         peak = peak_mib()
         flags = o3["flag_3d"].mean(dim=(1, 2, 3, 4, 5)).tolist()
-        check(launches["video3d"] == {"hough_vote": 0, "conv3x3": 2 * cfg3.num_steps, "nms": 0},
+        check(launches["video3d"] == {"hough_vote": 0, "conv3x3": 2 * cfg3.num_steps, "nms": 0, "flow_warp": 0},
               f"video3d: launches {launches['video3d']}")
         check(flags[0] > 0 and bool(torch.isfinite(s3).all())
               and tuple(o3["label_2d"].shape) == tuple(batch["depth"].shape),
@@ -3614,7 +3630,7 @@ def video_phase(work: str, dev) -> dict:
         with open(os.path.join(out, "train_timing.json")) as fh:
             timing = json.load(fh)
         launches["dense_train_cli"] = timing["launches"]
-        want = {"hough_vote": 4 * DENSE_STEPS, "conv3x3": 2 * DENSE_STEPS, "nms": 0}
+        want = {"hough_vote": 4 * DENSE_STEPS, "conv3x3": 2 * DENSE_STEPS, "nms": 0, "flow_warp": 0}
         check(timing["launches"] == want, f"dense targets: launches {timing['launches']}, want {want}")
         losses = {it: _cli_losses(log, it, DENSE_STEPS) for it in (1, DENSE_STEPS)}
         check(all(np.isfinite(v) for m in losses.values() for v in m.values())
@@ -3650,7 +3666,7 @@ def video_phase(work: str, dev) -> dict:
     with open(os.path.join(work, "toy", "train_timing.json")) as fh:
         toy = json.load(fh)
     launches["debug_nans_cli"] = timing["launches"]
-    check(timing["launches"] == {"hough_vote": 4 * NANS_STEPS, "conv3x3": 2 * NANS_STEPS, "nms": 0},
+    check(timing["launches"] == {"hough_vote": 4 * NANS_STEPS, "conv3x3": 2 * NANS_STEPS, "nms": 0, "flow_warp": 0},
           f"DEBUG_NANS: launches {timing['launches']}")
     check(timing["debug_nans_checked_outputs"] > 0, "DEBUG_NANS: no output checked")
     ms = {k: statistics.median(v[NANS_WARMUP:]) for k, v in timing["ms"].items()}
@@ -3938,7 +3954,7 @@ def serving_phase(work: str, dev, seed0: str, kernels: dict) -> dict:
         timing = json.load(fh)
     with np.load(os.path.join(out, "detections.npz")) as d:
         dets = {k: d[k] for k in d.files}
-    want = {"hough_vote": MULTI_EVAL_FRAMES, "conv3x3": MULTI_EVAL_FRAMES, "nms": 0}
+    want = {"hough_vote": MULTI_EVAL_FRAMES, "conv3x3": MULTI_EVAL_FRAMES, "nms": 0, "flow_warp": 0}
     check(timing["launches"] == want, f"test_net, multi mode: launches {timing['launches']}, want {want}")
     check(all(np.isfinite(v).all() for v in dets.values()), "test_net, multi mode: detections not finite")
     launches["multi_eval"] = timing["launches"]
@@ -4072,7 +4088,8 @@ def serving_phase(work: str, dev, seed0: str, kernels: dict) -> dict:
         check(got["frame"] == f"{i:06d}", f"watch: frame {got['frame']}")
         _dets_close(got["detections"], ref[i], f"online --watch frame {i}")
     launches["online_watch"] = json.loads(re.search(r"^launches (.*)$", log, re.M).group(1))
-    check(launches["online_watch"] == {"hough_vote": 2 * SERVE_FRAMES, "conv3x3": SERVE_FRAMES, "nms": 0},
+    check(launches["online_watch"] == {"hough_vote": 2 * SERVE_FRAMES, "conv3x3": SERVE_FRAMES, "nms": 0,
+                                          "flow_warp": 0},
           f"online --watch launches {launches['online_watch']}")
     watch_s = CLI_RUNS[-1]["wall_s"]
 
@@ -4090,7 +4107,7 @@ def serving_phase(work: str, dev, seed0: str, kernels: dict) -> dict:
             im = imread(os.path.join(out, f"{i:06d}-{suffix}.png"))
             check(im.shape == shape, f"demo: {i:06d}-{suffix}.png is {im.shape}")
     launches["demo"] = json.loads(re.search(r"^launches (.*)$", log, re.M).group(1))
-    check(launches["demo"] == {"hough_vote": 2 * DEMO_FRAMES, "conv3x3": DEMO_FRAMES, "nms": 0},
+    check(launches["demo"] == {"hough_vote": 2 * DEMO_FRAMES, "conv3x3": DEMO_FRAMES, "nms": 0, "flow_warp": 0},
           f"demo launches {launches['demo']}")
     phase(19, f"(d) online --watch <{SERVE_FRAMES} frames> --once: the JSON beside each frame within the limits of "
               f"this process's engine, {watch_s:.1f} s, launches {launches['online_watch']}; tools.demo --visualize "
@@ -4253,7 +4270,7 @@ def slice_p_phase(work: str, dev, smi: str) -> dict:
     with open(os.path.join(out, "train_timing.json")) as fh:
         timing = json.load(fh)
     launches["matching_train_cli"] = timing["launches"]
-    want = {"hough_vote": 4 * MATCH_STEPS, "conv3x3": 2 * MATCH_STEPS, "nms": 0}
+    want = {"hough_vote": 4 * MATCH_STEPS, "conv3x3": 2 * MATCH_STEPS, "nms": 0, "flow_warp": 0}
     check(timing["launches"] == want, f"TRAIN.MATCHING run: launches {timing['launches']}, want {want}")
     losses = {it: _cli_losses(log, it, MATCH_STEPS) for it in (1, MATCH_STEPS)}
     match = [m.get("loss_matching", float("nan")) for m in losses.values()]
@@ -4370,7 +4387,7 @@ def slice_p_phase(work: str, dev, smi: str) -> dict:
     with open(os.path.join(out, "train_timing.json")) as fh:
         timing = json.load(fh)
     ranks = timing["by_rank"]
-    want = {"hough_vote": 2 * FULL_MESH_STEPS, "conv3x3": 2 * FULL_MESH_STEPS, "nms": 0}
+    want = {"hough_vote": 2 * FULL_MESH_STEPS, "conv3x3": 2 * FULL_MESH_STEPS, "nms": 0, "flow_warp": 0}
     check(timing["world_size"] == 2 and timing["mesh"] == {"data": 2, "model": 1}
           and all(r["launches"] == want and r["end_step"] == FULL_MESH_STEPS for r in ranks),
           f"VGG16FULL at two ranks: {[(r['end_step'], r['launches']) for r in ranks]}, want {want} a rank")
@@ -4410,11 +4427,11 @@ def slice_p_phase(work: str, dev, smi: str) -> dict:
     recs = [json.loads(next(ln for ln in t.splitlines() if ln.startswith("mesh-rank "))[len("mesh-rank "):])
             for t in texts]
     cases = (("2x1", "full_2x1_f32", "(b) VGG16FULL at (2,1)", one["losses"], one["params"], one["move"],
-              FULL_MESH_PARAMS, {"hough_vote": 2, "conv3x3": 0, "nms": 0}),
+              FULL_MESH_PARAMS, {"hough_vote": 2, "conv3x3": 0, "nms": 0, "flow_warp": 0}),
              ("1x2", "full_1x2_f32", "(b) VGG16FULL at (1,2)", one["losses"], one["params"], one["move"],
-              FULL_MESH_PARAMS, {"hough_vote": 4, "conv3x3": 0, "nms": 0}),
+              FULL_MESH_PARAMS, {"hough_vote": 4, "conv3x3": 0, "nms": 0, "flow_warp": 0}),
              ("video_2x1", "video_2x1_f32", "(c) the video step at (2,1)", vref, vparams, vmove, VIDEO_MESH_PARAMS,
-              {"hough_vote": 0, "conv3x3": 0, "nms": 0}))
+              {"hough_vote": 0, "conv3x3": 0, "nms": 0, "flow_warp": 2 * VIDEO_MESH_T - 1}))
     for key, path, label, ref, ref_params, move, limits, want in cases:
         got = torch.load(os.path.join(one["dir"], f"mesh_{key}.pt"))
         rel = {k: _rel(got["losses"][k], ref[k]) for k in ref if k.startswith("loss") or k == "grad_norm"}
@@ -4442,7 +4459,7 @@ def slice_p_phase(work: str, dev, smi: str) -> dict:
                   f"peak MiB by rank {[round(r[key]['peak_mib'], 1) for r in recs]}; launches by rank {per_rank}"
                   + (f"; split {recs[0][key]['split']}" if recs[0][key]["split"] else "") + f" [{smi}]")
     bf = [r["video_bf16_2x1"] for r in recs]
-    want = {"hough_vote": 0, "conv3x3": 2 * VIDEO_MESH_T, "nms": 0}
+    want = {"hough_vote": 0, "conv3x3": 2 * VIDEO_MESH_T, "nms": 0, "flow_warp": 2 * VIDEO_MESH_T - 1}
     check(all(r["launches"] == want for r in bf), f"(c) the video bf16 step at (2,1): launches {bf}, want {want}")
     launches["video_bf16_2x1"] = bf[0]["launches"]
     phase(20, f"(c) the video step at (2,1), bf16 (T={VIDEO_MESH_T}, one 640x480 image a rank, 22 classes, 64 units): "
@@ -4581,6 +4598,135 @@ def vote_line(label: str, r: dict, total_pairs: int) -> str:
             f"counted every valid pair, {[round(x / total_pairs, 4) for x in r['valid']]} of all: "
             f"{r['old'] * 1e3:.3f} us); pairs tested after pruning "
             f"{[round(x / total_pairs, 4) for x in r['tested']]} of all")
+
+def flow_warp_bytes(v: dict, match, C: int) -> tuple:
+    """The bytes the flow warp needs each way on these inputs, each read and
+    written once (the forward: the pixels' indices, depth mask, warped z and
+    the previous z, the state and weights at the source pixels some tap
+    matched, the means, mask and divisor out; the backward: the indices,
+    mask and divisor, the cotangents of the pixels with a match, both
+    gradients out), and the matched taps' share of the in-bound ones."""
+    import torch
+
+    from posecnn_torch.ops.compute_flow import _flat_index
+
+    B, H, W = v["px"].shape
+    k = (int(round(match.shape[0] ** 0.5)) - 1) // 2
+    hit = torch.zeros(B * H * W, dtype=torch.bool, device=match.device)
+    inb = 0
+    o = 0
+    for dx in range(-k, k + 1):
+        for dy in range(-k, k + 1):
+            hit[_flat_index(v["px"], v["py"], dx, dy, H, W)[match[o].reshape(-1)]] = True
+            x, y = v["px"] + dx, v["py"] + dy
+            inb += int(((x >= 0) & (x < W) & (y >= 0) & (y < H) & v["has_depth"]).sum())
+            o += 1
+    pixels, row = B * H * W, 2 * C * 4
+    fwd = pixels * (4 + 4 + 4 + 1 + 4 + row + 8 + 4) + int(hit.sum()) * row
+    bwd = pixels * (4 + 4 + 8 + 4 + row) + int(match.any(0).sum()) * row
+    return fwd, bwd, float(match.sum()) / max(inb, 1)
+
+
+def flow_warp_phase(dev, kernels: dict) -> None:
+    """Phase 21: the flow warp's kernels (`csrc/flow_warp.cu`, no TPU
+    kernel: JAX computes the warp in jnp) alone at the DA-RNN cell's shape
+    (B=1, 480x640, 64 units, the 7x7 window, threshold 0.02) on the three
+    inputs of `tests/torch_parity.py:flow_warp_case`: the cell's identity
+    motion over unrelated depths, the all-match worst case (every in-bound
+    tap matched: 49 adds a source pixel in the backward) and a rigid camera
+    motion with depth edges and pixels without depth. Each against the
+    plain version (`check_flow_warp`: forward, mask and divisor bit-equal,
+    the backward within 1e-5 of the plain gradient's norm); the forward, the
+    backward (its zero fill included) and the pair timed back to back, with
+    a cold L2 (two sets of inputs and every output kept, 1.3 GB a round) and
+    as single calls (the host's part included), beside the bytes the
+    inputs need at 3.35 TB/s and the plain version's time."""
+    import torch
+
+    from posecnn_torch.ops import compute_flow as CF
+    from tests.torch_parity import (
+        FLOW_CASES, FLOW_KERNEL, FLOW_THRESHOLD, check_flow_warp, flow_warp_both, flow_warp_case, flow_warp_indices,
+    )
+
+    B, H, W, C = 1, 480, 640, 64
+    record = {}
+    for case in FLOW_CASES:
+        t0 = time.perf_counter()
+        v = flow_warp_indices(flow_warp_case(case, B, H, W, C, seed=21), dev)
+        g = torch.Generator(device=dev).manual_seed(21)
+        gd, gw = (torch.randn((B, H, W, C), generator=g, device=dev) for _ in range(2))
+        got, ref = flow_warp_both(v, gd, gw)
+        gaps = check_flow_warp(got, ref)
+        mask, denom = got[2], got[3]
+        match = CF.match_plain(v["px"], v["py"], v["z1"], v["has_depth"], v["points"][..., 2].reshape(-1),
+                               FLOW_KERNEL, FLOW_THRESHOLD)
+        fwd_bytes, bwd_bytes, share = flow_warp_bytes(v, match, C)
+        idx = (v["px"], v["py"], v["z1"], v["has_depth"], v["points"], FLOW_KERNEL, FLOW_THRESHOLD)
+
+        def fwd(x=(v["data"], v["weights"], gd, gw)):
+            return CF.launch_forward(x[0], x[1], *idx)
+
+        def bwd(x=(v["data"], v["weights"], gd, gw)):
+            return CF.launch_backward(x[2], x[3], v["px"], v["py"], mask, denom, FLOW_KERNEL)
+
+        def pair(x=(v["data"], v["weights"], gd, gw)):
+            return fwd(x), bwd(x)
+
+        def plain():
+            m = CF.match_plain(v["px"], v["py"], v["z1"], v["has_depth"], v["points"][..., 2].reshape(-1),
+                               FLOW_KERNEL, FLOW_THRESHOLD)
+            _, _, den = CF.window_mean_plain(v["data"], v["weights"], v["px"], v["py"], m, FLOW_KERNEL)
+            return CF.window_mean_backward_plain(gd, gw, v["px"], v["py"], m, den, FLOW_KERNEL)
+
+        ms = {"forward": median_ms(fwd), "backward": median_ms(bwd), "pair": median_ms(pair)}
+        sets = [(v["data"], v["weights"], gd, gw)] + [tuple(a.clone() for a in (v["data"], v["weights"], gd, gw))]
+        cold = cold_ms(pair, sets)
+        single = single_ms(pair)
+        p_ms = median_ms(plain, reps=3, inner=1)
+        b_ms = (fwd_bytes + bwd_bytes) / PEAK_BYTES_PER_S * 1e3
+        record[case] = dict(ms=ms["pair"], forward_ms=ms["forward"], backward_ms=ms["backward"], ms_cold_l2=cold,
+                            ms_single=single, plain_ms=p_ms, bound_ms=b_ms, bound_by="bytes",
+                            forward_bytes=fwd_bytes, backward_bytes=bwd_bytes, matched_share=share,
+                            grad_rel=max(gaps.values()))
+        phase(21, f"flow warp kernels, {case} (B=1, 480x640, 64 units, k={FLOW_KERNEL}, threshold {FLOW_THRESHOLD}; "
+                  f"{share:.4f} of the in-bound taps matched, {float(mask.ne(0).float().mean()):.4f} "
+                  f"of the pixels with a match): forward, mask and divisor bit-equal to the plain version, gradients "
+                  f"within {max(gaps.values()):.3g} of its norm (limit 1e-5); forward {ms['forward'] * 1e3:.1f} us, "
+                  f"backward (its zero fill included) {ms['backward'] * 1e3:.1f} us, the pair {ms['pair'] * 1e3:.1f} us "
+                  f"back to back, {cold * 1e3:.1f} cold L2, {single * 1e3:.1f} single; bound {b_ms * 1e3:.1f} us "
+                  f"({(fwd_bytes + bwd_bytes) / 1e6:.1f} MB at 3.35 TB/s: {ms['pair'] / b_ms:.2f}x); plain version "
+                  f"{p_ms:.2f} ms, {p_ms / ms['pair']:.0f}x the pair ({time.perf_counter() - t0:.1f} s)")
+        del v, gd, gw, got, ref, match, sets, mask, denom
+        torch.cuda.empty_cache()
+    kernels["flow_warp"] = {"shape": [B, H, W, C], "k": FLOW_KERNEL, "threshold": FLOW_THRESHOLD, **record}
+
+
+def flow_warp_only() -> int:
+    """`python3 chip_smoke.py flow-warp`: phases 1, 2 (the flow warp's
+    library alone) and 21, then the kernel's record as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from posecnn_torch import _build
+    from posecnn_torch.engine.test import set_float32_precision
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    set_float32_precision()
+    phase(1, f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+    t0 = time.perf_counter()
+    _build.flow_warp_lib()
+    phase(2, f"built and loaded flow_warp.cu in {time.perf_counter() - t0:.2f} s")
+    kernels = {}
+    flow_warp_phase(dev, kernels)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [{"name": "flow_warp", **kernels["flow_warp"]}]}), flush=True)
+    return 0
+
 
 def main() -> int:
     import torch
@@ -4943,6 +5089,7 @@ def main() -> int:
         video_launches = video_phase(work, dev)
         serving_launches = serving_phase(work, dev, seed0, kernels)
         slice_p_launches = slice_p_phase(work, dev, smi)
+        flow_warp_phase(dev, kernels)
         drain()
     finally:
         _stop_children()
@@ -4970,6 +5117,12 @@ def main() -> int:
     line.append({"name": "nms", "route": "cuda", "source": "posecnn_torch/csrc/nms.cu",
                  "replaces": "posecnn_tpu/ops/nms.py:38", "launches": det_launches["det_train_cli"]["nms"],
                  **{key: n["nms"] for key, n in det_paths.items()}, **nms_record})
+    # the flow warp's kernels replace no Pallas kernel (JAX computes the warp
+    # in jnp); their main path is the video training step (phase 18 (b))
+    line.append({"name": "flow_warp", "route": "cuda", "source": "posecnn_torch/csrc/flow_warp.cu", "replaces": None,
+                 "launches": video_launches["video_train"]["flow_warp"],
+                 "launches_video_eval": video_launches["video_eval"]["flow_warp"],
+                 "launches_video_bf16_2x1": slice_p_launches["video_bf16_2x1"]["flow_warp"], **kernels["flow_warp"]})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
@@ -4978,4 +5131,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["mesh-rank"]:
         sys.exit(mesh_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["flow-warp"]:
+        sys.exit(flow_warp_only())
     sys.exit(main())

@@ -1,7 +1,7 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Each CUDA kernel (`hough_vote.cu`, `conv3x3.cu`, `nms.cu`) is a `.cu` file
-under `posecnn_torch/csrc/` with a plain C entry point, compiled by `nvcc`;
+Each CUDA kernel (`hough_vote.cu`, `conv3x3.cu`, `nms.cu`, `flow_warp.cu`) is a
+`.cu` file under `posecnn_torch/csrc/` with a plain C entry point, compiled by `nvcc`;
 the host renderer (`csrc/rasterizer.cc`), the host bilateral filter
 (`csrc/bilateral.cc`) and the PNG reader's row filters (`csrc/png.cc`) are
 compiled by `g++`. Each becomes a shared library
@@ -119,6 +119,18 @@ def nms_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def flow_warp_lib() -> ctypes.CDLL:
+    """The loaded flow warp library, with its entry points' C signatures."""
+    lib = ctypes.CDLL(str(build_library("flow_warp")))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flow_warp_forward_launch.argtypes = [ptr] * 11 + [i32] * 5 + [ctypes.c_float, i32, ptr]
+    lib.flow_warp_forward_launch.restype = i32
+    lib.flow_warp_backward_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.flow_warp_backward_launch.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def bilateral_lib() -> ctypes.CDLL:
     """The loaded host bilateral filter, with its entry point's C signature."""
     lib = ctypes.CDLL(str(build_library("bilateral")))
@@ -162,8 +174,8 @@ def png_lib() -> ctypes.CDLL:
     return lib
 
 
-LIBRARIES = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib, "nms": nms_lib, "rasterizer": rasterizer_lib,
-             "bilateral": bilateral_lib, "png": png_lib}
+LIBRARIES = {"hough_vote": hough_vote_lib, "conv3x3": conv3x3_lib, "nms": nms_lib, "flow_warp": flow_warp_lib,
+             "rasterizer": rasterizer_lib, "bilateral": bilateral_lib, "png": png_lib}
 
 
 def build_all() -> float:

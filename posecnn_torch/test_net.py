@@ -201,16 +201,17 @@ def _evaluate(args, ap, config) -> int:
 
 
 def _reset_launches() -> None:
-    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.ops import compute_flow, conv3x3, nms, voting
 
-    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = compute_flow.FLOW_WARP_LAUNCHES = 0
 
 
 def _launches() -> dict:
     """Each kernel's launches since `_reset_launches`."""
-    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.ops import compute_flow, conv3x3, nms, voting
 
-    return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
+    return {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES,
+            "flow_warp": compute_flow.FLOW_WARP_LAUNCHES}
 
 
 def _peak(device: str) -> dict:

@@ -512,7 +512,7 @@ def _train(args, ap, t_start: float, world: int) -> int:
     import torch
 
     from posecnn_torch.engine.train import Solver
-    from posecnn_torch.ops import conv3x3, nms, voting
+    from posecnn_torch.ops import compute_flow, conv3x3, nms, voting
     from posecnn_torch.parallel.mesh import MeshSpec, make_mesh
     from posecnn_torch.utils.debug_nans import debug_nans
 
@@ -555,7 +555,7 @@ def _train(args, ap, t_start: float, world: int) -> int:
         state, start = solver.resume(state, log=log)
     data_iter, finish_data = open_data(start)
     timings = {}
-    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = 0
+    voting.VOTE_LAUNCHES = conv3x3.CONV3X3_LAUNCHES = nms.NMS_LAUNCHES = compute_flow.FLOW_WARP_LAUNCHES = 0
     data_record = {}
     try:
         # TPU.DEBUG_NANS: every step's forward and backward under the NaN check
@@ -567,7 +567,8 @@ def _train(args, ap, t_start: float, world: int) -> int:
             close()
         if finish_data is not None:
             data_record = finish_data()
-    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES}
+    launches = {"hough_vote": voting.VOTE_LAUNCHES, "conv3x3": conv3x3.CONV3X3_LAUNCHES, "nms": nms.NMS_LAUNCHES,
+                "flow_warp": compute_flow.FLOW_WARP_LAUNCHES}
     cuda = args.device.startswith("cuda")
     device = torch.cuda.get_device_name(torch.device(args.device)) if cuda else "cpu"
     record = {"device": device, "start_step": start, "end_step": state.step, "launches": launches, "ms": timings}
@@ -588,7 +589,7 @@ def _train(args, ap, t_start: float, world: int) -> int:
     if "batches_by_source" in data_record:
         log(f"host batches made by source (the prefetched ones too): {data_record['batches_by_source']}")
     log(f"done at iteration {state.step}; launches hough_vote {launches['hough_vote']} "
-        f"conv3x3 {launches['conv3x3']} nms {launches['nms']}")
+        f"conv3x3 {launches['conv3x3']} nms {launches['nms']} flow_warp {launches['flow_warp']}")
     return 0
 
 

@@ -380,3 +380,69 @@ def test_det_and_ransac_on_cuda_match_jax_golden(dev):
     from tests.torch_parity import check_det_golden, det_on_golden
 
     check_det_golden(*det_on_golden(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["identity", "all_match", "rigid"])
+@pytest.mark.parametrize("B,H,W,C", [(1, 480, 640, 64), (2, 480, 640, 16), (1, 37, 53, 6)],
+                         ids=["cell", "b2-c16", "odd"])
+def test_flow_warp_kernels_match_plain(dev, case, B, H, W, C):
+    """The flow warp's kernels (`csrc/flow_warp.cu`) against the plain
+    version on the card (`tests/torch_parity.py:check_flow_warp`): the
+    forward, the mask and the divisor bit-equal, the backward within 1e-5
+    of the plain gradient's norm; at the DA-RNN cell's shape, at B=2 with
+    16 channels, and at an odd shape whose 6 channels take the scalar
+    path; on the cell's unrelated depths, the all-match case and a rigid
+    motion with depth edges. One launch each way."""
+    from posecnn_torch.ops import compute_flow as CF
+    from tests.torch_parity import check_flow_warp, flow_warp_both, flow_warp_case, flow_warp_indices
+
+    v = flow_warp_indices(flow_warp_case(case, B, H, W, C, seed=H + C), dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    gd, gw = (torch.randn((B, H, W, C), generator=g, device=dev) for _ in range(2))
+    before = CF.FLOW_WARP_LAUNCHES
+    got, ref = flow_warp_both(v, gd, gw)
+    torch.cuda.synchronize()
+    assert CF.FLOW_WARP_LAUNCHES == before + 2
+    check_flow_warp(got, ref)
+    if case == "all_match":
+        assert bool((ref[3] > 1).all())
+
+
+@pytest.mark.cuda
+def test_flow_warp_is_two_launches_a_frame(dev):
+    """video_forward and backward() on the card: the flow warp's forward
+    kernel once a frame, its backward once a frame that has a gradient to
+    take back: every frame but the first, whose warp reads the fresh state
+    (zeros and ones, which need no gradient), so autograd has no node
+    there. T + (T - 1) launches a window."""
+    from posecnn_torch.models import video as V
+    from posecnn_torch.ops import compute_flow as CF
+    from tests.torch_parity import goldens
+
+    G = goldens()
+    cfg = V.VideoConfig(compute_dtype=torch.float32, **G.VIDEO_CFG)
+    model = V.make_video_model(cfg, G.video_params(), dev)
+    x = {k: torch.from_numpy(v).to(dev) for k, v in G.video_inputs().items()}
+    CF.FLOW_WARP_LAUNCHES = 0
+    outs, state = V.video_forward(model, cfg, x["data"], x["depth"], x["meta_data"])
+    assert CF.FLOW_WARP_LAUNCHES == cfg.num_steps
+    (outs["score"].sum() + state[0].sum()).backward()
+    torch.cuda.synchronize()
+    assert CF.FLOW_WARP_LAUNCHES == 2 * cfg.num_steps - 1
+
+
+@pytest.mark.cuda
+def test_flow_warp_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    """A window past 7x7 or a float64 state on the card raises: nothing
+    falls back to the plain version."""
+    from posecnn_torch.ops import compute_flow as CF
+    from tests.torch_parity import flow_warp_case
+
+    x = {k: torch.from_numpy(v).to(dev) for k, v in flow_warp_case("rigid", 1, 16, 16, 4).items()}
+    before = CF.FLOW_WARP_LAUNCHES
+    with pytest.raises(ValueError, match="kernel_size"):
+        CF.compute_flow(x["data"], x["weights"], x["points"], x["depth"], x["meta"], 4, 0.02, 50.0)
+    with pytest.raises(TypeError, match="float32"):
+        CF.compute_flow(x["data"].double(), x["weights"].double(), x["points"], x["depth"], x["meta"], 3, 0.02, 50.0)
+    assert CF.FLOW_WARP_LAUNCHES == before

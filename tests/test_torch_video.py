@@ -34,8 +34,10 @@ from posecnn_torch.engine.test import set_float32_precision
 from posecnn_torch.models import gru as PG
 from posecnn_torch.models import video as PV
 from posecnn_torch.ops import backproject as PB
+from posecnn_torch.ops import compute_flow as CF
 from posecnn_torch.ops.compute_flow import compute_flow
-from tests.torch_parity import (check_video_golden, goldens, kfusion_on_golden, load_npz, video_on_golden,
+from tests.torch_parity import (FLOW_CASES, FLOW_KERNEL, FLOW_THRESHOLD, check_video_golden, flow_warp_case,
+                                flow_warp_indices, goldens, kfusion_on_golden, load_npz, mask_words, video_on_golden,
                                 video_step_on_golden)
 
 torch.set_num_threads(1)
@@ -164,6 +166,93 @@ def test_compute_flow_matches_jax(k):
     for a, b in ((dd, td.grad), (dw, tw.grad)):
         a = np.asarray(a)
         assert float(np.abs(a - b.numpy()).max()) <= 1e-5 * float(np.abs(a).max())
+
+
+@pytest.mark.parametrize("case", FLOW_CASES)
+def test_flow_warp_cases_reach_their_regimes(case):
+    """`flow_warp_case`'s inputs, which the card tests and chip_smoke.py
+    time and hold the kernels to, through the plain match: "all_match"
+    matches every in-bound tap of every pixel, "identity" (the DA-RNN
+    cell's, unrelated depths) a few, "rigid" many, with the pixels moved."""
+    B, H, W, k = 2, 24, 32, FLOW_KERNEL
+    v = flow_warp_indices(flow_warp_case(case, B, H, W, 4, seed=1))
+    match = CF.match_plain(v["px"], v["py"], v["z1"], v["has_depth"], v["points"][..., 2].reshape(-1), k,
+                           FLOW_THRESHOLD)
+    inb = torch.stack([(v["px"] + dx >= 0) & (v["px"] + dx < W) & (v["py"] + dy >= 0) & (v["py"] + dy < H)
+                       & v["has_depth"] for dx in range(-k, k + 1) for dy in range(-k, k + 1)])
+    share = float(match.sum()) / float(inb.sum())
+    moved = float((v["px"] != torch.arange(W))[v["has_depth"]].float().mean())
+    if case == "all_match":
+        assert torch.equal(match, inb) and bool(v["has_depth"].all()) and moved == 0.0
+    elif case == "identity":
+        assert share < 0.2 and moved == 0.0
+    else:
+        assert 0.3 < share < 1.0 and moved > 0.5 and not bool(v["has_depth"].all())
+    words = mask_words(match)
+    assert torch.equal((words >> 3) & 1, match[3].long()) and int(words.max()) < 2 ** (2 * k + 1) ** 2
+
+
+def test_window_mean_backward_node_and_plain_dispatch():
+    """What the benchmark's attribution reads: compute_flow's outputs come
+    from autograd's `_WindowMeanBackward` node (`device_ms.flow_warp` owns
+    its kernels, `device_ms.backward` leaves them out). A CPU tensor takes
+    the plain version and launches no kernel."""
+    x = flow_warp_case("rigid", 1, 12, 16, 4, seed=2)
+    data = torch.from_numpy(x["data"]).requires_grad_(True)
+    weights = torch.from_numpy(x["weights"]).requires_grad_(True)
+    before = CF.FLOW_WARP_LAUNCHES
+    d, w, _ = compute_flow(data, weights, torch.from_numpy(x["points"]), torch.from_numpy(x["depth"]),
+                           torch.from_numpy(x["meta"]), FLOW_KERNEL, FLOW_THRESHOLD, 50.0)
+    assert type(d.grad_fn).__name__ == "_WindowMeanBackward" and d.grad_fn is w.grad_fn
+    (d.sum() + w.sum()).backward()
+    assert data.grad is not None and weights.grad is not None and float(data.grad.abs().sum()) > 0
+    assert CF.FLOW_WARP_LAUNCHES == before
+
+
+def test_video_step_calls_compute_flow_through_its_module():
+    """`models/video.py:video_step` reads `compute_flow` from its module at
+    each call, so the benchmark's `bench:flow_warp` span, which patches
+    `posecnn_torch.models.video:compute_flow`, wraps every frame's warp."""
+    G = goldens()
+    cfg = PV.VideoConfig(compute_dtype=torch.float32, **G.VIDEO_CFG)
+    model = PV.make_video_model(cfg, G.video_params(), "cpu")
+    x = {k: torch.from_numpy(v) for k, v in G.video_inputs().items()}
+    calls, orig = [], PV.compute_flow
+
+    def wrapped(*a, **kw):
+        calls.append(a[0].shape)
+        return orig(*a, **kw)
+
+    PV.compute_flow = wrapped
+    try:
+        with torch.no_grad():
+            PV.video_forward(model, cfg, x["data"], x["depth"], x["meta_data"])
+    finally:
+        PV.compute_flow = orig
+    assert len(calls) == x["data"].shape[0] == cfg.num_steps
+
+
+@pytest.mark.parametrize("fault", ["kernel_size", "dtype", "pixels", "shape", "devices"])
+def test_flow_warp_kernel_inputs_are_checked(fault):
+    """What the kernels cannot take raises before a launch (the wrapper
+    falls back to nothing): a window past 7x7 (a pixel's 64-bit mask),
+    other than float32 state, other than int32 pixels, mismatched shapes,
+    inputs on more than one device."""
+    v = flow_warp_indices(flow_warp_case("all_match", 1, 8, 8, 4))
+    args = dict(v, kernel_size=FLOW_KERNEL)
+    if fault == "kernel_size":
+        args["kernel_size"] = CF.MAX_KERNEL_SIZE + 1
+    elif fault == "dtype":
+        args["data"] = args["data"].double()
+    elif fault == "pixels":
+        args["px"] = args["px"].long()
+    elif fault == "shape":
+        args["points"] = args["points"][..., :2]
+    else:
+        args["z1"] = args["z1"].to("meta")
+    CF.check_kernel_inputs(**dict(v, kernel_size=FLOW_KERNEL))
+    with pytest.raises((ValueError, TypeError)):
+        CF.check_kernel_inputs(**args)
 
 
 def _cell_inputs(seed, shape):

@@ -1318,3 +1318,145 @@ def check_video_golden(video: tuple, video3d: tuple, step: tuple, kf: dict, g: d
     if not err["kfusion/raycast"] <= 1e-4:
         raise AssertionError(f"kfusion/raycast: {err['kfusion/raycast']:.3g} m")
     return err
+
+
+# The flow warp's kernel against its plain version (tests/test_torch_cuda.py,
+# chip_smoke.py phase 21) on `flow_warp_case`'s inputs, at the DA-RNN
+# cell's window and threshold. The forward, the mask and the divisor are
+# bit-equal; the backward within FLOW_GRAD_REL of the plain gradient's norm
+# (its atomics add in another order than index_add_, as each run of either
+# does).
+FLOW_CASES = ("identity", "all_match", "rigid")
+FLOW_KERNEL, FLOW_THRESHOLD = 3, 0.02
+FLOW_GRAD_REL = 1e-5
+
+
+def _flow_scene(rng: np.random.RandomState, H: int, W: int, holes: float = 0.05) -> np.ndarray:
+    """A depth map (H,W) in metres: a tilted plane at 1.2-2.0 m, six boxes
+    in front of it at 0.5-1.2 m (depth edges), `holes` of the pixels 0."""
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    z = rng.uniform(1.2, 2.0) + rng.uniform(-0.3, 0.3) * xs / W + rng.uniform(-0.3, 0.3) * ys / H
+    for _ in range(6):
+        w, h = rng.randint(1, max(2, W // 3)), rng.randint(1, max(2, H // 3))
+        x0, y0 = rng.randint(0, W - w + 1), rng.randint(0, H - h + 1)
+        z[y0:y0 + h, x0:x0 + w] = rng.uniform(0.5, 1.2) + rng.uniform(-0.05, 0.05) * xs[y0:y0 + h, x0:x0 + w] / W
+    z[rng.rand(H, W) < holes] = 0.0
+    return z
+
+
+def _rotation(rng: np.random.RandomState, angle: float) -> np.ndarray:
+    k = rng.randn(3)
+    k /= np.linalg.norm(k)
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(angle) * Kx + (1 - np.cos(angle)) * Kx @ Kx
+
+
+def flow_warp_case(case: str, B: int, H: int, W: int, C: int, seed: int = 0) -> dict:
+    """numpy inputs of `compute_flow` (data, weights, points, depth, meta)
+    for one of FLOW_CASES:
+
+    - "identity": the DA-RNN cell's, identity motion over two unrelated
+      scenes (`_flow_scene`), so a tap matches only where the two depths
+      happen to agree;
+    - "all_match": identity motion over a smooth surface, the previous
+      points the current frame's own, so every in-bound tap of every pixel
+      matches (the backward's most contention: 49 adds a source pixel);
+    - "rigid": a camera moved by a 0.02 rad rotation and up to 3 cm over a
+      scene with depth edges and pixels without depth, the previous points
+      the current ones seen from the previous camera (the nearest where two
+      land on one pixel, NaN where none does).
+
+    The camera has a focal length of 1.6 W at the image centre."""
+    rng = np.random.RandomState(seed)
+    f = 1.6 * W
+    K = np.array([[f, 0.0, (W - 1) / 2], [0.0, f, (H - 1) / 2], [0.0, 0.0, 1.0]])
+    ys, xs = np.mgrid[0:H, 0:W]
+    rays = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64) @ np.linalg.inv(K).T
+    depth = np.zeros((B, H, W))
+    points = np.full((B, H, W, 3), np.nan)
+    meta = np.zeros((B, 48), np.float32)
+    for b in range(B):
+        R, t = np.eye(3), np.zeros(3)
+        if case == "identity":
+            depth[b] = _flow_scene(rng, H, W)
+            prev = _flow_scene(rng, H, W)
+            points[b] = np.where(prev[..., None] > 0, prev[..., None] * rays, np.nan)
+        elif case == "all_match":
+            depth[b] = 1.0 + 0.05 * xs / W + 0.05 * ys / H
+            points[b] = depth[b][..., None] * rays
+        elif case == "rigid":
+            depth[b] = _flow_scene(rng, H, W)
+            R, t = _rotation(rng, 0.02), rng.uniform(-0.03, 0.03, 3)
+            valid = depth[b] > 0
+            X = (depth[b][..., None] * rays)[valid] @ R.T + t  # in the previous camera
+            u = X @ K.T
+            with np.errstate(divide="ignore", invalid="ignore"):
+                qx, qy = np.round(u[:, 0] / u[:, 2]), np.round(u[:, 1] / u[:, 2])
+            inside = (X[:, 2] > 0) & (qx >= 0) & (qx < W) & (qy >= 0) & (qy < H)
+            order = np.argsort(-X[inside, 2], kind="stable")  # far first: the nearest written last
+            idx = (qy[inside] * W + qx[inside]).astype(np.int64)[order]
+            points[b].reshape(-1, 3)[idx] = X[inside][order]
+        else:
+            raise ValueError(f"no flow warp case {case!r} (cases: {FLOW_CASES})")
+        meta[b, 0:9], meta[b, 9:18] = K.ravel(), np.linalg.inv(K).ravel()
+        meta[b, 18:30] = np.hstack([R.T, (-R.T @ t)[:, None]]).ravel()  # world2live
+        meta[b, 30:42] = np.hstack([R, t[:, None]]).ravel()  # live2world: the current camera into the previous
+    return {"data": rng.randn(B, H, W, C).astype(np.float32),
+            "weights": rng.uniform(0.5, 60.0, (B, H, W, C)).astype(np.float32),
+            "points": points.astype(np.float32), "depth": depth.astype(np.float32), "meta": meta}
+
+
+def flow_warp_indices(x: dict, device="cpu") -> dict:
+    """`flow_warp_case`'s inputs on `device` with the projection of
+    `compute_flow` (`project_pixels`): data, weights, points, px, py, z1,
+    has_depth."""
+    from posecnn_torch.ops.compute_flow import project_pixels
+
+    t_ = {k: torch.from_numpy(v).to(device) for k, v in x.items()}
+    _, px, py, z1, has_depth = project_pixels(t_["depth"], t_["meta"])
+    return {"data": t_["data"], "weights": t_["weights"], "points": t_["points"], "px": px, "py": py, "z1": z1,
+            "has_depth": has_depth}
+
+
+def mask_words(match: torch.Tensor) -> torch.Tensor:
+    """The plain version's ((2k+1)^2, B, H, W) match as the kernel's mask
+    words: bit o of a pixel's int64 set where offset o matched."""
+    bits = torch.arange(match.shape[0], device=match.device).view(-1, 1, 1, 1)
+    return (match.long() << bits).sum(0)
+
+
+def check_flow_warp(got: tuple, ref: tuple) -> dict:
+    """got (out_data, out_weights, mask, denom, grad_data, grad_weights)
+    from the kernels against ref (the same from the plain version, its
+    match as `mask_words`, its denom (B,H,W,1)): bit-equal forward, mask and
+    denom; each gradient within FLOW_GRAD_REL of the plain one's norm.
+    Returns the gradients' relative gaps."""
+    names = ("out_data", "out_weights", "mask", "denom")
+    for name, a, b in zip(names, got[:4], ref[:4]):
+        if not torch.equal(a, b.reshape(a.shape)):
+            n = int((a != b.reshape(a.shape)).sum())
+            raise AssertionError(f"flow warp {name}: {n} of {a.numel()} values differ from the plain version's")
+    gaps = {}
+    for name, a, b in zip(("grad_data", "grad_weights"), got[4:], ref[4:]):
+        gaps[name] = float(torch.linalg.vector_norm((a - b).double())) / max(
+            float(torch.linalg.vector_norm(b.double())), 1e-30)
+        if not gaps[name] <= FLOW_GRAD_REL:
+            raise AssertionError(f"flow warp {name}: {gaps[name]:.3g} of the plain gradient's norm "
+                                 f"(limit {FLOW_GRAD_REL})")
+    return gaps
+
+
+def flow_warp_both(v: dict, g_data: torch.Tensor, g_weights: torch.Tensor, k: int = FLOW_KERNEL,
+                   threshold: float = FLOW_THRESHOLD) -> tuple:
+    """(the kernels' outputs, the plain version's) for `check_flow_warp` on
+    `flow_warp_indices`' tensors, forward and backward, the backward for
+    the cotangents (g_data, g_weights). The kernels need a card."""
+    from posecnn_torch.ops import compute_flow as CF
+
+    args = (v["data"], v["weights"], v["px"], v["py"])
+    od, ow, mask, denom = CF.launch_forward(*args, v["z1"], v["has_depth"], v["points"], k, threshold)
+    gd, gw = CF.launch_backward(g_data, g_weights, v["px"], v["py"], mask, denom, k)
+    match = CF.match_plain(v["px"], v["py"], v["z1"], v["has_depth"], v["points"][..., 2].reshape(-1), k, threshold)
+    rd, rw, rden = CF.window_mean_plain(*args, match, k)
+    rgd, rgw = CF.window_mean_backward_plain(g_data, g_weights, v["px"], v["py"], match, rden, k)
+    return (od, ow, mask, denom, gd, gw), (rd, rw, mask_words(match), rden, rgd, rgw)
