@@ -233,6 +233,11 @@ import time
 
 import numpy as np
 
+# the NMS kernel's bound: NMS_TEST_OPS f32 operations an IoU test, over the
+# tests a greedy sweep of the boxes needs (`nms_sweep_tests`), as the
+# benchmark's `nms_roofline` counts them
+from benchmark.counts.nms import NMS_TEST_OPS, nms_sweep_tests
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES_DIR = os.path.join(ROOT, "data", "lov_syn_val_v4")
 N_FRAMES, N_WARMUP = 8, 2
@@ -292,13 +297,6 @@ DET_STEPS, DET_WARMUP, DET_EVAL_FRAMES, DET_EVAL_WARMUP = 40, 8, 12, 3
 # the shipped lov_det.yml's steps (its LEARNING_RATE 0.001 diverges from the
 # init rules, in the JAX trainer too), and the rate of the timed run
 DET_SHIPPED_STEPS, DET_STABLE_LR = 20, 1e-5
-# f32 operations of one IoU test of the NMS kernel: the intersection's two
-# widths (min, max, subtract, add 1, clamp at 0: 5 each), their product, the
-# union (the two areas' sum less the intersection: 2), the division and the
-# comparison with the threshold. The bound counts the tests a greedy sweep
-# of this run's boxes needs: each kept box against each later box that no
-# kept box before it has removed (`nms_sweep_tests`).
-NMS_TEST_OPS = 15
 # the NMS kernel's cold-L2 time: calls on this many copies of the boxes in
 # turn, each with its mask words in a block of its own (~92 MB at 6000)
 NMS_COLD_CALLS = 40
@@ -1666,20 +1664,6 @@ def input_modes_phase(work: str, dev) -> dict:
     defer(12, "the FCN-8s forward on the CPU port", fcn8_on_cpu)
     phase(12, f"phase 12's card work took {time.perf_counter() - t_phase:.1f} s")
     return launches
-
-
-def nms_sweep_tests(over: np.ndarray) -> tuple:
-    """(keep mask, IoU tests) of a greedy sweep over the suppression matrix
-    of sorted boxes: a box not removed when it is reached is kept, and is
-    tested against each later box that is still there."""
-    n = over.shape[0]
-    removed = np.zeros(n, bool)
-    tests = 0
-    for i in range(n):
-        if not removed[i]:
-            tests += int(n - 1 - i - removed[i + 1:].sum())
-            removed[i + 1:] |= over[i, i + 1:]
-    return ~removed, tests
 
 
 def det_proposals(dev):

@@ -36,8 +36,10 @@ from torch.autograd import _profiler_enabled
 
 PREFIX = "posecnn:"
 
-# the layer spans of the training steps, in the order a flagship step runs them
-LAYERS = ("sample", "trunk", "heads", "hough", "pose_head", "losses", "backward", "optimizer", "flow_warp")
+# the layer spans of the training steps, in the order a flagship step runs
+# them; then the video step's, then the detection step's
+LAYERS = ("sample", "trunk", "heads", "hough", "pose_head", "losses", "backward", "optimizer", "flow_warp",
+          "rpn", "proposals", "rcnn_head")
 
 _RECORDER: Optional["Recorder"] = None
 

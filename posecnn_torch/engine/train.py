@@ -925,8 +925,9 @@ def det_losses(model, det_cfg, hp: TrainHParams, batch: Dict[str, torch.Tensor],
     """The detection loss (`train.py:make_det_train_step`'s losses_fn,
     reference train_net_det): the RPN cross entropy over the anchors with a
     label, the RPN box loss (sigma 3, summed over the anchors), the RCNN
-    cross entropy and box loss, the ADD pose loss at pose_w and the L2 term.
-    uint8 data has the pixel means subtracted and nothing else."""
+    cross entropy and box loss, the ADD pose loss at pose_w and the L2 term,
+    the terms inside the span `losses`. uint8 data has the pixel means
+    subtracted and nothing else."""
     from posecnn_torch.models.detection import vgg16_det_forward
     from posecnn_torch.models.layers import log_softmax_hd
     from posecnn_torch.ops.losses import smooth_l1_loss, sparse_softmax_cross_entropy
@@ -935,28 +936,29 @@ def det_losses(model, det_cfg, hp: TrainHParams, batch: Dict[str, torch.Tensor],
     if data.dtype == torch.uint8:
         data = data.to(torch.float32) - torch.tensor(hp.pixel_means, device=data.device).reshape(1, 1, 1, 3)
     out = vgg16_det_forward(model, det_cfg, data, gt_boxes=batch["gt_boxes"], gt_poses=batch["poses"], draws=draws)
-    losses: Dict[str, torch.Tensor] = {}
-    logits = out["rpn_cls_score"].reshape(-1, 2)
-    rpn_labels = out["rpn_labels"].reshape(-1)
-    keep = rpn_labels != -1
-    lab_safe = torch.where(keep, rpn_labels, torch.zeros((), dtype=rpn_labels.dtype, device=rpn_labels.device))
-    ce = -torch.gather(log_softmax_hd(logits), 1, lab_safe.long()[:, None])[:, 0]
-    zero = torch.zeros((), device=ce.device)
-    losses["loss_rpn_cls"] = torch.where(keep, ce, zero).sum() / torch.clamp(keep.sum(), min=1)
-    losses["loss_rpn_box"] = smooth_l1_loss(
-        out["rpn_bbox_pred"].reshape(1, -1, 4), out["rpn_bbox_targets"].reshape(1, -1, 4),
-        out["rpn_bbox_inside_weights"].reshape(1, -1, 4), out["rpn_bbox_outside_weights"].reshape(1, -1, 4),
-        sigma=3.0, dim=(1, 2),
-    )
-    losses["loss_cls"] = sparse_softmax_cross_entropy(out["cls_score"], out["labels"])
-    losses["loss_box"] = smooth_l1_loss(out["bbox_pred"], out["bbox_targets"], out["bbox_inside_weights"],
-                                        out["bbox_outside_weights"], dim=(1,))
-    losses["loss_pose"] = hp.pose_w * average_distance_loss(
-        out["poses_pred"], out["poses_target"], out["poses_weight"], points, symmetry, hp.margin)
-    losses["loss_regu"] = regularization_loss(model, hp.weight_reg)
-    loss = sum(losses[k] for k in ("loss_rpn_cls", "loss_rpn_box", "loss_cls", "loss_box", "loss_pose",
-                                   "loss_regu"))
-    losses["loss"] = loss
+    with span("losses"):
+        losses: Dict[str, torch.Tensor] = {}
+        logits = out["rpn_cls_score"].reshape(-1, 2)
+        rpn_labels = out["rpn_labels"].reshape(-1)
+        keep = rpn_labels != -1
+        lab_safe = torch.where(keep, rpn_labels, torch.zeros((), dtype=rpn_labels.dtype, device=rpn_labels.device))
+        ce = -torch.gather(log_softmax_hd(logits), 1, lab_safe.long()[:, None])[:, 0]
+        zero = torch.zeros((), device=ce.device)
+        losses["loss_rpn_cls"] = torch.where(keep, ce, zero).sum() / torch.clamp(keep.sum(), min=1)
+        losses["loss_rpn_box"] = smooth_l1_loss(
+            out["rpn_bbox_pred"].reshape(1, -1, 4), out["rpn_bbox_targets"].reshape(1, -1, 4),
+            out["rpn_bbox_inside_weights"].reshape(1, -1, 4), out["rpn_bbox_outside_weights"].reshape(1, -1, 4),
+            sigma=3.0, dim=(1, 2),
+        )
+        losses["loss_cls"] = sparse_softmax_cross_entropy(out["cls_score"], out["labels"])
+        losses["loss_box"] = smooth_l1_loss(out["bbox_pred"], out["bbox_targets"], out["bbox_inside_weights"],
+                                            out["bbox_outside_weights"], dim=(1,))
+        losses["loss_pose"] = hp.pose_w * average_distance_loss(
+            out["poses_pred"], out["poses_target"], out["poses_weight"], points, symmetry, hp.margin)
+        losses["loss_regu"] = regularization_loss(model, hp.weight_reg)
+        loss = sum(losses[k] for k in ("loss_rpn_cls", "loss_rpn_box", "loss_cls", "loss_box", "loss_pose",
+                                       "loss_regu"))
+        losses["loss"] = loss
     return loss, losses
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from posecnn_torch.core.profiler import span
 from posecnn_torch.models import layers as L
 from posecnn_torch.models.backbone import Conv, VGGTrunk, scaled_width, trunk_shapes
 from posecnn_torch.models.posecnn import Linear, _dropout
@@ -147,65 +148,73 @@ def vgg16_det_forward(
     train = cfg.is_train and gt_boxes is not None
     keep = cfg.keep_prob if cfg.is_train else 1.0
 
-    net = m.trunk(data, compute_dtype=dt)
+    with span("trunk"):
+        net = m.trunk(data, compute_dtype=dt)
     conv5 = net["conv5_3"]
-    conv_rpn = L.conv2d(m.conv_rpn.weight, m.conv_rpn.bias, conv5, relu=True, compute_dtype=dt)
-    rpn_cls_score = L.conv2d(m.rpn_cls_score.weight, m.rpn_cls_score.bias, conv_rpn, relu=False, compute_dtype=dt)
-    rpn_bbox_pred = L.conv2d(m.rpn_bbox_pred.weight, m.rpn_bbox_pred.bias, conv_rpn, relu=False, compute_dtype=dt)
+    with span("rpn"):
+        conv_rpn = L.conv2d(m.conv_rpn.weight, m.conv_rpn.bias, conv5, relu=True, compute_dtype=dt)
+        rpn_cls_score = L.conv2d(m.rpn_cls_score.weight, m.rpn_cls_score.bias, conv_rpn, relu=False,
+                                 compute_dtype=dt)
+        rpn_bbox_pred = L.conv2d(m.rpn_bbox_pred.weight, m.rpn_bbox_pred.bias, conv_rpn, relu=False,
+                                 compute_dtype=dt)
 
-    Hf, Wf = conv_rpn.shape[1], conv_rpn.shape[2]
-    # softmax over each anchor's (bg, fg) pair, then the reference's
-    # channel blocks (bg of every anchor, then fg)
-    pairs = L.softmax_hd(rpn_cls_score.reshape(1, Hf, Wf, A, 2))
-    rpn_prob_blocks = torch.cat([pairs[..., 0], pairs[..., 1]], dim=-1)
-    anchors = _anchors(Hf, Wf, cfg.feature_stride, tuple(cfg.anchor_ratios), tuple(cfg.anchor_scales), data.device)
+        Hf, Wf = conv_rpn.shape[1], conv_rpn.shape[2]
+        # softmax over each anchor's (bg, fg) pair, then the reference's
+        # channel blocks (bg of every anchor, then fg)
+        pairs = L.softmax_hd(rpn_cls_score.reshape(1, Hf, Wf, A, 2))
+        rpn_prob_blocks = torch.cat([pairs[..., 0], pairs[..., 1]], dim=-1)
+        anchors = _anchors(Hf, Wf, cfg.feature_stride, tuple(cfg.anchor_ratios), tuple(cfg.anchor_scales),
+                           data.device)
 
-    out: Dict[str, torch.Tensor] = {
-        "rpn_cls_score": rpn_cls_score,
-        "rpn_bbox_pred": rpn_bbox_pred,
-        "rpn_cls_prob": rpn_prob_blocks,
-    }
-    if train:
-        at = anchor_target_layer(draws, anchors, gt_boxes, (H, W))
-        out.update(rpn_labels=at.labels, rpn_bbox_targets=at.bbox_targets,
-                   rpn_bbox_inside_weights=at.bbox_inside_weights,
-                   rpn_bbox_outside_weights=at.bbox_outside_weights)
+        out: Dict[str, torch.Tensor] = {
+            "rpn_cls_score": rpn_cls_score,
+            "rpn_bbox_pred": rpn_bbox_pred,
+            "rpn_cls_prob": rpn_prob_blocks,
+        }
+        if train:
+            at = anchor_target_layer(draws, anchors, gt_boxes, (H, W))
+            out.update(rpn_labels=at.labels, rpn_bbox_targets=at.bbox_targets,
+                       rpn_bbox_inside_weights=at.bbox_inside_weights,
+                       rpn_bbox_outside_weights=at.bbox_outside_weights)
 
-    rois, scores = proposal_layer(
-        rpn_prob_blocks[0], rpn_bbox_pred[0], anchors, (H, W), A, pre_nms_top_n=cfg.rpn_pre_nms_top_n,
-        post_nms_top_n=cfg.rpn_post_nms_top_n, nms_thresh=cfg.rpn_nms_thresh,
-    )
-    out["rois_raw"] = rois
-    out["rpn_scores"] = scores
+    with span("proposals"):
+        rois, scores = proposal_layer(
+            rpn_prob_blocks[0], rpn_bbox_pred[0], anchors, (H, W), A, pre_nms_top_n=cfg.rpn_pre_nms_top_n,
+            post_nms_top_n=cfg.rpn_post_nms_top_n, nms_thresh=cfg.rpn_nms_thresh,
+        )
+        out["rois_raw"] = rois
+        out["rpn_scores"] = scores
 
-    if train:
-        if gt_poses is None:
-            gt_poses = torch.zeros((gt_boxes.shape[0], 13), device=data.device)
-        pt = proposal_target_layer(draws, rois, scores, gt_boxes, gt_poses, C, batch_size=cfg.roi_batch_size)
-        rois_target = pt.rois
-        out.update(labels=pt.labels, bbox_targets=pt.bbox_targets, bbox_inside_weights=pt.bbox_inside_weights,
-                   bbox_outside_weights=pt.bbox_outside_weights, poses_target=pt.poses_target,
-                   poses_weight=pt.poses_weight)
-    else:
-        rois_target = rois
-        out["poses_weight"] = torch.ones((rois.shape[0], 4 * C), device=data.device)
-    out["rois"] = rois_target
+        if train:
+            if gt_poses is None:
+                gt_poses = torch.zeros((gt_boxes.shape[0], 13), device=data.device)
+            pt = proposal_target_layer(draws, rois, scores, gt_boxes, gt_poses, C, batch_size=cfg.roi_batch_size)
+            rois_target = pt.rois
+            out.update(labels=pt.labels, bbox_targets=pt.bbox_targets, bbox_inside_weights=pt.bbox_inside_weights,
+                       bbox_outside_weights=pt.bbox_outside_weights, poses_target=pt.poses_target,
+                       poses_weight=pt.poses_weight)
+        else:
+            rois_target = rois
+            out["poses_weight"] = torch.ones((rois.shape[0], 4 * C), device=data.device)
+        out["rois"] = rois_target
 
-    # the RCNN head: crop_pool reads 7-column rois (batch, cls, x1..y2)
-    R = rois_target.shape[0]
-    z = torch.zeros((R, 1), dtype=rois_target.dtype, device=data.device)
-    rois7 = torch.cat([rois_target[:, :1], z, rois_target[:, 1:5], z], dim=1)
-    pool5 = crop_pool_batched(conv5, rois7[None], 1.0 / cfg.feature_stride, 7)[0]
-    fc6 = L.fc(m.fc6.weight, m.fc6.bias, pool5.reshape(R, -1), relu=True, compute_dtype=dt)
-    fc6 = _dropout(fc6, keep, draws, "dropout/fc6")
-    fc7 = L.fc(m.fc7.weight, m.fc7.bias, fc6, relu=True, compute_dtype=dt)
-    fc7 = _dropout(fc7, keep, draws, "dropout/fc7")
-    cls_score = L.fc(m.cls_score.weight, m.cls_score.bias, fc7, relu=False)
-    out["cls_score"] = cls_score
-    out["cls_prob"] = L.softmax_hd(cls_score)
-    out["bbox_pred"] = L.fc(m.bbox_pred.weight, m.bbox_pred.bias, fc7, relu=False)
-    poses_tanh = torch.tanh(L.fc(m.poses_pred_unnormalized.weight, m.poses_pred_unnormalized.bias, fc7, relu=False))
-    out["poses_tanh"] = poses_tanh
-    out["poses_mul"] = poses_tanh * out["poses_weight"]
-    out["poses_pred"] = L.l2_normalize(out["poses_mul"], dim=1)
+    with span("rcnn_head"):
+        # the RCNN head: crop_pool reads 7-column rois (batch, cls, x1..y2)
+        R = rois_target.shape[0]
+        z = torch.zeros((R, 1), dtype=rois_target.dtype, device=data.device)
+        rois7 = torch.cat([rois_target[:, :1], z, rois_target[:, 1:5], z], dim=1)
+        pool5 = crop_pool_batched(conv5, rois7[None], 1.0 / cfg.feature_stride, 7)[0]
+        fc6 = L.fc(m.fc6.weight, m.fc6.bias, pool5.reshape(R, -1), relu=True, compute_dtype=dt)
+        fc6 = _dropout(fc6, keep, draws, "dropout/fc6")
+        fc7 = L.fc(m.fc7.weight, m.fc7.bias, fc6, relu=True, compute_dtype=dt)
+        fc7 = _dropout(fc7, keep, draws, "dropout/fc7")
+        cls_score = L.fc(m.cls_score.weight, m.cls_score.bias, fc7, relu=False)
+        out["cls_score"] = cls_score
+        out["cls_prob"] = L.softmax_hd(cls_score)
+        out["bbox_pred"] = L.fc(m.bbox_pred.weight, m.bbox_pred.bias, fc7, relu=False)
+        poses_tanh = torch.tanh(L.fc(m.poses_pred_unnormalized.weight, m.poses_pred_unnormalized.bias, fc7,
+                                     relu=False))
+        out["poses_tanh"] = poses_tanh
+        out["poses_mul"] = poses_tanh * out["poses_weight"]
+        out["poses_pred"] = L.l2_normalize(out["poses_mul"], dim=1)
     return out

@@ -108,10 +108,31 @@ def _video_step():
     return T.make_video_train_step(cfg, hp), state, itertools.repeat(batch)
 
 
+def _det_step():
+    """A narrow detection step (VGG16DET) on a random 192x192 frame with
+    three GT boxes."""
+    from posecnn_torch.models import detection as D
+
+    cfg = D.DetConfig(compute_dtype=torch.float32, num_classes=4, trunk_scale=0.25, fc_dim=64,
+                      rpn_pre_nms_top_n=200, rpn_post_nms_top_n=32, roi_batch_size=16)
+    hp = T.TrainHParams(learning_rate=1e-5)
+    rng = np.random.RandomState(4)
+    gt = np.zeros((6, 5), np.float32)
+    gt[:3] = [[40, 30, 150, 160, 1], [100, 20, 180, 90, 3], [10, 120, 70, 185, 2]]
+    poses = np.zeros((6, 13), np.float32)
+    poses[:3, 1], poses[:3, 6] = gt[:3, 4], 1.0
+    batch = {"data": torch.from_numpy((rng.rand(1, 192, 192, 3) * 255).astype(np.uint8)), "gt_boxes": t(gt),
+             "poses": t(poses)}
+    points = t(rng.uniform(-0.05, 0.05, (4, 32, 3)).astype(np.float32))
+    state = T.create_train_state(D.make_det_model(cfg, D.init_vgg16_det_params_numpy(7, cfg), "cpu"), hp)
+    return T.make_det_train_step(cfg, hp, points, torch.zeros(4)), state, itertools.repeat(batch)
+
+
 # the layers each step runs; the others read 0.0
 RUNS = {"flagship": (_bank_step, {"sample", "trunk", "heads", "hough", "pose_head", "losses", "backward",
                                   "optimizer"}),
-        "video": (_video_step, {"trunk", "flow_warp", "losses", "backward", "optimizer"})}
+        "video": (_video_step, {"trunk", "flow_warp", "losses", "backward", "optimizer"}),
+        "det": (_det_step, {"trunk", "rpn", "proposals", "rcnn_head", "losses", "backward", "optimizer"})}
 
 
 @pytest.mark.parametrize("kind", sorted(RUNS))
@@ -130,6 +151,33 @@ def test_solver_reports_each_layers_host_ms(kind):
     for i in range(n):
         assert sum(timings["host/" + name][i] for name in P.LAYERS) <= timings["step"][i]
     assert P._RECORDER is None  # the Solver took its recorder away
+
+
+# the host's reads of a tensor's values: each a sync on a card
+READS = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__", "__float__")
+
+
+@pytest.mark.parametrize("kind", sorted(RUNS))
+def test_spans_and_counters_read_nothing_back(kind, monkeypatch):
+    # a step with its spans recorded reads no more values back than one
+    # without: a span reads the host's clock alone, and the NMS counters
+    # count on the device
+    make = RUNS[kind][0]
+    counts = []
+    for timings in (None, {}):
+        step, state, items = make()
+        T.Solver(step, display=100).train(items, state, 1, log=None)  # warm: the first call's one-off work
+        reads = []
+        with monkeypatch.context() as m:
+            for name in READS:
+                def counted(self, *a, _orig=getattr(torch.Tensor, name), _name=name, **k):
+                    reads.append(_name)
+                    return _orig(self, *a, **k)
+
+                m.setattr(torch.Tensor, name, counted)
+            T.Solver(step, display=100).train(items, state, 3, log=None, start_iter=1, timings=timings)
+        counts.append(sorted(reads))
+    assert counts[0] == counts[1]
 
 
 def test_no_timings_records_nothing(monkeypatch):
