@@ -31,7 +31,9 @@ video step across ranks, and the GAN models.
      graphs of its calls and as single calls, beside its bound (the pairs
      inside a valid sample's box) and the share of pairs its box pruning
      keeps; and conv3x3 at conv1_2 (the trunk's, the bias + ReLU and the
-     zero-bias epilogues at B=1 and B=2, dx at B=2; within 1 bf16 ulp;
+     zero-bias epilogues at B=1 and B=2, the trunk's at B=5 (the video
+     step's window of 5 frames in one launch), dx at B=1, 2 and 5; within
+     1 bf16 ulp;
      back-to-back, cold-L2 and single-call times beside cuDNN's bf16 conv);
      and both at the toy path's shapes (`toy_phase3`): conv3x3 at B=2,
      96x128 in the path's mode there (the zero-bias sum) and dx, beside
@@ -3415,14 +3417,15 @@ def video_phase(work: str, dev) -> dict:
     motion), at full width (VideoConfig: 22 classes, 64 units, 640x480,
     bf16, seed weights): (b) make_video_train_step for VIDEO_STEPS steps on
     GtDataLayer windows (T=5, B=1) through the prefetch thread: stream ms a
-    step, data wait, peak memory, finite losses, conv3x3 2 launches a frame
-    (forward, dx); (c) test_net_video over video 0000 (8 frames) with
-    KinectFusion at grid 128: ms a frame (reading, network step, fusion),
-    peak memory, the surface, conv3x3 1 a frame; (d) video3d_forward
-    (Video3DConfig, grid 32) over one window, its grid fitted by Voxelizer
-    to the first frame's points: ms a frame, observed voxels, conv3x3 1 a
-    frame; (e) `train_net --cfg <lov_color_2d.yml with phase 15's
-    SYNROOT, DISPLAY 10 and TPU.DEVICE_TARGETS False>` for DENSE_STEPS
+    step, data wait, peak memory, finite losses, conv3x3 2 launches a step
+    (conv1_2 forward and dx, once over the window's 5 frames); (c)
+    test_net_video over video 0000 (8 frames) with KinectFusion at grid
+    128: ms a frame (reading, network step, fusion), peak memory, the
+    surface, conv3x3 1 a frame; (d) video3d_forward (Video3DConfig, grid
+    32) over one window, its grid fitted by Voxelizer to the first frame's
+    points: ms a frame, observed voxels, conv3x3 1 a window (the trunk once
+    over its frames); (e) `train_net --cfg <lov_color_2d.yml with phase
+    15's SYNROOT, DISPLAY 10 and TPU.DEVICE_TARGETS False>` for DENSE_STEPS
     steps: the dense batches' host time (data wait), stream ms, peak
     memory, finite losses, 4 hough_vote and 2 conv3x3 launches a step;
     (f) `train_net --cfg <toy_pose.yml with TPU.DEBUG_NANS True>` for
@@ -3520,7 +3523,8 @@ def video_phase(work: str, dev) -> dict:
         peak = peak_mib()
         # the flow warp: its forward a frame, its backward a frame but the
         # first (whose warp reads the fresh state: no gradient to take back)
-        want = {"hough_vote": 0, "conv3x3": 2 * cfg.num_steps * VIDEO_STEPS, "nms": 0,
+        # conv1_2 forward and dx once a step: the trunk runs over the window's frames at once
+        want = {"hough_vote": 0, "conv3x3": 2 * VIDEO_STEPS, "nms": 0,
                 "flow_warp": (2 * cfg.num_steps - 1) * VIDEO_STEPS}
         check(launches["video_train"] == want, f"video train: launches {launches['video_train']}, want {want}")
         check(all(np.isfinite(v) for m in out for v in m.values()) and state.step == VIDEO_STEPS,
@@ -3531,7 +3535,8 @@ def video_phase(work: str, dev) -> dict:
                   f"(first {stream[0]:.1f}), data wait {statistics.median(wait[VIDEO_WARMUP:]):.3f} ms (the prefetch "
                   f"thread reading 5 frames a step, and the copy); peak memory {peak:.1f} MiB; loss step 1 "
                   f"{out[0]['loss']:.6g}, step {VIDEO_STEPS} {out[-1]['loss']:.6g}, lr {out[-1]['lr']:g}; launches "
-                  f"{launches['video_train']} ({2 * cfg.num_steps} conv3x3 a step: conv1_2 forward and dx a frame; "
+                  f"{launches['video_train']} (2 conv3x3 a step: conv1_2 forward and dx over the window's "
+                  f"{cfg.num_steps} frames at once; "
                   f"{2 * cfg.num_steps - 1} flow_warp: its forward a frame, its backward a frame but the first)")
         print("video train per-step ms " + json.dumps({"stream": [round(x, 3) for x in stream],
                                                        "data_wait": [round(x, 3) for x in wait]}), flush=True)
@@ -3586,7 +3591,7 @@ def video_phase(work: str, dev) -> dict:
         launches["video3d"] = counts()
         peak = peak_mib()
         flags = o3["flag_3d"].mean(dim=(1, 2, 3, 4, 5)).tolist()
-        check(launches["video3d"] == {"hough_vote": 0, "conv3x3": 2 * cfg3.num_steps, "nms": 0, "flow_warp": 0},
+        check(launches["video3d"] == {"hough_vote": 0, "conv3x3": 2, "nms": 0, "flow_warp": 0},
               f"video3d: launches {launches['video3d']}")
         check(flags[0] > 0 and bool(torch.isfinite(s3).all())
               and tuple(o3["label_2d"].shape) == tuple(batch["depth"].shape),
@@ -3596,7 +3601,7 @@ def video_phase(work: str, dev) -> dict:
                   f"{calls_ms[1] / cfg3.num_steps:.3f} ms stream a frame (the second call; the first "
                   f"{calls_ms[0] / cfg3.num_steps:.1f}); observed voxels a frame {np.round(flags, 4).tolist()} (frame "
                   f"1 the grid's own; the others other scenes); peak memory {peak:.1f} MiB; launches "
-                  f"{launches['video3d']} (two calls)")
+                  f"{launches['video3d']} (two calls, the trunk once a call)")
         del model3, batch, o3, s3
         torch.cuda.empty_cache()
 
@@ -4210,9 +4215,9 @@ def slice_p_phase(work: str, dev, smi: str) -> dict:
     640x480) against the one-process step on the card (in the same ranks);
     in (b) and (c) each kept parameter's rows also within MESH_MOVE_SHARE
     of the one-process step's move (`_move_rows`); and its bf16 step at
-    (2,1) timed (10
-    conv3x3 launches a rank). (d) vgg16_gan_forward at 640x480 (bf16, 1
-    conv3x3 launch) against the CPU port (on the CPU thread); DCGAN at
+    (2,1) timed (2 conv3x3 launches a rank: the trunk once over the
+    window's frames). (d) vgg16_gan_forward at 640x480 (bf16, 1 conv3x3
+    launch) against the CPU port (on the CPU thread); DCGAN at
     DCGAN_SIZE, B=DCGAN_B, in train and eval mode with merge_bn_stats,
     against the CPU port within DCGAN_LIMIT. Returns the launches of each
     path."""
@@ -4443,7 +4448,7 @@ def slice_p_phase(work: str, dev, smi: str) -> dict:
                   f"peak MiB by rank {[round(r[key]['peak_mib'], 1) for r in recs]}; launches by rank {per_rank}"
                   + (f"; split {recs[0][key]['split']}" if recs[0][key]["split"] else "") + f" [{smi}]")
     bf = [r["video_bf16_2x1"] for r in recs]
-    want = {"hough_vote": 0, "conv3x3": 2 * VIDEO_MESH_T, "nms": 0, "flow_warp": 2 * VIDEO_MESH_T - 1}
+    want = {"hough_vote": 0, "conv3x3": 2, "nms": 0, "flow_warp": 2 * VIDEO_MESH_T - 1}
     check(all(r["launches"] == want for r in bf), f"(c) the video bf16 step at (2,1): launches {bf}, want {want}")
     launches["video_bf16_2x1"] = bf[0]["launches"]
     phase(20, f"(c) the video step at (2,1), bf16 (T={VIDEO_MESH_T}, one 640x480 image a rank, 22 classes, 64 units): "
@@ -4789,11 +4794,12 @@ def main() -> int:
         del ins
     torch.cuda.empty_cache()
 
-    # conv3x3 at conv1_2, 480x640, 64->64, at B=1 (inference) and B=2
-    # (training): the trunk's mode (the sum rounded to bf16, the bias added
-    # in bf16, ReLU), the Pallas module's (f32 bias + ReLU), zero bias with
-    # no ReLU, and dx at B=1 (the video step) and B=2 (flipped, transposed
-    # weights folded into the weight image). Within 1 bf16 ulp of the plain version: the same f32
+    # conv3x3 at conv1_2, 480x640, 64->64, at B=1 (inference), B=2 (the
+    # flagship's training step) and B=5 (the video step: its trunk runs once
+    # over the window's 5 frames): the trunk's mode (the sum rounded to
+    # bf16, the bias added in bf16, ReLU), the Pallas module's (f32 bias +
+    # ReLU), zero bias with no ReLU, and dx at B=1, B=2 and B=5 (flipped,
+    # transposed weights folded into the weight image). Within 1 bf16 ulp of the plain version: the same f32
     # sums in another order, each rounded to bf16 once (in the trunk's mode
     # the sum, and the epilogue exactly). Timed three ways,
     # the kernel (its weight image made beforehand) and cuDNN's bf16
@@ -4811,7 +4817,8 @@ def main() -> int:
         (1, "zero bias, no ReLU", False, False, zeros),
         (2, "trunk mode (bf16 bias + ReLU)", True, True, b_t), (2, "bias + ReLU", True, False, b_t),
         (2, "zero bias, no ReLU", False, False, zeros), (1, "dx", False, False, None),
-        (2, "dx", False, False, None),
+        (2, "dx", False, False, None), (5, "trunk mode (bf16 bias + ReLU)", True, True, b_t),
+        (5, "dx", False, False, None),
     ):
         dx = b_c is None
         xs = [torch.from_numpy(rng.randn(B, 480, 640, 64).astype(np.float32)).to(dev)]
@@ -4859,6 +4866,10 @@ def main() -> int:
             kernels["conv3x3"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                       library_ms=l_ms, ms_cold_l2=k_cold, ms_single=k_one, library_ms_cold_l2=l_cold,
                                       library_ms_single=l_one, wrapper_ms_single=w_one)
+        if B == 5:  # conv1_2 of the video step, once over the window's frames
+            key = "b5_dx" if dx else "b5"
+            kernels["conv3x3"].update({f"{key}_ms": k_ms, f"{key}_bound_ms": b_ms, f"{key}_library_ms": l_ms,
+                                       f"{key}_max_abs_err": err})
         extra = ""
         if label.startswith("trunk"):  # what the trunk ran before its bias and ReLU moved into the kernel
             lib3 = lambda: torch.relu(lib() + b_t.to(torch.bfloat16).view(1, -1, 1, 1))  # NCHW view

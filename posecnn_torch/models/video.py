@@ -4,7 +4,11 @@ Port of `posecnn_tpu/models/video.py`. `VideoNet` and `Video3DNet` hold the
 parameters under the JAX package's names (`models/gru.py` for the cells);
 `video_step(model, cfg, ...)` is one frame, `video_forward` a Python loop
 over the T frames in place of `lax.scan`, returning the per-frame outputs
-stacked over T and the final state.
+stacked over T and the final state. The trunk and the label fusion read a
+frame's own pixels and no recurrent state, so `video_forward` and
+`video3d_forward` run them once over the window's T·B frames and hand each
+frame its slice (`video_step`'s `upscore`); a frame given alone, as the
+online eval gives them, runs its own.
 
   * vgg16 (`VideoConfig`): the trunk (`models/backbone.py`, conv1_2 on the
     conv3x3 kernel when it runs in bf16), the two-scale label fusion up to
@@ -152,6 +156,8 @@ def init_video3d_state(batch: int, grid_size: int, num_classes: int, device=None
 
 
 def _upscore(model: _FCN, data: torch.Tensor, dt) -> torch.Tensor:
+    """data (N,H,W,3) -> the trunk's two-scale label fusion upsampled to
+    full resolution, (N,H,W,U) float32."""
     with span("trunk"):
         net = model.trunk(data, compute_dtype=dt)
     c5, c4 = model.score_conv5, model.score_conv4
@@ -161,13 +167,15 @@ def _upscore(model: _FCN, data: torch.Tensor, dt) -> torch.Tensor:
 
 
 def video_step(model: VideoNet, cfg: VideoConfig, data: torch.Tensor, depth: torch.Tensor, meta_data: torch.Tensor,
-               state: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]):
+               state: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], upscore: Optional[torch.Tensor] = None):
     """One frame: data (B,H,W,3) mean-subtracted BGR, depth (B,H,W) in
-    metres, meta_data (B,48), state (state, weights, points). Returns
-    (outputs, new state)."""
+    metres, meta_data (B,48), state (state, weights, points), and the
+    frame's `_upscore` where the caller ran the trunk over a window (None:
+    the step runs it on `data`). Returns (outputs, new state)."""
     dt = cfg.compute_dtype
     h_state, h_weights, h_points = state
-    upscore = _upscore(model, data, dt)
+    if upscore is None:
+        upscore = _upscore(model, data, dt)
     with span("flow_warp"):
         warped_state, warped_weights, points = compute_flow(
             h_state, h_weights, h_points, depth, meta_data, kernel_size=cfg.flow_kernel,
@@ -180,10 +188,16 @@ def video_step(model: VideoNet, cfg: VideoConfig, data: torch.Tensor, depth: tor
     return out, (new_state, new_weights, points)
 
 
-def _scan(step, state, data_seq, depth_seq, meta_seq):
+def _scan(model: _FCN, dt, step, state, data_seq, depth_seq, meta_seq):
+    """The window's (T,B,...) frames through `step` in turn, each with its
+    (B,H,W,U) slice of one `_upscore` pass over the window's T·B frames."""
+    T, B = data_seq.shape[:2]
+    upscore = _upscore(model, data_seq.reshape(T * B, *data_seq.shape[2:]), dt)
+    # unbind: the backward stacks the T frames' gradients once
+    upscores = upscore.reshape(T, B, *upscore.shape[1:]).unbind(0)
     outs = []
-    for t in range(data_seq.shape[0]):
-        out, state = step(data_seq[t], depth_seq[t], meta_seq[t], state)
+    for t in range(T):
+        out, state = step(data_seq[t], depth_seq[t], meta_seq[t], state, upscores[t])
         outs.append(out)
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}, state
 
@@ -195,17 +209,20 @@ def video_forward(model: VideoNet, cfg: VideoConfig, data_seq: torch.Tensor, dep
     T, B, H, W, _ = data_seq.shape
     if state is None:
         state = init_video_state(B, H, W, cfg.num_units, device=data_seq.device)
-    return _scan(lambda d, z, m, s: video_step(model, cfg, d, z, m, s), state, data_seq, depth_seq, meta_seq)
+    return _scan(model, cfg.compute_dtype, lambda d, z, m, s, u: video_step(model, cfg, d, z, m, s, upscore=u), state,
+                 data_seq, depth_seq, meta_seq)
 
 
 def video3d_step(model: Video3DNet, cfg: Video3DConfig, data: torch.Tensor, depth: torch.Tensor,
-                 meta_data: torch.Tensor, state_3d: torch.Tensor):
+                 meta_data: torch.Tensor, state_3d: torch.Tensor, upscore: Optional[torch.Tensor] = None):
     """One frame: trunk -> 2D class scores -> lifted to the voxels -> GRU3D
-    -> the fused distribution read back as a 2D label. Returns (outputs,
-    new voxel state)."""
+    -> the fused distribution read back as a 2D label; `upscore` as
+    `video_step`'s. Returns (outputs, new voxel state)."""
     dt = cfg.compute_dtype
+    if upscore is None:
+        upscore = _upscore(model, data, dt)
     s = model.score
-    score = L.conv2d(s.weight, s.bias, _upscore(model, data, dt), relu=True, compute_dtype=dt)
+    score = L.conv2d(s.weight, s.bias, upscore, relu=True, compute_dtype=dt)
     prob2d = L.softmax_hd(score).to(torch.float32)
     _, vox_label, flag = backproject(prob2d, prob2d, depth, meta_data, state_3d, grid_size=cfg.grid_size,
                                      kernel_size=cfg.backproject_kernel, threshold=cfg.backproject_threshold)
@@ -221,4 +238,5 @@ def video3d_forward(model: Video3DNet, cfg: Video3DConfig, data_seq: torch.Tenso
     final voxel state)."""
     if state_3d is None:
         state_3d = init_video3d_state(data_seq.shape[1], cfg.grid_size, cfg.num_classes, device=data_seq.device)
-    return _scan(lambda d, z, m, s: video3d_step(model, cfg, d, z, m, s), state_3d, data_seq, depth_seq, meta_seq)
+    return _scan(model, cfg.compute_dtype, lambda d, z, m, s, u: video3d_step(model, cfg, d, z, m, s, upscore=u),
+                 state_3d, data_seq, depth_seq, meta_seq)

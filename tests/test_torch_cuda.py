@@ -179,12 +179,13 @@ def test_small_slice_on_cuda_matches_jax_golden(dev):
 @pytest.mark.parametrize("mode", ["trunk", "bias_relu", "bias", "dx"])
 @pytest.mark.parametrize(
     "B,H,W,cin,cout",
-    [(2, 480, 640, 64, 64), (1, 480, 640, 64, 64), (1, 37, 50, 64, 64), (1, 37, 130, 64, 64), (2, 1, 641, 64, 64),
-     (1, 37, 130, 128, 128), (1, 9, 200, 64, 128), (2, 9, 200, 128, 64)],
-    ids=["conv1_2", "conv1_2_b1", "ragged", "w130", "h1_w641", "c128", "c64_128", "c128_64"],
+    [(2, 480, 640, 64, 64), (1, 480, 640, 64, 64), (5, 480, 640, 64, 64), (1, 37, 50, 64, 64), (1, 37, 130, 64, 64),
+     (2, 1, 641, 64, 64), (1, 37, 130, 128, 128), (1, 9, 200, 64, 128), (2, 9, 200, 128, 64)],
+    ids=["conv1_2", "conv1_2_b1", "conv1_2_b5", "ragged", "w130", "h1_w641", "c128", "c64_128", "c128_64"],
 )
 def test_conv3x3_kernel_matches_plain(dev, mode, B, H, W, cin, cout):
-    """Every epilogue and dx, at conv1_2 (B=2 and B=1) and off the kernel's
+    """Every epilogue and dx, at conv1_2 (B=2, B=1, and B=5: the video
+    step's window of 5 frames in one launch) and off the kernel's
     128-pixel tile (W of 50, 130 and 641; H of 1 and 37), at 128 channels
     (a 64-pixel tile) and at mixed widths. trunk: bias added in bf16 after
     the sum's rounding, then ReLU; bias_relu and bias: f32 bias, one
@@ -430,6 +431,34 @@ def test_flow_warp_is_two_launches_a_frame(dev):
     (outs["score"].sum() + state[0].sum()).backward()
     torch.cuda.synchronize()
     assert CF.FLOW_WARP_LAUNCHES == 2 * cfg.num_steps - 1
+
+
+@pytest.mark.cuda
+def test_video_window_is_two_conv3x3_launches(dev):
+    """video_forward and backward() at the DA-RNN cell's sizes (T=5, B=1,
+    480x640, 10 classes, 64 units, bf16): the trunk runs once over the
+    window's 5 frames, so conv1_2 is one conv3x3 launch forward and one dx
+    (2 a frame, 2·T a window, before the trunk ran over the window)."""
+    from posecnn_torch.models import video as V
+    from tests.torch_parity import goldens
+
+    cfg = V.VideoConfig(num_classes=10)
+    model = V.make_video_model(cfg, V.init_video_params_numpy(0, cfg), dev)
+    T, B, H, W = cfg.num_steps, 1, 480, 640
+    rng = np.random.RandomState(0)
+    K = np.array([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109], [0.0, 0.0, 1.0]])
+    data = t((rng.randn(T, B, H, W, 3) * 50).astype(np.float32)).to(dev)
+    depth = t(rng.uniform(0.5, 1.5, (T, B, H, W)).astype(np.float32)).to(dev)
+    meta = t(goldens().video_meta(T, B, K)).to(dev)
+    before = C.CONV3X3_LAUNCHES
+    outs, state = V.video_forward(model, cfg, data, depth, meta)
+    fwd = C.CONV3X3_LAUNCHES - before
+    (outs["score"].float().mean() + state[0].mean()).backward()
+    torch.cuda.synchronize()
+    assert (fwd, C.CONV3X3_LAUNCHES - before - fwd) == (1, 1)
+    assert outs["score"].shape == (T, B, H, W, cfg.num_classes)
+    grad = model.trunk.conv1_2.weight.grad
+    assert grad is not None and bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
 
 
 @pytest.mark.cuda

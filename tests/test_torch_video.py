@@ -232,6 +232,144 @@ def test_video_step_calls_compute_flow_through_its_module():
     assert len(calls) == x["data"].shape[0] == cfg.num_steps
 
 
+def _golden_video_model(three_d: bool, batch: int = 1):
+    """(cfg, model, inputs) of the video golden at float32; `batch` > 1
+    tiles its one video with mirrored copies of the frames."""
+    G = goldens()
+    cfg = (PV.Video3DConfig(compute_dtype=torch.float32, **G.VIDEO3D_CFG) if three_d
+           else PV.VideoConfig(compute_dtype=torch.float32, **G.VIDEO_CFG))
+    model = PV.make_video_model(cfg, G.video_params(three_d=three_d), "cpu")
+    x = {k: torch.from_numpy(v) for k, v in G.video_inputs(three_d=three_d).items()}
+    if batch > 1:
+        flips = [x["data"]] + [x["data"].flip(3 if b % 2 else 2) for b in range(1, batch)]
+        x = {k: torch.cat(flips, 1) if k == "data" else torch.cat([v] * batch, 1) for k, v in x.items()}
+    return cfg, model, x
+
+
+def _per_frame_forward(model, cfg, x):
+    """The window frame by frame, each frame's trunk run by its own step
+    (`upscore=None`, as the online eval runs them): (outputs stacked over T,
+    the final state)."""
+    T, B, H, W, _ = x["data"].shape
+    if isinstance(cfg, PV.Video3DConfig):
+        step, state = PV.video3d_step, PV.init_video3d_state(B, cfg.grid_size, cfg.num_classes)
+    else:
+        step, state = PV.video_step, PV.init_video_state(B, H, W, cfg.num_units)
+    outs = []
+    for t in range(T):
+        out, state = step(model, cfg, x["data"][t], x["depth"][t], x["meta_data"][t], state)
+        outs.append(out)
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}, state
+
+
+def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """|got - ref| / |ref| in L2, NaN where both hold one left out."""
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    got, ref = torch.nan_to_num(got.double()), torch.nan_to_num(ref.double())
+    return float(torch.linalg.vector_norm(got - ref)) / max(float(torch.linalg.vector_norm(ref)), 1e-30)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("three_d", [False, True], ids=["VideoNet", "Video3DNet"])
+def test_window_trunk_pass_equals_per_frame_steps(three_d, batch):
+    """`video_forward` and `video3d_forward` run the trunk once over the
+    window's T·B frames; each frame's score, its probabilities and the
+    final state equal those of the frames run one by one through their
+    own steps, within 1e-5 in relative L2 (batched float32 convolutions sum
+    in another order than one frame's), with one video and with two (the
+    second mirrored, so a frame handed the wrong slice shows)."""
+    cfg, model, x = _golden_video_model(three_d, batch)
+    fwd = PV.video3d_forward if three_d else PV.video_forward
+    with torch.no_grad():
+        outs, state = fwd(model, cfg, x["data"], x["depth"], x["meta_data"])
+        ref_outs, ref_state = _per_frame_forward(model, cfg, x)
+    keys = ("score", "prob_normalized") if three_d else ("score", "prob")
+    states = (state,) if three_d else state
+    ref_states = (ref_state,) if three_d else ref_state
+    gaps = {k: _rel_l2(outs[k], ref_outs[k]) for k in keys}
+    gaps.update({f"state{i}": _rel_l2(a, b) for i, (a, b) in enumerate(zip(states, ref_states))})
+    assert max(gaps.values()) <= 1e-5, gaps
+    assert outs["score"].shape == ref_outs["score"].shape == (cfg.num_steps, batch, 32, 32, cfg.num_classes)
+    assert float(outs["score"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_window_trunk_step_gradients_equal_per_frame_steps(batch, monkeypatch):
+    """One `make_video_train_step` with the window's one trunk pass and one
+    with the frames run one by one: every parameter's gradient within 1e-5
+    in relative L2, and the same loss terms within 1e-5."""
+    from posecnn_torch.engine import train as T
+
+    G = goldens()
+    hp = T.TrainHParams(**G.VIDEO_HP)
+    results = []
+    for per_frame in (False, True):
+        cfg, model, x = _golden_video_model(False, batch)
+        if per_frame:
+            monkeypatch.setattr(PV, "video_forward", lambda m, c, d, z, md: _per_frame_forward(m, c, dict(
+                data=d, depth=z, meta_data=md)))
+        state = T.create_train_state(model, hp)
+        m = T.make_video_train_step(cfg, hp)(state, x)
+        results.append(({k: float(v) for k, v in m.items()},
+                         {n: p.grad.clone() for n, p in model.named_parameters()}))
+    (m, grads), (m_ref, grads_ref) = results
+    assert set(grads) == set(grads_ref) and len(grads) > 20
+    gaps = {n: _rel_l2(grads[n], grads_ref[n]) for n in grads}
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] <= 1e-5, (worst, gaps[worst])
+    assert float(grads["trunk.conv1_1.weight"].abs().max()) > 0
+    for k in ("loss", "loss_cls", "loss_regu", "grad_norm"):
+        assert abs(m[k] - m_ref[k]) <= 1e-5 * abs(m_ref[k]), (k, m[k], m_ref[k])
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["window", "one_frame"])
+@pytest.mark.parametrize("three_d", [False, True], ids=["VideoNet", "Video3DNet"])
+def test_window_runs_the_trunk_once_and_each_frame_through_its_step(three_d, alone, monkeypatch):
+    """What the benchmark's probes read: `VGGTrunk.forward`, patched on its
+    class as the `bench:trunk` span map patches it, runs once a window over
+    its T·B frames; the step function, looked up in its module, is reached
+    T times, and each frame's score it returns is the window's and takes a
+    gradient hook (the DA-RNN benchmark cell's frame probe). A frame given
+    alone to the step with no `upscore`, as `engine/test.py:test_net_video`
+    gives them, runs the trunk itself over that frame's B rows."""
+    from posecnn_torch.models.backbone import VGGTrunk
+
+    B = 2
+    cfg, model, x = _golden_video_model(three_d, batch=B)
+    rows, scores, hooked = [], [], []
+    orig_trunk = VGGTrunk.forward
+
+    def trunk(self, data, *a, **k):
+        rows.append(data.shape[0])
+        return orig_trunk(self, data, *a, **k)
+
+    name = "video3d_step" if three_d else "video_step"
+    orig_step = getattr(PV, name)
+
+    def frame_probe(*a, **k):
+        out, state = orig_step(*a, **k)
+        t = len(scores)
+        out["score"].register_hook(lambda g: hooked.append(t))
+        scores.append(out["score"].detach().clone())
+        return out, state
+
+    monkeypatch.setattr(VGGTrunk, "forward", trunk)
+    monkeypatch.setattr(PV, name, frame_probe)
+    if alone:
+        state = (PV.init_video3d_state(B, cfg.grid_size, cfg.num_classes) if three_d
+                 else PV.init_video_state(B, 32, 32, cfg.num_units))
+        out, _ = getattr(PV, name)(model, cfg, x["data"][0], x["depth"][0], x["meta_data"][0], state)
+        outs, T = {"score": out["score"][None]}, 1
+    else:
+        fwd = PV.video3d_forward if three_d else PV.video_forward
+        outs, _ = fwd(model, cfg, x["data"], x["depth"], x["meta_data"])
+        T = cfg.num_steps
+    assert rows == [T * B]
+    assert len(scores) == T and all(torch.equal(s, outs["score"][t]) for t, s in enumerate(scores))
+    outs["score"].sum().backward()
+    assert sorted(hooked) == list(range(T))
+
+
 @pytest.mark.parametrize("fault", ["kernel_size", "dtype", "pixels", "shape", "devices"])
 def test_flow_warp_kernel_inputs_are_checked(fault):
     """What the kernels cannot take raises before a launch (the wrapper
